@@ -1,0 +1,633 @@
+"""Cycle compiler: multigrid expression IR -> eager PyTorch programs
+(counterpart of evostencils_tpu/compiler/lower.py, the part the 2D Poisson
+V-cycle reaches).
+
+* Grid functions are tuples of per-field tensors (interior points only).
+* Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
+  cycle serves every relaxation-factor assignment (lower.py:12-15); the
+  fused legs read them on the device by index.
+* Red-black smoothing is two masked half-sweeps with a fresh residual in
+  between (lower.py:16-19).
+* The fusion plans are structural: they are found once per lowered cycle.
+  A planned pre-smoothing leg (smoothers + residual + restriction) or
+  up-leg (prolongation + correction + post-smoothers) runs as one call to
+  ``ops.kernels.transfer`` on every level its gate admits; the other
+  levels run the generic lowering below.
+* Device constants (dense coarse inverses, red-black masks) are built once
+  per lowered cycle, device and dtype, and cached.
+
+An IR node outside this subset raises ``NotImplementedError`` naming it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from evostencils_tpu.grids import Grid
+from evostencils_tpu.ir import base, system
+from evostencils_tpu.ir import partitioning as part
+from evostencils_tpu.ir import transformations
+from evostencils_tpu.stencils import constant, periodic
+
+from ..config import DIRECT_SOLVE_MAX
+from ..ops import apply as ops
+from ..ops.apply import red_black_masks
+from ..ops.kernels import transfer
+
+
+def field_grids(expr) -> List[Grid]:
+    g = expr.grid
+    return g if isinstance(g, list) else [g]
+
+
+def _generator(op):
+    return getattr(op, "stencil_generator", None)
+
+
+def _is_nonlinear(op) -> bool:
+    """Whether an operator (or a 1x1 system of one) carries a nonlinear
+    term (FAS problems; lower.py:127-138)."""
+    if isinstance(op, system.Operator):
+        if len(op.entries) != 1:
+            return False
+        op = op.entries[0][0]
+    return hasattr(_generator(op), "nonlinear_term")
+
+
+def _has_stencil_field(op) -> bool:
+    """Whether an operator has variable coefficients (lower.py:108-124)."""
+    return hasattr(_generator(op), "generate_stencil_field")
+
+
+# ---------------------------------------------------------------------------
+# Dense coarse-grid factorization
+# ---------------------------------------------------------------------------
+
+def dense_inverse(op) -> np.ndarray:
+    """Dense inverse of a small system operator with constant or periodic
+    stencil entries (lower.py:180-224, without the variable-coefficient
+    branch)."""
+    entries = op.entries if isinstance(op, system.Operator) else [[op]]
+    grids = [row[0].grid for row in entries]
+    sizes = [int(np.prod(g.size)) for g in grids]
+    n = sum(sizes)
+    blocks = {}
+    for i, row in enumerate(entries):
+        for j, entry in enumerate(row):
+            if _has_stencil_field(entry):
+                raise NotImplementedError(
+                    f"dense inverse of variable-coefficient {entry} is not "
+                    "ported yet")
+            ps = periodic.as_periodic(entry.generate_stencil())
+            if ps is not None and ps.constant_entries():
+                blocks[(i, j)] = ops.dense_matrix(ps, grids[j])
+    if any(np.iscomplexobj(b) for b in blocks.values()):
+        raise NotImplementedError("complex coarse operators are not ported yet")
+    K = np.zeros((n, n))
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    for (i, j), block in blocks.items():
+        K[offsets[i]:offsets[i + 1], offsets[j]:offsets[j + 1]] = block
+    return np.linalg.inv(K)
+
+
+# ---------------------------------------------------------------------------
+# Fusion planning (structural, IR only)
+# ---------------------------------------------------------------------------
+
+def five_point_values(stencil) -> Optional[Tuple[float, ...]]:
+    """(center, up, down, left, right) = the values at (0,0), (-1,0),
+    (1,0), (0,-1), (0,1) of a constant 5-point 2D stencil, else None
+    (ops/pallas/rbgs.py:127-136)."""
+    entries = dict(stencil.entries)
+    wanted = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)]
+    if set(entries) - set(wanted):
+        return None
+    if any(isinstance(v, complex) for v in entries.values()):
+        return None
+    return tuple(float(entries.get(o, 0.0)) for o in wanted)
+
+
+def _scalar_five_point(A):
+    """5-point values of a scalar constant 2D system/base operator with no
+    variable coefficients or nonlinear term, else None (lower.py:248-264)."""
+    entry = A
+    if isinstance(A, system.Operator):
+        if len(A.entries) != 1:
+            return None
+        entry = A.entries[0][0]
+    if type(entry) is not base.Operator:
+        return None
+    if _is_nonlinear(entry) or _has_stencil_field(entry):
+        return None
+    st = entry.generate_stencil()
+    if not isinstance(st, constant.Stencil):
+        return None
+    return five_point_values(st)
+
+
+def _smoother_sig(A):
+    """Fusion signature of a smoothable operator: ("const5", vals) for a
+    scalar constant 5-point stencil, else None (lower.py:343-354; the
+    var5, sys9 and const7 signatures belong to kernels not ported yet)."""
+    vals = _scalar_five_point(A)
+    if vals is not None and vals[0] != 0.0:
+        return ("const5", vals)
+    return None
+
+
+def _peel_smoother_chain(cur, rhs, sig, max_sweeps=3):
+    """Peel up to ``max_sweeps`` diagonal smoother cycles with the same
+    partitioning over an operator of signature ``sig`` and right-hand side
+    ``rhs`` (lower.py:396-429).  Returns (sweeps outermost-first,
+    innermost expr, partitioning)."""
+    sweeps = []
+    partitioning = None
+    while len(sweeps) < max_sweeps and isinstance(cur, base.Cycle) \
+            and cur.partitioning in (part.RedBlack, part.Single) \
+            and (partitioning is None or cur.partitioning is partitioning):
+        corr = cur.correction
+        if not _is_smoother(corr):
+            break
+        L = corr.operand1.operand
+        if not isinstance(L, (system.Diagonal, system.ElementwiseDiagonal,
+                              base.Diagonal)):
+            break
+        r2 = corr.operand2
+        if r2.approximation is not cur.approximation or r2.rhs is not rhs:
+            break
+        if _smoother_sig(r2.operator) != sig:
+            break
+        partitioning = cur.partitioning
+        sweeps.append(cur)
+        cur = cur.approximation
+    return sweeps, cur, partitioning
+
+
+def transfer_three_tap(op):
+    """Per-axis (w[-1], w[0], w[+1]) taps of a scalar separable 2D
+    transfer operator; multi-field systems must use the same taps for
+    every field; else None (lower.py:513-538)."""
+    entries = getattr(op, "entries", None)
+    field_ops = [row[i] for i, row in enumerate(entries)] \
+        if entries is not None else [op]
+    taps0 = None
+    for fop in field_ops:
+        st = fop.generate_stencil()
+        if not isinstance(st, constant.Stencil):
+            return None
+        fac = ops.separable_factors(st)
+        if fac is None:
+            return None
+        taps = transfer.three_tap(*fac)
+        if taps is None or len(taps) != 2:
+            return None
+        if taps0 is None:
+            taps0 = taps
+        elif taps != taps0:
+            return None
+    return taps0
+
+
+def _plan_post_fusions(root) -> Dict[int, dict]:
+    """Up-legs: red-black smoother chains whose innermost approximation is
+    a coarse-grid-correction cycle ``u + w * P e`` (lower.py:432-466).
+    Keyed by id of the outermost post-smoother."""
+    by_smoother: Dict[int, dict] = {}
+    for cyc in transformations.find_nodes(root, base.Cycle):
+        corr = cyc.correction
+        if not _is_smoother(corr):
+            continue
+        sig = _smoother_sig(corr.operand2.operator)
+        if sig is None:
+            continue
+        rhs = corr.operand2.rhs
+        sweeps, cur, partitioning = _peel_smoother_chain(cyc, rhs, sig)
+        if not sweeps or not isinstance(cur, base.Cycle) \
+                or partitioning is not part.RedBlack:
+            continue
+        ccorr = cur.correction
+        if not isinstance(ccorr, base.Multiplication):
+            continue
+        P = ccorr.operand1
+        if not isinstance(P, (system.Prolongation, base.Prolongation)) or \
+                isinstance(P, base.ZeroProlongation):
+            continue
+        by_smoother[id(sweeps[0])] = {
+            "sweeps": sweeps, "cgc": cur, "vals": sig[1], "rhs": rhs,
+            "taps": transfer_three_tap(P)}
+    return by_smoother
+
+
+def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
+    """Down-legs: ``Multiplication(Restriction, Residual)`` sites whose
+    approximation is a chain of red-black diagonal smoothers over the same
+    operator and rhs (lower.py:469-510).  Returns (plans by id of the
+    outermost pre-smoother, plans by id of the Multiplication), both
+    mapping to one shared plan, so the smoothed state and the restricted
+    residual come from one leg call."""
+    by_smoother: Dict[int, dict] = {}
+    by_mult: Dict[int, dict] = {}
+    for mult in transformations.find_nodes(root, base.Multiplication):
+        res, R = mult.operand2, mult.operand1
+        if not isinstance(res, base.Residual):
+            continue
+        if not isinstance(R, (system.Restriction, base.Restriction)) or \
+                isinstance(R, base.ZeroRestriction):
+            continue
+        sig = _smoother_sig(res.operator)
+        if sig is None:
+            continue
+        sweeps, cur, partitioning = _peel_smoother_chain(res.approximation,
+                                                         res.rhs, sig)
+        if not sweeps or partitioning is not part.RedBlack:
+            continue
+        plan = {"mult": mult, "res": res, "vals": sig[1], "sweeps": sweeps,
+                "base": cur, "taps": transfer_three_tap(R)}
+        by_smoother[id(sweeps[0])] = plan
+        by_mult[id(mult)] = plan
+    return by_smoother, by_mult
+
+
+@dataclass
+class _Plans:
+    super_by_smoother: Dict[int, dict]
+    super_by_mult: Dict[int, dict]
+    post_by_smoother: Dict[int, dict]
+
+
+def _is_smoother(corr) -> bool:
+    return (isinstance(corr, base.Multiplication)
+            and isinstance(corr.operand1, base.Inverse)
+            and isinstance(corr.operand2, base.Residual))
+
+
+# ---------------------------------------------------------------------------
+# Lowering
+# ---------------------------------------------------------------------------
+
+@dataclass
+class LoweredCycle:
+    """A lowered multigrid cycle step (lower.py:231-245).
+
+    ``step(u_fields, b_fields, omegas) -> u_fields_new``; ``omegas`` is a
+    1-D relaxation-factor tensor indexed by cycle id, on the fields'
+    device.
+    """
+    step: Callable
+    n_omegas: int
+    default_omegas: np.ndarray
+    grids: List[Grid]
+    operator: object  # the finest-level system operator (for residuals)
+    expression: object = None
+    approximation: object = None
+    rhs: object = None
+
+
+class _Lowering:
+    """One evaluation of a cycle expression on bound fields.
+
+    ``constants`` is the per-lowered-cycle cache of device tensors; it
+    outlives the evaluation.  ``use_kernels=False`` runs the legs' plain
+    versions even on a CUDA device (a comparison run only)."""
+
+    def __init__(self, approximation, rhs, omegas, *, plans=None,
+                 constants=None, use_kernels=True):
+        self.omegas = omegas
+        self.approximation = approximation
+        self.rhs = rhs
+        self.plans = plans or _Plans({}, {}, {})
+        self.constants = {} if constants is None else constants
+        self.env: Dict[int, tuple] = {}
+        self.memo: Dict[int, tuple] = {}
+        self._super_results: Dict[int, object] = {}
+        if use_kernels:
+            self._down = transfer.presmooth_residual_restrict
+            self._up = transfer.prolong_correct_postsmooth_col
+        else:
+            self._down = transfer.presmooth_residual_restrict_plain
+            self._up = transfer.prolong_correct_postsmooth_col_plain
+
+    def bind(self, u_fields, b_fields):
+        self.env[id(self.approximation)] = tuple(u_fields)
+        self.env[id(self.rhs)] = tuple(b_fields)
+        if isinstance(self.approximation, system.Approximation):
+            for e, u in zip(self.approximation.entries, u_fields):
+                self.env[id(e)] = (u,)
+        if isinstance(self.rhs, system.RightHandSide):
+            for e, b in zip(self.rhs.entries, b_fields):
+                self.env[id(e)] = (b,)
+        self.set_like(u_fields[0])
+
+    def set_like(self, u):
+        self.dtype = u.dtype
+        self.device = u.device
+
+    def _constant(self, key, build):
+        key = key + (str(self.device), self.dtype)
+        if key not in self.constants:
+            self.constants[key] = build()
+        return self.constants[key]
+
+    # -- grid functions ----------------------------------------------------
+
+    def eval_function(self, expr):
+        key = id(expr)
+        if key not in self.memo:
+            self.memo[key] = self._eval_function(expr)
+        return self.memo[key]
+
+    def _eval_function(self, expr):
+        if id(expr) in self.env:
+            return self.env[id(expr)]
+        if isinstance(expr, (system.ZeroApproximation,
+                             base.ZeroApproximation)):
+            return tuple(torch.zeros(tuple(g.size), dtype=self.dtype,
+                                     device=self.device)
+                         for g in field_grids(expr))
+        if isinstance(expr, base.Cycle):
+            plan = self.plans.super_by_smoother.get(id(expr))
+            if plan is not None:
+                out = self._run_super_fusion(plan)
+                if out is not None:
+                    return out[0]
+            plan = self.plans.post_by_smoother.get(id(expr))
+            if plan is not None:
+                out = self._run_post_fusion(plan)
+                if out is not None:
+                    return out
+            return self.eval_cycle(expr)
+        if isinstance(expr, base.Residual):
+            b = self.eval_function(expr.rhs)
+            x = self.eval_function(expr.approximation)
+            ax = self.apply_operator(expr.operator, x)
+            return tuple(bi - axi for bi, axi in zip(b, ax))
+        if isinstance(expr, base.Multiplication):
+            plan = self.plans.super_by_mult.get(id(expr))
+            if plan is not None:
+                out = self._run_super_fusion(plan)
+                if out is not None:
+                    return out[1]
+            x = self.eval_function(expr.operand2)
+            return self.apply_operator(expr.operand1, x)
+        if isinstance(expr, base.Addition):
+            a = self.eval_function(expr.operand1)
+            b = self.eval_function(expr.operand2)
+            return tuple(ai + bi for ai, bi in zip(a, b))
+        if isinstance(expr, base.Subtraction):
+            a = self.eval_function(expr.operand1)
+            b = self.eval_function(expr.operand2)
+            return tuple(ai - bi for ai, bi in zip(a, b))
+        if isinstance(expr, base.Scaling):
+            x = self.eval_function(expr.operand)
+            return tuple(expr.factor * xi for xi in x)
+        if isinstance(expr, (system.Approximation, base.Approximation)):
+            raise KeyError(f"unbound grid function {expr}")
+        raise NotImplementedError(
+            f"cannot evaluate {type(expr).__name__} as a function")
+
+    # -- cycles ------------------------------------------------------------
+
+    def eval_cycle(self, cycle: base.Cycle):
+        """``x + omega * correction`` (lower.py:638-654)."""
+        omega = self.omegas[cycle.global_id]
+        x = self.eval_function(cycle.approximation)
+        if _is_smoother(cycle.correction):
+            if _is_nonlinear(cycle.correction.operand2.operator):
+                raise NotImplementedError(
+                    "nonlinear smoother cycles are not ported yet")
+            if cycle.partitioning is part.RedBlack:
+                return self._red_black_sweep(cycle, x, omega)
+        c = self.eval_function(cycle.correction)
+        return tuple(xi + omega * ci for xi, ci in zip(x, c))
+
+    def _red_black_sweep(self, cycle: base.Cycle, x, omega):
+        """Red half-sweep, then black with refreshed red values
+        (lower.py:1403-1419)."""
+        corr = cycle.correction
+        inverse_op = corr.operand1
+        residual = corr.operand2
+        b = self.eval_function(residual.rhs)
+        A = residual.operator
+        masks = [self._constant(("rb", tuple(g.size)),
+                                lambda g=g: red_black_masks(
+                                    tuple(g.size), device=self.device,
+                                    dtype=self.dtype))
+                 for g in field_grids(cycle)]
+
+        def half(u, color):
+            r = tuple(bi - ai for bi, ai in zip(b, self.apply_operator(A, u)))
+            c = self.apply_operator(inverse_op, r)
+            return tuple(ui + omega * m[color] * ci
+                         for ui, ci, m in zip(u, c, masks))
+
+        return half(half(x, 0), 1)
+
+    # -- fused legs (ops/kernels/transfer.py) --------------------------------
+
+    def _run_super_fusion(self, plan):
+        """Planned down-leg: ``((u_smoothed,), (coarse_residual,))``, or
+        None when the gate rejects the level (lower.py:972-1027)."""
+        key = id(plan["mult"])
+        if key in self._super_results:
+            return self._super_results[key]
+        result = None
+        x = self.eval_function(plan["base"])
+        if plan["taps"] is not None and len(x) == 1 \
+                and transfer.supports(x[0]):
+            b = self.eval_function(plan["res"].rhs)
+            ids = [c.global_id for c in reversed(plan["sweeps"])]
+            u_s, rc = self._down(x[0], b[0], self.omegas, ids, plan["vals"],
+                                 plan["taps"])
+            result = ((u_s,), (rc,))
+        self._super_results[key] = result
+        return result
+
+    def _run_post_fusion(self, plan):
+        """Planned up-leg: the value of the outermost post-smoother, or
+        None when the gate rejects the level (lower.py:1173-1247)."""
+        if plan["taps"] is None:
+            return None
+        cgc = plan["cgc"]
+        x = self.eval_function(cgc.approximation)
+        if len(x) != 1 or not transfer.supports(x[0]):
+            return None
+        n, m = x[0].shape
+        e = self.eval_function(cgc.correction.operand2)
+        if len(e) != 1 or tuple(e[0].shape) != ((n - 1) // 2, (m - 1) // 2):
+            return None
+        b = self.eval_function(plan["rhs"])
+        ids = [cgc.global_id] + \
+            [c.global_id for c in reversed(plan["sweeps"])]
+        return (self._up(x[0], e[0], b[0], self.omegas, ids, plan["vals"],
+                         plan["taps"]),)
+
+    # -- operators ----------------------------------------------------------
+
+    def apply_operator(self, expr, fields: Tuple):
+        """Operator application (lower.py:1423-1515, the node types the
+        V-cycle reaches)."""
+        if isinstance(expr, base.Inverse):
+            return self.apply_inverse(expr.operand, fields)
+        if isinstance(expr, base.CoarseGridSolver):
+            return self.apply_coarse_solver(expr, fields)
+        if isinstance(expr, system.Restriction) or (
+                isinstance(expr, base.Restriction)
+                and not isinstance(expr, base.ZeroRestriction)):
+            return self._apply_restriction(expr, fields)
+        if isinstance(expr, system.Prolongation) or (
+                isinstance(expr, base.Prolongation)
+                and not isinstance(expr, base.ZeroProlongation)):
+            return self._apply_prolongation(expr, fields)
+        if isinstance(expr, system.Operator):
+            return self._apply_system(expr, fields)
+        if isinstance(expr, base.ZeroOperator):
+            return tuple(torch.zeros_like(f) for f in fields)
+        if isinstance(expr, base.Identity):
+            return fields
+        if type(expr) is base.Operator:
+            if _is_nonlinear(expr) or _has_stencil_field(expr):
+                raise NotImplementedError(
+                    f"cannot apply operator {expr}: nonlinear and "
+                    "variable-coefficient operators are not ported yet")
+            st = expr.generate_stencil()
+            return (ops.apply_stencil(periodic.as_periodic(st), fields[0]),)
+        raise NotImplementedError(f"cannot apply {type(expr).__name__}")
+
+    def _apply_system(self, op: system.Operator, fields):
+        out = []
+        for row in op.entries:
+            acc = None
+            for entry, x in zip(row, fields):
+                if isinstance(entry, base.ZeroOperator):
+                    continue
+                (y,) = self.apply_operator(entry, (x,))
+                acc = y if acc is None else acc + y
+            out.append(acc if acc is not None else torch.zeros(
+                tuple(row[0].grid.size), dtype=self.dtype,
+                device=self.device))
+        return tuple(out)
+
+    def _apply_restriction(self, expr, fields):
+        entries = expr.entries if isinstance(expr, system.Restriction) \
+            else None
+        ops_list = [row[i] for i, row in enumerate(entries)] if entries \
+            else [expr]
+        return tuple(ops.restrict(op.generate_stencil(), x)
+                     for op, x in zip(ops_list, fields))
+
+    def _apply_prolongation(self, expr, fields):
+        entries = expr.entries if isinstance(expr, system.Prolongation) \
+            else None
+        ops_list = [row[i] for i, row in enumerate(entries)] if entries \
+            else [expr]
+        return tuple(ops.prolong(op.generate_stencil(), x,
+                                 tuple(op.fine_grid.size))
+                     for op, x in zip(ops_list, fields))
+
+    # -- inverses (smoother solves) -----------------------------------------
+
+    @staticmethod
+    def _unwrap_operator(expr):
+        while not isinstance(expr, system.Operator):
+            if isinstance(expr, base.UnaryExpression):
+                expr = expr.operand
+            else:
+                raise NotImplementedError(
+                    f"cannot locate system operator under "
+                    f"{type(expr).__name__}")
+        return expr
+
+    def _diagonal_inverse(self, entry, x):
+        if _has_stencil_field(entry):
+            raise NotImplementedError(
+                f"variable-coefficient smoother of {entry} is not ported yet")
+        ps = periodic.as_periodic(entry.generate_stencil())
+        return ops.apply_stencil(periodic.inverse(periodic.diagonal(ps)), x)
+
+    def apply_inverse(self, L, fields):
+        """Point-Jacobi inverses (lower.py:1519-1545 and the scalar branch
+        of the collective point inverse, lower.py:1575-1588)."""
+        if isinstance(L, system.Diagonal):
+            op = self._unwrap_operator(L.operand)
+            return tuple(self._diagonal_inverse(op.entries[i][i], x)
+                         for i, x in enumerate(fields))
+        if isinstance(L, system.ElementwiseDiagonal):
+            op = self._unwrap_operator(L.operand)
+            if len(op.entries) != 1:
+                raise NotImplementedError(
+                    "collective point inverse of a coupled system is not "
+                    "ported yet")
+            return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
+        if isinstance(L, base.Diagonal):
+            inv = periodic.inverse(periodic.as_periodic(L.generate_stencil()))
+            return tuple(ops.apply_stencil(inv, f) for f in fields)
+        raise NotImplementedError(
+            f"inverse of {type(L).__name__} is not ported yet")
+
+    # -- coarse-grid solver ---------------------------------------------------
+
+    def apply_coarse_solver(self, cgs: base.CoarseGridSolver, fields):
+        """Dense inverse matvec on the coarsest grid (lower.py:1743-1767,
+        the dense branch)."""
+        if cgs.expression is not None:
+            raise NotImplementedError(
+                "CoarseGridSolver with an evolved cycle is not ported yet")
+        op = cgs.operator
+        if _is_nonlinear(op):
+            raise NotImplementedError(
+                "nonlinear coarse-grid solve is not ported yet")
+        n = sum(int(np.prod(g.size)) for g in field_grids(op))
+        if n > DIRECT_SOLVE_MAX:
+            raise NotImplementedError(
+                f"CoarseGridSolver of {n} unknowns needs CG, not ported yet")
+        inv = self._constant(("dense", id(op)), lambda: torch.as_tensor(
+            dense_inverse(op), dtype=self.dtype, device=self.device))
+        flat = torch.cat([f.reshape(-1) for f in fields])
+        y = inv @ flat
+        out, o = [], 0
+        for f in fields:
+            k = f.numel()
+            out.append(y[o:o + k].reshape(f.shape))
+            o += k
+        return tuple(out)
+
+
+def _find_fine_operator(root):
+    """Locate the finest-level operator for residuals (lower.py:1795-1803)."""
+    fine_grids = field_grids(root)
+    for r in transformations.find_nodes(root, base.Residual):
+        if field_grids(r) == fine_grids or \
+                [g.size for g in field_grids(r)] == \
+                [g.size for g in fine_grids]:
+            return r.operator
+    return None
+
+
+def lower_cycle(root: base.Cycle, approximation, rhs, *,
+                use_kernels: bool = True) -> LoweredCycle:
+    """Lower a cycle expression to a step function (lower.py:1806-1820).
+
+    ``use_kernels=False`` makes the fused legs run their plain PyTorch
+    versions on every device; it exists only for comparing the kernels
+    with them on the card."""
+    n = transformations.assign_cycle_ids(root)
+    cycles = transformations.find_nodes(root, base.Cycle)
+    default_omegas = np.array([float(c.relaxation_factor) for c in cycles])
+    super_by_smoother, super_by_mult = _plan_super_fusions(root)
+    plans = _Plans(super_by_smoother, super_by_mult, _plan_post_fusions(root))
+    constants: dict = {}
+
+    def step(u_fields, b_fields, omegas):
+        lowering = _Lowering(approximation, rhs, omegas, plans=plans,
+                             constants=constants, use_kernels=use_kernels)
+        lowering.bind(u_fields, b_fields)
+        return lowering.eval_function(root)
+
+    return LoweredCycle(step=step, n_omegas=n, default_omegas=default_omegas,
+                        grids=field_grids(root),
+                        operator=_find_fine_operator(root), expression=root,
+                        approximation=approximation, rhs=rhs)

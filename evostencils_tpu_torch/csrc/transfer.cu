@@ -1,0 +1,293 @@
+// Fused V-cycle leg kernels for Hopper (sm_90a), float32.
+//
+// es_presmooth_residual_restrict replaces the TPU kernel
+//   evostencils_tpu/ops/pallas/transfer.py presmooth_residual_restrict
+//   (_smooth_rr_col_kernel):
+//   S in [1, 3] damped red-black Gauss-Seidel sweeps of a constant 5-point
+//   operator, then r = b - A u and the separable 3-tap 2:1 restriction of r,
+//   writing (u_s (n, m), rc ((n-1)/2, (m-1)/2)).
+// es_prolong_correct_postsmooth replaces
+//   evostencils_tpu/ops/pallas/transfer.py prolong_correct_postsmooth_col
+//   (_pc_smooth_col_kernel):
+//   u += omega_0 * P(e) with the separable 3-tap 1:2 prolongation of the
+//   coarse correction e, then S in [1, 3] red-black sweeps with omega_1..S.
+//
+// What bounds them: device-memory bytes.  Each leg must read u and b once
+// and write u once, plus the coarse array (rc written or e read); the
+// arithmetic is a few dozen flops per point, far below the card's rate.
+// The design keeps every intermediate sweep, the residual and the
+// transfer inside shared memory, so a leg costs one pass over u and b
+// instead of one pass per half-sweep.
+//
+// The TPU kernel walks full-width row blocks in order.  Here thread blocks
+// run in parallel, so each one owns a TILE x TILE fine tile and loads it
+// with a HALO-wide ring in both axes, which it recomputes redundantly.
+// Window-edge cells see zeros in place of their out-of-window neighbours;
+// the error moves inward one cell per half-sweep, so after 2S half-sweeps
+// only cells within 2S-1 of the window edge are wrong.  The residual adds
+// one ring and the restriction reads fine index 2i+2 past the tile, so the
+// down-leg needs HALO >= 2S+2 = 8; the up-leg needs HALO >= 2S.
+// Tiles start at even interior indices, so every coarse point's 3x3
+// restriction window and every prolongation stencil lies in one tile, and
+// red is (global row + global column) even in interior indices (interior
+// index i is node i+1 on both axes, which leaves the parity unchanged).
+// Cells outside the grid hold 0 and are never updated (Dirichlet ring and
+// ragged last tiles).  Relaxation factors are read from the device vector
+// by index, so no launch waits on the host.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 64;
+constexpr int HALO = 8;
+constexpr int WIN = TILE + 2 * HALO;   // fine window edge
+constexpr int CWIN = WIN / 2 + 1;      // coarse rows/columns feeding a window
+constexpr int THREADS = 256;
+constexpr int MAX_SWEEPS = 3;
+constexpr int DOWN_SMEM = 2 * WIN * WIN * sizeof(float);
+constexpr int UP_SMEM = DOWN_SMEM + CWIN * CWIN * sizeof(float);
+
+struct Leg {
+  // 5-point stencil: center and the neighbours up (-1,0), down (+1,0),
+  // left (0,-1) and right (0,+1)
+  float c, a_up, a_dn, a_lf, a_rt;
+  // 1/c and the neighbour coefficients scaled by it
+  float dinv, d_up, d_dn, d_lf, d_rt;
+  float tr[3], tc[3];           // row and column transfer taps
+  int om[MAX_SWEEPS + 1];       // indices into the relaxation-factor vector
+  int sweeps;
+  int n, m;
+};
+
+__device__ __forceinline__ bool inside(const Leg& p, int gr, int gc) {
+  return gr >= 0 && gr < p.n && gc >= 0 && gc < p.m;
+}
+
+// u and b over the window whose top-left interior index is (r0, c0).
+__device__ void load_window(const float* __restrict__ u,
+                            const float* __restrict__ b, float* su, float* sb,
+                            const Leg& p, int r0, int c0) {
+  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
+    const int wr = idx / WIN, wc = idx - wr * WIN;
+    const int gr = r0 + wr, gc = c0 + wc;
+    const bool in = inside(p, gr, gc);
+    const long g = static_cast<long>(gr) * p.m + gc;
+    su[idx] = in ? u[g] : 0.f;
+    sb[idx] = in ? b[g] : 0.f;
+  }
+}
+
+// p.sweeps red-black sweeps in place on the window, with relaxation
+// factors omegas[p.om[om_first]], omegas[p.om[om_first + 1]], ...
+// In a half-sweep every neighbour of an updated cell has the other colour,
+// so the in-place update has no race.
+__device__ void rb_sweeps(float* su, const float* sb,
+                          const float* __restrict__ omegas, const Leg& p,
+                          int om_first, int r0, int c0) {
+  for (int s = 0; s < p.sweeps; ++s) {
+    const float om = omegas[p.om[om_first + s]];
+    for (int parity = 0; parity < 2; ++parity) {
+      for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
+        const int wr = idx / WIN, wc = idx - wr * WIN;
+        const int gr = r0 + wr, gc = c0 + wc;
+        if (!inside(p, gr, gc) || ((gr + gc) & 1) != parity) continue;
+        const float up = wr > 0 ? su[idx - WIN] : 0.f;
+        const float dn = wr < WIN - 1 ? su[idx + WIN] : 0.f;
+        const float lf = wc > 0 ? su[idx - 1] : 0.f;
+        const float rt = wc < WIN - 1 ? su[idx + 1] : 0.f;
+        const float v = su[idx];
+        const float off =
+            p.d_up * up + p.d_dn * dn + p.d_lf * lf + p.d_rt * rt;
+        su[idx] = v + om * (p.dinv * sb[idx] - v - off);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ void store_tile(const float* su, float* __restrict__ out,
+                           const Leg& p, int r0, int c0) {
+  for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
+    const int i = idx / TILE, j = idx - i * TILE;
+    const int gr = r0 + HALO + i, gc = c0 + HALO + j;
+    if (inside(p, gr, gc))
+      out[static_cast<long>(gr) * p.m + gc] = su[(HALO + i) * WIN + HALO + j];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+downleg_kernel(const float* __restrict__ u, const float* __restrict__ b,
+               const float* __restrict__ omegas, float* __restrict__ u_out,
+               float* __restrict__ rc, Leg p) {
+  extern __shared__ float smem[];
+  float* su = smem;
+  float* sb = smem + WIN * WIN;
+  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
+  load_window(u, b, su, sb, p, r0, c0);
+  __syncthreads();
+  rb_sweeps(su, sb, omegas, p, 0, r0, c0);
+
+  // residual, in place of b, on the rows and columns the restriction
+  // reads: window indices HALO .. HALO + TILE (inclusive) on both axes
+  constexpr int RW = TILE + 1;
+  for (int idx = threadIdx.x; idx < RW * RW; idx += blockDim.x) {
+    const int wr = HALO + idx / RW, wc = HALO + idx % RW;
+    const int w = wr * WIN + wc;
+    float r = 0.f;
+    if (inside(p, r0 + wr, c0 + wc)) {
+      const float au = p.c * su[w] + p.a_up * su[w - WIN] +
+                       p.a_dn * su[w + WIN] + p.a_lf * su[w - 1] +
+                       p.a_rt * su[w + 1];
+      r = sb[w] - au;
+    }
+    sb[w] = r;
+  }
+  __syncthreads();
+  store_tile(su, u_out, p, r0, c0);
+
+  // coarse point (ci, cj) reads fine rows/columns 2ci..2ci+2, 2cj..2cj+2:
+  // the row taps first, then the column taps (transfer.py:802-807)
+  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
+  constexpr int CT = TILE / 2;
+  for (int idx = threadIdx.x; idx < CT * CT; idx += blockDim.x) {
+    const int i = idx / CT, j = idx - i * CT;
+    const int ci = blockIdx.y * CT + i, cj = blockIdx.x * CT + j;
+    if (ci >= nc || cj >= mc) continue;
+    const float* r = sb + (HALO + 2 * i) * WIN + HALO + 2 * j;
+    float acc = 0.f;
+    for (int e = 0; e < 3; ++e) {
+      const float rows = p.tr[0] * r[e] + p.tr[1] * r[WIN + e] +
+                         p.tr[2] * r[2 * WIN + e];
+      acc += p.tc[e] * rows;
+    }
+    rc[static_cast<long>(ci) * mc + cj] = acc;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+upleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
+             const float* __restrict__ b, const float* __restrict__ omegas,
+             float* __restrict__ u_out, Leg p) {
+  extern __shared__ float smem[];
+  float* su = smem;
+  float* sb = smem + WIN * WIN;
+  float* se = smem + 2 * WIN * WIN;
+  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
+  // r0 and c0 are even: coarse index (r0 / 2 - 1) feeds the window's first
+  // even fine row through its w[+1] tap
+  const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
+  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
+  load_window(u, b, su, sb, p, r0, c0);
+  for (int idx = threadIdx.x; idx < CWIN * CWIN; idx += blockDim.x) {
+    const int i = idx / CWIN, j = idx - i * CWIN;
+    const int ci = cr0 + i, cj = cc0 + j;
+    const bool in = ci >= 0 && ci < nc && cj >= 0 && cj < mc;
+    se[idx] = in ? e[static_cast<long>(ci) * mc + cj] : 0.f;
+  }
+  __syncthreads();
+
+  // u += omega_0 * P(e) over the whole window, halo included: fine index
+  // 2i+1+o takes taps[o+1] * e[i] on each axis (transfer.py:896-903);
+  // the column expansion first, then the row expansion
+  const float om0 = omegas[p.om[0]];
+  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
+    const int wr = idx / WIN, wc = idx - wr * WIN;
+    const int gr = r0 + wr, gc = c0 + wc;
+    if (!inside(p, gr, gc)) continue;
+    float col[2];
+    const int rows[2] = {(gr & 1) ? (gr - 1) / 2 : gr / 2 - 1, gr / 2};
+    for (int k = 0; k < 2; ++k) {
+      const float* er = se + (rows[k] - cr0) * CWIN;
+      col[k] = (gc & 1) ? p.tc[1] * er[(gc - 1) / 2 - cc0]
+                        : p.tc[2] * er[gc / 2 - 1 - cc0] +
+                              p.tc[0] * er[gc / 2 - cc0];
+    }
+    const float corr = (gr & 1) ? p.tr[1] * col[0]
+                                : p.tr[2] * col[0] + p.tr[0] * col[1];
+    su[idx] += om0 * corr;
+  }
+  __syncthreads();
+  rb_sweeps(su, sb, omegas, p, 1, r0, c0);
+  store_tile(su, u_out, p, r0, c0);
+}
+
+Leg make_leg(const double* coeffs, const int* om_ids, int n_ids, int sweeps,
+             int n, int m) {
+  Leg p;
+  const double c = coeffs[0], dinv = 1.0 / c;
+  p.c = static_cast<float>(c);
+  p.a_up = static_cast<float>(coeffs[1]);
+  p.a_dn = static_cast<float>(coeffs[2]);
+  p.a_lf = static_cast<float>(coeffs[3]);
+  p.a_rt = static_cast<float>(coeffs[4]);
+  p.dinv = static_cast<float>(dinv);
+  p.d_up = static_cast<float>(coeffs[1] * dinv);
+  p.d_dn = static_cast<float>(coeffs[2] * dinv);
+  p.d_lf = static_cast<float>(coeffs[3] * dinv);
+  p.d_rt = static_cast<float>(coeffs[4] * dinv);
+  for (int k = 0; k < 3; ++k) {
+    p.tr[k] = static_cast<float>(coeffs[5 + k]);
+    p.tc[k] = static_cast<float>(coeffs[8 + k]);
+  }
+  for (int k = 0; k <= MAX_SWEEPS; ++k) p.om[k] = k < n_ids ? om_ids[k] : 0;
+  p.sweeps = sweeps;
+  p.n = n;
+  p.m = m;
+  return p;
+}
+
+// Shared memory above 48 KB needs an explicit opt-in per kernel.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+dim3 tiles(int n, int m) {
+  return dim3((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
+}
+
+bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
+
+}  // namespace
+
+extern "C" const char* es_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// coeffs: 5 stencil values (center, (-1,0), (+1,0), (0,-1), (0,+1)),
+// 3 row taps, 3 column taps.  om_ids: `sweeps` indices into omegas, in the
+// order the sweeps run.  Returns the launch's cudaError_t.
+extern "C" int es_presmooth_residual_restrict(
+    const float* u, const float* b, const float* omegas, const int* om_ids,
+    int sweeps, const double* coeffs, float* u_out, float* rc, int n, int m,
+    void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(downleg_kernel, DOWN_SMEM);
+  if (err != cudaSuccess) return err;
+  const Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
+  downleg_kernel<<<tiles(n, m), THREADS, DOWN_SMEM,
+                   static_cast<cudaStream_t>(stream)>>>(u, b, omegas, u_out,
+                                                        rc, p);
+  return cudaGetLastError();
+}
+
+// om_ids: 1 + sweeps indices into omegas: the coarse-grid-correction factor,
+// then the post-sweeps in the order they run.
+extern "C" int es_prolong_correct_postsmooth(
+    const float* u, const float* e, const float* b, const float* omegas,
+    const int* om_ids, int sweeps, const double* coeffs, float* u_out, int n,
+    int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(upleg_kernel, UP_SMEM);
+  if (err != cudaSuccess) return err;
+  const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
+  upleg_kernel<<<tiles(n, m), THREADS, UP_SMEM,
+                 static_cast<cudaStream_t>(stream)>>>(u, e, b, omegas, u_out,
+                                                      p);
+  return cudaGetLastError();
+}

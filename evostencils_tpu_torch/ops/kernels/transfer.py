@@ -1,0 +1,226 @@
+"""The V-cycle's two fused leg kernels (counterpart of
+evostencils_tpu/ops/pallas/transfer.py ``presmooth_residual_restrict`` and
+``prolong_correct_postsmooth_col``).
+
+Each leg has, in this module:
+
+* its wrapper: a CUDA tensor launches the hand-written kernel from
+  ``csrc/transfer.cu`` (float32, contiguous) or raises; a CPU tensor takes
+  the plain version; any other device raises;
+* its plain PyTorch version (``*_plain``), built from ``ops.apply``: two
+  masked half-sweeps per sweep, the residual, the 3-tap transfers.  The CPU
+  tests use it, and ``chip_smoke.py`` compares the kernel with it;
+* its entry in ``launches``, which only a kernel launch increments.
+
+Relaxation factors stay on the device: a leg takes the whole
+relaxation-factor vector ``omegas`` and the indices ``omega_ids`` of the
+factors it applies, so one launch serves every factor assignment and never
+waits on the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from evostencils_tpu.stencils.constant import Stencil
+
+from ..apply import (apply_constant, axis_prolong_3tap, axis_restrict_3tap,
+                     red_black_masks)
+from . import _build
+
+MAX_SWEEPS = 3
+#: kernel gate: the JAX gate's level set (transfer.py:590-595)
+MIN_ROWS = 129
+MIN_COLS = 128
+
+#: kernel launches per leg since the last reset_launches()
+launches = {"presmooth_residual_restrict": 0,
+            "prolong_correct_postsmooth_col": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
+    """Per-axis (w[-1], w[0], w[+1]) taps of a separable transfer stencil
+    with radius 1 per axis, else None (transfer.py:43-53)."""
+    taps = []
+    for v, r in zip(vectors, radii):
+        if r != 1 or len(v) != 3:
+            return None
+        if any(isinstance(x, complex) for x in v):
+            return None
+        taps.append(tuple(float(x) for x in v))
+    return tuple(taps)
+
+
+def supports(u: torch.Tensor) -> bool:
+    """Whether a level runs the fused legs: a 2D grid with at least 129
+    rows and 128 columns, odd on both axes, and float32 when it lies on a
+    CUDA device (the plain versions on the CPU take any float type)."""
+    if u.ndim != 2:
+        return False
+    n, m = u.shape
+    if n < MIN_ROWS or m < MIN_COLS or n % 2 == 0 or m % 2 == 0:
+        return False
+    return u.device.type == "cpu" or u.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def _five_point(stencil_vals) -> Stencil:
+    c, up, dn, lf, rt = (float(v) for v in stencil_vals)
+    return Stencil([((0, 0), c), ((-1, 0), up), ((1, 0), dn),
+                    ((0, -1), lf), ((0, 1), rt)])
+
+
+def _rb_sweeps_plain(u, b, omegas, omega_ids, A, dinv):
+    """Red-black sweeps as two masked half-sweeps each, with a fresh
+    residual per half (compiler/lower.py:1403-1419)."""
+    red, black = red_black_masks(tuple(u.shape), device=u.device,
+                                 dtype=u.dtype)
+    for i in omega_ids:
+        om = omegas[i]
+        for mask in (red, black):
+            r = b - apply_constant(A, u)
+            u = u + om * mask * (dinv * r)
+    return u
+
+
+def presmooth_residual_restrict_plain(u, b, omegas, omega_ids, stencil_vals,
+                                      taps):
+    """Plain version of :func:`presmooth_residual_restrict`."""
+    A = _five_point(stencil_vals)
+    u = _rb_sweeps_plain(u, b, omegas, omega_ids, A, 1.0 / stencil_vals[0])
+    r = b - apply_constant(A, u)
+    return u, axis_restrict_3tap(axis_restrict_3tap(r, 0, taps[0]), 1,
+                                 taps[1])
+
+
+def prolong_correct_postsmooth_col_plain(u, e, b, omegas, omega_ids,
+                                         stencil_vals, taps):
+    """Plain version of :func:`prolong_correct_postsmooth_col`."""
+    n, m = u.shape
+    p = axis_prolong_3tap(axis_prolong_3tap(e, 0, taps[0], n), 1, taps[1], m)
+    u = u + omegas[omega_ids[0]] * p
+    return _rb_sweeps_plain(u, b, omegas, omega_ids[1:],
+                            _five_point(stencil_vals), 1.0 / stencil_vals[0])
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=()):
+    """Shape and index checks shared by both devices; returns the ids."""
+    tensors = (u, b, omegas) + tuple(extra)
+    if any(t.device != u.device for t in tensors):
+        raise ValueError("leg tensors lie on different devices")
+    if u.ndim != 2 or b.shape != u.shape:
+        raise ValueError(f"u {tuple(u.shape)} and b {tuple(b.shape)} must be "
+                         "equal 2D shapes")
+    n, m = u.shape
+    if n < 3 or m < 3 or n % 2 == 0 or m % 2 == 0:
+        raise ValueError(f"grid {n}x{m} must be odd on both axes")
+    if not 1 <= n_sweeps <= MAX_SWEEPS:
+        raise ValueError(f"{n_sweeps} sweeps; the legs take 1..{MAX_SWEEPS}")
+    if omegas.ndim != 1:
+        raise ValueError("omegas must be a 1-D relaxation-factor vector")
+    ids = tuple(int(i) for i in omega_ids)
+    if any(not 0 <= i < omegas.shape[0] for i in ids):
+        raise IndexError(f"omega ids {ids} outside a vector of "
+                         f"{omegas.shape[0]}")
+    return ids
+
+
+def _on_card(u) -> bool:
+    if u.device.type == "cuda":
+        return True
+    if u.device.type == "cpu":
+        return False
+    raise ValueError(f"no leg implementation for device {u.device}")
+
+
+def _check_card_tensors(*tensors):
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA legs take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA legs take contiguous tensors")
+
+
+def _coefficients(stencil_vals, taps):
+    vals = [float(v) for v in stencil_vals] + \
+        [float(t) for axis in taps for t in axis]
+    if len(vals) != 11:
+        raise ValueError("need 5 stencil values and 3 taps per axis")
+    return (ctypes.c_double * 11)(*vals)
+
+
+def _launch(name, entry, device, *args):
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.es_error_string(err).decode()})")
+    launches[name] += 1
+
+
+def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
+                                omegas: torch.Tensor,
+                                omega_ids: Sequence[int], stencil_vals,
+                                taps):
+    """Down-leg: ``len(omega_ids)`` damped red-black sweeps of the constant
+    5-point operator ``stencil_vals`` = (center, up, down, left, right),
+    with factors ``omegas[omega_ids[k]]`` in the order the sweeps run; then
+    ``r = b - A u`` and its full restriction with the (row, column) 3-tap
+    pair ``taps``.  Returns ``(u_s (n, m), rc ((n-1)/2, (m-1)/2))``."""
+    ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids))
+    if not _on_card(u):
+        return presmooth_residual_restrict_plain(u, b, omegas, ids,
+                                                 stencil_vals, taps)
+    _check_card_tensors(u, b, omegas)
+    n, m = u.shape
+    u_out = torch.empty_like(u)
+    rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
+    _launch("presmooth_residual_restrict", "es_presmooth_residual_restrict",
+            u.device, u.data_ptr(), b.data_ptr(), omegas.data_ptr(),
+            (ctypes.c_int * len(ids))(*ids), len(ids),
+            _coefficients(stencil_vals, taps), u_out.data_ptr(),
+            rc.data_ptr(), n, m)
+    return u_out, rc
+
+
+def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
+                                   b: torch.Tensor, omegas: torch.Tensor,
+                                   omega_ids: Sequence[int], stencil_vals,
+                                   taps):
+    """Up-leg: ``u + omegas[omega_ids[0]] * P(e)`` with the full 1:2
+    prolongation of the coarse correction ``e`` ((n-1)/2, (m-1)/2) by the
+    (row, column) 3-tap pair ``taps``, then ``len(omega_ids) - 1``
+    red-black sweeps with factors ``omegas[omega_ids[1:]]``."""
+    ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids) - 1, (e,))
+    n, m = u.shape
+    if tuple(e.shape) != ((n - 1) // 2, (m - 1) // 2):
+        raise ValueError(f"coarse correction {tuple(e.shape)} does not "
+                         f"match the grid {n}x{m}")
+    if not _on_card(u):
+        return prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
+                                                    stencil_vals, taps)
+    _check_card_tensors(u, e, b, omegas)
+    u_out = torch.empty_like(u)
+    _launch("prolong_correct_postsmooth_col", "es_prolong_correct_postsmooth",
+            u.device, u.data_ptr(), e.data_ptr(), b.data_ptr(),
+            omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
+            len(ids) - 1, _coefficients(stencil_vals, taps),
+            u_out.data_ptr(), n, m)
+    return u_out

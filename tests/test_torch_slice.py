@@ -1,0 +1,221 @@
+"""The port's main path, the 2D Poisson V(2,1) cycle
+(evostencils_tpu_torch/compiler), against the JAX package on the CPU.
+
+Levels of at least 129 rows run the fused legs: the Pallas kernels in
+interpret mode on the JAX side, their plain PyTorch versions in the port.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp
+
+from evostencils_tpu.compiler import lower as jlower
+from evostencils_tpu.compiler import solve as jsolve
+from evostencils_tpu.compiler.cycles import v_cycle
+from evostencils_tpu.config import config
+from evostencils_tpu.ir import partitioning as part
+from evostencils_tpu.problems.poisson import poisson_2d
+from evostencils_tpu_torch.compiler import lower as tlower
+from evostencils_tpu_torch.compiler import solve as tsolve
+from evostencils_tpu_torch.convert import state_from_numpy
+from evostencils_tpu_torch.ops.kernels import transfer as ttransfer
+from evostencils_tpu_torch.problems.poisson import build_rhs
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _v21(max_level, min_level, dtype, **cycle_kw):
+    """A fresh problem and its V(2,1) cycle, as bench.py:48-58 builds
+    them (each package lowers its own IR: lowering numbers the cycles)."""
+    problem = poisson_2d(max_level=max_level, min_level=min_level)
+    problem.dtype = dtype
+    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
+                    pre_smoothing=2, post_smoothing=1, omega=1.15,
+                    partitioning=part.RedBlack,
+                    coarse_operator=problem.coarsest_operator, **cycle_kw)
+    return problem, cycle
+
+
+def _lower_both(max_level, min_level, dtype):
+    pj, cj = _v21(max_level, min_level, dtype)
+    pt, ct = _v21(max_level, min_level, dtype)
+    lj = jlower.lower_cycle(cj, pj.approximation, pj.rhs_entity)
+    lt = tlower.lower_cycle(ct, pt.approximation, pt.rhs_entity)
+    np.testing.assert_array_equal(lt.default_omegas, lj.default_omegas)
+    return pj, lj, pt, lt
+
+
+def test_step_matches_pallas_interpret_f32(monkeypatch):
+    """(a) one V(2,1) step at 255^2 in float32 against the JAX fused path
+    (Pallas kernels in interpret mode); atol 1e-5 as
+    tests/test_fused_columns.py grants that path."""
+    pj, lj, pt, lt = _lower_both(8, 5, np.float32)
+    b = pj.build_rhs()
+    u0 = tuple(jnp.zeros_like(x) for x in b)
+    old = config.use_pallas_kernels
+    config.use_pallas_kernels = True
+    try:
+        ref = lj.step(u0, b, jnp.asarray(lj.default_omegas, jnp.float32))
+    finally:
+        config.use_pallas_kernels = old
+
+    calls = {"down": 0, "up": 0}
+    down, up = (ttransfer.presmooth_residual_restrict_plain,
+                ttransfer.prolong_correct_postsmooth_col_plain)
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(ttransfer, "presmooth_residual_restrict_plain",
+                        count("down", down))
+    monkeypatch.setattr(ttransfer, "prolong_correct_postsmooth_col_plain",
+                        count("up", up))
+    u, bt, om = state_from_numpy([np.asarray(x) for x in u0],
+                                 [np.asarray(x) for x in b],
+                                 lj.default_omegas, device="cpu",
+                                 dtype=torch.float32)
+    out = lt.step(u, bt, om)
+    assert calls == {"down": 1, "up": 1}     # the 255^2 level's two legs
+    assert out[0].dtype == torch.float32
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=1e-5)
+    assert float(out[0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("max_level", [7, 8])
+def test_solve_matches_xla_f64(max_level):
+    """(b) solve to 1e-10 in float64 against the JAX XLA path (unfused
+    half-sweeps): equal iteration counts, histories and rho to 1e-6.
+
+    At 127^2 every node of the two cycles is bitwise equal except the
+    dense coarse matvec, which BLAS and XLA sum in different orders.  That
+    leaves each history entry about 3e-17 * ||b|| apart, the roundoff floor
+    of b - Au, and the last entry (2.9e-11 * ||b||) 1.1e-6 of its value
+    apart.  So the histories must agree to rtol 1e-6 above an absolute
+    floor of 1e-15 * ||b|| (= history[0])."""
+    pj, lj, pt, lt = _lower_both(max_level, 5, np.float64)
+    b = pj.build_rhs()
+    u0 = tuple(jnp.zeros_like(x) for x in b)
+    old = config.use_pallas_kernels
+    config.use_pallas_kernels = False
+    try:
+        _, kj, hj = jsolve.make_solver(lj, 40, 1e-10)(
+            u0, b, jnp.asarray(lj.default_omegas))
+        kj, hj = int(kj), np.asarray(hj)
+    finally:
+        config.use_pallas_kernels = old
+
+    bt = build_rhs(pt, dtype=torch.float64, device="cpu")
+    ut = tuple(torch.zeros_like(x) for x in bt)
+    om = torch.tensor(lt.default_omegas, dtype=torch.float64)
+    _, kt, ht = tsolve.make_solver(lt, 40, 1e-10)(ut, bt, om)
+    ht = ht.numpy()
+    assert kt == kj and 0 < kt < 40
+    np.testing.assert_allclose(ht, hj, rtol=1e-6, atol=1e-15 * hj[0])
+    rho_t = (ht[kt] / ht[0]) ** (1 / kt)
+    rho_j = (hj[kj] / hj[0]) ** (1 / kj)
+    assert abs(rho_t - rho_j) <= 1e-6 * rho_j
+
+
+def test_build_rhs_bitwise_f64():
+    """(c) the port's right-hand side equals problem.build_rhs() bitwise."""
+    problem = poisson_2d(max_level=7, min_level=5)
+    ref = np.asarray(problem.build_rhs()[0])
+    out = build_rhs(problem, dtype=torch.float64, device="cpu")[0].numpy()
+    assert out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_cycle_loop_equals_steps():
+    """(d) make_cycle_loop(K=4) is four steps."""
+    problem, cycle = _v21(8, 5, np.float32)
+    lowered = tlower.lower_cycle(cycle, problem.approximation,
+                                 problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float32, device="cpu")
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32)
+    u = tuple(torch.zeros_like(x) for x in b)
+    looped = tsolve.make_cycle_loop(lowered, 4)(u, b, om)
+    for _ in range(4):
+        u = lowered.step(u, b, om)
+    assert torch.equal(looped[0], u[0])
+
+
+def test_measure_solve_reports_convergence():
+    problem, cycle = _v21(7, 5, np.float64)
+    lowered = tlower.lower_cycle(cycle, problem.approximation,
+                                 problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float64, device="cpu")
+    res = tsolve.measure_solve(lowered, b, max_iterations=30,
+                               target_reduction=1e-8, samples=1)
+    assert res.converged and 0 < res.iterations < 30
+    assert len(res.residuals) == res.iterations + 1
+    assert 0 < res.convergence_factor < 0.2
+    assert res.solve_time_ms > 0
+
+
+def test_unported_node_raises():
+    """Nodes outside the slice raise NotImplementedError naming the node,
+    never a silent approximation."""
+    problem, cycle = _v21(6, 5, np.float64, coarse_krylov="CG")
+    lowered = tlower.lower_cycle(cycle, problem.approximation,
+                                 problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float64, device="cpu")
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="KrylovSubspaceMethod"):
+        lowered.step(tuple(torch.zeros_like(x) for x in b), b, om)
+
+
+_NO_JAX = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class BlockJax(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+                raise ImportError(f"import of {name} blocked")
+
+    sys.meta_path.insert(0, BlockJax())
+    for name in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
+        del sys.modules[name]
+
+    import numpy as np
+    import torch
+    from evostencils_tpu.compiler.cycles import v_cycle
+    from evostencils_tpu.ir import partitioning as part
+    from evostencils_tpu.problems.poisson import poisson_2d
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+    from evostencils_tpu_torch.compiler.solve import make_cycle_loop
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    problem = poisson_2d(max_level=8, min_level=5)
+    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
+                    pre_smoothing=2, post_smoothing=1, omega=1.15,
+                    partitioning=part.RedBlack,
+                    coarse_operator=problem.coarsest_operator)
+    lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float32, device="cpu")
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32)
+    u = make_cycle_loop(lowered, 1)(tuple(torch.zeros_like(x) for x in b),
+                                    b, om)
+    assert bool(torch.isfinite(u[0]).all()) and float(u[0].abs().max()) > 0
+    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    print("ok")
+""")
+
+
+def test_port_runs_with_jax_blocked():
+    """(e) the slice runs in a process where importing jax fails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
