@@ -1,10 +1,13 @@
 """PyTorch and CUDA port of ``evostencils_tpu``.
 
-The port shares the JAX package's array-free layers (``grids``, ``ir``,
-``stencils``, ``compiler.cycles``, ``problems``) and replaces the layers
-that run arrays: ``ops.apply`` (stencil application and transfers in plain
-torch), ``ops.kernels`` (hand-written CUDA kernels for Hopper with their
-plain PyTorch versions), ``compiler.lower`` and ``compiler.solve``.
+The port keeps its own copies of the JAX package's array-free layers
+(``grids``, ``stencils``, ``ir``, ``compiler.cycles``, ``problems.api``
+and the Poisson problems), each naming the file it copies, and replaces
+the layers that run arrays: ``ops.apply`` (stencil application and
+transfers in plain torch), ``ops.kernels`` (hand-written CUDA kernels for
+Hopper with their plain PyTorch versions), ``compiler.lower`` and
+``compiler.solve``.
 
-It never imports ``jax``, directly or through the JAX package.
+It imports neither ``jax`` nor anything of ``evostencils_tpu``; only the
+tests import both packages, to hold the port to the reference.
 """

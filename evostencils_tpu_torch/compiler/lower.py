@@ -1,6 +1,6 @@
 """Cycle compiler: multigrid expression IR -> eager PyTorch programs
-(counterpart of evostencils_tpu/compiler/lower.py, the part the 2D Poisson
-V-cycle reaches).
+(counterpart of evostencils_tpu/compiler/lower.py, the part the 2D and 3D
+Poisson V-cycles reach).
 
 * Grid functions are tuples of per-field tensors (interior points only).
 * Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
@@ -11,8 +11,10 @@ V-cycle reaches).
 * The fusion plans are structural: they are found once per lowered cycle.
   A planned pre-smoothing leg (smoothers + residual + restriction) or
   up-leg (prolongation + correction + post-smoothers) runs as one call to
-  ``ops.kernels.transfer`` on every level its gate admits; the other
-  levels run the generic lowering below.
+  ``ops.kernels.transfer`` (constant 5-point 2D operators) or
+  ``ops.kernels.wavefront3d`` (constant 7-point 3D operators, exactly two
+  pre-sweeps and one post-sweep, lower.py:1029-1090) on every level its
+  gate admits; the other levels run the generic lowering below.
 * Device constants (dense coarse inverses, red-black masks) are built once
   per lowered cycle, device and dtype, and cached.
 
@@ -27,16 +29,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from evostencils_tpu.grids import Grid
-from evostencils_tpu.ir import base, system
-from evostencils_tpu.ir import partitioning as part
-from evostencils_tpu.ir import transformations
-from evostencils_tpu.stencils import constant, periodic
-
 from ..config import DIRECT_SOLVE_MAX
+from ..grids import Grid
+from ..ir import base, system
+from ..ir import partitioning as part
+from ..ir import transformations
 from ..ops import apply as ops
 from ..ops.apply import red_black_masks
-from ..ops.kernels import transfer
+from ..ops.kernels import transfer, wavefront3d
+from ..stencils import constant, periodic
 
 
 def field_grids(expr) -> List[Grid]:
@@ -111,9 +112,27 @@ def five_point_values(stencil) -> Optional[Tuple[float, ...]]:
     return tuple(float(entries.get(o, 0.0)) for o in wanted)
 
 
-def _scalar_five_point(A):
-    """5-point values of a scalar constant 2D system/base operator with no
-    variable coefficients or nonlinear term, else None (lower.py:248-264)."""
+#: offsets of a 7-point star, in the value order of seven_point_values
+#: (a copy of ops/pallas/rbgs3d.py:30-32)
+SEVEN_OFFSETS = [(0, 0, 0), (-1, 0, 0), (1, 0, 0),
+                 (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)]
+
+
+def seven_point_values(stencil) -> Optional[Tuple[float, ...]]:
+    """(center, -x, +x, -y, +y, -z, +z) of a constant 7-point 3D stencil,
+    or None for any other shape (a copy of ops/pallas/rbgs3d.py:47-55)."""
+    entries = dict(stencil.entries)
+    if set(entries) - set(SEVEN_OFFSETS):
+        return None
+    if any(isinstance(v, complex) for v in entries.values()):
+        return None
+    return tuple(float(entries.get(o, 0.0)) for o in SEVEN_OFFSETS)
+
+
+def _scalar_constant_stencil(A):
+    """The constant stencil of a scalar system/base operator with no
+    variable coefficients or nonlinear term, else None
+    (lower.py:248-264, :1250-1266)."""
     entry = A
     if isinstance(A, system.Operator):
         if len(A.entries) != 1:
@@ -126,16 +145,23 @@ def _scalar_five_point(A):
     st = entry.generate_stencil()
     if not isinstance(st, constant.Stencil):
         return None
-    return five_point_values(st)
+    return st
 
 
 def _smoother_sig(A):
     """Fusion signature of a smoothable operator: ("const5", vals) for a
-    scalar constant 5-point stencil, else None (lower.py:343-354; the
-    var5, sys9 and const7 signatures belong to kernels not ported yet)."""
-    vals = _scalar_five_point(A)
+    scalar constant 5-point 2D stencil, ("const7", vals) for a scalar
+    constant 7-point 3D stencil, else None (lower.py:343-393; the var5
+    and sys9 signatures belong to kernels not ported yet)."""
+    st = _scalar_constant_stencil(A)
+    if st is None:
+        return None
+    vals = five_point_values(st)
     if vals is not None and vals[0] != 0.0:
         return ("const5", vals)
+    vals = seven_point_values(st)
+    if st.dimension == 3 and vals is not None and vals[0] != 0.0:
+        return ("const7", vals)
     return None
 
 
@@ -165,6 +191,35 @@ def _peel_smoother_chain(cur, rhs, sig, max_sweeps=3):
         sweeps.append(cur)
         cur = cur.approximation
     return sweeps, cur, partitioning
+
+
+def axis_taps_3d(op):
+    """Per-axis (w-1, w0, w+1) triples of a scalar separable radius-1 3D
+    transfer operator, else None (lower.py:1268-1289)."""
+    entries = getattr(op, "entries", None)
+    if entries is not None:
+        if len(entries) != 1:
+            return None
+        op = entries[0][0]
+    st = op.generate_stencil()
+    if not isinstance(st, constant.Stencil):
+        return None
+    fac = ops.separable_factors(st)
+    if fac is None:
+        return None
+    vectors, radii = fac
+    if len(vectors) != 3 or any(r != 1 for r in radii):
+        return None
+    if any(len(v) != 3 or any(isinstance(x, complex) for x in v)
+           for v in vectors):
+        return None
+    return tuple(tuple(float(x) for x in v) for v in vectors)
+
+
+def _transfer_taps(kind, op):
+    """Transfer taps in the form the leg kernels of signature ``kind``
+    take, else None."""
+    return transfer_three_tap(op) if kind == "const5" else axis_taps_3d(op)
 
 
 def transfer_three_tap(op):
@@ -217,8 +272,8 @@ def _plan_post_fusions(root) -> Dict[int, dict]:
                 isinstance(P, base.ZeroProlongation):
             continue
         by_smoother[id(sweeps[0])] = {
-            "sweeps": sweeps, "cgc": cur, "vals": sig[1], "rhs": rhs,
-            "taps": transfer_three_tap(P)}
+            "sweeps": sweeps, "cgc": cur, "kind": sig[0], "vals": sig[1],
+            "rhs": rhs, "taps": _transfer_taps(sig[0], P)}
     return by_smoother
 
 
@@ -245,8 +300,9 @@ def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
                                                          res.rhs, sig)
         if not sweeps or partitioning is not part.RedBlack:
             continue
-        plan = {"mult": mult, "res": res, "vals": sig[1], "sweeps": sweeps,
-                "base": cur, "taps": transfer_three_tap(R)}
+        plan = {"mult": mult, "res": res, "kind": sig[0], "vals": sig[1],
+                "sweeps": sweeps, "base": cur,
+                "taps": _transfer_taps(sig[0], R)}
         by_smoother[id(sweeps[0])] = plan
         by_mult[id(mult)] = plan
     return by_smoother, by_mult
@@ -304,12 +360,26 @@ class _Lowering:
         self.env: Dict[int, tuple] = {}
         self.memo: Dict[int, tuple] = {}
         self._super_results: Dict[int, object] = {}
+        # per signature: (gate, down-leg, up-leg, pre-sweeps, post-sweeps);
+        # None sweeps take any count the leg accepts
         if use_kernels:
-            self._down = transfer.presmooth_residual_restrict
-            self._up = transfer.prolong_correct_postsmooth_col
+            self._legs = {
+                "const5": (transfer.supports,
+                           transfer.presmooth_residual_restrict,
+                           transfer.prolong_correct_postsmooth_col,
+                           None, None),
+                "const7": (wavefront3d.supports,
+                           wavefront3d.downleg_wavefront_3d,
+                           wavefront3d.upleg_wavefront_3d, 2, 1)}
         else:
-            self._down = transfer.presmooth_residual_restrict_plain
-            self._up = transfer.prolong_correct_postsmooth_col_plain
+            self._legs = {
+                "const5": (transfer.supports,
+                           transfer.presmooth_residual_restrict_plain,
+                           transfer.prolong_correct_postsmooth_col_plain,
+                           None, None),
+                "const7": (wavefront3d.supports,
+                           wavefront3d.downleg_wavefront_3d_plain,
+                           wavefront3d.upleg_wavefront_3d_plain, 2, 1)}
 
     def bind(self, u_fields, b_fields):
         self.env[id(self.approximation)] = tuple(u_fields)
@@ -426,44 +496,48 @@ class _Lowering:
 
         return half(half(x, 0), 1)
 
-    # -- fused legs (ops/kernels/transfer.py) --------------------------------
+    # -- fused legs (ops/kernels/transfer.py, wavefront3d.py) ----------------
 
     def _run_super_fusion(self, plan):
         """Planned down-leg: ``((u_smoothed,), (coarse_residual,))``, or
-        None when the gate rejects the level (lower.py:972-1027)."""
+        None when the gate rejects the level (lower.py:972-1061)."""
         key = id(plan["mult"])
         if key in self._super_results:
             return self._super_results[key]
         result = None
-        x = self.eval_function(plan["base"])
-        if plan["taps"] is not None and len(x) == 1 \
-                and transfer.supports(x[0]):
-            b = self.eval_function(plan["res"].rhs)
-            ids = [c.global_id for c in reversed(plan["sweeps"])]
-            u_s, rc = self._down(x[0], b[0], self.omegas, ids, plan["vals"],
-                                 plan["taps"])
-            result = ((u_s,), (rc,))
+        supports, down, _, n_pre, _ = self._legs[plan["kind"]]
+        if plan["taps"] is not None and \
+                n_pre in (None, len(plan["sweeps"])):
+            x = self.eval_function(plan["base"])
+            if len(x) == 1 and supports(x[0]):
+                b = self.eval_function(plan["res"].rhs)
+                ids = [c.global_id for c in reversed(plan["sweeps"])]
+                u_s, rc = down(x[0], b[0], self.omegas, ids, plan["vals"],
+                               plan["taps"])
+                result = ((u_s,), (rc,))
         self._super_results[key] = result
         return result
 
     def _run_post_fusion(self, plan):
         """Planned up-leg: the value of the outermost post-smoother, or
-        None when the gate rejects the level (lower.py:1173-1247)."""
-        if plan["taps"] is None:
+        None when the gate rejects the level (lower.py:1063-1090,
+        :1173-1247)."""
+        supports, _, up, _, n_post = self._legs[plan["kind"]]
+        if plan["taps"] is None or n_post not in (None, len(plan["sweeps"])):
             return None
         cgc = plan["cgc"]
         x = self.eval_function(cgc.approximation)
-        if len(x) != 1 or not transfer.supports(x[0]):
+        if len(x) != 1 or not supports(x[0]):
             return None
-        n, m = x[0].shape
         e = self.eval_function(cgc.correction.operand2)
-        if len(e) != 1 or tuple(e[0].shape) != ((n - 1) // 2, (m - 1) // 2):
+        if len(e) != 1 or tuple(e[0].shape) != \
+                tuple((n - 1) // 2 for n in x[0].shape):
             return None
         b = self.eval_function(plan["rhs"])
         ids = [cgc.global_id] + \
             [c.global_id for c in reversed(plan["sweeps"])]
-        return (self._up(x[0], e[0], b[0], self.omegas, ids, plan["vals"],
-                         plan["taps"]),)
+        return (up(x[0], e[0], b[0], self.omegas, ids, plan["vals"],
+                   plan["taps"]),)
 
     # -- operators ----------------------------------------------------------
 

@@ -26,7 +26,7 @@ import torch
 DIRECT_SOLVE_MAX = 4096
 
 
-def setup_device(device) -> torch.device:
+def setup_device(device="cuda") -> torch.device:
     """Return ``torch.device(device)`` after fixing the float32 numerics
     the port relies on: TF32 off for matrix products and for cuDNN, so the
     dense coarse solve and any convolution run in full float32."""

@@ -20,9 +20,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from evostencils_tpu.stencils import periodic
-from evostencils_tpu.stencils.constant import Stencil
-from evostencils_tpu.stencils.periodic import PeriodicStencil
+from ..stencils import periodic
+from ..stencils.constant import Stencil
+from ..stencils.periodic import PeriodicStencil
 
 #: Lattice origin: interior index 0 is global node index 1 on every axis
 #: (evostencils_tpu/ops/apply.py:35-36).

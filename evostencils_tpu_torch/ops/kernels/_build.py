@@ -1,11 +1,17 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 The sources under ``evostencils_tpu_torch/csrc/`` are compiled at first use
-with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
-which is loaded with ``ctypes``.  The library lands in
+with ``nvcc`` for ``sm_90a``, one ``nvcc`` process per source, all started
+together, and linked into a shared library with a plain C interface, which
+is loaded with ``ctypes``.  The library lands in
 ``evostencils_tpu_torch/_build/`` (git-ignored), named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.  Nothing here runs at import time.
+
+The helpers at the end are shared by the kernel wrappers: the device
+dispatch (a CUDA tensor launches the kernel, a CPU tensor takes the plain
+version, any other device raises), the float32 and contiguity checks, and
+the launch itself, which raises on a refused launch.
 """
 
 from __future__ import annotations
@@ -18,11 +24,14 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 _PACKAGE = pathlib.Path(__file__).resolve().parents[2]
-SOURCES = (_PACKAGE / "csrc" / "transfer.cu",)
+SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
+           _PACKAGE / "csrc" / "wavefront3d.cu")
 BUILD_DIR = _PACKAGE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -37,6 +46,12 @@ SIGNATURES = {
     # u, e, b, omegas, omega ids, sweeps, coefficients, u_out, n, m, stream
     "es_prolong_correct_postsmooth":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # u, b, omegas, omega ids, coefficients, u_out, rc, n0, n1, n2, stream
+    "es_downleg_wavefront_3d":
+        (_P, _P, _P, _INTS, _DOUBLES, _P, _P, _INT, _INT, _INT, _P),
+    # u, e, b, omegas, omega ids, coefficients, u_out, n0, n1, n2, stream
+    "es_upleg_wavefront_3d":
+        (_P, _P, _P, _P, _INTS, _DOUBLES, _P, _INT, _INT, _INT, _P),
 }
 
 
@@ -58,18 +73,39 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libevostencils_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (process, command) pair; raise on the first failure."""
+    failed = []
+    for proc, cmd in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True), cmd
+
+
 def build() -> pathlib.Path:
     """Compile the sources unless the library for their hash exists."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    nvcc = nvcc_path()
+    _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+          for src, obj in zip(SOURCES, objs)])
+    tmp = out.with_name(f"{tag}.so.tmp")
+    _run([_start([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                  *map(str, objs)])])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)     # atomic: a concurrent process never loads half a file
     return out
 
@@ -85,3 +121,34 @@ def load_library() -> ctypes.CDLL:
     lib.es_error_string.argtypes = (ctypes.c_int,)
     lib.es_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_card(u) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if u.device.type == "cuda":
+        return True
+    if u.device.type == "cpu":
+        return False
+    raise ValueError(f"no leg implementation for device {u.device}")
+
+
+def check_card_tensors(*tensors) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA legs take float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA legs take contiguous tensors")
+
+
+def launch(counts, name, entry, device, *args) -> None:
+    """Call the C entry point ``entry`` on ``device``'s current stream;
+    raise if it reports a CUDA error (a refused launch never runs), else
+    add one to ``counts[name]``."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({lib.es_error_string(err).decode()})")
+    counts[name] += 1

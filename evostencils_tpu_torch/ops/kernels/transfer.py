@@ -25,8 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from evostencils_tpu.stencils.constant import Stencil
-
+from ...stencils.constant import Stencil
 from ..apply import (apply_constant, axis_prolong_3tap, axis_restrict_3tap,
                      red_black_masks)
 from . import _build
@@ -140,39 +139,12 @@ def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=()):
     return ids
 
 
-def _on_card(u) -> bool:
-    if u.device.type == "cuda":
-        return True
-    if u.device.type == "cpu":
-        return False
-    raise ValueError(f"no leg implementation for device {u.device}")
-
-
-def _check_card_tensors(*tensors):
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA legs take float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA legs take contiguous tensors")
-
-
 def _coefficients(stencil_vals, taps):
     vals = [float(v) for v in stencil_vals] + \
         [float(t) for axis in taps for t in axis]
     if len(vals) != 11:
         raise ValueError("need 5 stencil values and 3 taps per axis")
     return (ctypes.c_double * 11)(*vals)
-
-
-def _launch(name, entry, device, *args):
-    lib = _build.load_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({lib.es_error_string(err).decode()})")
-    launches[name] += 1
 
 
 def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
@@ -185,18 +157,19 @@ def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
     ``r = b - A u`` and its full restriction with the (row, column) 3-tap
     pair ``taps``.  Returns ``(u_s (n, m), rc ((n-1)/2, (m-1)/2))``."""
     ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids))
-    if not _on_card(u):
+    if not _build.on_card(u):
         return presmooth_residual_restrict_plain(u, b, omegas, ids,
                                                  stencil_vals, taps)
-    _check_card_tensors(u, b, omegas)
+    _build.check_card_tensors(u, b, omegas)
     n, m = u.shape
     u_out = torch.empty_like(u)
     rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
-    _launch("presmooth_residual_restrict", "es_presmooth_residual_restrict",
-            u.device, u.data_ptr(), b.data_ptr(), omegas.data_ptr(),
-            (ctypes.c_int * len(ids))(*ids), len(ids),
-            _coefficients(stencil_vals, taps), u_out.data_ptr(),
-            rc.data_ptr(), n, m)
+    _build.launch(launches, "presmooth_residual_restrict",
+                  "es_presmooth_residual_restrict", u.device, u.data_ptr(),
+                  b.data_ptr(), omegas.data_ptr(),
+                  (ctypes.c_int * len(ids))(*ids), len(ids),
+                  _coefficients(stencil_vals, taps), u_out.data_ptr(),
+                  rc.data_ptr(), n, m)
     return u_out, rc
 
 
@@ -213,14 +186,14 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
     if tuple(e.shape) != ((n - 1) // 2, (m - 1) // 2):
         raise ValueError(f"coarse correction {tuple(e.shape)} does not "
                          f"match the grid {n}x{m}")
-    if not _on_card(u):
+    if not _build.on_card(u):
         return prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
                                                     stencil_vals, taps)
-    _check_card_tensors(u, e, b, omegas)
+    _build.check_card_tensors(u, e, b, omegas)
     u_out = torch.empty_like(u)
-    _launch("prolong_correct_postsmooth_col", "es_prolong_correct_postsmooth",
-            u.device, u.data_ptr(), e.data_ptr(), b.data_ptr(),
-            omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
-            len(ids) - 1, _coefficients(stencil_vals, taps),
-            u_out.data_ptr(), n, m)
+    _build.launch(launches, "prolong_correct_postsmooth_col",
+                  "es_prolong_correct_postsmooth", u.device, u.data_ptr(),
+                  e.data_ptr(), b.data_ptr(), omegas.data_ptr(),
+                  (ctypes.c_int * len(ids))(*ids), len(ids) - 1,
+                  _coefficients(stencil_vals, taps), u_out.data_ptr(), n, m)
     return u_out

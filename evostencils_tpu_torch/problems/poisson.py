@@ -1,29 +1,101 @@
-"""Right-hand sides of the Poisson model problems for the port.
+"""Poisson model problems for the port: a copy of the Poisson part of
+evostencils_tpu/problems/poisson.py (``poisson_2d``, ``poisson_3d`` and
+their data), kept in the port so that it imports nothing of the JAX
+package.  The ``rhs_builder`` closures return numpy arrays here, where the
+JAX package's return ``jax.numpy`` arrays; :func:`build_rhs` moves them to
+a device.
 
-The problem itself (grids, operators, transfers) comes from
-``evostencils_tpu.problems.poisson``; only its ``rhs_builder``, which goes
-through ``jax.numpy``, is replaced.
+The JAX module's docstring:
+
+2D (levels 5->9): -Lap u = pi^2 cos(pi x) - 4 pi^2 sin(2 pi y) with exact
+Dirichlet data u = cos(pi x) - sin(2 pi y)
+(2D_FD_Poisson_fromL2.exa2:1-12).
+3D (levels 2->6): Laplace equation with harmonic boundary data
+u = x^2 - y^2/2 - z^2/2, RHS = 0 (3D_FD_Poisson_fromL2.exa2:1-10).
+Reference solver config: V-cycle, RB-GS omega=1.15, 2 pre / 1 post,
+CG coarse solve, residual reduction 1e-12
+(2D_FD_Poisson_fromL2.exa3 `generate solver` block).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from evostencils_tpu.problems.api import Problem, fold_dirichlet, node_positions
-from evostencils_tpu.problems.poisson import _f_2d, _u_exact_2d
+from ..grids import unit_interval_grid
+from ..ir import base, system
+from ..stencils import gallery
+from .api import Problem, scalar_hierarchy, node_positions, fold_dirichlet
 
 
-def build_rhs(problem: Problem, *, dtype, device) -> tuple:
-    """The fields of ``b`` for ``poisson_2d``: the right-hand side with the
-    Dirichlet data folded in, built in numpy float64 exactly as
-    evostencils_tpu/problems/poisson.py:43-47 builds it, then moved to
-    ``device`` in ``dtype``."""
-    if problem.name != "Poisson2D":
+def _u_exact_2d(x, y):
+    return np.cos(np.pi * x) - np.sin(2.0 * np.pi * y)
+
+
+def _f_2d(x, y):
+    return np.pi ** 2 * np.cos(np.pi * x) - 4.0 * np.pi ** 2 * np.sin(2.0 * np.pi * y)
+
+
+def _u_exact_3d(x, y, z):
+    return x * x - 0.5 * y * y - 0.5 * z * z
+
+
+def poisson_2d(max_level: int = 9, min_level: int = 5) -> Problem:
+    contexts, coarsest = scalar_hierarchy(
+        "Poisson2D", 2, max_level, min_level, gallery.Poisson2D())
+    rhs_entity = system.RightHandSide(
+        "f", [base.RightHandSide("f", contexts[0].grid[0])])
+    grid = contexts[0].grid[0]
+    stencil = gallery.Poisson2D().generate_stencil(grid)
+
+    def rhs_builder(dtype):
+        X, Y = node_positions(grid)
+        b = fold_dirichlet(stencil, grid, _u_exact_2d, _f_2d(X, Y))
+        return (np.asarray(b, dtype=dtype),)
+
+    def exact_solution():
+        X, Y = node_positions(grid)
+        return (_u_exact_2d(X, Y),)
+
+    return Problem(name="Poisson2D", dimension=2, min_level=min_level,
+                   max_level=max_level, fields=["u"],
+                   level_contexts=contexts, coarsest_operator=coarsest,
+                   rhs_entity=rhs_entity, rhs_builder=rhs_builder,
+                   target_reduction=1e-12, max_iterations=100,
+                   exact_solution=exact_solution)
+
+
+def poisson_3d(max_level: int = 6, min_level: int = 2) -> Problem:
+    contexts, coarsest = scalar_hierarchy(
+        "Poisson3D", 3, max_level, min_level, gallery.Poisson3D())
+    rhs_entity = system.RightHandSide(
+        "f", [base.RightHandSide("f", contexts[0].grid[0])])
+    grid = contexts[0].grid[0]
+    stencil = gallery.Poisson3D().generate_stencil(grid)
+
+    def rhs_builder(dtype):
+        b = fold_dirichlet(stencil, grid, _u_exact_3d)   # RHS_u = 0
+        return (np.asarray(b, dtype=dtype),)
+
+    def exact_solution():
+        X, Y, Z = node_positions(grid)
+        return (_u_exact_3d(X, Y, Z),)
+
+    return Problem(name="Poisson3D", dimension=3, min_level=min_level,
+                   max_level=max_level, fields=["u"],
+                   level_contexts=contexts, coarsest_operator=coarsest,
+                   rhs_entity=rhs_entity, rhs_builder=rhs_builder,
+                   target_reduction=1e-12, max_iterations=100,
+                   exact_solution=exact_solution)
+
+
+def build_rhs(problem: Problem, *, dtype, device="cuda") -> tuple:
+    """The fields of ``b`` for ``poisson_2d`` or ``poisson_3d``: the
+    right-hand side with the Dirichlet data folded in, built in numpy
+    float64 as evostencils_tpu/problems/poisson.py:43-47 and :69-72 build
+    it (RHS_u = 0 in 3D), then moved to ``device`` in ``dtype``."""
+    if problem.name not in ("Poisson2D", "Poisson3D"):
         raise NotImplementedError(
             f"right-hand side of {problem.name} is not ported yet")
-    grid = problem.finest_grid[0]
-    stencil = problem.level_contexts[0].operator.entries[0][0] \
-        .generate_stencil()
-    X, Y = node_positions(grid)
-    b = fold_dirichlet(stencil, grid, _u_exact_2d, _f_2d(X, Y))
-    return (torch.tensor(b, dtype=dtype, device=device),)
+    return tuple(torch.tensor(b, dtype=dtype, device=device)
+                 for b in problem.rhs_builder(np.float64))

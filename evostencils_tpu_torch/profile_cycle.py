@@ -1,0 +1,136 @@
+"""Where the time of a chained V(2,1) cycle goes on one CUDA card.
+
+    python3 -m evostencils_tpu_torch.profile_cycle --dim 3 [--cycles 20]
+
+Builds the path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
+12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15)
+and, after three warm-up cycles:
+
+1. runs three batches of ``--cycles`` chained cycles and reads the host
+   clock before and after ``torch.cuda.synchronize()``: the host's enqueue
+   time and the wall time per cycle;
+2. runs one more batch under ``torch.profiler`` and sums the device time
+   of every kernel (self device time of CUDA events): device busy time per
+   cycle, the device's idle share against the wall time of step 1, the
+   kernel launches per cycle, and the kernels that take the most time.
+
+Prints one line per measurement and a JSON object as its last line.
+Needs a CUDA card; it fails on a machine without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+PATHS = {2: (12, 5), 3: (8, 2)}
+
+
+def build_path(dim: int):
+    """(lowered cycle, b, omegas, u0) of the ``dim``-D path on the card."""
+    from .compiler.cycles import v_cycle
+    from .compiler.lower import lower_cycle
+    from .ir import partitioning as part
+    from .problems.poisson import build_rhs, poisson_2d, poisson_3d
+
+    max_level, min_level = PATHS[dim]
+    problem = (poisson_2d if dim == 2 else poisson_3d)(
+        max_level=max_level, min_level=min_level)
+    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
+                    pre_smoothing=2, post_smoothing=1, omega=1.15,
+                    partitioning=part.RedBlack,
+                    coarse_operator=problem.coarsest_operator)
+    lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float32, device="cuda")
+    omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                          device="cuda")
+    return lowered, b, omegas, tuple(torch.zeros_like(x) for x in b)
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(evt, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dim", type=int, choices=(2, 3), required=True)
+    ap.add_argument("--cycles", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_cycle: no CUDA card", file=sys.stderr)
+        return 1
+    from .compiler.solve import make_cycle_loop
+    from .config import setup_device
+
+    setup_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    lowered, b, omegas, u = build_path(args.dim)
+    n = args.cycles
+    u = make_cycle_loop(lowered, 3)(u, b, omegas)
+    torch.cuda.synchronize()
+
+    loop = make_cycle_loop(lowered, n)
+    host, wall = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        u = loop(u, b, omegas)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3 / n)
+        wall.append((t2 - t0) * 1e3 / n)
+    print(f"[time] {card}, {args.dim}D, {n} cycles per batch: wall "
+          + " / ".join(f"{w:.4f}" for w in wall) + " ms/cycle, host enqueue "
+          + " / ".join(f"{h:.4f}" for h in host) + " ms/cycle", flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        u = loop(u, b, omegas)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    kernels, launches = {}, 0
+    for evt in prof.key_averages():
+        if evt.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                       "cudaLaunchKernelExC"):
+            launches += evt.count
+        # device-side events only: a CPU op's device time repeats its
+        # kernels'
+        if evt.device_type == DeviceType.CUDA and _device_us(evt) > 0:
+            kernels[evt.key] = (_device_us(evt), evt.count)
+    busy = sum(us for us, _ in kernels.values()) / 1e3 / n
+    idle = 1.0 - busy / statistics.median(wall)
+    print(f"[profile] device busy {busy:.4f} ms/cycle, idle share "
+          f"{idle:.4f} of the median wall time, {launches / n:.1f} kernel "
+          "launches per cycle", flush=True)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (us, count) in top:
+        print(f"[profile] {us / 1e3 / n:9.4f} ms/cycle  {count / n:6.1f}/cycle"
+              f"  {name[:90]}")
+    print(json.dumps({
+        "card": card, "dim": args.dim, "cycles": n,
+        "wall_ms_per_cycle": wall, "host_ms_per_cycle": host,
+        "device_busy_ms_per_cycle": busy, "idle_share": idle,
+        "launches_per_cycle": launches / n,
+        "top_kernels": [{"name": k, "ms_per_cycle": us / 1e3 / n,
+                         "per_cycle": c / n} for k, (us, c) in top]}))
+    check = float(u[0].abs().max())
+    return 0 if np.isfinite(check) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

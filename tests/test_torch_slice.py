@@ -10,6 +10,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -17,36 +18,45 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
+from evostencils_tpu.compiler import cycles as jcycles
 from evostencils_tpu.compiler import lower as jlower
 from evostencils_tpu.compiler import solve as jsolve
-from evostencils_tpu.compiler.cycles import v_cycle
 from evostencils_tpu.config import config
-from evostencils_tpu.ir import partitioning as part
-from evostencils_tpu.problems.poisson import poisson_2d
+from evostencils_tpu.ir import partitioning as jpart
+from evostencils_tpu.problems import poisson as jpoisson
+from evostencils_tpu_torch.compiler import cycles as tcycles
 from evostencils_tpu_torch.compiler import lower as tlower
 from evostencils_tpu_torch.compiler import solve as tsolve
 from evostencils_tpu_torch.convert import state_from_numpy
+from evostencils_tpu_torch.ir import partitioning as tpart
 from evostencils_tpu_torch.ops.kernels import transfer as ttransfer
+from evostencils_tpu_torch.problems import poisson as tpoisson
 from evostencils_tpu_torch.problems.poisson import build_rhs
+
+#: the layers each package builds its own problem and cycle IR from
+JAX = SimpleNamespace(problems=jpoisson, cycles=jcycles, part=jpart)
+PORT = SimpleNamespace(problems=tpoisson, cycles=tcycles, part=tpart)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _v21(max_level, min_level, dtype, **cycle_kw):
+def _v21(pkg, max_level, min_level, dtype, **cycle_kw):
     """A fresh problem and its V(2,1) cycle, as bench.py:48-58 builds
-    them (each package lowers its own IR: lowering numbers the cycles)."""
-    problem = poisson_2d(max_level=max_level, min_level=min_level)
+    them, from the layers of one package (each package builds and lowers
+    its own IR)."""
+    problem = pkg.problems.poisson_2d(max_level=max_level,
+                                      min_level=min_level)
     problem.dtype = dtype
-    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=1.15,
-                    partitioning=part.RedBlack,
-                    coarse_operator=problem.coarsest_operator, **cycle_kw)
+    cycle = pkg.cycles.v_cycle(
+        problem.level_contexts, problem.rhs_entity, pre_smoothing=2,
+        post_smoothing=1, omega=1.15, partitioning=pkg.part.RedBlack,
+        coarse_operator=problem.coarsest_operator, **cycle_kw)
     return problem, cycle
 
 
 def _lower_both(max_level, min_level, dtype):
-    pj, cj = _v21(max_level, min_level, dtype)
-    pt, ct = _v21(max_level, min_level, dtype)
+    pj, cj = _v21(JAX, max_level, min_level, dtype)
+    pt, ct = _v21(PORT, max_level, min_level, dtype)
     lj = jlower.lower_cycle(cj, pj.approximation, pj.rhs_entity)
     lt = tlower.lower_cycle(ct, pt.approximation, pt.rhs_entity)
     np.testing.assert_array_equal(lt.default_omegas, lj.default_omegas)
@@ -129,8 +139,9 @@ def test_solve_matches_xla_f64(max_level):
 
 def test_build_rhs_bitwise_f64():
     """(c) the port's right-hand side equals problem.build_rhs() bitwise."""
-    problem = poisson_2d(max_level=7, min_level=5)
-    ref = np.asarray(problem.build_rhs()[0])
+    ref = np.asarray(jpoisson.poisson_2d(max_level=7, min_level=5)
+                     .build_rhs()[0])
+    problem = tpoisson.poisson_2d(max_level=7, min_level=5)
     out = build_rhs(problem, dtype=torch.float64, device="cpu")[0].numpy()
     assert out.dtype == ref.dtype
     np.testing.assert_array_equal(out, ref)
@@ -138,7 +149,7 @@ def test_build_rhs_bitwise_f64():
 
 def test_cycle_loop_equals_steps():
     """(d) make_cycle_loop(K=4) is four steps."""
-    problem, cycle = _v21(8, 5, np.float32)
+    problem, cycle = _v21(PORT, 8, 5, np.float32)
     lowered = tlower.lower_cycle(cycle, problem.approximation,
                                  problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float32, device="cpu")
@@ -151,7 +162,7 @@ def test_cycle_loop_equals_steps():
 
 
 def test_measure_solve_reports_convergence():
-    problem, cycle = _v21(7, 5, np.float64)
+    problem, cycle = _v21(PORT, 7, 5, np.float64)
     lowered = tlower.lower_cycle(cycle, problem.approximation,
                                  problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float64, device="cpu")
@@ -166,7 +177,7 @@ def test_measure_solve_reports_convergence():
 def test_unported_node_raises():
     """Nodes outside the slice raise NotImplementedError naming the node,
     never a silent approximation."""
-    problem, cycle = _v21(6, 5, np.float64, coarse_krylov="CG")
+    problem, cycle = _v21(PORT, 6, 5, np.float64, coarse_krylov="CG")
     lowered = tlower.lower_cycle(cycle, problem.approximation,
                                  problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float64, device="cpu")
@@ -178,42 +189,69 @@ def test_unported_node_raises():
 _NO_JAX = textwrap.dedent("""
     import importlib.abc, sys
 
-    class BlockJax(importlib.abc.MetaPathFinder):
+    # jax and the JAX package, by exact name or dotted prefix: a bare
+    # prefix test would also block evostencils_tpu_torch
+    BLOCKED = ("jax", "jaxlib", "evostencils_tpu")
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+    class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if blocked(name):
                 raise ImportError(f"import of {name} blocked")
 
-    sys.meta_path.insert(0, BlockJax())
-    for name in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
+    sys.meta_path.insert(0, Block())
+    for name in [m for m in sys.modules if blocked(m)]:
         del sys.modules[name]
 
-    import numpy as np
     import torch
-    from evostencils_tpu.compiler.cycles import v_cycle
-    from evostencils_tpu.ir import partitioning as part
-    from evostencils_tpu.problems.poisson import poisson_2d
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
     from evostencils_tpu_torch.compiler.lower import lower_cycle
     from evostencils_tpu_torch.compiler.solve import make_cycle_loop
-    from evostencils_tpu_torch.problems.poisson import build_rhs
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.ops.kernels import transfer, wavefront3d
+    from evostencils_tpu_torch.problems.poisson import (build_rhs,
+                                                        poisson_2d,
+                                                        poisson_3d)
 
-    problem = poisson_2d(max_level=8, min_level=5)
-    cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=1.15,
-                    partitioning=part.RedBlack,
-                    coarse_operator=problem.coarsest_operator)
-    lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
-    b = build_rhs(problem, dtype=torch.float32, device="cpu")
-    om = torch.tensor(lowered.default_omegas, dtype=torch.float32)
-    u = make_cycle_loop(lowered, 1)(tuple(torch.zeros_like(x) for x in b),
-                                    b, om)
-    assert bool(torch.isfinite(u[0]).all()) and float(u[0].abs().max()) > 0
-    assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    calls = []
+    for mod, name in [(transfer, "presmooth_residual_restrict_plain"),
+                      (transfer, "prolong_correct_postsmooth_col_plain"),
+                      (wavefront3d, "downleg_wavefront_3d_plain"),
+                      (wavefront3d, "upleg_wavefront_3d_plain")]:
+        def counted(*a, _fn=getattr(mod, name), _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        setattr(mod, name, counted)
+
+    # the 2D slice at 255^2 and the 3D slice at 63^3: one fused level each
+    for problem in (poisson_2d(max_level=8, min_level=5),
+                    poisson_3d(max_level=6, min_level=2)):
+        cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
+                        pre_smoothing=2, post_smoothing=1, omega=1.15,
+                        partitioning=part.RedBlack,
+                        coarse_operator=problem.coarsest_operator)
+        lowered = lower_cycle(cycle, problem.approximation,
+                              problem.rhs_entity)
+        b = build_rhs(problem, dtype=torch.float32, device="cpu")
+        om = torch.tensor(lowered.default_omegas, dtype=torch.float32)
+        u = make_cycle_loop(lowered, 1)(
+            tuple(torch.zeros_like(x) for x in b), b, om)
+        assert bool(torch.isfinite(u[0]).all())
+        assert float(u[0].abs().max()) > 0
+    assert sorted(calls) == sorted(
+        ["presmooth_residual_restrict_plain",
+         "prolong_correct_postsmooth_col_plain",
+         "downleg_wavefront_3d_plain", "upleg_wavefront_3d_plain"]), calls
+    assert not any(blocked(m) for m in sys.modules)
     print("ok")
 """)
 
 
 def test_port_runs_with_jax_blocked():
-    """(e) the slice runs in a process where importing jax fails."""
+    """(e) the 2D and 3D slices run in a process where importing jax or
+    any module of the JAX package fails."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
