@@ -11,31 +11,54 @@ Phases:
 3. compare each 3D leg kernel with its plain version at 255^3, at the
    ragged 65x127x255 and at the 127^3 and 63^3 levels of the 3D path, with
    relaxation factors that differ; time both at every level;
-4. drive the 2D path, the Poisson V(2,1) cycle on 4095^2 (levels 12->5,
+4. [kernels-rbgs] compare the standalone sweep kernels with their plain
+   versions (the fused red-black sweep and the single-pass sweep in its
+   parity modes -1, 0 and 1, omega 1.15, an anisotropic stencil) at
+   4095^2, 1023^2 and the ragged 300x200, and time both at 4095^2 and
+   1023^2; [kernels-rr] the same for the standalone transfers
+   (residual + restriction, prolongation + correction) at 4095^2, 1023^2
+   and 257x255;
+5. drive the 2D path, the Poisson V(2,1) cycle on 4095^2 (levels 12->5,
    float32, as bench.py builds it), through make_cycle_loop; check the
    relative residual, the analytic solution and that every fused leg ran
-   through its kernel;
-5. solve the 2D problem to a 1e-5 residual reduction with the kernels and
+   through its kernel and no standalone kernel ran;
+6. solve the 2D problem to a 1e-5 residual reduction with the kernels and
    with the plain versions; the iteration counts must be equal and the
    residual histories agree to 1e-3 above the float32 residual floor;
-6. drive the 3D path, the Poisson V(2,1) cycle on 255^3 (levels 8->2,
+7. drive the 3D path, the Poisson V(2,1) cycle on 255^3 (levels 8->2,
    float32, as scripts/bench_suite.py builds its poisson3d_255cube row),
-   as phase 4 drives the 2D one: each 3D leg must run through its kernel
+   as phase 5 drives the 2D one: each 3D leg must run through its kernel
    three times per cycle (255^3, 127^3 and 63^3);
-7. the 3D solve to 1e-5, as phase 5;
-8. check that neither jax nor the JAX package was imported.
+8. the 3D solve to 1e-5, as phase 6;
+9. [evaluator] the evolution path's evaluator: a CycleEvaluator on the
+   card in float32 at poisson_2d(10, 5) (1023^2) runs measure_interleaved
+   over the hand-built red-black V(2,1) (omega 1.15), the weighted-Jacobi
+   V(2,1) (omega 0.8) and two stored champions of
+   results/evolved_champions.json, each picked by its fitness; each of
+   the four standalone kernels must launch, the Jacobi V(2,1) must launch
+   9 sweeps, 3 residual restrictions and 3 prolongation corrections per
+   cycle, every structure must take as many iterations with the plain
+   versions (rho within 1e-3), and the gen-75 champion must converge
+   faster than the red-black V(2,1);
+10. [evolve] the CLI twin of scripts/optimize.py in this process,
+   ``poisson2d NSGAII --mu 4 --lambda 4 --generations 2 --seed 0`` at
+   its default levels 9->5, which must end with a finite best individual
+   that re-parses; its timing protocol takes one repetition of its
+   windows instead of three, the one cut of this run;
+11. check that neither jax nor the JAX package was imported.
 
-The launch counts are set to 0 just before each path is driven (phases 4
-and 6) and read just after.  Any failed check raises, and the script exits
-non-zero without printing its result line.  The last line of standard
-output is {"ok": true, "device": {...}}; the line before it lists each
-kernel with its launches on its path, its largest deviation from the
+The launch counts are set to 0 just before each path is driven (phases 5,
+7, 9 and 10) and read just after.  Any failed check raises, and the
+script exits non-zero without printing its result line.  The last line of
+standard output is {"ok": true, "device": {...}}; the line before it lists
+each kernel with its launches on its path, its largest deviation from the
 plain version, its time and the plain version's, and the least time the
 card could take for the same work (bytes over 3.35 TB/s or float32
 operations over 67 TFLOP/s, the larger).
 """
 
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -57,10 +80,19 @@ P_TAPS = ((0.5, 1.0, 0.5), (0.5, 1.0, 0.5))
 VALS7 = (6.0, -1.0, -1.0, -1.0, -1.0, -1.0, -1.0)
 R_TAPS3 = ((0.25, 0.5, 0.25),) * 3
 P_TAPS3 = ((0.5, 1.0, 0.5),) * 3
+#: an anisotropic stencil and asymmetric taps for the standalone
+#: kernels' checks, so that a swapped axis or direction shows
+ANISO = (5.0, -1.5, -0.5, -1.25, -0.75)
+R_TAPS_ASYM = ((0.2, 0.5, 0.3), (0.1, 0.6, 0.3))
+P_TAPS_ASYM = ((0.4, 1.0, 0.6), (0.3, 0.9, 0.5))
 #: float32 reassociation slack: 2D (tests/test_fused_columns.py:52-53,
-#: :81); 3D u (tests/test_wavefront3d.py:57-61) and rc
+#: :81); 3D u (tests/test_wavefront3d.py:57-61) and rc; the standalone
+#: sweeps (relative + absolute, tests/test_pallas_kernels.py:31-60) and
+#: transfers (absolute)
 TOL_U, TOL_RC = 1e-5, 1e-4
 TOL_U3, TOL_RC3 = 2e-5, 1e-4
+TOL_SWEEP, TOL_TRANSFER = 2e-6, 2e-5
+ROOT = pathlib.Path(__file__).resolve().parent
 KERNELS = {
     "presmooth_residual_restrict": (
         "evostencils_tpu/ops/pallas/transfer.py:810",
@@ -74,7 +106,22 @@ KERNELS = {
     "upleg_wavefront_3d": (
         "evostencils_tpu/ops/pallas/wavefront3d.py:391",
         "evostencils_tpu_torch/csrc/wavefront3d.cu"),
+    "fused_rbgs_sweep": (
+        "evostencils_tpu/ops/pallas/rbgs.py:213",
+        "evostencils_tpu_torch/csrc/rbgs.cu"),
+    "jacobi_sweep": (
+        "evostencils_tpu/ops/pallas/rbgs.py:153",
+        "evostencils_tpu_torch/csrc/rbgs.cu"),
+    "residual_restrict": (
+        "evostencils_tpu/ops/pallas/transfer.py:104",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    "prolong_correct": (
+        "evostencils_tpu/ops/pallas/transfer.py:174",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
 }
+#: the standalone kernels, which the [evaluator] phase drives
+STANDALONE = ("fused_rbgs_sweep", "jacobi_sweep", "residual_restrict",
+              "prolong_correct")
 
 
 def log(msg):
@@ -119,6 +166,14 @@ LEG_FLOPS = {("down", 2): 6 + 3.75, ("up", 2): 3.0 + 2,
              ("down", 3): 8 + 4.375, ("up", 3): 3.5 + 2}
 
 
+def bytes_bound(nbytes, flops):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the float32 operations over its peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def leg_bound(shape, sweeps, leg):
     """(bound ms, "bytes" or "operations") of a leg on a fine grid of
     ``shape``: it must read u and b and write u once (float32), and move
@@ -131,9 +186,7 @@ def leg_bound(shape, sweeps, leg):
     coarse = int(np.prod([(n - 1) // 2 for n in shape]))
     nbytes = 4 * (3 * fine + coarse)
     flops = fine * (sweeps * (2 * d + 6) + LEG_FLOPS[(leg, d)])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bytes_bound(nbytes, flops)
 
 
 def phase_kernels(torch, transfer, device):
@@ -257,6 +310,137 @@ def phase_kernels_3d(torch, wavefront3d, device):
     return stats
 
 
+def sweep_bound(shape):
+    """A sweep reads u and b and writes u once (float32) and updates each
+    point once, 10 operations as a leg's sweep (leg_bound)."""
+    points = int(np.prod(shape))
+    return bytes_bound(3 * 4 * points, 10 * points)
+
+
+def transfer_bound(shape):
+    """A standalone transfer reads two fine arrays (u and b, or u) and
+    writes one fine or coarse array, and moves the coarse one once: the
+    residual + restriction reads u, b and writes rc; the prolongation +
+    correction reads u, e and writes u, which both come to
+    2 * fine + coarse float32 values.  About 10 operations a fine point
+    (the residual, or the two-axis interpolation and the update) and 20
+    a coarse point (the 3 x 3 restriction)."""
+    fine = int(np.prod(shape))
+    coarse = int(np.prod([(n - 1) // 2 for n in shape]))
+    return bytes_bound(4 * (2 * fine + coarse), 10 * fine + 20 * coarse)
+
+
+def deviation(torch, k, p, rtol, atol):
+    """(max |k - p|, largest excess over atol + rtol * |p|)."""
+    torch.cuda.synchronize()
+    d = (k - p).abs()
+    return float(d.max()), float((d - (atol + rtol * p.abs())).max())
+
+
+def time_standalone(torch, stats, name, tag, shape, kern, plain, bound):
+    k, p, turns = time_pair(torch, kern, plain)
+    ms, by = bound
+    log(f"[{tag}] {name} {shape[0]}x{shape[1]}: kernel {turns[1]:.4f}/"
+        f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms, "
+        f"bound {ms:.4f} ms ({by})")
+    if shape == (4095, 4095):
+        stats[name].update(ms=k, plain_ms=p, bound_ms=ms, bound_by=by)
+
+
+def phase_kernels_rbgs(torch, rbgs, device):
+    """The standalone sweep kernels against their plain versions."""
+    stats = {name: {"max_abs_err": 0.0}
+             for name in ("fused_rbgs_sweep", "jacobi_sweep")}
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(2)
+    for shape in [(4095, 4095), (1023, 1023), (300, 200)]:
+        def normal():
+            return torch.tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=device)
+        u, b = normal(), normal()
+        modes = [("fused", "fused_rbgs_sweep",
+                  lambda: rbgs.fused_rbgs_sweep(u, b, omegas, 1, ANISO),
+                  lambda: rbgs.fused_rbgs_sweep_plain(u, b, omegas, 1,
+                                                      ANISO))]
+        modes += [(f"parity {par}", "jacobi_sweep",
+                   lambda par=par: rbgs.sweep(u, b, omegas, 1, ANISO, par),
+                   lambda par=par: rbgs.sweep_plain(u, b, omegas, 1, ANISO,
+                                                    par))
+                  for par in (-1, 0, 1)]
+        for mode, name, kern, plain in modes:
+            err, excess = deviation(torch, kern(), plain(), TOL_SWEEP,
+                                    TOL_SWEEP)
+            log(f"[kernels-rbgs] {mode} {shape[0]}x{shape[1]}: max|du| "
+                f"{err:.3e} (tol {TOL_SWEEP} + {TOL_SWEEP}|u|)")
+            check(excess <= 0, f"sweep {mode} {shape}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        if shape[0] != shape[1]:
+            continue
+        # the path's Laplacian, timed in turns at the path's levels
+        time_standalone(
+            torch, stats, "fused_rbgs_sweep", "kernels-rbgs", shape,
+            lambda: rbgs.fused_rbgs_sweep(u, b, omegas, 1, VALS),
+            lambda: rbgs.fused_rbgs_sweep_plain(u, b, omegas, 1, VALS),
+            sweep_bound(shape))
+        time_standalone(
+            torch, stats, "jacobi_sweep", "kernels-rbgs", shape,
+            lambda: rbgs.jacobi_sweep(u, b, omegas, 2, VALS),
+            lambda: rbgs.jacobi_sweep_plain(u, b, omegas, 2, VALS),
+            sweep_bound(shape))
+    return stats
+
+
+def phase_kernels_rr(torch, transfer, device):
+    """The standalone transfer kernels against their plain versions."""
+    stats = {name: {"max_abs_err": 0.0}
+             for name in ("residual_restrict", "prolong_correct")}
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(3)
+    for shape in [(4095, 4095), (1023, 1023), (257, 255)]:
+        def normal(*s):
+            return torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device=device)
+        n, m = shape
+        u, b, e = normal(n, m), normal(n, m), normal((n - 1) // 2,
+                                                     (m - 1) // 2)
+        for vals, r_taps, p_taps in ((VALS, R_TAPS, P_TAPS),
+                                     (ANISO, R_TAPS_ASYM, P_TAPS_ASYM)):
+            tag = f"{n}x{m} {'asym' if vals is ANISO else 'path'}"
+            err, excess = deviation(
+                torch, transfer.residual_restrict(u, b, vals, r_taps),
+                transfer.residual_restrict_plain(u, b, vals, r_taps), 0.0,
+                TOL_TRANSFER)
+            log(f"[kernels-rr] residual_restrict {tag}: max|drc| {err:.3e} "
+                f"(tol {TOL_TRANSFER})")
+            check(excess <= 0, f"residual_restrict {tag}")
+            stats["residual_restrict"]["max_abs_err"] = max(
+                stats["residual_restrict"]["max_abs_err"], err)
+            err, excess = deviation(
+                torch, transfer.prolong_correct(u, e, omegas, 2, p_taps),
+                transfer.prolong_correct_plain(u, e, omegas, 2, p_taps), 0.0,
+                TOL_TRANSFER)
+            log(f"[kernels-rr] prolong_correct {tag}: max|du| {err:.3e} "
+                f"(tol {TOL_TRANSFER})")
+            check(excess <= 0, f"prolong_correct {tag}")
+            stats["prolong_correct"]["max_abs_err"] = max(
+                stats["prolong_correct"]["max_abs_err"], err)
+        if n != m:
+            continue
+        time_standalone(
+            torch, stats, "residual_restrict", "kernels-rr", shape,
+            lambda: transfer.residual_restrict(u, b, VALS, R_TAPS),
+            lambda: transfer.residual_restrict_plain(u, b, VALS, R_TAPS),
+            transfer_bound(shape))
+        time_standalone(
+            torch, stats, "prolong_correct", "kernels-rr", shape,
+            lambda: transfer.prolong_correct(u, e, omegas, 1, P_TAPS),
+            lambda: transfer.prolong_correct_plain(u, e, omegas, 1, P_TAPS),
+            transfer_bound(shape))
+    return stats
+
+
 def v21(dim, max_level, min_level):
     from evostencils_tpu_torch.compiler.cycles import v_cycle
     from evostencils_tpu_torch.ir import partitioning as part
@@ -270,9 +454,12 @@ def v21(dim, max_level, min_level):
     return problem, cycle
 
 
-#: the two paths: (label, dimension, max level, min level, kernel module)
-PATHS = {2: ("main", 2, 12, 5, "transfer"),
-         3: ("main3d", 3, 8, 2, "wavefront3d")}
+#: the two V(2,1) paths: (label, dimension, max level, min level, kernel
+#: module, the leg kernels that run once per cycle on every gated level)
+PATHS = {2: ("main", 2, 12, 5, "transfer",
+             ("presmooth_residual_restrict", "prolong_correct_postsmooth_col")),
+         3: ("main3d", 3, 8, 2, "wavefront3d",
+             ("downleg_wavefront_3d", "upleg_wavefront_3d"))}
 
 
 def phase_main_path(torch, kernels, device, card, dim):
@@ -282,7 +469,7 @@ def phase_main_path(torch, kernels, device, card, dim):
                                                       residual_norm_fn)
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
-    label, _, max_level, min_level, module = PATHS[dim]
+    label, _, max_level, min_level, module, legs = PATHS[dim]
     path_kernels = kernels[module]
     problem, cycle = v21(dim, max_level, min_level)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
@@ -313,8 +500,10 @@ def phase_main_path(torch, kernels, device, card, dim):
                                                      device="meta")))
     log(f"[{label}] launches {counts} over {cycles} cycles, {fused} fused "
         "levels")
+    # the legs take every smoother and transfer of the gated levels, so
+    # no standalone kernel runs
     for name, count in counts.items():
-        want = fused * cycles if name in path_kernels.launches else 0
+        want = fused * cycles if name in legs else 0
         check(count == want, f"{name} launched {count} times on the "
               f"{dim}D path, expected {want}")
 
@@ -340,7 +529,7 @@ def phase_main_path(torch, kernels, device, card, dim):
     log(f"[{label}] max error against the analytic solution: {sol_err:.3e} "
         "(relative; gross gate 1e-2)")
     check(np.isfinite(sol_err) and sol_err <= 1e-2, "analytic solution")
-    return {name: counts[name] for name in path_kernels.launches}
+    return {name: counts[name] for name in legs}
 
 
 def phase_solve(torch, device, dim):
@@ -349,7 +538,7 @@ def phase_solve(torch, device, dim):
     from evostencils_tpu_torch.compiler.solve import make_solver
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
-    label, _, max_level, min_level, _ = PATHS[dim]
+    label, _, max_level, min_level, _, _ = PATHS[dim]
     problem, cycle = v21(dim, max_level, min_level)
     b = build_rhs(problem, dtype=torch.float32, device=device)
     runs = {}
@@ -386,14 +575,228 @@ def phase_solve(torch, device, dim):
           f"{dim}D residual histories (rtol 1e-3 above 1e-5 ||b||)")
 
 
+#: the [evaluator] phase: poisson_2d(10, 5) (1023^2), the repetitions of
+#: measure_interleaved, and the TPU's rho for the gen-75 champion and the
+#: red-black V(2,1) at 1023^2 in float32 (VERDICT.md:34-36), printed for
+#: reference only
+EVAL_LEVELS = (10, 5)
+EVAL_REPS = 5
+TPU_RHO = {"gen75": 0.0118, "rb_v21": 0.0183}
+#: repetitions of the timing protocol in the [evolve] run
+EVOLVE_TIMING_REPS = 1
+
+
+def counts_of(kernels):
+    return {name: n for mod in kernels.values()
+            for name, n in mod.launches.items()}
+
+
+def reset(kernels):
+    for mod in kernels.values():
+        mod.reset_launches()
+
+
+def champion(key, fitness):
+    """The entry of ``key`` in results/evolved_champions.json with the
+    lowest ``fitness`` value (picked by fitness, not by position)."""
+    entries = json.loads((ROOT / "results" / "evolved_champions.json")
+                         .read_text())[key]
+    best = min(range(len(entries)), key=lambda i: entries[i][fitness])
+    return best, entries[best]["grammar"]
+
+
+def evaluator_structures(problem):
+    """(key, expression) of the four structures the phase measures."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.ir import transformations
+
+    def hand(partitioning, omega):
+        return v_cycle(problem.level_contexts, problem.rhs_entity,
+                       pre_smoothing=2, post_smoothing=1, omega=omega,
+                       partitioning=partitioning,
+                       coarse_operator=problem.coarsest_operator)
+
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    out = [("rb_v21", hand(part.RedBlack, 1.15)),
+           ("jacobi_v21", hand(part.Single, 0.8))]
+    for key, json_key, fitness in (
+            ("gen75", "poisson2d_1023sq_seeded_gen75", "est_t_conv_ms"),
+            ("gen50", "poisson2d_1023sq_seeded_gen50", "fitness_ms_per_iter")):
+        index, grammar = champion(json_key, fitness)
+        log(f"[evaluator] {key}: {json_key}[{index}], the lowest {fitness}")
+        expr = gp.compile_tree(gp.parse_tree(grammar, pset), pset)[0]
+        transformations.assign_cycle_ids(expr)
+        out.append((key, expr))
+    return out
+
+
+def solve_history(torch, lowered, b, max_iterations, reduction):
+    """(iterations, residual history) of one solve from zero, as the
+    evaluator runs it."""
+    from evostencils_tpu_torch.compiler.solve import make_solver
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                      device=b[0].device)
+    u0 = tuple(torch.zeros_like(x) for x in b)
+    _, k, hist = make_solver(lowered, max_iterations, reduction)(u0, b, om)
+    return k, hist[:k + 1].double().cpu().numpy()
+
+
+def phase_evaluator(torch, kernels, device, card):
+    """The evolution path's measured evaluator on the card; returns the
+    standalone kernels' launches over its measure_interleaved run."""
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
+
+    problem = poisson_2d(max_level=EVAL_LEVELS[0], min_level=EVAL_LEVELS[1])
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    structures = evaluator_structures(problem)
+
+    reset(kernels)
+    t0 = time.perf_counter()
+    results = evaluator.measure_interleaved(structures, reps=EVAL_REPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_of(kernels)
+    log(f"[evaluator] measure_interleaved over {len(structures)} structures "
+        f"x {EVAL_REPS} reps in {wall:.1f} s; launches {counts}")
+    for name in STANDALONE:
+        check(counts[name] > 0, f"{name} never launched on the evaluator "
+              "path")
+    by_key = {r["key"]: r for r in results}
+    for r in results:
+        lo, hi = r["ms_per_iter_spread"]
+        log(f"[evaluator] {r['key']}: rho {r['convergence_factor']:.5f}, "
+            f"{r['iterations']:.0f} iterations to the 1e-12 target "
+            f"(measured to 1e-5), {r['ms_per_iter']:.4f} ms/iteration "
+            f"(spread {lo:.4f}..{hi:.4f}), time to convergence "
+            f"{r['time_to_convergence_ms']:.3f} ms on {card}")
+        check(np.isfinite(r["convergence_factor"])
+              and r["convergence_factor"] < 1, f"{r['key']} converges")
+
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    for key, expr in structures:
+        # one cycle alone: its launches per cycle
+        lowered = lower_cycle(expr, problem.approximation, problem.rhs_entity)
+        om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                          device=device)
+        reset(kernels)
+        lowered.step(tuple(torch.zeros_like(x) for x in b), b, om)
+        per_cycle = {k: n for k, n in counts_of(kernels).items() if n}
+        log(f"[evaluator] {key}: launches per cycle {per_cycle}")
+        if key == "jacobi_v21":
+            # 3 sweeps on each of 1023^2, 511^2, 255^2; one transfer pair
+            # each (the 127^2 level is below both gates)
+            want = {"jacobi_sweep": 9, "residual_restrict": 3,
+                    "prolong_correct": 3}
+            check(per_cycle == want, f"Jacobi V(2,1) launches {per_cycle}, "
+                  f"expected {want}")
+        # the kernels against their plain versions over a whole solve: the
+        # same iterations, and histories that agree to 1e-3 above the
+        # float32 floor of 1e-5 * ||b|| (phase_solve), where the last
+        # entry of a solve to 1e-5 sits
+        (k1, h1), (k0, h0) = (
+            solve_history(torch, lower_cycle(
+                expr, problem.approximation, problem.rhs_entity,
+                use_kernels=use), b, evaluator.max_iterations,
+                evaluator.measurement_reduction)
+            for use in (True, False))
+        rho1, rho0 = ((h[-1] / h[0]) ** (1.0 / (len(h) - 1)) for h in (h1, h0))
+        log(f"[evaluator] {key}: kernels {k1} iterations rho {rho1:.6f}, "
+            f"plain {k0} iterations rho {rho0:.6f} (to 1e-5)")
+        check(k1 == k0, f"{key}: {k1} iterations with the kernels, {k0} "
+              "with the plain versions")
+        floor = 1e-5 * h0[0]
+        rel = np.abs(h1 - h0) / h0
+        log(f"[evaluator] {key}: histories agree to "
+            f"{rel[h0 > 10 * floor].max():.3e} relative above 10x the "
+            f"float32 floor (1e-5 ||b||), {rel.max():.3e} overall")
+        check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
+              f"{key}: residual histories (rtol 1e-3 above 1e-5 ||b||)")
+    rho75, rho_rb = (by_key[k]["convergence_factor"]
+                     for k in ("gen75", "rb_v21"))
+    log(f"[evaluator] gen-75 champion rho {rho75:.5f} vs red-black V(2,1) "
+        f"{rho_rb:.5f} (on the TPU, VERDICT.md:34-36: {TPU_RHO['gen75']} "
+        f"vs {TPU_RHO['rb_v21']}, not a gate)")
+    check(rho75 < rho_rb, "the gen-75 champion converges faster than the "
+          "red-black V(2,1)")
+    return {name: counts[name] for name in STANDALONE}
+
+
+def phase_evolve(torch, kernels):
+    """``python -m evostencils_tpu_torch.optimize poisson2d NSGAII --mu 4
+    --lambda 4 --generations 2 --seed 0`` in this process."""
+    from evostencils_tpu_torch import optimize
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.ir import transformations
+
+    evaluated = []
+    population = CycleEvaluator.evaluate_population
+
+    def counted(self, individuals, pset):
+        evaluated.append(len(individuals))
+        return population(self, individuals, pset)
+
+    out_dir = ROOT / "evo_output" / "chip_smoke"
+    argv = ["poisson2d", "NSGAII", "--mu", "4", "--lambda", "4",
+            "--generations", "2", "--seed", "0", "--output", str(out_dir)]
+    # the one cut of this run's depth: the timing protocol takes one
+    # repetition of its windows of 1, 2, 4 and 8 solves (the evaluator's
+    # default is 3); it takes most of the run
+    reps = CycleEvaluator.timing_reps
+    log(f"[evolve] timing protocol cut to {EVOLVE_TIMING_REPS} repetition "
+        f"per window size (default {reps})")
+    reset(kernels)
+    CycleEvaluator.evaluate_population = counted
+    CycleEvaluator.timing_reps = EVOLVE_TIMING_REPS
+    t0 = time.perf_counter()
+    try:
+        result = optimize.main(argv)
+    finally:
+        CycleEvaluator.evaluate_population = population
+        CycleEvaluator.timing_reps = reps
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counts_of(kernels)
+    log(f"[evolve] {' '.join(argv[:-2])}: {sum(evaluated)} evaluations in "
+        f"{len(evaluated)} batches, {wall:.1f} s wall; launches {counts}")
+
+    problem = optimize.get_problem("poisson2d")
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    best = result["grammar_string"]
+    individual = gp.parse_tree(best, pset)
+    check(str(individual) == best, "the best individual re-parses")
+    expr = gp.compile_tree(individual, pset)[0]
+    transformations.assign_cycle_ids(expr)
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device="cuda")
+    evaluator.timing_enabled = False
+    res = evaluator.evaluate_expression(expr)
+    log(f"[evolve] best individual ({len(individual)} nodes) re-evaluated: "
+        f"rho {res.convergence_factor:.5f}, {res.iterations:.0f} iterations")
+    check(np.isfinite(res.iterations) and res.convergence_factor < 1,
+          "the best individual converges")
+
+
 def main():
     import torch
+
+    start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from evostencils_tpu_torch.config import setup_device
-    from evostencils_tpu_torch.ops.kernels import _build, transfer, wavefront3d
+    from evostencils_tpu_torch.ops.kernels import (_build, rbgs, transfer,
+                                                   wavefront3d)
 
     device = setup_device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -404,21 +807,28 @@ def main():
     log(f"[device] {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; count {torch.cuda.device_count()}")
     log(f"[device] {card}")
+    log(card)
 
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
-    kernels = {"transfer": transfer, "wavefront3d": wavefront3d}
+    kernels = {"transfer": transfer, "wavefront3d": wavefront3d,
+               "rbgs": rbgs}
     stats = phase_kernels(torch, transfer, device)
     stats.update(phase_kernels_3d(torch, wavefront3d, device))
+    stats.update(phase_kernels_rbgs(torch, rbgs, device))
+    stats.update(phase_kernels_rr(torch, transfer, device))
     launches = phase_main_path(torch, kernels, device, card, 2)
     phase_solve(torch, device, 2)
     launches.update(phase_main_path(torch, kernels, device, card, 3))
     phase_solve(torch, device, 3)
+    launches.update(phase_evaluator(torch, kernels, device, card))
+    phase_evolve(torch, kernels)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
+    log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
 
     rows = []
     for k, (replaces, source) in KERNELS.items():

@@ -1,6 +1,6 @@
 """Cycle compiler: multigrid expression IR -> eager PyTorch programs
-(counterpart of evostencils_tpu/compiler/lower.py, the part the 2D and 3D
-Poisson V-cycles reach).
+(counterpart of evostencils_tpu/compiler/lower.py, the part that the 2D and
+3D Poisson V-cycles and the evolved 2D Poisson cycles reach).
 
 * Grid functions are tuples of per-field tensors (interior points only).
 * Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
@@ -15,6 +15,16 @@ Poisson V-cycles reach).
   ``ops.kernels.wavefront3d`` (constant 7-point 3D operators, exactly two
   pre-sweeps and one post-sweep, lower.py:1029-1090) on every level its
   gate admits; the other levels run the generic lowering below.
+* Outside a planned leg, a 2D smoother cycle of a constant 5-point operator
+  runs one call to ``ops.kernels.rbgs`` (a fused red-black sweep or a
+  Jacobi sweep), a residual restricted by a separable 3-tap transfer one
+  call to ``transfer.residual_restrict``, and a coarse-grid correction
+  ``u + omega * P e`` one call to ``transfer.prolong_correct``, on the
+  levels the kernels' gates admit (lower.py:799-917, :1311-1376).  The 3D
+  counterparts (``rbgs3d``, ``leg3d``) are not ported yet: 3D cycles
+  outside the wavefront legs run the generic lowering.
+* Block smoothers (collective block Jacobi) solve their blocks through
+  ``ops.local_solve`` (lower.py:1546-1553, :1686-1706).
 * Device constants (dense coarse inverses, red-black masks) are built once
   per lowered cycle, device and dtype, and cached.
 
@@ -23,7 +33,9 @@ An IR node outside this subset raises ``NotImplementedError`` naming it.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import reduce
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,7 +48,8 @@ from ..ir import partitioning as part
 from ..ir import transformations
 from ..ops import apply as ops
 from ..ops.apply import red_black_masks
-from ..ops.kernels import transfer, wavefront3d
+from ..ops.kernels import rbgs, transfer, wavefront3d
+from ..ops.local_solve import get_block_solve_plan
 from ..stencils import constant, periodic
 
 
@@ -99,19 +112,6 @@ def dense_inverse(op) -> np.ndarray:
 # Fusion planning (structural, IR only)
 # ---------------------------------------------------------------------------
 
-def five_point_values(stencil) -> Optional[Tuple[float, ...]]:
-    """(center, up, down, left, right) = the values at (0,0), (-1,0),
-    (1,0), (0,-1), (0,1) of a constant 5-point 2D stencil, else None
-    (ops/pallas/rbgs.py:127-136)."""
-    entries = dict(stencil.entries)
-    wanted = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)]
-    if set(entries) - set(wanted):
-        return None
-    if any(isinstance(v, complex) for v in entries.values()):
-        return None
-    return tuple(float(entries.get(o, 0.0)) for o in wanted)
-
-
 #: offsets of a 7-point star, in the value order of seven_point_values
 #: (a copy of ops/pallas/rbgs3d.py:30-32)
 SEVEN_OFFSETS = [(0, 0, 0), (-1, 0, 0), (1, 0, 0),
@@ -156,7 +156,7 @@ def _smoother_sig(A):
     st = _scalar_constant_stencil(A)
     if st is None:
         return None
-    vals = five_point_values(st)
+    vals = rbgs.five_point_values(st)
     if vals is not None and vals[0] != 0.0:
         return ("const5", vals)
     vals = seven_point_values(st)
@@ -309,6 +309,17 @@ def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
 
 
 @dataclass
+class ChainLink:
+    """One finished chunk of a level-chunked run: its best cycle expression
+    and the grid-function entities it binds (lower.py:1823-1831).  The
+    composed lowering of such chains is not ported yet; the evaluator
+    raises on them."""
+    root: base.Cycle
+    approximation: object
+    rhs: object
+
+
+@dataclass
 class _Plans:
     super_by_smoother: Dict[int, dict]
     super_by_mult: Dict[int, dict]
@@ -347,7 +358,7 @@ class _Lowering:
     """One evaluation of a cycle expression on bound fields.
 
     ``constants`` is the per-lowered-cycle cache of device tensors; it
-    outlives the evaluation.  ``use_kernels=False`` runs the legs' plain
+    outlives the evaluation.  ``use_kernels=False`` runs the kernels' plain
     versions even on a CUDA device (a comparison run only)."""
 
     def __init__(self, approximation, rhs, omegas, *, plans=None,
@@ -360,9 +371,15 @@ class _Lowering:
         self.env: Dict[int, tuple] = {}
         self.memo: Dict[int, tuple] = {}
         self._super_results: Dict[int, object] = {}
-        # per signature: (gate, down-leg, up-leg, pre-sweeps, post-sweeps);
-        # None sweeps take any count the leg accepts
+        # the standalone kernels: the sweep by red-black-ness, the
+        # transfers; and per signature the legs: (gate, down-leg, up-leg,
+        # pre-sweeps, post-sweeps), None sweeps taking any count the leg
+        # accepts
         if use_kernels:
+            self._sweeps = {True: rbgs.fused_rbgs_sweep,
+                            False: rbgs.jacobi_sweep}
+            self._residual_restrict = transfer.residual_restrict
+            self._prolong_correct = transfer.prolong_correct
             self._legs = {
                 "const5": (transfer.supports,
                            transfer.presmooth_residual_restrict,
@@ -372,6 +389,10 @@ class _Lowering:
                            wavefront3d.downleg_wavefront_3d,
                            wavefront3d.upleg_wavefront_3d, 2, 1)}
         else:
+            self._sweeps = {True: rbgs.fused_rbgs_sweep_plain,
+                            False: rbgs.jacobi_sweep_plain}
+            self._residual_restrict = transfer.residual_restrict_plain
+            self._prolong_correct = transfer.prolong_correct_plain
             self._legs = {
                 "const5": (transfer.supports,
                            transfer.presmooth_residual_restrict_plain,
@@ -441,6 +462,9 @@ class _Lowering:
                 out = self._run_super_fusion(plan)
                 if out is not None:
                     return out[1]
+            fused = self._try_fused_residual_restrict(expr)
+            if fused is not None:
+                return fused
             x = self.eval_function(expr.operand2)
             return self.apply_operator(expr.operand1, x)
         if isinstance(expr, base.Addition):
@@ -469,8 +493,14 @@ class _Lowering:
             if _is_nonlinear(cycle.correction.operand2.operator):
                 raise NotImplementedError(
                     "nonlinear smoother cycles are not ported yet")
+            fused = self._try_fused_smoother(cycle, x)
+            if fused is not None:
+                return fused
             if cycle.partitioning is part.RedBlack:
                 return self._red_black_sweep(cycle, x, omega)
+        fused = self._try_fused_prolong_correct(cycle, x)
+        if fused is not None:
+            return fused
         c = self.eval_function(cycle.correction)
         return tuple(xi + omega * ci for xi, ci in zip(x, c))
 
@@ -495,6 +525,116 @@ class _Lowering:
                          for ui, ci, m in zip(u, c, masks))
 
         return half(half(x, 0), 1)
+
+    # -- standalone kernels (ops/kernels/rbgs.py, transfer.py) ---------------
+
+    @staticmethod
+    def _pointwise_smoother_entry(cycle):
+        """(scalar operator entry, residual) when the cycle is a
+        pointwise-diagonal smoother u + w*D^-1*(b - A u) of a scalar
+        (1x1-system) operator, else None (lower.py:656-678)."""
+        corr = cycle.correction
+        L = corr.operand1.operand
+        residual = corr.operand2
+        if residual.approximation is not cycle.approximation:
+            return None
+        if not isinstance(L, (system.Diagonal, system.ElementwiseDiagonal,
+                              base.Diagonal)):
+            return None
+        entry = residual.operator
+        if isinstance(entry, system.Operator):
+            if len(entry.entries) != 1:
+                return None
+            entry = entry.entries[0][0]
+        if not isinstance(entry, base.Operator):
+            return None
+        return entry, residual
+
+    def _star_smoother_parts(self, cycle, x):
+        """(stencil values, b) when the cycle is a pointwise-diagonal
+        smoother of a scalar constant 5-point 2D operator, else None
+        (lower.py:680-707, the 2D branch)."""
+        found = self._pointwise_smoother_entry(cycle)
+        if found is None:
+            return None
+        entry, residual = found
+        if _is_nonlinear(entry) or _has_stencil_field(entry):
+            return None
+        st = entry.generate_stencil()
+        if not isinstance(st, constant.Stencil) or x[0].ndim != 2:
+            return None
+        vals = rbgs.five_point_values(st)
+        if vals is None or vals[0] == 0.0:
+            return None
+        return vals, self.eval_function(residual.rhs)[0]
+
+    def _try_fused_smoother(self, cycle, x):
+        """One sweep kernel for a red-black or single (Jacobi) smoother
+        cycle of a constant 5-point 2D operator on a level the sweep gate
+        admits, else None for the generic path (lower.py:799-917, the 2D
+        constant-stencil branch)."""
+        parts = self._star_smoother_parts(cycle, x)
+        if parts is None:
+            return None
+        vals, b = parts
+        red_black = cycle.partitioning is part.RedBlack
+        if not red_black and cycle.partitioning is not part.Single:
+            return None
+        if not rbgs.supports(x[0], vals):
+            return None
+        return (self._sweeps[red_black](x[0].contiguous(), b.contiguous(),
+                                        self.omegas, cycle.global_id, vals),)
+
+    def _try_fused_residual_restrict(self, expr):
+        """``Multiplication(Restriction, Residual)`` of a scalar constant
+        5-point 2D operator as one kernel, on a level the transfer gate
+        admits, else None (lower.py:1311-1340)."""
+        R, res = expr.operand1, expr.operand2
+        if not isinstance(res, base.Residual):
+            return None
+        if not isinstance(R, (system.Restriction, base.Restriction)) or \
+                isinstance(R, base.ZeroRestriction):
+            return None
+        st = _scalar_constant_stencil(res.operator)
+        vals = rbgs.five_point_values(st) if st is not None else None
+        if vals is None:
+            return None
+        taps = transfer_three_tap(R)
+        if taps is None:
+            return None
+        x = self.eval_function(res.approximation)
+        if len(x) != 1 or not transfer.supports(x[0]):
+            return None
+        b = self.eval_function(res.rhs)
+        return (self._residual_restrict(x[0].contiguous(), b[0].contiguous(),
+                                        vals, taps),)
+
+    def _try_fused_prolong_correct(self, cycle, x):
+        """Cycle tail ``u + omega * Multiplication(Prolongation, e)`` as one
+        kernel on a 2D level the transfer gate admits, else None
+        (lower.py:1342-1376)."""
+        corr = cycle.correction
+        if not isinstance(corr, base.Multiplication):
+            return None
+        P = corr.operand1
+        if not isinstance(P, (system.Prolongation, base.Prolongation)) or \
+                isinstance(P, base.ZeroProlongation):
+            return None
+        if len(x) != 1 or not transfer.supports(x[0]):
+            return None
+        taps = transfer_three_tap(P)
+        if taps is None:
+            return None
+        e = self.eval_function(corr.operand2)
+        if len(e) != 1:
+            return None
+        u = x[0]
+        n, m = u.shape
+        if e[0].dtype != u.dtype or \
+                tuple(e[0].shape) != ((n - 1) // 2, (m - 1) // 2):
+            return None
+        return (self._prolong_correct(u.contiguous(), e[0].contiguous(),
+                                      self.omegas, cycle.global_id, taps),)
 
     # -- fused legs (ops/kernels/transfer.py, wavefront3d.py) ----------------
 
@@ -624,7 +764,8 @@ class _Lowering:
 
     def apply_inverse(self, L, fields):
         """Point-Jacobi inverses (lower.py:1519-1545 and the scalar branch
-        of the collective point inverse, lower.py:1575-1588)."""
+        of the collective point inverse, lower.py:1575-1588) and block
+        inverses (lower.py:1546-1553)."""
         if isinstance(L, system.Diagonal):
             op = self._unwrap_operator(L.operand)
             return tuple(self._diagonal_inverse(op.entries[i][i], x)
@@ -639,8 +780,38 @@ class _Lowering:
         if isinstance(L, base.Diagonal):
             inv = periodic.inverse(periodic.as_periodic(L.generate_stencil()))
             return tuple(ops.apply_stencil(inv, f) for f in fields)
+        if isinstance(L, base.BlockDiagonal):
+            ps = periodic.as_periodic(L.generate_stencil())
+            plan = get_block_solve_plan([[ps]], L.block_size,
+                                        tuple(L.grid.size))
+            return plan.apply(fields)
+        if isinstance(L, system.Operator):
+            return self._system_local_inverse(L, fields)
         raise NotImplementedError(
             f"inverse of {type(L).__name__} is not ported yet")
+
+    def _system_local_inverse(self, op: system.Operator, fields):
+        """Invert a system operator whose entries are block-diagonal
+        periodic stencils (collective block Jacobi) or pointwise-diagonal
+        ones (lower.py:1686-1706)."""
+        stencils = [[periodic.as_periodic(e.generate_stencil()) for e in row]
+                    for row in op.entries]
+        periods = [ps.period for row in stencils for ps in row
+                   if ps is not None]
+        # the block lattice must tile every entry's period exactly: the
+        # per-axis lcm (lower.py:1693-1699)
+        lcm_period = tuple(reduce(math.lcm, (p[k] for p in periods), 1)
+                           for k in range(len(periods[0])))
+        all_diagonal = all(ps is None or periodic.is_diagonal(ps)
+                           for row in stencils for ps in row)
+        if all_diagonal and lcm_period == (1,) * len(lcm_period):
+            if len(op.entries) != 1:
+                raise NotImplementedError(
+                    "collective point inverse of a coupled system is not "
+                    "ported yet")
+            return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
+        shape = tuple(op.entries[0][0].grid.size)
+        return get_block_solve_plan(stencils, lcm_period, shape).apply(fields)
 
     # -- coarse-grid solver ---------------------------------------------------
 
@@ -685,7 +856,7 @@ def lower_cycle(root: base.Cycle, approximation, rhs, *,
                 use_kernels: bool = True) -> LoweredCycle:
     """Lower a cycle expression to a step function (lower.py:1806-1820).
 
-    ``use_kernels=False`` makes the fused legs run their plain PyTorch
+    ``use_kernels=False`` makes the kernels run their plain PyTorch
     versions on every device; it exists only for comparing the kernels
     with them on the card."""
     n = transformations.assign_cycle_ids(root)

@@ -11,13 +11,24 @@
 //   (_pc_smooth_col_kernel):
 //   u += omega_0 * P(e) with the separable 3-tap 1:2 prolongation of the
 //   coarse correction e, then S in [1, 3] red-black sweeps with omega_1..S.
+// es_residual_restrict replaces the TPU kernel
+//   evostencils_tpu/ops/pallas/transfer.py residual_rowrestrict (_rr_kernel)
+//   and the column restriction that compiler/lower.py:1338-1340 runs after
+//   it in XLA: r = b - A u and the full 2:1 restriction, rc ((n-1)/2,
+//   (m-1)/2), for smoother chains that no down-leg takes.
+// es_prolong_correct replaces prolong_row_correct (_pc_kernel) and the
+//   column prolongation that lower.py:1373-1376 runs before it:
+//   u + omega * P(e) with the full 1:2 prolongation of e.
 //
 // What bounds them: device-memory bytes.  Each leg must read u and b once
 // and write u once, plus the coarse array (rc written or e read); the
 // arithmetic is a few dozen flops per point, far below the card's rate.
 // The design keeps every intermediate sweep, the residual and the
 // transfer inside shared memory, so a leg costs one pass over u and b
-// instead of one pass per half-sweep.
+// instead of one pass per half-sweep.  es_residual_restrict and
+// es_prolong_correct are single passes too: the first keeps u's window and
+// the residual in shared memory, the second is one thread a fine point,
+// reading the (at most four) coarse values it needs through the cache.
 //
 // The TPU kernel walks full-width row blocks in order.  Here thread blocks
 // run in parallel, so each one owns a TILE x TILE fine tile and loads it
@@ -212,6 +223,92 @@ upleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
   store_tile(su, u_out, p, r0, c0);
 }
 
+// r = b - A u and its restriction for the coarse tile whose first point is
+// (blockIdx.y * RR_CT, blockIdx.x * RR_CT): fine rows and columns 2 * first
+// .. 2 * first + 2 * RR_CT of r (RR_RW of them), which need u one cell
+// further out (RR_UW).  2 * 67^2 + 65^2 floats = 34,856 bytes of shared
+// memory; u is read 67^2 / 64^2 = 1.10 times.
+constexpr int RR_CT = 32;
+constexpr int RR_RW = 2 * RR_CT + 1;
+constexpr int RR_UW = RR_RW + 2;
+
+__global__ void __launch_bounds__(THREADS)
+residual_restrict_kernel(const float* __restrict__ u,
+                         const float* __restrict__ b, float* __restrict__ rc,
+                         Leg p) {
+  __shared__ float su[RR_UW * RR_UW];
+  __shared__ float sr[RR_RW * RR_RW];
+  const int r0 = blockIdx.y * 2 * RR_CT, c0 = blockIdx.x * 2 * RR_CT;
+  for (int idx = threadIdx.x; idx < RR_UW * RR_UW; idx += blockDim.x) {
+    const int gr = r0 - 1 + idx / RR_UW, gc = c0 - 1 + idx % RR_UW;
+    su[idx] = inside(p, gr, gc) ? u[static_cast<long>(gr) * p.m + gc] : 0.f;
+  }
+  __syncthreads();
+  // the residual in the order of _rr_kernel (transfer.py:86-88)
+  for (int idx = threadIdx.x; idx < RR_RW * RR_RW; idx += blockDim.x) {
+    const int i = idx / RR_RW, j = idx % RR_RW;
+    const int gr = r0 + i, gc = c0 + j;
+    float r = 0.f;
+    if (inside(p, gr, gc)) {
+      const int w = (i + 1) * RR_UW + j + 1;
+      const float au = p.c * su[w] + p.a_up * su[w - RR_UW] +
+                       p.a_dn * su[w + RR_UW] + p.a_lf * su[w - 1] +
+                       p.a_rt * su[w + 1];
+      r = b[static_cast<long>(gr) * p.m + gc] - au;
+    }
+    sr[idx] = r;
+  }
+  __syncthreads();
+  // the row taps first, then the column taps (lower.py:1338-1340)
+  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
+  for (int idx = threadIdx.x; idx < RR_CT * RR_CT; idx += blockDim.x) {
+    const int i = idx / RR_CT, j = idx % RR_CT;
+    const int ci = blockIdx.y * RR_CT + i, cj = blockIdx.x * RR_CT + j;
+    if (ci >= nc || cj >= mc) continue;
+    const float* r = sr + 2 * i * RR_RW + 2 * j;
+    float rows[3];
+    for (int e = 0; e < 3; ++e)
+      rows[e] = p.tr[0] * r[e] + p.tr[1] * r[RR_RW + e] +
+                p.tr[2] * r[2 * RR_RW + e];
+    rc[static_cast<long>(ci) * mc + cj] =
+        p.tc[0] * rows[0] + p.tc[1] * rows[1] + p.tc[2] * rows[2];
+  }
+}
+
+// The column expansion of coarse row ci at fine column gc; 0 outside the
+// coarse grid (transfer.py:146-149 on each axis).
+__device__ __forceinline__ float col_prolong(const float* __restrict__ e,
+                                             const Leg& p, int ci, int gc) {
+  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
+  if (ci < 0 || ci >= nc) return 0.f;
+  const float* er = e + static_cast<long>(ci) * mc;
+  if (gc & 1) return p.tc[1] * er[(gc - 1) / 2];
+  const int j = gc / 2;
+  const float left = j > 0 ? er[j - 1] : 0.f;
+  const float right = j < mc ? er[j] : 0.f;
+  return p.tc[2] * left + p.tc[0] * right;
+}
+
+// u + omega * P(e), one thread a fine point: the column expansion of the
+// (one or two) coarse rows, then the row expansion (lower.py:1373-1376).
+__global__ void __launch_bounds__(THREADS)
+prolong_correct_kernel(const float* __restrict__ u,
+                       const float* __restrict__ e,
+                       const float* __restrict__ omegas,
+                       float* __restrict__ u_out, Leg p) {
+  const long g = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= static_cast<long>(p.n) * p.m) return;
+  const int gr = static_cast<int>(g / p.m), gc = static_cast<int>(g % p.m);
+  float corr;
+  if (gr & 1) {
+    corr = p.tr[1] * col_prolong(e, p, (gr - 1) / 2, gc);
+  } else {
+    corr = p.tr[2] * col_prolong(e, p, gr / 2 - 1, gc) +
+           p.tr[0] * col_prolong(e, p, gr / 2, gc);
+  }
+  u_out[g] = u[g] + omegas[p.om[0]] * corr;
+}
+
 Leg make_leg(const double* coeffs, const int* om_ids, int n_ids, int sweeps,
              int n, int m) {
   Leg p;
@@ -289,5 +386,40 @@ extern "C" int es_prolong_correct_postsmooth(
   upleg_kernel<<<tiles(n, m), THREADS, UP_SMEM,
                  static_cast<cudaStream_t>(stream)>>>(u, e, b, omegas, u_out,
                                                       p);
+  return cudaGetLastError();
+}
+
+// coeffs as for es_presmooth_residual_restrict.  Writes rc ((n-1)/2,
+// (m-1)/2) = R (b - A u); replaces the TPU kernel
+// evostencils_tpu/ops/pallas/transfer.py residual_rowrestrict (_rr_kernel)
+// together with the column half that lower.py:1340 leaves to XLA.
+extern "C" int es_residual_restrict(const float* u, const float* b,
+                                    const double* coeffs, float* rc, int n,
+                                    int m, void* stream) {
+  if (bad_shape(n, m)) return cudaErrorInvalidValue;
+  const Leg p = make_leg(coeffs, nullptr, 0, 0, n, m);
+  const int nc = (n - 1) / 2, mc = (m - 1) / 2;
+  const dim3 grid((mc + RR_CT - 1) / RR_CT, (nc + RR_CT - 1) / RR_CT);
+  residual_restrict_kernel<<<grid, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(u, b, rc, p);
+  return cudaGetLastError();
+}
+
+// coeffs as above (the stencil values are not read).  om_id: index of the
+// coarse-grid-correction factor in omegas.  Writes u + omega * P(e);
+// replaces evostencils_tpu/ops/pallas/transfer.py prolong_row_correct
+// (_pc_kernel) together with the column half that lower.py:1373 leaves to
+// XLA.
+extern "C" int es_prolong_correct(const float* u, const float* e,
+                                  const float* omegas, int om_id,
+                                  const double* coeffs, float* u_out, int n,
+                                  int m, void* stream) {
+  if (bad_shape(n, m)) return cudaErrorInvalidValue;
+  const Leg p = make_leg(coeffs, &om_id, 1, 0, n, m);
+  const long points = static_cast<long>(n) * m;
+  const auto blocks = static_cast<unsigned>((points + THREADS - 1) / THREADS);
+  prolong_correct_kernel<<<blocks, THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(u, e, omegas,
+                                                                u_out, p);
   return cudaGetLastError();
 }

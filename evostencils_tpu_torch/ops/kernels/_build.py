@@ -28,7 +28,8 @@ import torch
 
 _PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
-           _PACKAGE / "csrc" / "wavefront3d.cu")
+           _PACKAGE / "csrc" / "wavefront3d.cu",
+           _PACKAGE / "csrc" / "rbgs.cu")
 BUILD_DIR = _PACKAGE / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -46,6 +47,16 @@ SIGNATURES = {
     # u, e, b, omegas, omega ids, sweeps, coefficients, u_out, n, m, stream
     "es_prolong_correct_postsmooth":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # u, b, coefficients, rc, n, m, stream
+    "es_residual_restrict": (_P, _P, _DOUBLES, _P, _INT, _INT, _P),
+    # u, e, omegas, omega id, coefficients, u_out, n, m, stream
+    "es_prolong_correct":
+        (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # u, b, omegas, omega id, parity, stencil values, out, n, m, stream
+    "es_sweep": (_P, _P, _P, _INT, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # u, b, omegas, omega id, stencil values, out, n, m, stream
+    "es_fused_rbgs_sweep":
+        (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
     # u, b, omegas, omega ids, coefficients, u_out, rc, n0, n1, n2, stream
     "es_downleg_wavefront_3d":
         (_P, _P, _P, _INTS, _DOUBLES, _P, _P, _INT, _INT, _INT, _P),
@@ -129,15 +140,15 @@ def on_card(u) -> bool:
         return True
     if u.device.type == "cpu":
         return False
-    raise ValueError(f"no leg implementation for device {u.device}")
+    raise ValueError(f"no kernel implementation for device {u.device}")
 
 
 def check_card_tensors(*tensors) -> None:
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA legs take float32, got {t.dtype}")
+            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError("the CUDA legs take contiguous tensors")
+            raise ValueError("the CUDA kernels take contiguous tensors")
 
 
 def launch(counts, name, entry, device, *args) -> None:

@@ -1,8 +1,15 @@
-"""The V-cycle's two fused leg kernels (counterpart of
-evostencils_tpu/ops/pallas/transfer.py ``presmooth_residual_restrict`` and
-``prolong_correct_postsmooth_col``).
+"""The V-cycle's two fused leg kernels and the two standalone transfer
+kernels (counterpart of evostencils_tpu/ops/pallas/transfer.py
+``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``,
+``residual_rowrestrict`` and ``prolong_row_correct``).
 
-Each leg has, in this module:
+The TPU splits the standalone transfers into a row half (Pallas) and a
+column half (XLA, ``lower._col_restrict`` / ``_col_prolong``), because
+Mosaic cannot stride the lane axis.  Here each is one kernel over both
+axes: ``residual_restrict`` is r = b - A u with its full restriction, and
+``prolong_correct`` is u + omega * P(e) with the full prolongation.
+
+Each kernel has, in this module:
 
 * its wrapper: a CUDA tensor launches the hand-written kernel from
   ``csrc/transfer.cu`` (float32, contiguous) or raises; a CPU tensor takes
@@ -26,6 +33,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from ...stencils.constant import Stencil
+import torch.nn.functional as F
+
 from ..apply import (apply_constant, axis_prolong_3tap, axis_restrict_3tap,
                      red_black_masks)
 from . import _build
@@ -35,9 +44,10 @@ MAX_SWEEPS = 3
 MIN_ROWS = 129
 MIN_COLS = 128
 
-#: kernel launches per leg since the last reset_launches()
+#: kernel launches per kernel since the last reset_launches()
 launches = {"presmooth_residual_restrict": 0,
-            "prolong_correct_postsmooth_col": 0}
+            "prolong_correct_postsmooth_col": 0,
+            "residual_restrict": 0, "prolong_correct": 0}
 
 
 def reset_launches() -> None:
@@ -111,6 +121,27 @@ def prolong_correct_postsmooth_col_plain(u, e, b, omegas, omega_ids,
     u = u + omegas[omega_ids[0]] * p
     return _rb_sweeps_plain(u, b, omegas, omega_ids[1:],
                             _five_point(stencil_vals), 1.0 / stencil_vals[0])
+
+
+def residual_restrict_plain(u, b, stencil_vals, taps):
+    """Plain version of :func:`residual_restrict`: the residual summed in
+    the order of ``_rr_kernel`` (transfer.py:86-88), then the row taps and
+    the column taps, as lower.py:1338-1340 composes them."""
+    c, up, dn, lf, rt = (float(v) for v in stencil_vals)
+    p = F.pad(u, (1, 1, 1, 1))
+    au = (c * u + up * p[:-2, 1:-1] + dn * p[2:, 1:-1] + lf * p[1:-1, :-2]
+          + rt * p[1:-1, 2:])
+    return axis_restrict_3tap(axis_restrict_3tap(b - au, 0, taps[0]), 1,
+                              taps[1])
+
+
+def prolong_correct_plain(u, e, omegas, omega_id, taps):
+    """Plain version of :func:`prolong_correct`: the column prolongation,
+    then the row prolongation and the correction, as lower.py:1373-1376
+    composes them."""
+    n, m = u.shape
+    p = axis_prolong_3tap(axis_prolong_3tap(e, 1, taps[1], m), 0, taps[0], n)
+    return u + omegas[omega_id] * p
 
 
 # ---------------------------------------------------------------------------
@@ -196,4 +227,62 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
                   e.data_ptr(), b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), len(ids) - 1,
                   _coefficients(stencil_vals, taps), u_out.data_ptr(), n, m)
+    return u_out
+
+
+def _check_transfer(u, others, omegas=None, omega_id=0):
+    """Shape and index checks of the standalone transfers."""
+    if any(t.device != u.device for t in others):
+        raise ValueError("transfer tensors lie on different devices")
+    if u.ndim != 2:
+        raise ValueError(f"u {tuple(u.shape)} must be 2D")
+    n, m = u.shape
+    if n < 3 or m < 3 or n % 2 == 0 or m % 2 == 0:
+        raise ValueError(f"grid {n}x{m} must be odd on both axes")
+    if omegas is not None:
+        if omegas.ndim != 1:
+            raise ValueError("omegas must be a 1-D relaxation-factor vector")
+        if not 0 <= int(omega_id) < omegas.shape[0]:
+            raise IndexError(f"omega id {omega_id} outside a vector of "
+                             f"{omegas.shape[0]}")
+
+
+def residual_restrict(u: torch.Tensor, b: torch.Tensor, stencil_vals, taps):
+    """``R (b - A u)``: the residual of the constant 5-point operator
+    ``stencil_vals`` = (center, up, down, left, right) and its full
+    restriction with the (row, column) 3-tap pair ``taps``; returns
+    ``rc ((n-1)/2, (m-1)/2)``."""
+    _check_transfer(u, (b,))
+    if b.shape != u.shape:
+        raise ValueError(f"u {tuple(u.shape)} and b {tuple(b.shape)} differ")
+    if not _build.on_card(u):
+        return residual_restrict_plain(u, b, stencil_vals, taps)
+    _build.check_card_tensors(u, b)
+    n, m = u.shape
+    rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
+    _build.launch(launches, "residual_restrict", "es_residual_restrict",
+                  u.device, u.data_ptr(), b.data_ptr(),
+                  _coefficients(stencil_vals, taps), rc.data_ptr(), n, m)
+    return rc
+
+
+def prolong_correct(u: torch.Tensor, e: torch.Tensor, omegas: torch.Tensor,
+                    omega_id: int, taps):
+    """``u + omegas[omega_id] * P(e)`` with the full 1:2 prolongation of the
+    coarse correction ``e`` ((n-1)/2, (m-1)/2) by the (row, column) 3-tap
+    pair ``taps``."""
+    _check_transfer(u, (e, omegas), omegas, omega_id)
+    n, m = u.shape
+    if tuple(e.shape) != ((n - 1) // 2, (m - 1) // 2):
+        raise ValueError(f"coarse correction {tuple(e.shape)} does not "
+                         f"match the grid {n}x{m}")
+    if not _build.on_card(u):
+        return prolong_correct_plain(u, e, omegas, int(omega_id), taps)
+    _build.check_card_tensors(u, e, omegas)
+    u_out = torch.empty_like(u)
+    # the kernel reads only the taps of the coefficient block
+    _build.launch(launches, "prolong_correct", "es_prolong_correct",
+                  u.device, u.data_ptr(), e.data_ptr(), omegas.data_ptr(),
+                  int(omega_id), _coefficients((1.0, 0, 0, 0, 0), taps),
+                  u_out.data_ptr(), n, m)
     return u_out

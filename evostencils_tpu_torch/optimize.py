@@ -1,0 +1,161 @@
+"""Evolve multigrid cycles for a problem on the port (the port's twin of
+scripts/optimize.py, with its options and defaults).
+
+Usage:
+    python -m evostencils_tpu_torch.optimize <problem> [method] [options]
+
+    problem: poisson2d (levels 9 -> 5)
+    method:  NSGAII (default) | NSGAIII | SOGP | RandomSearch
+
+Options:
+    --mu N --lambda N --generations N --levels-per-run N
+    --max-level N --min-level N
+    --output DIR   (default ./evo_output)
+    --cpu          run on the CPU (float64 unless --f32)
+    --f32          evaluate in float32 (always so on the card)
+    --seed N --resume --islands N --generalization-interval N
+    --no-robustness --model-based
+
+On the card every evaluation runs in float32, as on the TPU: the evaluator
+measures convergence to 1e-5 and extrapolates the iteration count to the
+problem's 1e-12 target (scripts/optimize.py:92-105).  The other problems of
+scripts/optimize.py come with later slices of the port: poisson3d with the
+3D evaluator slice (the rbgs3d and leg3d kernels), poisson2d_var,
+elasticity2d, helmholtz2d, helmholtz2d_split and fas2d with their problem
+families.  ``--model-based`` raises: prediction/ is not ported yet.  It
+writes ``best_grammar.txt`` and ``result.p`` to ``--output``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import random
+import sys
+
+import numpy as np
+
+#: problems of scripts/optimize.py:27-57 and the slice of the port that
+#: brings each one
+LATER_SLICES = {
+    "poisson3d": "the 3D evaluator slice (rbgs3d and leg3d kernels)",
+    "poisson2d_var": "the variable-coefficient Poisson slice",
+    "elasticity2d": "the linear elasticity slice",
+    "helmholtz2d": "the Helmholtz slice",
+    "helmholtz2d_split": "the Helmholtz slice",
+    "fas2d": "the FAS slice",
+}
+
+
+def get_problem(name, max_level=None, min_level=None):
+    from .problems import poisson
+    factories = {"poisson2d": (poisson.poisson_2d, 9, 5)}
+    if name in LATER_SLICES:
+        raise SystemExit(f"problem {name!r} is not ported yet; it comes "
+                         f"with {LATER_SLICES[name]}")
+    if name not in factories:
+        raise SystemExit(f"unknown problem {name!r}; "
+                         f"available: {sorted(factories)}")
+    fn, default_max, default_min = factories[name]
+    return fn(max_level=max_level or default_max,
+              min_level=min_level or default_min)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m evostencils_tpu_torch.optimize")
+    parser.add_argument("problem")
+    parser.add_argument("method", nargs="?", default="NSGAII")
+    parser.add_argument("--mu", type=int, default=8)
+    parser.add_argument("--lambda", dest="lambda_", type=int, default=8)
+    parser.add_argument("--generations", type=int, default=50)
+    parser.add_argument("--levels-per-run", type=int, default=None)
+    parser.add_argument("--max-level", type=int, default=None)
+    parser.add_argument("--min-level", type=int, default=None)
+    parser.add_argument("--output", default="./evo_output")
+    parser.add_argument("--cpu", action="store_true")
+    parser.add_argument("--f32", action="store_true")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--no-robustness", action="store_true",
+                        help="skip the Helmholtz 2k/4k robustness variants")
+    parser.add_argument("--model-based", action="store_true",
+                        help="LFA + roofline fitness instead of measured "
+                             "solves (reference model_based_estimation)")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue from the checkpoint in --output")
+    parser.add_argument("--islands", type=int, default=1,
+                        help="population-parallel island ranks (threads "
+                             "in one process)")
+    parser.add_argument("--generalization-interval", type=int,
+                        default=10 ** 9,
+                        help="generations between problem-size growth")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    """Run one evolution; returns the optimizer's result dictionary."""
+    args = parse_args(argv)
+    from .config import setup_device
+    from .evaluation.evaluator import CycleEvaluator
+    from .optimization.program import Optimizer
+    from .parallel import comm as comms
+
+    # the card runs float32, as the TPU does; the CPU float64 unless --f32
+    device = setup_device("cpu" if args.cpu else "cuda")
+    if device.type == "cuda":
+        args.f32 = True
+    dtype = np.float32 if args.f32 else np.float64
+    os.makedirs(args.output, exist_ok=True)
+
+    def run_rank(comm):
+        """One island rank; identical seeds keep populations replicated
+        while evaluation is partitioned (parallel/comm.py)."""
+        problem = get_problem(args.problem, args.max_level, args.min_level)
+        problem.dtype = dtype
+        evaluator = CycleEvaluator(problem, device=device)
+        optimizer = Optimizer(
+            problem, evaluator=evaluator,
+            checkpoint_directory_path=os.path.join(args.output,
+                                                   "checkpoints"),
+            model_based_estimation=args.model_based,
+            problem_factory=lambda lo, hi: get_problem(args.problem, hi, lo),
+            rng=random.Random(args.seed), comm=comm)
+        method = {"NSGAII": optimizer.NSGAII, "NSGAIII": optimizer.NSGAIII,
+                  "SOGP": optimizer.SOGP}.get(args.method)
+        use_random_search = args.method == "RandomSearch"
+        return optimizer.evolutionary_optimization(
+            mu_=args.mu, lambda_=args.lambda_, generations=args.generations,
+            levels_per_run=args.levels_per_run,
+            generalization_interval=args.generalization_interval,
+            optimization_method=method if not use_random_search else None,
+            continue_from_checkpoint=args.resume,
+            use_random_search=use_random_search)
+
+    if args.islands > 1:
+        # island ranks MUST share one seed: populations stay replicated
+        # and only evaluation is partitioned (parallel/comm.py contract)
+        if args.seed is None:
+            args.seed = random.randrange(2 ** 63)
+            print(f"[islands] generated shared seed {args.seed}")
+        result = comms.run_island_threads([run_rank] * args.islands)[0]
+    else:
+        result = run_rank(comms.default_communicator())
+
+    print("\nBest individual:")
+    print(result["grammar_string"])
+    # one line per level chunk (finest first)
+    chunks = result.get("chunk_grammar_strings") or [result["grammar_string"]]
+    with open(os.path.join(args.output, "best_grammar.txt"), "w") as f:
+        f.write("\n".join(chunks) + "\n")
+    with open(os.path.join(args.output, "result.p"), "wb") as f:
+        pickle.dump({"grammar_string": result["grammar_string"],
+                     "chunk_grammar_strings": chunks,
+                     "populations": result["populations"],
+                     "logbooks": result["logbooks"]}, f)
+    print(f"Results written to {args.output}")
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

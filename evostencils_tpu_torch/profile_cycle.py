@@ -1,10 +1,14 @@
-"""Where the time of a chained V(2,1) cycle goes on one CUDA card.
+"""Where the time of a chained multigrid cycle goes on one CUDA card.
 
     python3 -m evostencils_tpu_torch.profile_cycle --dim 3 [--cycles 20]
+    python3 -m evostencils_tpu_torch.profile_cycle \
+        --champion poisson2d_1023sq_seeded_gen75:0
 
-Builds the path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
-12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15)
-and, after three warm-up cycles:
+Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
+12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15),
+or, with ``--champion KEY:INDEX``, the stored evolved cycle
+``results/evolved_champions.json[KEY][INDEX]`` on its 2D Poisson 1023^2
+hierarchy (levels 10->5, float32), and, after three warm-up cycles:
 
 1. runs three batches of ``--cycles`` chained cycles and reads the host
    clock before and after ``torch.cuda.synchronize()``: the host's enqueue
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -31,6 +36,10 @@ import numpy as np
 import torch
 
 PATHS = {2: (12, 5), 3: (8, 2)}
+#: the hierarchy of the stored 2D Poisson champions (1023^2)
+CHAMPION_LEVELS = (10, 5)
+CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
+             / "evolved_champions.json")
 
 
 def build_path(dim: int):
@@ -54,6 +63,31 @@ def build_path(dim: int):
     return lowered, b, omegas, tuple(torch.zeros_like(x) for x in b)
 
 
+def build_champion(spec: str):
+    """(lowered cycle, b, omegas, u0) of a stored 2D Poisson champion,
+    ``KEY:INDEX`` in results/evolved_champions.json, on the card."""
+    from .compiler.lower import lower_cycle
+    from .grammar import gp
+    from .grammar.multigrid import generate_primitive_set
+    from .ir import transformations
+    from .problems.poisson import build_rhs, poisson_2d
+
+    key, index = spec.rsplit(":", 1)
+    grammar = json.loads(CHAMPIONS.read_text())[key][int(index)]["grammar"]
+    problem = poisson_2d(max_level=CHAMPION_LEVELS[0],
+                         min_level=CHAMPION_LEVELS[1])
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    cycle = gp.compile_tree(gp.parse_tree(grammar, pset), pset)[0]
+    transformations.assign_cycle_ids(cycle)
+    lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float32, device="cuda")
+    omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                          device="cuda")
+    return lowered, b, omegas, tuple(torch.zeros_like(x) for x in b)
+
+
 def _device_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         value = getattr(evt, attr, None)
@@ -64,7 +98,9 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dim", type=int, choices=(2, 3), required=True)
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--dim", type=int, choices=(2, 3))
+    what.add_argument("--champion", metavar="KEY:INDEX")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -78,7 +114,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    lowered, b, omegas, u = build_path(args.dim)
+    lowered, b, omegas, u = (build_champion(args.champion) if args.champion
+                             else build_path(args.dim))
+    label = args.champion or f"{args.dim}D"
     n = args.cycles
     u = make_cycle_loop(lowered, 3)(u, b, omegas)
     torch.cuda.synchronize()
@@ -93,7 +131,7 @@ def main(argv=None) -> int:
         t2 = time.perf_counter()
         host.append((t1 - t0) * 1e3 / n)
         wall.append((t2 - t0) * 1e3 / n)
-    print(f"[time] {card}, {args.dim}D, {n} cycles per batch: wall "
+    print(f"[time] {card}, {label}, {n} cycles per batch: wall "
           + " / ".join(f"{w:.4f}" for w in wall) + " ms/cycle, host enqueue "
           + " / ".join(f"{h:.4f}" for h in host) + " ms/cycle", flush=True)
 
@@ -122,7 +160,7 @@ def main(argv=None) -> int:
         print(f"[profile] {us / 1e3 / n:9.4f} ms/cycle  {count / n:6.1f}/cycle"
               f"  {name[:90]}")
     print(json.dumps({
-        "card": card, "dim": args.dim, "cycles": n,
+        "card": card, "path": label, "cycles": n,
         "wall_ms_per_cycle": wall, "host_ms_per_cycle": host,
         "device_busy_ms_per_cycle": busy, "idle_share": idle,
         "launches_per_cycle": launches / n,

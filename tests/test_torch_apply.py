@@ -228,3 +228,41 @@ def test_red_black_masks_parity_3d():
                           indexing="ij")
     np.testing.assert_array_equal(red.numpy(), ((i + j + k) % 2 == 1) * 1.0)
     np.testing.assert_array_equal(black.numpy(), 1.0 - red.numpy())
+
+
+# ---------------------------------------------------------------------------
+# block solves of collective block Jacobi (ops/local_solve.py)
+# ---------------------------------------------------------------------------
+
+from evostencils_tpu.ops import local_solve as jlocal
+from evostencils_tpu_torch.ops import local_solve as tlocal
+
+
+def _block_plan(pkg, local, block_size):
+    """The block-solve plan of the 31^2 Poisson operator's block diagonal,
+    as lower.py:1547-1551 builds it, from one package's own layers."""
+    grid, st = _poisson(pkg, 2, 5)
+    per = pkg.periodic
+    ps = per.block_diagonal(per.as_periodic(st), block_size)
+    return local.get_block_solve_plan([[ps]], block_size, tuple(grid.size))
+
+
+@pytest.mark.parametrize("block_size", [(2, 2), (1, 3), (2, 4)])
+def test_block_solve_matches_jax(block_size):
+    """Same numpy setup (the inverses are equal bitwise), and apply on a
+    31^2 field agrees to atol 1e-12."""
+    pj = _block_plan(JAX, jlocal, block_size)
+    pt = _block_plan(PORT, tlocal, block_size)
+    np.testing.assert_array_equal(pt.inverse, pj.inverse)
+    u = _field((31, 31), 40 + sum(block_size))
+    (out,) = pt.apply((torch.tensor(u),))
+    (ref,) = pj.apply((jnp.asarray(u),))
+    assert out.dtype == torch.float64 and tuple(out.shape) == (31, 31)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-12)
+    # the blocks really couple: the solve is not the point-Jacobi one
+    (point,) = tlocal.get_block_solve_plan(
+        [[tperiodic.block_diagonal(
+            tperiodic.as_periodic(_poisson(PORT, 2, 5)[1]), (1, 1))]],
+        (1, 1), (31, 31)).apply((torch.tensor(u),))
+    assert float((out - point).abs().max()) > 0.1 * float(out.abs().max())

@@ -40,6 +40,17 @@ PORT = SimpleNamespace(problems=tpoisson, cycles=tcycles, part=tpart)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the eager ops on these grids run as fast on
+    one, and the test run's parallel workers would otherwise oversubscribe
+    the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _v21(pkg, max_level, min_level, dtype, **cycle_kw):
     """A fresh problem and its V(2,1) cycle, as bench.py:48-58 builds
     them, from the layers of one package (each package builds and lowers
@@ -244,15 +255,40 @@ _NO_JAX = textwrap.dedent("""
         ["presmooth_residual_restrict_plain",
          "prolong_correct_postsmooth_col_plain",
          "downleg_wavefront_3d_plain", "upleg_wavefront_3d_plain"]), calls
+
+    # the evolution path: grammar, evaluator and optimizer, and one seeded
+    # individual evaluated at 255^2 (float64, no wall-time measurement)
+    import random
+    import numpy as np
+    from evostencils_tpu_torch import optimize
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.optimization.program import Optimizer
+
+    problem = poisson_2d(max_level=8, min_level=5)
+    problem.dtype = np.float64
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    evaluator = CycleEvaluator(problem, device="cpu")
+    evaluator.timing_enabled = False
+    individual = gp.genGrow(pset, 2, 40, rng=random.Random(21))
+    (result,) = evaluator.evaluate_population([individual], pset)
+    assert 0 < result.convergence_factor < 1, result
+    assert 0 < result.iterations < 100, result
+    Optimizer(problem, evaluator=evaluator, rng=random.Random(0))
+    assert optimize.get_problem("poisson2d").max_level == 9
     assert not any(blocked(m) for m in sys.modules)
     print("ok")
 """)
 
 
 def test_port_runs_with_jax_blocked():
-    """(e) the 2D and 3D slices run in a process where importing jax or
-    any module of the JAX package fails."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    """(e) the 2D and 3D slices and the evolution path (grammar, evaluator,
+    optimizer) run in a process where importing jax or any module of the
+    JAX package fails."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
