@@ -37,18 +37,37 @@ Phases:
    results/evolved_champions.json, each picked by its fitness; each of
    the four standalone kernels must launch, the Jacobi V(2,1) must launch
    9 sweeps, 3 residual restrictions and 3 prolongation corrections per
-   cycle, every structure must take as many iterations with the plain
-   versions (rho within 1e-3), and the gen-75 champion must converge
+   cycle, every structure must take as many iterations to 1e-5 with the
+   plain versions, with residual histories that agree to 1e-3 above the
+   float32 floor of 1e-5 ||b||, and the gen-75 champion must converge
    faster than the red-black V(2,1);
 10. [evolve] the CLI twin of scripts/optimize.py in this process,
    ``poisson2d NSGAII --mu 4 --lambda 4 --generations 2 --seed 0`` at
    its default levels 9->5, which must end with a finite best individual
-   that re-parses; its timing protocol takes one repetition of its
-   windows instead of three, the one cut of this run;
-11. check that neither jax nor the JAX package was imported.
+   that re-parses and converges; its timing protocol takes one repetition
+   of its windows instead of three, a cut of this run;
+11. [kernels-sweep3d] compare the standalone 3D sweeps (red-black and
+   Jacobi, omega 1.15, an anisotropic 7-point stencil) with their plain
+   versions through the leg3d names at 255^3, 65x127x255 and 17x33x63 and
+   through the rbgs3d names at 127^3, 63^3 and 12x40x200; time both at
+   255^3, 127^3 and 63^3; [kernels-rr3d] the same for the 3D transfers
+   with asymmetric per-axis taps at 255^3, 127^3, 63^3 and 65x127x255;
+12. [evaluator3d] a CycleEvaluator on the card in float32 at
+   poisson_3d(8, 2) (255^3) runs measure_interleaved over the red-black
+   V(2,1) and V(1,1) (omega 1.15) and the weighted-Jacobi V(2,1) (omega
+   0.8); each of the six 3D standalone kernels must launch; per cycle the
+   V(2,1) runs only the wavefront legs (3 + 3), the Jacobi V(2,1) 3
+   leg3d and 6 rbgs3d Jacobi sweeps, 3 residual restrictions and 3
+   prolongation corrections, the V(1,1) 1 leg3d and 2 rbgs3d red-black
+   sweeps, 3 residual restrictions and 3 wavefront up-legs; kernels
+   against plain versions as in [evaluator];
+13. [evolve3d] ``poisson3d NSGAII --mu 4 --lambda 4 --generations 2
+   --seed 0`` at its default levels 6->2 (63^3), cut as [evolve]; at least
+   one 3D standalone kernel must launch;
+14. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-7, 9 and 10) and read just after.  Any failed check raises, and the
+7, 9, 10, 12 and 13) and read just after.  Each phase prints its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, its largest deviation from the
@@ -85,6 +104,11 @@ P_TAPS3 = ((0.5, 1.0, 0.5),) * 3
 ANISO = (5.0, -1.5, -0.5, -1.25, -0.75)
 R_TAPS_ASYM = ((0.2, 0.5, 0.3), (0.1, 0.6, 0.3))
 P_TAPS_ASYM = ((0.4, 1.0, 0.6), (0.3, 0.9, 0.5))
+#: the 3D standalone kernels' checks: an anisotropic 7-point stencil and
+#: per-axis taps that differ on every axis
+ANISO7 = (7.0, -1.5, -0.5, -1.25, -0.75, -2.0, -1.0)
+R_TAPS3_ASYM = ((0.2, 0.5, 0.3), (0.1, 0.6, 0.3), (0.3, 0.45, 0.25))
+P_TAPS3_ASYM = ((0.4, 1.0, 0.6), (0.3, 0.9, 0.5), (0.7, 1.1, 0.2))
 #: float32 reassociation slack: 2D (tests/test_fused_columns.py:52-53,
 #: :81); 3D u (tests/test_wavefront3d.py:57-61) and rc; the standalone
 #: sweeps (relative + absolute, tests/test_pallas_kernels.py:31-60) and
@@ -118,10 +142,32 @@ KERNELS = {
     "prolong_correct": (
         "evostencils_tpu/ops/pallas/transfer.py:174",
         "evostencils_tpu_torch/csrc/transfer.cu"),
+    "fused_rbgs_sweep_3d": (
+        "evostencils_tpu/ops/pallas/rbgs3d.py:181",
+        "evostencils_tpu_torch/csrc/sweep3d.cu"),
+    "jacobi_sweep_3d": (
+        "evostencils_tpu/ops/pallas/rbgs3d.py:187",
+        "evostencils_tpu_torch/csrc/sweep3d.cu"),
+    "fused_rbgs_sweep_3d2": (
+        "evostencils_tpu/ops/pallas/leg3d.py:186",
+        "evostencils_tpu_torch/csrc/sweep3d.cu"),
+    "jacobi_sweep_3d2": (
+        "evostencils_tpu/ops/pallas/leg3d.py:209",
+        "evostencils_tpu_torch/csrc/sweep3d.cu"),
+    "residual_restrict_3d": (
+        "evostencils_tpu/ops/pallas/leg3d.py:264",
+        "evostencils_tpu_torch/csrc/leg3d.cu"),
+    "prolong_correct_3d": (
+        "evostencils_tpu/ops/pallas/leg3d.py:343",
+        "evostencils_tpu_torch/csrc/leg3d.cu"),
 }
 #: the standalone kernels, which the [evaluator] phase drives
 STANDALONE = ("fused_rbgs_sweep", "jacobi_sweep", "residual_restrict",
               "prolong_correct")
+#: the 3D standalone kernels, which the [evaluator3d] phase drives
+STANDALONE3 = ("fused_rbgs_sweep_3d", "jacobi_sweep_3d",
+               "fused_rbgs_sweep_3d2", "jacobi_sweep_3d2",
+               "residual_restrict_3d", "prolong_correct_3d")
 
 
 def log(msg):
@@ -312,9 +358,10 @@ def phase_kernels_3d(torch, wavefront3d, device):
 
 def sweep_bound(shape):
     """A sweep reads u and b and writes u once (float32) and updates each
-    point once, 10 operations as a leg's sweep (leg_bound)."""
+    point once, 2d + 6 operations in d dimensions as a leg's sweep
+    (leg_bound)."""
     points = int(np.prod(shape))
-    return bytes_bound(3 * 4 * points, 10 * points)
+    return bytes_bound(3 * 4 * points, (2 * len(shape) + 6) * points)
 
 
 def transfer_bound(shape):
@@ -330,6 +377,16 @@ def transfer_bound(shape):
     return bytes_bound(4 * (2 * fine + coarse), 10 * fine + 20 * coarse)
 
 
+def transfer3d_bound(shape, leg):
+    """A 3D transfer reads two fine arrays (u and b, or u) and writes one,
+    and moves the coarse array once: 2 * fine + coarse float32 values; it
+    does the residual and restriction (``leg`` "down") or the
+    prolongation and correction ("up") work of LEG_FLOPS."""
+    fine = int(np.prod(shape))
+    coarse = int(np.prod([(n - 1) // 2 for n in shape]))
+    return bytes_bound(4 * (2 * fine + coarse), fine * LEG_FLOPS[(leg, 3)])
+
+
 def deviation(torch, k, p, rtol, atol):
     """(max |k - p|, largest excess over atol + rtol * |p|)."""
     torch.cuda.synchronize()
@@ -337,13 +394,16 @@ def deviation(torch, k, p, rtol, atol):
     return float(d.max()), float((d - (atol + rtol * p.abs())).max())
 
 
-def time_standalone(torch, stats, name, tag, shape, kern, plain, bound):
+def time_standalone(torch, stats, name, tag, shape, kern, plain, bound,
+                    keep=(4095, 4095)):
+    """Time kernel and plain in turns; keep the numbers of shape ``keep``
+    for the kernels line."""
     k, p, turns = time_pair(torch, kern, plain)
     ms, by = bound
-    log(f"[{tag}] {name} {shape[0]}x{shape[1]}: kernel {turns[1]:.4f}/"
-        f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms, "
-        f"bound {ms:.4f} ms ({by})")
-    if shape == (4095, 4095):
+    log(f"[{tag}] {name} {'x'.join(map(str, shape))}: kernel "
+        f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
+        f"{turns[3]:.4f} ms, bound {ms:.4f} ms ({by})")
+    if shape == keep:
         stats[name].update(ms=k, plain_ms=p, bound_ms=ms, bound_by=by)
 
 
@@ -438,6 +498,92 @@ def phase_kernels_rr(torch, transfer, device):
             lambda: transfer.prolong_correct(u, e, omegas, 1, P_TAPS),
             lambda: transfer.prolong_correct_plain(u, e, omegas, 1, P_TAPS),
             transfer_bound(shape))
+    return stats
+
+
+def phase_kernels_sweep3d(torch, rbgs3d, leg3d, device):
+    """The 3D standalone sweeps against their plain versions: through the
+    leg3d names on the shapes the leg3d gate admits, through the rbgs3d
+    names on the shapes the rbgs3d gate admits."""
+    names = {"rbgs3d": ("fused_rbgs_sweep_3d", "jacobi_sweep_3d"),
+             "leg3d": ("fused_rbgs_sweep_3d2", "jacobi_sweep_3d2")}
+    stats = {name: {"max_abs_err": 0.0} for pair in names.values()
+             for name in pair}
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(4)
+    cases = [("leg3d", (255, 255, 255)), ("leg3d", (65, 127, 255)),
+             ("leg3d", (17, 33, 63)), ("rbgs3d", (127, 127, 127)),
+             ("rbgs3d", (63, 63, 63)), ("rbgs3d", (12, 40, 200))]
+    for module, shape in cases:
+        mod = rbgs3d if module == "rbgs3d" else leg3d
+        u, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                             device=device) for _ in range(2))
+        for name in names[module]:
+            kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+            err, excess = deviation(
+                torch, kern(u, b, omegas, 1, ANISO7),
+                plain(u, b, omegas, 1, ANISO7), TOL_SWEEP, TOL_SWEEP)
+            log(f"[kernels-sweep3d] {name} {'x'.join(map(str, shape))}: "
+                f"max|du| {err:.3e} (tol {TOL_SWEEP} + {TOL_SWEEP}|u|)")
+            check(excess <= 0, f"{name} {shape}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            if len(set(shape)) > 1:
+                continue
+            # the path's Laplacian, timed in turns at the path's levels
+            time_standalone(
+                torch, stats, name, "kernels-sweep3d", shape,
+                lambda: kern(u, b, omegas, 1, VALS7),
+                lambda: plain(u, b, omegas, 1, VALS7), sweep_bound(shape),
+                keep=(255,) * 3 if module == "leg3d" else (127,) * 3)
+    return stats
+
+
+def phase_kernels_rr3d(torch, leg3d, device):
+    """The 3D standalone transfers against their plain versions."""
+    stats = {name: {"max_abs_err": 0.0}
+             for name in ("residual_restrict_3d", "prolong_correct_3d")}
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(5)
+    for shape in [(255, 255, 255), (127, 127, 127), (63, 63, 63),
+                  (65, 127, 255)]:
+        def normal(*s):
+            return torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device=device)
+        cshape = tuple((n - 1) // 2 for n in shape)
+        u, b, e = normal(*shape), normal(*shape), normal(*cshape)
+        tag = "x".join(map(str, shape))
+        err, excess = deviation(
+            torch, leg3d.residual_restrict_3d(u, b, ANISO7, R_TAPS3_ASYM),
+            leg3d.residual_restrict_3d_plain(u, b, ANISO7, R_TAPS3_ASYM),
+            0.0, TOL_TRANSFER)
+        log(f"[kernels-rr3d] residual_restrict_3d {tag}: max|drc| "
+            f"{err:.3e} (tol {TOL_TRANSFER})")
+        check(excess <= 0, f"residual_restrict_3d {tag}")
+        stats["residual_restrict_3d"]["max_abs_err"] = max(
+            stats["residual_restrict_3d"]["max_abs_err"], err)
+        err, excess = deviation(
+            torch, leg3d.prolong_correct_3d(u, e, omegas, 2, P_TAPS3_ASYM),
+            leg3d.prolong_correct_3d_plain(u, e, omegas, 2, P_TAPS3_ASYM),
+            0.0, TOL_TRANSFER)
+        log(f"[kernels-rr3d] prolong_correct_3d {tag}: max|du| {err:.3e} "
+            f"(tol {TOL_TRANSFER})")
+        check(excess <= 0, f"prolong_correct_3d {tag}")
+        stats["prolong_correct_3d"]["max_abs_err"] = max(
+            stats["prolong_correct_3d"]["max_abs_err"], err)
+        if len(set(shape)) > 1:
+            continue
+        time_standalone(
+            torch, stats, "residual_restrict_3d", "kernels-rr3d", shape,
+            lambda: leg3d.residual_restrict_3d(u, b, VALS7, R_TAPS3),
+            lambda: leg3d.residual_restrict_3d_plain(u, b, VALS7, R_TAPS3),
+            transfer3d_bound(shape, "down"), keep=(255,) * 3)
+        time_standalone(
+            torch, stats, "prolong_correct_3d", "kernels-rr3d", shape,
+            lambda: leg3d.prolong_correct_3d(u, e, omegas, 1, P_TAPS3),
+            lambda: leg3d.prolong_correct_3d_plain(u, e, omegas, 1, P_TAPS3),
+            transfer3d_bound(shape, "up"), keep=(255,) * 3)
     return stats
 
 
@@ -646,78 +792,93 @@ def solve_history(torch, lowered, b, max_iterations, reduction):
     return k, hist[:k + 1].double().cpu().numpy()
 
 
-def phase_evaluator(torch, kernels, device, card):
-    """The evolution path's measured evaluator on the card; returns the
-    standalone kernels' launches over its measure_interleaved run."""
-    from evostencils_tpu_torch.compiler.lower import lower_cycle
-    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
-    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
-
-    problem = poisson_2d(max_level=EVAL_LEVELS[0], min_level=EVAL_LEVELS[1])
-    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
-    structures = evaluator_structures(problem)
-
+def measure_structures(torch, kernels, tag, evaluator, structures, names,
+                       card):
+    """measure_interleaved over ``structures`` with the counts set to 0
+    just before; each kernel of ``names`` must launch and each structure
+    converge.  Returns (results by key, launches)."""
     reset(kernels)
     t0 = time.perf_counter()
     results = evaluator.measure_interleaved(structures, reps=EVAL_REPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counts_of(kernels)
-    log(f"[evaluator] measure_interleaved over {len(structures)} structures "
+    log(f"[{tag}] measure_interleaved over {len(structures)} structures "
         f"x {EVAL_REPS} reps in {wall:.1f} s; launches {counts}")
-    for name in STANDALONE:
-        check(counts[name] > 0, f"{name} never launched on the evaluator "
-              "path")
-    by_key = {r["key"]: r for r in results}
+    for name in names:
+        check(counts[name] > 0, f"{name} never launched on the {tag} path")
     for r in results:
         lo, hi = r["ms_per_iter_spread"]
-        log(f"[evaluator] {r['key']}: rho {r['convergence_factor']:.5f}, "
+        log(f"[{tag}] {r['key']}: rho {r['convergence_factor']:.5f}, "
             f"{r['iterations']:.0f} iterations to the 1e-12 target "
             f"(measured to 1e-5), {r['ms_per_iter']:.4f} ms/iteration "
             f"(spread {lo:.4f}..{hi:.4f}), time to convergence "
             f"{r['time_to_convergence_ms']:.3f} ms on {card}")
         check(np.isfinite(r["convergence_factor"])
               and r["convergence_factor"] < 1, f"{r['key']} converges")
+    return {r["key"]: r for r in results}, counts
 
+
+def check_structure(torch, kernels, tag, key, expr, evaluator, b, want):
+    """One cycle of ``expr`` alone must launch exactly ``want`` (the
+    nonzero counts; None: not checked); then the kernels against their
+    plain versions over a whole solve from zero to the right-hand side
+    ``b``: the same iterations, and histories that agree to 1e-3 above the
+    float32 floor of 1e-5 * ||b|| (phase_solve), where the last entry of a
+    solve to 1e-5 sits."""
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+
+    problem = evaluator.problem
+    lowered = lower_cycle(expr, problem.approximation, problem.rhs_entity)
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                      device=b[0].device)
+    reset(kernels)
+    lowered.step(tuple(torch.zeros_like(x) for x in b), b, om)
+    per_cycle = {k: n for k, n in counts_of(kernels).items() if n}
+    log(f"[{tag}] {key}: launches per cycle {per_cycle}")
+    if want is not None:
+        check(per_cycle == want, f"{key} launches {per_cycle} per cycle, "
+              f"expected {want}")
+    (k1, h1), (k0, h0) = (
+        solve_history(torch, lower_cycle(
+            expr, problem.approximation, problem.rhs_entity,
+            use_kernels=use), b, evaluator.max_iterations,
+            evaluator.measurement_reduction)
+        for use in (True, False))
+    rho1, rho0 = ((h[-1] / h[0]) ** (1.0 / (len(h) - 1)) for h in (h1, h0))
+    log(f"[{tag}] {key}: kernels {k1} iterations rho {rho1:.6f}, "
+        f"plain {k0} iterations rho {rho0:.6f} (to 1e-5)")
+    check(k1 == k0, f"{key}: {k1} iterations with the kernels, {k0} "
+          "with the plain versions")
+    floor = 1e-5 * h0[0]
+    rel = np.abs(h1 - h0) / h0
+    log(f"[{tag}] {key}: histories agree to "
+        f"{rel[h0 > 10 * floor].max():.3e} relative above 10x the "
+        f"float32 floor (1e-5 ||b||), {rel.max():.3e} overall")
+    check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
+          f"{key}: residual histories (rtol 1e-3 above 1e-5 ||b||)")
+
+
+def phase_evaluator(torch, kernels, device, card):
+    """The evolution path's measured evaluator on the card; returns the
+    standalone kernels' launches over its measure_interleaved run."""
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
+
+    problem = poisson_2d(max_level=EVAL_LEVELS[0], min_level=EVAL_LEVELS[1])
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    structures = evaluator_structures(problem)
+    by_key, counts = measure_structures(torch, kernels, "evaluator",
+                                        evaluator, structures, STANDALONE,
+                                        card)
+    # the Jacobi V(2,1): 3 sweeps on each of 1023^2, 511^2, 255^2; one
+    # transfer pair each (the 127^2 level is below both gates)
+    want = {"jacobi_v21": {"jacobi_sweep": 9, "residual_restrict": 3,
+                           "prolong_correct": 3}}
     b = build_rhs(problem, dtype=torch.float32, device=device)
     for key, expr in structures:
-        # one cycle alone: its launches per cycle
-        lowered = lower_cycle(expr, problem.approximation, problem.rhs_entity)
-        om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
-                          device=device)
-        reset(kernels)
-        lowered.step(tuple(torch.zeros_like(x) for x in b), b, om)
-        per_cycle = {k: n for k, n in counts_of(kernels).items() if n}
-        log(f"[evaluator] {key}: launches per cycle {per_cycle}")
-        if key == "jacobi_v21":
-            # 3 sweeps on each of 1023^2, 511^2, 255^2; one transfer pair
-            # each (the 127^2 level is below both gates)
-            want = {"jacobi_sweep": 9, "residual_restrict": 3,
-                    "prolong_correct": 3}
-            check(per_cycle == want, f"Jacobi V(2,1) launches {per_cycle}, "
-                  f"expected {want}")
-        # the kernels against their plain versions over a whole solve: the
-        # same iterations, and histories that agree to 1e-3 above the
-        # float32 floor of 1e-5 * ||b|| (phase_solve), where the last
-        # entry of a solve to 1e-5 sits
-        (k1, h1), (k0, h0) = (
-            solve_history(torch, lower_cycle(
-                expr, problem.approximation, problem.rhs_entity,
-                use_kernels=use), b, evaluator.max_iterations,
-                evaluator.measurement_reduction)
-            for use in (True, False))
-        rho1, rho0 = ((h[-1] / h[0]) ** (1.0 / (len(h) - 1)) for h in (h1, h0))
-        log(f"[evaluator] {key}: kernels {k1} iterations rho {rho1:.6f}, "
-            f"plain {k0} iterations rho {rho0:.6f} (to 1e-5)")
-        check(k1 == k0, f"{key}: {k1} iterations with the kernels, {k0} "
-              "with the plain versions")
-        floor = 1e-5 * h0[0]
-        rel = np.abs(h1 - h0) / h0
-        log(f"[evaluator] {key}: histories agree to "
-            f"{rel[h0 > 10 * floor].max():.3e} relative above 10x the "
-            f"float32 floor (1e-5 ||b||), {rel.max():.3e} overall")
-        check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
-              f"{key}: residual histories (rtol 1e-3 above 1e-5 ||b||)")
+        check_structure(torch, kernels, "evaluator", key, expr, evaluator, b,
+                        want.get(key))
     rho75, rho_rb = (by_key[k]["convergence_factor"]
                      for k in ("gen75", "rb_v21"))
     log(f"[evaluator] gen-75 champion rho {rho75:.5f} vs red-black V(2,1) "
@@ -728,9 +889,55 @@ def phase_evaluator(torch, kernels, device, card):
     return {name: counts[name] for name in STANDALONE}
 
 
-def phase_evolve(torch, kernels):
-    """``python -m evostencils_tpu_torch.optimize poisson2d NSGAII --mu 4
-    --lambda 4 --generations 2 --seed 0`` in this process."""
+#: the [evaluator3d] structures: (pre-sweeps, post-sweeps, partitioning,
+#: omega), and the launches of one cycle at 255^3 (levels 8 -> 2): the
+#: wavefront legs take 255^3, 127^3 and 63^3 of an RB V(2,1); elsewhere the
+#: rbgs3d sweeps take 127^3 and 63^3, the leg3d sweeps 255^3, the leg3d
+#: transfers all three; 31^3 and below run the generic lowering
+EVAL3D_STRUCTURES = {
+    "rb_v21": ((2, 1, "RedBlack", 1.15),
+               {"downleg_wavefront_3d": 3, "upleg_wavefront_3d": 3}),
+    "rb_v11": ((1, 1, "RedBlack", 1.15),
+               {"fused_rbgs_sweep_3d2": 1, "fused_rbgs_sweep_3d": 2,
+                "residual_restrict_3d": 3, "upleg_wavefront_3d": 3}),
+    "jacobi_v21": ((2, 1, "Single", 0.8),
+                   {"jacobi_sweep_3d2": 3, "jacobi_sweep_3d": 6,
+                    "residual_restrict_3d": 3, "prolong_correct_3d": 3}),
+}
+
+
+def phase_evaluator_3d(torch, kernels, device, card):
+    """The evaluator on the 3D path at 255^3; returns the 3D standalone
+    kernels' launches over its measure_interleaved run."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_3d
+
+    problem = poisson_3d(max_level=8, min_level=2)
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    structures = []
+    for key, ((pre, post, partitioning, omega), _) in \
+            EVAL3D_STRUCTURES.items():
+        structures.append((key, v_cycle(
+            problem.level_contexts, problem.rhs_entity, pre_smoothing=pre,
+            post_smoothing=post, omega=omega,
+            partitioning=getattr(part, partitioning),
+            coarse_operator=problem.coarsest_operator)))
+    _, counts = measure_structures(torch, kernels, "evaluator3d", evaluator,
+                                   structures, STANDALONE3, card)
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    for key, expr in structures:
+        check_structure(torch, kernels, "evaluator3d", key, expr, evaluator,
+                        b, EVAL3D_STRUCTURES[key][1])
+    return {name: counts[name] for name in STANDALONE3}
+
+
+def phase_evolve(torch, kernels, problem_name, tag, names=()):
+    """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
+    --mu 4 --lambda 4 --generations 2 --seed 0`` in this process, at the
+    problem's default levels; at least one kernel of ``names`` must
+    launch."""
     from evostencils_tpu_torch import optimize
     from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
     from evostencils_tpu_torch.grammar import gp
@@ -744,14 +951,14 @@ def phase_evolve(torch, kernels):
         evaluated.append(len(individuals))
         return population(self, individuals, pset)
 
-    out_dir = ROOT / "evo_output" / "chip_smoke"
-    argv = ["poisson2d", "NSGAII", "--mu", "4", "--lambda", "4",
+    out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
+    argv = [problem_name, "NSGAII", "--mu", "4", "--lambda", "4",
             "--generations", "2", "--seed", "0", "--output", str(out_dir)]
-    # the one cut of this run's depth: the timing protocol takes one
-    # repetition of its windows of 1, 2, 4 and 8 solves (the evaluator's
-    # default is 3); it takes most of the run
+    # a cut of this run's depth: the timing protocol takes one repetition
+    # of its windows of 1, 2, 4 and 8 solves (the evaluator's default is
+    # 3); it takes most of the run
     reps = CycleEvaluator.timing_reps
-    log(f"[evolve] timing protocol cut to {EVOLVE_TIMING_REPS} repetition "
+    log(f"[{tag}] timing protocol cut to {EVOLVE_TIMING_REPS} repetition "
         f"per window size (default {reps})")
     reset(kernels)
     CycleEvaluator.evaluate_population = counted
@@ -765,10 +972,13 @@ def phase_evolve(torch, kernels):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counts_of(kernels)
-    log(f"[evolve] {' '.join(argv[:-2])}: {sum(evaluated)} evaluations in "
+    log(f"[{tag}] {' '.join(argv[:-2])}: {sum(evaluated)} evaluations in "
         f"{len(evaluated)} batches, {wall:.1f} s wall; launches {counts}")
+    if names:
+        check(any(counts[name] for name in names),
+              f"none of {names} launched on the {tag} path")
 
-    problem = optimize.get_problem("poisson2d")
+    problem = optimize.get_problem(problem_name)
     pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
                                   problem.level_contexts,
                                   problem.coarsest_operator)[0]
@@ -780,7 +990,7 @@ def phase_evolve(torch, kernels):
     evaluator = CycleEvaluator(problem, dtype=np.float32, device="cuda")
     evaluator.timing_enabled = False
     res = evaluator.evaluate_expression(expr)
-    log(f"[evolve] best individual ({len(individual)} nodes) re-evaluated: "
+    log(f"[{tag}] best individual ({len(individual)} nodes) re-evaluated: "
         f"rho {res.convergence_factor:.5f}, {res.iterations:.0f} iterations")
     check(np.isfinite(res.iterations) and res.convergence_factor < 1,
           "the best individual converges")
@@ -795,7 +1005,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     from evostencils_tpu_torch.config import setup_device
-    from evostencils_tpu_torch.ops.kernels import (_build, rbgs, transfer,
+    from evostencils_tpu_torch.ops.kernels import (_build, leg3d, rbgs,
+                                                   rbgs3d, transfer,
                                                    wavefront3d)
 
     device = setup_device("cuda")
@@ -815,17 +1026,38 @@ def main():
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
     kernels = {"transfer": transfer, "wavefront3d": wavefront3d,
-               "rbgs": rbgs}
-    stats = phase_kernels(torch, transfer, device)
-    stats.update(phase_kernels_3d(torch, wavefront3d, device))
-    stats.update(phase_kernels_rbgs(torch, rbgs, device))
-    stats.update(phase_kernels_rr(torch, transfer, device))
-    launches = phase_main_path(torch, kernels, device, card, 2)
-    phase_solve(torch, device, 2)
-    launches.update(phase_main_path(torch, kernels, device, card, 3))
-    phase_solve(torch, device, 3)
-    launches.update(phase_evaluator(torch, kernels, device, card))
-    phase_evolve(torch, kernels)
+               "rbgs": rbgs, "rbgs3d": rbgs3d, "leg3d": leg3d}
+
+    def phase(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {label}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    stats = phase("kernels", phase_kernels, torch, transfer, device)
+    stats.update(phase("kernels3d", phase_kernels_3d, torch, wavefront3d,
+                       device))
+    stats.update(phase("kernels-rbgs", phase_kernels_rbgs, torch, rbgs,
+                       device))
+    stats.update(phase("kernels-rr", phase_kernels_rr, torch, transfer,
+                       device))
+    stats.update(phase("kernels-sweep3d", phase_kernels_sweep3d, torch,
+                       rbgs3d, leg3d, device))
+    stats.update(phase("kernels-rr3d", phase_kernels_rr3d, torch, leg3d,
+                       device))
+    launches = phase("main", phase_main_path, torch, kernels, device, card,
+                     2)
+    phase("main solve", phase_solve, torch, device, 2)
+    launches.update(phase("main3d", phase_main_path, torch, kernels, device,
+                          card, 3))
+    phase("main3d solve", phase_solve, torch, device, 3)
+    launches.update(phase("evaluator", phase_evaluator, torch, kernels,
+                          device, card))
+    phase("evolve", phase_evolve, torch, kernels, "poisson2d", "evolve")
+    launches.update(phase("evaluator3d", phase_evaluator_3d, torch, kernels,
+                          device, card))
+    phase("evolve3d", phase_evolve, torch, kernels, "poisson3d", "evolve3d",
+          STANDALONE3)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

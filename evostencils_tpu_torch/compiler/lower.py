@@ -20,9 +20,12 @@
   Jacobi sweep), a residual restricted by a separable 3-tap transfer one
   call to ``transfer.residual_restrict``, and a coarse-grid correction
   ``u + omega * P e`` one call to ``transfer.prolong_correct``, on the
-  levels the kernels' gates admit (lower.py:799-917, :1311-1376).  The 3D
-  counterparts (``rbgs3d``, ``leg3d``) are not ported yet: 3D cycles
-  outside the wavefront legs run the generic lowering.
+  levels the kernels' gates admit (lower.py:799-917, :1311-1376).  In 3D,
+  with a constant 7-point operator, a smoother cycle runs one call to
+  ``ops.kernels.rbgs3d`` on the levels its gate admits, else to the
+  ``leg3d`` sweep on the levels that gate admits (lower.py:894-910); the
+  transfers run ``leg3d.residual_restrict_3d`` and
+  ``leg3d.prolong_correct_3d`` (lower.py:1291-1309, :1378-1395).
 * Block smoothers (collective block Jacobi) solve their blocks through
   ``ops.local_solve`` (lower.py:1546-1553, :1686-1706).
 * Device constants (dense coarse inverses, red-black masks) are built once
@@ -36,7 +39,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import reduce
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -48,7 +51,7 @@ from ..ir import partitioning as part
 from ..ir import transformations
 from ..ops import apply as ops
 from ..ops.apply import red_black_masks
-from ..ops.kernels import rbgs, transfer, wavefront3d
+from ..ops.kernels import leg3d, rbgs, rbgs3d, transfer, wavefront3d
 from ..ops.local_solve import get_block_solve_plan
 from ..stencils import constant, periodic
 
@@ -112,23 +115,6 @@ def dense_inverse(op) -> np.ndarray:
 # Fusion planning (structural, IR only)
 # ---------------------------------------------------------------------------
 
-#: offsets of a 7-point star, in the value order of seven_point_values
-#: (a copy of ops/pallas/rbgs3d.py:30-32)
-SEVEN_OFFSETS = [(0, 0, 0), (-1, 0, 0), (1, 0, 0),
-                 (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1)]
-
-
-def seven_point_values(stencil) -> Optional[Tuple[float, ...]]:
-    """(center, -x, +x, -y, +y, -z, +z) of a constant 7-point 3D stencil,
-    or None for any other shape (a copy of ops/pallas/rbgs3d.py:47-55)."""
-    entries = dict(stencil.entries)
-    if set(entries) - set(SEVEN_OFFSETS):
-        return None
-    if any(isinstance(v, complex) for v in entries.values()):
-        return None
-    return tuple(float(entries.get(o, 0.0)) for o in SEVEN_OFFSETS)
-
-
 def _scalar_constant_stencil(A):
     """The constant stencil of a scalar system/base operator with no
     variable coefficients or nonlinear term, else None
@@ -159,7 +145,7 @@ def _smoother_sig(A):
     vals = rbgs.five_point_values(st)
     if vals is not None and vals[0] != 0.0:
         return ("const5", vals)
-    vals = seven_point_values(st)
+    vals = rbgs3d.seven_point_values(st)
     if st.dimension == 3 and vals is not None and vals[0] != 0.0:
         return ("const7", vals)
     return None
@@ -371,15 +357,22 @@ class _Lowering:
         self.env: Dict[int, tuple] = {}
         self.memo: Dict[int, tuple] = {}
         self._super_results: Dict[int, object] = {}
-        # the standalone kernels: the sweep by red-black-ness, the
-        # transfers; and per signature the legs: (gate, down-leg, up-leg,
-        # pre-sweeps, post-sweeps), None sweeps taking any count the leg
-        # accepts
+        # the standalone kernels: the sweeps by dimension, gate and
+        # red-black-ness, the transfers by dimension; and per signature the
+        # legs: (gate, down-leg, up-leg, pre-sweeps, post-sweeps), None
+        # sweeps taking any count the leg accepts
         if use_kernels:
             self._sweeps = {True: rbgs.fused_rbgs_sweep,
                             False: rbgs.jacobi_sweep}
+            self._sweeps3d = {
+                "rbgs3d": {True: rbgs3d.fused_rbgs_sweep_3d,
+                           False: rbgs3d.jacobi_sweep_3d},
+                "leg3d": {True: leg3d.fused_rbgs_sweep_3d2,
+                          False: leg3d.jacobi_sweep_3d2}}
             self._residual_restrict = transfer.residual_restrict
             self._prolong_correct = transfer.prolong_correct
+            self._residual_restrict_3d = leg3d.residual_restrict_3d
+            self._prolong_correct_3d = leg3d.prolong_correct_3d
             self._legs = {
                 "const5": (transfer.supports,
                            transfer.presmooth_residual_restrict,
@@ -391,8 +384,15 @@ class _Lowering:
         else:
             self._sweeps = {True: rbgs.fused_rbgs_sweep_plain,
                             False: rbgs.jacobi_sweep_plain}
+            self._sweeps3d = {
+                "rbgs3d": {True: rbgs3d.fused_rbgs_sweep_3d_plain,
+                           False: rbgs3d.jacobi_sweep_3d_plain},
+                "leg3d": {True: leg3d.fused_rbgs_sweep_3d2_plain,
+                          False: leg3d.jacobi_sweep_3d2_plain}}
             self._residual_restrict = transfer.residual_restrict_plain
             self._prolong_correct = transfer.prolong_correct_plain
+            self._residual_restrict_3d = leg3d.residual_restrict_3d_plain
+            self._prolong_correct_3d = leg3d.prolong_correct_3d_plain
             self._legs = {
                 "const5": (transfer.supports,
                            transfer.presmooth_residual_restrict_plain,
@@ -552,8 +552,8 @@ class _Lowering:
 
     def _star_smoother_parts(self, cycle, x):
         """(stencil values, b) when the cycle is a pointwise-diagonal
-        smoother of a scalar constant 5-point 2D operator, else None
-        (lower.py:680-707, the 2D branch)."""
+        smoother of a scalar constant star operator, 5-point in 2D and
+        7-point in 3D, else None (lower.py:680-707)."""
         found = self._pointwise_smoother_entry(cycle)
         if found is None:
             return None
@@ -561,18 +561,24 @@ class _Lowering:
         if _is_nonlinear(entry) or _has_stencil_field(entry):
             return None
         st = entry.generate_stencil()
-        if not isinstance(st, constant.Stencil) or x[0].ndim != 2:
+        if not isinstance(st, constant.Stencil):
             return None
-        vals = rbgs.five_point_values(st)
+        if x[0].ndim == 2:
+            vals = rbgs.five_point_values(st)
+        elif x[0].ndim == 3:
+            vals = rbgs3d.seven_point_values(st)
+        else:
+            return None
         if vals is None or vals[0] == 0.0:
             return None
         return vals, self.eval_function(residual.rhs)[0]
 
     def _try_fused_smoother(self, cycle, x):
         """One sweep kernel for a red-black or single (Jacobi) smoother
-        cycle of a constant 5-point 2D operator on a level the sweep gate
-        admits, else None for the generic path (lower.py:799-917, the 2D
-        constant-stencil branch)."""
+        cycle of a constant star operator on a level a sweep gate admits,
+        else None for the generic path (lower.py:799-917, the
+        constant-stencil branch): in 2D the ``rbgs`` gate; in 3D the
+        ``rbgs3d`` gate first, then the ``leg3d`` one."""
         parts = self._star_smoother_parts(cycle, x)
         if parts is None:
             return None
@@ -580,15 +586,22 @@ class _Lowering:
         red_black = cycle.partitioning is part.RedBlack
         if not red_black and cycle.partitioning is not part.Single:
             return None
-        if not rbgs.supports(x[0], vals):
+        u = x[0]
+        if u.ndim == 2 and rbgs.supports(u, vals):
+            sweeps = self._sweeps
+        elif u.ndim == 3 and rbgs3d.supports(u, vals):
+            sweeps = self._sweeps3d["rbgs3d"]
+        elif u.ndim == 3 and leg3d.supports(u):
+            sweeps = self._sweeps3d["leg3d"]
+        else:
             return None
-        return (self._sweeps[red_black](x[0].contiguous(), b.contiguous(),
-                                        self.omegas, cycle.global_id, vals),)
+        return (sweeps[red_black](u.contiguous(), b.contiguous(),
+                                  self.omegas, cycle.global_id, vals),)
 
     def _try_fused_residual_restrict(self, expr):
         """``Multiplication(Restriction, Residual)`` of a scalar constant
         5-point 2D operator as one kernel, on a level the transfer gate
-        admits, else None (lower.py:1311-1340)."""
+        admits, else the 3D form, else None (lower.py:1311-1340)."""
         R, res = expr.operand1, expr.operand2
         if not isinstance(res, base.Residual):
             return None
@@ -596,9 +609,11 @@ class _Lowering:
                 isinstance(R, base.ZeroRestriction):
             return None
         st = _scalar_constant_stencil(res.operator)
-        vals = rbgs.five_point_values(st) if st is not None else None
-        if vals is None:
+        if st is None:
             return None
+        vals = rbgs.five_point_values(st)
+        if vals is None:
+            return self._try_fused_residual_restrict_3d(R, res, st)
         taps = transfer_three_tap(R)
         if taps is None:
             return None
@@ -609,10 +624,27 @@ class _Lowering:
         return (self._residual_restrict(x[0].contiguous(), b[0].contiguous(),
                                         vals, taps),)
 
+    def _try_fused_residual_restrict_3d(self, R, res, st):
+        """The residual of a scalar constant 7-point 3D operator and its
+        full restriction as one kernel, on a level the ``leg3d`` gate
+        admits, else None (lower.py:1291-1309)."""
+        vals = rbgs3d.seven_point_values(st)
+        if vals is None or vals[0] == 0.0:
+            return None
+        taps = axis_taps_3d(R)
+        if taps is None:
+            return None
+        x = self.eval_function(res.approximation)
+        if len(x) != 1 or not leg3d.supports(x[0]):
+            return None
+        b = self.eval_function(res.rhs)
+        return (self._residual_restrict_3d(x[0].contiguous(),
+                                           b[0].contiguous(), vals, taps),)
+
     def _try_fused_prolong_correct(self, cycle, x):
         """Cycle tail ``u + omega * Multiplication(Prolongation, e)`` as one
-        kernel on a 2D level the transfer gate admits, else None
-        (lower.py:1342-1376)."""
+        kernel on a level the transfer gate admits (2D) or the ``leg3d``
+        gate admits (3D), else None (lower.py:1342-1395)."""
         corr = cycle.correction
         if not isinstance(corr, base.Multiplication):
             return None
@@ -620,6 +652,8 @@ class _Lowering:
         if not isinstance(P, (system.Prolongation, base.Prolongation)) or \
                 isinstance(P, base.ZeroProlongation):
             return None
+        if len(x) == 1 and x[0].ndim == 3:
+            return self._try_fused_prolong_correct_3d(cycle, x[0], P, corr)
         if len(x) != 1 or not transfer.supports(x[0]):
             return None
         taps = transfer_three_tap(P)
@@ -635,6 +669,22 @@ class _Lowering:
             return None
         return (self._prolong_correct(u.contiguous(), e[0].contiguous(),
                                       self.omegas, cycle.global_id, taps),)
+
+    def _try_fused_prolong_correct_3d(self, cycle, u, P, corr):
+        """The 3D cycle tail ``u + omega * P e`` as one kernel on a level
+        the ``leg3d`` gate admits, else None (lower.py:1378-1395)."""
+        if not leg3d.supports(u):
+            return None
+        taps = axis_taps_3d(P)
+        if taps is None:
+            return None
+        e = self.eval_function(corr.operand2)
+        if len(e) != 1 or \
+                tuple(e[0].shape) != tuple((s - 1) // 2 for s in u.shape):
+            return None
+        return (self._prolong_correct_3d(
+            u.contiguous(), e[0].to(u.dtype).contiguous(), self.omegas,
+            cycle.global_id, taps),)
 
     # -- fused legs (ops/kernels/transfer.py, wavefront3d.py) ----------------
 

@@ -54,6 +54,8 @@
 
 #include <cuda_runtime.h>
 
+#include "walk3d.cuh"
+
 namespace {
 
 constexpr int T1 = 32, T2 = 32;               // in-plane tile (axis 1, 2)
@@ -84,66 +86,6 @@ struct Leg3 {
   int n0, n1, n2;
   int chunk;                    // axis-0 planes per block (even)
 };
-
-__device__ __forceinline__ int ring(int p, int base, int size) {
-  return (p - base + size) % size;
-}
-
-// One half-sweep of plane pl in place: cells of interior-index parity
-// `parity` (1 = red) are updated from the planes lo (pl-1) and hi (pl+1)
-// and their in-plane neighbours, which all have the other colour.
-template <int W1, int W2>
-__device__ void half_sweep(float* cur, const float* lo, const float* hi,
-                           const float* bb, const Leg3& p, float om, int pl,
-                           int y0, int x0, int parity) {
-  for (int idx = threadIdx.x; idx < W1 * W2; idx += blockDim.x) {
-    const int wy = idx / W2, wx = idx - wy * W2;
-    const int gy = y0 + wy, gx = x0 + wx;
-    if (gy < 0 || gy >= p.n1 || gx < 0 || gx >= p.n2) continue;
-    if (((pl + gy + gx) & 1) != parity) continue;
-    const float ym = wy > 0 ? cur[idx - W2] : 0.f;
-    const float yp = wy < W1 - 1 ? cur[idx + W2] : 0.f;
-    const float zm = wx > 0 ? cur[idx - 1] : 0.f;
-    const float zp = wx < W2 - 1 ? cur[idx + 1] : 0.f;
-    float off = p.dxm * lo[idx];
-    off += p.dxp * hi[idx];
-    off += p.dym * ym;
-    off += p.dyp * yp;
-    off += p.dzm * zm;
-    off += p.dzp * zp;
-    const float v = cur[idx];
-    cur[idx] = v + om * (p.dinv * bb[idx] - v - off);
-  }
-}
-
-// Plane L of u and b into the given window planes; zero outside the grid.
-template <int W1, int W2>
-__device__ void load_plane(const float* __restrict__ u,
-                           const float* __restrict__ b, float* du, float* db,
-                           const Leg3& p, int L, int y0, int x0) {
-  const bool plane_in = L >= 0 && L < p.n0;
-  for (int idx = threadIdx.x; idx < W1 * W2; idx += blockDim.x) {
-    const int wy = idx / W2, wx = idx - wy * W2;
-    const int gy = y0 + wy, gx = x0 + wx;
-    const bool in = plane_in && gy >= 0 && gy < p.n1 && gx >= 0 && gx < p.n2;
-    const long g = (static_cast<long>(L) * p.n1 + gy) * p.n2 + gx;
-    du[idx] = in ? u[g] : 0.f;
-    db[idx] = in ? b[g] : 0.f;
-  }
-}
-
-// The tile's cells of window plane `src` into plane pl of out.
-template <int W2, int H>
-__device__ void store_plane(const float* src, float* __restrict__ out,
-                            const Leg3& p, int pl, int y0, int x0) {
-  for (int idx = threadIdx.x; idx < T1 * T2; idx += blockDim.x) {
-    const int i = idx / T2, j = idx - i * T2;
-    const int gy = y0 + H + i, gx = x0 + H + j;
-    if (gy < p.n1 && gx < p.n2)
-      out[(static_cast<long>(pl) * p.n1 + gy) * p.n2 + gx] =
-          src[(H + i) * W2 + H + j];
-  }
-}
 
 __global__ void __launch_bounds__(DOWN_THREADS, DOWN_BLOCKS_PER_SM)
 downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
@@ -186,7 +128,7 @@ downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
     __syncthreads();
     const int pf = L - 4;                    // final u
     if (pf >= z0 && pf < z1)
-      store_plane<DW2, DH>(uplane(pf), u_out, p, pf, y0, x0);
+      store_plane<T1, T2, DW2, DH>(uplane(pf), u_out, p, pf, y0, x0);
 
     // residual of plane q on the tile and one more row and column (the
     // restriction reads fine index 2i+2 past the tile)
@@ -357,7 +299,7 @@ upleg3d_kernel(const float* __restrict__ u, const float* __restrict__ e,
     __syncthreads();
     const int pf = L - 2;
     if (pf >= z0 && pf < z1)
-      store_plane<UW2, UH>(uplane(pf), u_out, p, pf, y0, x0);
+      store_plane<T1, T2, UW2, UH>(uplane(pf), u_out, p, pf, y0, x0);
   }
 }
 

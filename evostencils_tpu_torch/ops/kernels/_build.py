@@ -29,7 +29,11 @@ import torch
 _PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
            _PACKAGE / "csrc" / "wavefront3d.cu",
-           _PACKAGE / "csrc" / "rbgs.cu")
+           _PACKAGE / "csrc" / "rbgs.cu",
+           _PACKAGE / "csrc" / "sweep3d.cu",
+           _PACKAGE / "csrc" / "leg3d.cu")
+#: headers the sources include; part of the library's hash
+HEADERS = (_PACKAGE / "csrc" / "walk3d.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -63,6 +67,16 @@ SIGNATURES = {
     # u, e, b, omegas, omega ids, coefficients, u_out, n0, n1, n2, stream
     "es_upleg_wavefront_3d":
         (_P, _P, _P, _P, _INTS, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # u, b, omegas, omega id, red-black, stencil values, out, n0, n1, n2,
+    # stream
+    "es_sweep3d":
+        (_P, _P, _P, _INT, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # u, b, coefficients, rc, n0, n1, n2, stream
+    "es_residual_restrict_3d":
+        (_P, _P, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # u, e, omegas, omega id, coefficients, u_out, n0, n1, n2, stream
+    "es_prolong_correct_3d":
+        (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),
 }
 
 
@@ -79,7 +93,7 @@ def nvcc_path() -> str:
 
 def library_path() -> pathlib.Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libevostencils_kernels_{digest.hexdigest()[:16]}.so"
 

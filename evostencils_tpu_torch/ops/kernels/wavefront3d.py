@@ -16,7 +16,7 @@ Each leg has, in this module:
 * its entry in ``launches``, which only a kernel launch increments.
 
 The 7-point operator is given as ``stencil_vals`` = (center, -x, +x, -y,
-+y, -z, +z), the order of ``compiler.lower.SEVEN_OFFSETS``; the transfers
++y, -z, +z), the order of ``rbgs3d.SEVEN_OFFSETS``; the transfers
 as one (w[-1], w[0], w[+1]) triple per axis.  Red is an even node-index
 sum; interior index i is node i+1 on every axis, so in 3D red is an ODD
 interior-index sum (wavefront3d.py:98), the opposite of 2D.
@@ -82,14 +82,16 @@ def _neighbours(u):
 
 
 def _half_sweep(u, b, om, mask, stencil_vals):
-    """One masked half-sweep in the TPU kernel's premultiplied form; the
-    off-diagonal sum is accumulated in stencil order."""
+    """One masked half-sweep in the TPU kernel's premultiplied form (every
+    point from the old u when ``mask`` is None); the off-diagonal sum is
+    accumulated in stencil order."""
     dinv = 1.0 / stencil_vals[0]
     off = None
     for c, v in zip(stencil_vals[1:], _neighbours(u)):
         term = (c * dinv) * v
         off = term if off is None else off + term
-    return torch.where(mask, u + om * (dinv * b - u - off), u)
+    out = u + om * (dinv * b - u - off)
+    return out if mask is None else torch.where(mask, out, u)
 
 
 def _rb_sweep(u, b, om, stencil_vals):

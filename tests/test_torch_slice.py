@@ -279,6 +279,31 @@ _NO_JAX = textwrap.dedent("""
     assert 0 < result.iterations < 100, result
     Optimizer(problem, evaluator=evaluator, rng=random.Random(0))
     assert optimize.get_problem("poisson2d").max_level == 9
+
+    # the 3D evolution path: a seeded individual at 63^3 that reaches the
+    # 3D kernels' plain versions, and the poisson3d CLI on levels 5 -> 2
+    import tempfile
+    problem = poisson_3d(max_level=6, min_level=2)
+    problem.dtype = np.float64
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    evaluator = CycleEvaluator(problem, device="cpu")
+    evaluator.timing_enabled = False
+    individual = gp.genGrow(pset, 2, 40, rng=random.Random(6))
+    (result,) = evaluator.evaluate_population([individual], pset)
+    assert 0 < result.convergence_factor < 1, result
+    CycleEvaluator.timing_enabled = False
+    with tempfile.TemporaryDirectory() as out:
+        best = optimize.main(["poisson3d", "--cpu", "--max-level", "5",
+                              "--min-level", "2", "--mu", "4", "--lambda",
+                              "4", "--generations", "1", "--seed", "5",
+                              "--output", out])["grammar_string"]
+    problem = optimize.get_problem("poisson3d", 5, 2)
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    assert str(gp.parse_tree(best, pset)) == best
     assert not any(blocked(m) for m in sys.modules)
     print("ok")
 """)
@@ -286,8 +311,8 @@ _NO_JAX = textwrap.dedent("""
 
 def test_port_runs_with_jax_blocked():
     """(e) the 2D and 3D slices and the evolution path (grammar, evaluator,
-    optimizer) run in a process where importing jax or any module of the
-    JAX package fails."""
+    optimizer, in 2D and in 3D, and the poisson3d CLI) run in a process
+    where importing jax or any module of the JAX package fails."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
