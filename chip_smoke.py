@@ -64,10 +64,31 @@ Phases:
 13. [evolve3d] ``poisson3d NSGAII --mu 4 --lambda 4 --generations 2
    --seed 0`` at its default levels 6->2 (63^3), cut as [evolve]; at least
    one 3D standalone kernel must launch;
-14. check that neither jax nor the JAX package was imported.
+14. [kernels-var] compare the four variable-coefficient kernels (the
+   fused red-black and the Jacobi sweep, the down-leg and the up-leg) with
+   their plain versions at 2047^2 and 1023^2 with the variable-coefficient
+   problem's own coefficient stack and at ragged shapes (1025x771 for the
+   legs, 300x200 for the sweeps) with an anisotropic random stack, the
+   legs for 1..3 sweeps, red-black and Jacobi; time both at 2047^2;
+15. [main-var] drive the variable-coefficient path,
+   poisson_2d_variable(11, 5) (2047^2, float32, the BASELINE suite's
+   var-coef row, scripts/bench_suite.py:107-109, :127-129), with the
+   weighted-Jacobi V(2,1) (omega 0.8) and the red-black V(2,1) (omega
+   1.15), as phase 5 drives the 2D path: each var leg must run four times
+   per cycle (2047^2 .. 255^2) and no other kernel at all; then each
+   solve to 1e-5 as phase 6;
+16. [evaluator-var] a CycleEvaluator at poisson_2d_variable(10, 5)
+   (1023^2) runs measure_interleaved over the red-black and Jacobi V(2,1)
+   and V(4,4); per cycle each runs 3 + 3 var legs, and each V(4,4) 6
+   standalone var sweeps besides; kernels against plain versions as in
+   [evaluator];
+17. [evolve-var] ``poisson2d_var NSGAII --mu 4 --lambda 4 --generations 1
+   --seed 0`` at its default levels 9->5 (511^2), cut as [evolve];
+18. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-7, 9, 10, 12 and 13) and read just after.  Each phase prints its seconds.  Any failed check raises, and the
+7, 9, 10, 12, 13, 15, 16 and 17) and read just after.  Each phase prints
+its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
 each kernel with its launches on its path, its largest deviation from the
@@ -160,6 +181,18 @@ KERNELS = {
     "prolong_correct_3d": (
         "evostencils_tpu/ops/pallas/leg3d.py:343",
         "evostencils_tpu_torch/csrc/leg3d.cu"),
+    "fused_rbgs_sweep_var": (
+        "evostencils_tpu/ops/pallas/rbgs_var.py:162",
+        "evostencils_tpu_torch/csrc/rbgs_var.cu"),
+    "jacobi_sweep_var": (
+        "evostencils_tpu/ops/pallas/rbgs_var.py:168",
+        "evostencils_tpu_torch/csrc/rbgs_var.cu"),
+    "presmooth_residual_restrict_var": (
+        "evostencils_tpu/ops/pallas/rbgs_var.py:269",
+        "evostencils_tpu_torch/csrc/rbgs_var.cu"),
+    "prolong_correct_postsmooth_var": (
+        "evostencils_tpu/ops/pallas/rbgs_var.py:366",
+        "evostencils_tpu_torch/csrc/rbgs_var.cu"),
 }
 #: the standalone kernels, which the [evaluator] phase drives
 STANDALONE = ("fused_rbgs_sweep", "jacobi_sweep", "residual_restrict",
@@ -168,6 +201,14 @@ STANDALONE = ("fused_rbgs_sweep", "jacobi_sweep", "residual_restrict",
 STANDALONE3 = ("fused_rbgs_sweep_3d", "jacobi_sweep_3d",
                "fused_rbgs_sweep_3d2", "jacobi_sweep_3d2",
                "residual_restrict_3d", "prolong_correct_3d")
+#: the variable-coefficient legs and standalone sweeps
+VAR_LEGS = ("presmooth_residual_restrict_var",
+            "prolong_correct_postsmooth_var")
+VAR_SWEEPS = ("fused_rbgs_sweep_var", "jacobi_sweep_var")
+#: the variable-coefficient kernels' float32 slack, relative to the
+#: largest plain value: the problem's coefficients reach 3e7 at 2047^2,
+#: so A u cancels terms of 1e8 whose rounding differs by a few units
+TOL_VAR = 1e-5
 
 
 def log(msg):
@@ -587,37 +628,185 @@ def phase_kernels_rr3d(torch, leg3d, device):
     return stats
 
 
-def v21(dim, max_level, min_level):
+#: float32 operations per point of a variable-coefficient sweep: A u (5
+#: products, 4 sums), b - A u, the reciprocal or quotient of the center,
+#: its product with omega, the update's product and sum
+VAR_SWEEP_FLOPS = 14
+
+
+def var_sweep_bound(shape):
+    """A variable-coefficient sweep reads u, b and the five coefficient
+    planes and writes u once (float32)."""
+    points = int(np.prod(shape))
+    return bytes_bound(8 * 4 * points, VAR_SWEEP_FLOPS * points)
+
+
+def var_leg_bound(shape, sweeps, leg):
+    """A variable-coefficient leg moves what its sweeps move (u, b, five
+    coefficient planes, u out) and the coarse array once; it does
+    ``sweeps`` sweeps and the work of LEG_FLOPS."""
+    fine = int(np.prod(shape))
+    coarse = int(np.prod([(n - 1) // 2 for n in shape]))
+    return bytes_bound(4 * (8 * fine + coarse),
+                       fine * (sweeps * VAR_SWEEP_FLOPS + LEG_FLOPS[(leg, 2)]))
+
+
+def var_problem_stack(torch, n, device):
+    """The finest coefficient stack of poisson_2d_variable at n^2."""
+    from evostencils_tpu_torch.ops.kernels import rbgs_var
+    from evostencils_tpu_torch.problems.poisson import poisson_2d_variable
+    level = (n + 1).bit_length() - 1
+    op = poisson_2d_variable(max_level=level, min_level=level - 1) \
+        .level_contexts[0].operator.entries[0][0]
+    sf = op.stencil_generator.generate_stencil_field(op.grid)
+    return rbgs_var.five_point_stack(sf, device=device, dtype=torch.float32)
+
+
+def aniso_stack(torch, shape, rng, device):
+    """A diagonally dominant random stack whose four neighbour planes
+    differ in mean, so that a swapped plane or axis shows."""
+    planes = [6.0 + rng.uniform(0.0, 1.0, shape)]
+    planes += [mean + rng.uniform(-0.2, 0.2, shape)
+               for mean in ANISO[1:]]
+    return torch.tensor(np.stack(planes), dtype=torch.float32, device=device)
+
+
+#: the [kernels-var] shapes and stacks: the main path's two finest levels
+#: with the problem's own stack (the first is timed), ragged shapes with an
+#: anisotropic random one (the legs take the odd ones)
+VAR_CASES = [((2047, 2047), "problem"), ((1023, 1023), "problem"),
+             ((1025, 771), "aniso"), ((300, 200), "aniso")]
+
+
+def phase_kernels_var(torch, rbgs_var, device):
+    """The variable-coefficient kernels against their plain versions; both
+    timed in turns at 2047^2, the main path's finest level."""
+    stats = {name: {"max_abs_err": 0.0} for name in VAR_SWEEPS + VAR_LEGS}
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(6)
+
+    def normal(*s):
+        return torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device=device)
+
+    def note(name, tag, k, p):
+        """k against p within TOL_VAR * max |p|."""
+        err, excess = deviation(torch, k, p, 0.0,
+                                TOL_VAR * float(p.abs().max()))
+        log(f"[kernels-var] {name} {tag}: max|d| {err:.3e} (tol {TOL_VAR} "
+            "max|plain|)")
+        check(excess <= 0, f"{name} {tag}")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+
+    for shape, kind in VAR_CASES:
+        n, m = shape
+        c = var_problem_stack(torch, n, device) if kind == "problem" \
+            else aniso_stack(torch, shape, rng, device)
+        u, b = normal(n, m), normal(n, m)
+        tag = f"{n}x{m} {kind}"
+        for name in VAR_SWEEPS:
+            kern, plain = (getattr(rbgs_var, name + sfx)
+                           for sfx in ("", "_plain"))
+            note(name, tag, kern(u, b, omegas, 1, c),
+                 plain(u, b, omegas, 1, c))
+        if n % 2 and m % 2:
+            e = normal((n - 1) // 2, (m - 1) // 2)
+            for sweeps in (1, 2, 3):
+                for red_black in (True, False):
+                    mode = (f"{tag} S={sweeps} "
+                            f"{'RB' if red_black else 'Jacobi'}")
+                    ids = [1, 2, 3][:sweeps]
+                    down = rbgs_var.presmooth_residual_restrict_var
+                    (us_k, rc_k), (us_p, rc_p) = (
+                        fn(u, b, omegas, ids, c, R_TAPS_ASYM,
+                           red_black=red_black)
+                        for fn in (down, rbgs_var.
+                                   presmooth_residual_restrict_var_plain))
+                    note(VAR_LEGS[0], mode + " u", us_k, us_p)
+                    note(VAR_LEGS[0], mode + " rc", rc_k, rc_p)
+                    ids = [0, 1, 2, 3][:sweeps + 1]
+                    up = rbgs_var.prolong_correct_postsmooth_var
+                    o_k, o_p = (
+                        fn(u, e, b, omegas, ids, c, P_TAPS_ASYM,
+                           red_black=red_black)
+                        for fn in (up, rbgs_var.
+                                   prolong_correct_postsmooth_var_plain))
+                    note(VAR_LEGS[1], mode, o_k, o_p)
+        if shape != VAR_CASES[0][0]:
+            continue
+        # the main path's finest level: its stack and taps, V(2,1) sweeps
+        e = normal((n - 1) // 2, (m - 1) // 2)
+        timed = {
+            "fused_rbgs_sweep_var": (
+                lambda: rbgs_var.fused_rbgs_sweep_var(u, b, omegas, 1, c),
+                lambda: rbgs_var.fused_rbgs_sweep_var_plain(u, b, omegas, 1,
+                                                            c),
+                var_sweep_bound(shape)),
+            "jacobi_sweep_var": (
+                lambda: rbgs_var.jacobi_sweep_var(u, b, omegas, 2, c),
+                lambda: rbgs_var.jacobi_sweep_var_plain(u, b, omegas, 2, c),
+                var_sweep_bound(shape)),
+            "presmooth_residual_restrict_var": (
+                lambda: rbgs_var.presmooth_residual_restrict_var(
+                    u, b, omegas, [1, 2], c, R_TAPS),
+                lambda: rbgs_var.presmooth_residual_restrict_var_plain(
+                    u, b, omegas, [1, 2], c, R_TAPS),
+                var_leg_bound(shape, 2, "down")),
+            "prolong_correct_postsmooth_var": (
+                lambda: rbgs_var.prolong_correct_postsmooth_var(
+                    u, e, b, omegas, [0, 1], c, P_TAPS),
+                lambda: rbgs_var.prolong_correct_postsmooth_var_plain(
+                    u, e, b, omegas, [0, 1], c, P_TAPS),
+                var_leg_bound(shape, 1, "up")),
+        }
+        for name, (kern, plain, bound) in timed.items():
+            time_standalone(torch, stats, name, "kernels-var", shape, kern,
+                            plain, bound, keep=shape)
+    return stats
+
+
+def v21(path):
+    """A fresh problem of the path and its V(2,1) cycle."""
     from evostencils_tpu_torch.compiler.cycles import v_cycle
     from evostencils_tpu_torch.ir import partitioning as part
-    from evostencils_tpu_torch.problems.poisson import poisson_2d, poisson_3d
-    build = poisson_2d if dim == 2 else poisson_3d
-    problem = build(max_level=max_level, min_level=min_level)
+    from evostencils_tpu_torch.problems import poisson
+    _, build, max_level, min_level, partitioning, omega, _, _ = PATHS[path]
+    problem = getattr(poisson, build)(max_level=max_level,
+                                      min_level=min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=1.15,
-                    partitioning=part.RedBlack,
+                    pre_smoothing=2, post_smoothing=1, omega=omega,
+                    partitioning=getattr(part, partitioning),
                     coarse_operator=problem.coarsest_operator)
     return problem, cycle
 
 
-#: the two V(2,1) paths: (label, dimension, max level, min level, kernel
-#: module, the leg kernels that run once per cycle on every gated level)
-PATHS = {2: ("main", 2, 12, 5, "transfer",
-             ("presmooth_residual_restrict", "prolong_correct_postsmooth_col")),
-         3: ("main3d", 3, 8, 2, "wavefront3d",
-             ("downleg_wavefront_3d", "upleg_wavefront_3d"))}
+#: the V(2,1) paths: (label, problem, max level, min level, partitioning,
+#: omega, the kernel module whose gate admits the fused levels, the leg
+#: kernels that run once per cycle on every gated level)
+PATHS = {
+    "2d": ("main", "poisson_2d", 12, 5, "RedBlack", 1.15, "transfer",
+           ("presmooth_residual_restrict", "prolong_correct_postsmooth_col")),
+    "3d": ("main3d", "poisson_3d", 8, 2, "RedBlack", 1.15, "wavefront3d",
+           ("downleg_wavefront_3d", "upleg_wavefront_3d")),
+    # the BASELINE suite's var-coef row (scripts/bench_suite.py:107-109,
+    # :127-129) with both partitionings
+    "var-jacobi": ("main-var jacobi", "poisson_2d_variable", 11, 5,
+                   "Single", 0.8, "transfer", VAR_LEGS),
+    "var-rb": ("main-var rb", "poisson_2d_variable", 11, 5, "RedBlack",
+               1.15, "transfer", VAR_LEGS)}
 
 
-def phase_main_path(torch, kernels, device, card, dim):
-    """Chained V(2,1) cycles of the ``dim``-D path; returns its launches."""
+def phase_main_path(torch, kernels, device, card, path):
+    """Chained V(2,1) cycles of a path; returns its launches."""
     from evostencils_tpu_torch.compiler.lower import lower_cycle
     from evostencils_tpu_torch.compiler.solve import (make_cycle_loop,
                                                       residual_norm_fn)
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
-    label, _, max_level, min_level, module, legs = PATHS[dim]
+    label, _, _, _, _, _, module, legs = PATHS[path]
     path_kernels = kernels[module]
-    problem, cycle = v21(dim, max_level, min_level)
+    problem, cycle = v21(path)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float32, device=device)
     omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
@@ -651,7 +840,7 @@ def phase_main_path(torch, kernels, device, card, dim):
     for name, count in counts.items():
         want = fused * cycles if name in legs else 0
         check(count == want, f"{name} launched {count} times on the "
-              f"{dim}D path, expected {want}")
+              f"{label} path, expected {want}")
 
     steady = batch_ms[1:]
     ms_cycle = statistics.median(steady) / K_CYCLES
@@ -669,23 +858,24 @@ def phase_main_path(torch, kernels, device, card, dim):
     log(f"[{label}] relative residual after {cycles} cycles: {rel:.3e} "
         "(gate 1e-4, bench.py:195)")
     check(np.isfinite(rel) and rel <= 1e-4, "relative residual")
-    exact = problem.exact_solution()[0]
-    sol_err = float(np.abs(u0.double().cpu().numpy() - exact).max()
-                    / np.abs(exact).max())
-    log(f"[{label}] max error against the analytic solution: {sol_err:.3e} "
-        "(relative; gross gate 1e-2)")
-    check(np.isfinite(sol_err) and sol_err <= 1e-2, "analytic solution")
+    if problem.exact_solution is not None:
+        exact = problem.exact_solution()[0]
+        sol_err = float(np.abs(u0.double().cpu().numpy() - exact).max()
+                        / np.abs(exact).max())
+        log(f"[{label}] max error against the analytic solution: "
+            f"{sol_err:.3e} (relative; gross gate 1e-2)")
+        check(np.isfinite(sol_err) and sol_err <= 1e-2, "analytic solution")
     return {name: counts[name] for name in legs}
 
 
-def phase_solve(torch, device, dim):
+def phase_solve(torch, device, path):
     """make_solver to 1e-5 with the kernels and with the plain versions."""
     from evostencils_tpu_torch.compiler.lower import lower_cycle
     from evostencils_tpu_torch.compiler.solve import make_solver
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
-    label, _, max_level, min_level, _, _ = PATHS[dim]
-    problem, cycle = v21(dim, max_level, min_level)
+    label = PATHS[path][0]
+    problem, cycle = v21(path)
     b = build_rhs(problem, dtype=torch.float32, device=device)
     runs = {}
     for use_kernels in (True, False):
@@ -705,7 +895,7 @@ def phase_solve(torch, device, dim):
             f"{rho4:.4f}, history "
             f"{np.array2string(hist / hist[0], precision=4)}")
     (k1, h1), (k0, h0) = runs[True], runs[False]
-    check(k1 == k0 and 0 < k1 < 20, f"{dim}D iterations {k1} vs {k0}")
+    check(k1 == k0 and 0 < k1 < 20, f"{label} iterations {k1} vs {k0}")
     # A float32 state cannot hold a residual much below 1e-5 * ||b||: the
     # rounding of u alone leaves |A du| of that order.  The last entry of
     # a solve to 1e-5 sits on that floor, where the kernels' and the plain
@@ -718,7 +908,7 @@ def phase_solve(torch, device, dim):
         f"{rel[above].max():.3e} relative above 10x the float32 floor "
         f"(1e-5 ||b||), {rel.max():.3e} overall")
     check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
-          f"{dim}D residual histories (rtol 1e-3 above 1e-5 ||b||)")
+          f"{label} residual histories (rtol 1e-3 above 1e-5 ||b||)")
 
 
 #: the [evaluator] phase: poisson_2d(10, 5) (1023^2), the repetitions of
@@ -933,11 +1123,57 @@ def phase_evaluator_3d(torch, kernels, device, card):
     return {name: counts[name] for name in STANDALONE3}
 
 
-def phase_evolve(torch, kernels, problem_name, tag, names=()):
+#: the [evaluator-var] structures, as EVAL3D_STRUCTURES, at 1023^2
+#: (levels 10 -> 5): the var legs take 1023^2, 511^2 and 255^2 with up to
+#: three sweeps each, so a V(4,4) leaves one pre- and one post-sweep per
+#: level to the standalone sweeps
+EVALVAR_LEVELS = (10, 5)
+EVALVAR_STRUCTURES = {
+    "rb_v21": ((2, 1, "RedBlack", 1.15), {VAR_LEGS[0]: 3, VAR_LEGS[1]: 3}),
+    "jacobi_v21": ((2, 1, "Single", 0.8), {VAR_LEGS[0]: 3, VAR_LEGS[1]: 3}),
+    "rb_v44": ((4, 4, "RedBlack", 1.15),
+               {VAR_LEGS[0]: 3, VAR_LEGS[1]: 3, "fused_rbgs_sweep_var": 6}),
+    "jacobi_v44": ((4, 4, "Single", 0.8),
+                   {VAR_LEGS[0]: 3, VAR_LEGS[1]: 3, "jacobi_sweep_var": 6}),
+}
+
+
+def phase_evaluator_var(torch, kernels, device, card):
+    """The evaluator on the variable-coefficient path at 1023^2; returns
+    the standalone var sweeps' launches over its measure_interleaved
+    run."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.problems.poisson import (build_rhs,
+                                                        poisson_2d_variable)
+
+    problem = poisson_2d_variable(max_level=EVALVAR_LEVELS[0],
+                                  min_level=EVALVAR_LEVELS[1])
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    structures = []
+    for key, ((pre, post, partitioning, omega), _) in \
+            EVALVAR_STRUCTURES.items():
+        structures.append((key, v_cycle(
+            problem.level_contexts, problem.rhs_entity, pre_smoothing=pre,
+            post_smoothing=post, omega=omega,
+            partitioning=getattr(part, partitioning),
+            coarse_operator=problem.coarsest_operator)))
+    _, counts = measure_structures(torch, kernels, "evaluator-var", evaluator,
+                                   structures, VAR_SWEEPS + VAR_LEGS, card)
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    for key, expr in structures:
+        check_structure(torch, kernels, "evaluator-var", key, expr,
+                        evaluator, b, EVALVAR_STRUCTURES[key][1])
+    return {name: counts[name] for name in VAR_SWEEPS}
+
+
+def phase_evolve(torch, kernels, problem_name, tag, names=(),
+                 generations=2):
     """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
-    --mu 4 --lambda 4 --generations 2 --seed 0`` in this process, at the
-    problem's default levels; at least one kernel of ``names`` must
-    launch."""
+    --mu 4 --lambda 4 --generations <generations> --seed 0`` in this
+    process, at the problem's default levels; at least one kernel of
+    ``names`` must launch."""
     from evostencils_tpu_torch import optimize
     from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
     from evostencils_tpu_torch.grammar import gp
@@ -953,7 +1189,8 @@ def phase_evolve(torch, kernels, problem_name, tag, names=()):
 
     out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
     argv = [problem_name, "NSGAII", "--mu", "4", "--lambda", "4",
-            "--generations", "2", "--seed", "0", "--output", str(out_dir)]
+            "--generations", str(generations), "--seed", "0", "--output",
+            str(out_dir)]
     # a cut of this run's depth: the timing protocol takes one repetition
     # of its windows of 1, 2, 4 and 8 solves (the evaluator's default is
     # 3); it takes most of the run
@@ -1006,16 +1243,16 @@ def main():
         return 1
     from evostencils_tpu_torch.config import setup_device
     from evostencils_tpu_torch.ops.kernels import (_build, leg3d, rbgs,
-                                                   rbgs3d, transfer,
+                                                   rbgs3d, rbgs_var, transfer,
                                                    wavefront3d)
 
     device = setup_device("cuda")
-    name = torch.cuda.get_device_name(0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    log(f"[device] {name}; torch {torch.__version__}, CUDA "
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch "
+        f"{torch.__version__}, CUDA "
         f"{torch.version.cuda}; count {torch.cuda.device_count()}")
     log(f"[device] {card}")
     log(card)
@@ -1026,7 +1263,8 @@ def main():
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
     kernels = {"transfer": transfer, "wavefront3d": wavefront3d,
-               "rbgs": rbgs, "rbgs3d": rbgs3d, "leg3d": leg3d}
+               "rbgs": rbgs, "rbgs3d": rbgs3d, "leg3d": leg3d,
+               "rbgs_var": rbgs_var}
 
     def phase(label, fn, *args):
         t = time.perf_counter()
@@ -1045,12 +1283,20 @@ def main():
                        rbgs3d, leg3d, device))
     stats.update(phase("kernels-rr3d", phase_kernels_rr3d, torch, leg3d,
                        device))
+    stats.update(phase("kernels-var", phase_kernels_var, torch, rbgs_var,
+                       device))
     launches = phase("main", phase_main_path, torch, kernels, device, card,
-                     2)
-    phase("main solve", phase_solve, torch, device, 2)
+                     "2d")
+    phase("main solve", phase_solve, torch, device, "2d")
     launches.update(phase("main3d", phase_main_path, torch, kernels, device,
-                          card, 3))
-    phase("main3d solve", phase_solve, torch, device, 3)
+                          card, "3d"))
+    phase("main3d solve", phase_solve, torch, device, "3d")
+    # the var legs' launches over both partitionings' runs
+    for path in ("var-jacobi", "var-rb"):
+        for kernel, count in phase(PATHS[path][0], phase_main_path, torch,
+                                   kernels, device, card, path).items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        phase(PATHS[path][0] + " solve", phase_solve, torch, device, path)
     launches.update(phase("evaluator", phase_evaluator, torch, kernels,
                           device, card))
     phase("evolve", phase_evolve, torch, kernels, "poisson2d", "evolve")
@@ -1058,6 +1304,10 @@ def main():
                           device, card))
     phase("evolve3d", phase_evolve, torch, kernels, "poisson3d", "evolve3d",
           STANDALONE3)
+    launches.update(phase("evaluator-var", phase_evaluator_var, torch,
+                          kernels, device, card))
+    phase("evolve-var", phase_evolve, torch, kernels, "poisson2d_var",
+          "evolve-var", VAR_SWEEPS + VAR_LEGS, 1)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
@@ -1072,7 +1322,7 @@ def main():
                      "bound_by": s["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

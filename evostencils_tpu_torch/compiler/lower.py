@@ -1,6 +1,7 @@
 """Cycle compiler: multigrid expression IR -> eager PyTorch programs
 (counterpart of evostencils_tpu/compiler/lower.py, the part that the 2D and
-3D Poisson V-cycles and the evolved 2D Poisson cycles reach).
+3D Poisson V-cycles and the evolved 2D and 3D Poisson and variable-
+coefficient 2D Poisson cycles reach).
 
 * Grid functions are tuples of per-field tensors (interior points only).
 * Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
@@ -11,7 +12,9 @@
 * The fusion plans are structural: they are found once per lowered cycle.
   A planned pre-smoothing leg (smoothers + residual + restriction) or
   up-leg (prolongation + correction + post-smoothers) runs as one call to
-  ``ops.kernels.transfer`` (constant 5-point 2D operators) or
+  ``ops.kernels.transfer`` (constant 5-point 2D operators),
+  ``ops.kernels.rbgs_var`` (variable-coefficient 5-point 2D operators,
+  red-black or Jacobi sweeps, lower.py:1005-1015, :1231-1239) or
   ``ops.kernels.wavefront3d`` (constant 7-point 3D operators, exactly two
   pre-sweeps and one post-sweep, lower.py:1029-1090) on every level its
   gate admits; the other levels run the generic lowering below.
@@ -20,7 +23,9 @@
   Jacobi sweep), a residual restricted by a separable 3-tap transfer one
   call to ``transfer.residual_restrict``, and a coarse-grid correction
   ``u + omega * P e`` one call to ``transfer.prolong_correct``, on the
-  levels the kernels' gates admit (lower.py:799-917, :1311-1376).  In 3D,
+  levels the kernels' gates admit (lower.py:799-917, :1311-1376); a
+  smoother cycle of a variable-coefficient operator one call to
+  ``ops.kernels.rbgs_var`` (lower.py:845-855).  In 3D,
   with a constant 7-point operator, a smoother cycle runs one call to
   ``ops.kernels.rbgs3d`` on the levels its gate admits, else to the
   ``leg3d`` sweep on the levels that gate admits (lower.py:894-910); the
@@ -28,6 +33,9 @@
   ``leg3d.prolong_correct_3d`` (lower.py:1291-1309, :1378-1395).
 * Block smoothers (collective block Jacobi) solve their blocks through
   ``ops.local_solve`` (lower.py:1546-1553, :1686-1706).
+* A variable-coefficient operator runs as its ``StencilField``
+  (lower.py:105-124), one object per generator and grid, so that the
+  planner can compare two smoothers' operators by identity.
 * Device constants (dense coarse inverses, red-black masks) are built once
   per lowered cycle, device and dtype, and cached.
 
@@ -51,7 +59,8 @@ from ..ir import partitioning as part
 from ..ir import transformations
 from ..ops import apply as ops
 from ..ops.apply import red_black_masks
-from ..ops.kernels import leg3d, rbgs, rbgs3d, transfer, wavefront3d
+from ..ops.kernels import (leg3d, rbgs, rbgs3d, rbgs_var, transfer,
+                           wavefront3d)
 from ..ops.local_solve import get_block_solve_plan
 from ..stencils import constant, periodic
 
@@ -75,9 +84,25 @@ def _is_nonlinear(op) -> bool:
     return hasattr(_generator(op), "nonlinear_term")
 
 
-def _has_stencil_field(op) -> bool:
-    """Whether an operator has variable coefficients (lower.py:108-124)."""
-    return hasattr(_generator(op), "generate_stencil_field")
+_STENCIL_FIELD_CACHE: dict = {}
+
+
+def _stencil_field_of(op):
+    """The ``StencilField`` of an operator whose generator has a field
+    form, else None (lower.py:105-124): one object per generator and grid
+    size.  The cache entry holds the generator itself and a hit must be
+    that object, because a dead generator's id can be reused by a new
+    one."""
+    gen = _generator(op)
+    if gen is None or not hasattr(gen, "generate_stencil_field"):
+        return None
+    key = (id(gen), tuple(op.grid.size))
+    hit = _STENCIL_FIELD_CACHE.get(key)
+    if hit is not None and hit[0] is gen:
+        return hit[1]
+    sf = gen.generate_stencil_field(op.grid)
+    _STENCIL_FIELD_CACHE[key] = (gen, sf)
+    return sf
 
 
 # ---------------------------------------------------------------------------
@@ -85,9 +110,8 @@ def _has_stencil_field(op) -> bool:
 # ---------------------------------------------------------------------------
 
 def dense_inverse(op) -> np.ndarray:
-    """Dense inverse of a small system operator with constant or periodic
-    stencil entries (lower.py:180-224, without the variable-coefficient
-    branch)."""
+    """Dense inverse of a small system operator with constant, periodic or
+    variable-coefficient entries (lower.py:180-224)."""
     entries = op.entries if isinstance(op, system.Operator) else [[op]]
     grids = [row[0].grid for row in entries]
     sizes = [int(np.prod(g.size)) for g in grids]
@@ -95,10 +119,10 @@ def dense_inverse(op) -> np.ndarray:
     blocks = {}
     for i, row in enumerate(entries):
         for j, entry in enumerate(row):
-            if _has_stencil_field(entry):
-                raise NotImplementedError(
-                    f"dense inverse of variable-coefficient {entry} is not "
-                    "ported yet")
+            sf = _stencil_field_of(entry)
+            if sf is not None:
+                blocks[(i, j)] = sf.dense_matrix()
+                continue
             ps = periodic.as_periodic(entry.generate_stencil())
             if ps is not None and ps.constant_entries():
                 blocks[(i, j)] = ops.dense_matrix(ps, grids[j])
@@ -126,7 +150,7 @@ def _scalar_constant_stencil(A):
         entry = A.entries[0][0]
     if type(entry) is not base.Operator:
         return None
-    if _is_nonlinear(entry) or _has_stencil_field(entry):
+    if _is_nonlinear(entry) or _stencil_field_of(entry) is not None:
         return None
     st = entry.generate_stencil()
     if not isinstance(st, constant.Stencil):
@@ -137,11 +161,18 @@ def _scalar_constant_stencil(A):
 def _smoother_sig(A):
     """Fusion signature of a smoothable operator: ("const5", vals) for a
     scalar constant 5-point 2D stencil, ("const7", vals) for a scalar
-    constant 7-point 3D stencil, else None (lower.py:343-393; the var5
-    and sys9 signatures belong to kernels not ported yet)."""
+    constant 7-point 3D stencil, ("var5", StencilField) for a scalar
+    variable-coefficient 2D operator, else None (lower.py:343-393; the
+    sys9 signature belongs to kernels not ported yet)."""
     st = _scalar_constant_stencil(A)
     if st is None:
-        return None
+        entry = A.entries[0][0] if isinstance(A, system.Operator) \
+            and len(A.entries) == 1 else A
+        if type(entry) is not base.Operator or _is_nonlinear(entry) or \
+                entry.grid.dimension != 2:
+            return None
+        sf = _stencil_field_of(entry)
+        return None if sf is None else ("var5", sf)
     vals = rbgs.five_point_values(st)
     if vals is not None and vals[0] != 0.0:
         return ("const5", vals)
@@ -149,6 +180,15 @@ def _smoother_sig(A):
     if st.dimension == 3 and vals is not None and vals[0] != 0.0:
         return ("const7", vals)
     return None
+
+
+def _same_sig(a, b) -> bool:
+    """Whether two smoothers' signatures match: the var5 field by identity
+    (the same generator and grid give the same object), the constant
+    stencils by value (lower.py:418-425)."""
+    if a is None or b is None or a[0] != b[0]:
+        return False
+    return a[1] is b[1] if a[0] == "var5" else a[1] == b[1]
 
 
 def _peel_smoother_chain(cur, rhs, sig, max_sweeps=3):
@@ -171,7 +211,7 @@ def _peel_smoother_chain(cur, rhs, sig, max_sweeps=3):
         r2 = corr.operand2
         if r2.approximation is not cur.approximation or r2.rhs is not rhs:
             break
-        if _smoother_sig(r2.operator) != sig:
+        if not _same_sig(_smoother_sig(r2.operator), sig):
             break
         partitioning = cur.partitioning
         sweeps.append(cur)
@@ -205,7 +245,7 @@ def axis_taps_3d(op):
 def _transfer_taps(kind, op):
     """Transfer taps in the form the leg kernels of signature ``kind``
     take, else None."""
-    return transfer_three_tap(op) if kind == "const5" else axis_taps_3d(op)
+    return axis_taps_3d(op) if kind == "const7" else transfer_three_tap(op)
 
 
 def transfer_three_tap(op):
@@ -233,10 +273,20 @@ def transfer_three_tap(op):
     return taps0
 
 
+def _leg_partitioning(sig, partitioning) -> bool:
+    """Whether the legs of signature ``sig`` take a chain of this
+    partitioning: the var5 legs take red-black and Jacobi sweeps, the
+    constant ones red-black only (lower.py:453-454, :502-503, :1036-1038,
+    :1068-1070)."""
+    return partitioning is part.RedBlack or (
+        sig[0] == "var5" and partitioning is part.Single)
+
+
 def _plan_post_fusions(root) -> Dict[int, dict]:
-    """Up-legs: red-black smoother chains whose innermost approximation is
-    a coarse-grid-correction cycle ``u + w * P e`` (lower.py:432-466).
-    Keyed by id of the outermost post-smoother."""
+    """Up-legs: smoother chains whose innermost approximation is a
+    coarse-grid-correction cycle ``u + w * P e``, red-black for the
+    constant kernels, red-black or Jacobi for the var5 ones
+    (lower.py:432-466).  Keyed by id of the outermost post-smoother."""
     by_smoother: Dict[int, dict] = {}
     for cyc in transformations.find_nodes(root, base.Cycle):
         corr = cyc.correction
@@ -248,7 +298,7 @@ def _plan_post_fusions(root) -> Dict[int, dict]:
         rhs = corr.operand2.rhs
         sweeps, cur, partitioning = _peel_smoother_chain(cyc, rhs, sig)
         if not sweeps or not isinstance(cur, base.Cycle) \
-                or partitioning is not part.RedBlack:
+                or not _leg_partitioning(sig, partitioning):
             continue
         ccorr = cur.correction
         if not isinstance(ccorr, base.Multiplication):
@@ -259,14 +309,16 @@ def _plan_post_fusions(root) -> Dict[int, dict]:
             continue
         by_smoother[id(sweeps[0])] = {
             "sweeps": sweeps, "cgc": cur, "kind": sig[0], "vals": sig[1],
-            "rhs": rhs, "taps": _transfer_taps(sig[0], P)}
+            "rhs": rhs, "taps": _transfer_taps(sig[0], P),
+            "red_black": partitioning is part.RedBlack}
     return by_smoother
 
 
 def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
     """Down-legs: ``Multiplication(Restriction, Residual)`` sites whose
-    approximation is a chain of red-black diagonal smoothers over the same
-    operator and rhs (lower.py:469-510).  Returns (plans by id of the
+    approximation is a chain of diagonal smoothers over the same operator
+    and rhs, red-black for the constant kernels, red-black or Jacobi for
+    the var5 ones (lower.py:469-510).  Returns (plans by id of the
     outermost pre-smoother, plans by id of the Multiplication), both
     mapping to one shared plan, so the smoothed state and the restricted
     residual come from one leg call."""
@@ -284,11 +336,12 @@ def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
             continue
         sweeps, cur, partitioning = _peel_smoother_chain(res.approximation,
                                                          res.rhs, sig)
-        if not sweeps or partitioning is not part.RedBlack:
+        if not sweeps or not _leg_partitioning(sig, partitioning):
             continue
         plan = {"mult": mult, "res": res, "kind": sig[0], "vals": sig[1],
                 "sweeps": sweeps, "base": cur,
-                "taps": _transfer_taps(sig[0], R)}
+                "taps": _transfer_taps(sig[0], R),
+                "red_black": partitioning is part.RedBlack}
         by_smoother[id(sweeps[0])] = plan
         by_mult[id(mult)] = plan
     return by_smoother, by_mult
@@ -364,6 +417,8 @@ class _Lowering:
         if use_kernels:
             self._sweeps = {True: rbgs.fused_rbgs_sweep,
                             False: rbgs.jacobi_sweep}
+            self._sweeps_var = {True: rbgs_var.fused_rbgs_sweep_var,
+                                False: rbgs_var.jacobi_sweep_var}
             self._sweeps3d = {
                 "rbgs3d": {True: rbgs3d.fused_rbgs_sweep_3d,
                            False: rbgs3d.jacobi_sweep_3d},
@@ -378,12 +433,18 @@ class _Lowering:
                            transfer.presmooth_residual_restrict,
                            transfer.prolong_correct_postsmooth_col,
                            None, None),
+                "var5": (transfer.supports,
+                         rbgs_var.presmooth_residual_restrict_var,
+                         rbgs_var.prolong_correct_postsmooth_var,
+                         None, None),
                 "const7": (wavefront3d.supports,
                            wavefront3d.downleg_wavefront_3d,
                            wavefront3d.upleg_wavefront_3d, 2, 1)}
         else:
             self._sweeps = {True: rbgs.fused_rbgs_sweep_plain,
                             False: rbgs.jacobi_sweep_plain}
+            self._sweeps_var = {True: rbgs_var.fused_rbgs_sweep_var_plain,
+                                False: rbgs_var.jacobi_sweep_var_plain}
             self._sweeps3d = {
                 "rbgs3d": {True: rbgs3d.fused_rbgs_sweep_3d_plain,
                            False: rbgs3d.jacobi_sweep_3d_plain},
@@ -398,6 +459,10 @@ class _Lowering:
                            transfer.presmooth_residual_restrict_plain,
                            transfer.prolong_correct_postsmooth_col_plain,
                            None, None),
+                "var5": (transfer.supports,
+                         rbgs_var.presmooth_residual_restrict_var_plain,
+                         rbgs_var.prolong_correct_postsmooth_var_plain,
+                         None, None),
                 "const7": (wavefront3d.supports,
                            wavefront3d.downleg_wavefront_3d_plain,
                            wavefront3d.upleg_wavefront_3d_plain, 2, 1)}
@@ -558,7 +623,7 @@ class _Lowering:
         if found is None:
             return None
         entry, residual = found
-        if _is_nonlinear(entry) or _has_stencil_field(entry):
+        if _is_nonlinear(entry) or _stencil_field_of(entry) is not None:
             return None
         st = entry.generate_stencil()
         if not isinstance(st, constant.Stencil):
@@ -573,20 +638,53 @@ class _Lowering:
             return None
         return vals, self.eval_function(residual.rhs)[0]
 
+    def _var_smoother_parts(self, cycle, x):
+        """(coefficient stack, b) when the cycle is a pointwise-diagonal
+        smoother of a scalar variable-coefficient 5-point 2D operator, else
+        None (lower.py:709-732)."""
+        found = self._pointwise_smoother_entry(cycle)
+        if found is None:
+            return None
+        entry, residual = found
+        if _is_nonlinear(entry):
+            return None
+        sf = _stencil_field_of(entry)
+        if sf is None or x[0].ndim != 2:
+            return None
+        stack = self._var_stack(sf)
+        if stack is None:
+            return None
+        return stack, self.eval_function(residual.rhs)[0]
+
+    def _var_stack(self, sf):
+        """The (5, n, m) coefficient stack of a StencilField on the
+        lowering's device and dtype, or None (lower.py:1092-1098)."""
+        return rbgs_var.five_point_stack(sf, device=self.device,
+                                         dtype=self.dtype)
+
     def _try_fused_smoother(self, cycle, x):
         """One sweep kernel for a red-black or single (Jacobi) smoother
-        cycle of a constant star operator on a level a sweep gate admits,
-        else None for the generic path (lower.py:799-917, the
-        constant-stencil branch): in 2D the ``rbgs`` gate; in 3D the
-        ``rbgs3d`` gate first, then the ``leg3d`` one."""
-        parts = self._star_smoother_parts(cycle, x)
-        if parts is None:
-            return None
-        vals, b = parts
+        cycle on a level a sweep gate admits, else None for the generic
+        path (lower.py:799-917): a variable-coefficient 2D operator under
+        the ``rbgs_var`` gate; a constant star operator in 2D under the
+        ``rbgs`` gate, in 3D under the ``rbgs3d`` gate first, then the
+        ``leg3d`` one."""
         red_black = cycle.partitioning is part.RedBlack
         if not red_black and cycle.partitioning is not part.Single:
             return None
         u = x[0]
+        var_parts = self._var_smoother_parts(cycle, x)
+        if var_parts is not None:
+            stack, b = var_parts
+            if not rbgs_var.supports(u, stack):
+                return None
+            return (self._sweeps_var[red_black](
+                u.contiguous(), b.contiguous(), self.omegas,
+                cycle.global_id, stack),)
+        parts = self._star_smoother_parts(cycle, x)
+        if parts is None:
+            return None
+        vals, b = parts
         if u.ndim == 2 and rbgs.supports(u, vals):
             sweeps = self._sweeps
         elif u.ndim == 3 and rbgs3d.supports(u, vals):
@@ -699,14 +797,24 @@ class _Lowering:
         if plan["taps"] is not None and \
                 n_pre in (None, len(plan["sweeps"])):
             x = self.eval_function(plan["base"])
-            if len(x) == 1 and supports(x[0]):
+            operator, kw = self._leg_operator(plan)
+            if len(x) == 1 and supports(x[0]) and operator is not None:
                 b = self.eval_function(plan["res"].rhs)
                 ids = [c.global_id for c in reversed(plan["sweeps"])]
-                u_s, rc = down(x[0], b[0], self.omegas, ids, plan["vals"],
-                               plan["taps"])
+                u_s, rc = down(x[0], b[0], self.omegas, ids, operator,
+                               plan["taps"], **kw)
                 result = ((u_s,), (rc,))
         self._super_results[key] = result
         return result
+
+    def _leg_operator(self, plan):
+        """(operator argument, keyword arguments) of a planned leg's call:
+        the stencil values of a constant operator; the coefficient stack
+        (None when the field has no 5-point stack) and the partitioning of
+        a var5 one."""
+        if plan["kind"] != "var5":
+            return plan["vals"], {}
+        return self._var_stack(plan["vals"]), {"red_black": plan["red_black"]}
 
     def _run_post_fusion(self, plan):
         """Planned up-leg: the value of the outermost post-smoother, or
@@ -717,7 +825,8 @@ class _Lowering:
             return None
         cgc = plan["cgc"]
         x = self.eval_function(cgc.approximation)
-        if len(x) != 1 or not supports(x[0]):
+        operator, kw = self._leg_operator(plan)
+        if len(x) != 1 or not supports(x[0]) or operator is None:
             return None
         e = self.eval_function(cgc.correction.operand2)
         if len(e) != 1 or tuple(e[0].shape) != \
@@ -726,8 +835,8 @@ class _Lowering:
         b = self.eval_function(plan["rhs"])
         ids = [cgc.global_id] + \
             [c.global_id for c in reversed(plan["sweeps"])]
-        return (up(x[0], e[0], b[0], self.omegas, ids, plan["vals"],
-                   plan["taps"]),)
+        return (up(x[0], e[0], b[0], self.omegas, ids, operator,
+                   plan["taps"], **kw),)
 
     # -- operators ----------------------------------------------------------
 
@@ -753,10 +862,13 @@ class _Lowering:
         if isinstance(expr, base.Identity):
             return fields
         if type(expr) is base.Operator:
-            if _is_nonlinear(expr) or _has_stencil_field(expr):
+            if _is_nonlinear(expr):
                 raise NotImplementedError(
-                    f"cannot apply operator {expr}: nonlinear and "
-                    "variable-coefficient operators are not ported yet")
+                    f"cannot apply operator {expr}: nonlinear operators "
+                    "are not ported yet")
+            sf = _stencil_field_of(expr)
+            if sf is not None:
+                return (sf.apply(fields[0]),)
             st = expr.generate_stencil()
             return (ops.apply_stencil(periodic.as_periodic(st), fields[0]),)
         raise NotImplementedError(f"cannot apply {type(expr).__name__}")
@@ -806,9 +918,12 @@ class _Lowering:
         return expr
 
     def _diagonal_inverse(self, entry, x):
-        if _has_stencil_field(entry):
-            raise NotImplementedError(
-                f"variable-coefficient smoother of {entry} is not ported yet")
+        """``D^-1 x`` of one operator entry: a division by the diagonal
+        field of a variable-coefficient entry (lower.py:1526-1532,
+        :1579-1585), else the inverse of the diagonal stencil."""
+        sf = _stencil_field_of(entry)
+        if sf is not None:
+            return x / sf.diagonal_tensor(x.device, x.dtype)
         ps = periodic.as_periodic(entry.generate_stencil())
         return ops.apply_stencil(periodic.inverse(periodic.diagonal(ps)), x)
 

@@ -1,6 +1,6 @@
 """Stencil application and intergrid transfers in plain PyTorch
-(counterpart of evostencils_tpu/ops/apply.py, the part the 2D Poisson
-V-cycle reaches).
+(counterpart of evostencils_tpu/ops/apply.py, the part the Poisson
+V-cycles reach, and the variable-coefficient ``StencilField``).
 
 Fields live on the interior of the grid (shape == grid.size); the implicit
 Dirichlet-0 boundary ring is materialized by zero padding.  Terms are
@@ -93,6 +93,153 @@ def apply_stencil(stencil, u: torch.Tensor) -> torch.Tensor:
     if isinstance(stencil, PeriodicStencil):
         return apply_periodic(stencil, u)
     raise TypeError(f"not a stencil: {type(stencil)}")
+
+
+# ---------------------------------------------------------------------------
+# Variable coefficients (a copy of apply.py:160-293)
+# ---------------------------------------------------------------------------
+
+def almost_uniform_desc(f, max_rows: int = 4):
+    """Structure descriptor of a numpy coefficient array (apply.py:160-190):
+
+    * ``("const", c)``: the array is the constant ``c``;
+    * ``("rows", c, [(i, row - c), ...])``: constant except on at most
+      ``max_rows`` axis-0 rows;
+    * ``None``: genuinely varying."""
+    if not (isinstance(f, np.ndarray) and f.size and f.ndim >= 1):
+        return None
+    c = f.flat[0]
+    # probe the middle row too: for a boundary fold f.flat[0] sits on an
+    # exceptional row
+    mid = np.atleast_1d(f[tuple([f.shape[0] // 2]
+                               + [slice(None)] * (f.ndim - 1))])
+    if mid.size and np.all(mid == mid.flat[0]):
+        c = mid.flat[0]
+    neq = f != c
+    if not neq.any():
+        return ("const", np.asarray(c).item())
+    exc = np.unique(np.nonzero(neq)[0])
+    if len(exc) <= max_rows:
+        return ("rows", np.asarray(c).item(),
+                [(int(i), np.asarray(f[int(i)] - c)) for i in exc])
+    return None
+
+
+def almost_uniform_mul(term, x):
+    """``coefficient * x`` for one offset's device term (see
+    :meth:`StencilField.device_terms`): ``(bulk, [(row, row_term)])``,
+    where the row terms are added at their rows after every bulk term is
+    summed (apply.py:193-204)."""
+    coeff, rows = term
+    return coeff * x, [(i, row * x[i]) for i, row in rows]
+
+
+class StencilField:
+    """Variable-coefficient stencil: one coefficient field per offset
+    (apply.py:207-286).
+
+    ``fields[k]`` is a numpy array of the grid's interior shape holding the
+    coefficient of ``offsets[k]`` at each point.  Device copies, cast to
+    the grid dtype, are built once per field object, device and dtype and
+    kept on the object (:meth:`cached`)."""
+
+    __slots__ = ("offsets", "fields", "_uniform", "_cache")
+
+    def __init__(self, offsets, fields):
+        self.offsets = tuple(tuple(o) for o in offsets)
+        self.fields = list(fields)
+        self._uniform = None
+        self._cache = {}
+
+    def _uniform_values(self):
+        """Per-offset :func:`almost_uniform_desc`, computed once."""
+        if self._uniform is None:
+            self._uniform = [almost_uniform_desc(f) for f in self.fields]
+        return self._uniform
+
+    @property
+    def dimension(self):
+        return len(self.offsets[0])
+
+    def cached(self, key, device, dtype, build):
+        """``build()`` once per ``key``, device and dtype."""
+        key = (key, str(torch.device(device)), dtype)
+        if key not in self._cache:
+            self._cache[key] = build()
+        return self._cache[key]
+
+    def device_terms(self, device, dtype):
+        """Per offset ``(coefficient, [(row, row_delta)])``: a float for a
+        uniform or almost uniform field, else the field as a ``dtype``
+        tensor on ``device``; the row deltas of an almost uniform field as
+        tensors (apply.py:193-204)."""
+        def build():
+            _real_values(self.fields)
+            terms = []
+            for f, desc in zip(self.fields, self._uniform_values()):
+                if desc is None:
+                    terms.append((torch.as_tensor(np.asarray(f), dtype=dtype,
+                                                  device=device), []))
+                    continue
+                rows = [(i, torch.as_tensor(row, dtype=dtype, device=device))
+                        for i, row in desc[2]] if desc[0] == "rows" else []
+                terms.append((float(desc[1]), rows))
+            return terms
+        return self.cached("terms", device, dtype, build)
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        """(S u)(x) = sum_k c_k(x) * u(x + o_k), zero outside the grid, in
+        the grid's dtype (apply.py:235-262, Dirichlet branch)."""
+        radius = tuple(max(abs(o[k]) for o in self.offsets)
+                       for k in range(u.ndim))
+        up = _pad(u, radius)
+        acc = None
+        row_fixups = []
+        for offset, term in zip(self.offsets,
+                                self.device_terms(u.device, u.dtype)):
+            bulk, fixes = almost_uniform_mul(
+                term, _shifted(up, offset, radius, u.shape))
+            row_fixups.extend(fixes)
+            acc = bulk if acc is None else acc + bulk
+        for i, add in row_fixups:
+            acc[i] = acc[i] + add
+        return acc
+
+    def diagonal_field(self):
+        zero = (0,) * self.dimension
+        for o, f in zip(self.offsets, self.fields):
+            if o == zero:
+                return f
+        raise ValueError("stencil field has no diagonal entry")
+
+    def diagonal_tensor(self, device, dtype) -> torch.Tensor:
+        """:meth:`diagonal_field` as a ``dtype`` tensor on ``device``."""
+        return self.cached("diagonal", device, dtype, lambda: torch.as_tensor(
+            np.asarray(self.diagonal_field()), dtype=dtype, device=device))
+
+    def dense_matrix(self) -> np.ndarray:
+        """Dense matrix (Dirichlet-0 outside the grid) for tests and small
+        direct solves (apply.py:271-286)."""
+        shape = np.asarray(self.fields[0]).shape
+        n = int(np.prod(shape))
+        dtype = np.result_type(*[np.asarray(f).dtype for f in self.fields])
+        mat = np.zeros((n, n),
+                       dtype=dtype if dtype.kind == "c" else np.float64)
+        for offset, coeff in zip(self.offsets, self.fields):
+            coeff = np.asarray(coeff)
+            for row_idx in np.ndindex(*shape):
+                col_idx = tuple(i + o for i, o in zip(row_idx, offset))
+                if all(0 <= c < m for c, m in zip(col_idx, shape)):
+                    mat[np.ravel_multi_index(row_idx, shape),
+                        np.ravel_multi_index(col_idx, shape)] += coeff[row_idx]
+        return mat
+
+
+def constant_stencil_field(stencil: Stencil, shape) -> StencilField:
+    """Broadcast a constant stencil into field form (apply.py:289-293)."""
+    offsets = [o for o, _ in stencil.entries]
+    fields = [np.full(shape, v) for _, v in stencil.entries]
+    return StencilField(offsets, fields)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
            _PACKAGE / "csrc" / "wavefront3d.cu",
            _PACKAGE / "csrc" / "rbgs.cu",
            _PACKAGE / "csrc" / "sweep3d.cu",
-           _PACKAGE / "csrc" / "leg3d.cu")
+           _PACKAGE / "csrc" / "leg3d.cu",
+           _PACKAGE / "csrc" / "rbgs_var.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = (_PACKAGE / "csrc" / "walk3d.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
@@ -77,6 +78,18 @@ SIGNATURES = {
     # u, e, omegas, omega id, coefficients, u_out, n0, n1, n2, stream
     "es_prolong_correct_3d":
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # u, b, coefficient stack, omegas, omega id, red-black, out, n, m, stream
+    "es_sweep_var": (_P, _P, _P, _P, _INT, _INT, _P, _INT, _INT, _P),
+    # u, b, coefficient stack, omegas, omega ids, sweeps, red-black, taps,
+    # u_out, rc, n, m, stream
+    "es_presmooth_residual_restrict_var":
+        (_P, _P, _P, _P, _INTS, _INT, _INT, _DOUBLES, _P, _P, _INT, _INT,
+         _P),
+    # u, e, b, coefficient stack, omegas, omega ids, sweeps, red-black,
+    # taps, u_out, n, m, stream
+    "es_prolong_correct_postsmooth_var":
+        (_P, _P, _P, _P, _P, _INTS, _INT, _INT, _DOUBLES, _P, _INT, _INT,
+         _P),
 }
 
 

@@ -1,6 +1,6 @@
 """Poisson model problems for the port: a copy of the Poisson part of
-evostencils_tpu/problems/poisson.py (``poisson_2d``, ``poisson_3d`` and
-their data), kept in the port so that it imports nothing of the JAX
+evostencils_tpu/problems/poisson.py (``poisson_2d``, ``poisson_3d``,
+``poisson_2d_variable`` and their data), kept in the port so that it imports nothing of the JAX
 package.  The ``rhs_builder`` closures return numpy arrays here, where the
 JAX package's return ``jax.numpy`` arrays; :func:`build_rhs` moves them to
 a device.
@@ -89,12 +89,42 @@ def poisson_3d(max_level: int = 6, min_level: int = 2) -> Problem:
                    exact_solution=exact_solution)
 
 
+def poisson_2d_variable(max_level: int = 9, min_level: int = 5) -> Problem:
+    """Variable-coefficient 2D Poisson -div(a grad u), a = exp(10 (x-x²)(y-y²))
+    (poisson.py:86-111; reference gallery.py:93-136).
+
+    The executable operator is the full per-node coefficient field
+    (gallery.Poisson2DVariableCoefficients.generate_stencil_field); the
+    position-frozen constant stencil is kept for Fourier-mode analysis,
+    and the Dirichlet data is folded into b with it, as the JAX package
+    folds it (poisson.py:100-105).
+    """
+    contexts, coarsest = scalar_hierarchy(
+        "Poisson2DVar", 2, max_level, min_level,
+        gallery.Poisson2DVariableCoefficients())
+    rhs_entity = system.RightHandSide(
+        "f", [base.RightHandSide("f", contexts[0].grid[0])])
+    grid = contexts[0].grid[0]
+    stencil = gallery.Poisson2DVariableCoefficients().generate_stencil(grid)
+
+    def rhs_builder(dtype):
+        X, Y = node_positions(grid)
+        b = fold_dirichlet(stencil, grid, _u_exact_2d, _f_2d(X, Y))
+        return (np.asarray(b, dtype=dtype),)
+
+    return Problem(name="Poisson2DVar", dimension=2, min_level=min_level,
+                   max_level=max_level, fields=["u"],
+                   level_contexts=contexts, coarsest_operator=coarsest,
+                   rhs_entity=rhs_entity, rhs_builder=rhs_builder)
+
+
 def build_rhs(problem: Problem, *, dtype, device="cuda") -> tuple:
-    """The fields of ``b`` for ``poisson_2d`` or ``poisson_3d``: the
-    right-hand side with the Dirichlet data folded in, built in numpy
-    float64 as evostencils_tpu/problems/poisson.py:43-47 and :69-72 build
-    it (RHS_u = 0 in 3D), then moved to ``device`` in ``dtype``."""
-    if problem.name not in ("Poisson2D", "Poisson3D"):
+    """The fields of ``b`` for ``poisson_2d``, ``poisson_3d`` or
+    ``poisson_2d_variable``: the right-hand side with the Dirichlet data
+    folded in, built in numpy float64 as evostencils_tpu/problems/
+    poisson.py:43-47, :69-72 and :100-105 build it (RHS_u = 0 in 3D), then
+    moved to ``device`` in ``dtype``."""
+    if problem.name not in ("Poisson2D", "Poisson3D", "Poisson2DVar"):
         raise NotImplementedError(
             f"right-hand side of {problem.name} is not ported yet")
     return tuple(torch.tensor(b, dtype=dtype, device=device)

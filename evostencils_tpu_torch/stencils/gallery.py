@@ -1,7 +1,5 @@
 """Copy of evostencils_tpu/stencils/gallery.py, kept in the port so that it imports
-nothing of the JAX package.  One difference: the variable-coefficient
-generators' ``generate_stencil_field`` raises, because it builds an
-``ops.apply.StencilField``, which the port does not have yet.
+nothing of the JAX package.
 
 Built-in stencil generators: discretized PDE operators and transfers.
 
@@ -149,11 +147,20 @@ class Poisson2DVariableCoefficients(StencilGenerator):
         ])
 
     def generate_stencil_field(self, grid):
-        """The executable variable-coefficient form (``ops.apply.StencilField``
-        in the JAX package) is not ported yet; the method stays so that the
-        lowering recognises a variable-coefficient operator and raises."""
-        raise NotImplementedError(
-            "variable-coefficient stencil fields are not ported yet")
+        """Executable variable-coefficient form: cell-face coefficients
+        sampled over the whole interior grid (one field per offset)."""
+        from ..ops.apply import StencilField
+        hx, hy = grid.spacing
+        axes = [np.arange(1, n + 1) * h
+                for n, h in zip(grid.size, grid.spacing)]
+        X, Y = np.meshgrid(*axes, indexing="ij")
+        a = self.coefficient
+        ae, aw = a(X + 0.5 * hx, Y), a(X - 0.5 * hx, Y)
+        an, as_ = a(X, Y + 0.5 * hy), a(X, Y - 0.5 * hy)
+        return StencilField(
+            [(0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)],
+            [(ae + aw) / hx ** 2 + (an + as_) / hy ** 2,
+             -ae / hx ** 2, -aw / hx ** 2, -an / hy ** 2, -as_ / hy ** 2])
 
 
 class Poisson3DVariableCoefficients(StencilGenerator):
@@ -177,11 +184,21 @@ class Poisson3DVariableCoefficients(StencilGenerator):
         ])
 
     def generate_stencil_field(self, grid):
-        """The executable variable-coefficient form (``ops.apply.StencilField``
-        in the JAX package) is not ported yet; the method stays so that the
-        lowering recognises a variable-coefficient operator and raises."""
-        raise NotImplementedError(
-            "variable-coefficient stencil fields are not ported yet")
+        from ..ops.apply import StencilField
+        hx, hy, hz = grid.spacing
+        axes = [np.arange(1, n + 1) * h
+                for n, h in zip(grid.size, grid.spacing)]
+        X, Y, Z = np.meshgrid(*axes, indexing="ij")
+        a = self.coefficient
+        ae, aw = a(X + 0.5 * hx, Y, Z), a(X - 0.5 * hx, Y, Z)
+        an, as_ = a(X, Y + 0.5 * hy, Z), a(X, Y - 0.5 * hy, Z)
+        at, ab = a(X, Y, Z + 0.5 * hz), a(X, Y, Z - 0.5 * hz)
+        return StencilField(
+            [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
+             (0, 0, 1), (0, 0, -1)],
+            [(ae + aw) / hx ** 2 + (an + as_) / hy ** 2 + (at + ab) / hz ** 2,
+             -ae / hx ** 2, -aw / hx ** 2, -an / hy ** 2, -as_ / hy ** 2,
+             -at / hz ** 2, -ab / hz ** 2])
 
 
 def _tensor(weights_1d: Sequence[float], dimension: int) -> Stencil:
