@@ -42,10 +42,11 @@ Phases:
    float32 floor of 1e-5 ||b||, and the gen-75 champion must converge
    faster than the red-black V(2,1);
 10. [evolve] the CLI twin of scripts/optimize.py in this process,
-   ``poisson2d NSGAII --mu 4 --lambda 4 --generations 2 --seed 0`` at
+   ``poisson2d NSGAII --mu 4 --lambda 4 --generations 1 --seed 0`` at
    its default levels 9->5, which must end with a finite best individual
    that re-parses and converges; its timing protocol takes one repetition
-   of its windows instead of three, a cut of this run;
+   of its windows instead of three, and it runs one generation, cuts of
+   this run that keep the whole script near its time;
 11. [kernels-sweep3d] compare the standalone 3D sweeps (red-black and
    Jacobi, omega 1.15, an anisotropic 7-point stencil) with their plain
    versions through the leg3d names at 255^3, 65x127x255 and 17x33x63 and
@@ -61,7 +62,7 @@ Phases:
    prolongation corrections, the V(1,1) 1 leg3d and 2 rbgs3d red-black
    sweeps, 3 residual restrictions and 3 wavefront up-legs; kernels
    against plain versions as in [evaluator];
-13. [evolve3d] ``poisson3d NSGAII --mu 4 --lambda 4 --generations 2
+13. [evolve3d] ``poisson3d NSGAII --mu 4 --lambda 4 --generations 1
    --seed 0`` at its default levels 6->2 (63^3), cut as [evolve]; at least
    one 3D standalone kernel must launch;
 14. [kernels-var] compare the four variable-coefficient kernels (the
@@ -84,10 +85,33 @@ Phases:
    [evaluator];
 17. [evolve-var] ``poisson2d_var NSGAII --mu 4 --lambda 4 --generations 1
    --seed 0`` at its default levels 9->5 (511^2), cut as [evolve];
-18. check that neither jax nor the JAX package was imported.
+18. [kernels-sys] compare the four coupled-system kernels (the fused
+   red-black and the Jacobi sweep, the down-leg and the up-leg) with their
+   plain versions at 2047^2 and 1023^2 with linear elasticity's own table
+   and at ragged shapes (1025x771 for the legs, 300x200 for the sweeps)
+   with a random table whose point solve is not diagonal, row fixups and
+   asymmetric taps, the legs for 1..3 sweeps, red-black and Jacobi; time
+   both at 2047^2;
+19. [main-elast] drive the elasticity path, linear_elasticity_2d(11, 4)
+   (2047^2, float32, the BASELINE suite's elasticity row,
+   scripts/bench_suite.py:111-113, :145-147), with the collective red-black
+   V(2,1) (omega 1.25) and the collective Jacobi V(2,1) (omega 0.8), as
+   phase 5 drives the 2D path: each system leg must run four times per
+   cycle (2047^2 .. 255^2) and no other kernel at all; then each solve to
+   1e-5 as phase 6;
+20. [evaluator-elast] a CycleEvaluator at linear_elasticity_2d(8, 4)
+   (255^2) runs measure_interleaved over the collective red-black and
+   Jacobi V(2,1) and V(4,4), the decoupled red-black V(2,1) and the stored
+   champion of lowest fitness_rho; per cycle each runs 1 + 1 system legs,
+   each V(4,4) 2 standalone system sweeps and the champion 1 besides;
+   kernels against plain versions as in [evaluator]; the champion needs no
+   more iterations than the red-black V(2,1);
+21. [evolve-elast] ``elasticity2d NSGAII --mu 4 --lambda 4 --generations 1
+   --seed 0`` at its default levels 8->4 (255^2), cut as [evolve];
+22. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-7, 9, 10, 12, 13, 15, 16 and 17) and read just after.  Each phase prints
+7, 9, 10, 12, 13, 15, 16, 17, 19, 20 and 21) and read just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -193,6 +217,18 @@ KERNELS = {
     "prolong_correct_postsmooth_var": (
         "evostencils_tpu/ops/pallas/rbgs_var.py:366",
         "evostencils_tpu_torch/csrc/rbgs_var.cu"),
+    "fused_rbgs_sweep_sys": (
+        "evostencils_tpu/ops/pallas/rbgs_sys.py:219",
+        "evostencils_tpu_torch/csrc/rbgs_sys.cu"),
+    "jacobi_sweep_sys": (
+        "evostencils_tpu/ops/pallas/rbgs_sys.py:227",
+        "evostencils_tpu_torch/csrc/rbgs_sys.cu"),
+    "presmooth_residual_restrict_sys": (
+        "evostencils_tpu/ops/pallas/rbgs_sys.py:357",
+        "evostencils_tpu_torch/csrc/rbgs_sys.cu"),
+    "prolong_correct_postsmooth_sys": (
+        "evostencils_tpu/ops/pallas/rbgs_sys.py:459",
+        "evostencils_tpu_torch/csrc/rbgs_sys.cu"),
 }
 #: the standalone kernels, which the [evaluator] phase drives
 STANDALONE = ("fused_rbgs_sweep", "jacobi_sweep", "residual_restrict",
@@ -209,6 +245,14 @@ VAR_SWEEPS = ("fused_rbgs_sweep_var", "jacobi_sweep_var")
 #: largest plain value: the problem's coefficients reach 3e7 at 2047^2,
 #: so A u cancels terms of 1e8 whose rounding differs by a few units
 TOL_VAR = 1e-5
+#: the coupled-system legs and standalone sweeps
+SYS_LEGS = ("presmooth_residual_restrict_sys",
+            "prolong_correct_postsmooth_sys")
+SYS_SWEEPS = ("fused_rbgs_sweep_sys", "jacobi_sweep_sys")
+#: the system kernels' float32 slack, relative to the largest plain value:
+#: elasticity's center coefficients reach 6e9 at 2047^2, so A u cancels
+#: terms of that order, and the kernels contract multiply-adds
+TOL_SYS = 1e-5
 
 
 def log(msg):
@@ -766,14 +810,184 @@ def phase_kernels_var(torch, rbgs_var, device):
     return stats
 
 
+def sys_sweep_flops(coeffs, minv):
+    """float32 operations per point of one system sweep (every point of
+    every field updated once) with this table: per field, a product for
+    each nonzero coefficient and the sums, b - A u, the point solve's
+    products and sums, omega times it and the update's sum."""
+    flops = 0
+    for i, row in enumerate(coeffs):
+        nnz = sum(1 for block in row for c in block if c != 0.0)
+        solve = sum(1 for v in minv[i] if v != 0.0)
+        flops += 2 * nnz + 2 * solve + 2
+    return flops
+
+
+def sys_sweep_bound(shape, coeffs, minv):
+    """A system sweep reads u and b and writes u of every field once
+    (float32)."""
+    points = int(np.prod(shape))
+    return bytes_bound(3 * 4 * len(coeffs) * points,
+                       sys_sweep_flops(coeffs, minv) * points)
+
+
+def sys_leg_bound(shape, sweeps, leg, coeffs, minv):
+    """A system leg moves what its sweeps move (u, b, u out of every
+    field) and every field's coarse array once; it does ``sweeps`` sweeps
+    and, per field, the work of LEG_FLOPS."""
+    fine = int(np.prod(shape))
+    coarse = int(np.prod([(n - 1) // 2 for n in shape]))
+    F = len(coeffs)
+    return bytes_bound(4 * F * (3 * fine + coarse),
+                       fine * (sweeps * sys_sweep_flops(coeffs, minv)
+                               + F * LEG_FLOPS[(leg, 2)]))
+
+
+def elasticity_table(n):
+    """(coeffs, minv) of linear_elasticity_2d's operator at n^2 with the
+    collective point solve, as the lowering derives them."""
+    from evostencils_tpu_torch.compiler import lower
+    from evostencils_tpu_torch.problems.elasticity import linear_elasticity_2d
+    level = (n + 1).bit_length() - 1
+    op = linear_elasticity_2d(max_level=level, min_level=level - 1) \
+        .level_contexts[0].operator
+    coeffs = lower._sys_nine_table(op)[0]
+    return coeffs, lower._Lowering._sys_minv(coeffs, "elem")
+
+
+def random_sys_table(rng):
+    """A diagonally dominant 2 x 2 table of 9-point blocks with nonzero
+    corners in every block and nonzero off-diagonal centers, so that its
+    point solve is not diagonal and a swapped (i, j) shows; with center
+    fixups on two rows and their point-solve deltas."""
+    from evostencils_tpu_torch.compiler import lower
+    coeffs = []
+    for i in range(2):
+        row = []
+        for j in range(2):
+            c = rng.uniform(-0.3, 0.3, 9)
+            c[0] = 6.0 + rng.uniform(0, 1) if i == j else 0.7 + 0.2 * i
+            c[1:5] += ANISO[1:] if i == j else 0.0
+            row.append(tuple(float(v) for v in c))
+        coeffs.append(tuple(row))
+    coeffs = tuple(coeffs)
+    minv = lower._Lowering._sys_minv(coeffs, "elem")
+    exc = ((3, ((0.5, 0.25), (-0.2, 0.75))), (100, ((-0.4, 0.0), (0.3, 0.6))))
+    return coeffs, minv, exc, lower._Lowering._sys_minv_exc(coeffs, "elem",
+                                                            exc, minv)
+
+
+#: the [kernels-sys] shapes and tables: the main path's two finest levels
+#: with elasticity's own table (the first is timed), ragged shapes with the
+#: random table, its fixups and asymmetric taps (the legs take the odd one)
+SYS_CASES = [((2047, 2047), "elasticity"), ((1023, 1023), "elasticity"),
+             ((1025, 771), "random"), ((300, 200), "random")]
+
+
+def phase_kernels_sys(torch, rbgs_sys, device):
+    """The coupled-system kernels against their plain versions; both timed
+    in turns at 2047^2, the main path's finest level."""
+    stats = {name: {"max_abs_err": 0.0} for name in SYS_SWEEPS + SYS_LEGS}
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(7)
+
+    def normal(*s):
+        return tuple(torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                  device=device) for _ in range(2))
+
+    def note(name, tag, ks, ps):
+        """Every field of ks against ps within TOL_SYS * max |p|."""
+        for f, (k, p) in enumerate(zip(ks, ps)):
+            scale = float(p.abs().max())
+            err, excess = deviation(torch, k, p, 0.0, TOL_SYS * scale)
+            log(f"[kernels-sys] {name} {tag} field {f}: max|d| {err:.3e} = "
+                f"{err / scale:.3e} max|plain| (tol {TOL_SYS})")
+            check(excess <= 0, f"{name} {tag} field {f}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+
+    for shape, kind in SYS_CASES:
+        n, m = shape
+        if kind == "elasticity":
+            (coeffs, minv), exc, exc_minv = elasticity_table(n), (), ()
+            r_taps, p_taps = R_TAPS, P_TAPS
+        else:
+            coeffs, minv, exc, exc_minv = random_sys_table(rng)
+            r_taps, p_taps = R_TAPS_ASYM, P_TAPS_ASYM
+        op = (coeffs, minv)
+        fix = {"exc": exc, "exc_minv": exc_minv}
+        u, b = normal(n, m), normal(n, m)
+        tag = f"{n}x{m} {kind}"
+        for name in SYS_SWEEPS:
+            kern, plain = (getattr(rbgs_sys, name + sfx)
+                           for sfx in ("", "_plain"))
+            note(name, tag, kern(u, b, omegas, 1, *op, exc, exc_minv),
+                 plain(u, b, omegas, 1, *op, exc, exc_minv))
+        if n % 2 and m % 2:
+            e = normal((n - 1) // 2, (m - 1) // 2)
+            for sweeps in (1, 2, 3):
+                for red_black in (True, False):
+                    mode = (f"{tag} S={sweeps} "
+                            f"{'RB' if red_black else 'Jacobi'}")
+                    ids = [1, 2, 3][:sweeps]
+                    (us_k, rc_k), (us_p, rc_p) = (
+                        fn(u, b, omegas, ids, *op, r_taps,
+                           red_black=red_black, **fix)
+                        for fn in (rbgs_sys.presmooth_residual_restrict_sys,
+                                   rbgs_sys.
+                                   presmooth_residual_restrict_sys_plain))
+                    note(SYS_LEGS[0], mode + " u", us_k, us_p)
+                    note(SYS_LEGS[0], mode + " rc", rc_k, rc_p)
+                    ids = [0, 1, 2, 3][:sweeps + 1]
+                    o_k, o_p = (
+                        fn(u, e, b, omegas, ids, *op, p_taps,
+                           red_black=red_black, **fix)
+                        for fn in (rbgs_sys.prolong_correct_postsmooth_sys,
+                                   rbgs_sys.
+                                   prolong_correct_postsmooth_sys_plain))
+                    note(SYS_LEGS[1], mode, o_k, o_p)
+        if shape != SYS_CASES[0][0]:
+            continue
+        # the main path's finest level: its table and taps, V(2,1) sweeps
+        e = normal((n - 1) // 2, (m - 1) // 2)
+        timed = {
+            "fused_rbgs_sweep_sys": (
+                lambda: rbgs_sys.fused_rbgs_sweep_sys(u, b, omegas, 1, *op),
+                lambda: rbgs_sys.fused_rbgs_sweep_sys_plain(u, b, omegas, 1,
+                                                            *op),
+                sys_sweep_bound(shape, *op)),
+            "jacobi_sweep_sys": (
+                lambda: rbgs_sys.jacobi_sweep_sys(u, b, omegas, 2, *op),
+                lambda: rbgs_sys.jacobi_sweep_sys_plain(u, b, omegas, 2, *op),
+                sys_sweep_bound(shape, *op)),
+            "presmooth_residual_restrict_sys": (
+                lambda: rbgs_sys.presmooth_residual_restrict_sys(
+                    u, b, omegas, [1, 2], *op, R_TAPS),
+                lambda: rbgs_sys.presmooth_residual_restrict_sys_plain(
+                    u, b, omegas, [1, 2], *op, R_TAPS),
+                sys_leg_bound(shape, 2, "down", *op)),
+            "prolong_correct_postsmooth_sys": (
+                lambda: rbgs_sys.prolong_correct_postsmooth_sys(
+                    u, e, b, omegas, [0, 1], *op, P_TAPS),
+                lambda: rbgs_sys.prolong_correct_postsmooth_sys_plain(
+                    u, e, b, omegas, [0, 1], *op, P_TAPS),
+                sys_leg_bound(shape, 1, "up", *op)),
+        }
+        for name, (kern, plain, bound) in timed.items():
+            time_standalone(torch, stats, name, "kernels-sys", shape, kern,
+                            plain, bound, keep=shape)
+    return stats
+
+
 def v21(path):
     """A fresh problem of the path and its V(2,1) cycle."""
     from evostencils_tpu_torch.compiler.cycles import v_cycle
     from evostencils_tpu_torch.ir import partitioning as part
-    from evostencils_tpu_torch.problems import poisson
+    from evostencils_tpu_torch.problems import elasticity, poisson
     _, build, max_level, min_level, partitioning, omega, _, _ = PATHS[path]
-    problem = getattr(poisson, build)(max_level=max_level,
-                                      min_level=min_level)
+    module = elasticity if build == "linear_elasticity_2d" else poisson
+    problem = getattr(module, build)(max_level=max_level,
+                                     min_level=min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
                     pre_smoothing=2, post_smoothing=1, omega=omega,
                     partitioning=getattr(part, partitioning),
@@ -794,7 +1008,13 @@ PATHS = {
     "var-jacobi": ("main-var jacobi", "poisson_2d_variable", 11, 5,
                    "Single", 0.8, "transfer", VAR_LEGS),
     "var-rb": ("main-var rb", "poisson_2d_variable", 11, 5, "RedBlack",
-               1.15, "transfer", VAR_LEGS)}
+               1.15, "transfer", VAR_LEGS),
+    # the BASELINE suite's elasticity row (scripts/bench_suite.py:111-113,
+    # :145-147) with both partitionings
+    "elast-rb": ("main-elast rb", "linear_elasticity_2d", 11, 4, "RedBlack",
+                 1.25, "rbgs_sys", SYS_LEGS),
+    "elast-jacobi": ("main-elast jacobi", "linear_elasticity_2d", 11, 4,
+                     "Single", 0.8, "rbgs_sys", SYS_LEGS)}
 
 
 def phase_main_path(torch, kernels, device, card, path):
@@ -813,7 +1033,8 @@ def phase_main_path(torch, kernels, device, card, path):
                           device=device)
     u = tuple(torch.zeros_like(x) for x in b)
     loop = make_cycle_loop(lowered, K_CYCLES)
-    n_dof = int(np.prod(problem.finest_grid[0].size))
+    # every field's points
+    n_dof = sum(int(np.prod(g.size)) for g in problem.finest_grid)
 
     for mod in kernels.values():
         mod.reset_launches()
@@ -830,9 +1051,12 @@ def phase_main_path(torch, kernels, device, card, path):
               for name, n in mod.launches.items()}
     cycles = K_CYCLES * BATCHES
     # every level the gate admits runs each leg once per cycle
-    fused = sum(1 for ctx in problem.level_contexts
-                if path_kernels.supports(torch.empty(ctx.grid[0].size,
-                                                     device="meta")))
+    def admits(ctx):
+        fields = tuple(torch.empty(g.size, device="meta") for g in ctx.grid)
+        if module == "rbgs_sys":
+            return path_kernels.leg_supports(fields)
+        return path_kernels.supports(fields[0])
+    fused = sum(1 for ctx in problem.level_contexts if admits(ctx))
     log(f"[{label}] launches {counts} over {cycles} cycles, {fused} fused "
         "levels")
     # the legs take every smoother and transfer of the gated levels, so
@@ -854,7 +1078,8 @@ def phase_main_path(torch, kernels, device, card, path):
     check(tuple(u0.shape) == tuple(problem.finest_grid[0].size)
           and u0.dtype == torch.float32, "solution shape/dtype")
     res = float(residual_norm_fn(lowered.operator)(u, b))
-    rel = res / float(torch.linalg.vector_norm(b[0].double()))
+    rel = res / float(torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(x.double()) for x in b])))
     log(f"[{label}] relative residual after {cycles} cycles: {rel:.3e} "
         "(gate 1e-4, bench.py:195)")
     check(np.isfinite(rel) and rel <= 1e-4, "relative residual")
@@ -1168,10 +1393,85 @@ def phase_evaluator_var(torch, kernels, device, card):
     return {name: counts[name] for name in VAR_SWEEPS}
 
 
-def phase_evolve(torch, kernels, problem_name, tag, names=(),
-                 generations=2):
+#: the [evaluator-elast] structures at 255^2 (levels 8 -> 4): (pre-sweeps,
+#: post-sweeps, partitioning, omega, smoother), and the launches of one
+#: cycle: only 255^2 passes the system gates; a V(4,4) leaves one pre- and
+#: one post-sweep to the standalone sweep beside legs of 3 sweeps; the
+#: stored champion of lowest fitness_rho runs one standalone sweep besides
+#: its legs
+EVALELAST_LEVELS = (8, 4)
+EVALELAST_STRUCTURES = {
+    "rb_v21": ((2, 1, "RedBlack", 1.25, "collective"),
+               {SYS_LEGS[0]: 1, SYS_LEGS[1]: 1}),
+    "jacobi_v21": ((2, 1, "Single", 0.8, "collective"),
+                   {SYS_LEGS[0]: 1, SYS_LEGS[1]: 1}),
+    "rb_v44": ((4, 4, "RedBlack", 1.25, "collective"),
+               {SYS_LEGS[0]: 1, SYS_LEGS[1]: 1, "fused_rbgs_sweep_sys": 2}),
+    "jacobi_v44": ((4, 4, "Single", 0.8, "collective"),
+                   {SYS_LEGS[0]: 1, SYS_LEGS[1]: 1, "jacobi_sweep_sys": 2}),
+    "decoupled_rb_v21": ((2, 1, "RedBlack", 1.25, "decoupled"),
+                         {SYS_LEGS[0]: 1, SYS_LEGS[1]: 1}),
+    "gen25": (None, {SYS_LEGS[0]: 1, SYS_LEGS[1]: 1,
+                     "fused_rbgs_sweep_sys": 1}),
+}
+
+
+def phase_evaluator_elast(torch, kernels, device, card):
+    """The evaluator on the elasticity path at 255^2; returns the
+    standalone system sweeps' launches over its measure_interleaved run."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.ir import smoother, transformations
+    from evostencils_tpu_torch.problems.elasticity import linear_elasticity_2d
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    problem = linear_elasticity_2d(max_level=EVALELAST_LEVELS[0],
+                                   min_level=EVALELAST_LEVELS[1])
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    structures = []
+    for key, (hand, _) in EVALELAST_STRUCTURES.items():
+        if hand is None:
+            json_key = "elasticity2d_255sq_collective_gen25"
+            index, grammar = champion(json_key, "fitness_rho")
+            log(f"[evaluator-elast] {key}: {json_key}[{index}], the lowest "
+                "fitness_rho")
+            pset = generate_primitive_set(
+                problem.approximation, problem.rhs_entity,
+                problem.level_contexts, problem.coarsest_operator)[0]
+            expr = gp.compile_tree(gp.parse_tree(grammar, pset), pset)[0]
+            transformations.assign_cycle_ids(expr)
+            structures.append((key, expr))
+            continue
+        pre, post, partitioning, omega, kind = hand
+        structures.append((key, v_cycle(
+            problem.level_contexts, problem.rhs_entity, pre_smoothing=pre,
+            post_smoothing=post, omega=omega,
+            partitioning=getattr(part, partitioning),
+            smoother_factory=getattr(smoother, f"generate_{kind}_jacobi"),
+            coarse_operator=problem.coarsest_operator)))
+    by_key, counts = measure_structures(torch, kernels, "evaluator-elast",
+                                        evaluator, structures,
+                                        SYS_SWEEPS + SYS_LEGS, card)
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    for key, expr in structures:
+        check_structure(torch, kernels, "evaluator-elast", key, expr,
+                        evaluator, b, EVALELAST_STRUCTURES[key][1])
+    it_champ, it_rb = (by_key[k]["iterations"] for k in ("gen25", "rb_v21"))
+    log(f"[evaluator-elast] champion {it_champ:.0f} iterations to the 1e-12 "
+        f"target (rho {by_key['gen25']['convergence_factor']:.5f}), "
+        f"red-black V(2,1) {it_rb:.0f} (rho "
+        f"{by_key['rb_v21']['convergence_factor']:.5f})")
+    check(it_champ <= it_rb, "the gen-25 champion needs no more iterations "
+          "than the red-black V(2,1)")
+    return {name: counts[name] for name in SYS_SWEEPS}
+
+
+def phase_evolve(torch, kernels, problem_name, tag, names=()):
     """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
-    --mu 4 --lambda 4 --generations <generations> --seed 0`` in this
+    --mu 4 --lambda 4 --generations 1 --seed 0`` in this
     process, at the problem's default levels; at least one kernel of
     ``names`` must launch."""
     from evostencils_tpu_torch import optimize
@@ -1189,7 +1489,7 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
 
     out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
     argv = [problem_name, "NSGAII", "--mu", "4", "--lambda", "4",
-            "--generations", str(generations), "--seed", "0", "--output",
+            "--generations", "1", "--seed", "0", "--output",
             str(out_dir)]
     # a cut of this run's depth: the timing protocol takes one repetition
     # of its windows of 1, 2, 4 and 8 solves (the evaluator's default is
@@ -1243,8 +1543,8 @@ def main():
         return 1
     from evostencils_tpu_torch.config import setup_device
     from evostencils_tpu_torch.ops.kernels import (_build, leg3d, rbgs,
-                                                   rbgs3d, rbgs_var, transfer,
-                                                   wavefront3d)
+                                                   rbgs3d, rbgs_sys, rbgs_var,
+                                                   transfer, wavefront3d)
 
     device = setup_device("cuda")
     card = subprocess.run(
@@ -1264,7 +1564,7 @@ def main():
 
     kernels = {"transfer": transfer, "wavefront3d": wavefront3d,
                "rbgs": rbgs, "rbgs3d": rbgs3d, "leg3d": leg3d,
-               "rbgs_var": rbgs_var}
+               "rbgs_var": rbgs_var, "rbgs_sys": rbgs_sys}
 
     def phase(label, fn, *args):
         t = time.perf_counter()
@@ -1285,14 +1585,16 @@ def main():
                        device))
     stats.update(phase("kernels-var", phase_kernels_var, torch, rbgs_var,
                        device))
+    stats.update(phase("kernels-sys", phase_kernels_sys, torch, rbgs_sys,
+                       device))
     launches = phase("main", phase_main_path, torch, kernels, device, card,
                      "2d")
     phase("main solve", phase_solve, torch, device, "2d")
     launches.update(phase("main3d", phase_main_path, torch, kernels, device,
                           card, "3d"))
     phase("main3d solve", phase_solve, torch, device, "3d")
-    # the var legs' launches over both partitionings' runs
-    for path in ("var-jacobi", "var-rb"):
+    # the var and system legs' launches over both partitionings' runs
+    for path in ("var-jacobi", "var-rb", "elast-rb", "elast-jacobi"):
         for kernel, count in phase(PATHS[path][0], phase_main_path, torch,
                                    kernels, device, card, path).items():
             launches[kernel] = launches.get(kernel, 0) + count
@@ -1307,7 +1609,11 @@ def main():
     launches.update(phase("evaluator-var", phase_evaluator_var, torch,
                           kernels, device, card))
     phase("evolve-var", phase_evolve, torch, kernels, "poisson2d_var",
-          "evolve-var", VAR_SWEEPS + VAR_LEGS, 1)
+          "evolve-var", VAR_SWEEPS + VAR_LEGS)
+    launches.update(phase("evaluator-elast", phase_evaluator_elast, torch,
+                          kernels, device, card))
+    phase("evolve-elast", phase_evolve, torch, kernels, "elasticity2d",
+          "evolve-elast", SYS_SWEEPS + SYS_LEGS)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

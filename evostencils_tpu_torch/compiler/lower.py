@@ -1,7 +1,7 @@
 """Cycle compiler: multigrid expression IR -> eager PyTorch programs
 (counterpart of evostencils_tpu/compiler/lower.py, the part that the 2D and
-3D Poisson V-cycles and the evolved 2D and 3D Poisson and variable-
-coefficient 2D Poisson cycles reach).
+3D Poisson V-cycles and the evolved 2D and 3D Poisson, variable-
+coefficient 2D Poisson and 2D linear elasticity cycles reach).
 
 * Grid functions are tuples of per-field tensors (interior points only).
 * Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
@@ -14,7 +14,9 @@ coefficient 2D Poisson cycles reach).
   up-leg (prolongation + correction + post-smoothers) runs as one call to
   ``ops.kernels.transfer`` (constant 5-point 2D operators),
   ``ops.kernels.rbgs_var`` (variable-coefficient 5-point 2D operators,
-  red-black or Jacobi sweeps, lower.py:1005-1015, :1231-1239) or
+  red-black or Jacobi sweeps, lower.py:1005-1015, :1231-1239),
+  ``ops.kernels.rbgs_sys`` (F x F systems of 9-point 2D blocks, red-black
+  or Jacobi sweeps, lower.py:1143-1216) or
   ``ops.kernels.wavefront3d`` (constant 7-point 3D operators, exactly two
   pre-sweeps and one post-sweep, lower.py:1029-1090) on every level its
   gate admits; the other levels run the generic lowering below.
@@ -25,19 +27,24 @@ coefficient 2D Poisson cycles reach).
   ``u + omega * P e`` one call to ``transfer.prolong_correct``, on the
   levels the kernels' gates admit (lower.py:799-917, :1311-1376); a
   smoother cycle of a variable-coefficient operator one call to
-  ``ops.kernels.rbgs_var`` (lower.py:845-855).  In 3D,
+  ``ops.kernels.rbgs_var`` (lower.py:845-855), of a system of 9-point
+  blocks one call to ``ops.kernels.rbgs_sys`` (lower.py:866-874).  In 3D,
   with a constant 7-point operator, a smoother cycle runs one call to
   ``ops.kernels.rbgs3d`` on the levels its gate admits, else to the
   ``leg3d`` sweep on the levels that gate admits (lower.py:894-910); the
   transfers run ``leg3d.residual_restrict_3d`` and
   ``leg3d.prolong_correct_3d`` (lower.py:1291-1309, :1378-1395).
 * Block smoothers (collective block Jacobi) solve their blocks through
-  ``ops.local_solve`` (lower.py:1546-1553, :1686-1706).
+  ``ops.local_solve`` (lower.py:1546-1553, :1686-1706); the collective
+  point smoother of a system with constant central coefficients applies
+  one F x F inverse (lower.py:1575-1624).
 * A variable-coefficient operator runs as its ``StencilField``
   (lower.py:105-124), one object per generator and grid, so that the
   planner can compare two smoothers' operators by identity.
 * Device constants (dense coarse inverses, red-black masks) are built once
-  per lowered cycle, device and dtype, and cached.
+  per lowered cycle, device and dtype, and cached; so are the operators'
+  stencils and the sys9 tables and point solves, which depend on the IR
+  alone.
 
 An IR node outside this subset raises ``NotImplementedError`` naming it.
 """
@@ -59,8 +66,8 @@ from ..ir import partitioning as part
 from ..ir import transformations
 from ..ops import apply as ops
 from ..ops.apply import red_black_masks
-from ..ops.kernels import (leg3d, rbgs, rbgs3d, rbgs_var, transfer,
-                           wavefront3d)
+from ..ops.kernels import (leg3d, rbgs, rbgs3d, rbgs_sys, rbgs_var,
+                           transfer, wavefront3d)
 from ..ops.local_solve import get_block_solve_plan
 from ..stencils import constant, periodic
 
@@ -158,12 +165,102 @@ def _scalar_constant_stencil(A):
     return st
 
 
-def _smoother_sig(A):
-    """Fusion signature of a smoothable operator: ("const5", vals) for a
-    scalar constant 5-point 2D stencil, ("const7", vals) for a scalar
-    constant 7-point 3D stencil, ("var5", StencilField) for a scalar
-    variable-coefficient 2D operator, else None (lower.py:343-393; the
-    sys9 signature belongs to kernels not ported yet)."""
+def _sys_entry_nine(e):
+    """One block-system entry for the sys9 kernels: ``(nine_coeffs,
+    {row: center_delta})`` or None (lower.py:267-311).  Constant stencils
+    inside the 3x3 box classify with no exceptions; a StencilField entry
+    classifies when every off-center coefficient field is uniform and the
+    center field is uniform up to constant deltas on a few axis-0 rows."""
+    if isinstance(e, base.ZeroOperator):
+        return (0.0,) * 9, {}
+    if type(e) is not base.Operator or _is_nonlinear(e):
+        return None
+    sf = _stencil_field_of(e)
+    if sf is None:
+        st = e.generate_stencil()
+        if not isinstance(st, constant.Stencil):
+            return None
+        c = rbgs_sys.nine_point_coeffs(st)
+        return None if c is None else (c, {})
+    if set(sf.offsets) - set(rbgs_sys.NINE_OFFSETS):
+        return None
+    if len(set(sf.offsets)) != len(sf.offsets):
+        return None     # a duplicate offset would silently overwrite
+    nine = [0.0] * 9
+    exc = {}
+    for off, f in zip(sf.offsets, sf.fields):
+        f = np.asarray(f)
+        if np.iscomplexobj(f):
+            return None
+        desc = ops.almost_uniform_desc(f)
+        if desc is None:
+            return None
+        k = rbgs_sys.NINE_OFFSETS.index(off)
+        nine[k] = float(desc[1])
+        if desc[0] == "rows":
+            if off != (0, 0):
+                return None        # only center exceptions are supported
+            for i, row in desc[2]:
+                row = np.asarray(row)
+                if row.size == 0 or np.ptp(row) != 0.0:
+                    return None    # the delta must be constant along the row
+                exc[int(i)] = float(row.flat[0])
+    return tuple(nine), exc
+
+
+def _sys_nine_table(A):
+    """``(coeffs, exc_t)`` of an F x F block system, or None when an entry
+    is outside the 3x3 box or not constant beyond row exceptions
+    (lower.py:314-340): the per-entry 9-point tables and the sorted
+    ``(row, F x F center-delta matrix)`` pairs.  The one construction site
+    of both the fusion signature and the runtime kernel parts, so the two
+    cannot disagree."""
+    F = len(A.entries)
+    coeffs = []
+    exc_rows: Dict[int, np.ndarray] = {}
+    for fi, row in enumerate(A.entries):
+        crow = []
+        for fj, e in enumerate(row):
+            ce = _sys_entry_nine(e)
+            if ce is None:
+                return None
+            c, exc = ce
+            crow.append(c)
+            for i, d in exc.items():
+                exc_rows.setdefault(i, np.zeros((F, F)))[fi, fj] = d
+        coeffs.append(tuple(crow))
+    exc_t = tuple(sorted(
+        (i, tuple(tuple(float(v) for v in r) for r in dm))
+        for i, dm in exc_rows.items()))
+    return tuple(coeffs), exc_t
+
+
+def _smoother_sig(A, L=None):
+    """Fusion signature of a smoothable operator (lower.py:343-393):
+    ("const5", vals) for a scalar constant 5-point 2D stencil, ("const7",
+    vals) for a scalar constant 7-point 3D stencil, ("var5", StencilField)
+    for a scalar variable-coefficient 2D operator, ("sys9", (coeffs, kind,
+    exc)) for an F x F system of 9-point 2D blocks smoothed by a
+    ``system.ElementwiseDiagonal`` (kind "elem") or ``system.Diagonal``
+    ("diag") ``L``, else None.  ``L`` only matters for systems: it selects
+    the point-solve matrix."""
+    if isinstance(A, system.Operator) and len(A.entries) >= 2:
+        F = len(A.entries)
+        if any(len(r) != F for r in A.entries):
+            return None
+        if isinstance(L, system.ElementwiseDiagonal):
+            kind = "elem"
+        elif isinstance(L, system.Diagonal):
+            kind = "diag"
+        else:
+            return None
+        if A.entries[0][0].grid.dimension != 2:
+            return None
+        ct = _sys_nine_table(A)
+        if ct is None:
+            return None
+        coeffs, exc_t = ct
+        return ("sys9", (coeffs, kind, exc_t))
     st = _scalar_constant_stencil(A)
     if st is None:
         entry = A.entries[0][0] if isinstance(A, system.Operator) \
@@ -185,7 +282,9 @@ def _smoother_sig(A):
 def _same_sig(a, b) -> bool:
     """Whether two smoothers' signatures match: the var5 field by identity
     (the same generator and grid give the same object), the constant
-    stencils by value (lower.py:418-425)."""
+    stencils and the sys9 tables by value, the sys9 kind included, so a
+    chain that mixes collective and decoupled smoothers stops there even
+    where the two point solves coincide (lower.py:418-425)."""
     if a is None or b is None or a[0] != b[0]:
         return False
     return a[1] is b[1] if a[0] == "var5" else a[1] == b[1]
@@ -211,7 +310,7 @@ def _peel_smoother_chain(cur, rhs, sig, max_sweeps=3):
         r2 = corr.operand2
         if r2.approximation is not cur.approximation or r2.rhs is not rhs:
             break
-        if not _same_sig(_smoother_sig(r2.operator), sig):
+        if not _same_sig(_smoother_sig(r2.operator, L), sig):
             break
         partitioning = cur.partitioning
         sweeps.append(cur)
@@ -275,11 +374,11 @@ def transfer_three_tap(op):
 
 def _leg_partitioning(sig, partitioning) -> bool:
     """Whether the legs of signature ``sig`` take a chain of this
-    partitioning: the var5 legs take red-black and Jacobi sweeps, the
-    constant ones red-black only (lower.py:453-454, :502-503, :1036-1038,
-    :1068-1070)."""
+    partitioning: the var5 and sys9 legs take red-black and Jacobi sweeps,
+    the constant ones red-black only (lower.py:453-454, :502-503,
+    :1036-1038, :1068-1070)."""
     return partitioning is part.RedBlack or (
-        sig[0] == "var5" and partitioning is part.Single)
+        sig[0] in ("var5", "sys9") and partitioning is part.Single)
 
 
 def _plan_post_fusions(root) -> Dict[int, dict]:
@@ -292,7 +391,7 @@ def _plan_post_fusions(root) -> Dict[int, dict]:
         corr = cyc.correction
         if not _is_smoother(corr):
             continue
-        sig = _smoother_sig(corr.operand2.operator)
+        sig = _smoother_sig(corr.operand2.operator, corr.operand1.operand)
         if sig is None:
             continue
         rhs = corr.operand2.rhs
@@ -331,7 +430,15 @@ def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
         if not isinstance(R, (system.Restriction, base.Restriction)) or \
                 isinstance(R, base.ZeroRestriction):
             continue
-        sig = _smoother_sig(res.operator)
+        # the head pre-smoother's inverse selects a system's point solve
+        # (lower.py:488-494)
+        L0 = None
+        head = res.approximation
+        if isinstance(head, base.Cycle) and \
+                isinstance(head.correction, base.Multiplication) and \
+                isinstance(head.correction.operand1, base.Inverse):
+            L0 = head.correction.operand1.operand
+        sig = _smoother_sig(res.operator, L0)
         if sig is None:
             continue
         sweeps, cur, partitioning = _peel_smoother_chain(res.approximation,
@@ -411,14 +518,19 @@ class _Lowering:
         self.memo: Dict[int, tuple] = {}
         self._super_results: Dict[int, object] = {}
         # the standalone kernels: the sweeps by dimension, gate and
-        # red-black-ness, the transfers by dimension; and per signature the
-        # legs: (gate, down-leg, up-leg, pre-sweeps, post-sweeps), None
-        # sweeps taking any count the leg accepts
+        # red-black-ness, the transfers by dimension; per scalar signature
+        # the legs: (gate, down-leg, up-leg, pre-sweeps, post-sweeps), None
+        # sweeps taking any count the leg accepts; and the system legs
+        # (down-leg, up-leg)
         if use_kernels:
             self._sweeps = {True: rbgs.fused_rbgs_sweep,
                             False: rbgs.jacobi_sweep}
             self._sweeps_var = {True: rbgs_var.fused_rbgs_sweep_var,
                                 False: rbgs_var.jacobi_sweep_var}
+            self._sweeps_sys = {True: rbgs_sys.fused_rbgs_sweep_sys,
+                                False: rbgs_sys.jacobi_sweep_sys}
+            self._legs_sys = (rbgs_sys.presmooth_residual_restrict_sys,
+                              rbgs_sys.prolong_correct_postsmooth_sys)
             self._sweeps3d = {
                 "rbgs3d": {True: rbgs3d.fused_rbgs_sweep_3d,
                            False: rbgs3d.jacobi_sweep_3d},
@@ -445,6 +557,10 @@ class _Lowering:
                             False: rbgs.jacobi_sweep_plain}
             self._sweeps_var = {True: rbgs_var.fused_rbgs_sweep_var_plain,
                                 False: rbgs_var.jacobi_sweep_var_plain}
+            self._sweeps_sys = {True: rbgs_sys.fused_rbgs_sweep_sys_plain,
+                                False: rbgs_sys.jacobi_sweep_sys_plain}
+            self._legs_sys = (rbgs_sys.presmooth_residual_restrict_sys_plain,
+                              rbgs_sys.prolong_correct_postsmooth_sys_plain)
             self._sweeps3d = {
                 "rbgs3d": {True: rbgs3d.fused_rbgs_sweep_3d_plain,
                            False: rbgs3d.jacobi_sweep_3d_plain},
@@ -481,6 +597,20 @@ class _Lowering:
     def set_like(self, u):
         self.dtype = u.dtype
         self.device = u.device
+
+    def _of_node(self, kind, node, build):
+        """``build()`` for an IR node, once per lowered cycle: the stencil
+        generators are pure, and deriving stencils and tables again on
+        every step is most of an eager step's host work on small grids.
+        The entry holds ``node``, so a hit is that object."""
+        hit = self.constants.get((kind, id(node)))
+        if hit is None or hit[0] is not node:
+            hit = (node, build())
+            self.constants[(kind, id(node))] = hit
+        return hit[1]
+
+    def _stencil(self, op):
+        return self._of_node("stencil", op, op.generate_stencil)
 
     def _constant(self, key, build):
         key = key + (str(self.device), self.dtype)
@@ -662,16 +792,117 @@ class _Lowering:
         return rbgs_var.five_point_stack(sf, device=self.device,
                                          dtype=self.dtype)
 
+    @staticmethod
+    def _sys_minv(coeffs, kind):
+        """The constant F x F point-solve matrix of a sys9 signature, in
+        numpy float64: the inverse of the center-coefficient matrix
+        ("elem") or of its diagonal ("diag"), or None when it is singular
+        (lower.py:1100-1115)."""
+        F = len(coeffs)
+        centers = np.array([[coeffs[i][j][0] for j in range(F)]
+                            for i in range(F)])
+        if kind == "diag":
+            d = np.diag(centers)
+            if np.any(d == 0.0):
+                return None
+            minv = np.diag(1.0 / d)
+        else:
+            if abs(np.linalg.det(centers)) < 1e-30:
+                return None
+            minv = np.linalg.inv(centers)
+        return tuple(tuple(float(v) for v in r) for r in minv)
+
+    @staticmethod
+    def _sys_minv_exc(coeffs, kind, exc, minv):
+        """The point-solve deltas of the rows of ``exc``: ``(row, F x F
+        inv(C + D_row) - minv)`` pairs, or None when one is singular
+        (lower.py:1117-1141)."""
+        if not exc:
+            return ()
+        F = len(coeffs)
+        centers = np.array([[coeffs[i][j][0] for j in range(F)]
+                            for i in range(F)])
+        out = []
+        for row, dmat in exc:
+            cm = centers + np.asarray(dmat)
+            if kind == "diag":
+                d = np.diag(cm)
+                if np.any(d == 0.0):
+                    return None
+                mi = np.diag(1.0 / d)
+            else:
+                if abs(np.linalg.det(cm)) < 1e-30:
+                    return None
+                mi = np.linalg.inv(cm)
+            dm = mi - np.asarray(minv)
+            out.append((row, tuple(tuple(float(v) for v in r) for r in dm)))
+        return tuple(out)
+
+    def _sys_point_solve(self, coeffs, kind, exc):
+        """``(minv, exc_minv)`` of a sys9 operator, or None; once per
+        lowered cycle and table."""
+        key = ("point solve", coeffs, kind, exc)
+        if key not in self.constants:
+            minv = self._sys_minv(coeffs, kind)
+            exc_minv = None if minv is None else \
+                self._sys_minv_exc(coeffs, kind, exc, minv)
+            self.constants[key] = None if minv is None or (
+                exc and exc_minv is None) else (minv, exc_minv)
+        return self.constants[key]
+
+    def _sys_smoother_parts(self, cycle, x):
+        """``(coeffs, minv, b, exc, exc_minv)`` when the cycle is a
+        pointwise smoother of an F x F system of 9-point 2D blocks, else
+        None (lower.py:761-797); the table comes from ``_sys_nine_table``,
+        as the signature's does."""
+        corr = cycle.correction
+        L = corr.operand1.operand
+        residual = corr.operand2
+        if residual.approximation is not cycle.approximation:
+            return None
+        if not isinstance(L, (system.Diagonal, system.ElementwiseDiagonal)):
+            return None
+        A = residual.operator
+        if not isinstance(A, system.Operator):
+            return None
+        F = len(A.entries)
+        if F < 2 or len(x) != F or any(len(r) != F for r in A.entries):
+            return None
+        if x[0].ndim != 2:
+            return None
+        ct = self._of_node("nine table", A, lambda: _sys_nine_table(A))
+        if ct is None:
+            return None
+        coeffs, exc = ct
+        solve = self._sys_point_solve(
+            coeffs, "diag" if isinstance(L, system.Diagonal) else "elem", exc)
+        if solve is None:
+            return None
+        b = self.eval_function(residual.rhs)
+        if len(b) != F:
+            return None
+        return coeffs, solve[0], b, exc, solve[1]
+
     def _try_fused_smoother(self, cycle, x):
         """One sweep kernel for a red-black or single (Jacobi) smoother
         cycle on a level a sweep gate admits, else None for the generic
         path (lower.py:799-917): a variable-coefficient 2D operator under
-        the ``rbgs_var`` gate; a constant star operator in 2D under the
+        the ``rbgs_var`` gate; a system of 9-point 2D blocks under the
+        ``rbgs_sys`` gate; a constant star operator in 2D under the
         ``rbgs`` gate, in 3D under the ``rbgs3d`` gate first, then the
         ``leg3d`` one."""
         red_black = cycle.partitioning is part.RedBlack
         if not red_black and cycle.partitioning is not part.Single:
             return None
+        sys_parts = self._sys_smoother_parts(cycle, x)
+        if sys_parts is not None:
+            coeffs, minv, b, exc, exc_minv = sys_parts
+            if not rbgs_sys.supports(x, coeffs, exc, exc_minv):
+                return None
+            return self._sweeps_sys[red_black](
+                tuple(f.contiguous() for f in x),
+                tuple(f.contiguous() for f in b), self.omegas,
+                cycle.global_id, coeffs, minv, exc, exc_minv)
         u = x[0]
         var_parts = self._var_smoother_parts(cycle, x)
         if var_parts is not None:
@@ -792,6 +1023,10 @@ class _Lowering:
         key = id(plan["mult"])
         if key in self._super_results:
             return self._super_results[key]
+        if plan["kind"] == "sys9":
+            result = self._run_super_fusion_sys(plan)
+            self._super_results[key] = result
+            return result
         result = None
         supports, down, _, n_pre, _ = self._legs[plan["kind"]]
         if plan["taps"] is not None and \
@@ -816,10 +1051,68 @@ class _Lowering:
             return plan["vals"], {}
         return self._var_stack(plan["vals"]), {"red_black": plan["red_black"]}
 
+    def _sys_leg_parts(self, plan, x, rhs):
+        """``(coeffs, minv, b, exc, exc_minv)`` of a planned sys9 leg on
+        the fields ``x`` with right-hand side ``rhs``, or None when its
+        gate rejects the level or the point solve is singular
+        (lower.py:1143-1164, :1188-1206)."""
+        coeffs, kind, exc = plan["vals"]
+        solve = self._sys_point_solve(coeffs, kind, exc)
+        if solve is None or len(x) != len(coeffs) or \
+                not rbgs_sys.leg_supports(x, exc, solve[1]):
+            return None
+        b = self.eval_function(rhs)
+        if len(b) != len(coeffs):
+            return None
+        return coeffs, solve[0], tuple(f.contiguous() for f in b), exc, \
+            solve[1]
+
+    def _run_super_fusion_sys(self, plan):
+        """Planned sys9 down-leg: ``(u_smoothed, coarse_residuals)``, each
+        F fields, or None (lower.py:1143-1171)."""
+        if plan["taps"] is None:
+            return None
+        x = self.eval_function(plan["base"])
+        parts = self._sys_leg_parts(plan, x, plan["res"].rhs)
+        if parts is None:
+            return None
+        coeffs, minv, b, exc, exc_minv = parts
+        ids = [c.global_id for c in reversed(plan["sweeps"])]
+        return self._legs_sys[0](
+            tuple(f.contiguous() for f in x), b, self.omegas, ids, coeffs,
+            minv, plan["taps"], red_black=plan["red_black"], exc=exc,
+            exc_minv=exc_minv)
+
+    def _run_post_fusion_sys(self, plan):
+        """Planned sys9 up-leg: the F fields of the outermost
+        post-smoother, or None (lower.py:1188-1216)."""
+        if plan["taps"] is None:
+            return None
+        cgc = plan["cgc"]
+        x = self.eval_function(cgc.approximation)
+        parts = self._sys_leg_parts(plan, x, plan["rhs"])
+        if parts is None:
+            return None
+        coeffs, minv, b, exc, exc_minv = parts
+        n, m = x[0].shape
+        e = self.eval_function(cgc.correction.operand2)
+        if len(e) != len(x) or any(
+                tuple(ei.shape) != ((n - 1) // 2, (m - 1) // 2) for ei in e):
+            return None
+        ids = [cgc.global_id] + \
+            [c.global_id for c in reversed(plan["sweeps"])]
+        return self._legs_sys[1](
+            tuple(f.contiguous() for f in x),
+            tuple(ei.contiguous() for ei in e), b, self.omegas, ids, coeffs,
+            minv, plan["taps"], red_black=plan["red_black"], exc=exc,
+            exc_minv=exc_minv)
+
     def _run_post_fusion(self, plan):
         """Planned up-leg: the value of the outermost post-smoother, or
         None when the gate rejects the level (lower.py:1063-1090,
         :1173-1247)."""
+        if plan["kind"] == "sys9":
+            return self._run_post_fusion_sys(plan)
         supports, _, up, _, n_post = self._legs[plan["kind"]]
         if plan["taps"] is None or n_post not in (None, len(plan["sweeps"])):
             return None
@@ -869,7 +1162,7 @@ class _Lowering:
             sf = _stencil_field_of(expr)
             if sf is not None:
                 return (sf.apply(fields[0]),)
-            st = expr.generate_stencil()
+            st = self._stencil(expr)
             return (ops.apply_stencil(periodic.as_periodic(st), fields[0]),)
         raise NotImplementedError(f"cannot apply {type(expr).__name__}")
 
@@ -892,7 +1185,7 @@ class _Lowering:
             else None
         ops_list = [row[i] for i, row in enumerate(entries)] if entries \
             else [expr]
-        return tuple(ops.restrict(op.generate_stencil(), x)
+        return tuple(ops.restrict(self._stencil(op), x)
                      for op, x in zip(ops_list, fields))
 
     def _apply_prolongation(self, expr, fields):
@@ -900,7 +1193,7 @@ class _Lowering:
             else None
         ops_list = [row[i] for i, row in enumerate(entries)] if entries \
             else [expr]
-        return tuple(ops.prolong(op.generate_stencil(), x,
+        return tuple(ops.prolong(self._stencil(op), x,
                                  tuple(op.fine_grid.size))
                      for op, x in zip(ops_list, fields))
 
@@ -924,24 +1217,20 @@ class _Lowering:
         sf = _stencil_field_of(entry)
         if sf is not None:
             return x / sf.diagonal_tensor(x.device, x.dtype)
-        ps = periodic.as_periodic(entry.generate_stencil())
+        ps = periodic.as_periodic(self._stencil(entry))
         return ops.apply_stencil(periodic.inverse(periodic.diagonal(ps)), x)
 
     def apply_inverse(self, L, fields):
-        """Point-Jacobi inverses (lower.py:1519-1545 and the scalar branch
-        of the collective point inverse, lower.py:1575-1588) and block
-        inverses (lower.py:1546-1553)."""
+        """Point-Jacobi inverses (lower.py:1519-1545), the collective point
+        inverse (lower.py:1575-1624) and block inverses
+        (lower.py:1546-1553)."""
         if isinstance(L, system.Diagonal):
             op = self._unwrap_operator(L.operand)
             return tuple(self._diagonal_inverse(op.entries[i][i], x)
                          for i, x in enumerate(fields))
         if isinstance(L, system.ElementwiseDiagonal):
             op = self._unwrap_operator(L.operand)
-            if len(op.entries) != 1:
-                raise NotImplementedError(
-                    "collective point inverse of a coupled system is not "
-                    "ported yet")
-            return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
+            return self._pointwise_collective_inverse(op, fields)
         if isinstance(L, base.Diagonal):
             inv = periodic.inverse(periodic.as_periodic(L.generate_stencil()))
             return tuple(ops.apply_stencil(inv, f) for f in fields)
@@ -954,6 +1243,49 @@ class _Lowering:
             return self._system_local_inverse(L, fields)
         raise NotImplementedError(
             f"inverse of {type(L).__name__} is not ported yet")
+
+    def _pointwise_collective_inverse(self, op: system.Operator, fields):
+        """Collective point Jacobi: the m x m system of central coefficients
+        solved at every point (lower.py:1575-1624).  A scalar operator
+        divides by its diagonal; constant central coefficients give one
+        m x m inverse, computed in numpy float64, whose nonzero entries
+        scale the fields, summed in j order."""
+        m = len(op.entries)
+        if m == 1:
+            return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
+        if any(_stencil_field_of(e) is not None
+               for row in op.entries for e in row):
+            raise NotImplementedError(
+                "collective point inverse with varying central coefficients"
+                " (_pointwise_varying_inverse) comes with the split-complex "
+                "Helmholtz slice")
+        D = np.zeros((m, m))
+        for i in range(m):
+            for j in range(m):
+                ps = periodic.as_periodic(op.entries[i][j].generate_stencil())
+                if ps is None:
+                    continue
+                if not ps.is_constant:
+                    raise NotImplementedError(
+                        "periodic collective point smoother not supported")
+                v = ps.to_constant().value_at((0,) * ps.dimension, 0)
+                if isinstance(v, complex):
+                    raise NotImplementedError(
+                        "complex collective point inverses are not ported "
+                        "yet")
+                D[i, j] = v
+        Dinv = np.linalg.inv(D)
+        out = []
+        for i in range(m):
+            acc = None
+            for j in range(m):
+                if Dinv[i, j] == 0:
+                    continue
+                term = float(Dinv[i, j]) * fields[j]
+                acc = term if acc is None else acc + term
+            out.append(acc if acc is not None
+                       else torch.zeros_like(fields[i]))
+        return tuple(out)
 
     def _system_local_inverse(self, op: system.Operator, fields):
         """Invert a system operator whose entries are block-diagonal
@@ -970,11 +1302,7 @@ class _Lowering:
         all_diagonal = all(ps is None or periodic.is_diagonal(ps)
                            for row in stencils for ps in row)
         if all_diagonal and lcm_period == (1,) * len(lcm_period):
-            if len(op.entries) != 1:
-                raise NotImplementedError(
-                    "collective point inverse of a coupled system is not "
-                    "ported yet")
-            return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
+            return self._pointwise_collective_inverse(op, fields)
         shape = tuple(op.entries[0][0].grid.size)
         return get_block_solve_plan(stencils, lcm_period, shape).apply(fields)
 

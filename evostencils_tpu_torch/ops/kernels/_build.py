@@ -32,7 +32,8 @@ SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
            _PACKAGE / "csrc" / "rbgs.cu",
            _PACKAGE / "csrc" / "sweep3d.cu",
            _PACKAGE / "csrc" / "leg3d.cu",
-           _PACKAGE / "csrc" / "rbgs_var.cu")
+           _PACKAGE / "csrc" / "rbgs_var.cu",
+           _PACKAGE / "csrc" / "rbgs_sys.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = (_PACKAGE / "csrc" / "walk3d.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
@@ -43,6 +44,11 @@ _P = ctypes.c_void_p
 _INT = ctypes.c_int
 _INTS = ctypes.POINTER(ctypes.c_int)
 _DOUBLES = ctypes.POINTER(ctypes.c_double)
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+#: the operator arguments of the system kernels: F, the coefficient table
+#: and point-solve matrix, the fixup counts (center, point-solve), their
+#: rows and their deltas
+_SYS = (_INT, _DOUBLES, _INT, _INT, _INTS, _DOUBLES)
 
 #: C entry points: name -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
@@ -90,6 +96,20 @@ SIGNATURES = {
     "es_prolong_correct_postsmooth_var":
         (_P, _P, _P, _P, _P, _INTS, _INT, _INT, _DOUBLES, _P, _INT, _INT,
          _P),
+    # u, b, out (F pointers each), the operator, omegas, omega id,
+    # red-black, n, m, stream
+    "es_sweep_sys": (_PTRS, _PTRS, _PTRS) + _SYS
+                    + (_P, _INT, _INT, _INT, _INT, _P),
+    # u, b, u_out, rc (F pointers each), the operator, omegas, omega ids,
+    # sweeps, red-black, taps, n, m, stream
+    "es_presmooth_residual_restrict_sys":
+        (_PTRS, _PTRS, _PTRS, _PTRS) + _SYS
+        + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _P),
+    # u, e, b, u_out (F pointers each), the operator, omegas, omega ids,
+    # sweeps, red-black, taps, n, m, stream
+    "es_prolong_correct_postsmooth_sys":
+        (_PTRS, _PTRS, _PTRS, _PTRS) + _SYS
+        + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _P),
 }
 
 

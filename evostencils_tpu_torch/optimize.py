@@ -5,7 +5,7 @@ Usage:
     python -m evostencils_tpu_torch.optimize <problem> [method] [options]
 
     problem: poisson2d (levels 9 -> 5) | poisson3d (levels 6 -> 2)
-             | poisson2d_var (levels 9 -> 5)
+             | poisson2d_var (levels 9 -> 5) | elasticity2d (levels 8 -> 4)
     method:  NSGAII (default) | NSGAIII | SOGP | RandomSearch
 
 Options:
@@ -20,8 +20,8 @@ Options:
 On the card every evaluation runs in float32, as on the TPU: the evaluator
 measures convergence to 1e-5 and extrapolates the iteration count to the
 problem's 1e-12 target (scripts/optimize.py:92-105).  The other problems of
-scripts/optimize.py come with later slices of the port: elasticity2d,
-helmholtz2d, helmholtz2d_split and fas2d with their problem families.  ``--model-based`` raises: prediction/ is not ported yet.  It
+scripts/optimize.py come with later slices of the port: helmholtz2d,
+helmholtz2d_split and fas2d with their problem families.  ``--model-based`` raises: prediction/ is not ported yet.  It
 writes ``best_grammar.txt`` and ``result.p`` to ``--output``.
 """
 
@@ -38,7 +38,6 @@ import numpy as np
 #: problems of scripts/optimize.py:27-57 and the slice of the port that
 #: brings each one
 LATER_SLICES = {
-    "elasticity2d": "the linear elasticity slice",
     "helmholtz2d": "the Helmholtz slice",
     "helmholtz2d_split": "the Helmholtz slice",
     "fas2d": "the FAS slice",
@@ -46,10 +45,11 @@ LATER_SLICES = {
 
 
 def get_problem(name, max_level=None, min_level=None):
-    from .problems import poisson
+    from .problems import elasticity, poisson
     factories = {"poisson2d": (poisson.poisson_2d, 9, 5),
                  "poisson3d": (poisson.poisson_3d, 6, 2),
-                 "poisson2d_var": (poisson.poisson_2d_variable, 9, 5)}
+                 "poisson2d_var": (poisson.poisson_2d_variable, 9, 5),
+                 "elasticity2d": (elasticity.linear_elasticity_2d, 8, 4)}
     if name in LATER_SLICES:
         raise SystemExit(f"problem {name!r} is not ported yet; it comes "
                          f"with {LATER_SLICES[name]}")

@@ -118,13 +118,18 @@ def poisson_2d_variable(max_level: int = 9, min_level: int = 5) -> Problem:
                    rhs_entity=rhs_entity, rhs_builder=rhs_builder)
 
 
+#: problems whose right-hand side the port builds (their ``name``)
+PORTED_RHS = ("Poisson2D", "Poisson3D", "Poisson2DVar", "LinearElasticity2D")
+
+
 def build_rhs(problem: Problem, *, dtype, device="cuda") -> tuple:
-    """The fields of ``b`` for ``poisson_2d``, ``poisson_3d`` or
-    ``poisson_2d_variable``: the right-hand side with the Dirichlet data
-    folded in, built in numpy float64 as evostencils_tpu/problems/
-    poisson.py:43-47, :69-72 and :100-105 build it (RHS_u = 0 in 3D), then
-    moved to ``device`` in ``dtype``."""
-    if problem.name not in ("Poisson2D", "Poisson3D", "Poisson2DVar"):
+    """The fields of ``b`` for ``poisson_2d``, ``poisson_3d``,
+    ``poisson_2d_variable`` or ``elasticity.linear_elasticity_2d`` (two
+    fields, u and v): the right-hand side with the Dirichlet data folded
+    in, built in numpy float64 as evostencils_tpu/problems/poisson.py:43-47,
+    :69-72, :100-105 and elasticity.py:116-122 build it (RHS_u = 0 in 3D),
+    then moved to ``device`` in ``dtype``."""
+    if problem.name not in PORTED_RHS:
         raise NotImplementedError(
             f"right-hand side of {problem.name} is not ported yet")
     return tuple(torch.tensor(b, dtype=dtype, device=device)

@@ -314,7 +314,7 @@ def test_cli_writes_results(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_names_the_slice_of_unported_problems():
-    with pytest.raises(SystemExit, match="linear elasticity slice"):
-        toptimize.get_problem("elasticity2d")
+    with pytest.raises(SystemExit, match="Helmholtz slice"):
+        toptimize.get_problem("helmholtz2d")
     with pytest.raises(SystemExit, match="unknown problem"):
         toptimize.get_problem("nonsense")
