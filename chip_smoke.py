@@ -25,6 +25,24 @@ Phases:
 6. solve the 2D problem to a 1e-5 residual reduction with the kernels and
    with the plain versions; the iteration counts must be equal and the
    residual histories agree to 1e-3 above the float32 residual floor;
+6a. [kernels-loop] compare the fused pass and the row-only legs
+   (``upleg_downleg_col``, ``presmooth_residual_rowrestrict``,
+   ``prolong_correct_postsmooth``, ``upleg_downleg_fused``) with their
+   plain versions at 4095^2 and 1023x2047, with the path's stencil and
+   taps and with an anisotropic stencil and asymmetric taps: the legs for
+   1..3 sweeps, the fused passes for every (post, pre) in {1, 2, 3}^2, a
+   different omega for every sweep; time both at 4095^2 with the path's
+   sweeps (2 pre, 1 post; 3 in a pass);
+6b. [main-fused] drive phase 5's cell and protocol in three more
+   configurations, the switches restored afterwards: (a) loop fusion on,
+   fused column transfers; (b) loop fusion on, row-only legs; (c) loop
+   fusion off, row-only legs.  Each must launch exactly its legs (per
+   200-cycle batch: (a) 801 down-legs, 199 fused passes, 801 up-legs;
+   (b) the same in row-only form; (c) 1000 row-only legs each way) and
+   pass phase 5's residual and analytic checks; K = 1, 2 and 8 fused
+   cycles must match K steps within 3e-5 max|u|; the row-only solve to
+   1e-5 with the kernels and with the plain versions as phase 6.  The
+   four configurations' ms/cycle (phase 5's is (d)) print on one line;
 7. drive the 3D path, the Poisson V(2,1) cycle on 255^3 (levels 8->2,
    float32, as scripts/bench_suite.py builds its poisson3d_255cube row),
    as phase 5 drives the 2D one: each 3D leg must run through its kernel
@@ -111,7 +129,7 @@ Phases:
 22. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-7, 9, 10, 12, 13, 15, 16, 17, 19, 20 and 21) and read just after.  Each phase prints
+6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20 and 21) and read just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -168,6 +186,18 @@ KERNELS = {
         "evostencils_tpu_torch/csrc/transfer.cu"),
     "prolong_correct_postsmooth_col": (
         "evostencils_tpu/ops/pallas/transfer.py:917",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    "upleg_downleg_col": (
+        "evostencils_tpu/ops/pallas/transfer.py:1045",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    "presmooth_residual_rowrestrict": (
+        "evostencils_tpu/ops/pallas/transfer.py:274",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    "prolong_correct_postsmooth": (
+        "evostencils_tpu/ops/pallas/transfer.py:390",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    "upleg_downleg_fused": (
+        "evostencils_tpu/ops/pallas/transfer.py:525",
         "evostencils_tpu_torch/csrc/transfer.cu"),
     "downleg_wavefront_3d": (
         "evostencils_tpu/ops/pallas/wavefront3d.py:220",
@@ -383,6 +413,107 @@ def phase_kernels(torch, transfer, device):
                     f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f}"
                     f" ms, bound {stats[name]['bound_ms']:.4f} ms "
                     f"({stats[name]['bound_by']})")
+    return stats
+
+
+#: the row-only and fused kernels: (kind, the sweep counts checked); a
+#: fused pass's count is a (post, pre) pair
+LOOP_KERNELS = {
+    "presmooth_residual_rowrestrict": ("down", (1, 2, 3)),
+    "prolong_correct_postsmooth": ("up", (1, 2, 3)),
+    "upleg_downleg_col": ("pass", [(post, pre) for post in (1, 2, 3)
+                                   for pre in (1, 2, 3)]),
+    "upleg_downleg_fused": ("pass", [(post, pre) for post in (1, 2, 3)
+                                     for pre in (1, 2, 3)])}
+
+
+def loop_work(name, shape, sweeps):
+    """(bytes, float32 operations) of a row-only leg or a fused pass on a
+    fine grid of ``shape``: u and b read and u written once, and
+    the coarse operands once each (e read and rc written by
+    ``upleg_downleg_col``; the (n-1)/2 x m row-only arrays otherwise);
+    ``sweeps`` sweeps of 10 operations a point, and the leg work of
+    LEG_FLOPS (a row-only transfer: its row half, 5/2 a point to restrict,
+    2 to prolong)."""
+    n, m = shape
+    fine, half, coarse = n * m, (n - 1) // 2 * m, (n - 1) // 2 * ((m - 1) // 2)
+    work = {"upleg_downleg_col": (2 * coarse, LEG_FLOPS[("down", 2)]
+                                  + LEG_FLOPS[("up", 2)]),
+            "presmooth_residual_rowrestrict": (half, 6 + 2.5),
+            "prolong_correct_postsmooth": (half, 2 + 2),
+            "upleg_downleg_fused": (2 * half, 6 + 2.5 + 2 + 2)}
+    moved, flops = work[name]
+    return 4 * (3 * fine + moved), fine * (sweeps * 10 + flops)
+
+
+def phase_kernels_loop(torch, transfer, device):
+    """The row-only legs and the fused passes against their plain
+    versions; both timed at 4095^2 with the path's sweeps."""
+    stats = {name: {"max_abs_err": 0.0} for name in LOOP_KERNELS}
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95],
+                          dtype=torch.float32, device=device)
+    rng = np.random.default_rng(7)
+
+    def calls(name, u, b, e, ch, sweeps, vals, r_taps, p_taps):
+        """(kernel, plain) thunks of one kernel for ``sweeps``."""
+        kind = LOOP_KERNELS[name][0]
+        if kind == "down":
+            args = (u, b, omegas, [1, 2, 3][:sweeps], vals, r_taps[0])
+        elif kind == "up":
+            args = (u, ch, b, omegas, [0, 1, 2, 3][:sweeps + 1], vals,
+                    p_taps[0])
+        else:
+            ids = list(range(1 + sum(sweeps)))
+            args = ((u, e, b, omegas, ids, vals, p_taps, r_taps)
+                    if name == "upleg_downleg_col" else
+                    (u, ch, b, omegas, ids, vals, p_taps[0], r_taps[0]))
+        kern = getattr(transfer, name)
+        plain = getattr(transfer, name + "_plain")
+        return lambda: kern(*args), lambda: plain(*args)
+
+    for n, m in [(4095, 4095), (1023, 2047)]:
+        def normal(*shape):
+            return torch.tensor(rng.standard_normal(shape),
+                                dtype=torch.float32, device=device)
+        u, b = normal(n, m), normal(n, m)
+        e, ch = normal((n - 1) // 2, (m - 1) // 2), normal((n - 1) // 2, m)
+        for vals, r_taps, p_taps in ((VALS, R_TAPS, P_TAPS),
+                                     (ANISO, R_TAPS_ASYM, P_TAPS_ASYM)):
+            tag = f"{n}x{m} {'asym' if vals is ANISO else 'path'}"
+            for name, (kind, counts) in LOOP_KERNELS.items():
+                worst = (0.0, 0.0)
+                for sweeps in counts:
+                    kern, plain = calls(name, u, b, e, ch, sweeps, vals,
+                                        r_taps, p_taps)
+                    k, p = kern(), plain()
+                    torch.cuda.synchronize()
+                    if kind == "up":
+                        k, p = (k,), (p,)
+                    err_u = float((k[0] - p[0]).abs().max())
+                    err_r = float((k[1] - p[1]).abs().max()) \
+                        if len(k) > 1 else 0.0
+                    check(err_u <= TOL_U and err_r <= TOL_RC,
+                          f"{name} {tag} sweeps {sweeps}: max|du| "
+                          f"{err_u:.3e}, max|dr| {err_r:.3e}")
+                    worst = (max(worst[0], err_u), max(worst[1], err_r))
+                log(f"[kernels-loop] {name} {tag}, sweeps {counts[0]}.."
+                    f"{counts[-1]}: max|du| {worst[0]:.3e} (tol {TOL_U}), "
+                    f"max|dr| {worst[1]:.3e} (tol {TOL_RC})")
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                                 *worst)
+        if (n, m) != (4095, 4095):
+            continue
+        # the main path's sweeps: V(2,1) -> 2 pre, 1 post, a pass 1 + 2
+        for name, (kind, _) in LOOP_KERNELS.items():
+            sweeps = {"down": 2, "up": 1, "pass": (1, 2)}[kind]
+            kern, plain = calls(name, u, b, e, ch, sweeps, VALS, R_TAPS,
+                                P_TAPS)
+            nbytes, flops = loop_work(name, (n, m), 3 if kind == "pass"
+                                      else sweeps)
+            log(f"[kernels-loop] {name} 4095^2 moves {nbytes} bytes, "
+                f"{flops:.4e} float32 operations")
+            time_standalone(torch, stats, name, "kernels-loop", (n, m),
+                            kern, plain, bytes_bound(nbytes, flops))
     return stats
 
 
@@ -1014,7 +1145,38 @@ PATHS = {
     "elast-rb": ("main-elast rb", "linear_elasticity_2d", 11, 4, "RedBlack",
                  1.25, "rbgs_sys", SYS_LEGS),
     "elast-jacobi": ("main-elast jacobi", "linear_elasticity_2d", 11, 4,
-                     "Single", 0.8, "rbgs_sys", SYS_LEGS)}
+                     "Single", 0.8, "rbgs_sys", SYS_LEGS),
+    # phase 5's cell with loop fusion and row-only legs ([main-fused])
+    "2d-loop-col": ("main-fused a", "poisson_2d", 12, 5, "RedBlack", 1.15,
+                    "transfer", ("presmooth_residual_restrict",
+                                 "upleg_downleg_col",
+                                 "prolong_correct_postsmooth_col")),
+    "2d-loop-rows": ("main-fused b", "poisson_2d", 12, 5, "RedBlack", 1.15,
+                     "transfer", ("presmooth_residual_rowrestrict",
+                                  "upleg_downleg_fused",
+                                  "prolong_correct_postsmooth")),
+    "2d-rows": ("main-fused c", "poisson_2d", 12, 5, "RedBlack", 1.15,
+                "transfer", ("presmooth_residual_rowrestrict",
+                             "prolong_correct_postsmooth"))}
+#: the [main-fused] paths' switches: (loop_fusion, fused_column_transfers)
+SWITCHES = {"2d-loop-col": (True, True), "2d-loop-rows": (True, False),
+            "2d-rows": (False, False)}
+#: median ms per cycle of each V(2,1) path's steady batches, by label
+MS_PER_CYCLE = {}
+
+
+def batch_launches(path, levels):
+    """Launches per K_CYCLES batch of each leg of ``path`` on a hierarchy
+    whose first ``levels`` levels the gate admits: one of each leg per
+    level and cycle; with loop fusion the finest level runs one down-leg,
+    K - 1 fused passes and one up-leg instead (legs ordered down, pass,
+    up)."""
+    legs = PATHS[path][7]
+    if not SWITCHES.get(path, (False, None))[0]:
+        return {name: levels * K_CYCLES for name in legs}
+    down, fused, up = legs
+    return {down: 1 + (levels - 1) * K_CYCLES, fused: K_CYCLES - 1,
+            up: 1 + (levels - 1) * K_CYCLES}
 
 
 def phase_main_path(torch, kernels, device, card, path):
@@ -1061,13 +1223,15 @@ def phase_main_path(torch, kernels, device, card, path):
         "levels")
     # the legs take every smoother and transfer of the gated levels, so
     # no standalone kernel runs
+    per_batch = batch_launches(path, fused)
     for name, count in counts.items():
-        want = fused * cycles if name in legs else 0
+        want = per_batch.get(name, 0) * BATCHES
         check(count == want, f"{name} launched {count} times on the "
               f"{label} path, expected {want}")
 
     steady = batch_ms[1:]
     ms_cycle = statistics.median(steady) / K_CYCLES
+    MS_PER_CYCLE[label] = ms_cycle
     log(f"[{label}] batches of {K_CYCLES} cycles: "
         + ", ".join(f"{t:.1f}" for t in batch_ms) + " ms (first warms up)")
     log(f"[{label}] {n_dof} DoF: {ms_cycle:.4f} ms/cycle (median), "
@@ -1134,6 +1298,65 @@ def phase_solve(torch, device, path):
         f"(1e-5 ||b||), {rel.max():.3e} overall")
     check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
           f"{label} residual histories (rtol 1e-3 above 1e-5 ||b||)")
+
+
+def set_switches(loop_fusion, fused_columns):
+    from evostencils_tpu_torch.config import config
+    config.loop_fusion = loop_fusion
+    config.fused_column_transfers = fused_columns
+
+
+def phase_main_fused(torch, kernels, device, card):
+    """Phase 5's cell with loop fusion and row-only legs; the switches are
+    restored to their defaults afterwards.  Returns the launches of the
+    fused passes and the row-only legs, summed over the configurations."""
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+    from evostencils_tpu_torch.compiler.solve import make_cycle_loop
+    from evostencils_tpu_torch.config import Config
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    defaults = Config()
+    launches = {}
+    try:
+        for path in ("2d-loop-col", "2d-loop-rows", "2d-rows"):
+            set_switches(*SWITCHES[path])
+            for name, count in phase_main_path(torch, kernels, device, card,
+                                               path).items():
+                if name in LOOP_KERNELS:
+                    launches[name] = launches.get(name, 0) + count
+        # K fused cycles against K steps, in each column mode
+        problem, cycle = v21("2d")
+        lowered = lower_cycle(cycle, problem.approximation,
+                              problem.rhs_entity)
+        b = build_rhs(problem, dtype=torch.float32, device=device)
+        omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                              device=device)
+        u0 = tuple(torch.zeros_like(x) for x in b)
+        for path in ("2d-loop-col", "2d-loop-rows"):
+            for k in (1, 2, 8):
+                set_switches(*SWITCHES[path])
+                fused = make_cycle_loop(lowered, k)(u0, b, omegas)
+                set_switches(False, SWITCHES[path][1])
+                ref = u0
+                for _ in range(k):
+                    ref = lowered.step(ref, b, omegas)
+                err = float((fused[0] - ref[0]).abs().max())
+                scale = float(ref[0].abs().max())
+                log(f"[{PATHS[path][0]}] {k} fused cycles against {k} "
+                    f"steps: max|du| {err:.3e} = {err / scale:.3e} max|u| "
+                    "(tol 3e-5, tests/test_fused_loop.py:48-51)")
+                check(err <= 3e-5 * scale, f"{path}: {k} fused cycles")
+        set_switches(*SWITCHES["2d-rows"])
+        phase_solve(torch, device, "2d-rows")
+    finally:
+        set_switches(defaults.loop_fusion, defaults.fused_column_transfers)
+    labels = [PATHS[p][0] for p in ("2d-loop-col", "2d-loop-rows",
+                                    "2d-rows")] + [PATHS["2d"][0]]
+    log("[main-fused] ms/cycle at 4095^2: " + ", ".join(
+        f"{lab} {MS_PER_CYCLE[lab]:.4f}" for lab in labels)
+        + " (main = d: loop fusion off, fused column transfers) on "
+        + card)
+    return launches
 
 
 #: the [evaluator] phase: poisson_2d(10, 5) (1023^2), the repetitions of
@@ -1587,9 +1810,13 @@ def main():
                        device))
     stats.update(phase("kernels-sys", phase_kernels_sys, torch, rbgs_sys,
                        device))
+    stats.update(phase("kernels-loop", phase_kernels_loop, torch, transfer,
+                       device))
     launches = phase("main", phase_main_path, torch, kernels, device, card,
                      "2d")
     phase("main solve", phase_solve, torch, device, "2d")
+    launches.update(phase("main-fused", phase_main_fused, torch, kernels,
+                          device, card))
     launches.update(phase("main3d", phase_main_path, torch, kernels, device,
                           card, "3d"))
     phase("main3d solve", phase_solve, torch, device, "3d")

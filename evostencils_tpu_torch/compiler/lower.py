@@ -20,6 +20,15 @@ coefficient 2D Poisson and 2D linear elasticity cycles reach).
   ``ops.kernels.wavefront3d`` (constant 7-point 3D operators, exactly two
   pre-sweeps and one post-sweep, lower.py:1029-1090) on every level its
   gate admits; the other levels run the generic lowering below.
+* With ``config.fused_column_transfers`` off, read when a step runs, a
+  constant 5-point 2D leg runs its row-only form with the column half in
+  plain torch (``axis_restrict_3tap`` after the down-leg,
+  ``axis_prolong_3tap`` before the up-leg: the JAX package's ``banded``
+  column transfers), and a var5 or sys9 leg is refused, so that its level
+  runs the generic lowering (lower.py:1007-1025, :1150, :1191,
+  :1233-1247).
+* ``extract_fine_leg_plan`` and ``make_coarse_tail`` serve the fused cycle
+  loop of ``compiler/solve.make_cycle_loop`` (lower.py:1925-1989).
 * Outside a planned leg, a 2D smoother cycle of a constant 5-point operator
   runs one call to ``ops.kernels.rbgs`` (a fused red-black sweep or a
   Jacobi sweep), a residual restricted by a separable 3-tap transfer one
@@ -52,14 +61,14 @@ An IR node outside this subset raises ``NotImplementedError`` naming it.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import reduce
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import DIRECT_SOLVE_MAX
+from ..config import DIRECT_SOLVE_MAX, fused_cols_enabled
 from ..grids import Grid
 from ..ir import base, system
 from ..ir import partitioning as part
@@ -498,6 +507,11 @@ class LoweredCycle:
     expression: object = None
     approximation: object = None
     rhs: object = None
+    # what every _Lowering of this cycle is built with: the fusion plans,
+    # the device-constant cache and the kernels-or-plain choice
+    plans: Optional[_Plans] = None
+    constants: dict = field(default_factory=dict)
+    use_kernels: bool = True
 
 
 class _Lowering:
@@ -520,8 +534,8 @@ class _Lowering:
         # the standalone kernels: the sweeps by dimension, gate and
         # red-black-ness, the transfers by dimension; per scalar signature
         # the legs: (gate, down-leg, up-leg, pre-sweeps, post-sweeps), None
-        # sweeps taking any count the leg accepts; and the system legs
-        # (down-leg, up-leg)
+        # sweeps taking any count the leg accepts; the row-only const5 legs
+        # (down-leg, up-leg); and the system legs (down-leg, up-leg)
         if use_kernels:
             self._sweeps = {True: rbgs.fused_rbgs_sweep,
                             False: rbgs.jacobi_sweep}
@@ -540,6 +554,8 @@ class _Lowering:
             self._prolong_correct = transfer.prolong_correct
             self._residual_restrict_3d = leg3d.residual_restrict_3d
             self._prolong_correct_3d = leg3d.prolong_correct_3d
+            self._row_legs = (transfer.presmooth_residual_rowrestrict,
+                              transfer.prolong_correct_postsmooth)
             self._legs = {
                 "const5": (transfer.supports,
                            transfer.presmooth_residual_restrict,
@@ -570,6 +586,9 @@ class _Lowering:
             self._prolong_correct = transfer.prolong_correct_plain
             self._residual_restrict_3d = leg3d.residual_restrict_3d_plain
             self._prolong_correct_3d = leg3d.prolong_correct_3d_plain
+            self._row_legs = (
+                transfer.presmooth_residual_rowrestrict_plain,
+                transfer.prolong_correct_postsmooth_plain)
             self._legs = {
                 "const5": (transfer.supports,
                            transfer.presmooth_residual_restrict_plain,
@@ -1029,18 +1048,35 @@ class _Lowering:
             return result
         result = None
         supports, down, _, n_pre, _ = self._legs[plan["kind"]]
-        if plan["taps"] is not None and \
+        row_only = self._row_only(plan)
+        if plan["taps"] is not None and row_only is not None and \
                 n_pre in (None, len(plan["sweeps"])):
             x = self.eval_function(plan["base"])
             operator, kw = self._leg_operator(plan)
             if len(x) == 1 and supports(x[0]) and operator is not None:
                 b = self.eval_function(plan["res"].rhs)
                 ids = [c.global_id for c in reversed(plan["sweeps"])]
-                u_s, rc = down(x[0], b[0], self.omegas, ids, operator,
-                               plan["taps"], **kw)
+                if row_only:
+                    row_taps, col_taps = plan["taps"]
+                    u_s, rr = self._row_legs[0](x[0], b[0], self.omegas,
+                                                ids, operator, row_taps)
+                    rc = ops.axis_restrict_3tap(rr, 1, col_taps)
+                else:
+                    u_s, rc = down(x[0], b[0], self.omegas, ids, operator,
+                                   plan["taps"], **kw)
                 result = ((u_s,), (rc,))
         self._super_results[key] = result
         return result
+
+    @staticmethod
+    def _row_only(plan):
+        """Whether a planned const5 or var5 leg runs in its row-only form,
+        read from ``config.fused_column_transfers`` now: False with fused
+        column transfers or for a const7 leg, True for a const5 leg
+        without, None (refused) for a var5 one (lower.py:1007-1009)."""
+        if plan["kind"] == "const7" or fused_cols_enabled():
+            return False
+        return True if plan["kind"] == "const5" else None
 
     def _leg_operator(self, plan):
         """(operator argument, keyword arguments) of a planned leg's call:
@@ -1069,8 +1105,9 @@ class _Lowering:
 
     def _run_super_fusion_sys(self, plan):
         """Planned sys9 down-leg: ``(u_smoothed, coarse_residuals)``, each
-        F fields, or None (lower.py:1143-1171)."""
-        if plan["taps"] is None:
+        F fields, or None, as without fused column transfers
+        (lower.py:1143-1171)."""
+        if plan["taps"] is None or not fused_cols_enabled():
             return None
         x = self.eval_function(plan["base"])
         parts = self._sys_leg_parts(plan, x, plan["res"].rhs)
@@ -1085,8 +1122,9 @@ class _Lowering:
 
     def _run_post_fusion_sys(self, plan):
         """Planned sys9 up-leg: the F fields of the outermost
-        post-smoother, or None (lower.py:1188-1216)."""
-        if plan["taps"] is None:
+        post-smoother, or None, as without fused column transfers
+        (lower.py:1188-1216)."""
+        if plan["taps"] is None or not fused_cols_enabled():
             return None
         cgc = plan["cgc"]
         x = self.eval_function(cgc.approximation)
@@ -1114,7 +1152,9 @@ class _Lowering:
         if plan["kind"] == "sys9":
             return self._run_post_fusion_sys(plan)
         supports, _, up, _, n_post = self._legs[plan["kind"]]
-        if plan["taps"] is None or n_post not in (None, len(plan["sweeps"])):
+        row_only = self._row_only(plan)
+        if plan["taps"] is None or row_only is None or \
+                n_post not in (None, len(plan["sweeps"])):
             return None
         cgc = plan["cgc"]
         x = self.eval_function(cgc.approximation)
@@ -1128,6 +1168,11 @@ class _Lowering:
         b = self.eval_function(plan["rhs"])
         ids = [cgc.global_id] + \
             [c.global_id for c in reversed(plan["sweeps"])]
+        if row_only:
+            row_taps, col_taps = plan["taps"]
+            c_half = ops.axis_prolong_3tap(e[0], 1, col_taps, x[0].shape[1])
+            return (self._row_legs[1](x[0], c_half, b[0], self.omegas, ids,
+                                      operator, row_taps),)
         return (up(x[0], e[0], b[0], self.omegas, ids, operator,
                    plan["taps"], **kw),)
 
@@ -1368,4 +1413,68 @@ def lower_cycle(root: base.Cycle, approximation, rhs, *,
     return LoweredCycle(step=step, n_omegas=n, default_omegas=default_omegas,
                         grids=field_grids(root),
                         operator=_find_fine_operator(root), expression=root,
-                        approximation=approximation, rhs=rhs)
+                        approximation=approximation, rhs=rhs, plans=plans,
+                        constants=constants, use_kernels=use_kernels)
+
+
+@dataclass
+class FineLegPlan:
+    """The finest level's legs for the fused cycle loop: the up-leg of
+    cycle k and the down-leg of cycle k+1 run as one pass
+    (``ops/kernels/transfer.upleg_downleg_col``; lower.py:1925-1936)."""
+    vals: Tuple[float, ...]          # 5-point stencil values
+    p_taps: Tuple                    # (row, col) prolongation taps
+    r_taps: Tuple                    # (row, col) restriction taps
+    om_pre_ids: List[int]            # pre-sweep omega indices, in order
+    om_post_ids: List[int]           # post-sweep omega indices, in order
+    om_cgc_id: int                   # coarse-grid-correction omega index
+    mult_node: object                # Multiplication(R, Residual), finest
+    e_expr: object                   # the coarse solution expression
+
+
+def extract_fine_leg_plan(root) -> Optional[FineLegPlan]:
+    """The canonical fused V at the finest level: a red-black const5
+    post-smoothing chain over a coarse-grid correction whose coarse rhs is
+    a pre-smoothing chain's restricted residual, over the same stencil,
+    starting from the cycle's bound approximation; else None
+    (lower.py:1939-1976)."""
+    plan_post = _plan_post_fusions(root).get(id(root))
+    if plan_post is None or plan_post["kind"] != "const5":
+        return None
+    cgc = plan_post["cgc"]
+    plan_super = _plan_super_fusions(root)[0].get(id(cgc.approximation))
+    if plan_super is None or plan_super["vals"] != plan_post["vals"]:
+        return None
+    # the pre-chain starts from the bound approximation, so that the loop
+    # can feed one pass's output to the next
+    base_expr = plan_super["base"]
+    if not isinstance(base_expr, (system.Approximation, base.Approximation)) \
+            or isinstance(base_expr, (system.ZeroApproximation,
+                                      base.ZeroApproximation)):
+        return None
+    if plan_post["taps"] is None or plan_super["taps"] is None:
+        return None
+    return FineLegPlan(
+        vals=plan_post["vals"], p_taps=plan_post["taps"],
+        r_taps=plan_super["taps"],
+        om_pre_ids=[c.global_id for c in reversed(plan_super["sweeps"])],
+        om_post_ids=[c.global_id for c in reversed(plan_post["sweeps"])],
+        om_cgc_id=cgc.global_id, mult_node=plan_super["mult"],
+        e_expr=cgc.correction.operand2)
+
+
+def make_coarse_tail(lowered: LoweredCycle, plan: FineLegPlan) -> Callable:
+    """``tail(rc, u_fields, b_fields, omegas) -> e``: the coarse part of
+    the cycle given the restricted fine residual ``rc``, the value of the
+    plan's ``Multiplication(R, Residual)`` node (lower.py:1979-1989).  It
+    runs with the lowered cycle's own plans, device constants and
+    kernels-or-plain choice."""
+    def tail(rc, u_fields, b_fields, omegas):
+        lowering = _Lowering(lowered.approximation, lowered.rhs, omegas,
+                             plans=lowered.plans,
+                             constants=lowered.constants,
+                             use_kernels=lowered.use_kernels)
+        lowering.bind(u_fields, b_fields)
+        lowering.env[id(plan.mult_node)] = (rc,)
+        return lowering.eval_function(plan.e_expr)[0]
+    return tail

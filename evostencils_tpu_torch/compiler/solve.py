@@ -3,7 +3,10 @@ evostencils_tpu/compiler/solve.py:32-221).
 
 Python loops take the place of ``lax.while_loop`` and ``lax.scan``.  The
 solver's stopping test reads one residual norm per iteration back to the
-host; the cycle loop reads nothing back.
+host; the cycle loop reads nothing back.  ``make_cycle_loop`` has both of
+the JAX package's forms: step iteration, and with ``config.loop_fusion``
+the fused form, whose finest level shares one pass between consecutive
+cycles.
 """
 
 from __future__ import annotations
@@ -14,7 +17,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .lower import LoweredCycle, _Lowering
+from ..config import config, fused_cols_enabled
+from ..ops.apply import axis_prolong_3tap, axis_restrict_3tap
+from ..ops.kernels import transfer
+from .lower import (LoweredCycle, _Lowering, extract_fine_leg_plan,
+                    make_coarse_tail)
 
 
 def residual_norm_fn(operator):
@@ -60,15 +67,77 @@ def make_solver(lowered: LoweredCycle, max_iterations: int = 100,
 
 def make_cycle_loop(lowered: LoweredCycle, n_cycles: int):
     """``run(u0, b, omegas) -> u`` applying ``n_cycles`` full cycles with no
-    convergence checks (solve.py:76-114, the ``run_generic`` form; the
-    fused form waits for the ``upleg_downleg_col`` kernel)."""
-    def run(u_fields, b_fields, omegas):
+    convergence checks (solve.py:76-172).
+
+    With ``config.loop_fusion`` on when ``run`` is called, and a cycle of
+    the canonical fused-V structure at the finest level
+    (``lower.extract_fine_leg_plan``: one field, a grid the leg gate
+    admits, 1..3 pre- and 1..3 post-sweeps), consecutive cycles share one
+    pass at the finest level: the up-leg of cycle k and the down-leg of
+    cycle k+1 run as ``transfer.upleg_downleg_col`` (or, with
+    ``config.fused_column_transfers`` off, as ``upleg_downleg_fused`` with
+    the column transfers in plain torch), and the coarse levels run
+    through ``lower.make_coarse_tail``.  The result equals ``n_cycles``
+    applications of ``lowered.step`` up to float32 reassociation.  Any
+    other structure runs ``lowered.step`` in a loop.  The kernels run on a
+    CUDA device unless the cycle was lowered with ``use_kernels=False``;
+    on the CPU their plain versions run."""
+    plan = extract_fine_leg_plan(lowered.expression)
+    tail = make_coarse_tail(lowered, plan) if plan is not None else None
+
+    def run_generic(u_fields, b_fields, omegas):
         u = tuple(u_fields)
         for _ in range(n_cycles):
             out = lowered.step(u, b_fields, omegas)
             # keep the carry in the caller's dtype (solve.py:100-104)
             u = tuple(o.to(f.dtype) for o, f in zip(out, u_fields))
         return u
+
+    def leg(name):
+        return getattr(transfer, name if lowered.use_kernels
+                       else name + "_plain")
+
+    def run(u_fields, b_fields, omegas):
+        u = u_fields[0]
+        if (not config.loop_fusion or plan is None or n_cycles < 1
+                or len(u_fields) != 1 or not transfer.supports(u)
+                or not 1 <= len(plan.om_pre_ids) <= transfer.MAX_SWEEPS
+                or not 1 <= len(plan.om_post_ids) <= transfer.MAX_SWEEPS):
+            return run_generic(u_fields, b_fields, omegas)
+        u, b = u.contiguous(), b_fields[0].contiguous()
+        m = u.shape[1]
+        pre, post = plan.om_pre_ids, plan.om_post_ids
+
+        def coarse(rc):
+            # the tail's dtype may differ from the state's (solve.py:127)
+            return tail(rc, u_fields, b_fields, omegas).to(u.dtype)
+
+        if fused_cols_enabled():
+            down, fused, up = map(leg, ("presmooth_residual_restrict",
+                                        "upleg_downleg_col",
+                                        "prolong_correct_postsmooth_col"))
+            p_taps, r_taps, through_coarse = plan.p_taps, plan.r_taps, coarse
+        else:
+            # row-only legs, the column halves in plain torch
+            # (solve.py:141-170)
+            down, fused, up = map(leg, ("presmooth_residual_rowrestrict",
+                                        "upleg_downleg_fused",
+                                        "prolong_correct_postsmooth"))
+            p_taps, r_taps = plan.p_taps[0], plan.r_taps[0]
+
+            def through_coarse(rr):
+                rc = axis_restrict_3tap(rr, 1, plan.r_taps[1])
+                return axis_prolong_3tap(coarse(rc), 1, plan.p_taps[1], m)
+
+        u_k, r = down(u, b, omegas, pre, plan.vals, r_taps)
+        e = through_coarse(r)
+        for _ in range(n_cycles - 1):
+            u_k, r = fused(u_k, e, b, omegas, [plan.om_cgc_id] + post + pre,
+                           plan.vals, p_taps, r_taps)
+            e = through_coarse(r)
+        return (up(u_k, e, b, omegas, [plan.om_cgc_id] + post, plan.vals,
+                   p_taps),)
+
     return run
 
 

@@ -11,6 +11,16 @@
 //   (_pc_smooth_col_kernel):
 //   u += omega_0 * P(e) with the separable 3-tap 1:2 prolongation of the
 //   coarse correction e, then S in [1, 3] red-black sweeps with omega_1..S.
+// es_presmooth_residual_rowrestrict and es_prolong_correct_postsmooth_rows
+//   replace presmooth_residual_rowrestrict (_smooth_rr_kernel) and
+//   prolong_correct_postsmooth (_pc_smooth_kernel): the same legs with
+//   row-only transfers, rr ((n-1)/2, m) out or c_half ((n-1)/2, m) in; the
+//   caller runs the column half.
+// es_upleg_downleg replaces upleg_downleg_col (_vleg_col_kernel) and, with
+//   row-only transfers, upleg_downleg_fused (_vleg_kernel): the up-leg of
+//   cycle k and the down-leg of cycle k+1 in one pass, u += omega_0 * P(e),
+//   S in [1, 6] sweeps (the post-sweeps, then the next pre-sweeps), r and
+//   its restriction, writing (u_next, rc) or (u_next, rr).
 // es_residual_restrict replaces the TPU kernel
 //   evostencils_tpu/ops/pallas/transfer.py residual_rowrestrict (_rr_kernel)
 //   and the column restriction that compiler/lower.py:1338-1340 runs after
@@ -25,7 +35,8 @@
 // arithmetic is a few dozen flops per point, far below the card's rate.
 // The design keeps every intermediate sweep, the residual and the
 // transfer inside shared memory, so a leg costs one pass over u and b
-// instead of one pass per half-sweep.  es_residual_restrict and
+// instead of one pass per half-sweep; a fused pass saves a further read of
+// u and b and a write of u per cycle.  es_residual_restrict and
 // es_prolong_correct are single passes too: the first keeps u's window and
 // the residual in shared memory, the second is one thread a fine point,
 // reading the (at most four) coarse values it needs through the cache.
@@ -37,7 +48,13 @@
 // the error moves inward one cell per half-sweep, so after 2S half-sweeps
 // only cells within 2S-1 of the window edge are wrong.  The residual adds
 // one ring and the restriction reads fine index 2i+2 past the tile, so the
-// down-leg needs HALO >= 2S+2 = 8; the up-leg needs HALO >= 2S.
+// down-leg needs HALO >= 2S+2 = 8; the up-leg needs HALO >= 2S.  The
+// prolongation is exact up to the window's edge (the coarse window covers
+// it), so a fused pass of S <= 6 sweeps needs HALO >= 2S+2 = 14: it takes
+// HALO_FUSED = 16, a 96^2 window of u and b (73,728 bytes of dynamic
+// shared memory, plus 9,604 for e's coarse window with column transfers),
+// opted in above the 48 KB default by cudaFuncSetAttribute.  The row-only
+// up-legs read c_half through the cache instead of staging it.
 // Tiles start at even interior indices, so every coarse point's 3x3
 // restriction window and every prolongation stencil lies in one tile, and
 // red is (global row + global column) even in interior indices (interior
@@ -51,13 +68,22 @@
 namespace {
 
 constexpr int TILE = 64;
-constexpr int HALO = 8;
-constexpr int WIN = TILE + 2 * HALO;   // fine window edge
-constexpr int CWIN = WIN / 2 + 1;      // coarse rows/columns feeding a window
 constexpr int THREADS = 256;
 constexpr int MAX_SWEEPS = 3;
-constexpr int DOWN_SMEM = 2 * WIN * WIN * sizeof(float);
-constexpr int UP_SMEM = DOWN_SMEM + CWIN * CWIN * sizeof(float);
+constexpr int MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS;
+// the halo of one leg (S <= 3: 2S + 2 = 8) and of a fused pass (S <= 6:
+// 2S + 2 = 14; 16, the TPU body's halo, transfer.py:462-465)
+constexpr int HALO = 8;
+constexpr int HALO_FUSED = 16;
+
+// The window of a tile with a halo of H cells on every side.
+template <int H>
+struct Win {
+  static constexpr int W = TILE + 2 * H;   // fine window edge
+  static constexpr int CW = W / 2 + 1;     // coarse rows/columns feeding it
+  static constexpr int UB = 2 * W * W * sizeof(float);   // u and b
+  static constexpr int UBE = UB + CW * CW * sizeof(float);   // and e
+};
 
 struct Leg {
   // 5-point stencil: center and the neighbours up (-1,0), down (+1,0),
@@ -65,8 +91,12 @@ struct Leg {
   float c, a_up, a_dn, a_lf, a_rt;
   // 1/c and the neighbour coefficients scaled by it
   float dinv, d_up, d_dn, d_lf, d_rt;
-  float tr[3], tc[3];           // row and column transfer taps
-  int om[MAX_SWEEPS + 1];       // indices into the relaxation-factor vector
+  // row and column transfer taps of a leg; of a fused pass, the
+  // restriction's
+  float tr[3], tc[3];
+  float pr[3], pc[3];           // a fused pass's prolongation taps
+  // indices into the relaxation-factor vector
+  int om[MAX_FUSED_SWEEPS + 1];
   int sweeps;
   int n, m;
 };
@@ -76,11 +106,13 @@ __device__ __forceinline__ bool inside(const Leg& p, int gr, int gc) {
 }
 
 // u and b over the window whose top-left interior index is (r0, c0).
+template <int H>
 __device__ void load_window(const float* __restrict__ u,
                             const float* __restrict__ b, float* su, float* sb,
                             const Leg& p, int r0, int c0) {
-  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
-    const int wr = idx / WIN, wc = idx - wr * WIN;
+  constexpr int W = Win<H>::W;
+  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
+    const int wr = idx / W, wc = idx - wr * W;
     const int gr = r0 + wr, gc = c0 + wc;
     const bool in = inside(p, gr, gc);
     const long g = static_cast<long>(gr) * p.m + gc;
@@ -93,20 +125,22 @@ __device__ void load_window(const float* __restrict__ u,
 // factors omegas[p.om[om_first]], omegas[p.om[om_first + 1]], ...
 // In a half-sweep every neighbour of an updated cell has the other colour,
 // so the in-place update has no race.
+template <int H>
 __device__ void rb_sweeps(float* su, const float* sb,
                           const float* __restrict__ omegas, const Leg& p,
                           int om_first, int r0, int c0) {
+  constexpr int W = Win<H>::W;
   for (int s = 0; s < p.sweeps; ++s) {
     const float om = omegas[p.om[om_first + s]];
     for (int parity = 0; parity < 2; ++parity) {
-      for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
-        const int wr = idx / WIN, wc = idx - wr * WIN;
+      for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
+        const int wr = idx / W, wc = idx - wr * W;
         const int gr = r0 + wr, gc = c0 + wc;
         if (!inside(p, gr, gc) || ((gr + gc) & 1) != parity) continue;
-        const float up = wr > 0 ? su[idx - WIN] : 0.f;
-        const float dn = wr < WIN - 1 ? su[idx + WIN] : 0.f;
+        const float up = wr > 0 ? su[idx - W] : 0.f;
+        const float dn = wr < W - 1 ? su[idx + W] : 0.f;
         const float lf = wc > 0 ? su[idx - 1] : 0.f;
-        const float rt = wc < WIN - 1 ? su[idx + 1] : 0.f;
+        const float rt = wc < W - 1 ? su[idx + 1] : 0.f;
         const float v = su[idx];
         const float off =
             p.d_up * up + p.d_dn * dn + p.d_lf * lf + p.d_rt * rt;
@@ -117,110 +151,238 @@ __device__ void rb_sweeps(float* su, const float* sb,
   }
 }
 
+template <int H>
 __device__ void store_tile(const float* su, float* __restrict__ out,
                            const Leg& p, int r0, int c0) {
+  constexpr int W = Win<H>::W;
   for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
     const int i = idx / TILE, j = idx - i * TILE;
-    const int gr = r0 + HALO + i, gc = c0 + HALO + j;
+    const int gr = r0 + H + i, gc = c0 + H + j;
     if (inside(p, gr, gc))
-      out[static_cast<long>(gr) * p.m + gc] = su[(HALO + i) * WIN + HALO + j];
+      out[static_cast<long>(gr) * p.m + gc] = su[(H + i) * W + H + j];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-downleg_kernel(const float* __restrict__ u, const float* __restrict__ b,
-               const float* __restrict__ omegas, float* __restrict__ u_out,
-               float* __restrict__ rc, Leg p) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + WIN * WIN;
-  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  load_window(u, b, su, sb, p, r0, c0);
-  __syncthreads();
-  rb_sweeps(su, sb, omegas, p, 0, r0, c0);
-
-  // residual, in place of b, on the rows and columns the restriction
-  // reads: window indices HALO .. HALO + TILE (inclusive) on both axes
+// The residual, in place of b, on the rows and columns the restriction
+// reads: window indices H .. H + TILE (inclusive) on both axes.  Ends
+// with a barrier.
+template <int H>
+__device__ void residual_in_place(const float* su, float* sb, const Leg& p,
+                                  int r0, int c0) {
+  constexpr int W = Win<H>::W;
   constexpr int RW = TILE + 1;
   for (int idx = threadIdx.x; idx < RW * RW; idx += blockDim.x) {
-    const int wr = HALO + idx / RW, wc = HALO + idx % RW;
-    const int w = wr * WIN + wc;
+    const int wr = H + idx / RW, wc = H + idx % RW;
+    const int w = wr * W + wc;
     float r = 0.f;
     if (inside(p, r0 + wr, c0 + wc)) {
-      const float au = p.c * su[w] + p.a_up * su[w - WIN] +
-                       p.a_dn * su[w + WIN] + p.a_lf * su[w - 1] +
+      const float au = p.c * su[w] + p.a_up * su[w - W] +
+                       p.a_dn * su[w + W] + p.a_lf * su[w - 1] +
                        p.a_rt * su[w + 1];
       r = sb[w] - au;
     }
     sb[w] = r;
   }
   __syncthreads();
-  store_tile(su, u_out, p, r0, c0);
+}
 
-  // coarse point (ci, cj) reads fine rows/columns 2ci..2ci+2, 2cj..2cj+2:
-  // the row taps first, then the column taps (transfer.py:802-807)
+// The full restriction of the tile's residual into rc ((n-1)/2, (m-1)/2):
+// coarse point (ci, cj) reads fine rows/columns 2ci..2ci+2, 2cj..2cj+2,
+// the row taps first, then the column taps (transfer.py:802-807).
+template <int H>
+__device__ void restrict_full(const float* sr, float* __restrict__ rc,
+                              const Leg& p) {
+  constexpr int W = Win<H>::W;
   const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
   constexpr int CT = TILE / 2;
   for (int idx = threadIdx.x; idx < CT * CT; idx += blockDim.x) {
     const int i = idx / CT, j = idx - i * CT;
     const int ci = blockIdx.y * CT + i, cj = blockIdx.x * CT + j;
     if (ci >= nc || cj >= mc) continue;
-    const float* r = sb + (HALO + 2 * i) * WIN + HALO + 2 * j;
+    const float* r = sr + (H + 2 * i) * W + H + 2 * j;
     float acc = 0.f;
     for (int e = 0; e < 3; ++e) {
-      const float rows = p.tr[0] * r[e] + p.tr[1] * r[WIN + e] +
-                         p.tr[2] * r[2 * WIN + e];
+      const float rows = p.tr[0] * r[e] + p.tr[1] * r[W + e] +
+                         p.tr[2] * r[2 * W + e];
       acc += p.tc[e] * rows;
     }
     rc[static_cast<long>(ci) * mc + cj] = acc;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-upleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
-             const float* __restrict__ b, const float* __restrict__ omegas,
-             float* __restrict__ u_out, Leg p) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + WIN * WIN;
-  float* se = smem + 2 * WIN * WIN;
-  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  // r0 and c0 are even: coarse index (r0 / 2 - 1) feeds the window's first
-  // even fine row through its w[+1] tap
-  const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
+// The row restriction of the tile's residual into rr ((n-1)/2, m):
+// rr[ci, j] = tr[0] r[2ci, j] + tr[1] r[2ci+1, j] + tr[2] r[2ci+2, j]
+// (transfer.py:265-271); columns are not decimated.
+template <int H>
+__device__ void restrict_rows(const float* sr, float* __restrict__ rr,
+                              const Leg& p, int c0) {
+  constexpr int W = Win<H>::W;
+  const int nc = (p.n - 1) / 2;
+  constexpr int CT = TILE / 2;
+  for (int idx = threadIdx.x; idx < CT * TILE; idx += blockDim.x) {
+    const int i = idx / TILE, j = idx - i * TILE;
+    const int ci = blockIdx.y * CT + i, gc = c0 + H + j;
+    if (ci >= nc || gc >= p.m) continue;
+    const float* r = sr + (H + 2 * i) * W + H + j;
+    rr[static_cast<long>(ci) * p.m + gc] =
+        p.tr[0] * r[0] + p.tr[1] * r[W] + p.tr[2] * r[2 * W];
+  }
+}
+
+// The coarse correction's window: coarse rows and columns cr0 .. cr0 + CW
+// - 1 and cc0 .. cc0 + CW - 1, zero outside the coarse grid.
+template <int H>
+__device__ void load_coarse(const float* __restrict__ e, float* se,
+                            const Leg& p, int cr0, int cc0) {
+  constexpr int CW = Win<H>::CW;
   const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
-  load_window(u, b, su, sb, p, r0, c0);
-  for (int idx = threadIdx.x; idx < CWIN * CWIN; idx += blockDim.x) {
-    const int i = idx / CWIN, j = idx - i * CWIN;
+  for (int idx = threadIdx.x; idx < CW * CW; idx += blockDim.x) {
+    const int i = idx / CW, j = idx - i * CW;
     const int ci = cr0 + i, cj = cc0 + j;
     const bool in = ci >= 0 && ci < nc && cj >= 0 && cj < mc;
     se[idx] = in ? e[static_cast<long>(ci) * mc + cj] : 0.f;
   }
-  __syncthreads();
+}
 
-  // u += omega_0 * P(e) over the whole window, halo included: fine index
-  // 2i+1+o takes taps[o+1] * e[i] on each axis (transfer.py:896-903);
-  // the column expansion first, then the row expansion
-  const float om0 = omegas[p.om[0]];
-  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
-    const int wr = idx / WIN, wc = idx - wr * WIN;
+// u += om0 * P(e) over the whole window, halo included, with the row taps
+// tr and the column taps tc: fine index 2i+1+o takes taps[o+1] * e[i] on
+// each axis (transfer.py:896-903); the column expansion first, then the
+// row expansion.  The window starts at even (r0, c0), so coarse index
+// r0 / 2 - 1 = cr0 feeds its first fine row through its w[+1] tap, and
+// the window's last (odd) row and column need coarse index cr0 + CW - 1:
+// the correction is exact up to the window's edge.  Ends with a barrier.
+template <int H>
+__device__ void correct_full(float* su, const float* se, const Leg& p,
+                             float om0, const float* tr, const float* tc,
+                             int r0, int c0, int cr0, int cc0) {
+  constexpr int W = Win<H>::W, CW = Win<H>::CW;
+  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
+    const int wr = idx / W, wc = idx - wr * W;
     const int gr = r0 + wr, gc = c0 + wc;
     if (!inside(p, gr, gc)) continue;
     float col[2];
     const int rows[2] = {(gr & 1) ? (gr - 1) / 2 : gr / 2 - 1, gr / 2};
     for (int k = 0; k < 2; ++k) {
-      const float* er = se + (rows[k] - cr0) * CWIN;
-      col[k] = (gc & 1) ? p.tc[1] * er[(gc - 1) / 2 - cc0]
-                        : p.tc[2] * er[gc / 2 - 1 - cc0] +
-                              p.tc[0] * er[gc / 2 - cc0];
+      const float* er = se + (rows[k] - cr0) * CW;
+      col[k] = (gc & 1) ? tc[1] * er[(gc - 1) / 2 - cc0]
+                        : tc[2] * er[gc / 2 - 1 - cc0] +
+                              tc[0] * er[gc / 2 - cc0];
     }
-    const float corr = (gr & 1) ? p.tr[1] * col[0]
-                                : p.tr[2] * col[0] + p.tr[0] * col[1];
+    const float corr = (gr & 1) ? tr[1] * col[0]
+                                : tr[2] * col[0] + tr[0] * col[1];
     su[idx] += om0 * corr;
   }
   __syncthreads();
-  rb_sweeps(su, sb, omegas, p, 1, r0, c0);
-  store_tile(su, u_out, p, r0, c0);
+}
+
+// u += om0 * P_row(c_half) over the whole window: c_half ((n-1)/2, m) is
+// prolonged along columns already; fine row 2i+1 takes tr[1] c[i], fine
+// row 2i takes tr[2] c[i-1] + tr[0] c[i] (transfer.py:487-490), 0 outside
+// the coarse rows.  c_half is read through the cache: each value feeds
+// three fine rows of one column.  Ends with a barrier.
+template <int H>
+__device__ void correct_rows(float* su, const float* __restrict__ ch,
+                             const Leg& p, float om0, const float* tr,
+                             int r0, int c0) {
+  constexpr int W = Win<H>::W;
+  const int nc = (p.n - 1) / 2;
+  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
+    const int wr = idx / W, wc = idx - wr * W;
+    const int gr = r0 + wr, gc = c0 + wc;
+    if (!inside(p, gr, gc)) continue;
+    const int rows[2] = {(gr & 1) ? (gr - 1) / 2 : gr / 2 - 1, gr / 2};
+    float c[2];
+    for (int k = 0; k < 2; ++k)
+      c[k] = rows[k] >= 0 && rows[k] < nc
+                 ? __ldg(ch + static_cast<long>(rows[k]) * p.m + gc)
+                 : 0.f;
+    const float corr = (gr & 1) ? tr[1] * c[0] : tr[2] * c[0] + tr[0] * c[1];
+    su[idx] += om0 * corr;
+  }
+  __syncthreads();
+}
+
+// The down-leg: sweeps, residual and the full restriction (kCols, rc
+// ((n-1)/2, (m-1)/2)) or the row restriction (rr ((n-1)/2, m)).
+template <bool kCols>
+__global__ void __launch_bounds__(THREADS)
+downleg_kernel(const float* __restrict__ u, const float* __restrict__ b,
+               const float* __restrict__ omegas, float* __restrict__ u_out,
+               float* __restrict__ rc, Leg p) {
+  extern __shared__ float smem[];
+  float* su = smem;
+  float* sb = smem + Win<HALO>::W * Win<HALO>::W;
+  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
+  load_window<HALO>(u, b, su, sb, p, r0, c0);
+  __syncthreads();
+  rb_sweeps<HALO>(su, sb, omegas, p, 0, r0, c0);
+  residual_in_place<HALO>(su, sb, p, r0, c0);
+  store_tile<HALO>(su, u_out, p, r0, c0);
+  if (kCols)
+    restrict_full<HALO>(sb, rc, p);
+  else
+    restrict_rows<HALO>(sb, rc, p, c0);
+}
+
+// The up-leg: the correction by the full prolongation of e ((n-1)/2,
+// (m-1)/2) (kCols) or by the row prolongation of c_half ((n-1)/2, m),
+// then the sweeps.
+template <bool kCols>
+__global__ void __launch_bounds__(THREADS)
+upleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
+             const float* __restrict__ b, const float* __restrict__ omegas,
+             float* __restrict__ u_out, Leg p) {
+  extern __shared__ float smem[];
+  constexpr int W = Win<HALO>::W;
+  float* su = smem;
+  float* sb = smem + W * W;
+  float* se = smem + 2 * W * W;
+  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
+  const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
+  load_window<HALO>(u, b, su, sb, p, r0, c0);
+  if (kCols) load_coarse<HALO>(e, se, p, cr0, cc0);
+  __syncthreads();
+  const float om0 = omegas[p.om[0]];
+  if (kCols)
+    correct_full<HALO>(su, se, p, om0, p.tr, p.tc, r0, c0, cr0, cc0);
+  else
+    correct_rows<HALO>(su, e, p, om0, p.tr, r0, c0);
+  rb_sweeps<HALO>(su, sb, omegas, p, 1, r0, c0);
+  store_tile<HALO>(su, u_out, p, r0, c0);
+}
+
+// The up-leg of cycle k and the down-leg of cycle k+1 in one pass
+// (replaces upleg_downleg_col / upleg_downleg_fused): the correction by
+// p.pr / p.pc, p.sweeps (the post-sweeps, then the next pre-sweeps: up to
+// 6) sweeps, the residual and the restriction by p.tr / p.tc.  The halo
+// is HALO_FUSED = 16 >= 2S + 2; the window is 96^2.
+template <bool kCols>
+__global__ void __launch_bounds__(THREADS)
+vleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
+            const float* __restrict__ b, const float* __restrict__ omegas,
+            float* __restrict__ u_out, float* __restrict__ rc, Leg p) {
+  extern __shared__ float smem[];
+  constexpr int H = HALO_FUSED, W = Win<H>::W;
+  float* su = smem;
+  float* sb = smem + W * W;
+  float* se = smem + 2 * W * W;
+  const int r0 = blockIdx.y * TILE - H, c0 = blockIdx.x * TILE - H;
+  const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
+  load_window<H>(u, b, su, sb, p, r0, c0);
+  if (kCols) load_coarse<H>(e, se, p, cr0, cc0);
+  __syncthreads();
+  const float om0 = omegas[p.om[0]];
+  if (kCols)
+    correct_full<H>(su, se, p, om0, p.pr, p.pc, r0, c0, cr0, cc0);
+  else
+    correct_rows<H>(su, e, p, om0, p.pr, r0, c0);
+  rb_sweeps<H>(su, sb, omegas, p, 1, r0, c0);
+  residual_in_place<H>(su, sb, p, r0, c0);
+  store_tile<H>(su, u_out, p, r0, c0);
+  if (kCols)
+    restrict_full<H>(sb, rc, p);
+  else
+    restrict_rows<H>(sb, rc, p, c0);
 }
 
 // r = b - A u and its restriction for the coarse tile whose first point is
@@ -309,8 +471,14 @@ prolong_correct_kernel(const float* __restrict__ u,
   u_out[g] = u[g] + omegas[p.om[0]] * corr;
 }
 
+void set_taps(float* t, const double* c) {
+  for (int k = 0; k < 3; ++k) t[k] = static_cast<float>(c[k]);
+}
+
+// coeffs: 5 stencil values, the row and column taps of the leg (tr, tc)
+// and, for a fused pass (fused true), the prolongation's (pr, pc).
 Leg make_leg(const double* coeffs, const int* om_ids, int n_ids, int sweeps,
-             int n, int m) {
+             int n, int m, bool fused = false) {
   Leg p;
   const double c = coeffs[0], dinv = 1.0 / c;
   p.c = static_cast<float>(c);
@@ -323,11 +491,12 @@ Leg make_leg(const double* coeffs, const int* om_ids, int n_ids, int sweeps,
   p.d_dn = static_cast<float>(coeffs[2] * dinv);
   p.d_lf = static_cast<float>(coeffs[3] * dinv);
   p.d_rt = static_cast<float>(coeffs[4] * dinv);
-  for (int k = 0; k < 3; ++k) {
-    p.tr[k] = static_cast<float>(coeffs[5 + k]);
-    p.tc[k] = static_cast<float>(coeffs[8 + k]);
-  }
-  for (int k = 0; k <= MAX_SWEEPS; ++k) p.om[k] = k < n_ids ? om_ids[k] : 0;
+  set_taps(p.tr, coeffs + 5);
+  set_taps(p.tc, coeffs + 8);
+  set_taps(p.pr, fused ? coeffs + 11 : coeffs + 5);
+  set_taps(p.pc, fused ? coeffs + 14 : coeffs + 8);
+  for (int k = 0; k <= MAX_FUSED_SWEEPS; ++k)
+    p.om[k] = k < n_ids ? om_ids[k] : 0;
   p.sweeps = sweeps;
   p.n = n;
   p.m = m;
@@ -348,6 +517,61 @@ dim3 tiles(int n, int m) {
 
 bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
 
+// A down-leg: kCols selects the full restriction.
+template <bool kCols>
+int launch_downleg(const float* u, const float* b, const float* omegas,
+                   const int* om_ids, int sweeps, const double* coeffs,
+                   float* u_out, float* r_out, int n, int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Win<HALO>::UB;
+  cudaError_t err = allow_smem(downleg_kernel<kCols>, smem);
+  if (err != cudaSuccess) return err;
+  const Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
+  downleg_kernel<kCols><<<tiles(n, m), THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      u, b, omegas, u_out, r_out, p);
+  return cudaGetLastError();
+}
+
+// An up-leg: kCols selects the full prolongation, whose coarse window is
+// staged in shared memory.
+template <bool kCols>
+int launch_upleg(const float* u, const float* e, const float* b,
+                 const float* omegas, const int* om_ids, int sweeps,
+                 const double* coeffs, float* u_out, int n, int m,
+                 void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  constexpr int smem = kCols ? Win<HALO>::UBE : Win<HALO>::UB;
+  cudaError_t err = allow_smem(upleg_kernel<kCols>, smem);
+  if (err != cudaSuccess) return err;
+  const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
+  upleg_kernel<kCols><<<tiles(n, m), THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      u, e, b, omegas, u_out, p);
+  return cudaGetLastError();
+}
+
+// A fused pass: 73,728 bytes of u and b and, with kCols, 9,604 of e's
+// coarse window; above the 48 KB default, so the kernel opts in.
+template <bool kCols>
+int launch_vleg(const float* u, const float* e, const float* b,
+                const float* omegas, const int* om_ids, int sweeps,
+                const double* coeffs, float* u_out, float* r_out, int n,
+                int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_FUSED_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  constexpr int smem = kCols ? Win<HALO_FUSED>::UBE : Win<HALO_FUSED>::UB;
+  cudaError_t err = allow_smem(vleg_kernel<kCols>, smem);
+  if (err != cudaSuccess) return err;
+  const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m, true);
+  vleg_kernel<kCols><<<tiles(n, m), THREADS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      u, e, b, omegas, u_out, r_out, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* es_error_string(int err) {
@@ -361,15 +585,20 @@ extern "C" int es_presmooth_residual_restrict(
     const float* u, const float* b, const float* omegas, const int* om_ids,
     int sweeps, const double* coeffs, float* u_out, float* rc, int n, int m,
     void* stream) {
-  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(downleg_kernel, DOWN_SMEM);
-  if (err != cudaSuccess) return err;
-  const Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
-  downleg_kernel<<<tiles(n, m), THREADS, DOWN_SMEM,
-                   static_cast<cudaStream_t>(stream)>>>(u, b, omegas, u_out,
-                                                        rc, p);
-  return cudaGetLastError();
+  return launch_downleg<true>(u, b, omegas, om_ids, sweeps, coeffs, u_out,
+                              rc, n, m, stream);
+}
+
+// As es_presmooth_residual_restrict (the column taps are not read), but
+// writes the row-restricted residual rr ((n-1)/2, m); replaces
+// evostencils_tpu/ops/pallas/transfer.py presmooth_residual_rowrestrict
+// (_smooth_rr_kernel).
+extern "C" int es_presmooth_residual_rowrestrict(
+    const float* u, const float* b, const float* omegas, const int* om_ids,
+    int sweeps, const double* coeffs, float* u_out, float* rr, int n, int m,
+    void* stream) {
+  return launch_downleg<false>(u, b, omegas, om_ids, sweeps, coeffs, u_out,
+                               rr, n, m, stream);
 }
 
 // om_ids: 1 + sweeps indices into omegas: the coarse-grid-correction factor,
@@ -378,15 +607,41 @@ extern "C" int es_prolong_correct_postsmooth(
     const float* u, const float* e, const float* b, const float* omegas,
     const int* om_ids, int sweeps, const double* coeffs, float* u_out, int n,
     int m, void* stream) {
-  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(upleg_kernel, UP_SMEM);
-  if (err != cudaSuccess) return err;
-  const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
-  upleg_kernel<<<tiles(n, m), THREADS, UP_SMEM,
-                 static_cast<cudaStream_t>(stream)>>>(u, e, b, omegas, u_out,
-                                                      p);
-  return cudaGetLastError();
+  return launch_upleg<true>(u, e, b, omegas, om_ids, sweeps, coeffs, u_out,
+                            n, m, stream);
+}
+
+// As es_prolong_correct_postsmooth, but takes c_half ((n-1)/2, m), the
+// coarse correction prolonged along columns already (the column taps are
+// not read); replaces evostencils_tpu/ops/pallas/transfer.py
+// prolong_correct_postsmooth (_pc_smooth_kernel).
+extern "C" int es_prolong_correct_postsmooth_rows(
+    const float* u, const float* c_half, const float* b, const float* omegas,
+    const int* om_ids, int sweeps, const double* coeffs, float* u_out, int n,
+    int m, void* stream) {
+  return launch_upleg<false>(u, c_half, b, omegas, om_ids, sweeps, coeffs,
+                             u_out, n, m, stream);
+}
+
+// The up-leg of cycle k and the down-leg of cycle k+1 in one pass.
+// coeffs: 5 stencil values, the restriction's row and column taps, the
+// prolongation's row and column taps.  om_ids: 1 + sweeps (1..6) indices:
+// the coarse-grid-correction factor, the post-sweeps, the next pre-sweeps.
+// cols 1: e ((n-1)/2, (m-1)/2) in, rc ((n-1)/2, (m-1)/2) out; replaces
+// evostencils_tpu/ops/pallas/transfer.py upleg_downleg_col
+// (_vleg_col_kernel).  cols 0: c_half ((n-1)/2, m) in, rr ((n-1)/2, m)
+// out, the column taps not read; replaces upleg_downleg_fused
+// (_vleg_kernel).
+extern "C" int es_upleg_downleg(const float* u, const float* e,
+                                const float* b, const float* omegas,
+                                const int* om_ids, int sweeps,
+                                const double* coeffs, float* u_out,
+                                float* r_out, int n, int m, int cols,
+                                void* stream) {
+  return cols ? launch_vleg<true>(u, e, b, omegas, om_ids, sweeps, coeffs,
+                                  u_out, r_out, n, m, stream)
+              : launch_vleg<false>(u, e, b, omegas, om_ids, sweeps, coeffs,
+                                   u_out, r_out, n, m, stream);
 }
 
 // coeffs as for es_presmooth_residual_restrict.  Writes rc ((n-1)/2,

@@ -58,6 +58,18 @@ SIGNATURES = {
     # u, e, b, omegas, omega ids, sweeps, coefficients, u_out, n, m, stream
     "es_prolong_correct_postsmooth":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # u, b, omegas, omega ids, sweeps, coefficients, u_out, rr, n, m, stream
+    "es_presmooth_residual_rowrestrict":
+        (_P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _P),
+    # u, c_half, b, omegas, omega ids, sweeps, coefficients, u_out, n, m,
+    # stream
+    "es_prolong_correct_postsmooth_rows":
+        (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # u, e or c_half, b, omegas, omega ids, sweeps, coefficients, u_out,
+    # rc or rr, n, m, column transfers, stream
+    "es_upleg_downleg":
+        (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _INT,
+         _P),
     # u, b, coefficients, rc, n, m, stream
     "es_residual_restrict": (_P, _P, _DOUBLES, _P, _INT, _INT, _P),
     # u, e, omegas, omega id, coefficients, u_out, n, m, stream

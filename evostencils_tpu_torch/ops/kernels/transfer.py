@@ -1,7 +1,18 @@
-"""The V-cycle's two fused leg kernels and the two standalone transfer
+"""The V-cycle's fused leg kernels and the two standalone transfer
 kernels (counterpart of evostencils_tpu/ops/pallas/transfer.py
 ``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``,
-``residual_rowrestrict`` and ``prolong_row_correct``).
+``upleg_downleg_col``, their row-only forms
+``presmooth_residual_rowrestrict``, ``prolong_correct_postsmooth`` and
+``upleg_downleg_fused``, and ``residual_rowrestrict`` and
+``prolong_row_correct``).
+
+The legs carry both transfer axes.  Their row-only forms restrict the
+residual along rows only, to ``rr ((n-1)/2, m)``, or take a correction
+prolonged along columns already, ``c_half ((n-1)/2, m)``; the lowering
+runs the column half in plain torch (``config.fused_column_transfers``
+off).  The fused passes ``upleg_downleg_col`` and ``upleg_downleg_fused``
+run the up-leg of cycle k and the down-leg of cycle k+1 in one pass over
+u and b (``compiler/solve.make_cycle_loop`` with ``config.loop_fusion``).
 
 The TPU splits the standalone transfers into a row half (Pallas) and a
 column half (XLA, ``lower._col_restrict`` / ``_col_prolong``), because
@@ -40,6 +51,9 @@ from ..apply import (apply_constant, axis_prolong_3tap, axis_restrict_3tap,
 from . import _build
 
 MAX_SWEEPS = 3
+#: sweeps of a fused pass: the post-sweeps of one cycle and the pre-sweeps
+#: of the next
+MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS
 #: kernel gate: the JAX gate's level set (transfer.py:590-595)
 MIN_ROWS = 129
 MIN_COLS = 128
@@ -47,6 +61,10 @@ MIN_COLS = 128
 #: kernel launches per kernel since the last reset_launches()
 launches = {"presmooth_residual_restrict": 0,
             "prolong_correct_postsmooth_col": 0,
+            "upleg_downleg_col": 0,
+            "presmooth_residual_rowrestrict": 0,
+            "prolong_correct_postsmooth": 0,
+            "upleg_downleg_fused": 0,
             "residual_restrict": 0, "prolong_correct": 0}
 
 
@@ -123,6 +141,42 @@ def prolong_correct_postsmooth_col_plain(u, e, b, omegas, omega_ids,
                             _five_point(stencil_vals), 1.0 / stencil_vals[0])
 
 
+def upleg_downleg_col_plain(u, e, b, omegas, omega_ids, stencil_vals,
+                            p_taps, r_taps):
+    """Plain version of :func:`upleg_downleg_col`: the up-leg with every
+    sweep, then the down-leg's residual and restriction."""
+    u = prolong_correct_postsmooth_col_plain(u, e, b, omegas, omega_ids,
+                                             stencil_vals, p_taps)
+    return presmooth_residual_restrict_plain(u, b, omegas, (), stencil_vals,
+                                             r_taps)
+
+
+def presmooth_residual_rowrestrict_plain(u, b, omegas, omega_ids,
+                                         stencil_vals, row_taps):
+    """Plain version of :func:`presmooth_residual_rowrestrict`."""
+    A = _five_point(stencil_vals)
+    u = _rb_sweeps_plain(u, b, omegas, omega_ids, A, 1.0 / stencil_vals[0])
+    return u, axis_restrict_3tap(b - apply_constant(A, u), 0, row_taps)
+
+
+def prolong_correct_postsmooth_plain(u, c_half, b, omegas, omega_ids,
+                                     stencil_vals, row_taps):
+    """Plain version of :func:`prolong_correct_postsmooth`."""
+    p = axis_prolong_3tap(c_half, 0, row_taps, u.shape[0])
+    u = u + omegas[omega_ids[0]] * p
+    return _rb_sweeps_plain(u, b, omegas, omega_ids[1:],
+                            _five_point(stencil_vals), 1.0 / stencil_vals[0])
+
+
+def upleg_downleg_fused_plain(u, c_half, b, omegas, omega_ids, stencil_vals,
+                              p_row_taps, r_row_taps):
+    """Plain version of :func:`upleg_downleg_fused`."""
+    u = prolong_correct_postsmooth_plain(u, c_half, b, omegas, omega_ids,
+                                         stencil_vals, p_row_taps)
+    return presmooth_residual_rowrestrict_plain(u, b, omegas, (),
+                                                stencil_vals, r_row_taps)
+
+
 def residual_restrict_plain(u, b, stencil_vals, taps):
     """Plain version of :func:`residual_restrict`: the residual summed in
     the order of ``_rr_kernel`` (transfer.py:86-88), then the row taps and
@@ -148,7 +202,8 @@ def prolong_correct_plain(u, e, omegas, omega_id, taps):
 # wrappers
 # ---------------------------------------------------------------------------
 
-def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=()):
+def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=(),
+               max_sweeps=MAX_SWEEPS):
     """Shape and index checks shared by both devices; returns the ids."""
     tensors = (u, b, omegas) + tuple(extra)
     if any(t.device != u.device for t in tensors):
@@ -159,8 +214,8 @@ def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=()):
     n, m = u.shape
     if n < 3 or m < 3 or n % 2 == 0 or m % 2 == 0:
         raise ValueError(f"grid {n}x{m} must be odd on both axes")
-    if not 1 <= n_sweeps <= MAX_SWEEPS:
-        raise ValueError(f"{n_sweeps} sweeps; the legs take 1..{MAX_SWEEPS}")
+    if not 1 <= n_sweeps <= max_sweeps:
+        raise ValueError(f"{n_sweeps} sweeps; this leg takes 1..{max_sweeps}")
     if omegas.ndim != 1:
         raise ValueError("omegas must be a 1-D relaxation-factor vector")
     ids = tuple(int(i) for i in omega_ids)
@@ -170,12 +225,28 @@ def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=()):
     return ids
 
 
-def _coefficients(stencil_vals, taps):
+#: the column taps a row-only kernel is given and does not read
+_NO_TAPS = (0.0, 0.0, 0.0)
+
+
+def _coefficients(stencil_vals, *tap_pairs):
+    """5 stencil values, then each (row, column) 3-tap pair."""
     vals = [float(v) for v in stencil_vals] + \
-        [float(t) for axis in taps for t in axis]
-    if len(vals) != 11:
+        [float(t) for taps in tap_pairs for axis in taps for t in axis]
+    if len(vals) != 5 + 6 * len(tap_pairs) or \
+            any(len(taps) != 2 for taps in tap_pairs):
         raise ValueError("need 5 stencil values and 3 taps per axis")
-    return (ctypes.c_double * 11)(*vals)
+    return (ctypes.c_double * len(vals))(*vals)
+
+
+def _check_coarse(u, c, rows_only):
+    """The coarse operand's shape: ((n-1)/2, m) for a row-only leg, else
+    ((n-1)/2, (m-1)/2)."""
+    n, m = u.shape
+    want = ((n - 1) // 2, m if rows_only else (m - 1) // 2)
+    if tuple(c.shape) != want:
+        raise ValueError(f"coarse operand {tuple(c.shape)} does not match "
+                         f"the grid {n}x{m}; expected {want}")
 
 
 def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
@@ -213,14 +284,12 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
     (row, column) 3-tap pair ``taps``, then ``len(omega_ids) - 1``
     red-black sweeps with factors ``omegas[omega_ids[1:]]``."""
     ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids) - 1, (e,))
-    n, m = u.shape
-    if tuple(e.shape) != ((n - 1) // 2, (m - 1) // 2):
-        raise ValueError(f"coarse correction {tuple(e.shape)} does not "
-                         f"match the grid {n}x{m}")
+    _check_coarse(u, e, rows_only=False)
     if not _build.on_card(u):
         return prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
                                                     stencil_vals, taps)
     _build.check_card_tensors(u, e, b, omegas)
+    n, m = u.shape
     u_out = torch.empty_like(u)
     _build.launch(launches, "prolong_correct_postsmooth_col",
                   "es_prolong_correct_postsmooth", u.device, u.data_ptr(),
@@ -228,6 +297,118 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
                   (ctypes.c_int * len(ids))(*ids), len(ids) - 1,
                   _coefficients(stencil_vals, taps), u_out.data_ptr(), n, m)
     return u_out
+
+
+def upleg_downleg_col(u: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
+                      omegas: torch.Tensor, omega_ids: Sequence[int],
+                      stencil_vals, p_taps, r_taps):
+    """The up-leg of one cycle and the down-leg of the next in one pass:
+    ``u + omegas[omega_ids[0]] * P(e)`` with the full prolongation of ``e``
+    ((n-1)/2, (m-1)/2) by the (row, column) taps ``p_taps``, then
+    ``len(omega_ids) - 1`` (1..6) red-black sweeps with factors
+    ``omegas[omega_ids[1:]]`` in the order they run (the post-sweeps, then
+    the next cycle's pre-sweeps), then ``r = b - A u`` and its full
+    restriction by ``r_taps``.  Returns ``(u_next (n, m), rc ((n-1)/2,
+    (m-1)/2))``."""
+    ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids) - 1, (e,),
+                     MAX_FUSED_SWEEPS)
+    _check_coarse(u, e, rows_only=False)
+    if not _build.on_card(u):
+        return upleg_downleg_col_plain(u, e, b, omegas, ids, stencil_vals,
+                                       p_taps, r_taps)
+    _build.check_card_tensors(u, e, b, omegas)
+    n, m = u.shape
+    u_out = torch.empty_like(u)
+    rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
+    _build.launch(launches, "upleg_downleg_col", "es_upleg_downleg",
+                  u.device, u.data_ptr(), e.data_ptr(), b.data_ptr(),
+                  omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
+                  len(ids) - 1, _coefficients(stencil_vals, r_taps, p_taps),
+                  u_out.data_ptr(), rc.data_ptr(), n, m, 1)
+    return u_out, rc
+
+
+def presmooth_residual_rowrestrict(u: torch.Tensor, b: torch.Tensor,
+                                   omegas: torch.Tensor,
+                                   omega_ids: Sequence[int], stencil_vals,
+                                   row_taps):
+    """Row-only down-leg: the sweeps and residual of
+    :func:`presmooth_residual_restrict`, restricted along rows only by the
+    3-tap ``row_taps``: ``rr[i, j] = w[0] r[2i, j] + w[1] r[2i+1, j] +
+    w[2] r[2i+2, j]``.  Returns ``(u_s (n, m), rr ((n-1)/2, m))``."""
+    ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids))
+    if not _build.on_card(u):
+        return presmooth_residual_rowrestrict_plain(u, b, omegas, ids,
+                                                    stencil_vals, row_taps)
+    _build.check_card_tensors(u, b, omegas)
+    n, m = u.shape
+    u_out = torch.empty_like(u)
+    rr = u.new_empty(((n - 1) // 2, m))
+    _build.launch(launches, "presmooth_residual_rowrestrict",
+                  "es_presmooth_residual_rowrestrict", u.device,
+                  u.data_ptr(), b.data_ptr(), omegas.data_ptr(),
+                  (ctypes.c_int * len(ids))(*ids), len(ids),
+                  _coefficients(stencil_vals, (row_taps, _NO_TAPS)),
+                  u_out.data_ptr(), rr.data_ptr(), n, m)
+    return u_out, rr
+
+
+def prolong_correct_postsmooth(u: torch.Tensor, c_half: torch.Tensor,
+                               b: torch.Tensor, omegas: torch.Tensor,
+                               omega_ids: Sequence[int], stencil_vals,
+                               row_taps):
+    """Row-only up-leg: ``u + omegas[omega_ids[0]] * P_row(c_half)``, where
+    ``c_half`` ((n-1)/2, m) is the coarse correction prolonged along
+    columns already and ``P_row`` gives fine row 2i+1 ``w[1] c[i]`` and
+    fine row 2i ``w[2] c[i-1] + w[0] c[i]`` for the 3-tap ``row_taps``;
+    then ``len(omega_ids) - 1`` red-black sweeps with factors
+    ``omegas[omega_ids[1:]]``."""
+    ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids) - 1,
+                     (c_half,))
+    _check_coarse(u, c_half, rows_only=True)
+    if not _build.on_card(u):
+        return prolong_correct_postsmooth_plain(u, c_half, b, omegas, ids,
+                                                stencil_vals, row_taps)
+    _build.check_card_tensors(u, c_half, b, omegas)
+    n, m = u.shape
+    u_out = torch.empty_like(u)
+    _build.launch(launches, "prolong_correct_postsmooth",
+                  "es_prolong_correct_postsmooth_rows", u.device,
+                  u.data_ptr(), c_half.data_ptr(), b.data_ptr(),
+                  omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
+                  len(ids) - 1,
+                  _coefficients(stencil_vals, (row_taps, _NO_TAPS)),
+                  u_out.data_ptr(), n, m)
+    return u_out
+
+
+def upleg_downleg_fused(u: torch.Tensor, c_half: torch.Tensor,
+                        b: torch.Tensor, omegas: torch.Tensor,
+                        omega_ids: Sequence[int], stencil_vals, p_row_taps,
+                        r_row_taps):
+    """:func:`upleg_downleg_col` with row-only transfers: takes ``c_half``
+    ((n-1)/2, m) as :func:`prolong_correct_postsmooth` does and returns
+    ``(u_next (n, m), rr ((n-1)/2, m))`` as
+    :func:`presmooth_residual_rowrestrict` does."""
+    ids = _check_leg(u, b, omegas, omega_ids, len(omega_ids) - 1,
+                     (c_half,), MAX_FUSED_SWEEPS)
+    _check_coarse(u, c_half, rows_only=True)
+    if not _build.on_card(u):
+        return upleg_downleg_fused_plain(u, c_half, b, omegas, ids,
+                                         stencil_vals, p_row_taps,
+                                         r_row_taps)
+    _build.check_card_tensors(u, c_half, b, omegas)
+    n, m = u.shape
+    u_out = torch.empty_like(u)
+    rr = u.new_empty(((n - 1) // 2, m))
+    _build.launch(launches, "upleg_downleg_fused", "es_upleg_downleg",
+                  u.device, u.data_ptr(), c_half.data_ptr(), b.data_ptr(),
+                  omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
+                  len(ids) - 1,
+                  _coefficients(stencil_vals, (r_row_taps, _NO_TAPS),
+                                (p_row_taps, _NO_TAPS)),
+                  u_out.data_ptr(), rr.data_ptr(), n, m, 0)
+    return u_out, rr
 
 
 def _check_transfer(u, others, omegas=None, omega_id=0):
@@ -272,10 +453,8 @@ def prolong_correct(u: torch.Tensor, e: torch.Tensor, omegas: torch.Tensor,
     coarse correction ``e`` ((n-1)/2, (m-1)/2) by the (row, column) 3-tap
     pair ``taps``."""
     _check_transfer(u, (e, omegas), omegas, omega_id)
+    _check_coarse(u, e, rows_only=False)
     n, m = u.shape
-    if tuple(e.shape) != ((n - 1) // 2, (m - 1) // 2):
-        raise ValueError(f"coarse correction {tuple(e.shape)} does not "
-                         f"match the grid {n}x{m}")
     if not _build.on_card(u):
         return prolong_correct_plain(u, e, omegas, int(omega_id), taps)
     _build.check_card_tensors(u, e, omegas)
