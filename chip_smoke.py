@@ -81,7 +81,9 @@ Phases:
    sweeps, 3 residual restrictions and 3 wavefront up-legs; kernels
    against plain versions as in [evaluator];
 13. [evolve3d] ``poisson3d NSGAII --mu 4 --lambda 4 --generations 1
-   --seed 0`` at its default levels 6->2 (63^3), cut as [evolve]; at least
+   --seed 0`` at its default levels 6->2 (63^3), cut to one generation as
+   [evolve] and with the timing protocol off (one solve an evaluation,
+   for the script's time); at least
    one 3D standalone kernel must launch;
 14. [kernels-var] compare the four variable-coefficient kernels (the
    fused red-black and the Jacobi sweep, the down-leg and the up-leg) with
@@ -125,11 +127,44 @@ Phases:
    kernels against plain versions as in [evaluator]; the champion needs no
    more iterations than the red-black V(2,1);
 21. [evolve-elast] ``elasticity2d NSGAII --mu 4 --lambda 4 --generations 1
-   --seed 0`` at its default levels 8->4 (255^2), cut as [evolve];
-22. check that neither jax nor the JAX package was imported.
+   --seed 0`` at its default levels 8->4 (255^2), cut as [evolve3d];
+22. [kernels-cx] compare the two complex sweep kernels (the fused
+   red-black and the Jacobi sweep of a constant complex 5-point operator)
+   with their plain versions at 2047^2 and 1023^2 with the shifted
+   Laplacian's values at k = 80 and the JAX test's complex stencil, and at
+   the ragged 300x200 and 129x130 with the latter; time both at 2047^2 and
+   1023^2;
+23. [main-cx] drive the complex path: the shifted-Laplace preconditioner
+   M = -Lap - k^2 (1 + 0.5i) with Dirichlet boundaries (k = 80, levels
+   11->3, 2047^2 down to a dense 7^2 solve, complex64), built from the
+   public IR as tests/test_pallas_cx.py:110-141 builds it, with the
+   red-black V(2,1) and the Jacobi V(2,1) (omega 0.6), as phase 5 drives
+   the 2D path: 12 sweeps of the cycle's kernel per cycle (3 on each of
+   2047^2 .. 255^2) and no other kernel at all; then each solve to 1e-5
+   as phase 6;
+24. [helm] the family's own path: helmholtz_2d(7, 3) (127^2, the Robin
+   operator) at k = 80, 160 and 320 in complex128, a preconditioned
+   BiCGStab solve of the true operator to 1e-7 with one red-black V(2,1)
+   (omega 0.6) per application, replayed from a CUDA graph as the
+   evaluator replays it, whose iterations must lie within 2% of the JAX
+   package's CPU float64 counts (BASELINE.md:251-262), and no kernel may
+   launch; k = 80 once more in complex64, with its true relative
+   residual, and again with the preconditioner eager: equal iterations
+   and histories;
+25. [evaluator-helm] a CycleEvaluator in float32 (complex64 fields) at
+   helmholtz_2d(7, 3) runs measure_interleaved over the red-black and
+   Jacobi V(2,1) and the 2 x 2 block-Jacobi V(2,1) (omega 0.6), each
+   preconditioning BiCGStab; each must converge;
+26. [evolve-helm] ``helmholtz2d NSGAII --mu 4 --lambda 4 --generations 1
+   --seed 0 --no-robustness`` at its default levels 7->3 (127^2), cut as
+   [evolve3d]; every evaluation is a BiCGStab solve, so the 2k and 4k
+   robustness variants are cut too (EVOLVE_HELM_OPTIONS); each
+   evaluation prints its BiCGStab iterations;
+27. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20 and 21) and read just after.  Each phase prints
+6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21 and 23 to 26) and read just
+after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -259,6 +294,12 @@ KERNELS = {
     "prolong_correct_postsmooth_sys": (
         "evostencils_tpu/ops/pallas/rbgs_sys.py:459",
         "evostencils_tpu_torch/csrc/rbgs_sys.cu"),
+    "fused_rbgs_sweep_cx": (
+        "evostencils_tpu/ops/pallas/rbgs_cx.py:153",
+        "evostencils_tpu_torch/csrc/rbgs_cx.cu"),
+    "jacobi_sweep_cx": (
+        "evostencils_tpu/ops/pallas/rbgs_cx.py:160",
+        "evostencils_tpu_torch/csrc/rbgs_cx.cu"),
 }
 #: the standalone kernels, which the [evaluator] phase drives
 STANDALONE = ("fused_rbgs_sweep", "jacobi_sweep", "residual_restrict",
@@ -283,6 +324,19 @@ SYS_SWEEPS = ("fused_rbgs_sweep_sys", "jacobi_sweep_sys")
 #: elasticity's center coefficients reach 6e9 at 2047^2, so A u cancels
 #: terms of that order, and the kernels contract multiply-adds
 TOL_SYS = 1e-5
+#: the complex sweeps
+CX_SWEEPS = ("fused_rbgs_sweep_cx", "jacobi_sweep_cx")
+#: the complex sweeps' complex64 slack, relative to the largest plain
+#: value: the shifted Laplacian's center is 1.7e7 at 2047^2, so A u cancels
+#: terms of that order, and the kernel contracts multiply-adds
+TOL_CX = 1e-5
+#: the JAX test's complex stencil (tests/test_pallas_cx.py:17)
+VALS_CX = (4.0 - 0.5j, -1.0 + 0.02j, -1.0 + 0.02j, -1.0 - 0.01j,
+           -1.0 - 0.01j)
+#: float32 operations per point of a complex sweep: A u (5 complex
+#: products of 6 operations, 8 sums), b - A u (2), d times it (6), omega
+#: times that (2) and the update (2)
+CX_SWEEP_FLOPS = 50
 
 
 def log(msg):
@@ -1110,15 +1164,123 @@ def phase_kernels_sys(torch, rbgs_sys, device):
     return stats
 
 
+def cx_sweep_bound(shape):
+    """A complex sweep reads u and b and writes u once (complex64, 8 bytes
+    a value) and does CX_SWEEP_FLOPS float32 operations a point."""
+    points = int(np.prod(shape))
+    return bytes_bound(3 * 8 * points, CX_SWEEP_FLOPS * points)
+
+
+def shifted_laplace_values(n):
+    """(center, up, down, left, right) of the shifted Laplacian
+    -Lap - k^2 (1 + 0.5i) at n^2 (k = 80), the [main-cx] path's stencil."""
+    from evostencils_tpu_torch.grids import unit_interval_grid
+    from evostencils_tpu_torch.ops.kernels import rbgs_cx
+    from evostencils_tpu_torch.problems import helmholtz
+    grid = unit_interval_grid(2, (n + 1).bit_length() - 1)
+    return rbgs_cx.complex_five_point_values(helmholtz._helmholtz_stencil(
+        grid, helmholtz.K_DEFAULT, helmholtz.SHIFT))
+
+
+#: the [kernels-cx] shapes and stencils: the main path's two finest levels
+#: with its shifted Laplacian (timed) and the JAX test's stencil, the JAX
+#: test's ragged shapes (tests/test_pallas_cx.py:39-40) with the latter
+CX_CASES = [((2047, 2047), ("path", "jax")), ((1023, 1023), ("path", "jax")),
+            ((300, 200), ("jax",)), ((129, 130), ("jax",))]
+
+
+def phase_kernels_cx(torch, rbgs_cx, device):
+    """The complex sweep kernels against their plain versions; both timed
+    in turns at 2047^2 and 1023^2, the main path's two finest levels."""
+    stats = {name: {"max_abs_err": 0.0} for name in CX_SWEEPS}
+    # the fused sweep reads omega 0.6, the Jacobi sweep 0.8
+    omegas = torch.tensor([0.9, 0.6, 0.8], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(8)
+
+    def normal(shape):
+        return torch.tensor(rng.standard_normal(shape)
+                            + 1j * rng.standard_normal(shape),
+                            dtype=torch.complex64, device=device)
+
+    for shape, kinds in CX_CASES:
+        u, b = normal(shape), normal(shape)
+        for kind in kinds:
+            vals = shifted_laplace_values(shape[0]) if kind == "path" \
+                else VALS_CX
+            tag = f"{shape[0]}x{shape[1]} {kind}"
+            for name, om_id in zip(CX_SWEEPS, (1, 2)):
+                k = getattr(rbgs_cx, name)(u, b, omegas, om_id, vals)
+                p = getattr(rbgs_cx, name + "_plain")(u, b, omegas, om_id,
+                                                      vals)
+                scale = float(p.abs().max())
+                err, excess = deviation(torch, k, p, 0.0, TOL_CX * scale)
+                log(f"[kernels-cx] {name} {tag}: max|d| {err:.3e} = "
+                    f"{err / scale:.3e} max|plain| (tol {TOL_CX})")
+                check(excess <= 0, f"{name} {tag}")
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                                 err)
+        if shape[0] != shape[1]:
+            continue
+        vals = shifted_laplace_values(shape[0])
+        for name in CX_SWEEPS:
+            kern = getattr(rbgs_cx, name)
+            plain = getattr(rbgs_cx, name + "_plain")
+            time_standalone(
+                torch, stats, name, "kernels-cx", shape,
+                lambda: kern(u, b, omegas, 1, vals),
+                lambda: plain(u, b, omegas, 1, vals), cx_sweep_bound(shape),
+                keep=(2047, 2047))
+    return stats
+
+
+def dirichlet_helmholtz(max_level, min_level):
+    """helmholtz_2d with every level operator and the coarsest replaced by
+    a generator with only ``generate_stencil``: the shifted Laplacian with
+    plain Dirichlet boundaries (k = 80, shift 0.5i), no Robin fold and no
+    field form, built from the public IR as tests/test_pallas_cx.py:110-141
+    builds it."""
+    from evostencils_tpu_torch.compiler.cycles import LevelContext
+    from evostencils_tpu_torch.ir import base, system
+    from evostencils_tpu_torch.problems import helmholtz as hh
+
+    class ConstGen:
+        def __init__(self, k, shift=0.0):
+            self.k = k
+            self.shift = shift
+
+        def generate_stencil(self, grid):
+            return hh._helmholtz_stencil(grid, self.k, self.shift)
+
+    p = hh.helmholtz_2d(max_level=max_level, min_level=min_level)
+    contexts = []
+    for ctx in p.level_contexts:
+        op = system.Operator(ctx.operator.name, [[base.Operator(
+            "M", ctx.grid[0], ConstGen(hh.K_DEFAULT, hh.SHIFT))]])
+        contexts.append(LevelContext(
+            operator=op, restriction=ctx.restriction,
+            prolongation=ctx.prolongation,
+            approximation=ctx.approximation, grid=ctx.grid))
+    g_min = p.coarsest_operator.entries[0][0].grid
+    p.coarsest_operator = system.Operator(
+        p.coarsest_operator.name, [[base.Operator(
+            "M", g_min, ConstGen(hh.K_DEFAULT, hh.SHIFT))]])
+    p.level_contexts = contexts
+    return p
+
+
 def v21(path):
     """A fresh problem of the path and its V(2,1) cycle."""
     from evostencils_tpu_torch.compiler.cycles import v_cycle
     from evostencils_tpu_torch.ir import partitioning as part
     from evostencils_tpu_torch.problems import elasticity, poisson
     _, build, max_level, min_level, partitioning, omega, _, _ = PATHS[path]
-    module = elasticity if build == "linear_elasticity_2d" else poisson
-    problem = getattr(module, build)(max_level=max_level,
-                                     min_level=min_level)
+    if build == "dirichlet_helmholtz":
+        problem = dirichlet_helmholtz(max_level, min_level)
+    else:
+        module = elasticity if build == "linear_elasticity_2d" else poisson
+        problem = getattr(module, build)(max_level=max_level,
+                                         min_level=min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
                     pre_smoothing=2, post_smoothing=1, omega=omega,
                     partitioning=getattr(part, partitioning),
@@ -1157,7 +1319,23 @@ PATHS = {
                                   "prolong_correct_postsmooth")),
     "2d-rows": ("main-fused c", "poisson_2d", 12, 5, "RedBlack", 1.15,
                 "transfer", ("presmooth_residual_rowrestrict",
-                             "prolong_correct_postsmooth"))}
+                             "prolong_correct_postsmooth")),
+    # the Dirichlet shifted-Laplace hierarchy (tests/test_pallas_cx.py:
+    # 110-141) at the BASELINE suite's Helmholtz width
+    # (scripts/bench_suite.py:115-121, :148-149), complex64, with the
+    # reference's red-black V(2,1) at omega 0.6 (BASELINE.md:31) and its
+    # Jacobi twin: the standalone complex sweeps take every smoother
+    "cx-rb": ("main-cx rb", "dirichlet_helmholtz", 11, 3, "RedBlack", 0.6,
+              "rbgs_cx", ("fused_rbgs_sweep_cx",)),
+    "cx-jacobi": ("main-cx jacobi", "dirichlet_helmholtz", 11, 3, "Single",
+                  0.6, "rbgs_cx", ("jacobi_sweep_cx",))}
+#: kernel launches per gated level and cycle, where a path's kernel is a
+#: sweep and not a leg: the V(2,1)'s 2 pre- and 1 post-sweeps
+SWEEPS_PER_LEVEL = {"cx-rb": 3, "cx-jacobi": 3}
+#: the iteration cap of a path's solve to 1e-5 (phase_solve): rho is about
+#: 0.77 on the complex path (40 cycles to 1e-4 at 127^2 and 511^2, float64
+#: probe of the JAX package), below 0.2 on the others
+SOLVE_MAX_ITERATIONS = {"cx-rb": 100, "cx-jacobi": 100}
 #: the [main-fused] paths' switches: (loop_fusion, fused_column_transfers)
 SWITCHES = {"2d-loop-col": (True, True), "2d-loop-rows": (True, False),
             "2d-rows": (False, False)}
@@ -1173,7 +1351,8 @@ def batch_launches(path, levels):
     up)."""
     legs = PATHS[path][7]
     if not SWITCHES.get(path, (False, None))[0]:
-        return {name: levels * K_CYCLES for name in legs}
+        per_level = SWEEPS_PER_LEVEL.get(path, 1)
+        return {name: per_level * levels * K_CYCLES for name in legs}
     down, fused, up = legs
     return {down: 1 + (levels - 1) * K_CYCLES, fused: K_CYCLES - 1,
             up: 1 + (levels - 1) * K_CYCLES}
@@ -1190,12 +1369,13 @@ def phase_main_path(torch, kernels, device, card, path):
     path_kernels = kernels[module]
     problem, cycle = v21(path)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
+    # complex64 on the complex path
     b = build_rhs(problem, dtype=torch.float32, device=device)
     omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
                           device=device)
     u = tuple(torch.zeros_like(x) for x in b)
     loop = make_cycle_loop(lowered, K_CYCLES)
-    # every field's points
+    # every field's points (complex unknowns on the complex path)
     n_dof = sum(int(np.prod(g.size)) for g in problem.finest_grid)
 
     for mod in kernels.values():
@@ -1214,9 +1394,12 @@ def phase_main_path(torch, kernels, device, card, path):
     cycles = K_CYCLES * BATCHES
     # every level the gate admits runs each leg once per cycle
     def admits(ctx):
-        fields = tuple(torch.empty(g.size, device="meta") for g in ctx.grid)
+        fields = tuple(torch.empty(g.size, device="meta", dtype=b[0].dtype)
+                       for g in ctx.grid)
         if module == "rbgs_sys":
             return path_kernels.leg_supports(fields)
+        if module == "rbgs_cx":
+            return path_kernels.supports(fields[0], VALS_CX)
         return path_kernels.supports(fields[0])
     fused = sum(1 for ctx in problem.level_contexts if admits(ctx))
     log(f"[{label}] launches {counts} over {cycles} cycles, {fused} fused "
@@ -1239,11 +1422,13 @@ def phase_main_path(torch, kernels, device, card, path):
         f"{n_dof / (ms_cycle * 1e-3):.4e} DoF/s on {card}")
 
     u0 = u[0]
+    want = torch.complex64 if module == "rbgs_cx" else torch.float32
     check(tuple(u0.shape) == tuple(problem.finest_grid[0].size)
-          and u0.dtype == torch.float32, "solution shape/dtype")
+          and u0.dtype == want, "solution shape/dtype")
     res = float(residual_norm_fn(lowered.operator)(u, b))
     rel = res / float(torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(x.double()) for x in b])))
+        torch.stack([torch.linalg.vector_norm(x.abs().double())
+                     for x in b])))
     log(f"[{label}] relative residual after {cycles} cycles: {rel:.3e} "
         "(gate 1e-4, bench.py:195)")
     check(np.isfinite(rel) and rel <= 1e-4, "relative residual")
@@ -1264,6 +1449,7 @@ def phase_solve(torch, device, path):
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
     label = PATHS[path][0]
+    max_it = SOLVE_MAX_ITERATIONS.get(path, 20)
     problem, cycle = v21(path)
     b = build_rhs(problem, dtype=torch.float32, device=device)
     runs = {}
@@ -1273,7 +1459,7 @@ def phase_solve(torch, device, path):
         omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
                               device=device)
         u0 = tuple(torch.zeros_like(x) for x in b)
-        _, k, hist = make_solver(lowered, 20, 1e-5)(u0, b, omegas)
+        _, k, hist = make_solver(lowered, max_it, 1e-5)(u0, b, omegas)
         hist = hist[:k + 1].double().cpu().numpy()
         runs[use_kernels] = (k, hist)
         rho = (hist[k] / hist[0]) ** (1.0 / k) if k else 0.0
@@ -1284,7 +1470,7 @@ def phase_solve(torch, device, path):
             f"{rho4:.4f}, history "
             f"{np.array2string(hist / hist[0], precision=4)}")
     (k1, h1), (k0, h0) = runs[True], runs[False]
-    check(k1 == k0 and 0 < k1 < 20, f"{label} iterations {k1} vs {k0}")
+    check(k1 == k0 and 0 < k1 < max_it, f"{label} iterations {k1} vs {k0}")
     # A float32 state cannot hold a residual much below 1e-5 * ||b||: the
     # rounding of u alone leaves |A du| of that order.  The last entry of
     # a solve to 1e-5 sits on that floor, where the kernels' and the plain
@@ -1366,7 +1552,9 @@ def phase_main_fused(torch, kernels, device, card):
 EVAL_LEVELS = (10, 5)
 EVAL_REPS = 5
 TPU_RHO = {"gen75": 0.0118, "rb_v21": 0.0183}
-#: repetitions of the timing protocol in the [evolve] run
+#: repetitions of the timing protocol in the [evolve] and [evolve-var]
+#: runs; [evolve3d], [evolve-elast] and [evolve-helm] run with it off, for
+#: the script's time
 EVOLVE_TIMING_REPS = 1
 
 
@@ -1431,25 +1619,27 @@ def solve_history(torch, lowered, b, max_iterations, reduction):
 
 
 def measure_structures(torch, kernels, tag, evaluator, structures, names,
-                       card):
+                       card, reps=EVAL_REPS):
     """measure_interleaved over ``structures`` with the counts set to 0
     just before; each kernel of ``names`` must launch and each structure
     converge.  Returns (results by key, launches)."""
     reset(kernels)
     t0 = time.perf_counter()
-    results = evaluator.measure_interleaved(structures, reps=EVAL_REPS)
+    results = evaluator.measure_interleaved(structures, reps=reps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counts_of(kernels)
     log(f"[{tag}] measure_interleaved over {len(structures)} structures "
-        f"x {EVAL_REPS} reps in {wall:.1f} s; launches {counts}")
+        f"x {reps} reps in {wall:.1f} s; launches {counts}")
     for name in names:
         check(counts[name] > 0, f"{name} never launched on the {tag} path")
     for r in results:
         lo, hi = r["ms_per_iter_spread"]
         log(f"[{tag}] {r['key']}: rho {r['convergence_factor']:.5f}, "
-            f"{r['iterations']:.0f} iterations to the 1e-12 target "
-            f"(measured to 1e-5), {r['ms_per_iter']:.4f} ms/iteration "
+            f"{r['iterations']:.0f} iterations to the "
+            f"{evaluator.target_reduction:g} target (measured to "
+            f"{evaluator.measurement_reduction:g}), "
+            f"{r['ms_per_iter']:.4f} ms/iteration "
             f"(spread {lo:.4f}..{hi:.4f}), time to convergence "
             f"{r['time_to_convergence_ms']:.3f} ms on {card}")
         check(np.isfinite(r["convergence_factor"])
@@ -1692,11 +1882,149 @@ def phase_evaluator_elast(torch, kernels, device, card):
     return {name: counts[name] for name in SYS_SWEEPS}
 
 
-def phase_evolve(torch, kernels, problem_name, tag, names=()):
+#: [helm]: the wavenumbers and the JAX package's BiCGStab iterations to
+#: 1e-7 at helmholtz_2d(7, 3) in CPU float64 (BASELINE.md:251-262, by
+#: scripts/helmholtz_convergence.py); the port's must lie within 2%
+HELM_ITERATIONS = {80.0: 265, 160.0: 1235, 320.0: 3199}
+#: [evolve-helm]'s cut: the 2k and 4k robustness variants are off.  On an
+#: H100 at the default levels 7 -> 3 the 16 initial evaluations took 110 s
+#: and the variants of the finite ones 65 s more, over the phase's 150 s
+EVOLVE_HELM_OPTIONS = ("--no-robustness",)
+
+
+def helm_cycle(problem, partitioning="RedBlack", block=False):
+    """The V(2,1) at omega 0.6 of a Helmholtz problem: collective point
+    Jacobi smoothing, or the 2 x 2 collective block Jacobi."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.ir import smoother
+
+    factory = smoother.generate_collective_jacobi
+    if block:
+        def factory(op):
+            return smoother.generate_collective_block_jacobi(op, [(2, 2)])
+    return v_cycle(problem.level_contexts, problem.rhs_entity,
+                   pre_smoothing=2, post_smoothing=1, omega=0.6,
+                   partitioning=getattr(part, partitioning),
+                   smoother_factory=factory,
+                   coarse_operator=problem.coarsest_operator)
+
+
+def helm_solve(torch, problem, device, dtype, graph=True):
+    """(x, iterations, history, b, matvec): BiCGStab on the problem's true
+    operator to its 1e-7, one red-black V(2,1) from zero per
+    preconditioner application (scripts/helmholtz_convergence.py), with the
+    fields in the complex dtype of ``dtype``'s precision; the
+    preconditioner is the evaluator's, replayed from a CUDA graph unless
+    ``graph`` is false."""
+    from evostencils_tpu_torch.compiler.lower import (lower_cycle,
+                                                      operator_applier)
+    from evostencils_tpu_torch.compiler.solve import make_preconditioner
+    from evostencils_tpu_torch.ops.solvers import preconditioned_bicgstab
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    lowered = lower_cycle(helm_cycle(problem), problem.approximation,
+                          problem.rhs_entity)
+    b = build_rhs(problem, dtype=dtype, device=device)
+    om = torch.tensor(lowered.default_omegas, dtype=b[0].real.dtype,
+                      device=device)
+    matvec = operator_applier(problem.outer_solver.operator)
+    precond = make_preconditioner(lowered, om, b, graph)
+    outer = problem.outer_solver
+    x, k, hist = preconditioned_bicgstab(
+        matvec, precond, b, tol=outer.tolerance,
+        maxiter=outer.max_iterations, history_size=outer.max_iterations)
+    return x, k, hist.cpu().numpy(), b, matvec
+
+
+def phase_helm(torch, kernels, device, card):
+    """The Robin-folded Helmholtz problem's outer solve on the card at
+    k = 80, 160 and 320 in complex128, and at k = 80 in complex64; no
+    kernel may launch: the field form keeps the operator off the complex
+    sweeps, as in the JAX package (tests/test_pallas_cx.py:153-164)."""
+    from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d
+
+    reset(kernels)
+    for k, want in HELM_ITERATIONS.items():
+        t0 = time.perf_counter()
+        _, it, hist, _, _ = helm_solve(torch, helmholtz_2d(7, 3, k=k),
+                                       device, torch.float64)
+        wall = time.perf_counter() - t0
+        log(f"[helm] k={k:g} complex128: {it} iterations to "
+            f"{hist[it] / hist[0]:.3e} in {wall:.1f} s "
+            f"({wall / max(it, 1) * 1e3:.2f} ms/iteration) on {card}; the "
+            f"JAX package's CPU float64: {want} (BASELINE.md:251-262)")
+        check(hist[it] <= 1e-7 * hist[0] and abs(it - want) <= 0.02 * want,
+              f"k={k:g}: {it} iterations, the JAX package's {want}")
+    problem = helmholtz_2d(7, 3)
+    runs = {}
+    for graph in (True, False):
+        t0 = time.perf_counter()
+        runs[graph] = helm_solve(torch, problem, device, torch.float32,
+                                 graph) + (time.perf_counter() - t0,)
+    x, it, hist, b, matvec, wall = runs[True]
+    _, it_eager, hist_eager, _, _, wall_eager = runs[False]
+    # the graph replays the eager step: equal iterations, and histories
+    # within 1e-3 above the complex64 floor of 1e-5 ||b|| (phase 6's rule)
+    floor = 1e-5 * hist[0]
+    n = min(it, it_eager) + 1
+    above = np.minimum(hist[:n], hist_eager[:n]) > floor
+    dev = float(np.max(np.abs(hist[:n] - hist_eager[:n])[above]
+                       / hist_eager[:n][above]))
+    log(f"[helm] k=80 complex64, the preconditioner eager: {it_eager} "
+        f"iterations in {wall_eager:.1f} s "
+        f"({wall_eager / max(it_eager, 1) * 1e3:.2f} ms/iteration); from "
+        f"the CUDA graph: {it} in {wall:.1f} s "
+        f"({wall / max(it, 1) * 1e3:.2f} ms/iteration); histories within "
+        f"{dev:.3e} above the floor")
+    check(it == it_eager and dev <= 1e-3,
+          "the graphed preconditioner matches the eager one")
+    check(x[0].dtype == torch.complex64 and b[0].dtype == torch.complex64,
+          "complex64 fields")
+    # the true residual of the complex64 solution, in complex128
+    x128 = tuple(xi.to(torch.complex128) for xi in x)
+    b128 = tuple(bi.to(torch.complex128) for bi in b)
+    true = float(torch.sqrt(sum(torch.sum(torch.abs(bi - ai) ** 2) for bi, ai
+                                in zip(b128, matvec(x128))))
+                 / torch.sqrt(sum(torch.sum(torch.abs(bi) ** 2)
+                                  for bi in b128)))
+    log(f"[helm] k=80 complex64: {it} iterations, recurrence residual "
+        f"{hist[it] / hist[0]:.3e}, true relative residual {true:.3e}, in "
+        f"{wall:.1f} s on {card}")
+    check(np.isfinite(true) and it < problem.outer_solver.max_iterations,
+          "the complex64 solve ends below 1e-7 by its recurrence")
+    counts = counts_of(kernels)
+    check(not any(counts.values()), f"kernels launched on [helm]: {counts}")
+
+
+def phase_evaluator_helm(torch, kernels, device, card):
+    """The evaluator with the outer solver on the card in float32
+    (complex64 fields) at helmholtz_2d(7, 3) over the red-black and
+    Jacobi V(2,1) and the 2 x 2 block-Jacobi V(2,1); no kernel launches."""
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d
+
+    problem = helmholtz_2d(7, 3)
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    check(evaluator._b[0].dtype == torch.complex64, "complex64 fields")
+    structures = [("rb_v21", helm_cycle(problem)),
+                  ("jacobi_v21", helm_cycle(problem, "Single")),
+                  ("block_v21", helm_cycle(problem, "Single", block=True))]
+    _, counts = measure_structures(torch, kernels, "evaluator-helm",
+                                   evaluator, structures, (), card)
+    check(not any(counts.values()),
+          f"kernels launched on [evaluator-helm]: {counts}")
+
+
+def phase_evolve(torch, kernels, problem_name, tag, names=(),
+                 timing_reps=None, options=()):
     """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
-    --mu 4 --lambda 4 --generations 1 --seed 0`` in this
-    process, at the problem's default levels; at least one kernel of
-    ``names`` must launch."""
+    --mu 4 --lambda 4 --generations 1 --seed 0`` in this process, at the
+    problem's default levels, with ``options`` appended; at least one
+    kernel of ``names`` must launch.  The evaluator's timing protocol takes
+    ``timing_reps`` repetitions of its windows, or is off when that is
+    None.  Each batch of evaluations prints its iterations (BiCGStab's
+    for helmholtz2d) and its seconds."""
     from evostencils_tpu_torch import optimize
     from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
     from evostencils_tpu_torch.grammar import gp
@@ -1705,29 +2033,55 @@ def phase_evolve(torch, kernels, problem_name, tag, names=()):
 
     evaluated = []
     population = CycleEvaluator.evaluate_population
+    from_history = CycleEvaluator._result_from_history
+    last = [0.0]
 
     def counted(self, individuals, pset):
         evaluated.append(len(individuals))
-        return population(self, individuals, pset)
+        last[0] = t = time.perf_counter()
+        results = population(self, individuals, pset)
+        log(f"[{tag}] {len(individuals)} evaluations in "
+            f"{time.perf_counter() - t:.1f} s: iterations "
+            f"{[float(r.iterations) for r in results]}")
+        return results
+
+    def logged(self, entry, hist, iters):
+        # one line an evaluation: the solver's own iteration count and the
+        # seconds since the last one ended (its lowering and timing too)
+        result = from_history(self, entry, hist, iters)
+        now = time.perf_counter()
+        log(f"[{tag}] evaluation: {iters} solver iterations, "
+            f"{now - last[0]:.1f} s")
+        last[0] = now
+        return result
 
     out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
     argv = [problem_name, "NSGAII", "--mu", "4", "--lambda", "4",
-            "--generations", "1", "--seed", "0", "--output",
-            str(out_dir)]
-    # a cut of this run's depth: the timing protocol takes one repetition
-    # of its windows of 1, 2, 4 and 8 solves (the evaluator's default is
-    # 3); it takes most of the run
+            "--generations", "1", "--seed", "0", *options,
+            "--output", str(out_dir)]
+    # a cut of this run's depth: the timing protocol, which solves each
+    # structure again at least twice, takes one repetition of its windows
+    # (the evaluator's default is 3) or is off (one solve an evaluation,
+    # 1 ms an iteration)
+    timing = CycleEvaluator.timing_enabled
     reps = CycleEvaluator.timing_reps
-    log(f"[{tag}] timing protocol cut to {EVOLVE_TIMING_REPS} repetition "
-        f"per window size (default {reps})")
+    if timing_reps is None:
+        log(f"[{tag}] timing protocol off: one solve per evaluation")
+    else:
+        log(f"[{tag}] timing protocol cut to {timing_reps} repetition "
+            f"per window size (default {reps})")
     reset(kernels)
     CycleEvaluator.evaluate_population = counted
-    CycleEvaluator.timing_reps = EVOLVE_TIMING_REPS
+    CycleEvaluator._result_from_history = logged
+    CycleEvaluator.timing_enabled = timing_reps is not None
+    CycleEvaluator.timing_reps = timing_reps or reps
     t0 = time.perf_counter()
     try:
         result = optimize.main(argv)
     finally:
         CycleEvaluator.evaluate_population = population
+        CycleEvaluator._result_from_history = from_history
+        CycleEvaluator.timing_enabled = timing
         CycleEvaluator.timing_reps = reps
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1766,8 +2120,9 @@ def main():
         return 1
     from evostencils_tpu_torch.config import setup_device
     from evostencils_tpu_torch.ops.kernels import (_build, leg3d, rbgs,
-                                                   rbgs3d, rbgs_sys, rbgs_var,
-                                                   transfer, wavefront3d)
+                                                   rbgs3d, rbgs_cx, rbgs_sys,
+                                                   rbgs_var, transfer,
+                                                   wavefront3d)
 
     device = setup_device("cuda")
     card = subprocess.run(
@@ -1787,7 +2142,8 @@ def main():
 
     kernels = {"transfer": transfer, "wavefront3d": wavefront3d,
                "rbgs": rbgs, "rbgs3d": rbgs3d, "leg3d": leg3d,
-               "rbgs_var": rbgs_var, "rbgs_sys": rbgs_sys}
+               "rbgs_var": rbgs_var, "rbgs_sys": rbgs_sys,
+               "rbgs_cx": rbgs_cx}
 
     def phase(label, fn, *args):
         t = time.perf_counter()
@@ -1812,6 +2168,8 @@ def main():
                        device))
     stats.update(phase("kernels-loop", phase_kernels_loop, torch, transfer,
                        device))
+    stats.update(phase("kernels-cx", phase_kernels_cx, torch, rbgs_cx,
+                       device))
     launches = phase("main", phase_main_path, torch, kernels, device, card,
                      "2d")
     phase("main solve", phase_solve, torch, device, "2d")
@@ -1828,7 +2186,8 @@ def main():
         phase(PATHS[path][0] + " solve", phase_solve, torch, device, path)
     launches.update(phase("evaluator", phase_evaluator, torch, kernels,
                           device, card))
-    phase("evolve", phase_evolve, torch, kernels, "poisson2d", "evolve")
+    phase("evolve", phase_evolve, torch, kernels, "poisson2d", "evolve", (),
+          EVOLVE_TIMING_REPS)
     launches.update(phase("evaluator3d", phase_evaluator_3d, torch, kernels,
                           device, card))
     phase("evolve3d", phase_evolve, torch, kernels, "poisson3d", "evolve3d",
@@ -1836,11 +2195,21 @@ def main():
     launches.update(phase("evaluator-var", phase_evaluator_var, torch,
                           kernels, device, card))
     phase("evolve-var", phase_evolve, torch, kernels, "poisson2d_var",
-          "evolve-var", VAR_SWEEPS + VAR_LEGS)
+          "evolve-var", VAR_SWEEPS + VAR_LEGS, EVOLVE_TIMING_REPS)
     launches.update(phase("evaluator-elast", phase_evaluator_elast, torch,
                           kernels, device, card))
     phase("evolve-elast", phase_evolve, torch, kernels, "elasticity2d",
           "evolve-elast", SYS_SWEEPS + SYS_LEGS)
+    # the complex path: each cycle's sweeps over both partitionings' runs
+    for path in ("cx-rb", "cx-jacobi"):
+        launches.update(phase(PATHS[path][0], phase_main_path, torch,
+                              kernels, device, card, path))
+        phase(PATHS[path][0] + " solve", phase_solve, torch, device, path)
+    phase("helm", phase_helm, torch, kernels, device, card)
+    phase("evaluator-helm", phase_evaluator_helm, torch, kernels, device,
+          card)
+    phase("evolve-helm", phase_evolve, torch, kernels, "helmholtz2d",
+          "evolve-helm", (), None, EVOLVE_HELM_OPTIONS)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

@@ -1,7 +1,8 @@
 """Cycle compiler: multigrid expression IR -> eager PyTorch programs
 (counterpart of evostencils_tpu/compiler/lower.py, the part that the 2D and
 3D Poisson V-cycles and the evolved 2D and 3D Poisson, variable-
-coefficient 2D Poisson and 2D linear elasticity cycles reach).
+coefficient 2D Poisson, 2D linear elasticity and complex 2D Helmholtz
+cycles reach, and ``operator_applier`` for the outer Krylov solve).
 
 * Grid functions are tuples of per-field tensors (interior points only).
 * Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
@@ -43,6 +44,12 @@ coefficient 2D Poisson and 2D linear elasticity cycles reach).
   ``leg3d`` sweep on the levels that gate admits (lower.py:894-910); the
   transfers run ``leg3d.residual_restrict_3d`` and
   ``leg3d.prolong_correct_3d`` (lower.py:1291-1309, :1378-1395).
+* A smoother cycle of a constant complex 5-point 2D operator (the
+  shifted Laplacian of Helmholtz with Dirichlet boundaries) runs one call
+  to ``ops.kernels.rbgs_cx`` on the levels its gate admits
+  (lower.py:734-759, :855-866).  Complex stencils match no leg and no
+  other kernel, so everything else of a complex cycle runs the generic
+  lowering, in the fields' complex dtype (lower.py:1526-1531, :1728-1731).
 * Block smoothers (collective block Jacobi) solve their blocks through
   ``ops.local_solve`` (lower.py:1546-1553, :1686-1706); the collective
   point smoother of a system with constant central coefficients applies
@@ -75,8 +82,8 @@ from ..ir import partitioning as part
 from ..ir import transformations
 from ..ops import apply as ops
 from ..ops.apply import red_black_masks
-from ..ops.kernels import (leg3d, rbgs, rbgs3d, rbgs_sys, rbgs_var,
-                           transfer, wavefront3d)
+from ..ops.kernels import (leg3d, rbgs, rbgs3d, rbgs_cx, rbgs_sys,
+                           rbgs_var, transfer, wavefront3d)
 from ..ops.local_solve import get_block_solve_plan
 from ..stencils import constant, periodic
 
@@ -127,7 +134,8 @@ def _stencil_field_of(op):
 
 def dense_inverse(op) -> np.ndarray:
     """Dense inverse of a small system operator with constant, periodic or
-    variable-coefficient entries (lower.py:180-224)."""
+    variable-coefficient entries, complex128 if an entry is complex
+    (lower.py:180-224)."""
     entries = op.entries if isinstance(op, system.Operator) else [[op]]
     grids = [row[0].grid for row in entries]
     sizes = [int(np.prod(g.size)) for g in grids]
@@ -142,9 +150,8 @@ def dense_inverse(op) -> np.ndarray:
             ps = periodic.as_periodic(entry.generate_stencil())
             if ps is not None and ps.constant_entries():
                 blocks[(i, j)] = ops.dense_matrix(ps, grids[j])
-    if any(np.iscomplexobj(b) for b in blocks.values()):
-        raise NotImplementedError("complex coarse operators are not ported yet")
-    K = np.zeros((n, n))
+    any_complex = any(np.iscomplexobj(b) for b in blocks.values())
+    K = np.zeros((n, n), dtype=np.complex128 if any_complex else np.float64)
     offsets = np.concatenate([[0], np.cumsum(sizes)])
     for (i, j), block in blocks.items():
         K[offsets[i]:offsets[i + 1], offsets[j]:offsets[j + 1]] = block
@@ -543,6 +550,8 @@ class _Lowering:
                                 False: rbgs_var.jacobi_sweep_var}
             self._sweeps_sys = {True: rbgs_sys.fused_rbgs_sweep_sys,
                                 False: rbgs_sys.jacobi_sweep_sys}
+            self._sweeps_cx = {True: rbgs_cx.fused_rbgs_sweep_cx,
+                               False: rbgs_cx.jacobi_sweep_cx}
             self._legs_sys = (rbgs_sys.presmooth_residual_restrict_sys,
                               rbgs_sys.prolong_correct_postsmooth_sys)
             self._sweeps3d = {
@@ -575,6 +584,8 @@ class _Lowering:
                                 False: rbgs_var.jacobi_sweep_var_plain}
             self._sweeps_sys = {True: rbgs_sys.fused_rbgs_sweep_sys_plain,
                                 False: rbgs_sys.jacobi_sweep_sys_plain}
+            self._sweeps_cx = {True: rbgs_cx.fused_rbgs_sweep_cx_plain,
+                               False: rbgs_cx.jacobi_sweep_cx_plain}
             self._legs_sys = (rbgs_sys.presmooth_residual_restrict_sys_plain,
                               rbgs_sys.prolong_correct_postsmooth_sys_plain)
             self._sweeps3d = {
@@ -805,6 +816,33 @@ class _Lowering:
             return None
         return stack, self.eval_function(residual.rhs)[0]
 
+    def _cx_smoother_parts(self, cycle, x):
+        """(complex stencil values, b) when the cycle is a
+        pointwise-diagonal smoother of a scalar constant complex 5-point
+        2D operator, else None (lower.py:734-759).  An operator with a
+        field form is refused even where its stencil is constant: the
+        Robin-folded Helmholtz operator differs from its stencil on the
+        boundary rows, which the kernel would smooth with the interior
+        stencil.  Real fields return at once: the kernel takes only
+        complex ones."""
+        if not x[0].is_complex():
+            return None
+        found = self._pointwise_smoother_entry(cycle)
+        if found is None:
+            return None
+        entry, residual = found
+        if _is_nonlinear(entry) or x[0].ndim != 2:
+            return None
+        if _stencil_field_of(entry) is not None:
+            return None
+        st = self._stencil(entry)
+        if not isinstance(st, constant.Stencil):
+            return None
+        vals = rbgs_cx.complex_five_point_values(st)
+        if vals is None or vals[0] == 0:
+            return None
+        return vals, self.eval_function(residual.rhs)[0]
+
     def _var_stack(self, sf):
         """The (5, n, m) coefficient stack of a StencilField on the
         lowering's device and dtype, or None (lower.py:1092-1098)."""
@@ -907,9 +945,11 @@ class _Lowering:
         cycle on a level a sweep gate admits, else None for the generic
         path (lower.py:799-917): a variable-coefficient 2D operator under
         the ``rbgs_var`` gate; a system of 9-point 2D blocks under the
-        ``rbgs_sys`` gate; a constant star operator in 2D under the
+        ``rbgs_sys`` gate; a constant complex 5-point 2D operator under
+        the ``rbgs_cx`` gate; a constant star operator in 2D under the
         ``rbgs`` gate, in 3D under the ``rbgs3d`` gate first, then the
-        ``leg3d`` one."""
+        ``leg3d`` one.  Each signature refuses the others' operators, so
+        the order of the tests does not change what runs."""
         red_black = cycle.partitioning is part.RedBlack
         if not red_black and cycle.partitioning is not part.Single:
             return None
@@ -931,6 +971,14 @@ class _Lowering:
             return (self._sweeps_var[red_black](
                 u.contiguous(), b.contiguous(), self.omegas,
                 cycle.global_id, stack),)
+        cx_parts = self._cx_smoother_parts(cycle, x)
+        if cx_parts is not None:
+            vals, b = cx_parts
+            if not rbgs_cx.supports(u, vals):
+                return None
+            return (self._sweeps_cx[red_black](
+                u.contiguous(), b.contiguous(), self.omegas,
+                cycle.global_id, vals),)
         parts = self._star_smoother_parts(cycle, x)
         if parts is None:
             return None
@@ -1257,10 +1305,13 @@ class _Lowering:
 
     def _diagonal_inverse(self, entry, x):
         """``D^-1 x`` of one operator entry: a division by the diagonal
-        field of a variable-coefficient entry (lower.py:1526-1532,
+        field of a variable-coefficient entry, in the complex dtype of
+        ``x``'s precision if the field is complex (lower.py:1526-1532,
         :1579-1585), else the inverse of the diagonal stencil."""
         sf = _stencil_field_of(entry)
         if sf is not None:
+            if np.iscomplexobj(np.asarray(sf.diagonal_field())):
+                x = x.to(ops.complex_dtype(x.dtype))
             return x / sf.diagonal_tensor(x.device, x.dtype)
         ps = periodic.as_periodic(self._stencil(entry))
         return ops.apply_stencil(periodic.inverse(periodic.diagonal(ps)), x)
@@ -1293,8 +1344,9 @@ class _Lowering:
         """Collective point Jacobi: the m x m system of central coefficients
         solved at every point (lower.py:1575-1624).  A scalar operator
         divides by its diagonal; constant central coefficients give one
-        m x m inverse, computed in numpy float64, whose nonzero entries
-        scale the fields, summed in j order."""
+        m x m inverse, computed in numpy (complex128 if a coefficient is
+        complex), whose nonzero entries, cast to each field's kind, scale
+        the fields, summed in j order."""
         m = len(op.entries)
         if m == 1:
             return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
@@ -1304,7 +1356,8 @@ class _Lowering:
                 "collective point inverse with varying central coefficients"
                 " (_pointwise_varying_inverse) comes with the split-complex "
                 "Helmholtz slice")
-        D = np.zeros((m, m))
+        D = np.zeros((m, m), dtype=np.complex128)
+        is_complex = False
         for i in range(m):
             for j in range(m):
                 ps = periodic.as_periodic(op.entries[i][j].generate_stencil())
@@ -1314,19 +1367,20 @@ class _Lowering:
                     raise NotImplementedError(
                         "periodic collective point smoother not supported")
                 v = ps.to_constant().value_at((0,) * ps.dimension, 0)
-                if isinstance(v, complex):
-                    raise NotImplementedError(
-                        "complex collective point inverses are not ported "
-                        "yet")
+                is_complex = is_complex or isinstance(v, complex)
                 D[i, j] = v
-        Dinv = np.linalg.inv(D)
+        Dinv = np.linalg.inv(D if is_complex else D.real)
         out = []
         for i in range(m):
             acc = None
             for j in range(m):
                 if Dinv[i, j] == 0:
                     continue
-                term = float(Dinv[i, j]) * fields[j]
+                # jnp.asarray(Dinv[i, j], fields[j].dtype): a real field
+                # keeps the real part
+                v = Dinv[i, j]
+                term = (complex(v) if fields[j].is_complex()
+                        else float(np.real(v))) * fields[j]
                 acc = term if acc is None else acc + term
             out.append(acc if acc is not None
                        else torch.zeros_like(fields[i]))
@@ -1367,9 +1421,16 @@ class _Lowering:
         if n > DIRECT_SOLVE_MAX:
             raise NotImplementedError(
                 f"CoarseGridSolver of {n} unknowns needs CG, not ported yet")
-        inv = self._constant(("dense", id(op)), lambda: torch.as_tensor(
-            dense_inverse(op), dtype=self.dtype, device=self.device))
-        flat = torch.cat([f.reshape(-1) for f in fields])
+
+        def build():
+            # the fields' dtype, complex if the inverse is
+            # (lower.py:1725-1731)
+            inv = dense_inverse(op)
+            dtype = ops.complex_dtype(self.dtype) if np.iscomplexobj(inv) \
+                else self.dtype
+            return torch.as_tensor(inv, dtype=dtype, device=self.device)
+        inv = self._constant(("dense", id(op)), build)
+        flat = torch.cat([f.reshape(-1) for f in fields]).to(inv.dtype)
         y = inv @ flat
         out, o = [], 0
         for f in fields:
@@ -1415,6 +1476,19 @@ def lower_cycle(root: base.Cycle, approximation, rhs, *,
                         operator=_find_fine_operator(root), expression=root,
                         approximation=approximation, rhs=rhs, plans=plans,
                         constants=constants, use_kernels=use_kernels)
+
+
+def operator_applier(op) -> Callable:
+    """``apply(fields) -> fields``: the operator ``op`` on a tuple of
+    fields by the generic lowering, in the fields' dtype (complex if the
+    operator is); the outer Krylov solve's matrix-vector product
+    (lower.py:1991-1996)."""
+    lowering = _Lowering(None, None, None)
+
+    def apply(fields):
+        lowering.set_like(fields[0])
+        return lowering.apply_operator(op, tuple(fields))
+    return apply
 
 
 @dataclass

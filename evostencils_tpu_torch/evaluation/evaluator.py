@@ -17,12 +17,19 @@ the sync point.
 * Per-individual time to convergence = measured per-cycle time of the
   structure x iteration count of the individual.
 
+A problem with an outer Krylov solver (Helmholtz) is solved by
+``ops.solvers.preconditioned_bicgstab`` on its true operator, one
+application of the cycle from a zero initial guess as the preconditioner
+(evaluator.py:122-152).  The fields carry the problem's complex dtype in
+the asked precision: float32 gives complex64 fields, float64 complex128;
+relaxation factors stay real in that precision.
+
 What exists only for XLA compilation is left out: ``_precompile_groups``
 and ``compile_workers``, the power-of-two bucket padding of the batches
 and the persistent compilation cache.  Raise ``NotImplementedError``,
 naming the slice that brings them: ``chain=`` / ``cand_entities=``
-(level-chunked runs need ``lower_composed``), ``problem.outer_solver``
-(the Helmholtz Krylov wrapper) and ``canonicalize = True``
+(level-chunked runs need ``lower_composed``), a split-complex outer
+solver (``outer_solver.split``) and ``canonicalize = True``
 (``compiler/canonical.py``).
 
 An individual whose cycle the port cannot lower (``NotImplementedError``)
@@ -41,10 +48,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..compiler.lower import lower_cycle
-from ..compiler.solve import make_solver
+from ..compiler.lower import lower_cycle, operator_applier
+from ..compiler.solve import make_preconditioner, make_solver
 from ..grammar import gp
 from ..ir import base, transformations
+from ..ops.solvers import preconditioned_bicgstab
 from ..problems.poisson import build_rhs
 
 _RF_PATTERN = re.compile(r"rf_\d+")
@@ -70,11 +78,17 @@ class EvaluationResult:
     iterations: float   # float so that infinity is representable
 
 
+#: the numpy dtypes a problem or an evaluator may ask for
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64,
+                 np.dtype(np.complex64): torch.complex64,
+                 np.dtype(np.complex128): torch.complex128}
+
+
 def _torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
-    return {np.dtype(np.float32): torch.float32,
-            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+    return _TORCH_DTYPES[np.dtype(dtype)]
 
 
 class CycleEvaluator:
@@ -89,29 +103,33 @@ class CycleEvaluator:
             raise NotImplementedError(
                 "level-chunked evaluation (chain=, cand_entities=) needs "
                 "lower_composed, which is not ported yet")
-        if getattr(problem, "outer_solver", None) is not None:
+        if getattr(getattr(problem, "outer_solver", None), "split", False):
             raise NotImplementedError(
-                "problems with an outer Krylov solver (Helmholtz) are not "
-                "ported yet")
+                "split-complex outer solvers (helmholtz2d_split) are not "
+                "ported yet: ROADMAP Queue 1 item 3")
         self.problem = problem
         self.chain = []
         self.device = torch.device(device)
         self.torch_dtype = _torch_dtype(dtype or problem.dtype)
         #: the numpy form, which the optimizer hands to evaluators it builds
-        self.dtype = np.float32 if self.torch_dtype == torch.float32 \
-            else np.float64
+        self.dtype = next(d.type for d, t in _TORCH_DTYPES.items()
+                          if t == self.torch_dtype)
         self.max_iterations = max_iterations or problem.max_iterations
         self.target_reduction = target_reduction or problem.target_reduction
         # f32 residuals stagnate around 1e-7 relative; measure rho at a
         # reachable reduction and extrapolate the iteration count to the
         # problem target with log(eps)/log(rho) — the reference's own
-        # time-to-convergence model (reference program.py:347-349)
+        # time-to-convergence model (reference program.py:347-349).  The
+        # rule reads the asked dtype, as the JAX evaluator's does
+        # (evaluator.py:70-77): float32 asked for a complex problem
+        # (complex64 fields) measures at 1e-5 there too
         self.measurement_reduction = self.target_reduction
         if np.dtype(self.dtype).itemsize <= 4:
             self.measurement_reduction = max(self.target_reduction, 1e-5)
         self.throughput_cycles = throughput_cycles
         self.infinity = infinity
         problem.dtype = self.dtype
+        # complex64 fields for a complex problem in float32
         self._b = build_rhs(problem, dtype=self.torch_dtype,
                             device=self.device)
         self._u0 = tuple(torch.zeros_like(x) for x in self._b)
@@ -126,16 +144,41 @@ class CycleEvaluator:
             return entry
         lowered = lower_cycle(expression, self.problem.approximation,
                               self.problem.rhs_entity)
-        solver = make_solver(lowered, self.max_iterations,
-                             self.measurement_reduction)
+        outer = getattr(self.problem, "outer_solver", None)
+        if outer is not None:
+            solver = self._make_outer_solver(lowered, outer)
+        else:
+            solver = make_solver(lowered, self.max_iterations,
+                                 self.measurement_reduction)
         entry = {"lowered": lowered, "solver": solver, "cycle_time_ms": None}
         self._solver_cache[key] = entry
         self.compilations += 1
         return entry
 
+    def _make_outer_solver(self, lowered, outer):
+        """``run(u0, b, omegas) -> (x, iterations, history)``: the outer
+        Krylov solve of ``outer.operator`` with one application of the
+        cycle from a zero initial guess as the preconditioner
+        (evaluator.py:122-152), replayed from a CUDA graph on the card
+        (``compiler.solve.make_preconditioner``).  ``u0`` is not read:
+        BiCGStab starts from zero.  The coarse solve's matrix product runs in full float32
+        (no TF32), PyTorch's default, as the JAX package asks with
+        ``default_matmul_precision("highest")``."""
+        matvec = operator_applier(outer.operator)
+        max_iter = min(outer.max_iterations, self.max_iterations)
+
+        def solver(u0, b, omegas):
+            return preconditioned_bicgstab(
+                matvec, make_preconditioner(lowered, omegas, b), b,
+                tol=outer.tolerance, maxiter=max_iter,
+                history_size=max_iter)
+        return solver
+
     def _omegas(self, values) -> torch.Tensor:
+        """Relaxation factors: real, in the fields' precision."""
         return torch.as_tensor(np.asarray(values, dtype=np.float64),
-                               dtype=self.torch_dtype, device=self.device)
+                               dtype=self._b[0].real.dtype,
+                               device=self.device)
 
     #: slope-fit timing protocol: repetitions per window size and the
     #: chained-solve counts per timed window.  The per-solve time is the

@@ -5,7 +5,11 @@ V-cycles reach, and the variable-coefficient ``StencilField``).
 Fields live on the interior of the grid (shape == grid.size); the implicit
 Dirichlet-0 boundary ring is materialized by zero padding.  Terms are
 summed in the same order as the JAX functions, so in float64 the two
-packages agree to rounding.  Real-valued stencils only.
+packages agree to rounding.  Stencil values and coefficient fields may be
+complex (Helmholtz): applied to a real field they give a complex result,
+complex64 for float32 and complex128 for float64 (apply.py:37-43,
+:120-130, :242); the grid's precision governs.  Transfer taps stay real,
+as in the JAX lowering (lower.py:1286).
 
 Not ported: the dense per-axis transfer contractions and their
 optimization barrier (``_axis_contract``), which exist for the TPU's
@@ -32,8 +36,23 @@ LATTICE_ORIGIN = 1
 def _real_values(values):
     values = list(values)
     if any(isinstance(v, complex) or np.iscomplexobj(v) for v in values):
-        raise NotImplementedError("complex stencils are not ported yet")
+        raise NotImplementedError("complex transfer taps are not supported")
     return values
+
+
+def scalar(value):
+    """A stencil value as a Python complex if it is complex, else as a
+    Python float."""
+    if isinstance(value, complex) or np.iscomplexobj(value):
+        return complex(value)
+    return float(value)
+
+
+def complex_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The complex dtype of ``dtype``'s precision: complex64 for float32
+    and complex64, complex128 for float64 and complex128
+    (``jnp.promote_types(dtype, complex64)``)."""
+    return torch.promote_types(dtype, torch.complex64)
 
 
 def _shifted(u_padded, offset, radius, shape):
@@ -67,12 +86,11 @@ def apply_constant(stencil: Stencil, u: torch.Tensor) -> torch.Tensor:
     (apply.py:53-76, Dirichlet branch)."""
     if stencil.number_of_entries == 0:
         return torch.zeros_like(u)
-    _real_values(v for _, v in stencil.entries)
     radius = stencil.max_offsets
     up = _pad(u, radius)
     acc = None
     for offset, value in stencil.entries:
-        term = float(value) * _shifted(up, offset, radius, u.shape)
+        term = scalar(value) * _shifted(up, offset, radius, u.shape)
         acc = term if acc is None else acc + term
     return acc
 
@@ -168,13 +186,16 @@ class StencilField:
             self._cache[key] = build()
         return self._cache[key]
 
+    @property
+    def is_complex(self) -> bool:
+        return any(np.iscomplexobj(np.asarray(f)) for f in self.fields)
+
     def device_terms(self, device, dtype):
-        """Per offset ``(coefficient, [(row, row_delta)])``: a float for a
-        uniform or almost uniform field, else the field as a ``dtype``
-        tensor on ``device``; the row deltas of an almost uniform field as
-        tensors (apply.py:193-204)."""
+        """Per offset ``(coefficient, [(row, row_delta)])``: a Python
+        scalar for a uniform or almost uniform field, else the field as a
+        ``dtype`` tensor on ``device``; the row deltas of an almost
+        uniform field as tensors (apply.py:193-204)."""
         def build():
-            _real_values(self.fields)
             terms = []
             for f, desc in zip(self.fields, self._uniform_values()):
                 if desc is None:
@@ -183,15 +204,18 @@ class StencilField:
                     continue
                 rows = [(i, torch.as_tensor(row, dtype=dtype, device=device))
                         for i, row in desc[2]] if desc[0] == "rows" else []
-                terms.append((float(desc[1]), rows))
+                terms.append((scalar(desc[1]), rows))
             return terms
         return self.cached("terms", device, dtype, build)
 
     def apply(self, u: torch.Tensor) -> torch.Tensor:
         """(S u)(x) = sum_k c_k(x) * u(x + o_k), zero outside the grid, in
-        the grid's dtype (apply.py:235-262, Dirichlet branch)."""
+        the grid's precision, complex if a coefficient field is
+        (apply.py:235-262, Dirichlet branch)."""
         radius = tuple(max(abs(o[k]) for o in self.offsets)
                        for k in range(u.ndim))
+        if self.is_complex:
+            u = u.to(complex_dtype(u.dtype))
         up = _pad(u, radius)
         acc = None
         row_fixups = []

@@ -10,8 +10,9 @@ reused.  Nothing here runs at import time.
 
 The helpers at the end are shared by the kernel wrappers: the device
 dispatch (a CUDA tensor launches the kernel, a CPU tensor takes the plain
-version, any other device raises), the float32 and contiguity checks, and
-the launch itself, which raises on a refused launch.
+version, any other device raises), the dtype (float32 unless a kernel
+takes complex64) and contiguity checks, and the launch itself, which
+raises on a refused launch.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
            _PACKAGE / "csrc" / "sweep3d.cu",
            _PACKAGE / "csrc" / "leg3d.cu",
            _PACKAGE / "csrc" / "rbgs_var.cu",
-           _PACKAGE / "csrc" / "rbgs_sys.cu")
+           _PACKAGE / "csrc" / "rbgs_sys.cu",
+           _PACKAGE / "csrc" / "rbgs_cx.cu")
 #: headers the sources include; part of the library's hash
 HEADERS = (_PACKAGE / "csrc" / "walk3d.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
@@ -122,6 +124,11 @@ SIGNATURES = {
     "es_prolong_correct_postsmooth_sys":
         (_PTRS, _PTRS, _PTRS, _PTRS) + _SYS
         + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _P),
+    # u, b (complex64), omegas, omega id, the 5 stencil values and 1/center
+    # as (re, im) doubles, out, n, m, stream
+    "es_sweep_cx": (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    "es_fused_rbgs_sweep_cx": (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT,
+                               _P),
 }
 
 
@@ -202,10 +209,10 @@ def on_card(u) -> bool:
     raise ValueError(f"no kernel implementation for device {u.device}")
 
 
-def check_card_tensors(*tensors) -> None:
+def check_card_tensors(*tensors, dtype=torch.float32) -> None:
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA kernels take float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"the CUDA kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous tensors")
 

@@ -89,8 +89,10 @@ def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
 def supports(u: torch.Tensor) -> bool:
     """Whether a level runs the fused legs: a 2D grid with at least 129
     rows and 128 columns, odd on both axes, and float32 when it lies on a
-    CUDA device (the plain versions on the CPU take any float type)."""
-    if u.ndim != 2:
+    CUDA device (the plain versions on the CPU take any float type).  A
+    complex field takes the generic lowering on every device, as under
+    the JAX gate (transfer.py:590-595)."""
+    if u.ndim != 2 or u.is_complex():
         return False
     n, m = u.shape
     if n < MIN_ROWS or m < MIN_COLS or n % 2 == 0 or m % 2 == 0:

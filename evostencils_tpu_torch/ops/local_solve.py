@@ -5,7 +5,8 @@ The block structure is set up in numpy exactly as there
 (``BlockSolvePlan.__init__`` and ``get_block_solve_plan`` are copies of
 local_solve.py:36-119 and :162-173): one inverse per block, with phantom
 unknowns outside the interior.  ``apply`` is plain PyTorch on the fields'
-device and dtype: zero padding into node space, a reshape into blocks and
+device and dtype (complex if the block inverses are: complex Helmholtz
+block smoothers): zero padding into node space, a reshape into blocks and
 one batched ``einsum``.  The JAX package leaves this to XLA, so it has no
 kernel of its own.
 
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..stencils.periodic import PeriodicStencil
+from .apply import complex_dtype
 
 _PLAN_CACHE: dict = {}
 
@@ -118,13 +120,10 @@ class BlockSolvePlan:
         self._on_device = {}
 
     def _inverse_on(self, device, dtype) -> torch.Tensor:
-        """The block inverses as a tensor on ``device``, kept per device
-        and dtype so that each moves to the device once."""
+        """The block inverses as a ``dtype`` tensor on ``device``, kept per
+        device and dtype so that each moves to the device once."""
         key = (str(device), dtype)
         if key not in self._on_device:
-            if np.iscomplexobj(self.inverse):
-                raise NotImplementedError(
-                    "complex block smoothers are not ported yet")
             self._on_device[key] = torch.as_tensor(self.inverse, dtype=dtype,
                                                    device=device)
         return self._on_device[key]
@@ -151,6 +150,10 @@ class BlockSolvePlan:
             perm = list(range(0, 2 * dim, 2)) + list(range(1, 2 * dim, 2))
             blocks.append(xp.permute(perm).reshape(*self.nblocks, B))
         xb = torch.cat(blocks, dim=-1)  # (*nblocks, m*B)
+        # the fields' dtype; complex inverses take the complex dtype of its
+        # precision, complex64 for float32 fields (local_solve.py:140-145)
+        if np.iscomplexobj(self.inverse):
+            xb = xb.to(complex_dtype(xb.dtype))
         inv = self._inverse_on(xb.device, xb.dtype)
         yb = torch.einsum("...ab,...b->...a", inv, xb)
         outs = []

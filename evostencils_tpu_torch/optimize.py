@@ -6,6 +6,7 @@ Usage:
 
     problem: poisson2d (levels 9 -> 5) | poisson3d (levels 6 -> 2)
              | poisson2d_var (levels 9 -> 5) | elasticity2d (levels 8 -> 4)
+             | helmholtz2d (levels 7 -> 3)
     method:  NSGAII (default) | NSGAIII | SOGP | RandomSearch
 
 Options:
@@ -19,10 +20,14 @@ Options:
 
 On the card every evaluation runs in float32, as on the TPU: the evaluator
 measures convergence to 1e-5 and extrapolates the iteration count to the
-problem's 1e-12 target (scripts/optimize.py:92-105).  The other problems of
-scripts/optimize.py come with later slices of the port: helmholtz2d,
-helmholtz2d_split and fas2d with their problem families.  ``--model-based`` raises: prediction/ is not ported yet.  It
-writes ``best_grammar.txt`` and ``result.p`` to ``--output``.
+problem's target (scripts/optimize.py:92-105); helmholtz2d then runs in
+complex64.  Each helmholtz2d candidate that solves the problem must also
+solve it at 2k and 4k (the robustness variants, scripts/optimize.py:
+124-142), unless ``--no-robustness``.  The other problems of
+scripts/optimize.py come with later slices of the port: helmholtz2d_split
+and fas2d with their problem families.  ``--model-based`` raises:
+prediction/ is not ported yet.  It writes ``best_grammar.txt`` and
+``result.p`` to ``--output``.
 """
 
 from __future__ import annotations
@@ -38,18 +43,18 @@ import numpy as np
 #: problems of scripts/optimize.py:27-57 and the slice of the port that
 #: brings each one
 LATER_SLICES = {
-    "helmholtz2d": "the Helmholtz slice",
-    "helmholtz2d_split": "the Helmholtz slice",
+    "helmholtz2d_split": "the split-complex Helmholtz slice",
     "fas2d": "the FAS slice",
 }
 
 
 def get_problem(name, max_level=None, min_level=None):
-    from .problems import elasticity, poisson
+    from .problems import elasticity, helmholtz, poisson
     factories = {"poisson2d": (poisson.poisson_2d, 9, 5),
                  "poisson3d": (poisson.poisson_3d, 6, 2),
                  "poisson2d_var": (poisson.poisson_2d_variable, 9, 5),
-                 "elasticity2d": (elasticity.linear_elasticity_2d, 8, 4)}
+                 "elasticity2d": (elasticity.linear_elasticity_2d, 8, 4),
+                 "helmholtz2d": (helmholtz.helmholtz_2d, 7, 3)}
     if name in LATER_SLICES:
         raise SystemExit(f"problem {name!r} is not ported yet; it comes "
                          f"with {LATER_SLICES[name]}")
@@ -92,6 +97,17 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def robustness_factories(args):
+    """The helmholtz2d robustness variants' factories, ``(min_level,
+    max_level) -> problem`` at 2k and 4k, or None (scripts/optimize.py:
+    124-142)."""
+    if args.problem != "helmholtz2d" or args.no_robustness:
+        return None
+    from .problems.helmholtz import K_DEFAULT, helmholtz_2d
+    return [lambda lo, hi, kk=f * K_DEFAULT: helmholtz_2d(
+        max_level=hi, min_level=lo, k=kk) for f in (2, 4)]
+
+
 def main(argv=None):
     """Run one evolution; returns the optimizer's result dictionary."""
     args = parse_args(argv)
@@ -113,8 +129,14 @@ def main(argv=None):
         problem = get_problem(args.problem, args.max_level, args.min_level)
         problem.dtype = dtype
         evaluator = CycleEvaluator(problem, device=device)
+        # Helmholtz: every candidate must also solve at 2k and 4k, the
+        # reference's wavenumber-doubling robustness schedule
+        factories = robustness_factories(args)
+        robustness = [f(args.min_level or 3, args.max_level or 7)
+                      for f in factories or ()]
         optimizer = Optimizer(
-            problem, evaluator=evaluator,
+            problem, evaluator=evaluator, robustness_problems=robustness,
+            robustness_factories=factories,
             checkpoint_directory_path=os.path.join(args.output,
                                                    "checkpoints"),
             model_based_estimation=args.model_based,

@@ -24,6 +24,7 @@ import torch
 
 from ..grids import unit_interval_grid
 from ..ir import base, system
+from ..ops.apply import complex_dtype
 from ..stencils import gallery
 from .api import Problem, scalar_hierarchy, node_positions, fold_dirichlet
 
@@ -119,18 +120,24 @@ def poisson_2d_variable(max_level: int = 9, min_level: int = 5) -> Problem:
 
 
 #: problems whose right-hand side the port builds (their ``name``)
-PORTED_RHS = ("Poisson2D", "Poisson3D", "Poisson2DVar", "LinearElasticity2D")
+PORTED_RHS = ("Poisson2D", "Poisson3D", "Poisson2DVar", "LinearElasticity2D",
+              "Helmholtz2D")
 
 
 def build_rhs(problem: Problem, *, dtype, device="cuda") -> tuple:
     """The fields of ``b`` for ``poisson_2d``, ``poisson_3d``,
-    ``poisson_2d_variable`` or ``elasticity.linear_elasticity_2d`` (two
-    fields, u and v): the right-hand side with the Dirichlet data folded
-    in, built in numpy float64 as evostencils_tpu/problems/poisson.py:43-47,
-    :69-72, :100-105 and elasticity.py:116-122 build it (RHS_u = 0 in 3D),
-    then moved to ``device`` in ``dtype``."""
+    ``poisson_2d_variable``, ``elasticity.linear_elasticity_2d`` (two
+    fields, u and v) or ``helmholtz.helmholtz_2d``: the right-hand side
+    with the Dirichlet data folded in, built in numpy float64 as
+    evostencils_tpu/problems/poisson.py:43-47, :69-72, :100-105 and
+    elasticity.py:116-122 build it (RHS_u = 0 in 3D), or in complex128 as
+    helmholtz.py:81-88 does, then moved to ``device`` in ``dtype``; a
+    complex right-hand side in the complex dtype of ``dtype``'s
+    precision, complex64 for float32 and complex128 for float64
+    (helmholtz.py:132-136)."""
     if problem.name not in PORTED_RHS:
         raise NotImplementedError(
             f"right-hand side of {problem.name} is not ported yet")
-    return tuple(torch.tensor(b, dtype=dtype, device=device)
+    return tuple(torch.tensor(b, device=device, dtype=complex_dtype(dtype)
+                              if np.iscomplexobj(b) else dtype)
                  for b in problem.rhs_builder(np.float64))

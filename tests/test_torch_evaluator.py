@@ -16,6 +16,7 @@ rho = (h_k / h_0)^(1/k) is held to rtol 1e-6 above the floor's share
 
 import collections
 import random
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -240,7 +241,8 @@ def test_unported_options_raise(case, tmp_path):
                                cand_entities=(problem.approximation,
                                               problem.rhs_entity))
         elif case == "outer_solver":
-            problem.outer_solver = object()
+            # the split-complex outer solver; the complex one is ported
+            problem.outer_solver = SimpleNamespace(split=True)
             tev.CycleEvaluator(problem, device="cpu")
         elif case == "canonicalize":
             ev = tev.CycleEvaluator(problem, device="cpu")
@@ -314,7 +316,7 @@ def test_cli_writes_results(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_names_the_slice_of_unported_problems():
-    with pytest.raises(SystemExit, match="Helmholtz slice"):
-        toptimize.get_problem("helmholtz2d")
+    with pytest.raises(SystemExit, match="split-complex Helmholtz slice"):
+        toptimize.get_problem("helmholtz2d_split")
     with pytest.raises(SystemExit, match="unknown problem"):
         toptimize.get_problem("nonsense")
