@@ -107,11 +107,14 @@ Phases:
    --seed 0`` at its default levels 9->5 (511^2), cut as [evolve];
 18. [kernels-sys] compare the four coupled-system kernels (the fused
    red-black and the Jacobi sweep, the down-leg and the up-leg) with their
-   plain versions at 2047^2 and 1023^2 with linear elasticity's own table
-   and at ragged shapes (1025x771 for the legs, 300x200 for the sweeps)
-   with a random table whose point solve is not diagonal, row fixups and
-   asymmetric taps, the legs for 1..3 sweeps, red-black and Jacobi; time
-   both at 2047^2;
+   plain versions at 2047^2, 1023^2 and 255^2 with linear elasticity's own
+   table and at ragged shapes (1025x771 for the legs, 300x200 for the
+   sweeps) with a random table whose point solve is not diagonal, row
+   fixups and asymmetric taps, the legs for 1..3 sweeps, red-black and
+   Jacobi; print each leg instantiation's halo, resident blocks per SM,
+   registers, local memory and shared memory; time the sweeps at 2047^2
+   and the V(2,1)'s legs (2 sweeps down, 1 up), red-black and Jacobi, at
+   2047^2 and 255^2 (the level of [evaluator-elast] and [evolve-elast]);
 19. [main-elast] drive the elasticity path, linear_elasticity_2d(11, 4)
    (2047^2, float32, the BASELINE suite's elasticity row,
    scripts/bench_suite.py:111-113, :145-147), with the collective red-black
@@ -187,6 +190,9 @@ K_CYCLES = 200            # chained cycles per batch (bench.py:72)
 BATCHES = 4               # the first one warms up
 WARMUP = 3
 TIMED_REPS = 15
+#: clock cycles the card spins before a queued timing (time_ms_queued):
+#: about 1 ms, longer than a wrapper's host work before its launch
+SPIN_CYCLES = 2_000_000
 #: H100 SXM published peaks: HBM bytes/s and float32 (non-tensor) flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -356,6 +362,26 @@ def time_ms(torch, fn):
     for _ in range(TIMED_REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms_queued(torch, fn):
+    """Median milliseconds of one call's device work, by CUDA events around
+    the call queued behind a spin of the card (SPIN_CYCLES), so that the
+    events do not count the wrapper's host work before its launch, which
+    time_ms does."""
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(TIMED_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -1063,15 +1089,88 @@ def random_sys_table(rng):
 
 
 #: the [kernels-sys] shapes and tables: the main path's two finest levels
-#: with elasticity's own table (the first is timed), ragged shapes with the
-#: random table, its fixups and asymmetric taps (the legs take the odd one)
+#: and the evaluator's level with elasticity's own table, ragged shapes
+#: with the random table, its fixups and asymmetric taps (the legs take
+#: the odd one)
 SYS_CASES = [((2047, 2047), "elasticity"), ((1023, 1023), "elasticity"),
-             ((1025, 771), "random"), ((300, 200), "random")]
+             ((255, 255), "elasticity"), ((1025, 771), "random"),
+             ((300, 200), "random")]
+#: the shapes the legs are timed at: the main path's finest level (its
+#: red-black numbers go to the kernels line) and the level of
+#: [evaluator-elast] and [evolve-elast]
+SYS_TIMED = ((2047, 2047), (255, 255))
+
+
+def time_sys_legs(torch, rbgs_sys, device, shape, stats=None):
+    """Both legs of the V(2,1) (2 sweeps down, 1 up) with elasticity's
+    table at ``shape``, red-black and Jacobi: kernel and plain in turns
+    as the other kernels are timed (time_pair); the red-black numbers go
+    to ``stats`` when it is given.  The kernel's device time alone
+    (time_ms_queued, without the wrapper's host work that time_pair
+    counts) is logged beside them.  Uses only the wrappers' public
+    signatures, so it times an older tree's package as well."""
+    rng = np.random.default_rng(11)
+    n, m = shape
+
+    def normal(*s):
+        return tuple(torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                  device=device) for _ in range(2))
+
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    op = elasticity_table(n)
+    u, b = normal(n, m), normal(n, m)
+    e = normal((n - 1) // 2, (m - 1) // 2)
+    for red_black in (True, False):
+        mode = "RB" if red_black else "Jacobi"
+        timed = {
+            SYS_LEGS[0]: (
+                lambda: rbgs_sys.presmooth_residual_restrict_sys(
+                    u, b, omegas, [1, 2], *op, R_TAPS, red_black=red_black),
+                lambda: rbgs_sys.presmooth_residual_restrict_sys_plain(
+                    u, b, omegas, [1, 2], *op, R_TAPS, red_black=red_black),
+                sys_leg_bound(shape, 2, "down", *op)),
+            SYS_LEGS[1]: (
+                lambda: rbgs_sys.prolong_correct_postsmooth_sys(
+                    u, e, b, omegas, [0, 1], *op, P_TAPS,
+                    red_black=red_black),
+                lambda: rbgs_sys.prolong_correct_postsmooth_sys_plain(
+                    u, e, b, omegas, [0, 1], *op, P_TAPS,
+                    red_black=red_black),
+                sys_leg_bound(shape, 1, "up", *op)),
+        }
+        for name, (kern, plain, bound) in timed.items():
+            k, p, turns = time_pair(torch, kern, plain)
+            log(f"[kernels-sys] {name} {mode} {n}x{m}: kernel "
+                f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
+                f"{turns[3]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+                f"kernel queued {time_ms_queued(torch, kern):.4f} ms")
+            if red_black and stats is not None:
+                stats[name].update(ms=k, plain_ms=p, bound_ms=bound[0],
+                                   bound_by=bound[1])
+
+
+def log_leg_info(rbgs_sys):
+    """Each leg instantiation's halo, resident blocks per SM, registers,
+    local memory (spills) and shared memory, from the card."""
+    for leg in ("down", "up"):
+        for sweeps in (1, 2, 3):
+            for red_black in (True, False):
+                for fixups in (False, True):
+                    i = rbgs_sys.leg_info(leg, sweeps, red_black, fixups)
+                    log(f"[kernels-sys] {leg}-leg S={sweeps} "
+                        f"{'RB' if red_black else 'Jacobi'} "
+                        f"{'fixups' if fixups else 'no fixups'}: halo "
+                        f"{i['halo']}, {i['blocks_per_sm']} blocks/SM "
+                        f"({i['blocks_per_sm'] * 16} warps), "
+                        f"{i['registers']} registers, {i['local_bytes']} B "
+                        f"local, {i['smem_bytes']} B shared")
 
 
 def phase_kernels_sys(torch, rbgs_sys, device):
     """The coupled-system kernels against their plain versions; both timed
-    in turns at 2047^2, the main path's finest level."""
+    in turns at 2047^2, the main path's finest level, and the legs at
+    255^2 too."""
     stats = {name: {"max_abs_err": 0.0} for name in SYS_SWEEPS + SYS_LEGS}
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
                           device=device)
@@ -1133,8 +1232,7 @@ def phase_kernels_sys(torch, rbgs_sys, device):
                     note(SYS_LEGS[1], mode, o_k, o_p)
         if shape != SYS_CASES[0][0]:
             continue
-        # the main path's finest level: its table and taps, V(2,1) sweeps
-        e = normal((n - 1) // 2, (m - 1) // 2)
+        # the main path's finest level: its table, the sweeps
         timed = {
             "fused_rbgs_sweep_sys": (
                 lambda: rbgs_sys.fused_rbgs_sweep_sys(u, b, omegas, 1, *op),
@@ -1145,22 +1243,14 @@ def phase_kernels_sys(torch, rbgs_sys, device):
                 lambda: rbgs_sys.jacobi_sweep_sys(u, b, omegas, 2, *op),
                 lambda: rbgs_sys.jacobi_sweep_sys_plain(u, b, omegas, 2, *op),
                 sys_sweep_bound(shape, *op)),
-            "presmooth_residual_restrict_sys": (
-                lambda: rbgs_sys.presmooth_residual_restrict_sys(
-                    u, b, omegas, [1, 2], *op, R_TAPS),
-                lambda: rbgs_sys.presmooth_residual_restrict_sys_plain(
-                    u, b, omegas, [1, 2], *op, R_TAPS),
-                sys_leg_bound(shape, 2, "down", *op)),
-            "prolong_correct_postsmooth_sys": (
-                lambda: rbgs_sys.prolong_correct_postsmooth_sys(
-                    u, e, b, omegas, [0, 1], *op, P_TAPS),
-                lambda: rbgs_sys.prolong_correct_postsmooth_sys_plain(
-                    u, e, b, omegas, [0, 1], *op, P_TAPS),
-                sys_leg_bound(shape, 1, "up", *op)),
         }
         for name, (kern, plain, bound) in timed.items():
             time_standalone(torch, stats, name, "kernels-sys", shape, kern,
                             plain, bound, keep=shape)
+    log_leg_info(rbgs_sys)
+    for shape in SYS_TIMED:
+        time_sys_legs(torch, rbgs_sys, device, shape,
+                      stats if shape == SYS_TIMED[0] else None)
     return stats
 
 

@@ -35,25 +35,49 @@
 // What bounds them: device-memory bytes.  A sweep must read u and b of
 // every field once and write u once (12 bytes a point a field); a leg moves
 // the coarse arrays besides.  The arithmetic is about 25 flops a point, a
-// field and a half-sweep.
+// field and a half-sweep.  The legs do not reach that bound: each block
+// recomputes its halo and runs its passes one after another, at two
+// blocks an SM (PERF.md section 6 has their times against it).
 //
-// Design.  The tile walk is rbgs_var.cu's: each leg block owns a 64 x 64
-// fine tile and loads u and b of both fields with an 8-cell halo into shared
-// memory (2 * 2 * 80 * 80 * 4 = 102,400 bytes), recomputing the halo
-// redundantly; window-edge cells see zeros in place of their out-of-window
-// neighbours, and the error moves inward one cell (in the Chebyshev norm,
-// for a 9-point stencil) per half-sweep, so HALO = 8 covers 3 red-black
-// sweeps, the residual and the restriction.  A red point's corner neighbours
-// are red, so a half-sweep cannot update in place: each thread first
-// computes the new values of all its points of the colour into registers,
-// the block synchronises, and then writes them; this serves the Jacobi
-// sweeps as well, without a second window.  The up-leg reads e through the
-// read-only cache.  The standalone red-black sweep is rbgs.cu's: a 68 x 68
-// window with a 2-cell halo, red on the tile and a one-cell ring (a black
-// point's new value needs only its four axis neighbours red), then black on
-// the tile; the Jacobi sweep is one thread a point writing buffers it does
-// not read.  Tiles start at even interior indices and red is an even sum of
-// interior indices.  Cells outside the grid hold 0 and are never updated.
+// Design of the sweep.  The standalone red-black sweep is rbgs.cu's: a
+// 68 x 68 window of u and b of every field with a 2-cell halo, red on the
+// tile and a one-cell ring (a black point's new value needs only its four
+// axis neighbours red), then black on the tile; a red point's corner
+// neighbours are red, so a half-sweep cannot update in place: each thread
+// first computes the new values of its points into registers, the block
+// synchronises, and then writes them.  The Jacobi sweep is one thread a
+// point writing buffers it does not read.
+//
+// Design of the legs.  Each 512-thread block owns a TILE x TILE fine tile
+// and stages only u's window of both fields, with a halo sized to the
+// leg: P = 2S half-sweeps (red-black) or S sweeps (Jacobi), halo P + 2 on
+// the down-leg (the residual and the restriction's extra row read one cell
+// past the tile) and P on the up-leg (the prolongation is pointwise).
+// Pass p updates only the window cells at a Chebyshev distance >= p from
+// the window edge: their neighbours all lie in the window, so no read is
+// predicated, and the cells that are still right after pass p are exactly
+// those at distance >= p.  b is read through the read-only cache where a
+// point updates and in the residual.  The window is stored split by column
+// parity (each row: its even columns, then its odd ones), so the cells of
+// one colour in a row are contiguous: in a red-black pass a thread takes
+// the cell of that colour of a horizontal pair, every lane busy, and the
+// nine neighbour reads of a warp are bank-conflict free.  A red-black pass
+// stages its new values in registers and writes them after a barrier; a
+// Jacobi pass updates every cell of its region from one window into a
+// second one, which keeps the registers under the two-block budget.  The
+// down-leg forms the residual of the tile and its extra row and column
+// (red-black: in registers, then over the window; Jacobi: into the free
+// window) and restricts from there.  The up-leg stages e's coarse window
+// once and prolongs from shared memory onto every window cell.  Kernels
+// are instantiated per (leg, S, mode) and per whether the table has row
+// fixups, so linear elasticity's path runs no fixup loop;
+// __launch_bounds__(512, 2) keeps two blocks (32 warps) resident on an SM
+// so that one block's loads overlap another's passes.  For the red-black
+// V(2,1) the windows take 46,208 bytes (down, S = 2) and 36,992 + 10,368
+// bytes (up, S = 1).
+//
+// Tiles start at even interior indices and red is an even sum of interior
+// indices.  Cells outside the grid hold 0 and are never updated.
 // Relaxation factors are read from the device vector by index.
 
 #include <cuda_runtime.h>
@@ -65,10 +89,7 @@ constexpr int MAX_EXC = 4;
 constexpr int MAX_SWEEPS = 3;
 constexpr int THREADS = 512;
 constexpr int TILE = 64;
-constexpr int HALO = 8;
-constexpr int WIN = TILE + 2 * HALO;   // fine window edge of the legs
 constexpr int SWIN = TILE + 4;         // standalone red-black sweep window
-constexpr int LEG_SMEM = 2 * NF * WIN * WIN * sizeof(float);
 constexpr int SWEEP_SMEM = 2 * NF * SWIN * SWIN * sizeof(float);
 constexpr int JAC_BX = 32, JAC_BY = 8;
 
@@ -93,8 +114,6 @@ struct SysPtrs {
 struct SysLeg {
   float tr[3], tc[3];           // row and column transfer taps
   int om[MAX_SWEEPS + 1];       // indices into the relaxation-factor vector
-  int sweeps;
-  int red_black;                // 1 red-black sweeps, 0 Jacobi sweeps
   int n, m;
 };
 
@@ -120,7 +139,8 @@ __device__ __forceinline__ void nine(const float* s, int wr, int wc,
 }
 
 // r_i = b_i - (A u)_i at a point of global row gr whose neighbourhoods are
-// v[j][k].
+// v[j][k]; FIX adds the center fixups of the row.
+template <bool FIX>
 __device__ __forceinline__ void residuals(const float v[NF][9],
                                           const float b[NF], int gr,
                                           const SysOp& p, float r[NF]) {
@@ -131,33 +151,41 @@ __device__ __forceinline__ void residuals(const float v[NF][9],
     for (int j = 0; j < NF; ++j)
 #pragma unroll
       for (int k = 0; k < 9; ++k) au += p.c[i][j][k] * v[j][k];
-    for (int e = 0; e < p.n_exc; ++e)
-      if (p.exc_row[e] == gr)
+    if (FIX)
+      for (int e = 0; e < p.n_exc; ++e)
+        if (p.exc_row[e] == gr)
 #pragma unroll
-        for (int j = 0; j < NF; ++j) au += p.exc[e][i][j] * v[j][0];
+          for (int j = 0; j < NF; ++j) au += p.exc[e][i][j] * v[j][0];
     r[i] = b[i] - au;
   }
 }
 
-// The new values u_i + omega * (minv r)_i at a point of global row gr.
+// The new values u_i + omega * (minv r)_i at a point of global row gr;
+// FIX adds the fixups of the row.
+template <bool FIX>
 __device__ __forceinline__ void point_update(const float v[NF][9],
                                              const float b[NF], int gr,
                                              const SysOp& p, float om,
                                              float out[NF]) {
   float r[NF];
-  residuals(v, b, gr, p, r);
+  residuals<FIX>(v, b, gr, p, r);
 #pragma unroll
   for (int i = 0; i < NF; ++i) {
     float upd = 0.f;
 #pragma unroll
     for (int j = 0; j < NF; ++j) upd += p.minv[i][j] * r[j];
-    for (int e = 0; e < p.n_exc_minv; ++e)
-      if (p.exc_minv_row[e] == gr)
+    if (FIX)
+      for (int e = 0; e < p.n_exc_minv; ++e)
+        if (p.exc_minv_row[e] == gr)
 #pragma unroll
-        for (int j = 0; j < NF; ++j) upd += p.exc_minv[e][i][j] * r[j];
+          for (int j = 0; j < NF; ++j) upd += p.exc_minv[e][i][j] * r[j];
     out[i] = v[i][0] + om * upd;
   }
 }
+
+// ---------------------------------------------------------------------------
+// the standalone sweeps
+// ---------------------------------------------------------------------------
 
 // Field f's window is su + f * W * W (and sb + f * W * W).
 template <int W>
@@ -193,7 +221,7 @@ __device__ void half_sweep(float* su, const float* sb, const SysOp& p,
     if (parity >= 0 && ((gr + gc) & 1) != parity) continue;
     float v[NF][9], b[NF];
     window_point<W>(su, sb, idx, wr, wc, v, b);
-    point_update(v, b, gr, p, om, nv[k]);
+    point_update<true>(v, b, gr, p, om, nv[k]);
     todo |= 1u << k;
   }
   __syncthreads();
@@ -240,122 +268,6 @@ __device__ void store_tile(const float* su, const SysPtrs& t, int n, int m,
   }
 }
 
-// p.sweeps sweeps on the leg window with factors omegas[L.om[om_first]],
-// omegas[L.om[om_first + 1]], ...
-__device__ void leg_sweeps(float* su, const float* sb, const SysOp& p,
-                           const SysLeg& L, const float* __restrict__ omegas,
-                           int om_first, int r0, int c0) {
-  for (int s = 0; s < L.sweeps; ++s) {
-    const float om = omegas[L.om[om_first + s]];
-    if (L.red_black) {
-      half_sweep<WIN>(su, sb, p, om, L.n, L.m, r0, c0, 0, 0);
-      half_sweep<WIN>(su, sb, p, om, L.n, L.m, r0, c0, 1, 0);
-    } else {
-      half_sweep<WIN>(su, sb, p, om, L.n, L.m, r0, c0, -1, 0);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-downleg_sys_kernel(SysPtrs t, SysOp p, SysLeg L,
-                   const float* __restrict__ omegas) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + NF * WIN * WIN;
-  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  load_window<WIN>(t, su, sb, L.n, L.m, r0, c0);
-  __syncthreads();
-  leg_sweeps(su, sb, p, L, omegas, 0, r0, c0);
-
-  // every field's residual, in place of its b, on the rows and columns the
-  // restriction reads: window indices HALO .. HALO + TILE (inclusive) on
-  // both axes; zero outside the grid
-  constexpr int RW = TILE + 1;
-  for (int idx = threadIdx.x; idx < RW * RW; idx += blockDim.x) {
-    const int wr = HALO + idx / RW, wc = HALO + idx % RW;
-    const int w = wr * WIN + wc;
-    const int gr = r0 + wr, gc = c0 + wc;
-    float r[NF] = {};
-    if (inside(L.n, L.m, gr, gc)) {
-      float v[NF][9], b[NF];
-      window_point<WIN>(su, sb, w, wr, wc, v, b);
-      residuals(v, b, gr, p, r);
-    }
-#pragma unroll
-    for (int f = 0; f < NF; ++f) sb[f * WIN * WIN + w] = r[f];
-  }
-  __syncthreads();
-  store_tile<WIN>(su, t, L.n, L.m, r0, c0, HALO);
-
-  // coarse point (ci, cj) reads fine rows/columns 2ci..2ci+2, 2cj..2cj+2:
-  // the row taps first, then the column taps (rbgs_sys.py:348-354)
-  const int nc = (L.n - 1) / 2, mc = (L.m - 1) / 2;
-  constexpr int CT = TILE / 2;
-  for (int idx = threadIdx.x; idx < CT * CT; idx += blockDim.x) {
-    const int i = idx / CT, j = idx - i * CT;
-    const int ci = blockIdx.y * CT + i, cj = blockIdx.x * CT + j;
-    if (ci >= nc || cj >= mc) continue;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const float* r = sb + f * WIN * WIN + (HALO + 2 * i) * WIN + HALO + 2 * j;
-      float acc = 0.f;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float rows = L.tr[0] * r[e] + L.tr[1] * r[WIN + e] +
-                           L.tr[2] * r[2 * WIN + e];
-        acc += L.tc[e] * rows;
-      }
-      t.rc[f][static_cast<long>(ci) * mc + cj] = acc;
-    }
-  }
-}
-
-__device__ __forceinline__ float coarse(const float* __restrict__ e, int nc,
-                                        int mc, int ci, int cj) {
-  return ci >= 0 && ci < nc && cj >= 0 && cj < mc
-             ? __ldg(e + static_cast<long>(ci) * mc + cj)
-             : 0.f;
-}
-
-__global__ void __launch_bounds__(THREADS)
-upleg_sys_kernel(SysPtrs t, SysOp p, SysLeg L,
-                 const float* __restrict__ omegas) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + NF * WIN * WIN;
-  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  const int nc = (L.n - 1) / 2, mc = (L.m - 1) / 2;
-  load_window<WIN>(t, su, sb, L.n, L.m, r0, c0);
-  __syncthreads();
-
-  // u += omega_0 * P(e) over the whole window, halo included: fine index
-  // 2i+1+o takes taps[o+1] * e[i] on each axis; the column expansion first,
-  // then the row expansion (rbgs_sys.py:436-445)
-  const float om0 = omegas[L.om[0]];
-  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
-    const int wr = idx / WIN, wc = idx - wr * WIN;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (!inside(L.n, L.m, gr, gc)) continue;
-    const int rows[2] = {(gr & 1) ? (gr - 1) / 2 : gr / 2 - 1, gr / 2};
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      float col[2];
-#pragma unroll
-      for (int k = 0; k < 2; ++k)
-        col[k] = (gc & 1)
-                     ? L.tc[1] * coarse(t.e[f], nc, mc, rows[k], (gc - 1) / 2)
-                     : L.tc[2] * coarse(t.e[f], nc, mc, rows[k], gc / 2 - 1) +
-                           L.tc[0] * coarse(t.e[f], nc, mc, rows[k], gc / 2);
-      const float corr = (gr & 1) ? L.tr[1] * col[0]
-                                  : L.tr[2] * col[0] + L.tr[0] * col[1];
-      su[f * WIN * WIN + idx] += om0 * corr;
-    }
-  }
-  __syncthreads();
-  leg_sweeps(su, sb, p, L, omegas, 1, r0, c0);
-  store_tile<WIN>(su, t, L.n, L.m, r0, c0, HALO);
-}
-
 __global__ void __launch_bounds__(THREADS)
 rbgs_sys_kernel(SysPtrs t, SysOp p, const float* __restrict__ omegas,
                 int om_id, int n, int m) {
@@ -394,10 +306,391 @@ jacobi_sys_kernel(SysPtrs t, SysOp p, const float* __restrict__ omegas,
     v[f][8] = dn && rt ? s[m + 1] : 0.f;
     b[f] = t.b[f][g];
   }
-  point_update(v, b, i, p, omegas[om_id], out);
+  point_update<true>(v, b, i, p, omegas[om_id], out);
 #pragma unroll
   for (int f = 0; f < NF; ++f) t.out[f][g] = out[f];
 }
+
+// ---------------------------------------------------------------------------
+// the legs
+// ---------------------------------------------------------------------------
+
+// Half-sweeps (red-black) or sweeps (Jacobi) of a leg, and its halo.
+__host__ __device__ constexpr int leg_passes(int sweeps, bool red_black) {
+  return red_black ? 2 * sweeps : sweeps;
+}
+__host__ __device__ constexpr int leg_halo(bool down, int sweeps,
+                                           bool red_black) {
+  return leg_passes(sweeps, red_black) + (down ? 2 : 0);
+}
+// u windows of a leg: red-black passes update one in place, Jacobi passes
+// alternate between two.
+__host__ __device__ constexpr int leg_windows(bool red_black) {
+  return red_black ? 1 : 2;
+}
+// The window that holds u after pass p (after the load: p = 0).
+__host__ __device__ constexpr int window_after(bool red_black, int p) {
+  return red_black ? 0 : (p & 1);
+}
+
+// A leg window of edge W (even), one field: row wr holds its even columns
+// at wr * W + wc / 2 and its odd ones at wr * W + W / 2 + wc / 2.
+template <int W>
+__device__ __forceinline__ int at(int wr, int wc) {
+  return wr * W + (wc & 1) * (W / 2) + (wc >> 1);
+}
+
+// The nine values around window cell (wr, wc) of field window s
+// (NINE_OFFSETS order); every neighbour lies in the window.
+template <int W>
+__device__ __forceinline__ void nine_split(const float* s, int wr, int wc,
+                                           float v[9]) {
+  const int c = at<W>(wr, wc);
+  // the cells left and right of (wr, wc), in the other half of the row
+  const int l = at<W>(wr, wc - 1) - c, r = at<W>(wr, wc + 1) - c;
+  v[0] = s[c];
+  v[1] = s[c - W];
+  v[2] = s[c + W];
+  v[3] = s[c + l];
+  v[4] = s[c + r];
+  v[5] = s[c - W + l];
+  v[6] = s[c - W + r];
+  v[7] = s[c + W + l];
+  v[8] = s[c + W + r];
+}
+
+// The cells of pass LO (1-based) of a leg window: rows and columns
+// [LO, W - 1 - LO], A = W - 2 LO of each; each row has A / 2 cells of each
+// column parity.  Item q is cell s = q mod (A / 2) of half h of row
+// LO + q / (A / 2) in a red-black pass, whose column parity the colour
+// fixes; in a Jacobi pass both halves of a row are items.
+template <int W, int LO, bool RB>
+struct PassCells {
+  static constexpr int A = W - 2 * LO;
+  static constexpr int HA = A / 2;
+  static constexpr int ITEMS = (RB ? 1 : 2) * A * HA;
+  static constexpr int K = (ITEMS + THREADS - 1) / THREADS;
+  // window cell of item q; colour parity (red-black only)
+  static __device__ __forceinline__ void cell(int q, int r0, int c0,
+                                              int parity, int& wr, int& wc) {
+    int h, s;
+    if (RB) {
+      wr = LO + q / HA;
+      s = q - (wr - LO) * HA;
+      // the column parity whose cells in this row have colour `parity`
+      h = (parity + r0 + wr + c0) & 1;
+    } else {
+      wr = LO + q / A;
+      const int rem = q - (wr - LO) * A;
+      h = rem >= HA;
+      s = rem - h * HA;
+    }
+    // first column of parity h at or after LO, then every other one
+    wc = LO + ((h ^ LO) & 1) + 2 * s;
+  }
+};
+
+// Red-black pass LO of a leg: the cells of PassCells, new values staged in
+// registers and written after a barrier.
+template <int W, int LO, bool FIX>
+__device__ __forceinline__ void rb_pass(float* su, const SysPtrs& t,
+                                        const SysOp& p, float om, int n,
+                                        int m, int r0, int c0, int parity) {
+  using C = PassCells<W, LO, true>;
+  float nv[C::K][NF];
+#pragma unroll
+  for (int k = 0; k < C::K; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    if (q >= C::ITEMS) continue;
+    int wr, wc;
+    C::cell(q, r0, c0, parity, wr, wc);
+    const int gr = r0 + wr, gc = c0 + wc;
+    if (!inside(n, m, gr, gc)) continue;
+    float v[NF][9], b[NF];
+    const long g = static_cast<long>(gr) * m + gc;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      nine_split<W>(su + f * W * W, wr, wc, v[f]);
+      b[f] = __ldg(t.b[f] + g);
+    }
+    point_update<FIX>(v, b, gr, p, om, nv[k]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < C::K; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    if (q >= C::ITEMS) continue;
+    int wr, wc;
+    C::cell(q, r0, c0, parity, wr, wc);
+    if (!inside(n, m, r0 + wr, c0 + wc)) continue;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) su[f * W * W + at<W>(wr, wc)] = nv[k][f];
+  }
+  __syncthreads();
+}
+
+// Jacobi pass LO of a leg: every cell of PassCells from window src into
+// window dst (zero outside the grid), which the next pass reads.
+template <int W, int LO, bool FIX>
+__device__ __forceinline__ void jacobi_pass(const float* src, float* dst,
+                                            const SysPtrs& t, const SysOp& p,
+                                            float om, int n, int m, int r0,
+                                            int c0) {
+  using C = PassCells<W, LO, false>;
+#pragma unroll
+  for (int k = 0; k < C::K; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    if (q >= C::ITEMS) continue;
+    int wr, wc;
+    C::cell(q, r0, c0, 0, wr, wc);
+    const int gr = r0 + wr, gc = c0 + wc;
+    float nv[NF] = {};
+    if (inside(n, m, gr, gc)) {
+      float v[NF][9], b[NF];
+      const long g = static_cast<long>(gr) * m + gc;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        nine_split<W>(src + f * W * W, wr, wc, v[f]);
+        b[f] = __ldg(t.b[f] + g);
+      }
+      point_update<FIX>(v, b, gr, p, om, nv);
+    }
+#pragma unroll
+    for (int f = 0; f < NF; ++f) dst[f * W * W + at<W>(wr, wc)] = nv[f];
+  }
+  __syncthreads();
+}
+
+// Passes LO..P of a leg: pass LO runs sweep (LO - 1) / 2 (red-black: red,
+// then black) or LO - 1 (Jacobi) with factor omegas[L.om[om_first + s]].
+// su holds leg_windows(RB) windows of NF fields.
+template <int W, int P, bool RB, bool FIX, int LO = 1>
+__device__ __forceinline__ void leg_sweeps(float* su, const SysPtrs& t,
+                                           const SysOp& p, const SysLeg& L,
+                                           const float* __restrict__ omegas,
+                                           int om_first, int r0, int c0) {
+  if constexpr (LO <= P) {
+    constexpr int s = RB ? (LO - 1) / 2 : LO - 1;
+    const float om = omegas[L.om[om_first + s]];
+    constexpr int WIN = NF * W * W;
+    if constexpr (RB)
+      rb_pass<W, LO, FIX>(su, t, p, om, L.n, L.m, r0, c0, (LO - 1) & 1);
+    else
+      jacobi_pass<W, LO, FIX>(su + window_after(false, LO - 1) * WIN,
+                              su + window_after(false, LO) * WIN, t, p, om,
+                              L.n, L.m, r0, c0);
+    leg_sweeps<W, P, RB, FIX, LO + 1>(su, t, p, L, omegas, om_first, r0, c0);
+  }
+}
+
+// u of every field over the leg window of edge W whose top-left interior
+// index is (r0, c0), read row-contiguously; zeros outside the grid.
+template <int W>
+__device__ __forceinline__ void load_u(const SysPtrs& t, float* su, int n,
+                                       int m, int r0, int c0) {
+  constexpr int K = (W * W + THREADS - 1) / THREADS;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    if (idx >= W * W) continue;
+    const int wr = idx / W, wc = idx - wr * W;
+    const int gr = r0 + wr, gc = c0 + wc;
+    const bool in = inside(n, m, gr, gc);
+    const long g = static_cast<long>(gr) * m + gc;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      su[f * W * W + at<W>(wr, wc)] = in ? __ldg(t.u[f] + g) : 0.f;
+  }
+}
+
+// The TILE x TILE interior of the leg window (halo H) of every field to
+// out.
+template <int W, int H>
+__device__ __forceinline__ void store_u(const float* su, const SysPtrs& t,
+                                        int n, int m, int r0, int c0) {
+  constexpr int K = TILE * TILE / THREADS;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    const int i = idx / TILE, j = idx - i * TILE;
+    const int gr = r0 + H + i, gc = c0 + H + j;
+    if (!inside(n, m, gr, gc)) continue;
+    const long g = static_cast<long>(gr) * m + gc;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      t.out[f][g] = su[f * W * W + at<W>(H + i, H + j)];
+  }
+}
+
+template <int S, bool RB, bool FIX>
+__global__ void __launch_bounds__(THREADS, 2)
+downleg_sys_kernel(SysPtrs t, SysOp p, SysLeg L,
+                   const float* __restrict__ omegas) {
+  constexpr int P = leg_passes(S, RB);
+  constexpr int H = leg_halo(true, S, RB);
+  constexpr int W = TILE + 2 * H;
+  extern __shared__ float su[];
+  const int r0 = blockIdx.y * TILE - H, c0 = blockIdx.x * TILE - H;
+  load_u<W>(t, su, L.n, L.m, r0, c0);
+  __syncthreads();
+  leg_sweeps<W, P, RB, FIX>(su, t, p, L, omegas, 0, r0, c0);
+  constexpr int WIN = NF * W * W;
+  const float* uw = su + window_after(RB, P) * WIN;
+
+  // every field's residual on the rows and columns the restriction reads,
+  // window indices H .. H + TILE (inclusive) on both axes, zero outside
+  // the grid, into window rw: red-black in registers, then over u's
+  // window once the tile is stored; Jacobi straight into the other
+  // window.  Item q is slot s of half h (column parity) of row
+  // H + q / (2 RH).
+  float* rw = su + (RB ? 0 : 1 - window_after(RB, P)) * WIN;
+  constexpr int RW = TILE + 1, RH = (RW + 1) / 2;
+  constexpr int RK = (RW * 2 * RH + THREADS - 1) / THREADS;
+  float rv[RB ? RK : 1][NF];
+#pragma unroll
+  for (int k = 0; k < RK; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    const int i = q / (2 * RH), rem = q - i * 2 * RH;
+    const int h = rem >= RH, s = rem - h * RH;
+    const int wr = H + i, wc = H + ((h ^ H) & 1) + 2 * s;
+    const int gr = r0 + wr, gc = c0 + wc;
+    float* r = rv[RB ? k : 0];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) r[f] = 0.f;
+    if (i >= RW || wc > H + TILE) continue;
+    if (inside(L.n, L.m, gr, gc)) {
+      float v[NF][9], b[NF];
+      const long g = static_cast<long>(gr) * L.m + gc;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        nine_split<W>(uw + f * W * W, wr, wc, v[f]);
+        b[f] = __ldg(t.b[f] + g);
+      }
+      residuals<FIX>(v, b, gr, p, r);
+    }
+    if (!RB)
+#pragma unroll
+      for (int f = 0; f < NF; ++f) rw[f * W * W + at<W>(wr, wc)] = r[f];
+  }
+  store_u<W, H>(uw, t, L.n, L.m, r0, c0);
+  __syncthreads();
+  if constexpr (RB) {
+#pragma unroll
+    for (int k = 0; k < RK; ++k) {
+      const int q = threadIdx.x + k * THREADS;
+      const int i = q / (2 * RH), rem = q - i * 2 * RH;
+      const int h = rem >= RH, s = rem - h * RH;
+      const int wc = H + ((h ^ H) & 1) + 2 * s;
+      if (i >= RW || wc > H + TILE) continue;
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        rw[f * W * W + at<W>(H + i, wc)] = rv[k][f];
+    }
+    __syncthreads();
+  }
+
+  // coarse point (ci, cj) reads fine rows/columns 2ci..2ci+2, 2cj..2cj+2:
+  // the row taps first, then the column taps (rbgs_sys.py:348-354)
+  const int nc = (L.n - 1) / 2, mc = (L.m - 1) / 2;
+  constexpr int CT = TILE / 2;
+#pragma unroll
+  for (int k = 0; k < CT * CT / THREADS; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    const int i = idx / CT, j = idx - i * CT;
+    const int ci = blockIdx.y * CT + i, cj = blockIdx.x * CT + j;
+    if (ci >= nc || cj >= mc) continue;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float* r = rw + f * W * W;
+      float acc = 0.f;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const int wc = H + 2 * j + e;
+        const float rows = L.tr[0] * r[at<W>(H + 2 * i, wc)] +
+                           L.tr[1] * r[at<W>(H + 2 * i + 1, wc)] +
+                           L.tr[2] * r[at<W>(H + 2 * i + 2, wc)];
+        acc += L.tc[e] * rows;
+      }
+      t.rc[f][static_cast<long>(ci) * mc + cj] = acc;
+    }
+  }
+}
+
+// Coarse rows (and columns) an up-leg window of edge w prolongs from: a
+// fine index x reads coarse x / 2 - 1 and x / 2 (even x) or (x - 1) / 2
+// (odd x), so a window starting at x0 reads from floor(x0 / 2) - 1 on,
+// w / 2 + 2 of them.
+__host__ __device__ constexpr int coarse_edge(int w) { return w / 2 + 2; }
+
+template <int S, bool RB, bool FIX>
+__global__ void __launch_bounds__(THREADS, 2)
+upleg_sys_kernel(SysPtrs t, SysOp p, SysLeg L,
+                 const float* __restrict__ omegas) {
+  constexpr int P = leg_passes(S, RB);
+  constexpr int H = leg_halo(false, S, RB);
+  constexpr int W = TILE + 2 * H;
+  constexpr int CW = coarse_edge(W);
+  constexpr int WIN = NF * W * W;
+  extern __shared__ float su[];
+  float* se = su + leg_windows(RB) * WIN;
+  const int r0 = blockIdx.y * TILE - H, c0 = blockIdx.x * TILE - H;
+  const int cr0 = (r0 >> 1) - 1, cc0 = (c0 >> 1) - 1;   // floor
+  const int nc = (L.n - 1) / 2, mc = (L.m - 1) / 2;
+  load_u<W>(t, su, L.n, L.m, r0, c0);
+  constexpr int EK = (CW * CW + THREADS - 1) / THREADS;
+#pragma unroll
+  for (int k = 0; k < EK; ++k) {
+    const int idx = threadIdx.x + k * THREADS;
+    if (idx >= CW * CW) continue;
+    const int i = idx / CW, j = idx - i * CW;
+    const int ci = cr0 + i, cj = cc0 + j;
+    const bool in = inside(nc, mc, ci, cj);
+    const long g = static_cast<long>(ci) * mc + cj;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      se[f * CW * CW + idx] = in ? __ldg(t.e[f] + g) : 0.f;
+  }
+  __syncthreads();
+
+  // u += omega_0 * P(e) on every window cell: fine index 2i+1+o takes
+  // taps[o+1] * e[i] on each axis; the column expansion first, then the
+  // row expansion (rbgs_sys.py:436-445).  Item q is slot s of half h
+  // (column parity) of row q / W.
+  const float om0 = omegas[L.om[0]];
+  constexpr int PK = W * W / THREADS + (W * W % THREADS ? 1 : 0);
+#pragma unroll
+  for (int k = 0; k < PK; ++k) {
+    const int q = threadIdx.x + k * THREADS;
+    if (q >= W * W) continue;
+    const int wr = q / W, rem = q - wr * W;
+    const int h = rem >= W / 2, wc = 2 * (rem - h * (W / 2)) + h;
+    const int gr = r0 + wr, gc = c0 + wc;
+    if (!inside(L.n, L.m, gr, gc)) continue;
+    // coarse window rows and columns: (odd) the one, (even) before, after
+    const int ra = ((gr - 1) >> 1) - cr0, ca = ((gc - 1) >> 1) - cc0;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float* e = se + f * CW * CW;
+      float col[2];
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        const float* er = e + (ra + k2) * CW;
+        col[k2] = (gc & 1) ? L.tc[1] * er[ca]
+                           : L.tc[2] * er[ca] + L.tc[0] * er[ca + 1];
+      }
+      const float corr = (gr & 1) ? L.tr[1] * col[0]
+                                  : L.tr[2] * col[0] + L.tr[0] * col[1];
+      su[f * W * W + at<W>(wr, wc)] += om0 * corr;
+    }
+  }
+  __syncthreads();
+  leg_sweeps<W, P, RB, FIX>(su, t, p, L, omegas, 1, r0, c0);
+  store_u<W, H>(su + window_after(RB, P) * WIN, t, L.n, L.m, r0, c0);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
 
 // table: F*F*9 coefficients, then the F*F point-solve matrix.  rows and
 // vals: the n_exc center fixups, then the n_exc_minv point-solve fixups
@@ -444,16 +737,14 @@ SysPtrs make_ptrs(const void* const* u, const void* const* b,
   return t;
 }
 
-SysLeg make_leg(const double* taps, const int* om_ids, int n_ids, int sweeps,
-                int red_black, int n, int m) {
+SysLeg make_leg(const double* taps, const int* om_ids, int n_ids, int n,
+                int m) {
   SysLeg L;
   for (int k = 0; k < 3; ++k) {
     L.tr[k] = static_cast<float>(taps[k]);
     L.tc[k] = static_cast<float>(taps[3 + k]);
   }
   for (int k = 0; k <= MAX_SWEEPS; ++k) L.om[k] = k < n_ids ? om_ids[k] : 0;
-  L.sweeps = sweeps;
-  L.red_black = red_black ? 1 : 0;
   L.n = n;
   L.m = m;
   return L;
@@ -472,6 +763,68 @@ dim3 tiles(int n, int m) {
 }
 
 bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
+
+// One leg instantiation: its kernel, halo and shared memory.
+using LegKernel = void (*)(SysPtrs, SysOp, SysLeg, const float*);
+struct LegInst {
+  LegKernel kernel;
+  int halo;
+  int smem;
+};
+
+template <bool DOWN, int S, bool RB, bool FIX>
+LegInst leg_inst() {
+  constexpr int H = leg_halo(DOWN, S, RB);
+  constexpr int W = TILE + 2 * H;
+  constexpr int CW = coarse_edge(W);
+  constexpr int U = leg_windows(RB) * NF * W * W;
+  if (DOWN)
+    return {downleg_sys_kernel<S, RB, FIX>, H,
+            static_cast<int>(U * sizeof(float))};
+  return {upleg_sys_kernel<S, RB, FIX>, H,
+          static_cast<int>((U + NF * CW * CW) * sizeof(float))};
+}
+
+template <bool DOWN, int S>
+LegInst leg_inst_of_mode(bool red_black, bool fix) {
+  if (red_black)
+    return fix ? leg_inst<DOWN, S, true, true>()
+               : leg_inst<DOWN, S, true, false>();
+  return fix ? leg_inst<DOWN, S, false, true>()
+             : leg_inst<DOWN, S, false, false>();
+}
+
+// The instantiation of a leg; kernel null for a sweep count it lacks.
+LegInst find_leg(bool down, int sweeps, bool red_black, bool fix) {
+  switch (sweeps) {
+    case 1:
+      return down ? leg_inst_of_mode<true, 1>(red_black, fix)
+                  : leg_inst_of_mode<false, 1>(red_black, fix);
+    case 2:
+      return down ? leg_inst_of_mode<true, 2>(red_black, fix)
+                  : leg_inst_of_mode<false, 2>(red_black, fix);
+    case 3:
+      return down ? leg_inst_of_mode<true, 3>(red_black, fix)
+                  : leg_inst_of_mode<false, 3>(red_black, fix);
+    default:
+      return {nullptr, 0, 0};
+  }
+}
+
+// Launch a leg whose halo the caller derived; refuse one the instantiation
+// was not built for.
+cudaError_t launch_leg(bool down, int sweeps, int red_black, int halo,
+                       const SysOp& p, const SysPtrs& t, const SysLeg& L,
+                       const float* omegas, void* stream) {
+  const LegInst inst =
+      find_leg(down, sweeps, red_black != 0, p.n_exc + p.n_exc_minv > 0);
+  if (!inst.kernel || halo != inst.halo) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(inst.kernel, inst.smem);
+  if (err != cudaSuccess) return err;
+  inst.kernel<<<tiles(L.n, L.m), THREADS, inst.smem,
+                static_cast<cudaStream_t>(stream)>>>(t, p, L, omegas);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -502,43 +855,64 @@ extern "C" int es_sweep_sys(const void* const* u, const void* const* b,
 }
 
 // taps: 3 row taps, 3 column taps.  om_ids: `sweeps` indices into omegas,
-// in the order the sweeps run.
+// in the order the sweeps run.  halo: the window halo the caller derived
+// for (down-leg, sweeps, red_black); any other is refused.
 extern "C" int es_presmooth_residual_restrict_sys(
     const void* const* u, const void* const* b, void* const* u_out,
     void* const* rc, int F, const double* table, int n_exc, int n_exc_minv,
     const int* rows, const double* vals, const float* omegas,
-    const int* om_ids, int sweeps, int red_black, const double* taps, int n,
-    int m, void* stream) {
+    const int* om_ids, int sweeps, int red_black, const double* taps,
+    int halo, int n, int m, void* stream) {
   SysOp p;
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m) ||
       !make_op(F, table, n_exc, n_exc_minv, rows, vals, &p))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(downleg_sys_kernel, LEG_SMEM);
-  if (err != cudaSuccess) return err;
-  const SysPtrs t = make_ptrs(u, b, nullptr, u_out, rc);
-  const SysLeg L = make_leg(taps, om_ids, sweeps, sweeps, red_black, n, m);
-  downleg_sys_kernel<<<tiles(n, m), THREADS, LEG_SMEM,
-                       static_cast<cudaStream_t>(stream)>>>(t, p, L, omegas);
-  return cudaGetLastError();
+  return launch_leg(true, sweeps, red_black, halo, p,
+                    make_ptrs(u, b, nullptr, u_out, rc),
+                    make_leg(taps, om_ids, sweeps, n, m), omegas, stream);
 }
 
 // om_ids: 1 + sweeps indices into omegas: the coarse-grid-correction factor,
-// then the post-sweeps in the order they run.
+// then the post-sweeps in the order they run.  halo: as above, for the
+// up-leg.
 extern "C" int es_prolong_correct_postsmooth_sys(
     const void* const* u, const void* const* e, const void* const* b,
     void* const* u_out, int F, const double* table, int n_exc,
     int n_exc_minv, const int* rows, const double* vals, const float* omegas,
-    const int* om_ids, int sweeps, int red_black, const double* taps, int n,
-    int m, void* stream) {
+    const int* om_ids, int sweeps, int red_black, const double* taps,
+    int halo, int n, int m, void* stream) {
   SysOp p;
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m) ||
       !make_op(F, table, n_exc, n_exc_minv, rows, vals, &p))
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(upleg_sys_kernel, LEG_SMEM);
+  return launch_leg(false, sweeps, red_black, halo, p,
+                    make_ptrs(u, b, e, u_out, nullptr),
+                    make_leg(taps, om_ids, sweeps + 1, n, m), omegas, stream);
+}
+
+// What a leg instantiation (down or up, sweeps, red_black, with row fixups
+// or not) is on this card: info[0] its halo, [1] its resident blocks per
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory),
+// [2] registers per thread, [3] local memory per thread in bytes (spills
+// land there), [4] dynamic shared memory per block in bytes.
+extern "C" int es_leg_sys_info(int down, int sweeps, int red_black,
+                               int fixups, int* info) {
+  const LegInst inst = find_leg(down != 0, sweeps, red_black != 0,
+                                fixups != 0);
+  if (!inst.kernel) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(inst.kernel, inst.smem);
   if (err != cudaSuccess) return err;
-  const SysPtrs t = make_ptrs(u, b, e, u_out, nullptr);
-  const SysLeg L = make_leg(taps, om_ids, sweeps + 1, sweeps, red_black, n, m);
-  upleg_sys_kernel<<<tiles(n, m), THREADS, LEG_SMEM,
-                     static_cast<cudaStream_t>(stream)>>>(t, p, L, omegas);
-  return cudaGetLastError();
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kernel,
+                                                      THREADS, inst.smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, inst.kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = inst.halo;
+  info[1] = blocks;
+  info[2] = attr.numRegs;
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = inst.smem;
+  return cudaSuccess;
 }

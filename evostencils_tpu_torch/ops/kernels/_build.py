@@ -115,15 +115,17 @@ SIGNATURES = {
     "es_sweep_sys": (_PTRS, _PTRS, _PTRS) + _SYS
                     + (_P, _INT, _INT, _INT, _INT, _P),
     # u, b, u_out, rc (F pointers each), the operator, omegas, omega ids,
-    # sweeps, red-black, taps, n, m, stream
+    # sweeps, red-black, taps, halo, n, m, stream
     "es_presmooth_residual_restrict_sys":
         (_PTRS, _PTRS, _PTRS, _PTRS) + _SYS
-        + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _P),
+        + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _INT, _P),
     # u, e, b, u_out (F pointers each), the operator, omegas, omega ids,
-    # sweeps, red-black, taps, n, m, stream
+    # sweeps, red-black, taps, halo, n, m, stream
     "es_prolong_correct_postsmooth_sys":
         (_PTRS, _PTRS, _PTRS, _PTRS) + _SYS
-        + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _P),
+        + (_P, _INTS, _INT, _INT, _DOUBLES, _INT, _INT, _INT, _P),
+    # down, sweeps, red-black, fixups, info (5 ints out); no stream
+    "es_leg_sys_info": (_INT, _INT, _INT, _INT, _INTS),
     # u, b (complex64), omegas, omega id, the 5 stencil values and 1/center
     # as (re, im) doubles, out, n, m, stream
     "es_sweep_cx": (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),

@@ -56,6 +56,9 @@ MIN_COLS = 128
 #: gates on the card and runs the generic lowering
 KERNEL_FIELDS = (2,)
 MAX_EXC = 4
+#: the leg kernels' fine tile edge: each block owns a LEG_TILE x LEG_TILE
+#: tile and recomputes a halo of leg_halo() cells around it
+LEG_TILE = 64
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_sys": 0, "jacobi_sweep_sys": 0,
@@ -66,6 +69,34 @@ launches = {"fused_rbgs_sweep_sys": 0, "jacobi_sweep_sys": 0,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def leg_halo(leg: str, sweeps: int, red_black: bool) -> int:
+    """The halo of a leg kernel's window: P = 2 * sweeps half-sweeps
+    (red-black) or P = sweeps sweeps (Jacobi); pass p updates the cells at
+    Chebyshev distance >= p from the window edge, so after P passes the
+    cells at distance >= P are right.  The up-leg ("up") needs P, its
+    prolongation being pointwise; the down-leg ("down") P + 2, its residual
+    and the restriction's extra row reading one cell past the tile."""
+    if leg not in ("down", "up"):
+        raise ValueError(f"leg {leg!r} is neither 'down' nor 'up'")
+    passes = 2 * sweeps if red_black else sweeps
+    return passes + 2 if leg == "down" else passes
+
+
+def leg_info(leg: str, sweeps: int, red_black: bool,
+             fixups: bool = False) -> dict:
+    """What the card makes of a leg kernel's instantiation: its halo,
+    resident blocks per SM, registers and local memory (spills) per
+    thread, and dynamic shared memory per block.  Needs the card."""
+    info = (ctypes.c_int * 5)()
+    err = _build.load_library().es_leg_sys_info(
+        int(leg == "down"), int(sweeps), int(red_black), int(fixups), info)
+    if err != 0:
+        raise RuntimeError(f"no {leg}-leg instantiation for S = {sweeps}, "
+                           f"red-black {red_black}: CUDA error {err}")
+    return dict(zip(("halo", "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), info))
 
 
 def nine_point_coeffs(stencil) -> Optional[Tuple[float, ...]]:
@@ -376,7 +407,8 @@ def presmooth_residual_restrict_sys(fields, b_fields, omegas: torch.Tensor,
                   _ptrs(fields), _ptrs(b_fields), _ptrs(u_out), _ptrs(rc),
                   *_system_args(fields, coeffs, minv, exc, exc_minv),
                   omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
-                  len(ids), int(red_black), _taps(taps), n, m)
+                  len(ids), int(red_black), _taps(taps),
+                  leg_halo("down", len(ids), red_black), n, m)
     return u_out, rc
 
 
@@ -412,5 +444,6 @@ def prolong_correct_postsmooth_sys(fields, e_fields, b_fields,
                   _ptrs(u_out),
                   *_system_args(fields, coeffs, minv, exc, exc_minv),
                   omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
-                  len(ids) - 1, int(red_black), _taps(taps), n, m)
+                  len(ids) - 1, int(red_black), _taps(taps),
+                  leg_halo("up", len(ids) - 1, red_black), n, m)
     return u_out

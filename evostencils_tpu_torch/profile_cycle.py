@@ -3,10 +3,14 @@
     python3 -m evostencils_tpu_torch.profile_cycle --dim 3 [--cycles 20]
     python3 -m evostencils_tpu_torch.profile_cycle \
         --champion poisson2d_1023sq_seeded_gen75:0
+    python3 -m evostencils_tpu_torch.profile_cycle --elasticity
 
 Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
 12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15),
-or, with ``--champion KEY:INDEX``, the stored evolved cycle
+or, with ``--elasticity``, its ``[main-elast]`` red-black cell (2D linear
+elasticity 2047^2, ``linear_elasticity_2d(11, 4)``, the collective
+red-black V(2,1) at omega 1.25, float32), or, with ``--champion
+KEY:INDEX``, the stored evolved cycle
 ``results/evolved_champions.json[KEY][INDEX]`` on its 2D Poisson 1023^2
 hierarchy (levels 10->5, float32), and, after three warm-up cycles:
 
@@ -36,24 +40,32 @@ import numpy as np
 import torch
 
 PATHS = {2: (12, 5), 3: (8, 2)}
+#: the [main-elast] red-black cell: levels and omega
+ELASTICITY = (11, 4, 1.25)
 #: the hierarchy of the stored 2D Poisson champions (1023^2)
 CHAMPION_LEVELS = (10, 5)
 CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
              / "evolved_champions.json")
 
 
-def build_path(dim: int):
-    """(lowered cycle, b, omegas, u0) of the ``dim``-D path on the card."""
+def build_path(dim: int, elasticity: bool = False):
+    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path, or of
+    the elasticity cell, on the card."""
     from .compiler.cycles import v_cycle
     from .compiler.lower import lower_cycle
     from .ir import partitioning as part
+    from .problems.elasticity import linear_elasticity_2d
     from .problems.poisson import build_rhs, poisson_2d, poisson_3d
 
-    max_level, min_level = PATHS[dim]
-    problem = (poisson_2d if dim == 2 else poisson_3d)(
-        max_level=max_level, min_level=min_level)
+    if elasticity:
+        max_level, min_level, omega = ELASTICITY
+        build = linear_elasticity_2d
+    else:
+        (max_level, min_level), omega = PATHS[dim], 1.15
+        build = poisson_2d if dim == 2 else poisson_3d
+    problem = build(max_level=max_level, min_level=min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=1.15,
+                    pre_smoothing=2, post_smoothing=1, omega=omega,
                     partitioning=part.RedBlack,
                     coarse_operator=problem.coarsest_operator)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
@@ -101,6 +113,7 @@ def main(argv=None) -> int:
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--dim", type=int, choices=(2, 3))
     what.add_argument("--champion", metavar="KEY:INDEX")
+    what.add_argument("--elasticity", action="store_true")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -115,8 +128,9 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     lowered, b, omegas, u = (build_champion(args.champion) if args.champion
-                             else build_path(args.dim))
-    label = args.champion or f"{args.dim}D"
+                             else build_path(args.dim, args.elasticity))
+    label = args.champion or ("elasticity 2047^2 RB V(2,1)"
+                              if args.elasticity else f"{args.dim}D")
     n = args.cycles
     u = make_cycle_loop(lowered, 3)(u, b, omegas)
     torch.cuda.synchronize()
