@@ -8,9 +8,12 @@ Phases:
 2. compare each 2D leg kernel with its plain PyTorch version on the card,
    at the 2D path's 4095^2 grid and a ragged 1023x2047 one, for 1..3
    sweeps, and time both at 4095^2;
-3. compare each 3D leg kernel with its plain version at 255^3, at the
+3. [kernels3d] check each 3D leg kernel's block schedule, blocks per SM
+   and spills (``wavefront3d.leg_info``) against the wrapper module's
+   constants; compare each leg with its plain version at 255^3, at the
    ragged 65x127x255 and at the 127^3 and 63^3 levels of the 3D path, with
-   relaxation factors that differ; time both at every level;
+   relaxation factors that differ; time both at every level, with the
+   kernel's device time alone (queued behind a spin of the card) beside;
 4. [kernels-rbgs] compare the standalone sweep kernels with their plain
    versions (the fused red-black sweep and the single-pass sweep in its
    parity modes -1, 0 and 1, omega 1.15, an anisotropic stencil) at
@@ -597,11 +600,77 @@ def phase_kernels_loop(torch, transfer, device):
     return stats
 
 
+def time_3d_legs(torch, wavefront3d, device, shape, stats=None):
+    """Both 3D legs of the V(2,1) (2 sweeps down, 1 up) at ``shape``:
+    kernel and plain in turns as the other kernels are timed (time_pair),
+    the numbers going to ``stats`` when it is given; the kernel's device
+    time alone (time_ms_queued, without the wrapper's host work that
+    time_pair counts) is logged beside them.  Uses only the wrappers'
+    public signatures, so it times an older tree's package as well."""
+    rng = np.random.default_rng(2)
+    cshape = tuple((n - 1) // 2 for n in shape)
+    u, b, e = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device=device) for s in (shape, shape, cshape))
+    omegas = torch.tensor([0.9, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    timed = {
+        "downleg_wavefront_3d": (
+            lambda: wavefront3d.downleg_wavefront_3d(
+                u, b, omegas, [1, 2], VALS7, R_TAPS3),
+            lambda: wavefront3d.downleg_wavefront_3d_plain(
+                u, b, omegas, [1, 2], VALS7, R_TAPS3),
+            leg_bound(shape, 2, "down")),
+        "upleg_wavefront_3d": (
+            lambda: wavefront3d.upleg_wavefront_3d(
+                u, e, b, omegas, [0, 1], VALS7, P_TAPS3),
+            lambda: wavefront3d.upleg_wavefront_3d_plain(
+                u, e, b, omegas, [0, 1], VALS7, P_TAPS3),
+            leg_bound(shape, 1, "up")),
+    }
+    tag = "x".join(map(str, shape))
+    for name, (kern, plain, (bound, by)) in timed.items():
+        k, p, turns = time_pair(torch, kern, plain)
+        log(f"[kernels3d] {name} {tag}: kernel {turns[1]:.4f}/"
+            f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); kernel queued "
+            f"{time_ms_queued(torch, kern):.4f} ms")
+        if stats is not None:
+            stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
+                               bound_by=by)
+
+
+def check_leg3d_info(wavefront3d):
+    """Each 3D leg kernel's schedule constants, occupancy, registers,
+    local memory (spills) and shared memory, from the card; the schedule
+    and the blocks per SM must be the wrapper module's, and nothing may
+    spill."""
+    for leg in ("down", "up"):
+        i = wavefront3d.leg_info(leg)
+        log(f"[kernels3d] {leg}-leg: tile {i['tile']}, halo "
+            f"{i['halo_before']}/{i['halo_after']}, warm-up {i['warmup']}, "
+            f"lag {i['lag']}, chunks of >= {i['min_chunk']} planes, "
+            f"{i['threads']} threads, {i['blocks_per_sm']} blocks/SM, "
+            f"{i['registers']} registers, {i['local_bytes']} B local, "
+            f"{i['smem_bytes']} B shared")
+        want = {"tile": wavefront3d.TILE,
+                "halo_before": wavefront3d.HALO[leg][0],
+                "halo_after": wavefront3d.HALO[leg][1],
+                "warmup": wavefront3d.WARMUP[leg], "lag": wavefront3d.LAG,
+                "min_chunk": wavefront3d.MIN_CHUNK,
+                "threads": wavefront3d.THREADS[leg],
+                "blocks_per_sm": wavefront3d.BLOCKS_PER_SM[leg],
+                "local_bytes": 0}
+        check(all(i[k] == v for k, v in want.items()),
+              f"3D {leg}-leg info {i} against the wrapper's {want}")
+
+
 def phase_kernels_3d(torch, wavefront3d, device):
     """Each 3D kernel against its plain version at the 3D path's levels
-    and a ragged shape; both timed at every level of the path."""
+    and a ragged shape; both timed at every level of the path, with the
+    kernels' device time beside."""
     names = ("downleg_wavefront_3d", "upleg_wavefront_3d")
     stats = {name: {"max_abs_err": 0.0} for name in names}
+    check_leg3d_info(wavefront3d)
     # ids [1, 2] -> (1.15, 0.8) for the down-leg's two sweeps; [0, 1] ->
     # (0.9, 1.15) for the up-leg's correction and sweep
     omegas = torch.tensor([0.9, 1.15, 0.8], dtype=torch.float32,
@@ -615,40 +684,29 @@ def phase_kernels_3d(torch, wavefront3d, device):
         cshape = tuple((n - 1) // 2 for n in shape)
         u, b, e = normal(*shape), normal(*shape), normal(*cshape)
         tag = "x".join(map(str, shape))
-        down = (lambda: wavefront3d.downleg_wavefront_3d(
-                    u, b, omegas, [1, 2], VALS7, R_TAPS3),
-                lambda: wavefront3d.downleg_wavefront_3d_plain(
-                    u, b, omegas, [1, 2], VALS7, R_TAPS3))
-        up = (lambda: wavefront3d.upleg_wavefront_3d(
-                  u, e, b, omegas, [0, 1], VALS7, P_TAPS3),
-              lambda: wavefront3d.upleg_wavefront_3d_plain(
-                  u, e, b, omegas, [0, 1], VALS7, P_TAPS3))
-        (us_k, rc_k), (us_p, rc_p) = down[0](), down[1]()
+        us_k, rc_k = wavefront3d.downleg_wavefront_3d(u, b, omegas, [1, 2],
+                                                      VALS7, R_TAPS3)
+        us_p, rc_p = wavefront3d.downleg_wavefront_3d_plain(
+            u, b, omegas, [1, 2], VALS7, R_TAPS3)
         torch.cuda.synchronize()
         err_u = float((us_k - us_p).abs().max())
         err_rc = float((rc_k - rc_p).abs().max())
         log(f"[kernels3d] down-leg {tag}: max|du| {err_u:.3e} (tol "
             f"{TOL_U3}), max|drc| {err_rc:.3e} (tol {TOL_RC3})")
         check(err_u <= TOL_U3 and err_rc <= TOL_RC3, f"3D down-leg {tag}")
-        o_k, o_p = up[0](), up[1]()
+        o_k = wavefront3d.upleg_wavefront_3d(u, e, b, omegas, [0, 1], VALS7,
+                                             P_TAPS3)
+        o_p = wavefront3d.upleg_wavefront_3d_plain(u, e, b, omegas, [0, 1],
+                                                   VALS7, P_TAPS3)
         err = float((o_k - o_p).abs().max())
         log(f"[kernels3d] up-leg {tag}: max|du| {err:.3e} (tol {TOL_U3})")
         check(err <= TOL_U3, f"3D up-leg {tag}")
         for name, dev in zip(names, (max(err_u, err_rc), err)):
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], dev)
-        if shape[0] != shape[1]:
-            continue
-        # the path's levels: time kernel and plain in turns
-        for name, (kern, plain), sweeps, leg in (
-                (names[0], down, 2, "down"), (names[1], up, 1, "up")):
-            k, p, turns = time_pair(torch, kern, plain)
-            bound, by = leg_bound(shape, sweeps, leg)
-            log(f"[kernels3d] {name} {tag}: kernel {turns[1]:.4f}/"
-                f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms,"
-                f" bound {bound:.4f} ms ({by})")
-            if shape == (255, 255, 255):
-                stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
-                                   bound_by=by)
+    # the path's levels: kernel and plain in turns, the device time beside
+    for n in (255, 127, 63):
+        time_3d_legs(torch, wavefront3d, device, (n, n, n),
+                     stats if n == 255 else None)
     return stats
 
 

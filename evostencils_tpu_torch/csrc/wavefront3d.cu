@@ -17,62 +17,121 @@
 // What bounds them: device-memory bytes.  Each leg must read u and b once
 // and write u once, plus the coarse array (rc written or e read); the
 // arithmetic is a few dozen flops per point, far below the card's rate.
-// So every intermediate half-sweep, the residual and the transfers stay in
-// shared memory, and a leg costs one pass over u and b, plus the halo that
-// neighbouring blocks read again.
+// So every intermediate half-sweep, the residual and the transfers stay on
+// chip, and a leg costs one pass over u and b, plus the halo that
+// neighbouring blocks read again (mostly from L2).
 //
-// Design: 2.5-D blocking.  The TPU kernel walks axis 0 in order on one
-// core, with whole (n1, n2) planes and a lag of one plane per pipeline
-// stage.  Here each block owns a T1 x T2 tile of the (axis-1, axis-2)
-// plane, loads it with an in-plane halo, and walks a chunk of axis 0 plane
-// by plane with the same one-plane lag per stage: at the step that loads
-// plane L, the down-leg runs red-1 on plane L-1, black-1 on L-2, red-2 on
-// L-3, black-2 on L-4 (whose final u it stores) and the residual on L-5.
-// All stages update one ring of planes in place: in a half-sweep every
-// neighbour of an updated cell has the other colour, and the lag makes
-// every stage read exactly the values that the sequential order gives.
-// The in-plane halo is recomputed by neighbouring tiles.  Window-edge
-// cells see zeros in place of their out-of-window neighbours; the error
-// moves inward one cell per half-sweep, so after 4 half-sweeps, the
-// residual (one more ring) and the restriction's 2i+2 sample past the
-// tile, the down-leg needs an in-plane halo of 2S+2 = 6; the up-leg's
-// prolongation is pointwise and its two half-sweeps need 2.
-// Axis 0 is cut into chunks so that enough blocks run; a chunk starting at
-// plane z0 begins its pipeline 5 planes early (2 for the up-leg), treating
-// the planes before as zero: the same error analysis, along axis 0.
+// Design: 2.5-D blocking with a pipeline whose stages are independent.
+// Each block owns a T x T tile of the (axis-1, axis-2) plane and walks a
+// chunk of axis 0 plane by plane.  At step s plane s arrives, and the
+// down-leg's four half-sweeps run on planes s-1 (red, omega_1), s-3
+// (black, omega_1), s-5 (red, omega_2) and s-7 (black, omega_2): a lag of
+// LAG = 2 planes per stage.  With that lag the four stages of a step read
+// and write disjoint cells and each reads exactly the values that the
+// sequential sweeps give, so a step is one pass over the block's threads
+// and one barrier (with a lag of one plane, stage 1 would read the black
+// cells of plane s-2 that stage 2 writes in the same step).
+// Each thread owns two neighbouring cells of the window, one of each
+// colour, and keeps their axis-0 columns of u (planes s-9 .. s) in
+// registers; only the in-plane neighbours come from shared memory, where
+// every plane's window lives in a ring.  A cell that is red on plane s-1
+// is red on s-5 and black on s-3 and s-7, so each step every thread
+// updates one cell on the red stages' planes and the other on the black
+// stages': no lane idles on the other colour (see "Colours" below).
+// Planes s+1 and s+2 of u and b are in flight (cp.async, zero-filled
+// outside the grid) while step s computes, so no load waits on the chain.
+// The owner of a cell stores its final u (plane s-7) from its registers
+// and forms the residual of plane s-8, which it adds into the
+// restriction's axis-0 pass of the coarse planes it feeds; once a coarse
+// plane's pass is complete, its axis-1 and axis-2 passes follow after the
+// barrier.  The up-leg forms the axis-0 pass of the prolongation once per
+// coarse window cell, a step before its fine plane arrives, so that a
+// fine cell adds only the axis-1 and axis-2 passes.
+//
+// Halos.  A window cell sees zeros in place of its out-of-window
+// neighbours; the error moves inward one cell per half-sweep, so stage k
+// updates only the cells at a Chebyshev distance >= k from the window
+// edge (their neighbours all lie in the window: no read is predicated).
+// The residual is needed on the tile and one more row and column (the
+// restriction reads fine index 2i+2 past the tile), so the down-leg's
+// window reaches D_LO = 5 cells before the tile and D_HI = 6 after it.
+// Axis 0 is cut into chunks so that enough blocks run; a chunk loads
+// D_WARM = 5 planes before its first plane and after its last residual
+// plane and treats the planes beyond as zero: the same rule along axis 0.
+// The up-leg's prolongation is pointwise and its two half-sweeps need a
+// halo and a warm-up of 2 (its window has 3 cells after the tile).
 // Tiles and chunks start at even interior indices on every axis, so every
-// coarse point's restriction window and every prolongation stencil lies in
-// one block.  Interior index i is node i+1 on every axis, so red (even node
-// sum) is an ODD interior-index sum in 3D (wavefront3d.py:98).  Cells
-// outside the grid hold 0 and are never updated.  Relaxation factors are
-// read from the device vector by index, so no launch waits on the host.
+// coarse point's restriction window and every prolongation stencil lies
+// in one block.  Interior index i is node
+// i+1 on every axis, so red (even node sum) is an ODD interior-index sum
+// in 3D (wavefront3d.py:98).  Cells outside the grid hold 0 and are never
+// updated.  Relaxation factors are read from the device vector by index,
+// so no launch waits on the host.  tests/test_torch_wavefront_tiles.py
+// emulates this schedule in float64; ops/kernels/wavefront3d.py states its
+// constants, and es_wavefront_3d_info reports them with the card's
+// occupancy.
 //
-// Per block: the down-leg keeps 7 u planes and 6 b planes of 44 x 44 and 3
-// residual planes of 33 x 33 in shared memory (113,740 bytes: two blocks
-// per SM); the up-leg 4 u planes and 3 b planes of 36 x 36 and 2 coarse
-// planes of 19 x 19 (39,176 bytes).
+// Per block: the down-leg keeps 11 u and 11 b planes of 43 x 43 and two
+// axis-0 passes of 33 x 33 (171,512 bytes; 925 threads, one block an SM);
+// the up-leg 6 u and 6 b planes of 37 x 37 (one more cell after the tile
+// than its sweeps need, so that the rows are odd), 4 coarse planes and two
+// axis-0 passes of 20 x 20 (75,360 bytes; 685 threads, one block an SM:
+// at two, the 40 registers a thread could have would spill).
 
 #include <cuda_runtime.h>
 
-#include "walk3d.cuh"
-
 namespace {
 
-constexpr int T1 = 32, T2 = 32;               // in-plane tile (axis 1, 2)
-constexpr int DH = 6, UH = 2;                 // in-plane halo, down / up
-constexpr int DW1 = T1 + 2 * DH, DW2 = T2 + 2 * DH;
-constexpr int UW1 = T1 + 2 * UH, UW2 = T2 + 2 * UH;
-constexpr int D_LAG = 5, U_LAG = 2;           // axis-0 warm-up planes
-constexpr int D_URING = 7, D_BRING = 6, D_RRING = 3;
-constexpr int U_URING = 4, U_BRING = 3;
-constexpr int RT1 = T1 + 1, RT2 = T2 + 1;     // residual region per plane
-constexpr int CW1 = UW1 / 2 + 1, CW2 = UW2 / 2 + 1;  // coarse window
-constexpr int DOWN_THREADS = 512, UP_THREADS = 256;
-constexpr int DOWN_BLOCKS_PER_SM = 2, UP_BLOCKS_PER_SM = 4;
-constexpr int DOWN_SMEM =
-    ((D_URING + D_BRING) * DW1 * DW2 + D_RRING * RT1 * RT2) * sizeof(float);
+constexpr int T = 32;                    // in-plane tile edge (axes 1, 2)
+constexpr int LAG = 2;                   // planes between a step's stages
+constexpr int AHEAD = 2;                 // planes in flight past plane s
+constexpr int MIN_CHUNK = 8;             // fewest axis-0 planes a block walks
+
+// down-leg
+constexpr int D_LO = 5, D_HI = 6;        // window cells before / after tile
+constexpr int D_WARM = 5;                // planes loaded past a chunk's ends
+constexpr int DW = T + D_LO + D_HI;      // window edge (odd)
+constexpr int D_CELLS = DW * DW;
+constexpr int D_HALF = (D_CELLS + 1) / 2;  // even cells; the odd ones follow
+constexpr int D_PS = 2 * D_HALF;         // plane stride
+constexpr int D_RING = 4 * LAG + 1 + AHEAD;  // u, b planes s-8 .. s+AHEAD
+constexpr int D_COL = 4 * LAG + 3;       // column registers (see the loop)
+constexpr int RW = T + 1;                // residual region edge
+constexpr int R_PS = RW * RW;            // a coarse plane's axis-0 pass
+constexpr int CT = T / 2;                // coarse tile edge
+constexpr int DOWN_THREADS = D_HALF, DOWN_BLOCKS_PER_SM = 1;
+constexpr int DOWN_SMEM = (2 * D_RING * D_PS + 2 * R_PS) * sizeof(float);
+
+// up-leg
+constexpr int U_LO = 2, U_HI = 3;        // window cells before / after tile
+constexpr int U_WARM = 2;
+constexpr int UW = T + U_LO + U_HI;      // window edge (odd)
+constexpr int U_CELLS = UW * UW;
+constexpr int U_HALF = (U_CELLS + 1) / 2;
+constexpr int U_PS = 2 * U_HALF;
+constexpr int U_RING = 2 * LAG + AHEAD;  // u, b planes s-3 .. s+AHEAD
+constexpr int U_COL = 2 * LAG + 2;       // column registers (see the loop)
+constexpr int CW = (UW + 1) / 2 + 1;     // coarse window edge
+constexpr int C_PS = CW * CW;
+constexpr int UP_THREADS = U_HALF, UP_BLOCKS_PER_SM = 1;
+constexpr int C_RING = 4;                // coarse planes, slot c & 3
 constexpr int UP_SMEM =
-    ((U_URING + U_BRING) * UW1 * UW2 + 2 * CW1 * CW2) * sizeof(float);
+    (2 * U_RING * U_PS + (C_RING + 2) * C_PS) * sizeof(float);
+
+// Colours.  A window's first cell has an even grid-index sum (y0 + x0 is
+// even) and its rows are odd, so cell w of the window is red on plane P
+// exactly when P + w is odd.  Each thread owns the cells 2t and 2t+1, one
+// of each colour, and a plane's window is stored split: the even cells,
+// then the odd ones.  At a step every thread updates its red cell on the
+// red stages' planes and its black cell on the black stages', and a
+// warp's lanes read consecutive addresses of one half (no bank conflict).
+static_assert(DW % 2 == 1 && UW % 2 == 1, "odd window rows");
+static_assert(T % 2 == 0 && U_LO % 2 == 0,
+              "tiles and the up-leg's window start at even indices");
+static_assert(D_WARM % 2 == 1 && U_WARM % 2 == 0,
+              "a down-leg chunk starts at an odd step, an up-leg's at even");
+static_assert(C_PS <= UP_THREADS, "one thread a coarse window cell");
+static_assert(CT * CT <= DOWN_THREADS, "one thread a coarse tile point");
 
 struct Leg3 {
   // 7-point stencil: center, then the neighbours -x, +x, -y, +y, -z, +z
@@ -87,220 +146,498 @@ struct Leg3 {
   int chunk;                    // axis-0 planes per block (even)
 };
 
+// 4 bytes from src to shared dst without waiting; zeros when !in (src is
+// then not read).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Ring slots: the slot of plane s advances by one a step.
+template <int R>
+__device__ __forceinline__ int next_slot(int slot) {
+  return slot + 1 == R ? 0 : slot + 1;
+}
+
+// The slot d planes before (d > 0) or after (d < 0) the plane in `slot`.
+template <int R>
+__device__ __forceinline__ int slot_back(int slot, int d) {
+  const int k = slot - d;
+  return k < 0 ? k + R : (k >= R ? k - R : k);
+}
+
+// Compile-time arguments of the step lambdas, and the pick of one of two
+// objects by a compile-time flag.
+template <bool V>
+struct Bool {
+  static constexpr bool value = V;
+};
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
+
+template <bool F, class A>
+__device__ __forceinline__ A& pick(A& a, A& b) {
+  if constexpr (F) return a;
+  else return b;
+}
+
+// A cell's in-plane neighbours and its value of b.
+struct Around {
+  float ym, yp, zm, zp, b;
+};
+
+// The in-plane neighbours of thread t's even (EVEN) or odd cell in the
+// split window plane pu (rows of W cells, HALF even cells first), which
+// are all of the other parity, and b's value at the cell in plane pb.
+template <bool EVEN, int W, int HALF>
+__device__ __forceinline__ Around around(const float* pu, const float* pb,
+                                         int t) {
+  if constexpr (EVEN) {
+    const float* q = pu + HALF + t;          // cell 2t+1
+    return {q[-(W + 1) / 2], q[(W - 1) / 2], q[-1], q[0], pb[t]};
+  } else {
+    const float* q = pu + t;                 // cell 2t
+    return {q[-(W - 1) / 2], q[(W + 1) / 2], q[0], q[1], pb[HALF + t]};
+  }
+}
+
+// One cell's damped update in the TPU kernel's premultiplied form,
+//   v + om * (dinv * b - v - off),
+//   off = ((((dxm*lo + dxp*hi) + dym*ym) + dyp*yp) + dzm*zm) + dzp*zp,
+// with lo, v, hi the cell's axis-0 column and ym .. zp its in-plane
+// neighbours.
+__device__ __forceinline__ float relax(float lo, float v, float hi,
+                                       const Around& n, float om,
+                                       const Leg3& p) {
+  float off = p.dxm * lo;
+  off += p.dxp * hi;
+  off += p.dym * n.ym;
+  off += p.dyp * n.yp;
+  off += p.dzm * n.zm;
+  off += p.dzp * n.zp;
+  return v + om * (p.dinv * n.b - v - off);
+}
+
+// A window cell a thread owns: its offset g in a grid plane, an extra
+// index (the down-leg's residual cell, the up-leg's coarse window cell),
+// and packed: its distance to the window edge (bits 0-3, capped at 15),
+// whether it lies in the grid (bit 5), in the window (bit 6), in the tile
+// (bit 7) and in the tile and one more row and column (bit 8), and whether
+// its axis-1 and axis-2 indices are even (bits 9, 10).
+struct Cell {
+  int g, aux, meta;
+  __device__ int dist() const { return meta & 15; }
+  __device__ bool grid() const { return meta & 32; }
+  __device__ bool own() const { return meta & 64; }
+  __device__ bool tile() const { return meta & 128; }
+  __device__ bool tile1() const { return meta & 256; }
+  __device__ bool even_y() const { return meta & 512; }
+  __device__ bool even_x() const { return meta & 1024; }
+};
+
+// Window cell w of a W x W window at (y0, x0) whose tile starts LO cells
+// in; the up-leg's (!DOWN) coarse window starts at (cy0, cx0).
+template <int W, int LO, bool DOWN>
+__device__ __forceinline__ Cell make_cell(int w, int y0, int x0, int cy0,
+                                          int cx0, const Leg3& p) {
+  const int wy = w / W, wx = w - wy * W;
+  const int gy = y0 + wy, gx = x0 + wx;
+  const int ty = wy - LO, tx = wx - LO;
+  const bool own = w < W * W;
+  const bool grid = own && gy >= 0 && gy < p.n1 && gx >= 0 && gx < p.n2;
+  const bool tile = grid && ty >= 0 && ty < T && tx >= 0 && tx < T;
+  const bool tile1 = grid && ty >= 0 && ty <= T && tx >= 0 && tx <= T;
+  const int dist =
+      own ? min(min(min(wy, W - 1 - wy), min(wx, W - 1 - wx)), 15) : 0;
+  const int aux = DOWN ? ty * RW + tx
+                      : (((gy - 1) >> 1) - cy0) * CW + ((gx - 1) >> 1) - cx0;
+  return {gy * p.n2 + gx, aux,
+          dist | grid << 5 | own << 6 | tile << 7 | tile1 << 8 |
+              !(gy & 1) << 9 | !(gx & 1) << 10};
+}
+
+// Start the copies of plane pl's window of u and b (split planes of HALF
+// even cells, then the odd ones) into du and db: thread t's cells 2t and
+// 2t+1, zero outside the grid and outside [pa, pb].
+template <int HALF>
+__device__ __forceinline__ void fetch_plane(const Cell& ce, const Cell& co,
+                                            const float* __restrict__ u,
+                                            const float* __restrict__ b,
+                                            float* du, float* db, int pl,
+                                            int pa, int pb, long plane) {
+  const int t = threadIdx.x;
+  const bool plane_in = pl >= pa && pl <= pb;
+  const long base = plane_in ? pl * plane : 0;
+  bool in = plane_in && ce.grid();
+  long g = in ? base + ce.g : 0;
+  copy_async(du + t, u + g, in);
+  copy_async(db + t, b + g, in);
+  if (co.own()) {
+    in = plane_in && co.grid();
+    g = in ? base + co.g : 0;
+    copy_async(du + HALF + t, u + g, in);
+    copy_async(db + HALF + t, b + g, in);
+  }
+  copy_commit();
+}
+
+// After the second step of a pair, a column's planes move down two slots.
+template <int N>
+__device__ __forceinline__ void shift2(float (&c)[N]) {
+#pragma unroll
+  for (int j = 0; j + 2 < N; ++j) c[j] = c[j + 2];
+}
+
 __global__ void __launch_bounds__(DOWN_THREADS, DOWN_BLOCKS_PER_SM)
 downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
                  const float* __restrict__ omegas, float* __restrict__ u_out,
                  float* __restrict__ rc, Leg3 p) {
-  constexpr int PLANE = DW1 * DW2;
-  constexpr int RPLANE = RT1 * RT2;
   extern __shared__ float smem[];
-  float* su = smem;                          // D_URING u planes
-  float* sb = su + D_URING * PLANE;          // D_BRING b planes
-  float* sr = sb + D_BRING * PLANE;          // D_RRING residual planes
-  const int y0 = blockIdx.y * T1 - DH, x0 = blockIdx.x * T2 - DH;
+  float* su = smem;                          // D_RING u planes
+  float* sb = su + D_RING * D_PS;            // D_RING b planes
+  float* sa = sb + D_RING * D_PS;            // 2 axis-0 passes, slot c & 1
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * T - D_LO, x0 = blockIdx.x * T - D_LO;
   const int z0 = blockIdx.z * p.chunk;
   const int z1 = min(z0 + p.chunk, p.n0);    // planes [z0, z1) are stored
   const int qmax = min(z0 + p.chunk, p.n0 - 1);  // last residual plane
-  const int L0 = z0 - D_LAG;
-  const int nc0 = (p.n0 - 1) / 2, nc1 = (p.n1 - 1) / 2, nc2 = (p.n2 - 1) / 2;
-  const float om[2] = {omegas[p.om0], omegas[p.om1]};
+  const int L0 = z0 - D_WARM, last = qmax + 4 * LAG + 1;
+  // planes [pa, pb] are loaded and updated; the others read as zero
+  const int pa = max(L0, 0), pb = min(qmax + D_WARM, p.n0 - 1);
+  const int nc1 = (p.n1 - 1) / 2, nc2 = (p.n2 - 1) / 2;
+  const long plane = static_cast<long>(p.n1) * p.n2;
+  const float om1 = omegas[p.om0], om2 = omegas[p.om1];
+  const Cell ce = make_cell<DW, D_LO, true>(2 * t, y0, x0, 0, 0, p);
+  const Cell co = make_cell<DW, D_LO, true>(2 * t + 1, y0, x0, 0, 0, p);
+  // u's axis-0 column of each cell; at the first step of a pair (B = 0)
+  // col[9 - k] holds plane s-k, at the second (B = 1) col[10 - k]
+  float cole[D_COL], colo[D_COL];
+#pragma unroll
+  for (int j = 0; j < D_COL; ++j) cole[j] = colo[j] = 0.f;
+  // planes L0 .. L0 + AHEAD - 1 in flight before the first step
+#pragma unroll
+  for (int a = 0; a < AHEAD; ++a)
+    fetch_plane<D_HALF>(ce, co, u, b, su + a * D_PS, sb + a * D_PS, L0 + a,
+                        pa, pb, plane);
+  copy_wait<AHEAD - 1>();
+  __syncthreads();
 
-  // planes before L0 are never loaded and read as zero
-  for (int i = threadIdx.x; i < D_URING * PLANE; i += blockDim.x) su[i] = 0.f;
-
-  auto uplane = [&](int pl) { return su + ring(pl, L0, D_URING) * PLANE; };
-  auto bplane = [&](int pl) { return sb + ring(pl, L0, D_BRING) * PLANE; };
-  auto rplane = [&](int q) { return sr + ring(q, z0, D_RRING) * RPLANE; };
-
-  for (int L = L0; L <= qmax + D_LAG; ++L) {
-    __syncthreads();
-    load_plane<DW1, DW2>(u, b, uplane(L), bplane(L), p, L, y0, x0);
-    // stage k (1..4) sweeps plane L - k: red, black with omega_1, then
-    // red, black with omega_2
-    for (int k = 1; k <= 4; ++k) {
-      __syncthreads();
-      const int pl = L - k;
-      if (pl < L0 || pl < 0 || pl >= p.n0) continue;
-      half_sweep<DW1, DW2>(uplane(pl), uplane(pl - 1), uplane(pl + 1),
-                           bplane(pl), p, om[(k - 1) / 2], pl, y0, x0,
-                           k & 1);
-    }
-    __syncthreads();
-    const int pf = L - 4;                    // final u
-    if (pf >= z0 && pf < z1)
-      store_plane<T1, T2, DW2, DH>(uplane(pf), u_out, p, pf, y0, x0);
-
-    // residual of plane q on the tile and one more row and column (the
-    // restriction reads fine index 2i+2 past the tile)
-    const int q = L - D_LAG;
-    if (q < z0 || q > qmax) continue;
+  int slot = 0;                              // ring slot of plane s
+  // step s; SE: s is even; col[B + 9 - k] holds plane s-k
+  auto step = [&](auto se_, auto b_, int s) {
+    constexpr bool SE = decltype(se_)::value;
+    constexpr int B = decltype(b_)::value;
     {
-      const float* cur = uplane(q);
-      const float* lo = uplane(q - 1);
-      const float* hi = uplane(q + 1);
-      const float* bb = bplane(q);
-      float* r = rplane(q);
-      for (int idx = threadIdx.x; idx < RPLANE; idx += blockDim.x) {
-        const int i = idx / RT2, j = idx - i * RT2;
-        const int gy = y0 + DH + i, gx = x0 + DH + j;
-        const int w = (DH + i) * DW2 + DH + j;
-        float res = 0.f;
-        if (gy < p.n1 && gx < p.n2) {
-          float au = p.c * cur[w];
-          au += p.cxm * lo[w];
-          au += p.cxp * hi[w];
-          au += p.cym * cur[w - DW2];
-          au += p.cyp * cur[w + DW2];
-          au += p.czm * cur[w - 1];
-          au += p.czp * cur[w + 1];
-          res = bb[w] - au;
+      const int o = slot_back<D_RING>(slot, -AHEAD) * D_PS;
+      fetch_plane<D_HALF>(ce, co, u, b, su + o, sb + o, s + AHEAD, pa, pb,
+                          plane);
+    }
+    const int o0 = slot * D_PS, o1 = slot_back<D_RING>(slot, 1) * D_PS,
+              o3 = slot_back<D_RING>(slot, 3) * D_PS,
+              o5 = slot_back<D_RING>(slot, 5) * D_PS,
+              o7 = slot_back<D_RING>(slot, 7) * D_PS,
+              o8 = slot_back<D_RING>(slot, 8) * D_PS;
+    auto active = [&](int pl) { return pl >= pa && pl <= pb; };
+    // plane s has arrived
+    if (ce.grid()) cole[B + 9] = su[o0 + t];
+    if (co.grid()) colo[B + 9] = su[o0 + D_HALF + t];
+    // X takes the red stages (planes s-1, s-5; red cells have P + w odd),
+    // Y the black ones (s-3, s-7)
+    const Cell& X = pick<SE>(ce, co);
+    const Cell& Y = pick<SE>(co, ce);
+    auto& cx = pick<SE>(cole, colo);
+    auto& cy = pick<SE>(colo, cole);
+    const int ix = SE ? t : D_HALF + t, iy = SE ? D_HALF + t : t;
+    const bool x1 = X.grid() && active(s - 1) && X.dist() >= 1;
+    const bool x5 = X.grid() && active(s - 5) && X.dist() >= 3;
+    const bool y3 = Y.grid() && active(s - 3) && Y.dist() >= 2;
+    const bool y7 = Y.grid() && active(s - 7) && Y.dist() >= 4;
+    // the four half-sweeps touch four planes: each cell's reads first
+    Around n1{}, n5{}, n3{}, n7{};
+    if (x1) n1 = around<SE, DW, D_HALF>(su + o1, sb + o1, t);
+    if (x5) n5 = around<SE, DW, D_HALF>(su + o5, sb + o5, t);
+    if (x1) {
+      cx[B + 8] = relax(cx[B + 7], cx[B + 8], cx[B + 9], n1, om1, p);
+      su[o1 + ix] = cx[B + 8];
+    }
+    if (x5) {
+      cx[B + 4] = relax(cx[B + 3], cx[B + 4], cx[B + 5], n5, om2, p);
+      su[o5 + ix] = cx[B + 4];
+    }
+    if (y3) n3 = around<!SE, DW, D_HALF>(su + o3, sb + o3, t);
+    if (y7) n7 = around<!SE, DW, D_HALF>(su + o7, sb + o7, t);
+    if (y3) {
+      cy[B + 6] = relax(cy[B + 5], cy[B + 6], cy[B + 7], n3, om1, p);
+      su[o3 + iy] = cy[B + 6];
+    }
+    if (y7) {
+      cy[B + 2] = relax(cy[B + 1], cy[B + 2], cy[B + 3], n7, om2, p);
+      su[o7 + iy] = cy[B + 2];
+    }
+    // plane s-7 is final in both cells
+    if (s - 7 >= z0 && s - 7 < z1) {
+      float* out = u_out + (s - 7) * plane;
+      if (ce.tile()) out[ce.g] = cole[B + 2];
+      if (co.tile()) out[co.g] = colo[B + 2];
+    }
+    // residual of plane q = s-8 on the tile and one more row and column,
+    // summed into the restriction's axis-0 pass: per fine cell, coarse
+    // plane c is (t0[0] r(2c) + t0[1] r(2c+1)) + t0[2] r(2c+2)
+    // (wavefront3d.py:164-197); q and s have one parity
+    const int q = s - 8;
+    if (q >= z0 && q <= qmax) {
+      auto residual = [&](const float* c, const Around& n) {
+        float au = p.c * c[B + 1];
+        au += p.cxm * c[B + 0];
+        au += p.cxp * c[B + 2];
+        au += p.cym * n.ym;
+        au += p.cyp * n.yp;
+        au += p.czm * n.zm;
+        au += p.czp * n.zp;
+        return n.b - au;
+      };
+      float* acur = sa + ((SE ? q / 2 - 1 : (q - 1) / 2) & 1) * R_PS;
+      float* anew = sa + ((q / 2) & 1) * R_PS;
+      const bool fin = q >= z0 + 2, start = q <= qmax - 2;
+      auto add = [&](const Cell& c, float r) {
+        if constexpr (SE) {
+          if (fin) acur[c.aux] += p.t0[2] * r;
+          if (start) anew[c.aux] = p.t0[0] * r;
+        } else {
+          acur[c.aux] += p.t0[1] * r;
         }
-        r[idx] = res;
+      };
+      if (ce.tile1())
+        add(ce, residual(cole, around<true, DW, D_HALF>(su + o8, sb + o8, t)));
+      if (co.tile1())
+        add(co,
+            residual(colo, around<false, DW, D_HALF>(su + o8, sb + o8, t)));
+    }
+    // coarse plane c = qr/2 - 1 was finished at the last step (qr = 2c+2):
+    // its axis-1 pass, then its axis-2 pass
+    if constexpr (!SE) {
+      const int qr = q - 1;
+      constexpr int first = DOWN_THREADS - CT * CT;
+      if (qr >= z0 + 2 && qr <= qmax && t >= first) {
+        const int idx = t - first;
+        const int i = idx / CT, j = idx - i * CT;
+        const int ci = blockIdx.y * CT + i, cj = blockIdx.x * CT + j;
+        if (ci < nc1 && cj < nc2) {
+          const float* a0 = sa + ((qr / 2 - 1) & 1) * R_PS;
+          float acc = 0.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            float rows = 0.f;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+              rows += p.t1[a] * a0[(2 * i + a) * RW + 2 * j + d];
+            acc += p.t2[d] * rows;
+          }
+          rc[(static_cast<long>(qr / 2 - 1) * nc1 + ci) * nc2 + cj] = acc;
+        }
       }
     }
-    // coarse plane c reads fine planes 2c, 2c+1, 2c+2: axis 0 first, then
-    // axis 1, then axis 2 (wavefront3d.py:164-197)
-    if ((q & 1) || q < z0 + 2) continue;
-    const int c = q / 2 - 1;
-    if (c >= nc0) continue;
+    // plane s+1 is in; plane s+AHEAD may still be in flight
+    copy_wait<AHEAD - 1>();
     __syncthreads();
-    const float* r0 = rplane(q - 2);
-    const float* r1 = rplane(q - 1);
-    const float* r2 = rplane(q);
-    constexpr int CT1 = T1 / 2, CT2 = T2 / 2;
-    for (int idx = threadIdx.x; idx < CT1 * CT2; idx += blockDim.x) {
-      const int i = idx / CT2, j = idx - i * CT2;
-      const int ci = blockIdx.y * CT1 + i, cj = blockIdx.x * CT2 + j;
-      if (ci >= nc1 || cj >= nc2) continue;
-      float acc = 0.f;
-      for (int d = 0; d < 3; ++d) {
-        float rows = 0.f;
-        for (int a = 0; a < 3; ++a) {
-          const int k = (2 * i + a) * RT2 + 2 * j + d;
-          float planes = p.t0[0] * r0[k];
-          planes += p.t0[1] * r1[k];
-          planes += p.t0[2] * r2[k];
-          rows += p.t1[a] * planes;
-        }
-        acc += p.t2[d] * rows;
-      }
-      rc[(static_cast<long>(c) * nc1 + ci) * nc2 + cj] = acc;
-    }
+    slot = next_slot<D_RING>(slot);
+  };
+  // L0 is odd: steps come in pairs (odd, even)
+  for (int s = L0;; s += 2) {
+    step(Bool<false>{}, Int<0>{}, s);
+    if (s + 1 > last) break;
+    step(Bool<true>{}, Int<1>{}, s + 1);
+    if (s + 2 > last) break;
+    shift2(cole);
+    shift2(colo);
   }
+  copy_wait<0>();
 }
 
-// Prolongation weights along one axis: fine interior index g takes
-// t[1] * e[(g-1)/2] when odd, t[2] * e[g/2-1] + t[0] * e[g/2] when even
-// (transfer.py:896-903).  Returns the count of coarse indices.
-__device__ __forceinline__ int prolong_taps(int g, const float* t, int* ci,
-                                            float* w) {
-  if (g & 1) {
-    ci[0] = (g - 1) / 2;
-    w[0] = t[1];
-    return 1;
-  }
-  ci[0] = g / 2 - 1;
-  w[0] = t[2];
-  ci[1] = g / 2;
-  w[1] = t[0];
-  return 2;
+// Prolongation along one axis: fine interior index g reads coarse index
+// c = floor((g-1)/2) with weight t[1] when g is odd, t[2] when even, and
+// when even also c+1 with weight t[0] (transfer.py:896-903).
+struct Taps {
+  int c;
+  float w0, w1;
+  bool two;
+};
+
+__device__ __forceinline__ Taps taps_of(int g, const float* t) {
+  Taps k;
+  k.two = !(g & 1);
+  k.c = (g - 1) >> 1;
+  k.w0 = k.two ? t[2] : t[1];
+  k.w1 = t[0];
+  return k;
 }
 
 __global__ void __launch_bounds__(UP_THREADS, UP_BLOCKS_PER_SM)
 upleg3d_kernel(const float* __restrict__ u, const float* __restrict__ e,
                const float* __restrict__ b, const float* __restrict__ omegas,
                float* __restrict__ u_out, Leg3 p) {
-  constexpr int PLANE = UW1 * UW2;
-  constexpr int CPLANE = CW1 * CW2;
   extern __shared__ float smem[];
-  float* su = smem;                          // U_URING u planes
-  float* sb = su + U_URING * PLANE;          // U_BRING b planes
-  float* se = sb + U_BRING * PLANE;          // 2 coarse planes, slot c & 1
-  const int y0 = blockIdx.y * T1 - UH, x0 = blockIdx.x * T2 - UH;
+  float* su = smem;                          // U_RING u planes
+  float* sb = su + U_RING * U_PS;            // U_RING b planes
+  float* se = sb + U_RING * U_PS;            // C_RING coarse planes
+  float* si = se + C_RING * C_PS;            // 2 axis-0 passes, slot F & 1
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * T - U_LO, x0 = blockIdx.x * T - U_LO;
   // y0 and x0 are even: coarse index y0/2 - 1 feeds the window's first
   // (even) fine index through its t[2] tap
   const int cy0 = y0 / 2 - 1, cx0 = x0 / 2 - 1;
   const int z0 = blockIdx.z * p.chunk;
   const int z1 = min(z0 + p.chunk, p.n0);
-  const int L0 = z0 - U_LAG;
-  const int nc0 = (p.n0 - 1) / 2, nc1 = (p.n1 - 1) / 2, nc2 = (p.n2 - 1) / 2;
+  const int L0 = z0 - U_WARM, last = z1 - 1 + 2 * LAG - 1;
+  const int pa = max(L0, 0), pb = min(z1 - 1 + U_WARM, p.n0 - 1);
+  const long plane = static_cast<long>(p.n1) * p.n2;
   const float om_c = omegas[p.om0], om_s = omegas[p.om1];
+  const Cell ce = make_cell<UW, U_LO, false>(2 * t, y0, x0, cy0, cx0, p);
+  const Cell co = make_cell<UW, U_LO, false>(2 * t + 1, y0, x0, cy0, cx0, p);
 
-  for (int i = threadIdx.x; i < U_URING * PLANE; i += blockDim.x) su[i] = 0.f;
-
-  auto uplane = [&](int pl) { return su + ring(pl, L0, U_URING) * PLANE; };
-  auto bplane = [&](int pl) { return sb + ring(pl, L0, U_BRING) * PLANE; };
-  auto load_coarse = [&](int c) {
-    float* dst = se + (c & 1) * CPLANE;
-    const bool plane_in = c >= 0 && c < nc0;
-    for (int idx = threadIdx.x; idx < CPLANE; idx += blockDim.x) {
-      const int i = idx / CW2, j = idx - i * CW2;
-      const int ci = cy0 + i, cj = cx0 + j;
-      const bool in = plane_in && ci >= 0 && ci < nc1 && cj >= 0 && cj < nc2;
-      dst[idx] = in ? e[(static_cast<long>(c) * nc1 + ci) * nc2 + cj] : 0.f;
-    }
+  // start the copy of this thread's cell of coarse plane c of e's window
+  // into slot c & 3, zero outside e; it joins the next fine plane's group
+  auto fetch_coarse = [&](int c) {
+    if (t >= C_PS) return;
+    const int nc0 = (p.n0 - 1) / 2, nc1 = (p.n1 - 1) / 2,
+              nc2 = (p.n2 - 1) / 2;
+    const int i = t / CW, j = t - i * CW;
+    const int ci = cy0 + i, cj = cx0 + j;
+    const bool in = c >= 0 && c < nc0 && ci >= 0 && ci < nc1 && cj >= 0 &&
+                    cj < nc2;
+    const long g = in ? (static_cast<long>(c) * nc1 + ci) * nc2 + cj : 0;
+    copy_async(se + (c & (C_RING - 1)) * C_PS + t, e + g, in);
+  };
+  // the axis-0 pass of the prolongation for fine plane F over e's window
+  // (this thread's cell): the prolongation's first pass, which the
+  // fine cells' axis-1 and axis-2 passes read
+  auto inner = [&](int F) {
+    if (t >= C_PS) return;
+    const Taps k = taps_of(F, p.t0);
+    float acc = 0.f;
+    acc += k.w0 * se[(k.c & (C_RING - 1)) * C_PS + t];
+    if (k.two) acc += k.w1 * se[((k.c + 1) & (C_RING - 1)) * C_PS + t];
+    si[(F & 1) * C_PS + t] = acc;
   };
 
-  for (int L = L0; L <= z1 - 1 + U_LAG; ++L) {
-    __syncthreads();
-    // fine plane L reads coarse planes L/2 - 1 and L/2 (L even) or
-    // (L-1)/2 (L odd); L0 is even
-    if (L == L0) load_coarse(L / 2 - 1);
-    if (!(L & 1)) load_coarse(L / 2);
-    __syncthreads();
-
-    // load plane L and add omega_c * P(e): axis 0 first, then axis 1,
-    // then axis 2 (wavefront3d.py:321-343)
-    {
-      float* du = uplane(L);
-      float* db = bplane(L);
-      const bool plane_in = L >= 0 && L < p.n0;
-      int cp[2], cr[2], cc[2];
-      float wp[2], wr[2], wc[2];
-      const int np_ = prolong_taps(L, p.t0, cp, wp);
-      for (int idx = threadIdx.x; idx < PLANE; idx += blockDim.x) {
-        const int wy = idx / UW2, wx = idx - wy * UW2;
-        const int gy = y0 + wy, gx = x0 + wx;
-        const bool in =
-            plane_in && gy >= 0 && gy < p.n1 && gx >= 0 && gx < p.n2;
-        float v = 0.f, bv = 0.f;
-        if (in) {
-          const long g = (static_cast<long>(L) * p.n1 + gy) * p.n2 + gx;
-          v = u[g];
-          bv = b[g];
-          const int nr = prolong_taps(gy, p.t1, cr, wr);
-          const int nc = prolong_taps(gx, p.t2, cc, wc);
-          float corr = 0.f;
-          for (int m = 0; m < nc; ++m) {
-            float mid = 0.f;
-            for (int l = 0; l < nr; ++l) {
-              float inner = 0.f;
-              for (int k = 0; k < np_; ++k)
-                inner += wp[k] * se[(cp[k] & 1) * CPLANE +
-                                    (cr[l] - cy0) * CW2 + cc[m] - cx0];
-              mid += wr[l] * inner;
-            }
-            corr += wc[m] * mid;
-          }
-          v += om_c * corr;
-        }
-        du[idx] = v;
-        db[idx] = bv;
-      }
-    }
-    // red on plane L-1, black on plane L-2
-    for (int k = 1; k <= 2; ++k) {
-      __syncthreads();
-      const int pl = L - k;
-      if (pl < L0 || pl < 0 || pl >= p.n0) continue;
-      half_sweep<UW1, UW2>(uplane(pl), uplane(pl - 1), uplane(pl + 1),
-                           bplane(pl), p, om_s, pl, y0, x0, k & 1);
-    }
-    __syncthreads();
-    const int pf = L - 2;
-    if (pf >= z0 && pf < z1)
-      store_plane<T1, T2, UW2, UH>(uplane(pf), u_out, p, pf, y0, x0);
+  // u's axis-0 column of each cell; at the first step of a pair (B = 0)
+  // col[4 - k] holds plane s-k, at the second (B = 1) col[5 - k]
+  float cole[U_COL], colo[U_COL];
+#pragma unroll
+  for (int j = 0; j < U_COL; ++j) cole[j] = colo[j] = 0.f;
+  // fine plane F reads coarse planes F/2 - 1 and F/2 (F even) or (F-1)/2
+  // (F odd); coarse plane c travels with fine plane 2c - 1, and the axis-0
+  // pass of plane F is formed a step before F arrives.  L0 is even.
+  fetch_coarse(L0 / 2 - 1);
+  fetch_coarse(L0 / 2);
+#pragma unroll
+  for (int a = 0; a < AHEAD; ++a) {
+    if ((L0 + a) & 1) fetch_coarse((L0 + a + 1) / 2);
+    fetch_plane<U_HALF>(ce, co, u, b, su + a * U_PS, sb + a * U_PS, L0 + a,
+                        pa, pb, plane);
   }
+  copy_wait<AHEAD - 1>();
+  __syncthreads();
+  inner(L0);
+  __syncthreads();
+
+  int slot = 0;                              // ring slot of plane s
+  auto step = [&](auto se_, auto b_, int s) {
+    constexpr bool SE = decltype(se_)::value;
+    constexpr int B = decltype(b_)::value;
+    {
+      const int o = slot_back<U_RING>(slot, -AHEAD) * U_PS;
+      if ((s + AHEAD) & 1) fetch_coarse((s + AHEAD + 1) / 2);
+      fetch_plane<U_HALF>(ce, co, u, b, su + o, sb + o, s + AHEAD, pa, pb,
+                          plane);
+    }
+    const int o0 = slot * U_PS, o1 = slot_back<U_RING>(slot, 1) * U_PS,
+              o3 = slot_back<U_RING>(slot, 3) * U_PS;
+    auto active = [&](int pl) { return pl >= pa && pl <= pb; };
+    // X takes the red stage (plane s-1), Y the black one (s-3)
+    const Cell& X = pick<SE>(ce, co);
+    const Cell& Y = pick<SE>(co, ce);
+    auto& cx = pick<SE>(cole, colo);
+    auto& cy = pick<SE>(colo, cole);
+    const int ix = SE ? t : U_HALF + t, iy = SE ? U_HALF + t : t;
+    const bool x1 = X.grid() && active(s - 1) && X.dist() >= 1;
+    const bool y3 = Y.grid() && active(s - 3) && Y.dist() >= 2;
+    Around n1{}, n3{};
+    if (x1) n1 = around<SE, UW, U_HALF>(su + o1, sb + o1, t);
+    if (y3) n3 = around<!SE, UW, U_HALF>(su + o3, sb + o3, t);
+    // plane s has arrived: add omega_c * P(e), its axis-1 pass, then its
+    // axis-2 pass over the axis-0 pass formed at the last step
+    // (wavefront3d.py:321-343)
+    const bool a0 = active(s);
+    const float* pi = si + (s & 1) * C_PS;
+    auto correct = [&](const Cell& c, int i, float* col) {
+      float v = su[o0 + i];
+      if (a0 && c.grid()) {
+        const bool ty2 = c.even_y(), tx2 = c.even_x();
+        const float wy0 = ty2 ? p.t1[2] : p.t1[1];
+        const float wx0 = tx2 ? p.t2[2] : p.t2[1];
+        const int m = c.aux;
+        auto mid = [&](int k) {
+          float acc = 0.f;
+          acc += wy0 * pi[k];
+          if (ty2) acc += p.t1[0] * pi[k + CW];
+          return acc;
+        };
+        float corr = 0.f;
+        corr += wx0 * mid(m);
+        if (tx2) corr += p.t2[0] * mid(m + 1);
+        v += om_c * corr;
+        su[o0 + i] = v;
+      }
+      col[B + 4] = v;
+    };
+    correct(ce, t, cole);
+    if (co.own()) correct(co, U_HALF + t, colo);
+    // red on s-1 (distance >= 1) or black on s-3 (>= 2); either is the
+    // cell's last update on that plane
+    if (x1) {
+      cx[B + 3] = relax(cx[B + 2], cx[B + 3], cx[B + 4], n1, om_s, p);
+      su[o1 + ix] = cx[B + 3];
+      if (X.tile() && s - 1 >= z0 && s - 1 < z1)
+        u_out[(s - 1) * plane + X.g] = cx[B + 3];
+    }
+    if (y3) {
+      cy[B + 1] = relax(cy[B + 0], cy[B + 1], cy[B + 2], n3, om_s, p);
+      su[o3 + iy] = cy[B + 1];
+      if (Y.tile() && s - 3 >= z0 && s - 3 < z1)
+        u_out[(s - 3) * plane + Y.g] = cy[B + 1];
+    }
+    // the axis-0 pass of plane s+1: its coarse planes are in
+    inner(s + 1);
+    copy_wait<AHEAD - 1>();
+    __syncthreads();
+    slot = next_slot<U_RING>(slot);
+  };
+  // L0 is even: steps come in pairs (even, odd)
+  for (int s = L0;; s += 2) {
+    step(Bool<true>{}, Int<0>{}, s);
+    if (s + 1 > last) break;
+    step(Bool<false>{}, Int<1>{}, s + 1);
+    if (s + 2 > last) break;
+    shift2(cole);
+    shift2(colo);
+  }
+  copy_wait<0>();
 }
 
 Leg3 make_leg(const double* coeffs, const int* om_ids, int n0, int n1,
@@ -336,17 +673,18 @@ Leg3 make_leg(const double* coeffs, const int* om_ids, int n0, int n1,
 
 // Blocks over (axis 2, axis 1) tiles and axis-0 chunks: as many even-sized
 // chunks as fill about one wave of `per_sm` resident blocks on every SM,
-// but no chunk under 8 planes.
+// but no chunk under MIN_CHUNK planes (ops/kernels/wavefront3d.py
+// chunk_planes mirrors this rule).
 dim3 blocks_for(Leg3& p, int per_sm, cudaError_t* err) {
   int device = 0, sms = 0;
   *err = cudaGetDevice(&device);
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   device);
-  const int tiles1 = (p.n1 + T1 - 1) / T1, tiles2 = (p.n2 + T2 - 1) / T2;
+  const int tiles1 = (p.n1 + T - 1) / T, tiles2 = (p.n2 + T - 1) / T;
   int chunks = (sms * per_sm) / (tiles1 * tiles2);
   chunks = chunks < 1 ? 1 : chunks;
-  const int max_chunks = (p.n0 + 7) / 8;
+  const int max_chunks = (p.n0 + MIN_CHUNK - 1) / MIN_CHUNK;
   chunks = chunks > max_chunks ? max_chunks : chunks;
   int chunk = (p.n0 + chunks - 1) / chunks;
   chunk += chunk & 1;
@@ -356,6 +694,12 @@ dim3 blocks_for(Leg3& p, int per_sm, cudaError_t* err) {
 
 bool bad_shape(int n0, int n1, int n2) {
   return n0 < 3 || n1 < 3 || n2 < 3 || !(n0 & 1) || !(n1 & 1) || !(n2 & 1);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -369,9 +713,7 @@ extern "C" int es_downleg_wavefront_3d(const float* u, const float* b,
                                        float* rc, int n0, int n1, int n2,
                                        void* stream) {
   if (bad_shape(n0, n1, n2)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      downleg3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      DOWN_SMEM);
+  cudaError_t err = allow_smem(downleg3d_kernel, DOWN_SMEM);
   if (err != cudaSuccess) return err;
   Leg3 p = make_leg(coeffs, om_ids, n0, n1, n2);
   const dim3 grid = blocks_for(p, DOWN_BLOCKS_PER_SM, &err);
@@ -389,8 +731,7 @@ extern "C" int es_upleg_wavefront_3d(const float* u, const float* e,
                                      float* u_out, int n0, int n1, int n2,
                                      void* stream) {
   if (bad_shape(n0, n1, n2)) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      upleg3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, UP_SMEM);
+  cudaError_t err = allow_smem(upleg3d_kernel, UP_SMEM);
   if (err != cudaSuccess) return err;
   Leg3 p = make_leg(coeffs, om_ids, n0, n1, n2);
   const dim3 grid = blocks_for(p, UP_BLOCKS_PER_SM, &err);
@@ -399,4 +740,39 @@ extern "C" int es_upleg_wavefront_3d(const float* u, const float* e,
                    static_cast<cudaStream_t>(stream)>>>(u, e, b, omegas,
                                                         u_out, p);
   return cudaGetLastError();
+}
+
+// What the card makes of a leg (down != 0: the down-leg): info receives
+// the tile edge, the window cells before and after the tile, the axis-0
+// warm-up, the lag per stage, the fewest planes a chunk holds, threads
+// per block, resident blocks per SM, registers and local memory (spills)
+// per thread, and dynamic shared memory per block.
+extern "C" int es_wavefront_3d_info(int down, int* info) {
+  const void* kernel = down ? reinterpret_cast<const void*>(downleg3d_kernel)
+                            : reinterpret_cast<const void*>(upleg3d_kernel);
+  const int threads = down ? DOWN_THREADS : UP_THREADS;
+  const int smem = down ? DOWN_SMEM : UP_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  const int values[] = {T,
+                        down ? D_LO : U_LO,
+                        down ? D_HI : U_HI,
+                        down ? D_WARM : U_WARM,
+                        LAG,
+                        MIN_CHUNK,
+                        threads,
+                        blocks,
+                        attr.numRegs,
+                        static_cast<int>(attr.localSizeBytes),
+                        smem};
+  for (int k = 0; k < 11; ++k) info[k] = values[k];
+  return cudaSuccess;
 }

@@ -88,6 +88,8 @@ SIGNATURES = {
     # u, e, b, omegas, omega ids, coefficients, u_out, n0, n1, n2, stream
     "es_upleg_wavefront_3d":
         (_P, _P, _P, _P, _INTS, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # down, info (11 ints out); no stream
+    "es_wavefront_3d_info": (_INT, _INTS),
     # u, b, omegas, omega id, red-black, stencil values, out, n0, n1, n2,
     # stream
     "es_sweep3d":

@@ -42,6 +42,27 @@ MIN_PLANES = 8
 MIN_LANES = 63
 MAX_PLANE = 131_072
 
+#: The kernels' block schedule (csrc/wavefront3d.cu states the same
+#: constants; es_wavefront_3d_info reports them from the card, and
+#: tests/test_torch_wavefront_tiles.py emulates the schedule with them).
+#: A block owns a TILE x TILE tile of the (axis-1, axis-2) plane and a
+#: window HALO = (before, after) cells wider on both in-plane axes, and
+#: walks a chunk of axis 0 with WARMUP planes loaded before its first plane
+#: and after its last needed one; the planes beyond read as zero.  At step
+#: s plane s arrives and half-sweep k (1-based) runs on plane
+#: s - 1 - LAG * (k - 1), on the window cells at a distance >= k from the
+#: window edge.
+TILE = 32
+LAG = 2
+HALO = {"down": (5, 6), "up": (2, 3)}
+#: the halo the schedule needs; the up-leg's window has one cell more after
+#: the tile, so that its rows are odd (the kernel's colour rule)
+HALO_NEEDED = {"down": (5, 6), "up": (2, 2)}
+WARMUP = {"down": 5, "up": 2}
+BLOCKS_PER_SM = {"down": 1, "up": 1}
+THREADS = {"down": 925, "up": 685}
+MIN_CHUNK = 8
+
 #: kernel launches per leg since the last reset_launches()
 launches = {"downleg_wavefront_3d": 0, "upleg_wavefront_3d": 0}
 
@@ -65,6 +86,36 @@ def supports(u: torch.Tensor) -> bool:
     if n0 < MIN_PLANES or n2 < MIN_LANES or n1 * n2 > MAX_PLANE:
         return False
     return u.device.type == "cpu" or u.dtype == torch.float32
+
+
+def chunk_planes(n0: int, n1: int, n2: int, leg: str, sms: int) -> int:
+    """Axis-0 planes per block of ``leg`` on an (n0, n1, n2) grid and a
+    card of ``sms`` SMs (csrc/wavefront3d.cu ``blocks_for``): as many
+    even-sized chunks as fill about one wave of BLOCKS_PER_SM[leg]
+    resident blocks on every SM, but no chunk under MIN_CHUNK planes."""
+    tiles = -(-n1 // TILE) * -(-n2 // TILE)
+    chunks = max(1, sms * BLOCKS_PER_SM[leg] // tiles)
+    chunks = min(chunks, -(-n0 // MIN_CHUNK))
+    chunk = -(-n0 // chunks)
+    return chunk + (chunk & 1)
+
+
+def leg_info(leg: str) -> dict:
+    """What the card makes of a leg kernel (``leg`` "down" or "up"): its
+    tile, halo before and after the tile, warm-up, lag, fewest planes a
+    chunk holds, threads per block, resident blocks per SM, registers and
+    local memory (spills) per thread, and dynamic shared memory per
+    block.  Needs the card."""
+    if leg not in HALO:
+        raise ValueError(f"no 3D leg {leg!r}")
+    info = (ctypes.c_int * 11)()
+    err = _build.load_library().es_wavefront_3d_info(int(leg == "down"),
+                                                     info)
+    if err != 0:
+        raise RuntimeError(f"3D {leg}-leg info: CUDA error {err}")
+    return dict(zip(("tile", "halo_before", "halo_after", "warmup", "lag",
+                     "min_chunk", "threads", "blocks_per_sm", "registers",
+                     "local_bytes", "smem_bytes"), info))
 
 
 # ---------------------------------------------------------------------------
