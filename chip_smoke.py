@@ -5,9 +5,15 @@
 Phases:
 0. require a CUDA card; print its name and power limit;
 1. build the port's CUDA kernels from the sources in this checkout;
-2. compare each 2D leg kernel with its plain PyTorch version on the card,
-   at the 2D path's 4095^2 grid and a ragged 1023x2047 one, for 1..3
-   sweeps, and time both at 4095^2;
+2. check each 2D leg kernel's tile, halo, threads, blocks per SM and
+   spills (``transfer.leg_info``) against the wrapper module's constants
+   for every sweep count and window class; compare each leg with its plain
+   PyTorch version on the card, at the 2D path's 4095^2 grid, a ragged
+   1023x2047 one, the ragged 129x131 near the gate and the path's other
+   levels (2047^2 .. 255^2), for 1..3 sweeps, with the path's stencil and
+   taps and with an anisotropic stencil and asymmetric taps;
+   time both at every level of the path (4095^2 .. 255^2), with the
+   kernel's device time alone (queued behind a spin of the card) beside;
 3. [kernels3d] check each 3D leg kernel's block schedule, blocks per SM
    and spills (``wavefront3d.leg_info``) against the wrapper module's
    constants; compare each leg with its plain version at 255^3, at the
@@ -35,7 +41,8 @@ Phases:
    taps and with an anisotropic stencil and asymmetric taps: the legs for
    1..3 sweeps, the fused passes for every (post, pre) in {1, 2, 3}^2, a
    different omega for every sweep; time both at 4095^2 with the path's
-   sweeps (2 pre, 1 post; 3 in a pass);
+   sweeps (2 pre, 1 post; 3 in a pass), the kernel's device time alone
+   beside (``time_loop_kernels``);
 6b. [main-fused] drive phase 5's cell and protocol in three more
    configurations, the switches restored afterwards: (a) loop fusion on,
    fused column transfers; (b) loop fusion on, row-only legs; (c) loop
@@ -433,69 +440,136 @@ def leg_bound(shape, sweeps, leg):
     return bytes_bound(nbytes, flops)
 
 
+#: the 2D path's levels, where time_2d_legs times both legs
+LEVELS_2D = (4095, 2047, 1023, 511, 255)
+
+
+def time_2d_legs(torch, transfer, device, shape, stats=None):
+    """Both 2D legs of the V(2,1) (2 sweeps down, 1 up) at ``shape``:
+    kernel and plain in turns as the other kernels are timed (time_pair),
+    the numbers going to ``stats`` when it is given; the kernel's device
+    time alone (time_ms_queued, without the wrapper's host work that
+    time_pair counts) is logged beside them.  Uses only the wrappers'
+    public signatures, so it times an older tree's package as well."""
+    rng = np.random.default_rng(3)
+    n, m = shape
+    u, b, e = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device=device)
+               for s in (shape, shape, ((n - 1) // 2, (m - 1) // 2)))
+    omegas = torch.tensor([0.9, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    timed = {
+        "presmooth_residual_restrict": (
+            lambda: transfer.presmooth_residual_restrict(
+                u, b, omegas, [1, 2], VALS, R_TAPS),
+            lambda: transfer.presmooth_residual_restrict_plain(
+                u, b, omegas, [1, 2], VALS, R_TAPS),
+            leg_bound(shape, 2, "down")),
+        "prolong_correct_postsmooth_col": (
+            lambda: transfer.prolong_correct_postsmooth_col(
+                u, e, b, omegas, [0, 1], VALS, P_TAPS),
+            lambda: transfer.prolong_correct_postsmooth_col_plain(
+                u, e, b, omegas, [0, 1], VALS, P_TAPS),
+            leg_bound(shape, 1, "up")),
+    }
+    tag = "x".join(map(str, shape))
+    for name, (kern, plain, (bound, by)) in timed.items():
+        k, p, turns = time_pair(torch, kern, plain)
+        log(f"[kernels] {name} {tag}: kernel {turns[1]:.4f}/{turns[2]:.4f} "
+            f"ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms, bound {bound:.4f} "
+            f"ms ({by}); kernel queued {time_ms_queued(torch, kern):.4f} ms")
+        if stats is not None:
+            stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
+                               bound_by=by)
+
+
+def check_leg2d_info(transfer):
+    """Each instantiation of the two 2D legs (leg, sweeps, window class):
+    its tile, halo, threads, blocks per SM, registers, local memory
+    (spills) and shared memory, from the card; all but the registers and
+    shared memory must be the wrapper module's, and nothing may spill."""
+    for leg in ("down", "up"):
+        for sweeps in (1, 2, 3):
+            for window, (_, _, threads) in enumerate(transfer.LEG_WINDOWS):
+                i = transfer.leg_info(leg, sweeps, window)
+                log(f"[kernels] {leg}-leg S={sweeps} window {window}: tile "
+                    f"{i['tile_rows']}x{i['tile_cols']}, halo {i['halo']}, "
+                    f"{i['threads']} threads, {i['blocks_per_sm']} blocks/SM,"
+                    f" {i['registers']} registers, {i['local_bytes']} B "
+                    f"local, {i['smem_bytes']} B shared")
+                tile = transfer.leg_tile(leg, sweeps, window)
+                want = {"tile_rows": tile[0], "tile_cols": tile[1],
+                        "halo": transfer.leg_halo(leg, sweeps),
+                        "threads": threads,
+                        "blocks_per_sm": transfer.LEG_BLOCKS_PER_SM[window],
+                        "local_bytes": 0}
+                check(all(i[k] == v for k, v in want.items()),
+                      f"2D {leg}-leg S={sweeps} window {window} info {i} "
+                      f"against the wrapper's {want}")
+
+
+#: the shapes where the 2D legs are held against their plain versions: the
+#: path's finest level, a ragged level, a ragged shape near the gate, and
+#: the path's other levels (from 1023^2 down, the smaller window class)
+CHECK_2D = ([(4095, 4095), (1023, 2047), (129, 131)]
+            + [(n, n) for n in LEVELS_2D[1:]])
+
+
 def phase_kernels(torch, transfer, device):
-    """Each 2D kernel against its plain version; returns per-kernel stats."""
+    """Each 2D kernel against its plain version at every shape of CHECK_2D
+    and sweep count, with the path's stencil and taps and with an
+    anisotropic stencil and asymmetric taps; both timed at every level of
+    the path, with the kernels' device time beside."""
     names = ("presmooth_residual_restrict", "prolong_correct_postsmooth_col")
     stats = {name: {"max_abs_err": 0.0} for name in names}
+    check_leg2d_info(transfer)
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(0)
-    for n, m in [(4095, 4095), (1023, 2047)]:
+    for n, m in CHECK_2D:
         def normal(*shape):
             return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                                 device=device)
         u, b, e = normal(n, m), normal(n, m), normal((n - 1) // 2,
                                                      (m - 1) // 2)
-        for sweeps in (1, 2, 3):
-            ids = [1, 2, 3][:sweeps]
-            us_k, rc_k = transfer.presmooth_residual_restrict(
-                u, b, omegas, ids, VALS, R_TAPS)
-            us_p, rc_p = transfer.presmooth_residual_restrict_plain(
-                u, b, omegas, ids, VALS, R_TAPS)
-            err_u = float((us_k - us_p).abs().max())
-            err_rc = float((rc_k - rc_p).abs().max())
-            log(f"[kernels] down-leg {n}x{m} S={sweeps}: max|du| {err_u:.3e}"
-                f" (tol {TOL_U}), max|drc| {err_rc:.3e} (tol {TOL_RC})")
-            check(err_u <= TOL_U and err_rc <= TOL_RC,
-                  f"down-leg {n}x{m} S={sweeps}")
-            stats["presmooth_residual_restrict"]["max_abs_err"] = max(
-                stats["presmooth_residual_restrict"]["max_abs_err"], err_u,
-                err_rc)
+        for vals, r_taps, p_taps in ((VALS, R_TAPS, P_TAPS),
+                                     (ANISO, R_TAPS_ASYM, P_TAPS_ASYM)):
+            tag = f"{n}x{m} {'asym' if vals is ANISO else 'path'}"
+            down, up = (0.0, 0.0), 0.0
+            for sweeps in (1, 2, 3):
+                ids = [1, 2, 3][:sweeps]
+                us_k, rc_k = transfer.presmooth_residual_restrict(
+                    u, b, omegas, ids, vals, r_taps)
+                us_p, rc_p = transfer.presmooth_residual_restrict_plain(
+                    u, b, omegas, ids, vals, r_taps)
+                err_u = float((us_k - us_p).abs().max())
+                err_rc = float((rc_k - rc_p).abs().max())
+                check(err_u <= TOL_U and err_rc <= TOL_RC,
+                      f"down-leg {tag} S={sweeps}: max|du| {err_u:.3e}, "
+                      f"max|drc| {err_rc:.3e}")
+                down = (max(down[0], err_u), max(down[1], err_rc))
 
-            ids = [0, 1, 2, 3][:sweeps + 1]
-            o_k = transfer.prolong_correct_postsmooth_col(
-                u, e, b, omegas, ids, VALS, P_TAPS)
-            o_p = transfer.prolong_correct_postsmooth_col_plain(
-                u, e, b, omegas, ids, VALS, P_TAPS)
-            err = float((o_k - o_p).abs().max())
-            log(f"[kernels] up-leg {n}x{m} S={sweeps}: max|du| {err:.3e} "
+                ids = [0, 1, 2, 3][:sweeps + 1]
+                o_k = transfer.prolong_correct_postsmooth_col(
+                    u, e, b, omegas, ids, vals, p_taps)
+                o_p = transfer.prolong_correct_postsmooth_col_plain(
+                    u, e, b, omegas, ids, vals, p_taps)
+                err = float((o_k - o_p).abs().max())
+                check(err <= TOL_U,
+                      f"up-leg {tag} S={sweeps}: max|du| {err:.3e}")
+                up = max(up, err)
+            log(f"[kernels] down-leg {tag}, S=1..3: max|du| {down[0]:.3e} "
+                f"(tol {TOL_U}), max|drc| {down[1]:.3e} (tol {TOL_RC})")
+            log(f"[kernels] up-leg {tag}, S=1..3: max|du| {up:.3e} "
                 f"(tol {TOL_U})")
-            check(err <= TOL_U, f"up-leg {n}x{m} S={sweeps}")
-            stats["prolong_correct_postsmooth_col"]["max_abs_err"] = max(
-                stats["prolong_correct_postsmooth_col"]["max_abs_err"], err)
-        if (n, m) == (4095, 4095):
-            # the main path's sweeps: V(2,1) -> 2 pre, 1 post
-            timed = {
-                "presmooth_residual_restrict": (
-                    lambda: transfer.presmooth_residual_restrict(
-                        u, b, omegas, [1, 2], VALS, R_TAPS),
-                    lambda: transfer.presmooth_residual_restrict_plain(
-                        u, b, omegas, [1, 2], VALS, R_TAPS), 2, "down"),
-                "prolong_correct_postsmooth_col": (
-                    lambda: transfer.prolong_correct_postsmooth_col(
-                        u, e, b, omegas, [0, 1], VALS, P_TAPS),
-                    lambda: transfer.prolong_correct_postsmooth_col_plain(
-                        u, e, b, omegas, [0, 1], VALS, P_TAPS), 1, "up"),
-            }
-            for name, (kern, plain, sweeps, leg) in timed.items():
-                k, p, turns = time_pair(torch, kern, plain)
-                stats[name]["ms"], stats[name]["plain_ms"] = k, p
-                stats[name]["bound_ms"], stats[name]["bound_by"] = \
-                    leg_bound((n, m), sweeps, leg)
-                log(f"[kernels] {name} 4095^2: kernel {turns[1]:.4f}/"
-                    f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f}"
-                    f" ms, bound {stats[name]['bound_ms']:.4f} ms "
-                    f"({stats[name]['bound_by']})")
+            stats[names[0]]["max_abs_err"] = max(
+                stats[names[0]]["max_abs_err"], *down)
+            stats[names[1]]["max_abs_err"] = max(
+                stats[names[1]]["max_abs_err"], up)
+    # the path's levels with its sweeps: V(2,1) -> 2 pre, 1 post
+    for n in LEVELS_2D:
+        time_2d_legs(torch, transfer, device, (n, n),
+                     stats if n == LEVELS_2D[0] else None)
     return stats
 
 
@@ -529,6 +603,56 @@ def loop_work(name, shape, sweeps):
     return 4 * (3 * fine + moved), fine * (sweeps * 10 + flops)
 
 
+def loop_calls(transfer, omegas, name, u, b, e, ch, sweeps, vals, r_taps,
+               p_taps):
+    """(kernel, plain) thunks of one row-only leg or fused pass for
+    ``sweeps`` (a fused pass's: a (post, pre) pair)."""
+    kind = LOOP_KERNELS[name][0]
+    if kind == "down":
+        args = (u, b, omegas, [1, 2, 3][:sweeps], vals, r_taps[0])
+    elif kind == "up":
+        args = (u, ch, b, omegas, [0, 1, 2, 3][:sweeps + 1], vals,
+                p_taps[0])
+    else:
+        ids = list(range(1 + sum(sweeps)))
+        args = ((u, e, b, omegas, ids, vals, p_taps, r_taps)
+                if name == "upleg_downleg_col" else
+                (u, ch, b, omegas, ids, vals, p_taps[0], r_taps[0]))
+    kern = getattr(transfer, name)
+    plain = getattr(transfer, name + "_plain")
+    return lambda: kern(*args), lambda: plain(*args)
+
+
+def time_loop_kernels(torch, transfer, device, stats=None):
+    """The row-only legs and the fused passes at 4095^2 with the main
+    path's sweeps (V(2,1): 2 pre, 1 post, a pass 1 + 2): kernel and plain
+    in turns (time_standalone), the numbers going to ``stats`` when it is
+    given, the kernel's device time alone (time_ms_queued) logged beside.
+    Uses only the wrappers' public signatures, so it times an older tree's
+    package as well."""
+    rng = np.random.default_rng(8)
+    n = m = 4095
+    u, b, e, ch = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                                device=device)
+                   for s in ((n, m), (n, m), ((n - 1) // 2, (m - 1) // 2),
+                             ((n - 1) // 2, m)))
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    for name, (kind, _) in LOOP_KERNELS.items():
+        sweeps = {"down": 2, "up": 1, "pass": (1, 2)}[kind]
+        kern, plain = loop_calls(transfer, omegas, name, u, b, e, ch, sweeps,
+                                 VALS, R_TAPS, P_TAPS)
+        nbytes, flops = loop_work(name, (n, m), 3 if kind == "pass"
+                                  else sweeps)
+        log(f"[kernels-loop] {name} 4095^2 moves {nbytes} bytes, "
+            f"{flops:.4e} float32 operations")
+        time_standalone(torch, stats, name, "kernels-loop", (n, m), kern,
+                        plain, bytes_bound(nbytes, flops),
+                        keep=(n, m) if stats is not None else None)
+        log(f"[kernels-loop] {name} 4095^2: kernel queued "
+            f"{time_ms_queued(torch, kern):.4f} ms")
+
+
 def phase_kernels_loop(torch, transfer, device):
     """The row-only legs and the fused passes against their plain
     versions; both timed at 4095^2 with the path's sweeps."""
@@ -536,24 +660,6 @@ def phase_kernels_loop(torch, transfer, device):
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95],
                           dtype=torch.float32, device=device)
     rng = np.random.default_rng(7)
-
-    def calls(name, u, b, e, ch, sweeps, vals, r_taps, p_taps):
-        """(kernel, plain) thunks of one kernel for ``sweeps``."""
-        kind = LOOP_KERNELS[name][0]
-        if kind == "down":
-            args = (u, b, omegas, [1, 2, 3][:sweeps], vals, r_taps[0])
-        elif kind == "up":
-            args = (u, ch, b, omegas, [0, 1, 2, 3][:sweeps + 1], vals,
-                    p_taps[0])
-        else:
-            ids = list(range(1 + sum(sweeps)))
-            args = ((u, e, b, omegas, ids, vals, p_taps, r_taps)
-                    if name == "upleg_downleg_col" else
-                    (u, ch, b, omegas, ids, vals, p_taps[0], r_taps[0]))
-        kern = getattr(transfer, name)
-        plain = getattr(transfer, name + "_plain")
-        return lambda: kern(*args), lambda: plain(*args)
-
     for n, m in [(4095, 4095), (1023, 2047)]:
         def normal(*shape):
             return torch.tensor(rng.standard_normal(shape),
@@ -566,8 +672,8 @@ def phase_kernels_loop(torch, transfer, device):
             for name, (kind, counts) in LOOP_KERNELS.items():
                 worst = (0.0, 0.0)
                 for sweeps in counts:
-                    kern, plain = calls(name, u, b, e, ch, sweeps, vals,
-                                        r_taps, p_taps)
+                    kern, plain = loop_calls(transfer, omegas, name, u, b, e,
+                                             ch, sweeps, vals, r_taps, p_taps)
                     k, p = kern(), plain()
                     torch.cuda.synchronize()
                     if kind == "up":
@@ -584,19 +690,7 @@ def phase_kernels_loop(torch, transfer, device):
                     f"max|dr| {worst[1]:.3e} (tol {TOL_RC})")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                                  *worst)
-        if (n, m) != (4095, 4095):
-            continue
-        # the main path's sweeps: V(2,1) -> 2 pre, 1 post, a pass 1 + 2
-        for name, (kind, _) in LOOP_KERNELS.items():
-            sweeps = {"down": 2, "up": 1, "pass": (1, 2)}[kind]
-            kern, plain = calls(name, u, b, e, ch, sweeps, VALS, R_TAPS,
-                                P_TAPS)
-            nbytes, flops = loop_work(name, (n, m), 3 if kind == "pass"
-                                      else sweeps)
-            log(f"[kernels-loop] {name} 4095^2 moves {nbytes} bytes, "
-                f"{flops:.4e} float32 operations")
-            time_standalone(torch, stats, name, "kernels-loop", (n, m),
-                            kern, plain, bytes_bound(nbytes, flops))
+    time_loop_kernels(torch, transfer, device, stats)
     return stats
 
 

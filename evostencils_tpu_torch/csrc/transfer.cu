@@ -42,8 +42,9 @@
 // reading the (at most four) coarse values it needs through the cache.
 //
 // The TPU kernel walks full-width row blocks in order.  Here thread blocks
-// run in parallel, so each one owns a TILE x TILE fine tile and loads it
-// with a HALO-wide ring in both axes, which it recomputes redundantly.
+// run in parallel.  In the row-only legs and the fused passes each one owns
+// a TILE x TILE fine tile and loads it with a HALO-wide ring in both axes,
+// which it recomputes redundantly.
 // Window-edge cells see zeros in place of their out-of-window neighbours;
 // the error moves inward one cell per half-sweep, so after 2S half-sweeps
 // only cells within 2S-1 of the window edge are wrong.  The residual adds
@@ -62,6 +63,38 @@
 // Cells outside the grid hold 0 and are never updated (Dirichlet ring and
 // ragged last tiles).  Relaxation factors are read from the device vector
 // by index, so no launch waits on the host.
+//
+// Design of the legs with both transfer axes (downleg_col_kernel<S, K>,
+// upleg_col_kernel<S, K>; the legs of every 2D Poisson V-cycle).  These
+// legs are latency-bound before they are bandwidth-bound: a block loads,
+// then runs its half-sweeps between barriers, so the card needs many small
+// blocks resident to keep memory busy.  A block stages u and b over a
+// window of one of N_LEG_WINDOWS classes K (64 x 64 or 32 x 64 cells, 256
+// threads, 40,960 or 20,480 bytes, and e's coarse window on the up-leg:
+// 45,316 or 22,724); the caller picks the larger class when
+// its tiles fill a wave of resident blocks on the card, else the smaller
+// (ops/kernels/transfer.leg_window): 4095^2 and 2047^2 take 64 x 64, the
+// levels from 1023^2 down 32 x 64.  The halo is the leg's own: P = 2S
+// half-sweeps, P + 2 on the down-leg, P on the up-leg, and the tile is the
+// window less the halo on every side.  Pass p updates only the window
+// cells at a distance >= p from the window edge: their neighbours all lie
+// in the window, so no read is predicated, and the cells still right after
+// pass p are exactly those.  The windows are stored split by column parity
+// (each row: its even columns, then its odd ones, the odd half padded to
+// 16 banks), so a colour's cells of a row are contiguous: in a half-sweep
+// lane x updates slot x of its rows, every lane busy, and every warp's
+// reads are bank-conflict free; 5-point red-black updates in place.  u and
+// b are loaded by 4-byte cp.async (a 4095-wide row is 16,380 bytes, so
+// rows are not 16-byte aligned), all of a thread's copies in flight at
+// once; b staged beside u keeps the half-sweeps off the read-only cache's
+// latency.  The down-leg forms the residual of the tile and one row and
+// column past it in registers: lane x walks the fine rows of a run of
+// coarse rows of coarse column x, u's rows above and below in registers,
+// and restricts as it goes.  The up-leg stages e's coarse window once and
+// prolongs from it onto every window cell.
+// tests/test_torch_transfer_tiles.py emulates this schedule in float64,
+// and es_transfer_leg_info reports each instantiation's tile, halo and
+// occupancy from the card.
 
 #include <cuda_runtime.h>
 
@@ -471,6 +504,336 @@ prolong_correct_kernel(const float* __restrict__ u,
   u_out[g] = u[g] + omegas[p.om[0]] * corr;
 }
 
+// ---------------------------------------------------------------------------
+// The legs with both transfer axes: downleg_col_kernel<S, K> and
+// upleg_col_kernel<S, K> (es_presmooth_residual_restrict and
+// es_prolong_correct_postsmooth; see the design note at the top).
+// ---------------------------------------------------------------------------
+
+// Window class K: ROWS x 2 SLOTS cells, blocks of SLOTS x NY threads, at
+// least BLOCKS resident on an SM (__launch_bounds__).  NY is even, so the
+// rows of one thread share a parity.
+template <int K>
+struct LegWindow;
+template <>
+struct LegWindow<0> {
+  static constexpr int ROWS = 64, SLOTS = 32, NY = 8, BLOCKS = 5;
+};
+template <>
+struct LegWindow<1> {
+  static constexpr int ROWS = 32, SLOTS = 32, NY = 8, BLOCKS = 6;
+};
+constexpr int N_LEG_WINDOWS = 2;
+
+// A leg of S sweeps in window class K: P = 2S half-sweeps, the halo (P + 2
+// down, P up), the tile, and the windows' layout.  Row wr of a window
+// holds its even columns at wr * RS + wc / 2 and its odd ones at
+// wr * RS + ODD + wc / 2; ODD is SLOTS padded to 16 mod 32 banks, so that
+// 32 consecutive columns from an even one fall in 32 banks.  b's window
+// (B floats on) follows u's, and the up-leg's coarse window of e, CR x CC
+// values, follows both.
+template <bool DOWN, int S, int K>
+struct ColLeg {
+  using Win = LegWindow<K>;
+  static constexpr int P = 2 * S;
+  static constexpr int H = DOWN ? P + 2 : P;
+  static constexpr int WR = Win::ROWS, SL = Win::SLOTS, NY = Win::NY;
+  static constexpr int WC = 2 * SL;
+  static constexpr int THREADS = SL * NY;
+  static constexpr int BLOCKS = Win::BLOCKS;
+  static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
+  static constexpr int ODD = SL + (48 - SL % 32) % 32;
+  static constexpr int RS = ODD + SL;
+  static constexpr int B = WR * RS;
+  static constexpr int CR = WR / 2 + 1, CC = SL + 1;
+  static constexpr int SMEM =
+      (2 * B + (DOWN ? 0 : CR * CC)) * static_cast<int>(sizeof(float));
+  static_assert(NY % 2 == 0 && WR % NY == 0 && TR > 0 && TC > 0,
+                "a window class must fit the leg's halo");
+};
+
+// 4 bytes from src to shared dst without waiting; zeros when !in (src is
+// then not read).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Wait for every copy this thread issued.
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <typename L>
+__device__ __forceinline__ int split_at(int wr, int wc) {
+  return wr * L::RS + (wc & 1) * L::ODD + (wc >> 1);
+}
+
+// u and b over the window whose top-left interior index is (r0, c0), zero
+// outside the grid, issued by cp.async: lane x copies columns x and
+// x + SLOTS of its rows.
+template <typename L>
+__device__ __forceinline__ void load_window_split(const float* __restrict__ u,
+                                                  const float* __restrict__ b,
+                                                  float* su, const Leg& p,
+                                                  int r0, int c0) {
+#pragma unroll
+  for (int k = 0; k < L::WR / L::NY; ++k) {
+    const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
+    const bool row_in = gr >= 0 && gr < p.n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
+      const bool in = row_in && gc >= 0 && gc < p.m;
+      const long g = in ? static_cast<long>(gr) * p.m + gc : 0;
+      float* dst = su + split_at<L>(wr, wc);
+      copy_async(dst, u + g, in);
+      copy_async(dst + L::B, b + g, in);
+    }
+  }
+}
+
+// e's coarse window: coarse rows cr0 .. cr0 + CR - 1 and columns cc0 ..
+// cc0 + CC - 1, row-major, zero outside the coarse grid.
+template <typename L>
+__device__ __forceinline__ void load_coarse_split(const float* __restrict__ e,
+                                                  float* se, const Leg& p,
+                                                  int cr0, int cc0) {
+  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
+#pragma unroll
+  for (int k = 0; k < (L::CR + L::NY - 1) / L::NY; ++k) {
+    const int i = threadIdx.y + k * L::NY, ci = cr0 + i;
+    if (i >= L::CR) break;
+#pragma unroll
+    for (int j0 = 0; j0 < L::CC; j0 += L::SL) {
+      const int j = j0 + threadIdx.x, cj = cc0 + j;
+      if (j >= L::CC) break;
+      const bool in = ci >= 0 && ci < nc && cj >= 0 && cj < mc;
+      copy_async(se + i * L::CC + j,
+                 in ? e + static_cast<long>(ci) * mc + cj : e, in);
+    }
+  }
+}
+
+// Half-sweep PASS (1-based) on the window cells at a distance >= PASS from
+// its edge: red (an even sum of interior indices) on odd passes, black on
+// even ones, in place (the four neighbours of a cell have the other
+// colour).  Lane x updates the cell of slot x of the colour's half of each
+// of its rows.
+template <typename L, int PASS>
+__device__ __forceinline__ void col_pass(float* su, float om, const Leg& p,
+                                         int r0, int c0) {
+  constexpr int colour = (PASS - 1) & 1;
+  const int s = threadIdx.x, ty = threadIdx.y;
+  // r0 + c0 is even and every row of this thread has ty's parity, so the
+  // colour's cells of its rows all have column parity h
+  const int h = (colour + ty) & 1;
+  const int wc = 2 * s + h, gc = c0 + wc;
+  if (wc < PASS || wc > L::WC - 1 - PASS || gc < 0 || gc >= p.m) return;
+  float* cell = su + h * L::ODD + s;
+  // the right neighbour, in the other half; the left one precedes it
+  const float* right = su + (1 - h) * L::ODD + s + h;
+#pragma unroll
+  for (int k = 0; k < L::WR / L::NY; ++k) {
+    const int wr = ty + k * L::NY, gr = r0 + wr;
+    if (wr < PASS || wr > L::WR - 1 - PASS || gr < 0 || gr >= p.n) continue;
+    float* c = cell + wr * L::RS;
+    const float* rt = right + wr * L::RS;
+    const float v = c[0];
+    const float off = p.d_up * c[-L::RS] + p.d_dn * c[L::RS] +
+                      p.d_lf * rt[-1] + p.d_rt * rt[0];
+    c[0] = v + om * (p.dinv * c[L::B] - v - off);
+  }
+}
+
+// Passes PASS..P, each followed by a barrier; pass q runs sweep (q - 1) / 2
+// with omegas[p.om[om_first + (q - 1) / 2]].
+template <typename L, int PASS = 1>
+__device__ __forceinline__ void col_passes(float* su,
+                                           const float* __restrict__ omegas,
+                                           const Leg& p, int om_first, int r0,
+                                           int c0) {
+  if constexpr (PASS <= L::P) {
+    col_pass<L, PASS>(su, omegas[p.om[om_first + (PASS - 1) / 2]], p, r0, c0);
+    __syncthreads();
+    col_passes<L, PASS + 1>(su, omegas, p, om_first, r0, c0);
+  }
+}
+
+// The tile of the window to out: lane x stores columns H + x and
+// H + x + SLOTS of its rows.
+template <typename L>
+__device__ __forceinline__ void store_tile_split(const float* su,
+                                                 float* __restrict__ out,
+                                                 const Leg& p, int r0,
+                                                 int c0) {
+#pragma unroll
+  for (int k = 0; k < (L::TR + L::NY - 1) / L::NY; ++k) {
+    const int wr = L::H + threadIdx.y + k * L::NY, gr = r0 + wr;
+    if (wr >= L::H + L::TR || gr >= p.n) break;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = L::H + threadIdx.x + j * L::SL, gc = c0 + wc;
+      if (wc < L::H + L::TC && gc < p.m)
+        out[static_cast<long>(gr) * p.m + gc] = su[split_at<L>(wr, wc)];
+    }
+  }
+}
+
+// The window values of row wr at columns H + 2j - 1 .. H + 2j + 3 (u) or
+// H + 2j .. H + 2j + 2 (b, the first three).
+template <typename L, int N>
+__device__ __forceinline__ void row_values(const float* w, int wr, int j,
+                                           float v[N]) {
+  const float* ev = w + wr * L::RS + L::H / 2 + j;
+  const float* od = ev + L::ODD;
+  if constexpr (N == 5) {
+    v[0] = od[-1];
+    v[1] = ev[0];
+    v[2] = od[0];
+    v[3] = ev[1];
+    v[4] = od[1];
+  } else {
+    v[0] = ev[0];
+    v[1] = od[0];
+    v[2] = ev[1];
+  }
+}
+
+// r = b - A u on the tile and one row and column past it, and its full
+// restriction into rc: lane x takes coarse column x of the tile and each
+// thread row a run of RUN coarse rows, walking its fine rows 2i .. 2i + 2
+// once with u's rows above and below in registers.  Each coarse value is
+// the row taps first, then the column taps (transfer.py:802-807).
+template <typename L>
+__device__ __forceinline__ void residual_restrict_split(
+    const float* su, float* __restrict__ rc, const Leg& p, int r0, int c0) {
+  constexpr int CTR = L::TR / 2, CTC = L::TC / 2;
+  constexpr int RUN = (CTR + L::NY - 1) / L::NY;
+  const int j = threadIdx.x, i0 = threadIdx.y * RUN;
+  const int len = min(RUN, CTR - i0);
+  if (j >= CTC || len <= 0) return;
+  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
+  const int ci0 = blockIdx.y * CTR + i0, cj = blockIdx.x * CTC + j;
+  const int gc = c0 + L::H + 2 * j;
+  const int wr0 = L::H + 2 * i0;
+  float up[5], cur[5], pend[3];
+  row_values<L, 5>(su, wr0 - 1, j, up);
+  row_values<L, 5>(su, wr0, j, cur);
+#pragma unroll
+  for (int x = 0; x <= 2 * RUN; ++x) {
+    if (x > 2 * len) break;
+    const int gr = r0 + wr0 + x;
+    float dn[5], bv[3], r[3];
+    row_values<L, 5>(su, wr0 + x + 1, j, dn);
+    row_values<L, 3>(su + L::B, wr0 + x, j, bv);
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      r[e] = 0.f;
+      if (gr < p.n && gc + e < p.m) {
+        const float au = p.c * cur[e + 1] + p.a_up * up[e + 1] +
+                         p.a_dn * dn[e + 1] + p.a_lf * cur[e] +
+                         p.a_rt * cur[e + 2];
+        r[e] = bv[e] - au;
+      }
+    }
+    if (x & 1) {
+#pragma unroll
+      for (int e = 0; e < 3; ++e) pend[e] += p.tr[1] * r[e];
+    } else {
+      const int ci = ci0 + x / 2 - 1;   // the coarse row this row ends
+      if (x > 0) {
+#pragma unroll
+        for (int e = 0; e < 3; ++e) pend[e] += p.tr[2] * r[e];
+        if (ci < nc && cj < mc)
+          rc[static_cast<long>(ci) * mc + cj] =
+              p.tc[0] * pend[0] + p.tc[1] * pend[1] + p.tc[2] * pend[2];
+      }
+#pragma unroll
+      for (int e = 0; e < 3; ++e) pend[e] = p.tr[0] * r[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 5; ++e) {
+      up[e] = cur[e];
+      cur[e] = dn[e];
+    }
+  }
+}
+
+// u += om0 * P(e) on every window cell in the grid, from e's staged coarse
+// window: fine index 2i+1+o takes taps[o+1] * e[i] on each axis, the column
+// expansion first, then the row expansion (transfer.py:896-903).  The
+// window starts at even (r0, c0) and its coarse window at r0 / 2 - 1, so
+// slot s of a row reads coarse columns s and s + 1, and row wr coarse rows
+// wr / 2 and wr / 2 + 1 (even) or (wr + 1) / 2 (odd).
+template <typename L>
+__device__ __forceinline__ void correct_split(float* su, const float* se,
+                                              const Leg& p, float om0, int r0,
+                                              int c0) {
+  const int s = threadIdx.x, ty = threadIdx.y;
+  // the column expansion of coarse window row `er` at column parity h
+  const auto col = [&p](const float* er, int h) {
+    return h ? p.tc[1] * er[1] : p.tc[2] * er[0] + p.tc[0] * er[1];
+  };
+#pragma unroll
+  for (int k = 0; k < L::WR / L::NY; ++k) {
+    const int wr = ty + k * L::NY, gr = r0 + wr;
+    if (gr < 0 || gr >= p.n) continue;
+    // coarse window row wr / 2 + 1 (even wr) or (wr + 1) / 2 (odd wr)
+    const float* er = se + ((wr >> 1) + 1) * L::CC + s;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gc = c0 + 2 * s + h;
+      if (gc < 0 || gc >= p.m) continue;
+      const float corr =
+          (wr & 1) ? p.tr[1] * col(er, h)
+                   : p.tr[2] * col(er - L::CC, h) + p.tr[0] * col(er, h);
+      su[wr * L::RS + h * L::ODD + s] += om0 * corr;
+    }
+  }
+}
+
+template <int S, int K>
+__global__ void __launch_bounds__(ColLeg<true, S, K>::THREADS,
+                                  ColLeg<true, S, K>::BLOCKS)
+downleg_col_kernel(const float* __restrict__ u, const float* __restrict__ b,
+                   const float* __restrict__ omegas, float* __restrict__ u_out,
+                   float* __restrict__ rc, Leg p) {
+  using L = ColLeg<true, S, K>;
+  extern __shared__ float su[];
+  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
+  load_window_split<L>(u, b, su, p, r0, c0);
+  copy_wait_all();
+  __syncthreads();
+  col_passes<L>(su, omegas, p, 0, r0, c0);
+  store_tile_split<L>(su, u_out, p, r0, c0);
+  residual_restrict_split<L>(su, rc, p, r0, c0);
+}
+
+template <int S, int K>
+__global__ void __launch_bounds__(ColLeg<false, S, K>::THREADS,
+                                  ColLeg<false, S, K>::BLOCKS)
+upleg_col_kernel(const float* __restrict__ u, const float* __restrict__ e,
+                 const float* __restrict__ b, const float* __restrict__ omegas,
+                 float* __restrict__ u_out, Leg p) {
+  using L = ColLeg<false, S, K>;
+  extern __shared__ float su[];
+  float* se = su + 2 * L::B;
+  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
+  load_window_split<L>(u, b, su, p, r0, c0);
+  load_coarse_split<L>(e, se, p, (r0 >> 1) - 1, (c0 >> 1) - 1);
+  copy_wait_all();
+  __syncthreads();
+  correct_split<L>(su, se, p, omegas[p.om[0]], r0, c0);
+  __syncthreads();
+  col_passes<L>(su, omegas, p, 1, r0, c0);
+  store_tile_split<L>(su, u_out, p, r0, c0);
+}
+
 void set_taps(float* t, const double* c) {
   for (int k = 0; k < 3; ++k) t[k] = static_cast<float>(c[k]);
 }
@@ -572,6 +935,72 @@ int launch_vleg(const float* u, const float* e, const float* b,
   return cudaGetLastError();
 }
 
+// One instantiation of a leg with both transfer axes: its kernel, halo,
+// tile, block (SLOTS x NY threads), its __launch_bounds__ blocks per SM
+// and dynamic shared memory.
+struct ColInst {
+  const void* kernel;
+  int halo, tile_rows, tile_cols, slots, ny, blocks, smem;
+};
+
+template <bool DOWN, int S, int K>
+ColInst col_inst() {
+  using L = ColLeg<DOWN, S, K>;
+  const void* kernel;
+  if constexpr (DOWN)
+    kernel = reinterpret_cast<const void*>(downleg_col_kernel<S, K>);
+  else
+    kernel = reinterpret_cast<const void*>(upleg_col_kernel<S, K>);
+  return {kernel, L::H, L::TR, L::TC, L::SL, L::NY, L::BLOCKS, L::SMEM};
+}
+
+template <bool DOWN, int S>
+ColInst col_inst_of_window(int window) {
+  static_assert(N_LEG_WINDOWS == 2, "one case per window class");
+  switch (window) {
+    case 0:
+      return col_inst<DOWN, S, 0>();
+    case 1:
+      return col_inst<DOWN, S, 1>();
+    default:
+      return {};
+  }
+}
+
+// The instantiation of a leg; kernel null for a sweep count or window
+// class it lacks.
+ColInst find_col_leg(bool down, int sweeps, int window) {
+  switch (sweeps) {
+    case 1:
+      return down ? col_inst_of_window<true, 1>(window)
+                  : col_inst_of_window<false, 1>(window);
+    case 2:
+      return down ? col_inst_of_window<true, 2>(window)
+                  : col_inst_of_window<false, 2>(window);
+    case 3:
+      return down ? col_inst_of_window<true, 3>(window)
+                  : col_inst_of_window<false, 3>(window);
+    default:
+      return {};
+  }
+}
+
+// Launch a leg with both transfer axes in the window class the caller
+// chose, with the halo it derived; refuse a halo the instantiation was not
+// built for.  args: the kernel's arguments.
+cudaError_t launch_col_leg(bool down, int sweeps, int halo, int window, int n,
+                           int m, void** args, void* stream) {
+  const ColInst inst = find_col_leg(down, sweeps, window);
+  if (!inst.kernel || halo != inst.halo) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(inst.kernel, inst.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + inst.tile_cols - 1) / inst.tile_cols,
+                  (n + inst.tile_rows - 1) / inst.tile_rows);
+  cudaLaunchKernel(inst.kernel, grid, dim3(inst.slots, inst.ny), args,
+                   inst.smem, static_cast<cudaStream_t>(stream));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* es_error_string(int err) {
@@ -580,13 +1009,19 @@ extern "C" const char* es_error_string(int err) {
 
 // coeffs: 5 stencil values (center, (-1,0), (+1,0), (0,-1), (0,+1)),
 // 3 row taps, 3 column taps.  om_ids: `sweeps` indices into omegas, in the
-// order the sweeps run.  Returns the launch's cudaError_t.
+// order the sweeps run.  halo: the window halo the caller derived for the
+// down-leg of `sweeps` sweeps (any other is refused); window: the window
+// class (0 or 1) the caller chose for the level.  Returns the launch's
+// cudaError_t.
 extern "C" int es_presmooth_residual_restrict(
     const float* u, const float* b, const float* omegas, const int* om_ids,
-    int sweeps, const double* coeffs, float* u_out, float* rc, int n, int m,
-    void* stream) {
-  return launch_downleg<true>(u, b, omegas, om_ids, sweeps, coeffs, u_out,
-                              rc, n, m, stream);
+    int sweeps, const double* coeffs, float* u_out, float* rc, int halo,
+    int window, int n, int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
+  void* args[] = {&u, &b, &omegas, &u_out, &rc, &p};
+  return launch_col_leg(true, sweeps, halo, window, n, m, args, stream);
 }
 
 // As es_presmooth_residual_restrict (the column taps are not read), but
@@ -602,13 +1037,49 @@ extern "C" int es_presmooth_residual_rowrestrict(
 }
 
 // om_ids: 1 + sweeps indices into omegas: the coarse-grid-correction factor,
-// then the post-sweeps in the order they run.
+// then the post-sweeps in the order they run.  halo, window: as above, for
+// the up-leg.
 extern "C" int es_prolong_correct_postsmooth(
     const float* u, const float* e, const float* b, const float* omegas,
-    const int* om_ids, int sweeps, const double* coeffs, float* u_out, int n,
-    int m, void* stream) {
-  return launch_upleg<true>(u, e, b, omegas, om_ids, sweeps, coeffs, u_out,
-                            n, m, stream);
+    const int* om_ids, int sweeps, const double* coeffs, float* u_out,
+    int halo, int window, int n, int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &p};
+  return launch_col_leg(false, sweeps, halo, window, n, m, args, stream);
+}
+
+// What an instantiation of es_presmooth_residual_restrict (down 1) or
+// es_prolong_correct_postsmooth (down 0) is on this card: info[0], [1] its
+// tile's rows and columns, [2] its halo, [3] threads per block, [4]
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
+// its shared memory), [5] registers per thread, [6] local memory per thread
+// in bytes (spills land there), [7] dynamic shared memory per block in
+// bytes.
+extern "C" int es_transfer_leg_info(int down, int sweeps, int window,
+                                    int* info) {
+  const ColInst inst = find_col_leg(down != 0, sweeps, window);
+  if (!inst.kernel) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(inst.kernel, inst.smem);
+  if (err != cudaSuccess) return err;
+  const int threads = inst.slots * inst.ny;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kernel,
+                                                      threads, inst.smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, inst.kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = inst.tile_rows;
+  info[1] = inst.tile_cols;
+  info[2] = inst.halo;
+  info[3] = threads;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = inst.smem;
+  return cudaSuccess;
 }
 
 // As es_prolong_correct_postsmooth, but takes c_half ((n-1)/2, m), the

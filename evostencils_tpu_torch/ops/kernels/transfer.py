@@ -39,6 +39,7 @@ waits on the host.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -58,6 +59,21 @@ MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS
 MIN_ROWS = 129
 MIN_COLS = 128
 
+#: The block schedule of the legs with both transfer axes
+#: (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``;
+#: csrc/transfer.cu ``LegWindow<K>`` states the same classes, and
+#: es_transfer_leg_info reports them from the card).  A block stages u and
+#: b over a window of LEG_WINDOWS[k] = (rows, columns, threads) cells and
+#: owns its centre, the tile: the window less leg_halo() cells on every
+#: side.  Pass p (of 2S half-sweeps) updates the window cells at a distance
+#: >= p from the window edge.  LEG_BLOCKS_PER_SM[k] blocks of a class are
+#: resident on an SM: its __launch_bounds__ ask for them, and its shared
+#: memory (class 0) or registers (class 1) allow no more.  A level takes the
+#: first class whose tiles fill one wave of those on the card's SMs, else
+#: the last.
+LEG_WINDOWS = ((64, 64, 256), (32, 64, 256))
+LEG_BLOCKS_PER_SM = (5, 6)
+
 #: kernel launches per kernel since the last reset_launches()
 launches = {"presmooth_residual_restrict": 0,
             "prolong_correct_postsmooth_col": 0,
@@ -71,6 +87,61 @@ launches = {"presmooth_residual_restrict": 0,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def leg_halo(leg: str, sweeps: int) -> int:
+    """The halo of a leg kernel's window (``leg`` "down" or "up"): P = 2 *
+    sweeps half-sweeps, pass p updating the cells at a distance >= p from
+    the window edge, so after P passes the cells at distance >= P are
+    right.  The up-leg needs P, its prolongation being pointwise; the
+    down-leg P + 2, its residual and the restriction's extra row reading
+    one cell past the tile."""
+    if leg not in ("down", "up"):
+        raise ValueError(f"leg {leg!r} is neither 'down' nor 'up'")
+    return 2 * sweeps + (2 if leg == "down" else 0)
+
+
+def leg_tile(leg: str, sweeps: int, window: int) -> Tuple[int, int]:
+    """(rows, columns) of the tile a block of window class ``window``
+    owns: the window less the leg's halo on every side."""
+    rows, cols, _ = LEG_WINDOWS[window]
+    halo = leg_halo(leg, sweeps)
+    return rows - 2 * halo, cols - 2 * halo
+
+
+@functools.cache
+def leg_window(leg: str, sweeps: int, n: int, m: int, sms: int) -> int:
+    """The window class of a leg on an (n, m) grid, on a card of ``sms``
+    streaming multiprocessors: the first whose tiles fill one wave of
+    resident blocks (sms * LEG_BLOCKS_PER_SM[k]), else the last, the
+    smallest.  On the H100's 132, 4095^2 and 2047^2 take class 0, the
+    levels from 1023^2 down class 1."""
+    for window in range(len(LEG_WINDOWS)):
+        tr, tc = leg_tile(leg, sweeps, window)
+        if -(-n // tr) * -(-m // tc) >= sms * LEG_BLOCKS_PER_SM[window]:
+            return window
+    return len(LEG_WINDOWS) - 1
+
+
+def _sms(device: torch.device) -> int:
+    """The streaming multiprocessors of the card ``device`` is on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def leg_info(leg: str, sweeps: int, window: int) -> dict:
+    """What the card makes of a leg kernel's instantiation (``leg`` "down"
+    or "up", ``sweeps``, window class ``window``): its tile, halo, threads
+    per block, resident blocks per SM, registers and local memory (spills)
+    per thread, and dynamic shared memory per block.  Needs the card."""
+    info = (ctypes.c_int * 8)()
+    err = _build.load_library().es_transfer_leg_info(
+        int(leg == "down"), int(sweeps), int(window), info)
+    if err != 0:
+        raise RuntimeError(f"no {leg}-leg instantiation for S = {sweeps}, "
+                           f"window {window}: CUDA error {err}")
+    return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
+                     "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), info))
 
 
 def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
@@ -273,7 +344,8 @@ def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
                   b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), len(ids),
                   _coefficients(stencil_vals, taps), u_out.data_ptr(),
-                  rc.data_ptr(), n, m)
+                  rc.data_ptr(), leg_halo("down", len(ids)),
+                  leg_window("down", len(ids), n, m, _sms(u.device)), n, m)
     return u_out, rc
 
 
@@ -293,11 +365,14 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
     _build.check_card_tensors(u, e, b, omegas)
     n, m = u.shape
     u_out = torch.empty_like(u)
+    sweeps = len(ids) - 1
     _build.launch(launches, "prolong_correct_postsmooth_col",
                   "es_prolong_correct_postsmooth", u.device, u.data_ptr(),
                   e.data_ptr(), b.data_ptr(), omegas.data_ptr(),
-                  (ctypes.c_int * len(ids))(*ids), len(ids) - 1,
-                  _coefficients(stencil_vals, taps), u_out.data_ptr(), n, m)
+                  (ctypes.c_int * len(ids))(*ids), sweeps,
+                  _coefficients(stencil_vals, taps), u_out.data_ptr(),
+                  leg_halo("up", sweeps),
+                  leg_window("up", sweeps, n, m, _sms(u.device)), n, m)
     return u_out
 
 

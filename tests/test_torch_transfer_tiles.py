@@ -1,0 +1,340 @@
+"""The block schedule of the 2D Poisson leg kernels
+(evostencils_tpu_torch/csrc/transfer.cu, ``downleg_col_kernel`` and
+``upleg_col_kernel``), emulated in float64 on the CPU.
+
+The kernels cannot run here, but their halo arithmetic can.  A level takes
+the window class ``leg_window(leg, S, n, m, sms)``; each block owns a
+``leg_tile(...)`` tile and stages u and b over a window with a halo of
+``leg_halo(leg, S)`` cells, zero outside the grid.  Pass p of the 2S
+half-sweeps updates only the window cells of its colour at a distance >=
+p from the window edge, so no update reads outside the window.  The
+down-leg then forms the residual on the tile and one row and column past
+it and restricts it; the up-leg prolongs e from the tile's coarse window
+before its passes.  The emulation runs every block at once, as a batch of
+windows, with the plain versions' half-sweep arithmetic, and stitches the
+tiles back together.  The result must equal
+``presmooth_residual_restrict_plain`` and
+``prolong_correct_postsmooth_col_plain`` to 1e-12 of their largest
+magnitude, and a halo one cell short must not.
+
+The plain versions are held against the Pallas kernels in interpret mode
+by tests/test_torch_transfer.py, so the chain reaches the JAX package.
+The stencil is anisotropic and the transfer taps asymmetric, so that a
+swapped axis or direction shows; the shapes are ragged and odd, so the
+last tiles are cut by the grid; every window class runs at every sweep
+count, and one shape of each class's band runs with the class the rule
+picks.  Last, the wrappers are driven against a stand-in library: they
+must hand each entry its leg's halo and window class and raise when the
+entry refuses the launch.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import torch.nn.functional as F
+
+from evostencils_tpu_torch.ops.apply import axis_restrict_3tap
+from evostencils_tpu_torch.ops.kernels import transfer as tt
+
+#: max |emulated - plain| <= RTOL * max |plain|: the same float64
+#: arithmetic, in another grouping only where the emulation restricts a
+#: tile's residual and prolongs from a tile's coarse window
+RTOL = 1e-12
+OMEGAS = (0.9, 1.15, 0.8, 1.3)
+ANISO = (5.0, -1.5, -0.5, -1.25, -0.75)
+R_TAPS = ((0.2, 0.5, 0.3), (0.1, 0.6, 0.3))
+P_TAPS = ((0.4, 1.0, 0.6), (0.3, 0.9, 0.5))
+RAGGED = ((131, 197), (195, 129))
+#: the H100's streaming multiprocessors, which the wrappers read from
+#: the card
+H100_SMS = 132
+#: a shape in each window class's band under the rule on the H100, for the
+#: path's sweeps (2 down, 1 up): 660 and more tiles of class 0, fewer
+BANDS = {0: (1321, 1801), 1: (259, 301)}
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    n, m = shape
+    u, b = (torch.tensor(rng.standard_normal(shape)) for _ in range(2))
+    e = torch.tensor(rng.standard_normal(((n - 1) // 2, (m - 1) // 2)))
+    return u, b, e
+
+
+class _Blocks:
+    """Every block of a launch on an (n, m) grid: tile (tr, tc), halo h,
+    window (tr + 2h, tc + 2h), as a batch of windows; the grid cells of
+    each window and each cell's distance to its window's edge."""
+
+    def __init__(self, shape, tile, halo):
+        self.n, self.m = shape
+        self.tr, self.tc = tile
+        self.h = halo
+        self.wr, self.wc = self.tr + 2 * halo, self.tc + 2 * halo
+        self.nby, self.nbx = -(-self.n // self.tr), -(-self.m // self.tc)
+        by, bx = torch.meshgrid(torch.arange(self.nby), torch.arange(self.nbx),
+                                indexing="ij")
+        self.r0 = (by * self.tr - halo).reshape(-1)
+        self.c0 = (bx * self.tc - halo).reshape(-1)
+        self.rows = self.r0[:, None] + torch.arange(self.wr)    # (T, wr)
+        self.cols = self.c0[:, None] + torch.arange(self.wc)    # (T, wc)
+        self.inside = (((self.rows >= 0) & (self.rows < self.n))[:, :, None]
+                       & ((self.cols >= 0) & (self.cols < self.m))[:, None, :])
+        self.red = (self.rows[:, :, None] + self.cols[:, None, :]) % 2 == 0
+        er = torch.arange(self.wr)
+        ec = torch.arange(self.wc)
+        self.dist = torch.minimum(
+            torch.minimum(er, self.wr - 1 - er)[:, None],
+            torch.minimum(ec, self.wc - 1 - ec)[None, :])
+
+    def gather(self, x, rows, cols):
+        """x at rows (T, a) x cols (T, b) of every block, zero outside."""
+        pad = max(self.wr, self.wc) + 2
+        xp = F.pad(x, (pad, pad, pad, pad))
+        return xp[(rows + pad)[:, :, None], (cols + pad)[:, None, :]]
+
+    def load(self, x):
+        return self.gather(x, self.rows, self.cols)
+
+    def stitch(self, tiles, shape, tr, tc):
+        """(T, tr, tc) tiles in block order to an array of ``shape``."""
+        out = tiles.reshape(self.nby, self.nbx, tr, tc).permute(0, 2, 1, 3)
+        out = out.reshape(self.nby * tr, self.nbx * tc)
+        return out[:shape[0], :shape[1]]
+
+
+def _apply(u, vals):
+    """The 5-point operator on a batch of windows, zero past each window,
+    summed in the order of ``ops.apply.apply_constant``."""
+    c, up, dn, lf, rt = vals
+    p = F.pad(u, (1, 1, 1, 1))
+    return (c * u + up * p[:, :-2, 1:-1] + dn * p[:, 2:, 1:-1]
+            + lf * p[:, 1:-1, :-2] + rt * p[:, 1:-1, 2:])
+
+
+def _passes(blocks, u, b, omegas, ids, vals):
+    """The leg's half-sweeps on every window: pass p on the cells of its
+    colour in the grid at a distance >= p, as the plain versions' masked
+    half-sweep (``transfer._rb_sweeps_plain``)."""
+    p = 0
+    for i in ids:
+        for colour in (blocks.red, ~blocks.red):
+            p += 1
+            mask = (blocks.inside & colour & (blocks.dist >= p)).to(u.dtype)
+            u = u + omegas[i] * mask * ((1.0 / vals[0]) * (b - _apply(u, vals)))
+    return u
+
+
+def emulate_down(u, b, omegas, ids, vals, taps, tile, halo):
+    """The down-leg kernel's schedule: (smoothed u, coarse residual)."""
+    n, m = u.shape
+    blocks = _Blocks((n, m), tile, halo)
+    bw = blocks.load(b)
+    uw = _passes(blocks, blocks.load(u), bw, omegas, ids, vals)
+    h, tr, tc = halo, blocks.tr, blocks.tc
+    u_out = blocks.stitch(uw[:, h:h + tr, h:h + tc], (n, m), tr, tc)
+    r = torch.where(blocks.inside, bw - _apply(uw, vals), 0.0)
+    r = r[:, h:h + tr + 1, h:h + tc + 1]
+    coarse = axis_restrict_3tap(axis_restrict_3tap(r, 1, taps[0]), 2, taps[1])
+    rc = blocks.stitch(coarse, ((n - 1) // 2, (m - 1) // 2), tr // 2, tc // 2)
+    return u_out, rc
+
+
+def _prolong_windows(blocks, e, taps):
+    """P(e) on every window cell from e's coarse window of each block
+    (rows and columns from floor(r0 / 2) - 1 on, zero outside the coarse
+    grid): the column expansion, then the row expansion."""
+    cr = torch.div(blocks.r0, 2, rounding_mode="floor") - 1
+    cc = torch.div(blocks.c0, 2, rounding_mode="floor") - 1
+    ew = blocks.gather(e, cr[:, None] + torch.arange(blocks.wr // 2 + 2),
+                       cc[:, None] + torch.arange(blocks.wc // 2 + 2))
+
+    def expand(fine, coarse0, t):
+        """(coarse window index at or before, weight on it, weight on the
+        next) of every fine index of every block on one axis."""
+        a = torch.div(fine - 1, 2, rounding_mode="floor") - coarse0[:, None]
+        odd = fine % 2 == 1
+        return a, torch.where(odd, t[1], t[2]), torch.where(odd, 0.0, t[0])
+
+    t_row, t_col = (torch.tensor(t, dtype=e.dtype) for t in taps)
+    ca, cwa, cwb = expand(blocks.cols, cc, t_col)
+    idx = torch.arange(ew.shape[0])[:, None, None]
+    rows = torch.arange(ew.shape[1])[None, :, None]
+    cols = (cwa[:, None, :] * ew[idx, rows, ca[:, None, :]]
+            + cwb[:, None, :] * ew[idx, rows, ca[:, None, :] + 1])
+    ra, rwa, rwb = expand(blocks.rows, cr, t_row)
+    fine_c = torch.arange(blocks.wc)[None, None, :]
+    return (rwa[:, :, None] * cols[idx, ra[:, :, None], fine_c]
+            + rwb[:, :, None] * cols[idx, ra[:, :, None] + 1, fine_c])
+
+
+def emulate_up(u, e, b, omegas, ids, vals, taps, tile, halo):
+    """The up-leg kernel's schedule: the corrected, smoothed u."""
+    n, m = u.shape
+    blocks = _Blocks((n, m), tile, halo)
+    corr = torch.where(blocks.inside, _prolong_windows(blocks, e, taps), 0.0)
+    uw = blocks.load(u) + omegas[ids[0]] * corr
+    uw = _passes(blocks, uw, blocks.load(b), omegas, ids[1:], vals)
+    h = halo
+    return blocks.stitch(uw[:, h:h + blocks.tr, h:h + blocks.tc], (n, m),
+                         blocks.tr, blocks.tc)
+
+
+def _deviation(got, want):
+    """Largest |got - want| over every array, relative to max |want|."""
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+def _down(shape, sweeps, window, halo=None):
+    """Deviation of the emulated down-leg from the plain one; the tile is
+    the window class's, the halo the leg's unless given."""
+    u, b, _ = _inputs(shape, 11)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float64)
+    ids = [1, 2, 3][:sweeps]
+    tile = tt.leg_tile("down", sweeps, window)
+    halo = tt.leg_halo("down", sweeps) if halo is None else halo
+    want = tt.presmooth_residual_restrict_plain(u, b, omegas, ids, ANISO,
+                                                R_TAPS)
+    got = emulate_down(u, b, omegas, ids, ANISO, R_TAPS, tile, halo)
+    return _deviation(got, want)
+
+
+def _up(shape, sweeps, window, halo=None):
+    u, b, e = _inputs(shape, 12)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float64)
+    ids = [0, 1, 2, 3][:sweeps + 1]
+    tile = tt.leg_tile("up", sweeps, window)
+    halo = tt.leg_halo("up", sweeps) if halo is None else halo
+    want = tt.prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
+                                                   ANISO, P_TAPS)
+    got = emulate_up(u, e, b, omegas, ids, ANISO, P_TAPS, tile, halo)
+    return _deviation((got,), (want,))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test run's parallel workers would
+    otherwise oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+CASES = [(shape, sweeps, window) for shape in RAGGED for sweeps in (1, 2, 3)
+         for window in range(len(tt.LEG_WINDOWS))]
+
+
+@pytest.mark.parametrize("shape,sweeps,window", CASES)
+def test_downleg_block_schedule_matches_plain(shape, sweeps, window):
+    assert _down(shape, sweeps, window) <= RTOL
+
+
+@pytest.mark.parametrize("shape,sweeps,window", CASES)
+def test_upleg_block_schedule_matches_plain(shape, sweeps, window):
+    assert _up(shape, sweeps, window) <= RTOL
+
+
+@pytest.mark.parametrize("leg", ["down", "up"])
+@pytest.mark.parametrize("window", sorted(BANDS))
+def test_band_shape_takes_its_class_and_matches_plain(leg, window):
+    """A shape in each class's band, with the path's sweeps: the rule
+    picks the class, and its schedule matches the plain leg."""
+    shape = BANDS[window]
+    sweeps = 2 if leg == "down" else 1
+    assert tt.leg_window(leg, sweeps, *shape, H100_SMS) == window
+    run = _down if leg == "down" else _up
+    assert run(shape, sweeps, window) <= RTOL
+
+
+@pytest.mark.parametrize("leg,sweeps,window",
+                         [("down", 2, 0), ("down", 1, 1), ("up", 1, 0),
+                          ("up", 3, 1)])
+def test_halo_one_short_differs(leg, sweeps, window):
+    """A halo one cell below leg_halo() (the same tile, a window two cells
+    narrower) leaves wrong cells in the tiles."""
+    halo = tt.leg_halo(leg, sweeps) - 1
+    run = _down if leg == "down" else _up
+    assert run((131, 197), sweeps, window, halo) > 1e-3
+
+
+def test_leg_rule():
+    """The halo is P + 2 down and P up (P = 2S); the tile is the window less
+    the halo; 4095^2 and 2047^2 take class 0, whose tiles there fill a wave
+    of resident blocks on the card, and the path's levels from 1023^2 down
+    class 1."""
+    assert [tt.leg_halo(leg, s) for leg in ("down", "up")
+            for s in (1, 2, 3)] == [4, 6, 8, 2, 4, 6]
+    with pytest.raises(ValueError):
+        tt.leg_halo("sideways", 1)
+    for window, (rows, cols, _) in enumerate(tt.LEG_WINDOWS):
+        assert tt.leg_tile("down", 2, window) == (rows - 12, cols - 12)
+    for n in (4095, 2047, 1023, 511, 255):
+        for leg, sweeps in (("down", 2), ("up", 1)):
+            window = tt.leg_window(leg, sweeps, n, n, H100_SMS)
+            assert window == (0 if n >= 2047 else 1)
+            tr, tc = tt.leg_tile(leg, sweeps, 0)
+            fills = -(-n // tr) * -(-n // tc) >= \
+                H100_SMS * tt.LEG_BLOCKS_PER_SM[0]
+            assert fills == (window == 0)
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records each leg entry's
+    arguments and returns ``err`` (cudaErrorInvalidValue is 1)."""
+
+    def __init__(self, err):
+        self.err, self.calls = err, []
+
+    def es_error_string(self, err):
+        return b"invalid argument"
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.err
+        return entry
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_wrappers_pass_halo_and_window_and_raise_on_refusal(monkeypatch,
+                                                            err):
+    """The leg wrappers hand each entry leg_halo(...) and
+    leg_window(...) of their leg, sweeps and grid (before n, m and the
+    stream), and raise, counting no launch, when the entry refuses; the
+    library is a stand-in, since the kernels need the card."""
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+    from evostencils_tpu_torch.ops.kernels import _build
+    lib = _FakeLibrary(err)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "on_card", lambda u: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: SimpleNamespace(
+                            multi_processor_count=H100_SMS))
+    u, b, e = (x.float() for x in _inputs((131, 197), 13))
+    omegas = torch.tensor(OMEGAS, dtype=torch.float32)
+    tt.reset_launches()
+    calls = (
+        (lambda: tt.presmooth_residual_restrict(u, b, omegas, [1, 2], ANISO,
+                                                R_TAPS),
+         "es_presmooth_residual_restrict", ("down", 2)),
+        (lambda: tt.prolong_correct_postsmooth_col(u, e, b, omegas, [0, 1],
+                                                   ANISO, P_TAPS),
+         "es_prolong_correct_postsmooth", ("up", 1)))
+    for call, entry, (leg, sweeps) in calls:
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+        else:
+            call()
+        name, args = lib.calls[-1]
+        assert name == entry and args[-5:-1] == (
+            tt.leg_halo(leg, sweeps),
+            tt.leg_window(leg, sweeps, 131, 197, H100_SMS), 131, 197)
+    assert sum(tt.launches.values()) == (0 if err else 2)
