@@ -95,12 +95,18 @@ Phases:
    [evolve] and with the timing protocol off (one solve an evaluation,
    for the script's time); at least
    one 3D standalone kernel must launch;
-14. [kernels-var] compare the four variable-coefficient kernels (the
-   fused red-black and the Jacobi sweep, the down-leg and the up-leg) with
-   their plain versions at 2047^2 and 1023^2 with the variable-coefficient
-   problem's own coefficient stack and at ragged shapes (1025x771 for the
-   legs, 300x200 for the sweeps) with an anisotropic random stack, the
-   legs for 1..3 sweeps, red-black and Jacobi; time both at 2047^2;
+14. [kernels-var] check each var leg instantiation's tile, halo, threads,
+   blocks per SM and spills (``rbgs_var.leg_info``) against the wrapper
+   module's constants for 1..3 sweeps, red-black and Jacobi; compare the
+   four variable-coefficient kernels (the fused red-black and the Jacobi
+   sweep, the down-leg and the up-leg) with their plain versions at the
+   main path's levels 2047^2, 1023^2, 511^2 and 255^2 with the
+   variable-coefficient problem's own coefficient stack and at ragged
+   shapes (1025x771 and 129x131 near the gate for the legs, 300x200 for
+   the sweeps) with an anisotropic random stack, the legs for 1..3 sweeps,
+   red-black and Jacobi; time the sweeps at 2047^2, and the V(2,1)'s legs
+   (2 sweeps down, 1 up), red-black and Jacobi, at every level of the
+   path, with the kernel's device time alone beside (``time_var_legs``);
 15. [main-var] drive the variable-coefficient path,
    poisson_2d_variable(11, 5) (2047^2, float32, the BASELINE suite's
    var-coef row, scripts/bench_suite.py:107-109, :127-129), with the
@@ -145,8 +151,9 @@ Phases:
    red-black and the Jacobi sweep of a constant complex 5-point operator)
    with their plain versions at 2047^2 and 1023^2 with the shifted
    Laplacian's values at k = 80 and the JAX test's complex stencil, and at
-   the ragged 300x200 and 129x130 with the latter; time both at 2047^2 and
-   1023^2;
+   the ragged 300x200 and 129x130 with the latter; time both at every
+   level of the main path (2047^2 .. 255^2), with the kernel's device time
+   alone beside;
 23. [main-cx] drive the complex path: the shifted-Laplace preconditioner
    M = -Lap - k^2 (1 + 0.5i) with Dirichlet boundaries (k = 80, levels
    11->3, 2047^2 down to a dense 7^2 solve, complex64), built from the
@@ -1078,17 +1085,96 @@ def aniso_stack(torch, shape, rng, device):
     return torch.tensor(np.stack(planes), dtype=torch.float32, device=device)
 
 
-#: the [kernels-var] shapes and stacks: the main path's two finest levels
-#: with the problem's own stack (the first is timed), ragged shapes with an
-#: anisotropic random one (the legs take the odd ones)
+#: the [kernels-var] shapes and stacks: the main path's levels with the
+#: problem's own stack (the sweeps are timed at the first), ragged shapes
+#: with an anisotropic random one (the legs take the odd ones; 129x131 lies
+#: at the legs' gate)
 VAR_CASES = [((2047, 2047), "problem"), ((1023, 1023), "problem"),
-             ((1025, 771), "aniso"), ((300, 200), "aniso")]
+             ((511, 511), "problem"), ((255, 255), "problem"),
+             ((1025, 771), "aniso"), ((129, 131), "aniso"),
+             ((300, 200), "aniso")]
+#: the levels of the var and complex paths that their gates admit, where
+#: time_var_legs and time_cx_sweeps time the paths' kernels
+LEVELS_2047 = (2047, 1023, 511, 255)
+
+
+def time_var_legs(torch, rbgs_var, device, shape, stats=None):
+    """Both legs of the V(2,1) (2 sweeps down, 1 up) with the problem's own
+    stack at ``shape``, red-black and Jacobi: kernel and plain in turns as
+    the other kernels are timed (time_pair), the red-black numbers going
+    to ``stats`` when it is given; the kernel's device time alone
+    (time_ms_queued, without the wrapper's host work that time_pair
+    counts) is logged beside them.  Uses only the wrappers' public
+    signatures, so it times an older tree's package as well."""
+    rng = np.random.default_rng(12)
+    n, m = shape
+    u, b, e = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device=device)
+               for s in (shape, shape, ((n - 1) // 2, (m - 1) // 2)))
+    c = var_problem_stack(torch, n, device)
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    for red_black in (True, False):
+        mode = "RB" if red_black else "Jacobi"
+        timed = {
+            VAR_LEGS[0]: (
+                lambda: rbgs_var.presmooth_residual_restrict_var(
+                    u, b, omegas, [1, 2], c, R_TAPS, red_black=red_black),
+                lambda: rbgs_var.presmooth_residual_restrict_var_plain(
+                    u, b, omegas, [1, 2], c, R_TAPS, red_black=red_black),
+                var_leg_bound(shape, 2, "down")),
+            VAR_LEGS[1]: (
+                lambda: rbgs_var.prolong_correct_postsmooth_var(
+                    u, e, b, omegas, [0, 1], c, P_TAPS,
+                    red_black=red_black),
+                lambda: rbgs_var.prolong_correct_postsmooth_var_plain(
+                    u, e, b, omegas, [0, 1], c, P_TAPS,
+                    red_black=red_black),
+                var_leg_bound(shape, 1, "up")),
+        }
+        for name, (kern, plain, (bound, by)) in timed.items():
+            k, p, turns = time_pair(torch, kern, plain)
+            log(f"[kernels-var] {name} {mode} {n}x{m}: kernel "
+                f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
+                f"{turns[3]:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
+                f"queued {time_ms_queued(torch, kern):.4f} ms")
+            if red_black and stats is not None:
+                stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
+                                   bound_by=by)
+
+
+def check_var_leg_info(rbgs_var):
+    """Each instantiation of the two var legs (leg, sweeps, mode): its
+    tile, halo, threads, blocks per SM, registers, local memory (spills)
+    and shared memory, from the card; all but the registers and shared
+    memory must be the wrapper module's, and nothing may spill."""
+    for leg in ("down", "up"):
+        for sweeps in (1, 2, 3):
+            for red_black in (True, False):
+                i = rbgs_var.leg_info(leg, sweeps, red_black)
+                mode = "RB" if red_black else "Jacobi"
+                log(f"[kernels-var] {leg}-leg S={sweeps} {mode}: tile "
+                    f"{i['tile_rows']}x{i['tile_cols']}, halo {i['halo']}, "
+                    f"{i['threads']} threads, {i['blocks_per_sm']} blocks/SM,"
+                    f" {i['registers']} registers, {i['local_bytes']} B "
+                    f"local, {i['smem_bytes']} B shared")
+                tile = rbgs_var.leg_tile(leg, sweeps, red_black)
+                want = {"tile_rows": tile[0], "tile_cols": tile[1],
+                        "halo": rbgs_var.leg_halo(leg, sweeps, red_black),
+                        "threads": rbgs_var.LEG_THREADS,
+                        "blocks_per_sm": rbgs_var.LEG_BLOCKS_PER_SM,
+                        "local_bytes": 0}
+                check(all(i[k] == v for k, v in want.items()),
+                      f"var {leg}-leg S={sweeps} {mode} info {i} against "
+                      f"the wrapper's {want}")
 
 
 def phase_kernels_var(torch, rbgs_var, device):
-    """The variable-coefficient kernels against their plain versions; both
-    timed in turns at 2047^2, the main path's finest level."""
+    """The variable-coefficient kernels against their plain versions; the
+    sweeps timed in turns at 2047^2, the main path's finest level, the legs
+    at every level of the path."""
     stats = {name: {"max_abs_err": 0.0} for name in VAR_SWEEPS + VAR_LEGS}
+    check_var_leg_info(rbgs_var)
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(6)
@@ -1142,8 +1228,7 @@ def phase_kernels_var(torch, rbgs_var, device):
                     note(VAR_LEGS[1], mode, o_k, o_p)
         if shape != VAR_CASES[0][0]:
             continue
-        # the main path's finest level: its stack and taps, V(2,1) sweeps
-        e = normal((n - 1) // 2, (m - 1) // 2)
+        # the main path's finest level: its stack, the sweeps
         timed = {
             "fused_rbgs_sweep_var": (
                 lambda: rbgs_var.fused_rbgs_sweep_var(u, b, omegas, 1, c),
@@ -1154,22 +1239,13 @@ def phase_kernels_var(torch, rbgs_var, device):
                 lambda: rbgs_var.jacobi_sweep_var(u, b, omegas, 2, c),
                 lambda: rbgs_var.jacobi_sweep_var_plain(u, b, omegas, 2, c),
                 var_sweep_bound(shape)),
-            "presmooth_residual_restrict_var": (
-                lambda: rbgs_var.presmooth_residual_restrict_var(
-                    u, b, omegas, [1, 2], c, R_TAPS),
-                lambda: rbgs_var.presmooth_residual_restrict_var_plain(
-                    u, b, omegas, [1, 2], c, R_TAPS),
-                var_leg_bound(shape, 2, "down")),
-            "prolong_correct_postsmooth_var": (
-                lambda: rbgs_var.prolong_correct_postsmooth_var(
-                    u, e, b, omegas, [0, 1], c, P_TAPS),
-                lambda: rbgs_var.prolong_correct_postsmooth_var_plain(
-                    u, e, b, omegas, [0, 1], c, P_TAPS),
-                var_leg_bound(shape, 1, "up")),
         }
         for name, (kern, plain, bound) in timed.items():
             time_standalone(torch, stats, name, "kernels-var", shape, kern,
                             plain, bound, keep=shape)
+    for n in LEVELS_2047:
+        time_var_legs(torch, rbgs_var, device, (n, n),
+                      stats if n == LEVELS_2047[0] else None)
     return stats
 
 
@@ -1425,15 +1501,16 @@ def shifted_laplace_values(n):
 
 
 #: the [kernels-cx] shapes and stencils: the main path's two finest levels
-#: with its shifted Laplacian (timed) and the JAX test's stencil, the JAX
-#: test's ragged shapes (tests/test_pallas_cx.py:39-40) with the latter
+#: with its shifted Laplacian and the JAX test's stencil, the JAX test's
+#: ragged shapes (tests/test_pallas_cx.py:39-40) with the latter
 CX_CASES = [((2047, 2047), ("path", "jax")), ((1023, 1023), ("path", "jax")),
             ((300, 200), ("jax",)), ((129, 130), ("jax",))]
 
 
 def phase_kernels_cx(torch, rbgs_cx, device):
     """The complex sweep kernels against their plain versions; both timed
-    in turns at 2047^2 and 1023^2, the main path's two finest levels."""
+    in turns at every level of the main path, with their device time
+    beside."""
     stats = {name: {"max_abs_err": 0.0} for name in CX_SWEEPS}
     # the fused sweep reads omega 0.6, the Jacobi sweep 0.8
     omegas = torch.tensor([0.9, 0.6, 0.8], dtype=torch.float32,
@@ -1462,18 +1539,38 @@ def phase_kernels_cx(torch, rbgs_cx, device):
                 check(excess <= 0, f"{name} {tag}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                                  err)
-        if shape[0] != shape[1]:
-            continue
-        vals = shifted_laplace_values(shape[0])
-        for name in CX_SWEEPS:
-            kern = getattr(rbgs_cx, name)
-            plain = getattr(rbgs_cx, name + "_plain")
-            time_standalone(
-                torch, stats, name, "kernels-cx", shape,
-                lambda: kern(u, b, omegas, 1, vals),
-                lambda: plain(u, b, omegas, 1, vals), cx_sweep_bound(shape),
-                keep=(2047, 2047))
+    for n in LEVELS_2047:
+        time_cx_sweeps(torch, rbgs_cx, device, (n, n),
+                       stats if n == LEVELS_2047[0] else None)
     return stats
+
+
+def time_cx_sweeps(torch, rbgs_cx, device, shape, stats=None):
+    """Both complex sweeps with the [main-cx] path's shifted Laplacian at
+    ``shape``: kernel and plain in turns (time_pair), the numbers going to
+    ``stats`` when it is given; the kernel's device time alone
+    (time_ms_queued) is logged beside them."""
+    rng = np.random.default_rng(9)
+    u, b = (torch.tensor(rng.standard_normal(shape)
+                         + 1j * rng.standard_normal(shape),
+                         dtype=torch.complex64, device=device)
+            for _ in range(2))
+    omegas = torch.tensor([0.9, 0.6, 0.8], dtype=torch.float32,
+                          device=device)
+    vals = shifted_laplace_values(shape[0])
+    bound, by = cx_sweep_bound(shape)
+    for name in CX_SWEEPS:
+        kern = getattr(rbgs_cx, name)
+        plain = getattr(rbgs_cx, name + "_plain")
+        timed = (lambda: kern(u, b, omegas, 1, vals),
+                 lambda: plain(u, b, omegas, 1, vals))
+        k, p, turns = time_pair(torch, *timed)
+        log(f"[kernels-cx] {name} {shape[0]}x{shape[1]}: kernel "
+            f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
+            f"{turns[3]:.4f} ms, bound {bound:.4f} ms ({by}); kernel queued "
+            f"{time_ms_queued(torch, timed[0]):.4f} ms")
+        if stats is not None:
+            stats[name].update(ms=k, plain_ms=p, bound_ms=bound, bound_by=by)
 
 
 def dirichlet_helmholtz(max_level, min_level):

@@ -109,15 +109,17 @@ SIGNATURES = {
     # u, b, coefficient stack, omegas, omega id, red-black, out, n, m, stream
     "es_sweep_var": (_P, _P, _P, _P, _INT, _INT, _P, _INT, _INT, _P),
     # u, b, coefficient stack, omegas, omega ids, sweeps, red-black, taps,
-    # u_out, rc, n, m, stream
+    # u_out, rc, halo, n, m, stream
     "es_presmooth_residual_restrict_var":
         (_P, _P, _P, _P, _INTS, _INT, _INT, _DOUBLES, _P, _P, _INT, _INT,
-         _P),
+         _INT, _P),
     # u, e, b, coefficient stack, omegas, omega ids, sweeps, red-black,
-    # taps, u_out, n, m, stream
+    # taps, u_out, halo, n, m, stream
     "es_prolong_correct_postsmooth_var":
         (_P, _P, _P, _P, _P, _INTS, _INT, _INT, _DOUBLES, _P, _INT, _INT,
-         _P),
+         _INT, _P),
+    # down, sweeps, red-black, info (8 ints out); no stream
+    "es_var_leg_info": (_INT, _INT, _INT, _INTS),
     # u, b, out (F pointers each), the operator, omegas, omega id,
     # red-black, n, m, stream
     "es_sweep_sys": (_PTRS, _PTRS, _PTRS) + _SYS

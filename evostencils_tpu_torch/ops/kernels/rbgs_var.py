@@ -28,7 +28,7 @@ factors ``omegas[omega_ids]``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,9 @@ import torch.nn.functional as F
 from ..apply import axis_prolong_3tap, axis_restrict_3tap, red_black_masks
 from . import _build
 from . import transfer
+#: the halo of a leg kernel's window: the system legs' rule (P + 2 down, P
+#: up; P = 2S red-black, S Jacobi), the windows being swept the same way
+from .rbgs_sys import leg_halo
 
 #: offset order of the stacked coefficient planes: center, north (row-1),
 #: south (row+1), west (col-1), east (col+1) (rbgs_var.py:30-32)
@@ -45,6 +48,18 @@ FIVE_POINT_OFFSETS = ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1))
 BLOCK_ROWS = 32
 MIN_ROWS = 8
 MIN_COLS = 128
+
+#: The block schedule of the leg kernels (csrc/rbgs_var.cu states the same
+#: window, and es_var_leg_info reports it from the card).  A block of
+#: LEG_THREADS threads stages u, b and the four neighbour coefficient planes
+#: over a window of LEG_WINDOW = (rows, columns) cells, reads the centre
+#: coefficients of its cells into registers, and owns the window's centre,
+#: the tile: the window less leg_halo() cells on every side.  Pass p updates
+#: the window cells at a distance >= p from the window edge.
+#: LEG_BLOCKS_PER_SM blocks are resident on an SM.
+LEG_WINDOW = (32, 64)
+LEG_THREADS = 256
+LEG_BLOCKS_PER_SM = 4
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_var": 0, "jacobi_sweep_var": 0,
@@ -55,6 +70,29 @@ launches = {"fused_rbgs_sweep_var": 0, "jacobi_sweep_var": 0,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def leg_tile(leg: str, sweeps: int, red_black: bool) -> Tuple[int, int]:
+    """(rows, columns) of the tile a block owns: the window less the leg's
+    halo on every side."""
+    halo = leg_halo(leg, sweeps, red_black)
+    return LEG_WINDOW[0] - 2 * halo, LEG_WINDOW[1] - 2 * halo
+
+
+def leg_info(leg: str, sweeps: int, red_black: bool) -> dict:
+    """What the card makes of a leg kernel's instantiation (``leg`` "down"
+    or "up", ``sweeps``, red-black or Jacobi): its tile, halo, threads per
+    block, resident blocks per SM, registers and local memory (spills) per
+    thread, and dynamic shared memory per block.  Needs the card."""
+    info = (ctypes.c_int * 8)()
+    err = _build.load_library().es_var_leg_info(
+        int(leg == "down"), int(sweeps), int(red_black), info)
+    if err != 0:
+        raise RuntimeError(f"no {leg}-leg instantiation for S = {sweeps}, "
+                           f"red-black {red_black}: CUDA error {err}")
+    return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
+                     "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), info))
 
 
 def five_point_stack(sf, *, device, dtype) -> Optional[torch.Tensor]:
@@ -258,14 +296,15 @@ def presmooth_residual_restrict_var(u: torch.Tensor, b: torch.Tensor,
             u, b, omegas, ids, c_stack, taps, red_black)
     _build.check_card_tensors(u, b, c_stack, omegas)
     n, m = u.shape
+    sweeps = len(ids)
     u_out = torch.empty_like(u)
     rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
     _build.launch(launches, "presmooth_residual_restrict_var",
                   "es_presmooth_residual_restrict_var", u.device,
                   u.data_ptr(), b.data_ptr(), c_stack.data_ptr(),
                   omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
-                  len(ids), int(red_black), _taps(taps), u_out.data_ptr(),
-                  rc.data_ptr(), n, m)
+                  sweeps, int(red_black), _taps(taps), u_out.data_ptr(),
+                  rc.data_ptr(), leg_halo("down", sweeps, red_black), n, m)
     return u_out, rc
 
 
@@ -289,11 +328,12 @@ def prolong_correct_postsmooth_var(u: torch.Tensor, e: torch.Tensor,
         return prolong_correct_postsmooth_var_plain(
             u, e, b, omegas, ids, c_stack, taps, red_black)
     _build.check_card_tensors(u, e, b, c_stack, omegas)
+    sweeps = len(ids) - 1
     u_out = torch.empty_like(u)
     _build.launch(launches, "prolong_correct_postsmooth_var",
                   "es_prolong_correct_postsmooth_var", u.device,
                   u.data_ptr(), e.data_ptr(), b.data_ptr(), c_stack.data_ptr(),
                   omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
-                  len(ids) - 1, int(red_black), _taps(taps),
-                  u_out.data_ptr(), n, m)
+                  sweeps, int(red_black), _taps(taps), u_out.data_ptr(),
+                  leg_halo("up", sweeps, red_black), n, m)
     return u_out

@@ -4,12 +4,18 @@
     python3 -m evostencils_tpu_torch.profile_cycle \
         --champion poisson2d_1023sq_seeded_gen75:0
     python3 -m evostencils_tpu_torch.profile_cycle --elasticity
+    python3 -m evostencils_tpu_torch.profile_cycle --var \
+        [--partitioning RedBlack|Jacobi]
 
 Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
 12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15),
 or, with ``--elasticity``, its ``[main-elast]`` red-black cell (2D linear
 elasticity 2047^2, ``linear_elasticity_2d(11, 4)``, the collective
-red-black V(2,1) at omega 1.25, float32), or, with ``--champion
+red-black V(2,1) at omega 1.25, float32), or, with ``--var``, its
+``[main-var]`` cell (variable-coefficient 2D Poisson 2047^2,
+``poisson_2d_variable(11, 5)``, float32) with the red-black V(2,1) at
+omega 1.15 or, with ``--partitioning Jacobi``, the weighted-Jacobi V(2,1)
+at omega 0.8, or, with ``--champion
 KEY:INDEX``, the stored evolved cycle
 ``results/evolved_champions.json[KEY][INDEX]`` on its 2D Poisson 1023^2
 hierarchy (levels 10->5, float32), and, after three warm-up cycles:
@@ -35,6 +41,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,31 +49,42 @@ import torch
 PATHS = {2: (12, 5), 3: (8, 2)}
 #: the [main-elast] red-black cell: levels and omega
 ELASTICITY = (11, 4, 1.25)
+#: the [main-var] cell: levels, and each partitioning's IR name and omega
+VAR = (11, 5)
+VAR_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.15), "Jacobi": ("Single", 0.8)}
 #: the hierarchy of the stored 2D Poisson champions (1023^2)
 CHAMPION_LEVELS = (10, 5)
 CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
              / "evolved_champions.json")
 
 
-def build_path(dim: int, elasticity: bool = False):
-    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path, or of
-    the elasticity cell, on the card."""
+def build_path(dim: int, elasticity: bool = False,
+               var_partitioning: Optional[str] = None):
+    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path, of the
+    elasticity cell, or of the var-coef cell with ``var_partitioning``
+    (a key of VAR_PARTITIONINGS), on the card."""
     from .compiler.cycles import v_cycle
     from .compiler.lower import lower_cycle
     from .ir import partitioning as part
     from .problems.elasticity import linear_elasticity_2d
-    from .problems.poisson import build_rhs, poisson_2d, poisson_3d
+    from .problems.poisson import (build_rhs, poisson_2d, poisson_2d_variable,
+                                   poisson_3d)
 
+    partitioning = part.RedBlack
     if elasticity:
         max_level, min_level, omega = ELASTICITY
         build = linear_elasticity_2d
+    elif var_partitioning:
+        (max_level, min_level), build = VAR, poisson_2d_variable
+        name, omega = VAR_PARTITIONINGS[var_partitioning]
+        partitioning = getattr(part, name)
     else:
         (max_level, min_level), omega = PATHS[dim], 1.15
         build = poisson_2d if dim == 2 else poisson_3d
     problem = build(max_level=max_level, min_level=min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
                     pre_smoothing=2, post_smoothing=1, omega=omega,
-                    partitioning=part.RedBlack,
+                    partitioning=partitioning,
                     coarse_operator=problem.coarsest_operator)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float32, device="cuda")
@@ -114,8 +132,14 @@ def main(argv=None) -> int:
     what.add_argument("--dim", type=int, choices=(2, 3))
     what.add_argument("--champion", metavar="KEY:INDEX")
     what.add_argument("--elasticity", action="store_true")
+    what.add_argument("--var", action="store_true")
+    ap.add_argument("--partitioning", choices=sorted(VAR_PARTITIONINGS),
+                    help="the --var cell's smoother (default RedBlack)")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
+    if args.partitioning and not args.var:
+        ap.error("--partitioning takes --var")
+    var_partitioning = (args.partitioning or "RedBlack") if args.var else None
     if not torch.cuda.is_available():
         print("profile_cycle: no CUDA card", file=sys.stderr)
         return 1
@@ -127,10 +151,17 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    lowered, b, omegas, u = (build_champion(args.champion) if args.champion
-                             else build_path(args.dim, args.elasticity))
-    label = args.champion or ("elasticity 2047^2 RB V(2,1)"
-                              if args.elasticity else f"{args.dim}D")
+    lowered, b, omegas, u = (
+        build_champion(args.champion) if args.champion
+        else build_path(args.dim, args.elasticity, var_partitioning))
+    if args.champion:
+        label = args.champion
+    elif args.elasticity:
+        label = "elasticity 2047^2 RB V(2,1)"
+    elif var_partitioning:
+        label = f"var-coef 2047^2 {var_partitioning} V(2,1)"
+    else:
+        label = f"{args.dim}D"
     n = args.cycles
     u = make_cycle_loop(lowered, 3)(u, b, omegas)
     torch.cuda.synchronize()
