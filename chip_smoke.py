@@ -34,15 +34,20 @@ Phases:
 6. solve the 2D problem to a 1e-5 residual reduction with the kernels and
    with the plain versions; the iteration counts must be equal and the
    residual histories agree to 1e-3 above the float32 residual floor;
-6a. [kernels-loop] compare the fused pass and the row-only legs
+6a. [kernels-loop] check each fused pass instantiation's tile, halo,
+   threads, blocks per SM and spills (``transfer.leg_info``, both forms,
+   1..6 sweeps, every window class built for them) against the wrapper
+   module's constants; compare the fused passes and the row-only legs
    (``upleg_downleg_col``, ``presmooth_residual_rowrestrict``,
    ``prolong_correct_postsmooth``, ``upleg_downleg_fused``) with their
-   plain versions at 4095^2 and 1023x2047, with the path's stencil and
-   taps and with an anisotropic stencil and asymmetric taps: the legs for
-   1..3 sweeps, the fused passes for every (post, pre) in {1, 2, 3}^2, a
-   different omega for every sweep; time both at 4095^2 with the path's
-   sweeps (2 pre, 1 post; 3 in a pass), the kernel's device time alone
-   beside (``time_loop_kernels``);
+   plain versions at 4095^2, 1023x2047 and 1023^2 (where the passes of up
+   to 4 sweeps, row-only 3, take the smaller window class), with the
+   path's stencil and taps and with an anisotropic stencil and asymmetric
+   taps: the legs for 1..3 sweeps, the fused passes for every (post, pre) in {1, 2, 3}^2, a
+   different omega for every sweep; time the legs at 4095^2 with the
+   path's sweeps (2 pre, 1 post) and the passes at 4095^2 and 2047^2 with
+   3 (the path's) and 6 sweeps, the kernel's device time alone beside
+   (``time_loop_kernels``);
 6b. [main-fused] drive phase 5's cell and protocol in three more
    configurations, the switches restored afterwards: (a) loop fusion on,
    fused column transfers; (b) loop fusion on, row-only legs; (c) loop
@@ -490,29 +495,35 @@ def time_2d_legs(torch, transfer, device, shape, stats=None):
                                bound_by=by)
 
 
-def check_leg2d_info(transfer):
-    """Each instantiation of the two 2D legs (leg, sweeps, window class):
-    its tile, halo, threads, blocks per SM, registers, local memory
-    (spills) and shared memory, from the card; all but the registers and
-    shared memory must be the wrapper module's, and nothing may spill."""
-    for leg in ("down", "up"):
-        for sweeps in (1, 2, 3):
-            for window, (_, _, threads) in enumerate(transfer.LEG_WINDOWS):
+def check_leg2d_info(transfer, tag="kernels",
+                     legs=(("down", (1, 2, 3)), ("up", (1, 2, 3)))):
+    """Each instantiation of the windowed 2D kernels ``legs`` ((leg, sweep
+    counts) pairs) in every window class built for it: its tile, halo,
+    threads, blocks per SM, registers, local memory (spills) and shared
+    memory, from the card.  Tile, halo and threads must be the wrapper
+    module's; at least the blocks per SM that its window rule counts on
+    must be resident (its __launch_bounds__ ask for them; an instantiation
+    that needs fewer registers may fit more); nothing may spill."""
+    for leg, counts in legs:
+        for sweeps in counts:
+            for window in transfer.leg_windows(leg, sweeps):
                 i = transfer.leg_info(leg, sweeps, window)
-                log(f"[kernels] {leg}-leg S={sweeps} window {window}: tile "
+                log(f"[{tag}] {leg} S={sweeps} window {window}: tile "
                     f"{i['tile_rows']}x{i['tile_cols']}, halo {i['halo']}, "
-                    f"{i['threads']} threads, {i['blocks_per_sm']} blocks/SM,"
-                    f" {i['registers']} registers, {i['local_bytes']} B "
-                    f"local, {i['smem_bytes']} B shared")
+                    f"{i['threads']} threads, {i['blocks_per_sm']} "
+                    f"blocks/SM, {i['registers']} registers, "
+                    f"{i['local_bytes']} B local, {i['smem_bytes']} B "
+                    "shared")
                 tile = transfer.leg_tile(leg, sweeps, window)
                 want = {"tile_rows": tile[0], "tile_cols": tile[1],
                         "halo": transfer.leg_halo(leg, sweeps),
-                        "threads": threads,
-                        "blocks_per_sm": transfer.LEG_BLOCKS_PER_SM[window],
+                        "threads": transfer.LEG_WINDOWS[window][2],
                         "local_bytes": 0}
-                check(all(i[k] == v for k, v in want.items()),
-                      f"2D {leg}-leg S={sweeps} window {window} info {i} "
-                      f"against the wrapper's {want}")
+                blocks = transfer.leg_blocks(leg, window)
+                check(all(i[k] == v for k, v in want.items())
+                      and i["blocks_per_sm"] >= blocks,
+                      f"2D {leg} S={sweeps} window {window} info {i} "
+                      f"against the wrapper's {want}, {blocks} blocks/SM")
 
 
 #: the shapes where the 2D legs are held against their plain versions: the
@@ -630,49 +641,80 @@ def loop_calls(transfer, omegas, name, u, b, e, ch, sweeps, vals, r_taps,
     return lambda: kern(*args), lambda: plain(*args)
 
 
+#: where time_loop_kernels times each kernel: (fine size, sweeps); the
+#: row-only legs with the main path's sweeps (V(2,1): 2 pre, 1 post) at
+#: 4095^2, the fused passes with the path's (1 post + 2 pre) and the
+#: longest (3 + 3) at 4095^2 and at the finest level of a 2047^2 hierarchy
+LOOP_TIMINGS = {"down": [(4095, 2)], "up": [(4095, 1)],
+                "pass": [(n, pair) for n in (4095, 2047)
+                         for pair in ((1, 2), (3, 3))]}
+
+
 def time_loop_kernels(torch, transfer, device, stats=None):
-    """The row-only legs and the fused passes at 4095^2 with the main
-    path's sweeps (V(2,1): 2 pre, 1 post, a pass 1 + 2): kernel and plain
-    in turns (time_standalone), the numbers going to ``stats`` when it is
-    given, the kernel's device time alone (time_ms_queued) logged beside.
-    Uses only the wrappers' public signatures, so it times an older tree's
-    package as well."""
+    """The row-only legs and the fused passes at LOOP_TIMINGS: kernel and
+    plain in turns (time_pair), the numbers of 4095^2 with the main
+    path's sweeps going to ``stats`` when it is given, the kernel's device
+    time alone (time_ms_queued) logged beside.  Uses only the wrappers'
+    public signatures, so it times an older tree's package as well."""
     rng = np.random.default_rng(8)
-    n = m = 4095
-    u, b, e, ch = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
-                                device=device)
-                   for s in ((n, m), (n, m), ((n - 1) // 2, (m - 1) // 2),
-                             ((n - 1) // 2, m)))
-    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
-                          device=device)
-    for name, (kind, _) in LOOP_KERNELS.items():
-        sweeps = {"down": 2, "up": 1, "pass": (1, 2)}[kind]
-        kern, plain = loop_calls(transfer, omegas, name, u, b, e, ch, sweeps,
-                                 VALS, R_TAPS, P_TAPS)
-        nbytes, flops = loop_work(name, (n, m), 3 if kind == "pass"
-                                  else sweeps)
-        log(f"[kernels-loop] {name} 4095^2 moves {nbytes} bytes, "
-            f"{flops:.4e} float32 operations")
-        time_standalone(torch, stats, name, "kernels-loop", (n, m), kern,
-                        plain, bytes_bound(nbytes, flops),
-                        keep=(n, m) if stats is not None else None)
-        log(f"[kernels-loop] {name} 4095^2: kernel queued "
-            f"{time_ms_queued(torch, kern):.4f} ms")
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95],
+                          dtype=torch.float32, device=device)
+    for n in (4095, 2047):
+        m = n
+        u, b, e, ch = (torch.tensor(rng.standard_normal(s),
+                                    dtype=torch.float32, device=device)
+                       for s in ((n, m), (n, m),
+                                 ((n - 1) // 2, (m - 1) // 2),
+                                 ((n - 1) // 2, m)))
+        for name, (kind, _) in LOOP_KERNELS.items():
+            for sweeps in [s for size, s in LOOP_TIMINGS[kind] if size == n]:
+                kern, plain = loop_calls(transfer, omegas, name, u, b, e, ch,
+                                         sweeps, VALS, R_TAPS, P_TAPS)
+                total = sum(sweeps) if kind == "pass" else sweeps
+                nbytes, flops = loop_work(name, (n, m), total)
+                bound, by = bytes_bound(nbytes, flops)
+                k, p, turns = time_pair(torch, kern, plain)
+                log(f"[kernels-loop] {name} {n}^2 S={total} ({nbytes} bytes,"
+                    f" {flops:.4e} float32 operations): kernel "
+                    f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain "
+                    f"{turns[0]:.4f}/{turns[3]:.4f} ms, bound {bound:.4f} ms "
+                    f"({by}); kernel queued "
+                    f"{time_ms_queued(torch, kern):.4f} ms")
+                path = {"down": 2, "up": 1, "pass": 3}[kind]
+                if stats is not None and (n, total) == (4095, path):
+                    stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
+                                       bound_by=by)
+
+
+#: where phase_kernels_loop holds the kernels against their plain
+#: versions: the path's 4095^2, a ragged level, and 1023^2, where the
+#: window rule picks the 32 x 64 class for passes of up to 4 sweeps
+#: (row-only: 3)
+CHECK_LOOP = [(4095, 4095), (1023, 2047), (1023, 1023)]
 
 
 def phase_kernels_loop(torch, transfer, device):
     """The row-only legs and the fused passes against their plain
-    versions; both timed at 4095^2 with the path's sweeps."""
+    versions, after each pass instantiation's info is checked; both timed
+    at LOOP_TIMINGS."""
     stats = {name: {"max_abs_err": 0.0} for name in LOOP_KERNELS}
+    check_leg2d_info(transfer, "kernels-loop", (("pass", range(1, 7)),
+                                                ("rowpass", range(1, 7))))
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95],
                           dtype=torch.float32, device=device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     rng = np.random.default_rng(7)
-    for n, m in [(4095, 4095), (1023, 2047)]:
+    for n, m in CHECK_LOOP:
         def normal(*shape):
             return torch.tensor(rng.standard_normal(shape),
                                 dtype=torch.float32, device=device)
         u, b = normal(n, m), normal(n, m)
         e, ch = normal((n - 1) // 2, (m - 1) // 2), normal((n - 1) // 2, m)
+        for leg in ("pass", "rowpass"):
+            log(f"[kernels-loop] {n}x{m}: the {leg}'s window class for S = "
+                "2..6: " + ", ".join(
+                    str(transfer.leg_window(leg, s, n, m, sms))
+                    for s in range(2, 7)))
         for vals, r_taps, p_taps in ((VALS, R_TAPS, P_TAPS),
                                      (ANISO, R_TAPS_ASYM, P_TAPS_ASYM)):
             tag = f"{n}x{m} {'asym' if vals is ANISO else 'path'}"

@@ -42,59 +42,70 @@
 // reading the (at most four) coarse values it needs through the cache.
 //
 // The TPU kernel walks full-width row blocks in order.  Here thread blocks
-// run in parallel.  In the row-only legs and the fused passes each one owns
-// a TILE x TILE fine tile and loads it with a HALO-wide ring in both axes,
-// which it recomputes redundantly.
+// run in parallel.  Each one owns a tile of the fine grid and loads it with
+// a ring of halo cells on every side, which it recomputes redundantly.
 // Window-edge cells see zeros in place of their out-of-window neighbours;
-// the error moves inward one cell per half-sweep, so after 2S half-sweeps
-// only cells within 2S-1 of the window edge are wrong.  The residual adds
-// one ring and the restriction reads fine index 2i+2 past the tile, so the
-// down-leg needs HALO >= 2S+2 = 8; the up-leg needs HALO >= 2S.  The
-// prolongation is exact up to the window's edge (the coarse window covers
-// it), so a fused pass of S <= 6 sweeps needs HALO >= 2S+2 = 14: it takes
-// HALO_FUSED = 16, a 96^2 window of u and b (73,728 bytes of dynamic
-// shared memory, plus 9,604 for e's coarse window with column transfers),
-// opted in above the 48 KB default by cudaFuncSetAttribute.  The row-only
-// up-legs read c_half through the cache instead of staging it.
-// Tiles start at even interior indices, so every coarse point's 3x3
-// restriction window and every prolongation stencil lies in one tile, and
-// red is (global row + global column) even in interior indices (interior
-// index i is node i+1 on both axes, which leaves the parity unchanged).
-// Cells outside the grid hold 0 and are never updated (Dirichlet ring and
-// ragged last tiles).  Relaxation factors are read from the device vector
-// by index, so no launch waits on the host.
+// the error moves inward one cell per half-sweep, so after P = 2S
+// half-sweeps only cells within P - 1 of the window edge are wrong.  The
+// residual adds one ring and the restriction reads fine index 2i+2 past
+// the tile, so a kernel that restricts needs a halo of P + 2; the up-leg,
+// whose prolongation is pointwise, needs P.  The prolongation is exact up
+// to the window's edge (the coarse window covers it).  Tiles start at even
+// interior indices, so every coarse point's 3x3 restriction window and
+// every prolongation stencil lies in one tile, and red is (global row +
+// global column) even in interior indices (interior index i is node i+1 on
+// both axes, which leaves the parity unchanged).  Cells outside the grid
+// hold 0 and are never updated (Dirichlet ring and ragged last tiles).
+// Relaxation factors are read from the device vector by index, so no
+// launch waits on the host.
 //
-// Design of the legs with both transfer axes (downleg_col_kernel<S, K>,
-// upleg_col_kernel<S, K>; the legs of every 2D Poisson V-cycle).  These
-// legs are latency-bound before they are bandwidth-bound: a block loads,
-// then runs its half-sweeps between barriers, so the card needs many small
-// blocks resident to keep memory busy.  A block stages u and b over a
-// window of one of N_LEG_WINDOWS classes K (64 x 64 or 32 x 64 cells, 256
-// threads, 40,960 or 20,480 bytes, and e's coarse window on the up-leg:
-// 45,316 or 22,724); the caller picks the larger class when
-// its tiles fill a wave of resident blocks on the card, else the smaller
-// (ops/kernels/transfer.leg_window): 4095^2 and 2047^2 take 64 x 64, the
-// levels from 1023^2 down 32 x 64.  The halo is the leg's own: P = 2S
-// half-sweeps, P + 2 on the down-leg, P on the up-leg, and the tile is the
-// window less the halo on every side.  Pass p updates only the window
-// cells at a distance >= p from the window edge: their neighbours all lie
-// in the window, so no read is predicated, and the cells still right after
-// pass p are exactly those.  The windows are stored split by column parity
-// (each row: its even columns, then its odd ones, the odd half padded to
-// 16 banks), so a colour's cells of a row are contiguous: in a half-sweep
+// The row-only legs (downleg_kernel, upleg_kernel) keep the first design:
+// a TILE x TILE tile, a halo of HALO = 8 for every sweep count (a 80^2
+// window of u and b, 51,200 bytes of dynamic shared memory), one thread
+// per window cell with index arithmetic; the up-leg reads c_half through
+// the cache.
+//
+// Design of the windowed kernels (col_leg_kernel<F, S, K>: the legs with
+// both transfer axes, the legs of every 2D Poisson V-cycle, and the fused
+// passes of the cycle loop in both forms).  They are latency-bound before
+// they are bandwidth-bound: a block loads, then runs its half-sweeps
+// between barriers, so the card needs many small blocks resident to keep
+// memory busy.  A block stages u and b over a window of one of
+// N_LEG_WINDOWS classes K (64 x 64 or 32 x 64 cells, 256 threads, 40,960
+// or 20,480 bytes, and e's coarse window where the kernel prolongs e:
+// 45,316 or 22,724); the caller picks the larger class when its tiles fill
+// a wave of resident blocks on the card, else the smaller
+// (ops/kernels/transfer.leg_window): the legs at 4095^2 and 2047^2 take
+// 64 x 64, the levels from 1023^2 down 32 x 64.  The row-only pass stages
+// c_half's window too (51,520 or 25,920 bytes), which leaves room for 4
+// blocks of the 64 x 64 class an SM.  The halo is the form's own: P + 2 on
+// the down-leg and the fused pass, P on the up-leg, and the tile is the
+// window less the halo on every side.  A class is built for a form and
+// sweep count only if its tile keeps at least the halo's depth of rows (a
+// window at most three tiles high): the 32 x 64 class serves passes of up
+// to 4 sweeps.  Pass p updates only the window cells at a
+// distance >= p from the window edge: their neighbours all lie in the
+// window, so no read is predicated, and the cells still right after pass p
+// are exactly those.  The windows are stored split by column parity (each
+// row: its even columns, then its odd ones, the odd half padded to 16
+// banks), so a colour's cells of a row are contiguous: in a half-sweep
 // lane x updates slot x of its rows, every lane busy, and every warp's
 // reads are bank-conflict free; 5-point red-black updates in place.  u and
 // b are loaded by 4-byte cp.async (a 4095-wide row is 16,380 bytes, so
 // rows are not 16-byte aligned), all of a thread's copies in flight at
 // once; b staged beside u keeps the half-sweeps off the read-only cache's
-// latency.  The down-leg forms the residual of the tile and one row and
-// column past it in registers: lane x walks the fine rows of a run of
-// coarse rows of coarse column x, u's rows above and below in registers,
-// and restricts as it goes.  The up-leg stages e's coarse window once and
-// prolongs from it onto every window cell.
-// tests/test_torch_transfer_tiles.py emulates this schedule in float64,
-// and es_transfer_leg_info reports each instantiation's tile, halo and
-// occupancy from the card.
+// latency.  A kernel that prolongs e stages e's coarse window once and
+// corrects every window cell from it; the row-only pass stages the rows of
+// c_half, already prolonged along columns, that its window needs (on an
+// H100, at 4 blocks an SM, 9% faster than at 5 reading c_half through the
+// cache).  A kernel that restricts forms the residual of the tile and one
+// row (and column) past it in registers: lane x walks the fine rows of a
+// run of coarse rows, u's rows above and below in registers, and restricts
+// as it goes; with both transfer axes it takes coarse column x, row-only
+// the fine columns 2x and 2x + 1.
+// tests/test_torch_transfer_tiles.py and tests/test_torch_fused_tiles.py
+// emulate this schedule in float64, and es_transfer_leg_info reports each
+// instantiation's tile, halo and occupancy from the card.
 
 #include <cuda_runtime.h>
 
@@ -104,18 +115,14 @@ constexpr int TILE = 64;
 constexpr int THREADS = 256;
 constexpr int MAX_SWEEPS = 3;
 constexpr int MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS;
-// the halo of one leg (S <= 3: 2S + 2 = 8) and of a fused pass (S <= 6:
-// 2S + 2 = 14; 16, the TPU body's halo, transfer.py:462-465)
+// the halo of a row-only leg (S <= 3: 2S + 2 = 8)
 constexpr int HALO = 8;
-constexpr int HALO_FUSED = 16;
 
 // The window of a tile with a halo of H cells on every side.
 template <int H>
 struct Win {
   static constexpr int W = TILE + 2 * H;   // fine window edge
-  static constexpr int CW = W / 2 + 1;     // coarse rows/columns feeding it
   static constexpr int UB = 2 * W * W * sizeof(float);   // u and b
-  static constexpr int UBE = UB + CW * CW * sizeof(float);   // and e
 };
 
 struct Leg {
@@ -127,7 +134,8 @@ struct Leg {
   // row and column transfer taps of a leg; of a fused pass, the
   // restriction's
   float tr[3], tc[3];
-  float pr[3], pc[3];           // a fused pass's prolongation taps
+  // the prolongation's taps: a fused pass's own, else tr and tc
+  float pr[3], pc[3];
   // indices into the relaxation-factor vector
   int om[MAX_FUSED_SWEEPS + 1];
   int sweeps;
@@ -219,30 +227,6 @@ __device__ void residual_in_place(const float* su, float* sb, const Leg& p,
   __syncthreads();
 }
 
-// The full restriction of the tile's residual into rc ((n-1)/2, (m-1)/2):
-// coarse point (ci, cj) reads fine rows/columns 2ci..2ci+2, 2cj..2cj+2,
-// the row taps first, then the column taps (transfer.py:802-807).
-template <int H>
-__device__ void restrict_full(const float* sr, float* __restrict__ rc,
-                              const Leg& p) {
-  constexpr int W = Win<H>::W;
-  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
-  constexpr int CT = TILE / 2;
-  for (int idx = threadIdx.x; idx < CT * CT; idx += blockDim.x) {
-    const int i = idx / CT, j = idx - i * CT;
-    const int ci = blockIdx.y * CT + i, cj = blockIdx.x * CT + j;
-    if (ci >= nc || cj >= mc) continue;
-    const float* r = sr + (H + 2 * i) * W + H + 2 * j;
-    float acc = 0.f;
-    for (int e = 0; e < 3; ++e) {
-      const float rows = p.tr[0] * r[e] + p.tr[1] * r[W + e] +
-                         p.tr[2] * r[2 * W + e];
-      acc += p.tc[e] * rows;
-    }
-    rc[static_cast<long>(ci) * mc + cj] = acc;
-  }
-}
-
 // The row restriction of the tile's residual into rr ((n-1)/2, m):
 // rr[ci, j] = tr[0] r[2ci, j] + tr[1] r[2ci+1, j] + tr[2] r[2ci+2, j]
 // (transfer.py:265-271); columns are not decimated.
@@ -262,52 +246,6 @@ __device__ void restrict_rows(const float* sr, float* __restrict__ rr,
   }
 }
 
-// The coarse correction's window: coarse rows and columns cr0 .. cr0 + CW
-// - 1 and cc0 .. cc0 + CW - 1, zero outside the coarse grid.
-template <int H>
-__device__ void load_coarse(const float* __restrict__ e, float* se,
-                            const Leg& p, int cr0, int cc0) {
-  constexpr int CW = Win<H>::CW;
-  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
-  for (int idx = threadIdx.x; idx < CW * CW; idx += blockDim.x) {
-    const int i = idx / CW, j = idx - i * CW;
-    const int ci = cr0 + i, cj = cc0 + j;
-    const bool in = ci >= 0 && ci < nc && cj >= 0 && cj < mc;
-    se[idx] = in ? e[static_cast<long>(ci) * mc + cj] : 0.f;
-  }
-}
-
-// u += om0 * P(e) over the whole window, halo included, with the row taps
-// tr and the column taps tc: fine index 2i+1+o takes taps[o+1] * e[i] on
-// each axis (transfer.py:896-903); the column expansion first, then the
-// row expansion.  The window starts at even (r0, c0), so coarse index
-// r0 / 2 - 1 = cr0 feeds its first fine row through its w[+1] tap, and
-// the window's last (odd) row and column need coarse index cr0 + CW - 1:
-// the correction is exact up to the window's edge.  Ends with a barrier.
-template <int H>
-__device__ void correct_full(float* su, const float* se, const Leg& p,
-                             float om0, const float* tr, const float* tc,
-                             int r0, int c0, int cr0, int cc0) {
-  constexpr int W = Win<H>::W, CW = Win<H>::CW;
-  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
-    const int wr = idx / W, wc = idx - wr * W;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (!inside(p, gr, gc)) continue;
-    float col[2];
-    const int rows[2] = {(gr & 1) ? (gr - 1) / 2 : gr / 2 - 1, gr / 2};
-    for (int k = 0; k < 2; ++k) {
-      const float* er = se + (rows[k] - cr0) * CW;
-      col[k] = (gc & 1) ? tc[1] * er[(gc - 1) / 2 - cc0]
-                        : tc[2] * er[gc / 2 - 1 - cc0] +
-                              tc[0] * er[gc / 2 - cc0];
-    }
-    const float corr = (gr & 1) ? tr[1] * col[0]
-                                : tr[2] * col[0] + tr[0] * col[1];
-    su[idx] += om0 * corr;
-  }
-  __syncthreads();
-}
-
 // u += om0 * P_row(c_half) over the whole window: c_half ((n-1)/2, m) is
 // prolonged along columns already; fine row 2i+1 takes tr[1] c[i], fine
 // row 2i takes tr[2] c[i-1] + tr[0] c[i] (transfer.py:487-490), 0 outside
@@ -315,8 +253,7 @@ __device__ void correct_full(float* su, const float* se, const Leg& p,
 // three fine rows of one column.  Ends with a barrier.
 template <int H>
 __device__ void correct_rows(float* su, const float* __restrict__ ch,
-                             const Leg& p, float om0, const float* tr,
-                             int r0, int c0) {
+                             const Leg& p, float om0, int r0, int c0) {
   constexpr int W = Win<H>::W;
   const int nc = (p.n - 1) / 2;
   for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
@@ -329,19 +266,19 @@ __device__ void correct_rows(float* su, const float* __restrict__ ch,
       c[k] = rows[k] >= 0 && rows[k] < nc
                  ? __ldg(ch + static_cast<long>(rows[k]) * p.m + gc)
                  : 0.f;
-    const float corr = (gr & 1) ? tr[1] * c[0] : tr[2] * c[0] + tr[0] * c[1];
+    const float corr =
+        (gr & 1) ? p.tr[1] * c[0] : p.tr[2] * c[0] + p.tr[0] * c[1];
     su[idx] += om0 * corr;
   }
   __syncthreads();
 }
 
-// The down-leg: sweeps, residual and the full restriction (kCols, rc
-// ((n-1)/2, (m-1)/2)) or the row restriction (rr ((n-1)/2, m)).
-template <bool kCols>
+// The row-only down-leg: sweeps, residual and the row restriction (rr
+// ((n-1)/2, m)).
 __global__ void __launch_bounds__(THREADS)
 downleg_kernel(const float* __restrict__ u, const float* __restrict__ b,
                const float* __restrict__ omegas, float* __restrict__ u_out,
-               float* __restrict__ rc, Leg p) {
+               float* __restrict__ rr, Leg p) {
   extern __shared__ float smem[];
   float* su = smem;
   float* sb = smem + Win<HALO>::W * Win<HALO>::W;
@@ -351,71 +288,25 @@ downleg_kernel(const float* __restrict__ u, const float* __restrict__ b,
   rb_sweeps<HALO>(su, sb, omegas, p, 0, r0, c0);
   residual_in_place<HALO>(su, sb, p, r0, c0);
   store_tile<HALO>(su, u_out, p, r0, c0);
-  if (kCols)
-    restrict_full<HALO>(sb, rc, p);
-  else
-    restrict_rows<HALO>(sb, rc, p, c0);
+  restrict_rows<HALO>(sb, rr, p, c0);
 }
 
-// The up-leg: the correction by the full prolongation of e ((n-1)/2,
-// (m-1)/2) (kCols) or by the row prolongation of c_half ((n-1)/2, m),
-// then the sweeps.
-template <bool kCols>
+// The row-only up-leg: the correction by the row prolongation of c_half
+// ((n-1)/2, m), then the sweeps.
 __global__ void __launch_bounds__(THREADS)
-upleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
+upleg_kernel(const float* __restrict__ u, const float* __restrict__ ch,
              const float* __restrict__ b, const float* __restrict__ omegas,
              float* __restrict__ u_out, Leg p) {
   extern __shared__ float smem[];
   constexpr int W = Win<HALO>::W;
   float* su = smem;
   float* sb = smem + W * W;
-  float* se = smem + 2 * W * W;
   const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
   load_window<HALO>(u, b, su, sb, p, r0, c0);
-  if (kCols) load_coarse<HALO>(e, se, p, cr0, cc0);
   __syncthreads();
-  const float om0 = omegas[p.om[0]];
-  if (kCols)
-    correct_full<HALO>(su, se, p, om0, p.tr, p.tc, r0, c0, cr0, cc0);
-  else
-    correct_rows<HALO>(su, e, p, om0, p.tr, r0, c0);
+  correct_rows<HALO>(su, ch, p, omegas[p.om[0]], r0, c0);
   rb_sweeps<HALO>(su, sb, omegas, p, 1, r0, c0);
   store_tile<HALO>(su, u_out, p, r0, c0);
-}
-
-// The up-leg of cycle k and the down-leg of cycle k+1 in one pass
-// (replaces upleg_downleg_col / upleg_downleg_fused): the correction by
-// p.pr / p.pc, p.sweeps (the post-sweeps, then the next pre-sweeps: up to
-// 6) sweeps, the residual and the restriction by p.tr / p.tc.  The halo
-// is HALO_FUSED = 16 >= 2S + 2; the window is 96^2.
-template <bool kCols>
-__global__ void __launch_bounds__(THREADS)
-vleg_kernel(const float* __restrict__ u, const float* __restrict__ e,
-            const float* __restrict__ b, const float* __restrict__ omegas,
-            float* __restrict__ u_out, float* __restrict__ rc, Leg p) {
-  extern __shared__ float smem[];
-  constexpr int H = HALO_FUSED, W = Win<H>::W;
-  float* su = smem;
-  float* sb = smem + W * W;
-  float* se = smem + 2 * W * W;
-  const int r0 = blockIdx.y * TILE - H, c0 = blockIdx.x * TILE - H;
-  const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
-  load_window<H>(u, b, su, sb, p, r0, c0);
-  if (kCols) load_coarse<H>(e, se, p, cr0, cc0);
-  __syncthreads();
-  const float om0 = omegas[p.om[0]];
-  if (kCols)
-    correct_full<H>(su, se, p, om0, p.pr, p.pc, r0, c0, cr0, cc0);
-  else
-    correct_rows<H>(su, e, p, om0, p.pr, r0, c0);
-  rb_sweeps<H>(su, sb, omegas, p, 1, r0, c0);
-  residual_in_place<H>(su, sb, p, r0, c0);
-  store_tile<H>(su, u_out, p, r0, c0);
-  if (kCols)
-    restrict_full<H>(sb, rc, p);
-  else
-    restrict_rows<H>(sb, rc, p, c0);
 }
 
 // r = b - A u and its restriction for the coarse tile whose first point is
@@ -505,14 +396,22 @@ prolong_correct_kernel(const float* __restrict__ u,
 }
 
 // ---------------------------------------------------------------------------
-// The legs with both transfer axes: downleg_col_kernel<S, K> and
-// upleg_col_kernel<S, K> (es_presmooth_residual_restrict and
-// es_prolong_correct_postsmooth; see the design note at the top).
+// The windowed kernels: col_leg_kernel<F, S, K> in the forms F of
+// es_presmooth_residual_restrict, es_prolong_correct_postsmooth and
+// es_upleg_downleg (see the design note at the top).
 // ---------------------------------------------------------------------------
 
-// Window class K: ROWS x 2 SLOTS cells, blocks of SLOTS x NY threads, at
-// least BLOCKS resident on an SM (__launch_bounds__).  NY is even, so the
-// rows of one thread share a parity.
+// The forms, numbered as es_transfer_leg_info takes them: the up-leg, the
+// down-leg, and the fused pass with both transfer axes or row-only ones.
+enum Form : int { kUp = 0, kDown = 1, kPassCols = 2, kPassRows = 3 };
+
+// Shared memory of an SM that blocks can hold, and what each block
+// reserves besides its own.
+constexpr int SM_SMEM = 228 * 1024, BLOCK_SMEM_RESERVED = 1024;
+
+// Window class K: ROWS x 2 SLOTS cells, blocks of SLOTS x NY threads,
+// BLOCKS resident on an SM where shared memory allows (__launch_bounds__).
+// NY is even, so the rows of one thread share a parity.
 template <int K>
 struct LegWindow;
 template <>
@@ -525,31 +424,39 @@ struct LegWindow<1> {
 };
 constexpr int N_LEG_WINDOWS = 2;
 
-// A leg of S sweeps in window class K: P = 2S half-sweeps, the halo (P + 2
-// down, P up), the tile, and the windows' layout.  Row wr of a window
-// holds its even columns at wr * RS + wc / 2 and its odd ones at
-// wr * RS + ODD + wc / 2; ODD is SLOTS padded to 16 mod 32 banks, so that
-// 32 consecutive columns from an even one fall in 32 banks.  b's window
-// (B floats on) follows u's, and the up-leg's coarse window of e, CR x CC
-// values, follows both.
-template <bool DOWN, int S, int K>
+// Form F of S sweeps in window class K: P = 2S half-sweeps, the halo (P on
+// the up-leg, P + 2 where the kernel restricts), the tile, and the
+// windows' layout.  Row wr of a window holds its even columns at wr * RS +
+// wc / 2 and its odd ones at wr * RS + ODD + wc / 2; ODD is SLOTS padded
+// to 16 mod 32 banks, so that 32 consecutive columns from an even one fall
+// in 32 banks.  b's window (B floats on) follows u's, and the coarse
+// operand's window follows both: e's, CR x CC values, where the kernel
+// prolongs e, c_half's, CR rows in u's layout, in the row-only pass.  The
+// class is built for the form only if the tile keeps at least H rows.
+template <int F, int S, int K>
 struct ColLeg {
   using Win = LegWindow<K>;
+  static constexpr bool PASS = F == kPassCols || F == kPassRows;
   static constexpr int P = 2 * S;
-  static constexpr int H = DOWN ? P + 2 : P;
+  static constexpr int H = F == kUp ? P : P + 2;
   static constexpr int WR = Win::ROWS, SL = Win::SLOTS, NY = Win::NY;
   static constexpr int WC = 2 * SL;
   static constexpr int THREADS = SL * NY;
-  static constexpr int BLOCKS = Win::BLOCKS;
   static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
   static constexpr int ODD = SL + (48 - SL % 32) % 32;
   static constexpr int RS = ODD + SL;
   static constexpr int B = WR * RS;
   static constexpr int CR = WR / 2 + 1, CC = SL + 1;
+  static constexpr bool STAGES_E = F == kUp || F == kPassCols;
   static constexpr int SMEM =
-      (2 * B + (DOWN ? 0 : CR * CC)) * static_cast<int>(sizeof(float));
-  static_assert(NY % 2 == 0 && WR % NY == 0 && TR > 0 && TC > 0,
-                "a window class must fit the leg's halo");
+      (2 * B + (STAGES_E ? CR * CC : F == kPassRows ? CR * RS : 0)) *
+      static_cast<int>(sizeof(float));
+  static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_SMEM_RESERVED);
+  static constexpr int BLOCKS = FIT < Win::BLOCKS ? FIT : Win::BLOCKS;
+  static constexpr bool BUILT =
+      S >= 1 && S <= (PASS ? MAX_FUSED_SWEEPS : MAX_SWEEPS) && TR >= H;
+  static_assert(NY % 2 == 0 && WR % NY == 0 && TC > 0,
+                "a window class must fit the form's halo");
 };
 
 // 4 bytes from src to shared dst without waiting; zeros when !in (src is
@@ -619,6 +526,28 @@ __device__ __forceinline__ void load_coarse_split(const float* __restrict__ e,
   }
 }
 
+// c_half's window: coarse rows cr0 .. cr0 + CR - 1 at the window's fine
+// columns, split by column parity as u's rows are, zero outside the grid.
+template <typename L>
+__device__ __forceinline__ void load_half_split(const float* __restrict__ ch,
+                                                float* sc, const Leg& p,
+                                                int cr0, int c0) {
+  const int nc = (p.n - 1) / 2;
+#pragma unroll
+  for (int k = 0; k < (L::CR + L::NY - 1) / L::NY; ++k) {
+    const int i = threadIdx.y + k * L::NY, ci = cr0 + i;
+    if (i >= L::CR) break;
+    const bool row_in = ci >= 0 && ci < nc;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
+      const bool in = row_in && gc >= 0 && gc < p.m;
+      copy_async(sc + split_at<L>(i, wc),
+                 in ? ch + static_cast<long>(ci) * p.m + gc : ch, in);
+    }
+  }
+}
+
 // Half-sweep PASS (1-based) on the window cells at a distance >= PASS from
 // its edge: red (an even sum of interior indices) on odd passes, black on
 // even ones, in place (the four neighbours of a cell have the other
@@ -684,24 +613,15 @@ __device__ __forceinline__ void store_tile_split(const float* su,
   }
 }
 
-// The window values of row wr at columns H + 2j - 1 .. H + 2j + 3 (u) or
-// H + 2j .. H + 2j + 2 (b, the first three).
-template <typename L, int N>
+// The window values of row wr at columns H + 2j + Q .. H + 2j + Q + N - 1
+// (H is even, so column H + 2j + q lies in the half of q's parity).
+template <typename L, int Q, int N>
 __device__ __forceinline__ void row_values(const float* w, int wr, int j,
                                            float v[N]) {
   const float* ev = w + wr * L::RS + L::H / 2 + j;
-  const float* od = ev + L::ODD;
-  if constexpr (N == 5) {
-    v[0] = od[-1];
-    v[1] = ev[0];
-    v[2] = od[0];
-    v[3] = ev[1];
-    v[4] = od[1];
-  } else {
-    v[0] = ev[0];
-    v[1] = od[0];
-    v[2] = ev[1];
-  }
+#pragma unroll
+  for (int q = Q; q < Q + N; ++q)
+    v[q - Q] = (q & 1) ? ev[L::ODD + ((q - 1) >> 1)] : ev[q >> 1];
 }
 
 // r = b - A u on the tile and one row and column past it, and its full
@@ -722,15 +642,15 @@ __device__ __forceinline__ void residual_restrict_split(
   const int gc = c0 + L::H + 2 * j;
   const int wr0 = L::H + 2 * i0;
   float up[5], cur[5], pend[3];
-  row_values<L, 5>(su, wr0 - 1, j, up);
-  row_values<L, 5>(su, wr0, j, cur);
+  row_values<L, -1, 5>(su, wr0 - 1, j, up);
+  row_values<L, -1, 5>(su, wr0, j, cur);
 #pragma unroll
   for (int x = 0; x <= 2 * RUN; ++x) {
     if (x > 2 * len) break;
     const int gr = r0 + wr0 + x;
     float dn[5], bv[3], r[3];
-    row_values<L, 5>(su, wr0 + x + 1, j, dn);
-    row_values<L, 3>(su + L::B, wr0 + x, j, bv);
+    row_values<L, -1, 5>(su, wr0 + x + 1, j, dn);
+    row_values<L, 0, 3>(su + L::B, wr0 + x, j, bv);
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
       r[e] = 0.f;
@@ -764,12 +684,74 @@ __device__ __forceinline__ void residual_restrict_split(
   }
 }
 
+// r = b - A u on the tile and one row past it, and its row restriction
+// into rr ((n-1)/2, m), rr[i, j] = tr[0] r[2i, j] + tr[1] r[2i+1, j] +
+// tr[2] r[2i+2, j] (transfer.py:265-271): lane x takes the tile's fine
+// columns 2x and 2x + 1 (slot x of both halves) and each thread row a run
+// of RUN coarse rows, walking its fine rows once with u's rows above and
+// below in registers.
+template <typename L>
+__device__ __forceinline__ void residual_rowrestrict_split(
+    const float* su, float* __restrict__ rr, const Leg& p, int r0, int c0) {
+  constexpr int CTR = L::TR / 2;
+  constexpr int RUN = (CTR + L::NY - 1) / L::NY;
+  const int j = threadIdx.x, i0 = threadIdx.y * RUN;
+  const int len = min(RUN, CTR - i0);
+  if (2 * j >= L::TC || len <= 0) return;
+  const int nc = (p.n - 1) / 2;
+  const int ci0 = blockIdx.y * CTR + i0;
+  const int gc = c0 + L::H + 2 * j;
+  const int wr0 = L::H + 2 * i0;
+  float up[4], cur[4], pend[2];
+  row_values<L, -1, 4>(su, wr0 - 1, j, up);
+  row_values<L, -1, 4>(su, wr0, j, cur);
+#pragma unroll
+  for (int x = 0; x <= 2 * RUN; ++x) {
+    if (x > 2 * len) break;
+    const int gr = r0 + wr0 + x;
+    float dn[4], bv[2], r[2];
+    row_values<L, -1, 4>(su, wr0 + x + 1, j, dn);
+    row_values<L, 0, 2>(su + L::B, wr0 + x, j, bv);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      r[e] = 0.f;
+      if (gr < p.n && gc + e < p.m) {
+        const float au = p.c * cur[e + 1] + p.a_up * up[e + 1] +
+                         p.a_dn * dn[e + 1] + p.a_lf * cur[e] +
+                         p.a_rt * cur[e + 2];
+        r[e] = bv[e] - au;
+      }
+    }
+    if (x & 1) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) pend[e] += p.tr[1] * r[e];
+    } else {
+      const int ci = ci0 + x / 2 - 1;   // the coarse row this row ends
+      if (x > 0 && ci < nc) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (gc + e < p.m)
+            rr[static_cast<long>(ci) * p.m + gc + e] =
+                pend[e] + p.tr[2] * r[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) pend[e] = p.tr[0] * r[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      up[e] = cur[e];
+      cur[e] = dn[e];
+    }
+  }
+}
+
 // u += om0 * P(e) on every window cell in the grid, from e's staged coarse
 // window: fine index 2i+1+o takes taps[o+1] * e[i] on each axis, the column
-// expansion first, then the row expansion (transfer.py:896-903).  The
-// window starts at even (r0, c0) and its coarse window at r0 / 2 - 1, so
-// slot s of a row reads coarse columns s and s + 1, and row wr coarse rows
-// wr / 2 and wr / 2 + 1 (even) or (wr + 1) / 2 (odd).
+// expansion first, then the row expansion (transfer.py:896-903), with the
+// prolongation's taps p.pr, p.pc.  The window starts at even (r0, c0) and
+// its coarse window at r0 / 2 - 1, so slot s of a row reads coarse columns
+// s and s + 1, and row wr coarse rows wr / 2 and wr / 2 + 1 (even) or
+// (wr + 1) / 2 (odd).
 template <typename L>
 __device__ __forceinline__ void correct_split(float* su, const float* se,
                                               const Leg& p, float om0, int r0,
@@ -777,7 +759,7 @@ __device__ __forceinline__ void correct_split(float* su, const float* se,
   const int s = threadIdx.x, ty = threadIdx.y;
   // the column expansion of coarse window row `er` at column parity h
   const auto col = [&p](const float* er, int h) {
-    return h ? p.tc[1] * er[1] : p.tc[2] * er[0] + p.tc[0] * er[1];
+    return h ? p.pc[1] * er[1] : p.pc[2] * er[0] + p.pc[0] * er[1];
   };
 #pragma unroll
   for (int k = 0; k < L::WR / L::NY; ++k) {
@@ -790,48 +772,77 @@ __device__ __forceinline__ void correct_split(float* su, const float* se,
       const int gc = c0 + 2 * s + h;
       if (gc < 0 || gc >= p.m) continue;
       const float corr =
-          (wr & 1) ? p.tr[1] * col(er, h)
-                   : p.tr[2] * col(er - L::CC, h) + p.tr[0] * col(er, h);
+          (wr & 1) ? p.pr[1] * col(er, h)
+                   : p.pr[2] * col(er - L::CC, h) + p.pr[0] * col(er, h);
       su[wr * L::RS + h * L::ODD + s] += om0 * corr;
     }
   }
 }
 
-template <int S, int K>
-__global__ void __launch_bounds__(ColLeg<true, S, K>::THREADS,
-                                  ColLeg<true, S, K>::BLOCKS)
-downleg_col_kernel(const float* __restrict__ u, const float* __restrict__ b,
-                   const float* __restrict__ omegas, float* __restrict__ u_out,
-                   float* __restrict__ rc, Leg p) {
-  using L = ColLeg<true, S, K>;
-  extern __shared__ float su[];
-  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
-  load_window_split<L>(u, b, su, p, r0, c0);
-  copy_wait_all();
-  __syncthreads();
-  col_passes<L>(su, omegas, p, 0, r0, c0);
-  store_tile_split<L>(su, u_out, p, r0, c0);
-  residual_restrict_split<L>(su, rc, p, r0, c0);
+// u += om0 * P_row(c_half) on every window cell in the grid, from
+// c_half's staged window: fine row 2i+1 takes pr[1] c[i], fine row 2i
+// takes pr[2] c[i-1] + pr[0] c[i] (transfer.py:487-490), 0 outside the
+// coarse rows.  The coarse window starts at r0 / 2 - 1, so row wr reads
+// coarse window rows wr / 2 and wr / 2 + 1 (even) or (wr + 1) / 2 (odd);
+// lane x corrects slot x of both halves of its rows.
+template <typename L>
+__device__ __forceinline__ void correct_rows_split(float* su, const float* sc,
+                                                   const Leg& p, float om0,
+                                                   int r0, int c0) {
+  const int s = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int k = 0; k < L::WR / L::NY; ++k) {
+    const int wr = ty + k * L::NY, gr = r0 + wr;
+    if (gr < 0 || gr >= p.n) continue;
+    // coarse window row wr / 2 + 1 (even wr) or (wr + 1) / 2 (odd wr)
+    const float* cr = sc + ((wr >> 1) + 1) * L::RS + s;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gc = c0 + 2 * s + h;
+      if (gc < 0 || gc >= p.m) continue;
+      const float* c = cr + h * L::ODD;
+      const float corr = (wr & 1) ? p.pr[1] * c[0]
+                                  : p.pr[2] * c[-L::RS] + p.pr[0] * c[0];
+      su[wr * L::RS + h * L::ODD + s] += om0 * corr;
+    }
+  }
 }
 
-template <int S, int K>
-__global__ void __launch_bounds__(ColLeg<false, S, K>::THREADS,
-                                  ColLeg<false, S, K>::BLOCKS)
-upleg_col_kernel(const float* __restrict__ u, const float* __restrict__ e,
-                 const float* __restrict__ b, const float* __restrict__ omegas,
-                 float* __restrict__ u_out, Leg p) {
-  using L = ColLeg<false, S, K>;
+// Form F of S sweeps in window class K.  e: e ((n-1)/2, (m-1)/2) (kUp,
+// kPassCols) or c_half ((n-1)/2, m) (kPassRows), not read by kDown; r_out:
+// rc ((n-1)/2, (m-1)/2) (kDown, kPassCols) or rr ((n-1)/2, m) (kPassRows),
+// not written by kUp.
+template <int F, int S, int K>
+__global__ void __launch_bounds__(ColLeg<F, S, K>::THREADS,
+                                  ColLeg<F, S, K>::BLOCKS)
+col_leg_kernel(const float* __restrict__ u, const float* __restrict__ e,
+               const float* __restrict__ b, const float* __restrict__ omegas,
+               float* __restrict__ u_out, float* __restrict__ r_out, Leg p) {
+  using L = ColLeg<F, S, K>;
   extern __shared__ float su[];
   float* se = su + 2 * L::B;
   const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
   load_window_split<L>(u, b, su, p, r0, c0);
-  load_coarse_split<L>(e, se, p, (r0 >> 1) - 1, (c0 >> 1) - 1);
+  if constexpr (L::STAGES_E)
+    load_coarse_split<L>(e, se, p, (r0 >> 1) - 1, (c0 >> 1) - 1);
+  else if constexpr (F == kPassRows)
+    load_half_split<L>(e, se, p, (r0 >> 1) - 1, c0);
   copy_wait_all();
   __syncthreads();
-  correct_split<L>(su, se, p, omegas[p.om[0]], r0, c0);
-  __syncthreads();
-  col_passes<L>(su, omegas, p, 1, r0, c0);
+  if constexpr (F != kDown) {
+    const float om0 = omegas[p.om[0]];
+    if constexpr (F == kPassRows)
+      correct_rows_split<L>(su, se, p, om0, r0, c0);
+    else
+      correct_split<L>(su, se, p, om0, r0, c0);
+    __syncthreads();
+  }
+  col_passes<L>(su, omegas, p, F == kDown ? 0 : 1, r0, c0);
   store_tile_split<L>(su, u_out, p, r0, c0);
+  if constexpr (F == kDown || F == kPassCols)
+    residual_restrict_split<L>(su, r_out, p, r0, c0);
+  else if constexpr (F == kPassRows)
+    residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
 }
 
 void set_taps(float* t, const double* c) {
@@ -880,117 +891,94 @@ dim3 tiles(int n, int m) {
 
 bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
 
-// A down-leg: kCols selects the full restriction.
-template <bool kCols>
+// The row-only down-leg: 51,200 bytes of u and b, above the 48 KB
+// default, so the kernel opts in.
 int launch_downleg(const float* u, const float* b, const float* omegas,
                    const int* om_ids, int sweeps, const double* coeffs,
                    float* u_out, float* r_out, int n, int m, void* stream) {
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
     return cudaErrorInvalidValue;
   constexpr int smem = Win<HALO>::UB;
-  cudaError_t err = allow_smem(downleg_kernel<kCols>, smem);
+  cudaError_t err = allow_smem(downleg_kernel, smem);
   if (err != cudaSuccess) return err;
   const Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
-  downleg_kernel<kCols><<<tiles(n, m), THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      u, b, omegas, u_out, r_out, p);
+  downleg_kernel<<<tiles(n, m), THREADS, smem,
+                   static_cast<cudaStream_t>(stream)>>>(u, b, omegas, u_out,
+                                                        r_out, p);
   return cudaGetLastError();
 }
 
-// An up-leg: kCols selects the full prolongation, whose coarse window is
-// staged in shared memory.
-template <bool kCols>
-int launch_upleg(const float* u, const float* e, const float* b,
+// The row-only up-leg.
+int launch_upleg(const float* u, const float* ch, const float* b,
                  const float* omegas, const int* om_ids, int sweeps,
                  const double* coeffs, float* u_out, int n, int m,
                  void* stream) {
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
     return cudaErrorInvalidValue;
-  constexpr int smem = kCols ? Win<HALO>::UBE : Win<HALO>::UB;
-  cudaError_t err = allow_smem(upleg_kernel<kCols>, smem);
+  constexpr int smem = Win<HALO>::UB;
+  cudaError_t err = allow_smem(upleg_kernel, smem);
   if (err != cudaSuccess) return err;
   const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
-  upleg_kernel<kCols><<<tiles(n, m), THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      u, e, b, omegas, u_out, p);
+  upleg_kernel<<<tiles(n, m), THREADS, smem,
+                 static_cast<cudaStream_t>(stream)>>>(u, ch, b, omegas, u_out,
+                                                      p);
   return cudaGetLastError();
 }
 
-// A fused pass: 73,728 bytes of u and b and, with kCols, 9,604 of e's
-// coarse window; above the 48 KB default, so the kernel opts in.
-template <bool kCols>
-int launch_vleg(const float* u, const float* e, const float* b,
-                const float* omegas, const int* om_ids, int sweeps,
-                const double* coeffs, float* u_out, float* r_out, int n,
-                int m, void* stream) {
-  if (sweeps < 1 || sweeps > MAX_FUSED_SWEEPS || bad_shape(n, m))
-    return cudaErrorInvalidValue;
-  constexpr int smem = kCols ? Win<HALO_FUSED>::UBE : Win<HALO_FUSED>::UB;
-  cudaError_t err = allow_smem(vleg_kernel<kCols>, smem);
-  if (err != cudaSuccess) return err;
-  const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m, true);
-  vleg_kernel<kCols><<<tiles(n, m), THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      u, e, b, omegas, u_out, r_out, p);
-  return cudaGetLastError();
-}
-
-// One instantiation of a leg with both transfer axes: its kernel, halo,
-// tile, block (SLOTS x NY threads), its __launch_bounds__ blocks per SM
-// and dynamic shared memory.
+// One instantiation of a windowed kernel: its kernel, halo, tile, block
+// (SLOTS x NY threads), its __launch_bounds__ blocks per SM and dynamic
+// shared memory; kernel null where the class is not built for the form.
 struct ColInst {
   const void* kernel;
   int halo, tile_rows, tile_cols, slots, ny, blocks, smem;
 };
 
-template <bool DOWN, int S, int K>
+template <int F, int S, int K>
 ColInst col_inst() {
-  using L = ColLeg<DOWN, S, K>;
-  const void* kernel;
-  if constexpr (DOWN)
-    kernel = reinterpret_cast<const void*>(downleg_col_kernel<S, K>);
-  else
-    kernel = reinterpret_cast<const void*>(upleg_col_kernel<S, K>);
-  return {kernel, L::H, L::TR, L::TC, L::SL, L::NY, L::BLOCKS, L::SMEM};
+  using L = ColLeg<F, S, K>;
+  if constexpr (!L::BUILT) {
+    return {};
+  } else {
+    return {reinterpret_cast<const void*>(col_leg_kernel<F, S, K>), L::H,
+            L::TR, L::TC, L::SL, L::NY, L::BLOCKS, L::SMEM};
+  }
 }
 
-template <bool DOWN, int S>
-ColInst col_inst_of_window(int window) {
-  static_assert(N_LEG_WINDOWS == 2, "one case per window class");
-  switch (window) {
-    case 0:
-      return col_inst<DOWN, S, 0>();
-    case 1:
-      return col_inst<DOWN, S, 1>();
+// The instantiation of form F for `sweeps` sweeps (S.. on) in `window`
+// (K.. on); null for a count or class it lacks.
+template <int F, int S = 1, int K = 0>
+ColInst find_of_form(int sweeps, int window) {
+  if constexpr (S > MAX_FUSED_SWEEPS) {
+    return {};
+  } else if constexpr (K == N_LEG_WINDOWS) {
+    return find_of_form<F, S + 1, 0>(sweeps, window);
+  } else {
+    if (sweeps == S && window == K) return col_inst<F, S, K>();
+    return find_of_form<F, S, K + 1>(sweeps, window);
+  }
+}
+
+ColInst find_col_leg(int form, int sweeps, int window) {
+  switch (form) {
+    case kUp:
+      return find_of_form<kUp>(sweeps, window);
+    case kDown:
+      return find_of_form<kDown>(sweeps, window);
+    case kPassCols:
+      return find_of_form<kPassCols>(sweeps, window);
+    case kPassRows:
+      return find_of_form<kPassRows>(sweeps, window);
     default:
       return {};
   }
 }
 
-// The instantiation of a leg; kernel null for a sweep count or window
-// class it lacks.
-ColInst find_col_leg(bool down, int sweeps, int window) {
-  switch (sweeps) {
-    case 1:
-      return down ? col_inst_of_window<true, 1>(window)
-                  : col_inst_of_window<false, 1>(window);
-    case 2:
-      return down ? col_inst_of_window<true, 2>(window)
-                  : col_inst_of_window<false, 2>(window);
-    case 3:
-      return down ? col_inst_of_window<true, 3>(window)
-                  : col_inst_of_window<false, 3>(window);
-    default:
-      return {};
-  }
-}
-
-// Launch a leg with both transfer axes in the window class the caller
-// chose, with the halo it derived; refuse a halo the instantiation was not
-// built for.  args: the kernel's arguments.
-cudaError_t launch_col_leg(bool down, int sweeps, int halo, int window, int n,
+// Launch a windowed kernel in the window class the caller chose, with the
+// halo it derived; refuse a halo the instantiation was not built for.
+// args: the kernel's arguments.
+cudaError_t launch_col_leg(int form, int sweeps, int halo, int window, int n,
                            int m, void** args, void* stream) {
-  const ColInst inst = find_col_leg(down, sweeps, window);
+  const ColInst inst = find_col_leg(form, sweeps, window);
   if (!inst.kernel || halo != inst.halo) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(inst.kernel, inst.smem);
   if (err != cudaSuccess) return err;
@@ -1020,8 +1008,9 @@ extern "C" int es_presmooth_residual_restrict(
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
     return cudaErrorInvalidValue;
   Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
-  void* args[] = {&u, &b, &omegas, &u_out, &rc, &p};
-  return launch_col_leg(true, sweeps, halo, window, n, m, args, stream);
+  const float* e = nullptr;
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &rc, &p};
+  return launch_col_leg(kDown, sweeps, halo, window, n, m, args, stream);
 }
 
 // As es_presmooth_residual_restrict (the column taps are not read), but
@@ -1032,8 +1021,8 @@ extern "C" int es_presmooth_residual_rowrestrict(
     const float* u, const float* b, const float* omegas, const int* om_ids,
     int sweeps, const double* coeffs, float* u_out, float* rr, int n, int m,
     void* stream) {
-  return launch_downleg<false>(u, b, omegas, om_ids, sweeps, coeffs, u_out,
-                               rr, n, m, stream);
+  return launch_downleg(u, b, omegas, om_ids, sweeps, coeffs, u_out, rr, n,
+                        m, stream);
 }
 
 // om_ids: 1 + sweeps indices into omegas: the coarse-grid-correction factor,
@@ -1046,20 +1035,21 @@ extern "C" int es_prolong_correct_postsmooth(
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
     return cudaErrorInvalidValue;
   Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
-  void* args[] = {&u, &e, &b, &omegas, &u_out, &p};
-  return launch_col_leg(false, sweeps, halo, window, n, m, args, stream);
+  float* r_out = nullptr;
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
+  return launch_col_leg(kUp, sweeps, halo, window, n, m, args, stream);
 }
 
-// What an instantiation of es_presmooth_residual_restrict (down 1) or
-// es_prolong_correct_postsmooth (down 0) is on this card: info[0], [1] its
-// tile's rows and columns, [2] its halo, [3] threads per block, [4]
-// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
-// its shared memory), [5] registers per thread, [6] local memory per thread
-// in bytes (spills land there), [7] dynamic shared memory per block in
-// bytes.
-extern "C" int es_transfer_leg_info(int down, int sweeps, int window,
+// What an instantiation of es_prolong_correct_postsmooth (form 0),
+// es_presmooth_residual_restrict (form 1) or es_upleg_downleg (form 2 with
+// column transfers, 3 row-only) is on this card: info[0], [1] its tile's
+// rows and columns, [2] its halo, [3] threads per block, [4] resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
+// shared memory), [5] registers per thread, [6] local memory per thread in
+// bytes (spills land there), [7] dynamic shared memory per block in bytes.
+extern "C" int es_transfer_leg_info(int form, int sweeps, int window,
                                     int* info) {
-  const ColInst inst = find_col_leg(down != 0, sweeps, window);
+  const ColInst inst = find_col_leg(form, sweeps, window);
   if (!inst.kernel) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(inst.kernel, inst.smem);
   if (err != cudaSuccess) return err;
@@ -1090,8 +1080,8 @@ extern "C" int es_prolong_correct_postsmooth_rows(
     const float* u, const float* c_half, const float* b, const float* omegas,
     const int* om_ids, int sweeps, const double* coeffs, float* u_out, int n,
     int m, void* stream) {
-  return launch_upleg<false>(u, c_half, b, omegas, om_ids, sweeps, coeffs,
-                             u_out, n, m, stream);
+  return launch_upleg(u, c_half, b, omegas, om_ids, sweeps, coeffs, u_out, n,
+                      m, stream);
 }
 
 // The up-leg of cycle k and the down-leg of cycle k+1 in one pass.
@@ -1102,17 +1092,20 @@ extern "C" int es_prolong_correct_postsmooth_rows(
 // evostencils_tpu/ops/pallas/transfer.py upleg_downleg_col
 // (_vleg_col_kernel).  cols 0: c_half ((n-1)/2, m) in, rr ((n-1)/2, m)
 // out, the column taps not read; replaces upleg_downleg_fused
-// (_vleg_kernel).
+// (_vleg_kernel).  halo, window: as for es_presmooth_residual_restrict,
+// for the pass of `sweeps` sweeps.
 extern "C" int es_upleg_downleg(const float* u, const float* e,
                                 const float* b, const float* omegas,
                                 const int* om_ids, int sweeps,
                                 const double* coeffs, float* u_out,
-                                float* r_out, int n, int m, int cols,
-                                void* stream) {
-  return cols ? launch_vleg<true>(u, e, b, omegas, om_ids, sweeps, coeffs,
-                                  u_out, r_out, n, m, stream)
-              : launch_vleg<false>(u, e, b, omegas, om_ids, sweeps, coeffs,
-                                   u_out, r_out, n, m, stream);
+                                float* r_out, int cols, int halo, int window,
+                                int n, int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_FUSED_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m, true);
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
+  return launch_col_leg(cols ? kPassCols : kPassRows, sweeps, halo, window,
+                        n, m, args, stream);
 }
 
 // coeffs as for es_presmooth_residual_restrict.  Writes rc ((n-1)/2,

@@ -64,7 +64,8 @@ SIGNATURES = {
     "es_prolong_correct_postsmooth":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _INT, _INT,
          _P),
-    # down, sweeps, window class, info (8 ints out); no stream
+    # form (0 up, 1 down, 2 pass, 3 row-only pass), sweeps, window class,
+    # info (8 ints out); no stream
     "es_transfer_leg_info": (_INT, _INT, _INT, _INTS),
     # u, b, omegas, omega ids, sweeps, coefficients, u_out, rr, n, m, stream
     "es_presmooth_residual_rowrestrict":
@@ -74,10 +75,10 @@ SIGNATURES = {
     "es_prolong_correct_postsmooth_rows":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _P),
     # u, e or c_half, b, omegas, omega ids, sweeps, coefficients, u_out,
-    # rc or rr, n, m, column transfers, stream
+    # rc or rr, column transfers, halo, window class, n, m, stream
     "es_upleg_downleg":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _INT,
-         _P),
+         _INT, _INT, _P),
     # u, b, coefficients, rc, n, m, stream
     "es_residual_restrict": (_P, _P, _DOUBLES, _P, _INT, _INT, _P),
     # u, e, omegas, omega id, coefficients, u_out, n, m, stream

@@ -59,20 +59,28 @@ MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS
 MIN_ROWS = 129
 MIN_COLS = 128
 
-#: The block schedule of the legs with both transfer axes
-#: (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``;
+#: The block schedule of the windowed kernels: the legs with both transfer
+#: axes (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``)
+#: and the fused passes (``upleg_downleg_col``, ``upleg_downleg_fused``);
 #: csrc/transfer.cu ``LegWindow<K>`` states the same classes, and
-#: es_transfer_leg_info reports them from the card).  A block stages u and
-#: b over a window of LEG_WINDOWS[k] = (rows, columns, threads) cells and
-#: owns its centre, the tile: the window less leg_halo() cells on every
-#: side.  Pass p (of 2S half-sweeps) updates the window cells at a distance
-#: >= p from the window edge.  LEG_BLOCKS_PER_SM[k] blocks of a class are
-#: resident on an SM: its __launch_bounds__ ask for them, and its shared
-#: memory (class 0) or registers (class 1) allow no more.  A level takes the
-#: first class whose tiles fill one wave of those on the card's SMs, else
-#: the last.
+#: es_transfer_leg_info reports them from the card.  A block stages u and b
+#: over a window of LEG_WINDOWS[k] = (rows, columns, threads) cells and owns
+#: its centre, the tile: the window less leg_halo() cells on every side.
+#: Pass p (of 2S half-sweeps) updates the window cells at a distance >= p
+#: from the window edge.  At least LEG_BLOCKS_PER_SM[k] blocks of a class
+#: are resident on an SM: its __launch_bounds__ ask for them, and at the
+#: registers they allow its shared memory (class 0) or registers (class 1)
+#: allow no more; the row-only pass, which stages c_half's rows as well,
+#: fits ROWPASS_BLOCKS_PER_SM[k] (leg_blocks).  A class is built for a leg only where its tile keeps at
+#: least the halo's depth of rows (leg_windows).  A level takes the first
+#: built class whose tiles fill one wave of those on the card's SMs, else
+#: the last built one.
 LEG_WINDOWS = ((64, 64, 256), (32, 64, 256))
 LEG_BLOCKS_PER_SM = (5, 6)
+ROWPASS_BLOCKS_PER_SM = (4, 6)
+#: the windowed kernels, numbered as es_transfer_leg_info takes them: the
+#: legs, the fused pass with both transfer axes and the row-only one
+_FORMS = {"up": 0, "down": 1, "pass": 2, "rowpass": 3}
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"presmooth_residual_restrict": 0,
@@ -90,15 +98,16 @@ def reset_launches() -> None:
 
 
 def leg_halo(leg: str, sweeps: int) -> int:
-    """The halo of a leg kernel's window (``leg`` "down" or "up"): P = 2 *
-    sweeps half-sweeps, pass p updating the cells at a distance >= p from
-    the window edge, so after P passes the cells at distance >= P are
-    right.  The up-leg needs P, its prolongation being pointwise; the
-    down-leg P + 2, its residual and the restriction's extra row reading
-    one cell past the tile."""
-    if leg not in ("down", "up"):
-        raise ValueError(f"leg {leg!r} is neither 'down' nor 'up'")
-    return 2 * sweeps + (2 if leg == "down" else 0)
+    """The halo of a windowed kernel's window (``leg`` "down", "up",
+    "pass" or "rowpass", the fused pass in its two forms): P = 2 * sweeps
+    half-sweeps, pass p updating the cells at a distance >= p from the
+    window edge, so after P passes the cells at distance >= P are right.
+    The up-leg needs P, its prolongation being pointwise; the down-leg and
+    the passes P + 2, their residual and the restriction's extra row
+    reading one cell past the tile."""
+    if leg not in _FORMS:
+        raise ValueError(f"leg {leg!r} is none of {sorted(_FORMS)}")
+    return 2 * sweeps + (0 if leg == "up" else 2)
 
 
 def leg_tile(leg: str, sweeps: int, window: int) -> Tuple[int, int]:
@@ -109,18 +118,36 @@ def leg_tile(leg: str, sweeps: int, window: int) -> Tuple[int, int]:
     return rows - 2 * halo, cols - 2 * halo
 
 
+def leg_windows(leg: str, sweeps: int) -> Tuple[int, ...]:
+    """The window classes built for a leg of ``sweeps`` sweeps: those whose
+    tile keeps at least the halo's depth of rows, so that no block
+    recomputes more than twice the rows it owns.  Every class serves the
+    legs; the 32 x 64 class serves passes of up to 4 sweeps."""
+    return tuple(k for k in range(len(LEG_WINDOWS))
+                 if leg_tile(leg, sweeps, k)[0] >= leg_halo(leg, sweeps))
+
+
+def leg_blocks(leg: str, window: int) -> int:
+    """Resident blocks per SM of a leg's instantiation in class
+    ``window``."""
+    table = ROWPASS_BLOCKS_PER_SM if leg == "rowpass" else LEG_BLOCKS_PER_SM
+    return table[window]
+
+
 @functools.cache
 def leg_window(leg: str, sweeps: int, n: int, m: int, sms: int) -> int:
-    """The window class of a leg on an (n, m) grid, on a card of ``sms``
-    streaming multiprocessors: the first whose tiles fill one wave of
-    resident blocks (sms * LEG_BLOCKS_PER_SM[k]), else the last, the
-    smallest.  On the H100's 132, 4095^2 and 2047^2 take class 0, the
-    levels from 1023^2 down class 1."""
-    for window in range(len(LEG_WINDOWS)):
+    """The window class of a leg or pass on an (n, m) grid, on a card of
+    ``sms`` streaming multiprocessors: the first built class whose tiles
+    fill one wave of resident blocks (sms * leg_blocks(leg, k)), else the
+    last built one.  On the H100's 132, 4095^2 and 2047^2 take class 0,
+    the levels from 1023^2 down class 1 (a pass of 5 or 6 sweeps, class 0
+    everywhere)."""
+    built = leg_windows(leg, sweeps)
+    for window in built:
         tr, tc = leg_tile(leg, sweeps, window)
-        if -(-n // tr) * -(-m // tc) >= sms * LEG_BLOCKS_PER_SM[window]:
+        if -(-n // tr) * -(-m // tc) >= sms * leg_blocks(leg, window):
             return window
-    return len(LEG_WINDOWS) - 1
+    return built[-1]
 
 
 def _sms(device: torch.device) -> int:
@@ -129,15 +156,16 @@ def _sms(device: torch.device) -> int:
 
 
 def leg_info(leg: str, sweeps: int, window: int) -> dict:
-    """What the card makes of a leg kernel's instantiation (``leg`` "down"
-    or "up", ``sweeps``, window class ``window``): its tile, halo, threads
-    per block, resident blocks per SM, registers and local memory (spills)
-    per thread, and dynamic shared memory per block.  Needs the card."""
+    """What the card makes of a windowed kernel's instantiation (``leg``
+    "down", "up", "pass" or "rowpass", ``sweeps``, window class
+    ``window``): its tile, halo, threads per block, resident blocks per SM,
+    registers and local memory (spills) per thread, and dynamic shared
+    memory per block.  Needs the card."""
     info = (ctypes.c_int * 8)()
     err = _build.load_library().es_transfer_leg_info(
-        int(leg == "down"), int(sweeps), int(window), info)
+        _FORMS[leg], int(sweeps), int(window), info)
     if err != 0:
-        raise RuntimeError(f"no {leg}-leg instantiation for S = {sweeps}, "
+        raise RuntimeError(f"no {leg} instantiation for S = {sweeps}, "
                            f"window {window}: CUDA error {err}")
     return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
                      "blocks_per_sm", "registers", "local_bytes",
@@ -275,6 +303,15 @@ def prolong_correct_plain(u, e, omegas, omega_id, taps):
 # wrappers
 # ---------------------------------------------------------------------------
 
+def _window_args(leg, sweeps, u):
+    """(halo, window class, n, m): the last arguments before the stream of
+    a windowed kernel's entry, for ``leg`` of ``sweeps`` sweeps over
+    ``u``."""
+    n, m = u.shape
+    return (leg_halo(leg, sweeps),
+            leg_window(leg, sweeps, n, m, _sms(u.device)), n, m)
+
+
 def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=(),
                max_sweeps=MAX_SWEEPS):
     """Shape and index checks shared by both devices; returns the ids."""
@@ -344,8 +381,7 @@ def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
                   b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), len(ids),
                   _coefficients(stencil_vals, taps), u_out.data_ptr(),
-                  rc.data_ptr(), leg_halo("down", len(ids)),
-                  leg_window("down", len(ids), n, m, _sms(u.device)), n, m)
+                  rc.data_ptr(), *_window_args("down", len(ids), u))
     return u_out, rc
 
 
@@ -363,7 +399,6 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
         return prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
                                                     stencil_vals, taps)
     _build.check_card_tensors(u, e, b, omegas)
-    n, m = u.shape
     u_out = torch.empty_like(u)
     sweeps = len(ids) - 1
     _build.launch(launches, "prolong_correct_postsmooth_col",
@@ -371,8 +406,7 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
                   e.data_ptr(), b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), sweeps,
                   _coefficients(stencil_vals, taps), u_out.data_ptr(),
-                  leg_halo("up", sweeps),
-                  leg_window("up", sweeps, n, m, _sms(u.device)), n, m)
+                  *_window_args("up", sweeps, u))
     return u_out
 
 
@@ -401,7 +435,8 @@ def upleg_downleg_col(u: torch.Tensor, e: torch.Tensor, b: torch.Tensor,
                   u.device, u.data_ptr(), e.data_ptr(), b.data_ptr(),
                   omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
                   len(ids) - 1, _coefficients(stencil_vals, r_taps, p_taps),
-                  u_out.data_ptr(), rc.data_ptr(), n, m, 1)
+                  u_out.data_ptr(), rc.data_ptr(), 1,
+                  *_window_args("pass", len(ids) - 1, u))
     return u_out, rc
 
 
@@ -484,7 +519,8 @@ def upleg_downleg_fused(u: torch.Tensor, c_half: torch.Tensor,
                   len(ids) - 1,
                   _coefficients(stencil_vals, (r_row_taps, _NO_TAPS),
                                 (p_row_taps, _NO_TAPS)),
-                  u_out.data_ptr(), rr.data_ptr(), n, m, 0)
+                  u_out.data_ptr(), rr.data_ptr(), 0,
+                  *_window_args("rowpass", len(ids) - 1, u))
     return u_out, rr
 
 

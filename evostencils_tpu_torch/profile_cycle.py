@@ -6,6 +6,7 @@
     python3 -m evostencils_tpu_torch.profile_cycle --elasticity
     python3 -m evostencils_tpu_torch.profile_cycle --var \
         [--partitioning RedBlack|Jacobi]
+    python3 -m evostencils_tpu_torch.profile_cycle --dim 2 --loop a
 
 Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
 12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15),
@@ -18,7 +19,11 @@ omega 1.15 or, with ``--partitioning Jacobi``, the weighted-Jacobi V(2,1)
 at omega 0.8, or, with ``--champion
 KEY:INDEX``, the stored evolved cycle
 ``results/evolved_champions.json[KEY][INDEX]`` on its 2D Poisson 1023^2
-hierarchy (levels 10->5, float32), and, after three warm-up cycles:
+hierarchy (levels 10->5, float32).  ``--loop`` runs it in one of the
+``[main-fused]`` configurations of ``chip_smoke.py`` (LOOPS: (a) loop
+fusion with column transfers, (b) loop fusion with row-only legs, (c)
+row-only legs, (d) neither, the defaults), and restores the switches
+afterwards.  After three warm-up cycles it
 
 1. runs three batches of ``--cycles`` chained cycles and reads the host
    clock before and after ``torch.cuda.synchronize()``: the host's enqueue
@@ -52,6 +57,10 @@ ELASTICITY = (11, 4, 1.25)
 #: the [main-var] cell: levels, and each partitioning's IR name and omega
 VAR = (11, 5)
 VAR_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.15), "Jacobi": ("Single", 0.8)}
+#: the [main-fused] configurations: (config.loop_fusion,
+#: config.fused_column_transfers)
+LOOPS = {"a": (True, True), "b": (True, False), "c": (False, False),
+         "d": (False, True)}
 #: the hierarchy of the stored 2D Poisson champions (1023^2)
 CHAMPION_LEVELS = (10, 5)
 CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
@@ -135,6 +144,9 @@ def main(argv=None) -> int:
     what.add_argument("--var", action="store_true")
     ap.add_argument("--partitioning", choices=sorted(VAR_PARTITIONINGS),
                     help="the --var cell's smoother (default RedBlack)")
+    ap.add_argument("--loop", choices=sorted(LOOPS),
+                    help="the [main-fused] configuration (default: the "
+                    "switches as they are)")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
     if args.partitioning and not args.var:
@@ -143,6 +155,19 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_cycle: no CUDA card", file=sys.stderr)
         return 1
+    from .config import config
+
+    saved = (config.loop_fusion, config.fused_column_transfers)
+    if args.loop:
+        config.loop_fusion, config.fused_column_transfers = LOOPS[args.loop]
+    try:
+        return _profile(args, var_partitioning)
+    finally:
+        config.loop_fusion, config.fused_column_transfers = saved
+
+
+def _profile(args, var_partitioning) -> int:
+    """Steps 1 and 2 of the module docstring on the path ``args`` names."""
     from .compiler.solve import make_cycle_loop
     from .config import setup_device
 
@@ -162,6 +187,8 @@ def main(argv=None) -> int:
         label = f"var-coef 2047^2 {var_partitioning} V(2,1)"
     else:
         label = f"{args.dim}D"
+    if args.loop:
+        label += f", loop configuration ({args.loop})"
     n = args.cycles
     u = make_cycle_loop(lowered, 3)(u, b, omegas)
     torch.cuda.synchronize()

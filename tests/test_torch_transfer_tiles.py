@@ -1,6 +1,6 @@
 """The block schedule of the 2D Poisson leg kernels
-(evostencils_tpu_torch/csrc/transfer.cu, ``downleg_col_kernel`` and
-``upleg_col_kernel``), emulated in float64 on the CPU.
+(evostencils_tpu_torch/csrc/transfer.cu, ``col_leg_kernel`` in the forms of
+the down-leg and the up-leg), emulated in float64 on the CPU.
 
 The kernels cannot run here, but their halo arithmetic can.  A level takes
 the window class ``leg_window(leg, S, n, m, sms)``; each block owns a
