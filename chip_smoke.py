@@ -36,16 +36,18 @@ Phases:
    residual histories agree to 1e-3 above the float32 residual floor;
 6a. [kernels-loop] check each fused pass instantiation's tile, halo,
    threads, blocks per SM and spills (``transfer.leg_info``, both forms,
-   1..6 sweeps, every window class built for them) against the wrapper
-   module's constants; compare the fused passes and the row-only legs
+   1..6 sweeps, every window class built for them), and each row-only
+   leg's (1..3 sweeps), against the wrapper module's constants; compare
+   the fused passes and the row-only legs
    (``upleg_downleg_col``, ``presmooth_residual_rowrestrict``,
    ``prolong_correct_postsmooth``, ``upleg_downleg_fused``) with their
    plain versions at 4095^2, 1023x2047 and 1023^2 (where the passes of up
    to 4 sweeps, row-only 3, take the smaller window class), with the
    path's stencil and taps and with an anisotropic stencil and asymmetric
    taps: the legs for 1..3 sweeps, the fused passes for every (post, pre) in {1, 2, 3}^2, a
-   different omega for every sweep; time the legs at 4095^2 with the
-   path's sweeps (2 pre, 1 post) and the passes at 4095^2 and 2047^2 with
+   different omega for every sweep; time the legs at every level of the
+   path, 4095^2 to 255^2, with its sweeps (2 pre, 1 post) and the passes
+   at 4095^2 and 2047^2 with
    3 (the path's) and 6 sweeps, the kernel's device time alone beside
    (``time_loop_kernels``);
 6b. [main-fused] drive phase 5's cell and protocol in three more
@@ -75,11 +77,12 @@ Phases:
    float32 floor of 1e-5 ||b||, and the gen-75 champion must converge
    faster than the red-black V(2,1);
 10. [evolve] the CLI twin of scripts/optimize.py in this process,
-   ``poisson2d NSGAII --mu 4 --lambda 4 --generations 1 --seed 0`` at
+   ``poisson2d NSGAII --mu 2 --lambda 2 --generations 1 --seed 0`` at
    its default levels 9->5, which must end with a finite best individual
    that re-parses and converges; its timing protocol takes one repetition
-   of its windows instead of three, and it runs one generation, cuts of
-   this run that keep the whole script near its time;
+   of its windows instead of three, and it runs one generation of
+   mu = lambda = 2 (8 initial candidates and 2 offspring), cuts of this
+   run that keep the whole script near its time;
 11. [kernels-sweep3d] compare the standalone 3D sweeps (red-black and
    Jacobi, omega 1.15, an anisotropic 7-point stencil) with their plain
    versions through the leg3d names at 255^3, 65x127x255 and 17x33x63 and
@@ -95,7 +98,7 @@ Phases:
    prolongation corrections, the V(1,1) 1 leg3d and 2 rbgs3d red-black
    sweeps, 3 residual restrictions and 3 wavefront up-legs; kernels
    against plain versions as in [evaluator];
-13. [evolve3d] ``poisson3d NSGAII --mu 4 --lambda 4 --generations 1
+13. [evolve3d] ``poisson3d NSGAII --mu 2 --lambda 2 --generations 1
    --seed 0`` at its default levels 6->2 (63^3), cut to one generation as
    [evolve] and with the timing protocol off (one solve an evaluation,
    for the script's time); at least
@@ -124,7 +127,7 @@ Phases:
    and V(4,4); per cycle each runs 3 + 3 var legs, and each V(4,4) 6
    standalone var sweeps besides; kernels against plain versions as in
    [evaluator];
-17. [evolve-var] ``poisson2d_var NSGAII --mu 4 --lambda 4 --generations 1
+17. [evolve-var] ``poisson2d_var NSGAII --mu 2 --lambda 2 --generations 1
    --seed 0`` at its default levels 9->5 (511^2), cut as [evolve];
 18. [kernels-sys] compare the four coupled-system kernels (the fused
    red-black and the Jacobi sweep, the down-leg and the up-leg) with their
@@ -150,7 +153,7 @@ Phases:
    each V(4,4) 2 standalone system sweeps and the champion 1 besides;
    kernels against plain versions as in [evaluator]; the champion needs no
    more iterations than the red-black V(2,1);
-21. [evolve-elast] ``elasticity2d NSGAII --mu 4 --lambda 4 --generations 1
+21. [evolve-elast] ``elasticity2d NSGAII --mu 2 --lambda 2 --generations 1
    --seed 0`` at its default levels 8->4 (255^2), cut as [evolve3d];
 22. [kernels-cx] compare the two complex sweep kernels (the fused
    red-black and the Jacobi sweep of a constant complex 5-point operator)
@@ -180,7 +183,7 @@ Phases:
    helmholtz_2d(7, 3) runs measure_interleaved over the red-black and
    Jacobi V(2,1) and the 2 x 2 block-Jacobi V(2,1) (omega 0.6), each
    preconditioning BiCGStab; each must converge;
-26. [evolve-helm] ``helmholtz2d NSGAII --mu 4 --lambda 4 --generations 1
+26. [evolve-helm] ``helmholtz2d NSGAII --mu 2 --lambda 2 --generations 1
    --seed 0 --no-robustness`` at its default levels 7->3 (127^2), cut as
    [evolve3d]; every evaluation is a BiCGStab solve, so the 2k and 4k
    robustness variants are cut too (EVOLVE_HELM_OPTIONS); each
@@ -591,15 +594,17 @@ def phase_kernels(torch, transfer, device):
     return stats
 
 
-#: the row-only and fused kernels: (kind, the sweep counts checked); a
-#: fused pass's count is a (post, pre) pair
+#: the row-only and fused kernels: (form, the sweep counts checked), the
+#: form named as transfer.leg_info names it; a fused pass's count is a
+#: (post, pre) pair
+PASS_FORMS = ("pass", "rowpass")
 LOOP_KERNELS = {
-    "presmooth_residual_rowrestrict": ("down", (1, 2, 3)),
-    "prolong_correct_postsmooth": ("up", (1, 2, 3)),
+    "presmooth_residual_rowrestrict": ("rowdown", (1, 2, 3)),
+    "prolong_correct_postsmooth": ("rowup", (1, 2, 3)),
     "upleg_downleg_col": ("pass", [(post, pre) for post in (1, 2, 3)
                                    for pre in (1, 2, 3)]),
-    "upleg_downleg_fused": ("pass", [(post, pre) for post in (1, 2, 3)
-                                     for pre in (1, 2, 3)])}
+    "upleg_downleg_fused": ("rowpass", [(post, pre) for post in (1, 2, 3)
+                                        for pre in (1, 2, 3)])}
 
 
 def loop_work(name, shape, sweeps):
@@ -625,16 +630,16 @@ def loop_calls(transfer, omegas, name, u, b, e, ch, sweeps, vals, r_taps,
                p_taps):
     """(kernel, plain) thunks of one row-only leg or fused pass for
     ``sweeps`` (a fused pass's: a (post, pre) pair)."""
-    kind = LOOP_KERNELS[name][0]
-    if kind == "down":
+    form = LOOP_KERNELS[name][0]
+    if form == "rowdown":
         args = (u, b, omegas, [1, 2, 3][:sweeps], vals, r_taps[0])
-    elif kind == "up":
+    elif form == "rowup":
         args = (u, ch, b, omegas, [0, 1, 2, 3][:sweeps + 1], vals,
                 p_taps[0])
     else:
         ids = list(range(1 + sum(sweeps)))
         args = ((u, e, b, omegas, ids, vals, p_taps, r_taps)
-                if name == "upleg_downleg_col" else
+                if form == "pass" else
                 (u, ch, b, omegas, ids, vals, p_taps[0], r_taps[0]))
     kern = getattr(transfer, name)
     plain = getattr(transfer, name + "_plain")
@@ -643,11 +648,14 @@ def loop_calls(transfer, omegas, name, u, b, e, ch, sweeps, vals, r_taps,
 
 #: where time_loop_kernels times each kernel: (fine size, sweeps); the
 #: row-only legs with the main path's sweeps (V(2,1): 2 pre, 1 post) at
-#: 4095^2, the fused passes with the path's (1 post + 2 pre) and the
-#: longest (3 + 3) at 4095^2 and at the finest level of a 2047^2 hierarchy
-LOOP_TIMINGS = {"down": [(4095, 2)], "up": [(4095, 1)],
-                "pass": [(n, pair) for n in (4095, 2047)
-                         for pair in ((1, 2), (3, 3))]}
+#: every level of the path, the fused passes with the path's (1 post + 2
+#: pre) and the longest (3 + 3) at 4095^2 and at the finest level of a
+#: 2047^2 hierarchy
+LOOP_TIMINGS = {"rowdown": [(n, 2) for n in LEVELS_2D],
+                "rowup": [(n, 1) for n in LEVELS_2D],
+                **{form: [(n, pair) for n in (4095, 2047)
+                          for pair in ((1, 2), (3, 3))]
+                   for form in PASS_FORMS}}
 
 
 def time_loop_kernels(torch, transfer, device, stats=None):
@@ -659,18 +667,19 @@ def time_loop_kernels(torch, transfer, device, stats=None):
     rng = np.random.default_rng(8)
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95],
                           dtype=torch.float32, device=device)
-    for n in (4095, 2047):
+    for n in sorted({size for timings in LOOP_TIMINGS.values()
+                     for size, _ in timings}, reverse=True):
         m = n
         u, b, e, ch = (torch.tensor(rng.standard_normal(s),
                                     dtype=torch.float32, device=device)
                        for s in ((n, m), (n, m),
                                  ((n - 1) // 2, (m - 1) // 2),
                                  ((n - 1) // 2, m)))
-        for name, (kind, _) in LOOP_KERNELS.items():
-            for sweeps in [s for size, s in LOOP_TIMINGS[kind] if size == n]:
+        for name, (form, _) in LOOP_KERNELS.items():
+            for sweeps in [s for size, s in LOOP_TIMINGS[form] if size == n]:
                 kern, plain = loop_calls(transfer, omegas, name, u, b, e, ch,
                                          sweeps, VALS, R_TAPS, P_TAPS)
-                total = sum(sweeps) if kind == "pass" else sweeps
+                total = sum(sweeps) if form in PASS_FORMS else sweeps
                 nbytes, flops = loop_work(name, (n, m), total)
                 bound, by = bytes_bound(nbytes, flops)
                 k, p, turns = time_pair(torch, kern, plain)
@@ -680,7 +689,8 @@ def time_loop_kernels(torch, transfer, device, stats=None):
                     f"{turns[0]:.4f}/{turns[3]:.4f} ms, bound {bound:.4f} ms "
                     f"({by}); kernel queued "
                     f"{time_ms_queued(torch, kern):.4f} ms")
-                path = {"down": 2, "up": 1, "pass": 3}[kind]
+                path = 3 if form in PASS_FORMS else {"rowdown": 2,
+                                                      "rowup": 1}[form]
                 if stats is not None and (n, total) == (4095, path):
                     stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
                                        bound_by=by)
@@ -689,43 +699,55 @@ def time_loop_kernels(torch, transfer, device, stats=None):
 #: where phase_kernels_loop holds the kernels against their plain
 #: versions: the path's 4095^2, a ragged level, and 1023^2, where the
 #: window rule picks the 32 x 64 class for passes of up to 4 sweeps
-#: (row-only: 3)
+#: (row-only: 3); the fused passes run only at 4095^2 on [main-fused]
 CHECK_LOOP = [(4095, 4095), (1023, 2047), (1023, 1023)]
+#: the row-only legs run at every level of [main-fused] (b) and (c), so
+#: they are held at the path's other levels as well
+CHECK_ROW_LEGS = CHECK_LOOP + [(n, n) for n in LEVELS_2D
+                               if (n, n) not in CHECK_LOOP]
 
 
 def phase_kernels_loop(torch, transfer, device):
     """The row-only legs and the fused passes against their plain
-    versions, after each pass instantiation's info is checked; both timed
-    at LOOP_TIMINGS."""
+    versions, after each pass and row-only leg instantiation's info is
+    checked: the passes at CHECK_LOOP, the row-only legs at CHECK_ROW_LEGS;
+    both timed at LOOP_TIMINGS."""
     stats = {name: {"max_abs_err": 0.0} for name in LOOP_KERNELS}
-    check_leg2d_info(transfer, "kernels-loop", (("pass", range(1, 7)),
-                                                ("rowpass", range(1, 7))))
+    check_leg2d_info(transfer, "kernels-loop",
+                     (("pass", range(1, 7)), ("rowpass", range(1, 7)),
+                      ("rowdown", (1, 2, 3)), ("rowup", (1, 2, 3))))
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95],
                           dtype=torch.float32, device=device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rng = np.random.default_rng(7)
-    for n, m in CHECK_LOOP:
+    for n, m in CHECK_ROW_LEGS:
         def normal(*shape):
             return torch.tensor(rng.standard_normal(shape),
                                 dtype=torch.float32, device=device)
         u, b = normal(n, m), normal(n, m)
         e, ch = normal((n - 1) // 2, (m - 1) // 2), normal((n - 1) // 2, m)
-        for leg in ("pass", "rowpass"):
+        kernels = {name: form_counts for name, form_counts
+                   in LOOP_KERNELS.items()
+                   if (n, m) in CHECK_LOOP or form_counts[0] not in PASS_FORMS}
+        for leg, counts in (("pass", range(2, 7)), ("rowpass", range(2, 7)),
+                            ("rowdown", (1, 2, 3)), ("rowup", (1, 2, 3))):
+            if (n, m) not in CHECK_LOOP and leg in PASS_FORMS:
+                continue
             log(f"[kernels-loop] {n}x{m}: the {leg}'s window class for S = "
-                "2..6: " + ", ".join(
+                f"{counts[0]}..{counts[-1]}: " + ", ".join(
                     str(transfer.leg_window(leg, s, n, m, sms))
-                    for s in range(2, 7)))
+                    for s in counts))
         for vals, r_taps, p_taps in ((VALS, R_TAPS, P_TAPS),
                                      (ANISO, R_TAPS_ASYM, P_TAPS_ASYM)):
             tag = f"{n}x{m} {'asym' if vals is ANISO else 'path'}"
-            for name, (kind, counts) in LOOP_KERNELS.items():
+            for name, (form, counts) in kernels.items():
                 worst = (0.0, 0.0)
                 for sweeps in counts:
                     kern, plain = loop_calls(transfer, omegas, name, u, b, e,
                                              ch, sweeps, vals, r_taps, p_taps)
                     k, p = kern(), plain()
                     torch.cuda.synchronize()
-                    if kind == "up":
+                    if form == "rowup":
                         k, p = (k,), (p,)
                     err_u = float((k[0] - p[0]).abs().max())
                     err_r = float((k[1] - p[1]).abs().max()) \
@@ -1937,6 +1959,10 @@ TPU_RHO = {"gen75": 0.0118, "rb_v21": 0.0183}
 #: runs; [evolve3d], [evolve-elast] and [evolve-helm] run with it off, for
 #: the script's time
 EVOLVE_TIMING_REPS = 1
+#: mu and lambda of every [evolve*] run: 4 * mu initial candidates and
+#: lambda offspring; 2 keeps the whole script well inside its time, the
+#: evolution phases being about half of it
+EVOLVE_POPULATION = 2
 
 
 def counts_of(kernels):
@@ -2268,8 +2294,9 @@ def phase_evaluator_elast(torch, kernels, device, card):
 #: scripts/helmholtz_convergence.py); the port's must lie within 2%
 HELM_ITERATIONS = {80.0: 265, 160.0: 1235, 320.0: 3199}
 #: [evolve-helm]'s cut: the 2k and 4k robustness variants are off.  On an
-#: H100 at the default levels 7 -> 3 the 16 initial evaluations took 110 s
-#: and the variants of the finite ones 65 s more, over the phase's 150 s
+#: H100 at the default levels 7 -> 3 the 16 initial evaluations of mu = 4
+#: took 110 s and the variants of the finite ones 65 s more, over the
+#: phase's 150 s
 EVOLVE_HELM_OPTIONS = ("--no-robustness",)
 
 
@@ -2400,7 +2427,7 @@ def phase_evaluator_helm(torch, kernels, device, card):
 def phase_evolve(torch, kernels, problem_name, tag, names=(),
                  timing_reps=None, options=()):
     """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
-    --mu 4 --lambda 4 --generations 1 --seed 0`` in this process, at the
+    --mu 2 --lambda 2 --generations 1 --seed 0`` in this process, at the
     problem's default levels, with ``options`` appended; at least one
     kernel of ``names`` must launch.  The evaluator's timing protocol takes
     ``timing_reps`` repetitions of its windows, or is off when that is
@@ -2437,8 +2464,9 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
         return result
 
     out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
-    argv = [problem_name, "NSGAII", "--mu", "4", "--lambda", "4",
-            "--generations", "1", "--seed", "0", *options,
+    argv = [problem_name, "NSGAII", "--mu", str(EVOLVE_POPULATION),
+            "--lambda", str(EVOLVE_POPULATION), "--generations", "1",
+            "--seed", "0", *options,
             "--output", str(out_dir)]
     # a cut of this run's depth: the timing protocol, which solves each
     # structure again at least twice, takes one repetition of its windows

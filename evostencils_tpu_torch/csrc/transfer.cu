@@ -11,11 +11,12 @@
 //   (_pc_smooth_col_kernel):
 //   u += omega_0 * P(e) with the separable 3-tap 1:2 prolongation of the
 //   coarse correction e, then S in [1, 3] red-black sweeps with omega_1..S.
-// es_presmooth_residual_rowrestrict and es_prolong_correct_postsmooth_rows
-//   replace presmooth_residual_rowrestrict (_smooth_rr_kernel) and
-//   prolong_correct_postsmooth (_pc_smooth_kernel): the same legs with
-//   row-only transfers, rr ((n-1)/2, m) out or c_half ((n-1)/2, m) in; the
-//   caller runs the column half.
+// The same two entries with cols 0 replace presmooth_residual_rowrestrict
+//   (_smooth_rr_kernel) and prolong_correct_postsmooth (_pc_smooth_kernel):
+//   the legs with row-only transfers, rr ((n-1)/2, m) out or c_half
+//   ((n-1)/2, m) in; the caller runs the column half.  All four legs and
+//   both fused passes are forms of one windowed kernel,
+//   col_leg_kernel<F, S, K>.
 // es_upleg_downleg replaces upleg_downleg_col (_vleg_col_kernel) and, with
 //   row-only transfers, upleg_downleg_fused (_vleg_kernel): the up-leg of
 //   cycle k and the down-leg of cycle k+1 in one pass, u += omega_0 * P(e),
@@ -59,50 +60,43 @@
 // Relaxation factors are read from the device vector by index, so no
 // launch waits on the host.
 //
-// The row-only legs (downleg_kernel, upleg_kernel) keep the first design:
-// a TILE x TILE tile, a halo of HALO = 8 for every sweep count (a 80^2
-// window of u and b, 51,200 bytes of dynamic shared memory), one thread
-// per window cell with index arithmetic; the up-leg reads c_half through
-// the cache.
-//
-// Design of the windowed kernels (col_leg_kernel<F, S, K>: the legs with
-// both transfer axes, the legs of every 2D Poisson V-cycle, and the fused
-// passes of the cycle loop in both forms).  They are latency-bound before
-// they are bandwidth-bound: a block loads, then runs its half-sweeps
+// Design of the windowed kernels (col_leg_kernel<F, S, K>: the legs of
+// every 2D Poisson V-cycle, with both transfer axes or row-only ones, and
+// the fused passes of the cycle loop in both forms).  They are latency-bound
+// before they are bandwidth-bound: a block loads, then runs its half-sweeps
 // between barriers, so the card needs many small blocks resident to keep
-// memory busy.  A block stages u and b over a window of one of
-// N_LEG_WINDOWS classes K (64 x 64 or 32 x 64 cells, 256 threads, 40,960
-// or 20,480 bytes, and e's coarse window where the kernel prolongs e:
-// 45,316 or 22,724); the caller picks the larger class when its tiles fill
-// a wave of resident blocks on the card, else the smaller
-// (ops/kernels/transfer.leg_window): the legs at 4095^2 and 2047^2 take
-// 64 x 64, the levels from 1023^2 down 32 x 64.  The row-only pass stages
-// c_half's window too (51,520 or 25,920 bytes), which leaves room for 4
-// blocks of the 64 x 64 class an SM.  The halo is the form's own: P + 2 on
-// the down-leg and the fused pass, P on the up-leg, and the tile is the
-// window less the halo on every side.  A class is built for a form and
-// sweep count only if its tile keeps at least the halo's depth of rows (a
-// window at most three tiles high): the 32 x 64 class serves passes of up
-// to 4 sweeps.  Pass p updates only the window cells at a
-// distance >= p from the window edge: their neighbours all lie in the
-// window, so no read is predicated, and the cells still right after pass p
-// are exactly those.  The windows are stored split by column parity (each
-// row: its even columns, then its odd ones, the odd half padded to 16
-// banks), so a colour's cells of a row are contiguous: in a half-sweep
-// lane x updates slot x of its rows, every lane busy, and every warp's
-// reads are bank-conflict free; 5-point red-black updates in place.  u and
-// b are loaded by 4-byte cp.async (a 4095-wide row is 16,380 bytes, so
-// rows are not 16-byte aligned), all of a thread's copies in flight at
-// once; b staged beside u keeps the half-sweeps off the read-only cache's
-// latency.  A kernel that prolongs e stages e's coarse window once and
-// corrects every window cell from it; the row-only pass stages the rows of
-// c_half, already prolonged along columns, that its window needs (on an
-// H100, at 4 blocks an SM, 9% faster than at 5 reading c_half through the
-// cache).  A kernel that restricts forms the residual of the tile and one
-// row (and column) past it in registers: lane x walks the fine rows of a
-// run of coarse rows, u's rows above and below in registers, and restricts
-// as it goes; with both transfer axes it takes coarse column x, row-only
-// the fine columns 2x and 2x + 1.
+// memory busy.  A block stages u and b over a window of one of N_LEG_WINDOWS
+// classes K (64 x 64 or 32 x 64 cells, 256 threads, 40,960 or 20,480 bytes,
+// and e's coarse window where the kernel prolongs e: 45,316 or 22,724); the
+// caller picks the larger class when its tiles fill a wave of resident
+// blocks on the card, else the smaller (ops/kernels/transfer.leg_window):
+// the legs at 4095^2 and 2047^2 take 64 x 64, the levels from 1023^2 down
+// 32 x 64.  The row-only up-leg and pass stage c_half's window too (51,520
+// or 25,920 bytes), which leaves room for 4 blocks of the 64 x 64 class an
+// SM.  The halo is the form's own: P + 2 on the down-legs and the fused
+// passes, P on the up-legs, and the tile is the window less the halo on
+// every side.  A class is built for a form and sweep count only if its tile
+// keeps at least the halo's depth of rows (a window at most three tiles
+// high): the 32 x 64 class serves passes of up to 4 sweeps.  Pass p updates
+// only the window cells at a distance >= p from the window edge: their
+// neighbours all lie in the window, so no read is predicated, and the cells
+// still right after pass p are exactly those.  The windows are stored split
+// by column parity (each row: its even columns, then its odd ones, the odd
+// half padded to 16 banks), so a colour's cells of a row are contiguous: in
+// a half-sweep lane x updates slot x of its rows, every lane busy, and
+// every warp's reads are bank-conflict free; 5-point red-black updates in
+// place.  u and b are loaded by 4-byte cp.async (a 4095-wide row is 16,380
+// bytes, so rows are not 16-byte aligned), all of a thread's copies in
+// flight at once; b staged beside u keeps the half-sweeps off the read-only
+// cache's latency.  A kernel that prolongs e stages e's coarse window once
+// and corrects every window cell from it; the row-only up-leg and pass
+// stage the rows of c_half, already prolonged along columns, that the
+// window needs (on an H100, at 4 blocks an SM, 9% faster than at 5 reading
+// c_half through the cache).  A kernel that restricts forms the residual of
+// the tile and one row (and column) past it in registers: lane x walks the
+// fine rows of a run of coarse rows, u's rows above and below in registers,
+// and restricts as it goes; with both transfer axes it takes coarse column
+// x, row-only the fine columns 2x and 2x + 1.
 // tests/test_torch_transfer_tiles.py and tests/test_torch_fused_tiles.py
 // emulate this schedule in float64, and es_transfer_leg_info reports each
 // instantiation's tile, halo and occupancy from the card.
@@ -111,19 +105,10 @@
 
 namespace {
 
-constexpr int TILE = 64;
+// threads a block of the standalone transfers
 constexpr int THREADS = 256;
 constexpr int MAX_SWEEPS = 3;
 constexpr int MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS;
-// the halo of a row-only leg (S <= 3: 2S + 2 = 8)
-constexpr int HALO = 8;
-
-// The window of a tile with a halo of H cells on every side.
-template <int H>
-struct Win {
-  static constexpr int W = TILE + 2 * H;   // fine window edge
-  static constexpr int UB = 2 * W * W * sizeof(float);   // u and b
-};
 
 struct Leg {
   // 5-point stencil: center and the neighbours up (-1,0), down (+1,0),
@@ -144,169 +129,6 @@ struct Leg {
 
 __device__ __forceinline__ bool inside(const Leg& p, int gr, int gc) {
   return gr >= 0 && gr < p.n && gc >= 0 && gc < p.m;
-}
-
-// u and b over the window whose top-left interior index is (r0, c0).
-template <int H>
-__device__ void load_window(const float* __restrict__ u,
-                            const float* __restrict__ b, float* su, float* sb,
-                            const Leg& p, int r0, int c0) {
-  constexpr int W = Win<H>::W;
-  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
-    const int wr = idx / W, wc = idx - wr * W;
-    const int gr = r0 + wr, gc = c0 + wc;
-    const bool in = inside(p, gr, gc);
-    const long g = static_cast<long>(gr) * p.m + gc;
-    su[idx] = in ? u[g] : 0.f;
-    sb[idx] = in ? b[g] : 0.f;
-  }
-}
-
-// p.sweeps red-black sweeps in place on the window, with relaxation
-// factors omegas[p.om[om_first]], omegas[p.om[om_first + 1]], ...
-// In a half-sweep every neighbour of an updated cell has the other colour,
-// so the in-place update has no race.
-template <int H>
-__device__ void rb_sweeps(float* su, const float* sb,
-                          const float* __restrict__ omegas, const Leg& p,
-                          int om_first, int r0, int c0) {
-  constexpr int W = Win<H>::W;
-  for (int s = 0; s < p.sweeps; ++s) {
-    const float om = omegas[p.om[om_first + s]];
-    for (int parity = 0; parity < 2; ++parity) {
-      for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
-        const int wr = idx / W, wc = idx - wr * W;
-        const int gr = r0 + wr, gc = c0 + wc;
-        if (!inside(p, gr, gc) || ((gr + gc) & 1) != parity) continue;
-        const float up = wr > 0 ? su[idx - W] : 0.f;
-        const float dn = wr < W - 1 ? su[idx + W] : 0.f;
-        const float lf = wc > 0 ? su[idx - 1] : 0.f;
-        const float rt = wc < W - 1 ? su[idx + 1] : 0.f;
-        const float v = su[idx];
-        const float off =
-            p.d_up * up + p.d_dn * dn + p.d_lf * lf + p.d_rt * rt;
-        su[idx] = v + om * (p.dinv * sb[idx] - v - off);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-template <int H>
-__device__ void store_tile(const float* su, float* __restrict__ out,
-                           const Leg& p, int r0, int c0) {
-  constexpr int W = Win<H>::W;
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
-    const int i = idx / TILE, j = idx - i * TILE;
-    const int gr = r0 + H + i, gc = c0 + H + j;
-    if (inside(p, gr, gc))
-      out[static_cast<long>(gr) * p.m + gc] = su[(H + i) * W + H + j];
-  }
-}
-
-// The residual, in place of b, on the rows and columns the restriction
-// reads: window indices H .. H + TILE (inclusive) on both axes.  Ends
-// with a barrier.
-template <int H>
-__device__ void residual_in_place(const float* su, float* sb, const Leg& p,
-                                  int r0, int c0) {
-  constexpr int W = Win<H>::W;
-  constexpr int RW = TILE + 1;
-  for (int idx = threadIdx.x; idx < RW * RW; idx += blockDim.x) {
-    const int wr = H + idx / RW, wc = H + idx % RW;
-    const int w = wr * W + wc;
-    float r = 0.f;
-    if (inside(p, r0 + wr, c0 + wc)) {
-      const float au = p.c * su[w] + p.a_up * su[w - W] +
-                       p.a_dn * su[w + W] + p.a_lf * su[w - 1] +
-                       p.a_rt * su[w + 1];
-      r = sb[w] - au;
-    }
-    sb[w] = r;
-  }
-  __syncthreads();
-}
-
-// The row restriction of the tile's residual into rr ((n-1)/2, m):
-// rr[ci, j] = tr[0] r[2ci, j] + tr[1] r[2ci+1, j] + tr[2] r[2ci+2, j]
-// (transfer.py:265-271); columns are not decimated.
-template <int H>
-__device__ void restrict_rows(const float* sr, float* __restrict__ rr,
-                              const Leg& p, int c0) {
-  constexpr int W = Win<H>::W;
-  const int nc = (p.n - 1) / 2;
-  constexpr int CT = TILE / 2;
-  for (int idx = threadIdx.x; idx < CT * TILE; idx += blockDim.x) {
-    const int i = idx / TILE, j = idx - i * TILE;
-    const int ci = blockIdx.y * CT + i, gc = c0 + H + j;
-    if (ci >= nc || gc >= p.m) continue;
-    const float* r = sr + (H + 2 * i) * W + H + j;
-    rr[static_cast<long>(ci) * p.m + gc] =
-        p.tr[0] * r[0] + p.tr[1] * r[W] + p.tr[2] * r[2 * W];
-  }
-}
-
-// u += om0 * P_row(c_half) over the whole window: c_half ((n-1)/2, m) is
-// prolonged along columns already; fine row 2i+1 takes tr[1] c[i], fine
-// row 2i takes tr[2] c[i-1] + tr[0] c[i] (transfer.py:487-490), 0 outside
-// the coarse rows.  c_half is read through the cache: each value feeds
-// three fine rows of one column.  Ends with a barrier.
-template <int H>
-__device__ void correct_rows(float* su, const float* __restrict__ ch,
-                             const Leg& p, float om0, int r0, int c0) {
-  constexpr int W = Win<H>::W;
-  const int nc = (p.n - 1) / 2;
-  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
-    const int wr = idx / W, wc = idx - wr * W;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (!inside(p, gr, gc)) continue;
-    const int rows[2] = {(gr & 1) ? (gr - 1) / 2 : gr / 2 - 1, gr / 2};
-    float c[2];
-    for (int k = 0; k < 2; ++k)
-      c[k] = rows[k] >= 0 && rows[k] < nc
-                 ? __ldg(ch + static_cast<long>(rows[k]) * p.m + gc)
-                 : 0.f;
-    const float corr =
-        (gr & 1) ? p.tr[1] * c[0] : p.tr[2] * c[0] + p.tr[0] * c[1];
-    su[idx] += om0 * corr;
-  }
-  __syncthreads();
-}
-
-// The row-only down-leg: sweeps, residual and the row restriction (rr
-// ((n-1)/2, m)).
-__global__ void __launch_bounds__(THREADS)
-downleg_kernel(const float* __restrict__ u, const float* __restrict__ b,
-               const float* __restrict__ omegas, float* __restrict__ u_out,
-               float* __restrict__ rr, Leg p) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + Win<HALO>::W * Win<HALO>::W;
-  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  load_window<HALO>(u, b, su, sb, p, r0, c0);
-  __syncthreads();
-  rb_sweeps<HALO>(su, sb, omegas, p, 0, r0, c0);
-  residual_in_place<HALO>(su, sb, p, r0, c0);
-  store_tile<HALO>(su, u_out, p, r0, c0);
-  restrict_rows<HALO>(sb, rr, p, c0);
-}
-
-// The row-only up-leg: the correction by the row prolongation of c_half
-// ((n-1)/2, m), then the sweeps.
-__global__ void __launch_bounds__(THREADS)
-upleg_kernel(const float* __restrict__ u, const float* __restrict__ ch,
-             const float* __restrict__ b, const float* __restrict__ omegas,
-             float* __restrict__ u_out, Leg p) {
-  extern __shared__ float smem[];
-  constexpr int W = Win<HALO>::W;
-  float* su = smem;
-  float* sb = smem + W * W;
-  const int r0 = blockIdx.y * TILE - HALO, c0 = blockIdx.x * TILE - HALO;
-  load_window<HALO>(u, b, su, sb, p, r0, c0);
-  __syncthreads();
-  correct_rows<HALO>(su, ch, p, omegas[p.om[0]], r0, c0);
-  rb_sweeps<HALO>(su, sb, omegas, p, 1, r0, c0);
-  store_tile<HALO>(su, u_out, p, r0, c0);
 }
 
 // r = b - A u and its restriction for the coarse tile whose first point is
@@ -402,8 +224,12 @@ prolong_correct_kernel(const float* __restrict__ u,
 // ---------------------------------------------------------------------------
 
 // The forms, numbered as es_transfer_leg_info takes them: the up-leg, the
-// down-leg, and the fused pass with both transfer axes or row-only ones.
-enum Form : int { kUp = 0, kDown = 1, kPassCols = 2, kPassRows = 3 };
+// down-leg, the fused pass with both transfer axes or row-only ones, and
+// the row-only down-leg and up-leg.
+enum Form : int {
+  kUp = 0, kDown = 1, kPassCols = 2, kPassRows = 3, kDownRows = 4,
+  kUpRows = 5
+};
 
 // Shared memory of an SM that blocks can hold, and what each block
 // reserves besides its own.
@@ -425,20 +251,27 @@ struct LegWindow<1> {
 constexpr int N_LEG_WINDOWS = 2;
 
 // Form F of S sweeps in window class K: P = 2S half-sweeps, the halo (P on
-// the up-leg, P + 2 where the kernel restricts), the tile, and the
+// the up-legs, P + 2 where the kernel restricts), the tile, and the
 // windows' layout.  Row wr of a window holds its even columns at wr * RS +
 // wc / 2 and its odd ones at wr * RS + ODD + wc / 2; ODD is SLOTS padded
 // to 16 mod 32 banks, so that 32 consecutive columns from an even one fall
 // in 32 banks.  b's window (B floats on) follows u's, and the coarse
 // operand's window follows both: e's, CR x CC values, where the kernel
-// prolongs e, c_half's, CR rows in u's layout, in the row-only pass.  The
-// class is built for the form only if the tile keeps at least H rows.
+// prolongs e, c_half's, CR rows in u's layout, in the row-only up-leg and
+// pass.  The class is built for the form only if the tile keeps at least
+// H rows.
 template <int F, int S, int K>
 struct ColLeg {
   using Win = LegWindow<K>;
   static constexpr bool PASS = F == kPassCols || F == kPassRows;
+  // the up-legs (halo P, nothing restricted), the forms that restrict
+  // along rows only, and the down-legs (nothing corrected, so the passes
+  // start at omegas[om[0]])
+  static constexpr bool UP = F == kUp || F == kUpRows;
+  static constexpr bool ROWS = F == kPassRows || F == kDownRows;
+  static constexpr bool DOWN = F == kDown || F == kDownRows;
   static constexpr int P = 2 * S;
-  static constexpr int H = F == kUp ? P : P + 2;
+  static constexpr int H = UP ? P : P + 2;
   static constexpr int WR = Win::ROWS, SL = Win::SLOTS, NY = Win::NY;
   static constexpr int WC = 2 * SL;
   static constexpr int THREADS = SL * NY;
@@ -448,8 +281,9 @@ struct ColLeg {
   static constexpr int B = WR * RS;
   static constexpr int CR = WR / 2 + 1, CC = SL + 1;
   static constexpr bool STAGES_E = F == kUp || F == kPassCols;
+  static constexpr bool STAGES_HALF = F == kUpRows || F == kPassRows;
   static constexpr int SMEM =
-      (2 * B + (STAGES_E ? CR * CC : F == kPassRows ? CR * RS : 0)) *
+      (2 * B + (STAGES_E ? CR * CC : STAGES_HALF ? CR * RS : 0)) *
       static_cast<int>(sizeof(float));
   static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_SMEM_RESERVED);
   static constexpr int BLOCKS = FIT < Win::BLOCKS ? FIT : Win::BLOCKS;
@@ -809,9 +643,9 @@ __device__ __forceinline__ void correct_rows_split(float* su, const float* sc,
 }
 
 // Form F of S sweeps in window class K.  e: e ((n-1)/2, (m-1)/2) (kUp,
-// kPassCols) or c_half ((n-1)/2, m) (kPassRows), not read by kDown; r_out:
-// rc ((n-1)/2, (m-1)/2) (kDown, kPassCols) or rr ((n-1)/2, m) (kPassRows),
-// not written by kUp.
+// kPassCols) or c_half ((n-1)/2, m) (kUpRows, kPassRows), not read by the
+// down-legs; r_out: rc ((n-1)/2, (m-1)/2) (kDown, kPassCols) or rr
+// ((n-1)/2, m) (kDownRows, kPassRows), not written by the up-legs.
 template <int F, int S, int K>
 __global__ void __launch_bounds__(ColLeg<F, S, K>::THREADS,
                                   ColLeg<F, S, K>::BLOCKS)
@@ -825,24 +659,24 @@ col_leg_kernel(const float* __restrict__ u, const float* __restrict__ e,
   load_window_split<L>(u, b, su, p, r0, c0);
   if constexpr (L::STAGES_E)
     load_coarse_split<L>(e, se, p, (r0 >> 1) - 1, (c0 >> 1) - 1);
-  else if constexpr (F == kPassRows)
+  else if constexpr (L::STAGES_HALF)
     load_half_split<L>(e, se, p, (r0 >> 1) - 1, c0);
   copy_wait_all();
   __syncthreads();
-  if constexpr (F != kDown) {
+  if constexpr (!L::DOWN) {
     const float om0 = omegas[p.om[0]];
-    if constexpr (F == kPassRows)
+    if constexpr (L::STAGES_HALF)
       correct_rows_split<L>(su, se, p, om0, r0, c0);
     else
       correct_split<L>(su, se, p, om0, r0, c0);
     __syncthreads();
   }
-  col_passes<L>(su, omegas, p, F == kDown ? 0 : 1, r0, c0);
+  col_passes<L>(su, omegas, p, L::DOWN ? 0 : 1, r0, c0);
   store_tile_split<L>(su, u_out, p, r0, c0);
-  if constexpr (F == kDown || F == kPassCols)
-    residual_restrict_split<L>(su, r_out, p, r0, c0);
-  else if constexpr (F == kPassRows)
+  if constexpr (L::ROWS)
     residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
+  else if constexpr (!L::UP)
+    residual_restrict_split<L>(su, r_out, p, r0, c0);
 }
 
 void set_taps(float* t, const double* c) {
@@ -885,45 +719,7 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-dim3 tiles(int n, int m) {
-  return dim3((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
-}
-
 bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
-
-// The row-only down-leg: 51,200 bytes of u and b, above the 48 KB
-// default, so the kernel opts in.
-int launch_downleg(const float* u, const float* b, const float* omegas,
-                   const int* om_ids, int sweeps, const double* coeffs,
-                   float* u_out, float* r_out, int n, int m, void* stream) {
-  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
-    return cudaErrorInvalidValue;
-  constexpr int smem = Win<HALO>::UB;
-  cudaError_t err = allow_smem(downleg_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
-  downleg_kernel<<<tiles(n, m), THREADS, smem,
-                   static_cast<cudaStream_t>(stream)>>>(u, b, omegas, u_out,
-                                                        r_out, p);
-  return cudaGetLastError();
-}
-
-// The row-only up-leg.
-int launch_upleg(const float* u, const float* ch, const float* b,
-                 const float* omegas, const int* om_ids, int sweeps,
-                 const double* coeffs, float* u_out, int n, int m,
-                 void* stream) {
-  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
-    return cudaErrorInvalidValue;
-  constexpr int smem = Win<HALO>::UB;
-  cudaError_t err = allow_smem(upleg_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
-  upleg_kernel<<<tiles(n, m), THREADS, smem,
-                 static_cast<cudaStream_t>(stream)>>>(u, ch, b, omegas, u_out,
-                                                      p);
-  return cudaGetLastError();
-}
 
 // One instantiation of a windowed kernel: its kernel, halo, tile, block
 // (SLOTS x NY threads), its __launch_bounds__ blocks per SM and dynamic
@@ -968,6 +764,10 @@ ColInst find_col_leg(int form, int sweeps, int window) {
       return find_of_form<kPassCols>(sweeps, window);
     case kPassRows:
       return find_of_form<kPassRows>(sweeps, window);
+    case kDownRows:
+      return find_of_form<kDownRows>(sweeps, window);
+    case kUpRows:
+      return find_of_form<kUpRows>(sweeps, window);
     default:
       return {};
   }
@@ -997,56 +797,54 @@ extern "C" const char* es_error_string(int err) {
 
 // coeffs: 5 stencil values (center, (-1,0), (+1,0), (0,-1), (0,+1)),
 // 3 row taps, 3 column taps.  om_ids: `sweeps` indices into omegas, in the
-// order the sweeps run.  halo: the window halo the caller derived for the
-// down-leg of `sweeps` sweeps (any other is refused); window: the window
-// class (0 or 1) the caller chose for the level.  Returns the launch's
-// cudaError_t.
+// order the sweeps run.  cols 1: writes rc ((n-1)/2, (m-1)/2).  cols 0:
+// writes the row-restricted residual rr ((n-1)/2, m), the column taps not
+// read; replaces evostencils_tpu/ops/pallas/transfer.py
+// presmooth_residual_rowrestrict (_smooth_rr_kernel).  halo: the window
+// halo the caller derived for the down-leg of `sweeps` sweeps in that form
+// (any other is refused); window: the window class (0 or 1) the caller
+// chose for the level.  Returns the launch's cudaError_t.
 extern "C" int es_presmooth_residual_restrict(
     const float* u, const float* b, const float* omegas, const int* om_ids,
-    int sweeps, const double* coeffs, float* u_out, float* rc, int halo,
-    int window, int n, int m, void* stream) {
+    int sweeps, const double* coeffs, float* u_out, float* r_out, int cols,
+    int halo, int window, int n, int m, void* stream) {
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
     return cudaErrorInvalidValue;
   Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
   const float* e = nullptr;
-  void* args[] = {&u, &e, &b, &omegas, &u_out, &rc, &p};
-  return launch_col_leg(kDown, sweeps, halo, window, n, m, args, stream);
-}
-
-// As es_presmooth_residual_restrict (the column taps are not read), but
-// writes the row-restricted residual rr ((n-1)/2, m); replaces
-// evostencils_tpu/ops/pallas/transfer.py presmooth_residual_rowrestrict
-// (_smooth_rr_kernel).
-extern "C" int es_presmooth_residual_rowrestrict(
-    const float* u, const float* b, const float* omegas, const int* om_ids,
-    int sweeps, const double* coeffs, float* u_out, float* rr, int n, int m,
-    void* stream) {
-  return launch_downleg(u, b, omegas, om_ids, sweeps, coeffs, u_out, rr, n,
-                        m, stream);
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
+  return launch_col_leg(cols ? kDown : kDownRows, sweeps, halo, window, n,
+                        m, args, stream);
 }
 
 // om_ids: 1 + sweeps indices into omegas: the coarse-grid-correction factor,
-// then the post-sweeps in the order they run.  halo, window: as above, for
-// the up-leg.
+// then the post-sweeps in the order they run.  cols 1: e ((n-1)/2,
+// (m-1)/2) in.  cols 0: c_half ((n-1)/2, m) in, the coarse correction
+// prolonged along columns already, corrected with the row taps (the
+// column taps not read); replaces evostencils_tpu/ops/pallas/transfer.py
+// prolong_correct_postsmooth (_pc_smooth_kernel).  halo, window: as above,
+// for the up-leg.
 extern "C" int es_prolong_correct_postsmooth(
     const float* u, const float* e, const float* b, const float* omegas,
     const int* om_ids, int sweeps, const double* coeffs, float* u_out,
-    int halo, int window, int n, int m, void* stream) {
+    int cols, int halo, int window, int n, int m, void* stream) {
   if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
     return cudaErrorInvalidValue;
   Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
   float* r_out = nullptr;
   void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
-  return launch_col_leg(kUp, sweeps, halo, window, n, m, args, stream);
+  return launch_col_leg(cols ? kUp : kUpRows, sweeps, halo, window, n, m,
+                        args, stream);
 }
 
-// What an instantiation of es_prolong_correct_postsmooth (form 0),
-// es_presmooth_residual_restrict (form 1) or es_upleg_downleg (form 2 with
-// column transfers, 3 row-only) is on this card: info[0], [1] its tile's
-// rows and columns, [2] its halo, [3] threads per block, [4] resident
-// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
-// shared memory), [5] registers per thread, [6] local memory per thread in
-// bytes (spills land there), [7] dynamic shared memory per block in bytes.
+// What an instantiation of es_prolong_correct_postsmooth (form 0 with
+// column transfers, 5 row-only), es_presmooth_residual_restrict (form 1,
+// 4 row-only) or es_upleg_downleg (form 2, 3 row-only) is on this card:
+// info[0], [1] its tile's rows and columns, [2] its halo, [3] threads per
+// block, [4] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory),
+// [5] registers per thread, [6] local memory per thread in bytes (spills
+// land there), [7] dynamic shared memory per block in bytes.
 extern "C" int es_transfer_leg_info(int form, int sweeps, int window,
                                     int* info) {
   const ColInst inst = find_col_leg(form, sweeps, window);
@@ -1070,18 +868,6 @@ extern "C" int es_transfer_leg_info(int form, int sweeps, int window,
   info[6] = static_cast<int>(attr.localSizeBytes);
   info[7] = inst.smem;
   return cudaSuccess;
-}
-
-// As es_prolong_correct_postsmooth, but takes c_half ((n-1)/2, m), the
-// coarse correction prolonged along columns already (the column taps are
-// not read); replaces evostencils_tpu/ops/pallas/transfer.py
-// prolong_correct_postsmooth (_pc_smooth_kernel).
-extern "C" int es_prolong_correct_postsmooth_rows(
-    const float* u, const float* c_half, const float* b, const float* omegas,
-    const int* om_ids, int sweeps, const double* coeffs, float* u_out, int n,
-    int m, void* stream) {
-  return launch_upleg(u, c_half, b, omegas, om_ids, sweeps, coeffs, u_out, n,
-                      m, stream);
 }
 
 // The up-leg of cycle k and the down-leg of cycle k+1 in one pass.

@@ -54,26 +54,19 @@ _SYS = (_INT, _DOUBLES, _INT, _INT, _INTS, _DOUBLES)
 
 #: C entry points: name -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
-    # u, b, omegas, omega ids, sweeps, coefficients, u_out, rc, halo,
-    # window class, n, m, stream
+    # u, b, omegas, omega ids, sweeps, coefficients, u_out, rc or rr,
+    # column transfers, halo, window class, n, m, stream
     "es_presmooth_residual_restrict":
         (_P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _INT, _INT,
-         _P),
-    # u, e, b, omegas, omega ids, sweeps, coefficients, u_out, halo, window
-    # class, n, m, stream
+         _INT, _P),
+    # u, e or c_half, b, omegas, omega ids, sweeps, coefficients, u_out,
+    # column transfers, halo, window class, n, m, stream
     "es_prolong_correct_postsmooth":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _INT, _INT,
-         _P),
-    # form (0 up, 1 down, 2 pass, 3 row-only pass), sweeps, window class,
-    # info (8 ints out); no stream
+         _INT, _P),
+    # form (0 up, 1 down, 2 pass, 3 row-only pass, 4 row-only down, 5
+    # row-only up), sweeps, window class, info (8 ints out); no stream
     "es_transfer_leg_info": (_INT, _INT, _INT, _INTS),
-    # u, b, omegas, omega ids, sweeps, coefficients, u_out, rr, n, m, stream
-    "es_presmooth_residual_rowrestrict":
-        (_P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _P),
-    # u, c_half, b, omegas, omega ids, sweeps, coefficients, u_out, n, m,
-    # stream
-    "es_prolong_correct_postsmooth_rows":
-        (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _P),
     # u, e or c_half, b, omegas, omega ids, sweeps, coefficients, u_out,
     # rc or rr, column transfers, halo, window class, n, m, stream
     "es_upleg_downleg":

@@ -59,28 +59,36 @@ MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS
 MIN_ROWS = 129
 MIN_COLS = 128
 
-#: The block schedule of the windowed kernels: the legs with both transfer
-#: axes (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``)
-#: and the fused passes (``upleg_downleg_col``, ``upleg_downleg_fused``);
-#: csrc/transfer.cu ``LegWindow<K>`` states the same classes, and
-#: es_transfer_leg_info reports them from the card.  A block stages u and b
-#: over a window of LEG_WINDOWS[k] = (rows, columns, threads) cells and owns
-#: its centre, the tile: the window less leg_halo() cells on every side.
-#: Pass p (of 2S half-sweeps) updates the window cells at a distance >= p
-#: from the window edge.  At least LEG_BLOCKS_PER_SM[k] blocks of a class
-#: are resident on an SM: its __launch_bounds__ ask for them, and at the
-#: registers they allow its shared memory (class 0) or registers (class 1)
-#: allow no more; the row-only pass, which stages c_half's rows as well,
-#: fits ROWPASS_BLOCKS_PER_SM[k] (leg_blocks).  A class is built for a leg only where its tile keeps at
-#: least the halo's depth of rows (leg_windows).  A level takes the first
-#: built class whose tiles fill one wave of those on the card's SMs, else
-#: the last built one.
+#: The block schedule of the windowed kernels, csrc/transfer.cu
+#: ``col_leg_kernel<F, S, K>`` in six forms: the legs with both transfer
+#: axes (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``),
+#: the row-only legs (``presmooth_residual_rowrestrict``,
+#: ``prolong_correct_postsmooth``) and the fused passes
+#: (``upleg_downleg_col``, ``upleg_downleg_fused``); ``LegWindow<K>``
+#: states the same classes, and es_transfer_leg_info reports them from the
+#: card.  A block stages u and b over a window of LEG_WINDOWS[k] = (rows,
+#: columns, threads) cells and owns its centre, the tile: the window less
+#: leg_halo() cells on every side.  Pass p (of 2S half-sweeps) updates the
+#: window cells at a distance >= p from the window edge.  At least
+#: LEG_BLOCKS_PER_SM[k] blocks of a class are resident on an SM: its
+#: __launch_bounds__ ask for them, and at the registers they allow its
+#: shared memory (class 0) or registers (class 1) allow no more; the
+#: row-only up-leg and pass, which stage c_half's rows as well, fit
+#: ROWPASS_BLOCKS_PER_SM[k] (leg_blocks).  A class is built for a leg only
+#: where its tile keeps at least the halo's depth of rows (leg_windows).  A
+#: level takes the first built class whose tiles fill one wave of those on
+#: the card's SMs, else the last built one.
 LEG_WINDOWS = ((64, 64, 256), (32, 64, 256))
 LEG_BLOCKS_PER_SM = (5, 6)
 ROWPASS_BLOCKS_PER_SM = (4, 6)
 #: the windowed kernels, numbered as es_transfer_leg_info takes them: the
-#: legs, the fused pass with both transfer axes and the row-only one
-_FORMS = {"up": 0, "down": 1, "pass": 2, "rowpass": 3}
+#: legs, the fused pass with both transfer axes and the row-only one, the
+#: row-only legs
+_FORMS = {"up": 0, "down": 1, "pass": 2, "rowpass": 3, "rowdown": 4,
+          "rowup": 5}
+#: the forms that stage c_half's rows, and the up-legs (halo P)
+_STAGES_HALF = ("rowpass", "rowup")
+_UP_LEGS = ("up", "rowup")
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"presmooth_residual_restrict": 0,
@@ -99,15 +107,16 @@ def reset_launches() -> None:
 
 def leg_halo(leg: str, sweeps: int) -> int:
     """The halo of a windowed kernel's window (``leg`` "down", "up",
-    "pass" or "rowpass", the fused pass in its two forms): P = 2 * sweeps
-    half-sweeps, pass p updating the cells at a distance >= p from the
-    window edge, so after P passes the cells at distance >= P are right.
-    The up-leg needs P, its prolongation being pointwise; the down-leg and
-    the passes P + 2, their residual and the restriction's extra row
-    reading one cell past the tile."""
+    their row-only forms "rowdown", "rowup", or "pass" or "rowpass", the
+    fused pass in its two forms): P = 2 * sweeps half-sweeps, pass p
+    updating the cells at a distance >= p from the window edge, so after P
+    passes the cells at distance >= P are right.  The up-legs need P, their
+    prolongation being pointwise; the down-legs and the passes P + 2, their
+    residual and the restriction's extra row reading one cell past the
+    tile."""
     if leg not in _FORMS:
         raise ValueError(f"leg {leg!r} is none of {sorted(_FORMS)}")
-    return 2 * sweeps + (0 if leg == "up" else 2)
+    return 2 * sweeps + (0 if leg in _UP_LEGS else 2)
 
 
 def leg_tile(leg: str, sweeps: int, window: int) -> Tuple[int, int]:
@@ -129,8 +138,9 @@ def leg_windows(leg: str, sweeps: int) -> Tuple[int, ...]:
 
 def leg_blocks(leg: str, window: int) -> int:
     """Resident blocks per SM of a leg's instantiation in class
-    ``window``."""
-    table = ROWPASS_BLOCKS_PER_SM if leg == "rowpass" else LEG_BLOCKS_PER_SM
+    ``window``: fewer where it stages c_half's rows as well."""
+    table = ROWPASS_BLOCKS_PER_SM if leg in _STAGES_HALF else \
+        LEG_BLOCKS_PER_SM
     return table[window]
 
 
@@ -157,7 +167,7 @@ def _sms(device: torch.device) -> int:
 
 def leg_info(leg: str, sweeps: int, window: int) -> dict:
     """What the card makes of a windowed kernel's instantiation (``leg``
-    "down", "up", "pass" or "rowpass", ``sweeps``, window class
+    one of ``_FORMS``, ``sweeps``, window class
     ``window``): its tile, halo, threads per block, resident blocks per SM,
     registers and local memory (spills) per thread, and dynamic shared
     memory per block.  Needs the card."""
@@ -381,7 +391,7 @@ def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
                   b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), len(ids),
                   _coefficients(stencil_vals, taps), u_out.data_ptr(),
-                  rc.data_ptr(), *_window_args("down", len(ids), u))
+                  rc.data_ptr(), 1, *_window_args("down", len(ids), u))
     return u_out, rc
 
 
@@ -405,7 +415,7 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
                   "es_prolong_correct_postsmooth", u.device, u.data_ptr(),
                   e.data_ptr(), b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), sweeps,
-                  _coefficients(stencil_vals, taps), u_out.data_ptr(),
+                  _coefficients(stencil_vals, taps), u_out.data_ptr(), 1,
                   *_window_args("up", sweeps, u))
     return u_out
 
@@ -457,11 +467,12 @@ def presmooth_residual_rowrestrict(u: torch.Tensor, b: torch.Tensor,
     u_out = torch.empty_like(u)
     rr = u.new_empty(((n - 1) // 2, m))
     _build.launch(launches, "presmooth_residual_rowrestrict",
-                  "es_presmooth_residual_rowrestrict", u.device,
+                  "es_presmooth_residual_restrict", u.device,
                   u.data_ptr(), b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), len(ids),
                   _coefficients(stencil_vals, (row_taps, _NO_TAPS)),
-                  u_out.data_ptr(), rr.data_ptr(), n, m)
+                  u_out.data_ptr(), rr.data_ptr(), 0,
+                  *_window_args("rowdown", len(ids), u))
     return u_out, rr
 
 
@@ -482,15 +493,15 @@ def prolong_correct_postsmooth(u: torch.Tensor, c_half: torch.Tensor,
         return prolong_correct_postsmooth_plain(u, c_half, b, omegas, ids,
                                                 stencil_vals, row_taps)
     _build.check_card_tensors(u, c_half, b, omegas)
-    n, m = u.shape
     u_out = torch.empty_like(u)
+    sweeps = len(ids) - 1
     _build.launch(launches, "prolong_correct_postsmooth",
-                  "es_prolong_correct_postsmooth_rows", u.device,
+                  "es_prolong_correct_postsmooth", u.device,
                   u.data_ptr(), c_half.data_ptr(), b.data_ptr(),
                   omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids),
-                  len(ids) - 1,
+                  sweeps,
                   _coefficients(stencil_vals, (row_taps, _NO_TAPS)),
-                  u_out.data_ptr(), n, m)
+                  u_out.data_ptr(), 0, *_window_args("rowup", sweeps, u))
     return u_out
 
 

@@ -38,8 +38,8 @@ from evostencils_tpu_torch.ops.kernels import transfer as tt
 
 from .test_torch_transfer_tiles import (ANISO, H100_SMS, RAGGED, RTOL,
                                         _apply, _Blocks, _deviation,
-                                        _FakeLibrary, _passes,
-                                        _prolong_windows)
+                                        _passes, _prolong_rows_windows,
+                                        _prolong_windows, _stand_in_card)
 
 #: a different factor for the correction and for every sweep of a pass
 OMEGAS = (0.9, 1.15, 0.8, 1.3, 0.7, 1.05, 0.95)
@@ -59,24 +59,6 @@ def _inputs(shape, seed):
     return tuple(torch.tensor(rng.standard_normal(s))
                  for s in (shape, shape, ((n - 1) // 2, (m - 1) // 2),
                            ((n - 1) // 2, m)))
-
-
-def _prolong_rows_windows(blocks, ch, row_taps):
-    """P_row(c_half) on every window cell from c_half's window of each
-    block (rows from floor(r0 / 2) - 1 on, the window's columns, zero
-    outside the grid): fine row 2i+1 takes w[1] c[i], fine row 2i w[2]
-    c[i-1] + w[0] c[i]."""
-    cr = torch.div(blocks.r0, 2, rounding_mode="floor") - 1
-    cw = blocks.gather(ch, cr[:, None] + torch.arange(blocks.wr // 2 + 2),
-                       blocks.cols)
-    t = torch.tensor(row_taps, dtype=ch.dtype)
-    a = torch.div(blocks.rows - 1, 2, rounding_mode="floor") - cr[:, None]
-    odd = blocks.rows % 2 == 1
-    wa, wb = torch.where(odd, t[1], t[2]), torch.where(odd, 0.0, t[0])
-    idx = torch.arange(cw.shape[0])[:, None, None]
-    fine_c = torch.arange(blocks.wc)[None, None, :]
-    return (wa[:, :, None] * cw[idx, a[:, :, None], fine_c]
-            + wb[:, :, None] * cw[idx, a[:, :, None] + 1, fine_c])
 
 
 def emulate_pass(u, coarse, b, omegas, ids, vals, p_taps, r_taps, tile,
@@ -204,18 +186,7 @@ def test_wrappers_pass_halo_and_window_and_raise_on_refusal(monkeypatch,
     their form, sweeps and grid (before n, m and the stream), and raise,
     counting no launch, when the entry refuses; the library is a stand-in,
     since the kernels need the card."""
-    from contextlib import nullcontext
-    from types import SimpleNamespace
-    from evostencils_tpu_torch.ops.kernels import _build
-    lib = _FakeLibrary(err)
-    monkeypatch.setattr(_build, "load_library", lambda: lib)
-    monkeypatch.setattr(_build, "on_card", lambda u: True)
-    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda d: SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda d: SimpleNamespace(
-                            multi_processor_count=H100_SMS))
+    lib = _stand_in_card(monkeypatch, err)
     u, b, e, ch = (x.float() for x in _inputs((1023, 1023), 22))
     omegas = torch.tensor(OMEGAS, dtype=torch.float32)
     tt.reset_launches()

@@ -1,6 +1,7 @@
 """The block schedule of the 2D Poisson leg kernels
 (evostencils_tpu_torch/csrc/transfer.cu, ``col_leg_kernel`` in the forms of
-the down-leg and the up-leg), emulated in float64 on the CPU.
+the down-leg and the up-leg, with both transfer axes and row-only),
+emulated in float64 on the CPU.
 
 The kernels cannot run here, but their halo arithmetic can.  A level takes
 the window class ``leg_window(leg, S, n, m, sms)``; each block owns a
@@ -10,15 +11,20 @@ half-sweeps updates only the window cells of its colour at a distance >=
 p from the window edge, so no update reads outside the window.  The
 down-leg then forms the residual on the tile and one row and column past
 it and restricts it; the up-leg prolongs e from the tile's coarse window
-before its passes.  The emulation runs every block at once, as a batch of
-windows, with the plain versions' half-sweep arithmetic, and stitches the
-tiles back together.  The result must equal
-``presmooth_residual_restrict_plain`` and
-``prolong_correct_postsmooth_col_plain`` to 1e-12 of their largest
-magnitude, and a halo one cell short must not.
+before its passes.  The row-only down-leg restricts along rows only, to
+rr ((n-1)/2, m); the row-only up-leg corrects by the row prolongation of
+c_half ((n-1)/2, m) from the block's window of it.  The emulation runs
+every block at once, as a batch of windows, with the plain versions'
+half-sweep arithmetic, and stitches the tiles back together.  The result
+must equal ``presmooth_residual_restrict_plain``,
+``prolong_correct_postsmooth_col_plain``,
+``presmooth_residual_rowrestrict_plain`` and
+``prolong_correct_postsmooth_plain`` to 1e-12 of their largest magnitude,
+and a halo one cell short must not.
 
 The plain versions are held against the Pallas kernels in interpret mode
-by tests/test_torch_transfer.py, so the chain reaches the JAX package.
+by tests/test_torch_transfer.py and tests/test_torch_fused_loop.py (the
+row-only legs), so the chain reaches the JAX package.
 The stencil is anisotropic and the transfer taps asymmetric, so that a
 swapped axis or direction shows; the shapes are ragged and odd, so the
 last tiles are cut by the grid; every window class runs at every sweep
@@ -54,12 +60,23 @@ H100_SMS = 132
 BANDS = {0: (1321, 1801), 1: (259, 301)}
 
 
+#: the legs: with both transfer axes, and row-only
+DOWN_LEGS, UP_LEGS = ("down", "rowdown"), ("up", "rowup")
+
+
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     n, m = shape
     u, b = (torch.tensor(rng.standard_normal(shape)) for _ in range(2))
     e = torch.tensor(rng.standard_normal(((n - 1) // 2, (m - 1) // 2)))
     return u, b, e
+
+
+def _half(shape, seed):
+    """c_half ((n-1)/2, m): a correction prolonged along columns."""
+    n, m = shape
+    return torch.tensor(np.random.default_rng(seed).standard_normal(
+        ((n - 1) // 2, m)))
 
 
 class _Blocks:
@@ -126,8 +143,9 @@ def _passes(blocks, u, b, omegas, ids, vals):
     return u
 
 
-def emulate_down(u, b, omegas, ids, vals, taps, tile, halo):
-    """The down-leg kernel's schedule: (smoothed u, coarse residual)."""
+def emulate_down(u, b, omegas, ids, vals, taps, tile, halo, rows_only=False):
+    """The down-leg kernel's schedule: (smoothed u, coarse residual); row
+    only, ``taps`` are the row taps and the residual is rr ((n-1)/2, m)."""
     n, m = u.shape
     blocks = _Blocks((n, m), tile, halo)
     bw = blocks.load(b)
@@ -135,6 +153,9 @@ def emulate_down(u, b, omegas, ids, vals, taps, tile, halo):
     h, tr, tc = halo, blocks.tr, blocks.tc
     u_out = blocks.stitch(uw[:, h:h + tr, h:h + tc], (n, m), tr, tc)
     r = torch.where(blocks.inside, bw - _apply(uw, vals), 0.0)
+    if rows_only:
+        rr = axis_restrict_3tap(r[:, h:h + tr + 1, h:h + tc], 1, taps)
+        return u_out, blocks.stitch(rr, ((n - 1) // 2, m), tr // 2, tc)
     r = r[:, h:h + tr + 1, h:h + tc + 1]
     coarse = axis_restrict_3tap(axis_restrict_3tap(r, 1, taps[0]), 2, taps[1])
     rc = blocks.stitch(coarse, ((n - 1) // 2, (m - 1) // 2), tr // 2, tc // 2)
@@ -169,11 +190,31 @@ def _prolong_windows(blocks, e, taps):
             + rwb[:, :, None] * cols[idx, ra[:, :, None] + 1, fine_c])
 
 
-def emulate_up(u, e, b, omegas, ids, vals, taps, tile, halo):
-    """The up-leg kernel's schedule: the corrected, smoothed u."""
+def _prolong_rows_windows(blocks, ch, row_taps):
+    """P_row(c_half) on every window cell from c_half's window of each
+    block (rows from floor(r0 / 2) - 1 on, the window's columns, zero
+    outside the grid): fine row 2i+1 takes w[1] c[i], fine row 2i w[2]
+    c[i-1] + w[0] c[i]."""
+    cr = torch.div(blocks.r0, 2, rounding_mode="floor") - 1
+    cw = blocks.gather(ch, cr[:, None] + torch.arange(blocks.wr // 2 + 2),
+                       blocks.cols)
+    t = torch.tensor(row_taps, dtype=ch.dtype)
+    a = torch.div(blocks.rows - 1, 2, rounding_mode="floor") - cr[:, None]
+    odd = blocks.rows % 2 == 1
+    wa, wb = torch.where(odd, t[1], t[2]), torch.where(odd, 0.0, t[0])
+    idx = torch.arange(cw.shape[0])[:, None, None]
+    fine_c = torch.arange(blocks.wc)[None, None, :]
+    return (wa[:, :, None] * cw[idx, a[:, :, None], fine_c]
+            + wb[:, :, None] * cw[idx, a[:, :, None] + 1, fine_c])
+
+
+def emulate_up(u, e, b, omegas, ids, vals, taps, tile, halo, rows_only=False):
+    """The up-leg kernel's schedule: the corrected, smoothed u; row only,
+    ``e`` is c_half and ``taps`` are the row taps."""
     n, m = u.shape
     blocks = _Blocks((n, m), tile, halo)
-    corr = torch.where(blocks.inside, _prolong_windows(blocks, e, taps), 0.0)
+    prolong = _prolong_rows_windows if rows_only else _prolong_windows
+    corr = torch.where(blocks.inside, prolong(blocks, e, taps), 0.0)
     uw = blocks.load(u) + omegas[ids[0]] * corr
     uw = _passes(blocks, uw, blocks.load(b), omegas, ids[1:], vals)
     h = halo
@@ -187,30 +228,47 @@ def _deviation(got, want):
                for g, w in zip(got, want))
 
 
-def _down(shape, sweeps, window, halo=None):
-    """Deviation of the emulated down-leg from the plain one; the tile is
-    the window class's, the halo the leg's unless given."""
+def _down(shape, sweeps, window, halo=None, leg="down"):
+    """Deviation of the emulated down-leg (``leg`` "down" or "rowdown")
+    from the plain one; the tile is the window class's, the halo the leg's
+    unless given."""
     u, b, _ = _inputs(shape, 11)
     omegas = torch.tensor(OMEGAS, dtype=torch.float64)
     ids = [1, 2, 3][:sweeps]
-    tile = tt.leg_tile("down", sweeps, window)
-    halo = tt.leg_halo("down", sweeps) if halo is None else halo
-    want = tt.presmooth_residual_restrict_plain(u, b, omegas, ids, ANISO,
-                                                R_TAPS)
-    got = emulate_down(u, b, omegas, ids, ANISO, R_TAPS, tile, halo)
+    tile = tt.leg_tile(leg, sweeps, window)
+    halo = tt.leg_halo(leg, sweeps) if halo is None else halo
+    rows_only = leg == "rowdown"
+    taps = R_TAPS[0] if rows_only else R_TAPS
+    plain = (tt.presmooth_residual_rowrestrict_plain if rows_only
+             else tt.presmooth_residual_restrict_plain)
+    want = plain(u, b, omegas, ids, ANISO, taps)
+    got = emulate_down(u, b, omegas, ids, ANISO, taps, tile, halo,
+                       rows_only)
     return _deviation(got, want)
 
 
-def _up(shape, sweeps, window, halo=None):
+def _up(shape, sweeps, window, halo=None, leg="up"):
+    """As :func:`_down` for the up-leg (``leg`` "up" or "rowup")."""
     u, b, e = _inputs(shape, 12)
+    rows_only = leg == "rowup"
+    if rows_only:
+        e = _half(shape, 14)
     omegas = torch.tensor(OMEGAS, dtype=torch.float64)
     ids = [0, 1, 2, 3][:sweeps + 1]
-    tile = tt.leg_tile("up", sweeps, window)
-    halo = tt.leg_halo("up", sweeps) if halo is None else halo
-    want = tt.prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
-                                                   ANISO, P_TAPS)
-    got = emulate_up(u, e, b, omegas, ids, ANISO, P_TAPS, tile, halo)
+    tile = tt.leg_tile(leg, sweeps, window)
+    halo = tt.leg_halo(leg, sweeps) if halo is None else halo
+    taps = P_TAPS[0] if rows_only else P_TAPS
+    plain = (tt.prolong_correct_postsmooth_plain if rows_only
+             else tt.prolong_correct_postsmooth_col_plain)
+    want = plain(u, e, b, omegas, ids, ANISO, taps)
+    got = emulate_up(u, e, b, omegas, ids, ANISO, taps, tile, halo,
+                     rows_only)
     return _deviation((got,), (want,))
+
+
+def _leg(leg, shape, sweeps, window, halo=None):
+    run = _down if leg in DOWN_LEGS else _up
+    return run(shape, sweeps, window, halo, leg)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -237,27 +295,39 @@ def test_upleg_block_schedule_matches_plain(shape, sweeps, window):
     assert _up(shape, sweeps, window) <= RTOL
 
 
-@pytest.mark.parametrize("leg", ["down", "up"])
+ROW_CASES = [(leg, shape, sweeps, window) for leg in ("rowdown", "rowup")
+             for shape in RAGGED for sweeps in (1, 2, 3)
+             for window in tt.leg_windows(leg, sweeps)]
+
+
+@pytest.mark.parametrize("leg,shape,sweeps,window", ROW_CASES)
+def test_row_leg_block_schedule_matches_plain(leg, shape, sweeps, window):
+    """The row-only legs' schedule, every window class built for them and
+    S = 1..3, on ragged odd shapes."""
+    assert _leg(leg, shape, sweeps, window) <= RTOL
+
+
+@pytest.mark.parametrize("leg", ["down", "up", "rowdown", "rowup"])
 @pytest.mark.parametrize("window", sorted(BANDS))
 def test_band_shape_takes_its_class_and_matches_plain(leg, window):
     """A shape in each class's band, with the path's sweeps: the rule
     picks the class, and its schedule matches the plain leg."""
     shape = BANDS[window]
-    sweeps = 2 if leg == "down" else 1
+    sweeps = 2 if leg in DOWN_LEGS else 1
     assert tt.leg_window(leg, sweeps, *shape, H100_SMS) == window
-    run = _down if leg == "down" else _up
-    assert run(shape, sweeps, window) <= RTOL
+    assert _leg(leg, shape, sweeps, window) <= RTOL
 
 
 @pytest.mark.parametrize("leg,sweeps,window",
                          [("down", 2, 0), ("down", 1, 1), ("up", 1, 0),
-                          ("up", 3, 1)])
+                          ("up", 3, 1), ("rowdown", 2, 0),
+                          ("rowdown", 3, 1), ("rowup", 1, 0),
+                          ("rowup", 2, 1)])
 def test_halo_one_short_differs(leg, sweeps, window):
     """A halo one cell below leg_halo() (the same tile, a window two cells
     narrower) leaves wrong cells in the tiles."""
     halo = tt.leg_halo(leg, sweeps) - 1
-    run = _down if leg == "down" else _up
-    assert run((131, 197), sweeps, window, halo) > 1e-3
+    assert _leg(leg, (131, 197), sweeps, window, halo) > 1e-3
 
 
 def test_leg_rule():
@@ -281,6 +351,26 @@ def test_leg_rule():
             assert fills == (window == 0)
 
 
+def test_row_leg_rule():
+    """The row-only legs keep the legs' halos (P + 2 down, P up) and both
+    window classes at S = 1..3; the down-leg fits the legs' 5 / 6 blocks
+    an SM, the up-leg, which stages c_half's rows as well, the row-only
+    pass's 4 / 6.  On the H100's 132 SMs, 4095^2 and 2047^2 take class 0
+    and the path's levels from 1023^2 down class 1, at every S."""
+    legs = ("rowdown", "rowup")
+    assert [tt.leg_halo(leg, s) for leg in legs for s in (1, 2, 3)] == \
+        [4, 6, 8, 2, 4, 6]
+    assert all(tt.leg_windows(leg, s) == (0, 1) for leg in legs
+               for s in (1, 2, 3))
+    assert [tt.leg_blocks(leg, k) for leg in legs for k in (0, 1)] == \
+        [5, 6, 4, 6]
+    for leg in legs:
+        for s in (1, 2, 3):
+            for n in (4095, 2047, 1023, 511, 255):
+                assert tt.leg_window(leg, s, n, n, H100_SMS) == \
+                    (0 if n >= 2047 else 1)
+
+
 class _FakeLibrary:
     """Stands in for the built library: records each leg entry's
     arguments and returns ``err`` (cudaErrorInvalidValue is 1)."""
@@ -298,13 +388,9 @@ class _FakeLibrary:
         return entry
 
 
-@pytest.mark.parametrize("err", [0, 1])
-def test_wrappers_pass_halo_and_window_and_raise_on_refusal(monkeypatch,
-                                                            err):
-    """The leg wrappers hand each entry leg_halo(...) and
-    leg_window(...) of their leg, sweeps and grid (before n, m and the
-    stream), and raise, counting no launch, when the entry refuses; the
-    library is a stand-in, since the kernels need the card."""
+def _stand_in_card(monkeypatch, err):
+    """A card of H100_SMS SMs whose library is a _FakeLibrary returning
+    ``err``; returns the library."""
     from contextlib import nullcontext
     from types import SimpleNamespace
     from evostencils_tpu_torch.ops.kernels import _build
@@ -317,24 +403,68 @@ def test_wrappers_pass_halo_and_window_and_raise_on_refusal(monkeypatch,
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda d: SimpleNamespace(
                             multi_processor_count=H100_SMS))
+    return lib
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_wrappers_pass_halo_and_window_and_raise_on_refusal(monkeypatch,
+                                                            err):
+    """The leg wrappers hand each entry leg_halo(...) and
+    leg_window(...) of their leg, sweeps and grid (before n, m and the
+    stream), and raise, counting no launch, when the entry refuses; the
+    library is a stand-in, since the kernels need the card."""
+    lib = _stand_in_card(monkeypatch, err)
     u, b, e = (x.float() for x in _inputs((131, 197), 13))
     omegas = torch.tensor(OMEGAS, dtype=torch.float32)
     tt.reset_launches()
     calls = (
         (lambda: tt.presmooth_residual_restrict(u, b, omegas, [1, 2], ANISO,
                                                 R_TAPS),
-         "es_presmooth_residual_restrict", ("down", 2)),
+         "es_presmooth_residual_restrict", ("down", 2), 1),
         (lambda: tt.prolong_correct_postsmooth_col(u, e, b, omegas, [0, 1],
                                                    ANISO, P_TAPS),
-         "es_prolong_correct_postsmooth", ("up", 1)))
-    for call, entry, (leg, sweeps) in calls:
+         "es_prolong_correct_postsmooth", ("up", 1), 1))
+    for call, entry, (leg, sweeps), cols in calls:
         if err:
             with pytest.raises(RuntimeError, match="launch failed"):
                 call()
         else:
             call()
         name, args = lib.calls[-1]
-        assert name == entry and args[-5:-1] == (
-            tt.leg_halo(leg, sweeps),
+        assert name == entry and args[-6:-1] == (
+            cols, tt.leg_halo(leg, sweeps),
             tt.leg_window(leg, sweeps, 131, 197, H100_SMS), 131, 197)
+    assert sum(tt.launches.values()) == (0 if err else 2)
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_row_leg_wrappers_pass_halo_and_window_and_raise_on_refusal(
+        monkeypatch, err):
+    """The row-only leg wrappers hand their entries leg_halo(...) and
+    leg_window(...) of "rowdown" / "rowup", their sweeps and grid (before
+    n, m and the stream), and raise, counting no launch, when the entry
+    refuses; the library is a stand-in, since the kernels need the card."""
+    lib = _stand_in_card(monkeypatch, err)
+    shape = (1023, 1023)
+    u, b, _ = (x.float() for x in _inputs(shape, 15))
+    ch = _half(shape, 16).float()
+    omegas = torch.tensor(OMEGAS, dtype=torch.float32)
+    tt.reset_launches()
+    calls = (
+        (lambda: tt.presmooth_residual_rowrestrict(u, b, omegas, [1, 2, 3],
+                                                   ANISO, R_TAPS[0]),
+         "es_presmooth_residual_restrict", ("rowdown", 3), 0),
+        (lambda: tt.prolong_correct_postsmooth(u, ch, b, omegas, [0, 1],
+                                               ANISO, P_TAPS[0]),
+         "es_prolong_correct_postsmooth", ("rowup", 1), 0))
+    for call, entry, (leg, sweeps), cols in calls:
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+        else:
+            call()
+        name, args = lib.calls[-1]
+        assert name == entry and args[-6:-1] == (
+            cols, tt.leg_halo(leg, sweeps),
+            tt.leg_window(leg, sweeps, *shape, H100_SMS), *shape)
     assert sum(tt.launches.values()) == (0 if err else 2)
