@@ -23,9 +23,11 @@ Phases:
 4. [kernels-rbgs] compare the standalone sweep kernels with their plain
    versions (the fused red-black sweep and the single-pass sweep in its
    parity modes -1, 0 and 1, omega 1.15, an anisotropic stencil) at
-   4095^2, 1023^2 and the ragged 300x200, and time both at 4095^2 and
-   1023^2; [kernels-rr] the same for the standalone transfers
-   (residual + restriction, prolongation + correction) at 4095^2, 1023^2
+   4095^2, the [evaluator] levels 1023^2, 511^2 and 255^2 and the ragged
+   300x200, and time both at 4095^2 and those levels, with the kernel's
+   device time alone beside, as for every standalone kernel
+   (time_standalone); [kernels-rr] the same for the standalone transfers
+   (residual + restriction, prolongation + correction) at the same levels
    and 257x255;
 5. drive the 2D path, the Poisson V(2,1) cycle on 4095^2 (levels 12->5,
    float32, as bench.py builds it), through make_cycle_loop; check the
@@ -105,16 +107,18 @@ Phases:
    one 3D standalone kernel must launch;
 14. [kernels-var] check each var leg instantiation's tile, halo, threads,
    blocks per SM and spills (``rbgs_var.leg_info``) against the wrapper
-   module's constants for 1..3 sweeps, red-black and Jacobi; compare the
-   four variable-coefficient kernels (the fused red-black and the Jacobi
+   module's constants for 1..3 sweeps, red-black and Jacobi, and the
+   red-black sweep's (``rbgs_var.sweep_info``); compare the four
+   variable-coefficient kernels (the fused red-black and the Jacobi
    sweep, the down-leg and the up-leg) with their plain versions at the
    main path's levels 2047^2, 1023^2, 511^2 and 255^2 with the
    variable-coefficient problem's own coefficient stack and at ragged
    shapes (1025x771 and 129x131 near the gate for the legs, 300x200 for
    the sweeps) with an anisotropic random stack, the legs for 1..3 sweeps,
-   red-black and Jacobi; time the sweeps at 2047^2, and the V(2,1)'s legs
-   (2 sweeps down, 1 up), red-black and Jacobi, at every level of the
-   path, with the kernel's device time alone beside (``time_var_legs``);
+   red-black and Jacobi; time both sweeps (``time_var_sweeps``) and the
+   V(2,1)'s legs (2 sweeps down, 1 up), red-black and Jacobi
+   (``time_var_legs``), at every level of the path, with the kernel's
+   device time alone beside;
 15. [main-var] drive the variable-coefficient path,
    poisson_2d_variable(11, 5) (2047^2, float32, the BASELINE suite's
    var-coef row, scripts/bench_suite.py:107-109, :127-129), with the
@@ -138,7 +142,8 @@ Phases:
    Jacobi; print each leg instantiation's halo, resident blocks per SM,
    registers, local memory and shared memory; time the sweeps at 2047^2
    and the V(2,1)'s legs (2 sweeps down, 1 up), red-black and Jacobi, at
-   2047^2 and 255^2 (the level of [evaluator-elast] and [evolve-elast]);
+   2047^2 and 255^2 (the level of [evaluator-elast] and [evolve-elast]),
+   and the sweeps at those two levels too;
 19. [main-elast] drive the elasticity path, linear_elasticity_2d(11, 4)
    (2047^2, float32, the BASELINE suite's elasticity row,
    scripts/bench_suite.py:111-113, :145-147), with the collective red-black
@@ -155,13 +160,16 @@ Phases:
    more iterations than the red-black V(2,1);
 21. [evolve-elast] ``elasticity2d NSGAII --mu 2 --lambda 2 --generations 1
    --seed 0`` at its default levels 8->4 (255^2), cut as [evolve3d];
-22. [kernels-cx] compare the two complex sweep kernels (the fused
-   red-black and the Jacobi sweep of a constant complex 5-point operator)
-   with their plain versions at 2047^2 and 1023^2 with the shifted
-   Laplacian's values at k = 80 and the JAX test's complex stencil, and at
-   the ragged 300x200 and 129x130 with the latter; time both at every
-   level of the main path (2047^2 .. 255^2), with the kernel's device time
-   alone beside;
+22. [kernels-cx] check the red-black complex sweep's kernel
+   (``rbgs_cx.sweep_info``: tile, halo, threads, blocks per SM, spills)
+   against the wrapper module's constants; compare the two complex sweep
+   kernels (the fused red-black and the Jacobi sweep of a constant
+   complex 5-point operator) with their plain versions at every level of
+   the main path (2047^2 .. 255^2) with the shifted Laplacian's values at
+   k = 80, at 2047^2 and 1023^2 with the JAX test's complex stencil too,
+   and at the ragged 300x200 and 129x130 with the latter; time both
+   sweeps at the main path's levels, with the kernel's device time alone
+   beside;
 23. [main-cx] drive the complex path: the shifted-Laplace preconditioner
    M = -Lap - k^2 (1 + 0.5i) with Dirichlet boundaries (k = 80, levels
    11->3, 2047^2 down to a dense 7^2 solve, complex64), built from the
@@ -915,15 +923,23 @@ def deviation(torch, k, p, rtol, atol):
 
 def time_standalone(torch, stats, name, tag, shape, kern, plain, bound,
                     keep=(4095, 4095)):
-    """Time kernel and plain in turns; keep the numbers of shape ``keep``
-    for the kernels line."""
+    """Time kernel and plain in turns, the kernel's device time alone
+    (time_ms_queued) logged beside; keep the numbers of shape ``keep`` for
+    the kernels line."""
     k, p, turns = time_pair(torch, kern, plain)
     ms, by = bound
     log(f"[{tag}] {name} {'x'.join(map(str, shape))}: kernel "
         f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
-        f"{turns[3]:.4f} ms, bound {ms:.4f} ms ({by})")
+        f"{turns[3]:.4f} ms, bound {ms:.4f} ms ({by}); kernel queued "
+        f"{time_ms_queued(torch, kern):.4f} ms")
     if shape == keep:
         stats[name].update(ms=k, plain_ms=p, bound_ms=ms, bound_by=by)
+
+
+#: the square shapes where the 2D standalone sweeps and transfers are held
+#: and timed: 4095^2 for the kernels line, and the levels of the
+#: [evaluator] hierarchy (1023^2 .. 255^2), where they run
+STANDALONE_SHAPES = [(4095, 4095), (1023, 1023), (511, 511), (255, 255)]
 
 
 def phase_kernels_rbgs(torch, rbgs, device):
@@ -933,7 +949,7 @@ def phase_kernels_rbgs(torch, rbgs, device):
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(2)
-    for shape in [(4095, 4095), (1023, 1023), (300, 200)]:
+    for shape in STANDALONE_SHAPES + [(300, 200)]:
         def normal():
             return torch.tensor(rng.standard_normal(shape),
                                 dtype=torch.float32, device=device)
@@ -977,7 +993,7 @@ def phase_kernels_rr(torch, transfer, device):
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(3)
-    for shape in [(4095, 4095), (1023, 1023), (257, 255)]:
+    for shape in STANDALONE_SHAPES + [(257, 255)]:
         def normal(*s):
             return torch.tensor(rng.standard_normal(s), dtype=torch.float32,
                                 device=device)
@@ -1150,9 +1166,8 @@ def aniso_stack(torch, shape, rng, device):
 
 
 #: the [kernels-var] shapes and stacks: the main path's levels with the
-#: problem's own stack (the sweeps are timed at the first), ragged shapes
-#: with an anisotropic random one (the legs take the odd ones; 129x131 lies
-#: at the legs' gate)
+#: problem's own stack, ragged shapes with an anisotropic random one (the
+#: legs take the odd ones; 129x131 lies at the legs' gate)
 VAR_CASES = [((2047, 2047), "problem"), ((1023, 1023), "problem"),
              ((511, 511), "problem"), ((255, 255), "problem"),
              ((1025, 771), "aniso"), ((129, 131), "aniso"),
@@ -1207,6 +1222,54 @@ def time_var_legs(torch, rbgs_var, device, shape, stats=None):
                                    bound_by=by)
 
 
+def check_sweep_info(tag, module):
+    """The windowed red-black sweep of ``module`` (``sweep_info``): its
+    tile, halo, threads, blocks per SM, registers, local memory (spills)
+    and shared memory, from the card.  Tile, halo and threads must be the
+    wrapper module's; at least the blocks per SM it states must be
+    resident; nothing may spill."""
+    i = module.sweep_info()
+    log(f"[{tag}] red-black sweep: tile {i['tile_rows']}x{i['tile_cols']}, "
+        f"halo {i['halo']}, {i['threads']} threads, {i['blocks_per_sm']} "
+        f"blocks/SM, {i['registers']} registers, {i['local_bytes']} B "
+        f"local, {i['smem_bytes']} B shared")
+    tile = module.sweep_tile()
+    want = {"tile_rows": tile[0], "tile_cols": tile[1],
+            "halo": module.SWEEP_HALO, "threads": module.SWEEP_THREADS,
+            "local_bytes": 0}
+    check(all(i[k] == v for k, v in want.items())
+          and i["blocks_per_sm"] >= module.SWEEP_BLOCKS_PER_SM,
+          f"{tag} sweep info {i} against the wrapper's {want}, "
+          f"{module.SWEEP_BLOCKS_PER_SM} blocks/SM")
+
+
+def time_var_sweeps(torch, rbgs_var, device, shape, stats=None):
+    """Both var sweeps with the problem's own stack at ``shape``: kernel
+    and plain in turns (time_pair), the numbers going to ``stats`` when it
+    is given; the kernel's device time alone (time_ms_queued) is logged
+    beside them.  Uses only the wrappers' public signatures, so it times
+    an older tree's package as well."""
+    rng = np.random.default_rng(13)
+    u, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=device) for _ in range(2))
+    c = var_problem_stack(torch, shape[0], device)
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    bound, by = var_sweep_bound(shape)
+    for name, om_id in zip(VAR_SWEEPS, (1, 2)):
+        kern = getattr(rbgs_var, name)
+        plain = getattr(rbgs_var, name + "_plain")
+        timed = (lambda: kern(u, b, omegas, om_id, c),
+                 lambda: plain(u, b, omegas, om_id, c))
+        k, p, turns = time_pair(torch, *timed)
+        log(f"[kernels-var] {name} {shape[0]}x{shape[1]}: kernel "
+            f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
+            f"{turns[3]:.4f} ms, bound {bound:.4f} ms ({by}); kernel queued "
+            f"{time_ms_queued(torch, timed[0]):.4f} ms")
+        if stats is not None:
+            stats[name].update(ms=k, plain_ms=p, bound_ms=bound, bound_by=by)
+
+
 def check_var_leg_info(rbgs_var):
     """Each instantiation of the two var legs (leg, sweeps, mode): its
     tile, halo, threads, blocks per SM, registers, local memory (spills)
@@ -1235,10 +1298,10 @@ def check_var_leg_info(rbgs_var):
 
 def phase_kernels_var(torch, rbgs_var, device):
     """The variable-coefficient kernels against their plain versions; the
-    sweeps timed in turns at 2047^2, the main path's finest level, the legs
-    at every level of the path."""
+    sweeps and the legs timed in turns at every level of the main path."""
     stats = {name: {"max_abs_err": 0.0} for name in VAR_SWEEPS + VAR_LEGS}
     check_var_leg_info(rbgs_var)
+    check_sweep_info("kernels-var", rbgs_var)
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(6)
@@ -1290,24 +1353,9 @@ def phase_kernels_var(torch, rbgs_var, device):
                         for fn in (up, rbgs_var.
                                    prolong_correct_postsmooth_var_plain))
                     note(VAR_LEGS[1], mode, o_k, o_p)
-        if shape != VAR_CASES[0][0]:
-            continue
-        # the main path's finest level: its stack, the sweeps
-        timed = {
-            "fused_rbgs_sweep_var": (
-                lambda: rbgs_var.fused_rbgs_sweep_var(u, b, omegas, 1, c),
-                lambda: rbgs_var.fused_rbgs_sweep_var_plain(u, b, omegas, 1,
-                                                            c),
-                var_sweep_bound(shape)),
-            "jacobi_sweep_var": (
-                lambda: rbgs_var.jacobi_sweep_var(u, b, omegas, 2, c),
-                lambda: rbgs_var.jacobi_sweep_var_plain(u, b, omegas, 2, c),
-                var_sweep_bound(shape)),
-        }
-        for name, (kern, plain, bound) in timed.items():
-            time_standalone(torch, stats, name, "kernels-var", shape, kern,
-                            plain, bound, keep=shape)
     for n in LEVELS_2047:
+        time_var_sweeps(torch, rbgs_var, device, (n, n),
+                        stats if n == LEVELS_2047[0] else None)
         time_var_legs(torch, rbgs_var, device, (n, n),
                       stats if n == LEVELS_2047[0] else None)
     return stats
@@ -1387,8 +1435,8 @@ def random_sys_table(rng):
 SYS_CASES = [((2047, 2047), "elasticity"), ((1023, 1023), "elasticity"),
              ((255, 255), "elasticity"), ((1025, 771), "random"),
              ((300, 200), "random")]
-#: the shapes the legs are timed at: the main path's finest level (its
-#: red-black numbers go to the kernels line) and the level of
+#: the shapes the legs and sweeps are timed at: the main path's finest
+#: level (its red-black numbers go to the kernels line) and the level of
 #: [evaluator-elast] and [evolve-elast]
 SYS_TIMED = ((2047, 2047), (255, 255))
 
@@ -1460,9 +1508,9 @@ def log_leg_info(rbgs_sys):
 
 
 def phase_kernels_sys(torch, rbgs_sys, device):
-    """The coupled-system kernels against their plain versions; both timed
-    in turns at 2047^2, the main path's finest level, and the legs at
-    255^2 too."""
+    """The coupled-system kernels against their plain versions; sweeps and
+    legs timed in turns at 2047^2, the main path's finest level, and at
+    255^2, the evaluator's."""
     stats = {name: {"max_abs_err": 0.0} for name in SYS_SWEEPS + SYS_LEGS}
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
                           device=device)
@@ -1522,9 +1570,10 @@ def phase_kernels_sys(torch, rbgs_sys, device):
                                    rbgs_sys.
                                    prolong_correct_postsmooth_sys_plain))
                     note(SYS_LEGS[1], mode, o_k, o_p)
-        if shape != SYS_CASES[0][0]:
+        if shape not in SYS_TIMED:
             continue
-        # the main path's finest level: its table, the sweeps
+        # the main path's finest level and the evaluator's: the table, the
+        # sweeps (the first level's numbers go to the kernels line)
         timed = {
             "fused_rbgs_sweep_sys": (
                 lambda: rbgs_sys.fused_rbgs_sweep_sys(u, b, omegas, 1, *op),
@@ -1538,7 +1587,7 @@ def phase_kernels_sys(torch, rbgs_sys, device):
         }
         for name, (kern, plain, bound) in timed.items():
             time_standalone(torch, stats, name, "kernels-sys", shape, kern,
-                            plain, bound, keep=shape)
+                            plain, bound, keep=SYS_TIMED[0])
     log_leg_info(rbgs_sys)
     for shape in SYS_TIMED:
         time_sys_legs(torch, rbgs_sys, device, shape,
@@ -1564,10 +1613,11 @@ def shifted_laplace_values(n):
         grid, helmholtz.K_DEFAULT, helmholtz.SHIFT))
 
 
-#: the [kernels-cx] shapes and stencils: the main path's two finest levels
-#: with its shifted Laplacian and the JAX test's stencil, the JAX test's
-#: ragged shapes (tests/test_pallas_cx.py:39-40) with the latter
+#: the [kernels-cx] shapes and stencils: the main path's levels with its
+#: shifted Laplacian (the two finest with the JAX test's stencil too), the
+#: JAX test's ragged shapes (tests/test_pallas_cx.py:39-40) with the latter
 CX_CASES = [((2047, 2047), ("path", "jax")), ((1023, 1023), ("path", "jax")),
+            ((511, 511), ("path",)), ((255, 255), ("path",)),
             ((300, 200), ("jax",)), ((129, 130), ("jax",))]
 
 
@@ -1576,6 +1626,7 @@ def phase_kernels_cx(torch, rbgs_cx, device):
     in turns at every level of the main path, with their device time
     beside."""
     stats = {name: {"max_abs_err": 0.0} for name in CX_SWEEPS}
+    check_sweep_info("kernels-cx", rbgs_cx)
     # the fused sweep reads omega 0.6, the Jacobi sweep 0.8
     omegas = torch.tensor([0.9, 0.6, 0.8], dtype=torch.float32,
                           device=device)
@@ -1586,6 +1637,15 @@ def phase_kernels_cx(torch, rbgs_cx, device):
                             + 1j * rng.standard_normal(shape),
                             dtype=torch.complex64, device=device)
 
+    def note(name, tag, k, p):
+        """k against p within TOL_CX * max |p|."""
+        scale = float(p.abs().max())
+        err, excess = deviation(torch, k, p, 0.0, TOL_CX * scale)
+        log(f"[kernels-cx] {name} {tag}: max|d| {err:.3e} = "
+            f"{err / scale:.3e} max|plain| (tol {TOL_CX})")
+        check(excess <= 0, f"{name} {tag}")
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+
     for shape, kinds in CX_CASES:
         u, b = normal(shape), normal(shape)
         for kind in kinds:
@@ -1593,16 +1653,10 @@ def phase_kernels_cx(torch, rbgs_cx, device):
                 else VALS_CX
             tag = f"{shape[0]}x{shape[1]} {kind}"
             for name, om_id in zip(CX_SWEEPS, (1, 2)):
-                k = getattr(rbgs_cx, name)(u, b, omegas, om_id, vals)
-                p = getattr(rbgs_cx, name + "_plain")(u, b, omegas, om_id,
-                                                      vals)
-                scale = float(p.abs().max())
-                err, excess = deviation(torch, k, p, 0.0, TOL_CX * scale)
-                log(f"[kernels-cx] {name} {tag}: max|d| {err:.3e} = "
-                    f"{err / scale:.3e} max|plain| (tol {TOL_CX})")
-                check(excess <= 0, f"{name} {tag}")
-                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
-                                                 err)
+                note(name, tag,
+                     getattr(rbgs_cx, name)(u, b, omegas, om_id, vals),
+                     getattr(rbgs_cx, name + "_plain")(u, b, omegas, om_id,
+                                                       vals))
     for n in LEVELS_2047:
         time_cx_sweeps(torch, rbgs_cx, device, (n, n),
                        stats if n == LEVELS_2047[0] else None)
@@ -1637,41 +1691,6 @@ def time_cx_sweeps(torch, rbgs_cx, device, shape, stats=None):
             stats[name].update(ms=k, plain_ms=p, bound_ms=bound, bound_by=by)
 
 
-def dirichlet_helmholtz(max_level, min_level):
-    """helmholtz_2d with every level operator and the coarsest replaced by
-    a generator with only ``generate_stencil``: the shifted Laplacian with
-    plain Dirichlet boundaries (k = 80, shift 0.5i), no Robin fold and no
-    field form, built from the public IR as tests/test_pallas_cx.py:110-141
-    builds it."""
-    from evostencils_tpu_torch.compiler.cycles import LevelContext
-    from evostencils_tpu_torch.ir import base, system
-    from evostencils_tpu_torch.problems import helmholtz as hh
-
-    class ConstGen:
-        def __init__(self, k, shift=0.0):
-            self.k = k
-            self.shift = shift
-
-        def generate_stencil(self, grid):
-            return hh._helmholtz_stencil(grid, self.k, self.shift)
-
-    p = hh.helmholtz_2d(max_level=max_level, min_level=min_level)
-    contexts = []
-    for ctx in p.level_contexts:
-        op = system.Operator(ctx.operator.name, [[base.Operator(
-            "M", ctx.grid[0], ConstGen(hh.K_DEFAULT, hh.SHIFT))]])
-        contexts.append(LevelContext(
-            operator=op, restriction=ctx.restriction,
-            prolongation=ctx.prolongation,
-            approximation=ctx.approximation, grid=ctx.grid))
-    g_min = p.coarsest_operator.entries[0][0].grid
-    p.coarsest_operator = system.Operator(
-        p.coarsest_operator.name, [[base.Operator(
-            "M", g_min, ConstGen(hh.K_DEFAULT, hh.SHIFT))]])
-    p.level_contexts = contexts
-    return p
-
-
 def v21(path):
     """A fresh problem of the path and its V(2,1) cycle."""
     from evostencils_tpu_torch.compiler.cycles import v_cycle
@@ -1679,6 +1698,8 @@ def v21(path):
     from evostencils_tpu_torch.problems import elasticity, poisson
     _, build, max_level, min_level, partitioning, omega, _, _ = PATHS[path]
     if build == "dirichlet_helmholtz":
+        from evostencils_tpu_torch.problems.helmholtz import \
+            dirichlet_helmholtz
         problem = dirichlet_helmholtz(max_level, min_level)
     else:
         module = elasticity if build == "linear_elasticity_2d" else poisson

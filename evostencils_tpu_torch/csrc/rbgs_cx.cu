@@ -37,25 +37,37 @@
 // es_sweep_cx reads u through the cache, one thread a point, and writes a
 // buffer it never reads, so that every point sees the old u.
 //
-// es_fused_rbgs_sweep_cx needs the red values of the ring around its tile
-// before its black half-sweep.  Each block loads a (T+4) x (T+4) window of
-// u with a 2-cell halo into shared memory, updates red on the tile and a
-// 1-cell ring around it (whose neighbours lie in the window), syncs,
-// updates black on the tile, and writes the tile; b is read from device
-// memory at the points each half-sweep updates, so it needs no window.
-// With T = 64 the float2 window takes 68 * 68 * 8 = 36,992 bytes of shared
-// memory, below the 48 KB default, so no opt-in is needed (a window of b
-// as well would take 73,984 bytes).  The window reads 68^2 / 64^2 = 1.13
-// times the tile's bytes of u (L2 absorbs part of the overlap).
+// es_fused_rbgs_sweep_cx (fused_rbgs_cx_kernel) needs the red values of
+// the ring around its tile before its black half-sweep, so a block owns a
+// tile and stages u and b over a window two cells wider on every side
+// (halo 2), zero outside the grid, by 8-byte cp.async (one float2 a copy:
+// a 2047-wide row is 16,376 bytes, 8-byte but not 16-byte aligned), all of
+// a thread's copies in flight before one wait.  The red half-sweep updates
+// the window cells at a distance >= 1 from the window edge and the black
+// one those at >= 2: their neighbours all lie in the window, so no read is
+// predicated, and the cells still right after each pass are exactly those;
+// the tile (distance >= 2) is then stored.  Each window row is stored
+// split by column parity: its even columns, then, 16 banks on, its odd
+// ones, so that a colour's cells of a row are contiguous.  In a half-sweep
+// lane x updates slot x of the colour's half of each of its rows: every
+// lane busy, and a warp's float2 reads of the half and of its left and
+// right neighbours (the other half, shifted by at most one slot) are 32
+// consecutive float2, two conflict-free wavefronts; the staging writes of
+// one half-warp fall 8 slots in each half, 16 banks apart.  The window is
+// 16 x 64 cells, 18,432 bytes of u and b, in blocks of 256 threads, 8 an
+// SM (every thread slot of the SM).  On the H100 it was the fastest of the
+// 64 x 64, 32 x 64 and 16 x 64 windows at every level from 2047^2 to
+// 255^2, by 5-9% over 32 x 64 (the overlap of its windows, 1.42 times its
+// tile, comes from L2; PERF.md section 6).  es_fused_rbgs_sweep_cx_info
+// reports its tile and occupancy from the card.
+// tests/test_torch_cx_tiles.py emulates this schedule in complex128.
+// Tiles start at even interior indices, so a window cell's colour is the
+// parity of its window indices.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 64;
-constexpr int WIN = TILE + 4;            // 2-cell halo on each side
-constexpr int THREADS = 256;
-constexpr int FUSED_SMEM = WIN * WIN * sizeof(float2);
 constexpr int SWEEP_BX = 32, SWEEP_BY = 8;
 
 struct SweepCx {
@@ -98,52 +110,137 @@ sweep_cx_kernel(const float2* __restrict__ u, const float2* __restrict__ b,
   out[g] = make_float2(s[0].x + d.x, s[0].y + d.y);
 }
 
-// One half-sweep of colour `parity` on the window cells whose row and
-// column indices both lie in [lo, WIN - 1 - lo].
-__device__ void half_sweep(float2* su, const float2* __restrict__ b,
-                           const SweepCx& p, float omega, int r0, int c0,
-                           int parity, int lo) {
-  const int span = WIN - 2 * lo;
-  for (int idx = threadIdx.x; idx < span * span; idx += blockDim.x) {
-    const int wr = lo + idx / span, wc = lo + idx % span;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (gr < 0 || gr >= p.n || gc < 0 || gc >= p.m ||
-        ((gr + gc) & 1) != parity)
-      continue;
-    const int w = wr * WIN + wc;
-    const float2 s[5] = {su[w], su[w - WIN], su[w + WIN], su[w - 1],
-                         su[w + 1]};
-    const float2 d =
-        correction(p, omega, s, b[static_cast<long>(gr) * p.m + gc]);
-    su[w] = make_float2(s[0].x + d.x, s[0].y + d.y);
+// ---------------------------------------------------------------------------
+// The red-black sweep: fused_rbgs_cx_kernel (es_fused_rbgs_sweep_cx; see
+// the design note at the top).
+// ---------------------------------------------------------------------------
+
+// The sweep's window: WR x 2 SL cells, blocks of SL x NY threads, at
+// least BLOCKS resident on an SM (__launch_bounds__), the halo H and the
+// tile.  NY is even, so the rows of one thread share a parity.  Row wr of
+// u's window holds its even columns at wr * RS + wc / 2 and its odd ones
+// at wr * RS + ODD + wc / 2 (float2 units); ODD is SL + 8, so the odd
+// half starts 16 banks after the even one.  b's window follows u's, B
+// float2 on.
+struct CxShape {
+  static constexpr int H = 2;
+  static constexpr int WR = 16, SL = 32, NY = 8;
+  static constexpr int WC = 2 * SL;
+  static constexpr int THREADS = SL * NY;
+  static constexpr int BLOCKS = 8;
+  static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
+  static constexpr int KR = WR / NY;   // rows of a thread
+  static constexpr int ODD = SL + 8, RS = ODD + SL;
+  static constexpr int B = WR * RS;
+  static constexpr int SMEM = 2 * B * static_cast<int>(sizeof(float2));
+  static_assert(NY % 2 == 0 && WR % NY == 0 && TR > 0 && TR % 2 == 0,
+                "even tiles, and the rows of a thread share a parity");
+  static_assert(SMEM <= 48 * 1024, "no dynamic shared memory opt-in");
+};
+
+template <typename L>
+__device__ __forceinline__ int cx_at(int wr, int wc) {
+  return wr * L::RS + (wc & 1) * L::ODD + (wc >> 1);
+}
+
+// 8 bytes from src to shared dst without waiting; zeros when !in (src is
+// then not read).
+__device__ __forceinline__ void copy8_async(float2* dst, const float2* src,
+                                            bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 8 : 0)
+               : "memory");
+}
+
+// u and b over the window whose top-left interior index is (r0, c0), zero
+// outside the grid: lane x copies columns x and x + SLOTS of its rows, all
+// by cp.async, then one wait and a barrier.
+template <typename L>
+__device__ __forceinline__ void stage_cx(const float2* __restrict__ u,
+                                         const float2* __restrict__ b,
+                                         float2* su, const SweepCx& p,
+                                         int r0, int c0) {
+#pragma unroll
+  for (int k = 0; k < L::KR; ++k) {
+    const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
+    const bool row_in = gr >= 0 && gr < p.n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
+      const bool in = row_in && gc >= 0 && gc < p.m;
+      const long g = in ? static_cast<long>(gr) * p.m + gc : 0;
+      float2* dst = su + cx_at<L>(wr, wc);
+      copy8_async(dst, u + g, in);
+      copy8_async(dst + L::B, b + g, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Half-sweep PASS (1: red, 2: black) on the window cells in the grid at a
+// distance >= PASS from the window's edge, in place (the four neighbours
+// of a cell have the other colour).  The colour's cells of this thread's
+// rows all lie in half h; lane x takes slot x.
+template <typename L, int PASS>
+__device__ __forceinline__ void cx_pass(float2* su, const SweepCx& p,
+                                        float omega, int r0, int c0) {
+  constexpr int colour = PASS - 1;
+  const int s = threadIdx.x, ty = threadIdx.y;
+  const int h = (colour + ty) & 1, wc = 2 * s + h, gc = c0 + wc;
+  if (wc < PASS || wc > L::WC - 1 - PASS || gc < 0 || gc >= p.m) return;
+  float2* cell = su + h * L::ODD + s;
+  // the right neighbour, in the other half; the left one precedes it
+  const float2* right = su + (1 - h) * L::ODD + s + h;
+#pragma unroll
+  for (int k = 0; k < L::KR; ++k) {
+    const int wr = ty + k * L::NY, gr = r0 + wr;
+    if (wr < PASS || wr > L::WR - 1 - PASS || gr < 0 || gr >= p.n) continue;
+    float2* w = cell + wr * L::RS;
+    const float2* rt = right + wr * L::RS;
+    const float2 st[5] = {w[0], w[-L::RS], w[L::RS], rt[-1], rt[0]};
+    const float2 d = correction(p, omega, st, w[L::B]);
+    w[0] = make_float2(st[0].x + d.x, st[0].y + d.y);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The tile of u's window to out: lane x stores columns H + x and
+// H + x + SLOTS of its rows.
+template <typename L>
+__device__ __forceinline__ void store_tile_cx(const float2* su,
+                                              float2* __restrict__ out,
+                                              const SweepCx& p, int r0,
+                                              int c0) {
+#pragma unroll
+  for (int k = 0; k < (L::TR + L::NY - 1) / L::NY; ++k) {
+    const int wr = L::H + threadIdx.y + k * L::NY, gr = r0 + wr;
+    if (wr >= L::H + L::TR || gr >= p.n) break;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = L::H + threadIdx.x + j * L::SL, gc = c0 + wc;
+      if (wc < L::H + L::TC && gc < p.m)
+        out[static_cast<long>(gr) * p.m + gc] = su[cx_at<L>(wr, wc)];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CxShape::THREADS, CxShape::BLOCKS)
 fused_rbgs_cx_kernel(const float2* __restrict__ u,
                      const float2* __restrict__ b,
                      const float* __restrict__ omegas,
                      float2* __restrict__ out, SweepCx p) {
-  extern __shared__ float2 su[];
-  const int r0 = blockIdx.y * TILE - 2, c0 = blockIdx.x * TILE - 2;
-  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
-    const int gr = r0 + idx / WIN, gc = c0 + idx % WIN;
-    const bool in = gr >= 0 && gr < p.n && gc >= 0 && gc < p.m;
-    su[idx] = in ? u[static_cast<long>(gr) * p.m + gc]
-                 : make_float2(0.f, 0.f);
-  }
-  __syncthreads();
+  using L = CxShape;
+  __shared__ float2 su[2 * L::B];
+  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
   const float omega = omegas[p.om];
-  half_sweep(su, b, p, omega, r0, c0, 0, 1);   // red: tile + 1-cell ring
+  stage_cx<L>(u, b, su, p, r0, c0);
+  cx_pass<L, 1>(su, p, omega, r0, c0);
   __syncthreads();
-  half_sweep(su, b, p, omega, r0, c0, 1, 2);   // black: the tile
+  cx_pass<L, 2>(su, p, omega, r0, c0);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
-    const int gr = r0 + 2 + idx / TILE, gc = c0 + 2 + idx % TILE;
-    if (gr < p.n && gc < p.m)
-      out[static_cast<long>(gr) * p.m + gc] =
-          su[(2 + idx / TILE) * WIN + 2 + idx % TILE];
-  }
+  store_tile_cx<L>(su, out, p, r0, c0);
 }
 
 SweepCx make_sweep(const double* vals, int om, int n, int m) {
@@ -183,15 +280,43 @@ extern "C" int es_sweep_cx(const float2* u, const float2* b,
   return cudaGetLastError();
 }
 
+// As es_sweep_cx.
 extern "C" int es_fused_rbgs_sweep_cx(const float2* u, const float2* b,
                                       const float* omegas, int om,
                                       const double* vals, float2* out, int n,
                                       int m, void* stream) {
+  using L = CxShape;
   if (invalid(vals, n, m)) return cudaErrorInvalidValue;
   const SweepCx p = make_sweep(vals, om, n, m);
-  const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
-  fused_rbgs_cx_kernel<<<grid, THREADS, FUSED_SMEM,
+  const dim3 grid((m + L::TC - 1) / L::TC, (n + L::TR - 1) / L::TR);
+  fused_rbgs_cx_kernel<<<grid, dim3(L::SL, L::NY), 0,
                          static_cast<cudaStream_t>(stream)>>>(u, b, omegas,
                                                               out, p);
   return cudaGetLastError();
+}
+
+// What es_fused_rbgs_sweep_cx's kernel is on this card: info[0], [1] its
+// tile's rows and columns, [2] its halo, [3] threads per block, [4]
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// [5] registers per thread, [6] local memory per thread in bytes (spills
+// land there), [7] shared memory per block in bytes.
+extern "C" int es_fused_rbgs_sweep_cx_info(int* info) {
+  using L = CxShape;
+  const void* kernel = reinterpret_cast<const void*>(fused_rbgs_cx_kernel);
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, L::THREADS, 0);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = L::TR;
+  info[1] = L::TC;
+  info[2] = L::H;
+  info[3] = L::THREADS;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
 }

@@ -8,8 +8,9 @@
 // es_sweep_var replaces the TPU kernel
 //   evostencils_tpu/ops/pallas/rbgs_var.py fused_rbgs_sweep_var /
 //   jacobi_sweep_var (_fused_var_kernel):
-//   one damped red-black sweep (red, then black with the new red values)
-//   or one damped Jacobi sweep, u + (omega / cc) * (b - A u).
+//   one damped red-black sweep (red, then black with the new red values;
+//   rbgs_var_kernel) or one damped Jacobi sweep (jacobi_var_kernel),
+//   u + (omega / cc) * (b - A u).
 // es_presmooth_residual_restrict_var replaces
 //   rbgs_var.py presmooth_residual_restrict_var (_var_smooth_rr_kernel):
 //   S in [1, 3] red-black or Jacobi sweeps u + (omega * (1 / cc)) * (b - A u),
@@ -28,45 +29,53 @@
 // moves the coarse array (rc written or e read) besides.  The arithmetic is
 // a few dozen flops a point.
 //
-// Design of the sweeps.  The standalone red-black sweep is rbgs.cu's: a
-// 68 x 68 window with a 2-cell halo, red on the tile and a one-cell ring,
-// then black on the tile, each cell reading its five coefficients through
-// the read-only cache; the Jacobi sweep is one thread a point writing a
-// buffer it does not read.
+// The Jacobi sweep (jacobi_var_kernel) is one thread a point writing a
+// buffer it does not read, its five coefficients through the read-only
+// cache.
 //
-// Design of the legs (downleg_var_kernel<S, RB>, upleg_var_kernel<S, RB>:
-// one instantiation per sweep count and mode).  Like transfer.cu's legs
-// they are latency-bound before they are bandwidth-bound: a block loads,
-// then runs its passes between barriers, so the card needs many blocks
-// resident.  A block stages u, b and the four neighbour coefficient
-// planes over a 32 x 64 window by 4-byte cp.async (a 2047-wide row is
-// 8,188 bytes, so rows are not 16-byte aligned), all of a thread's copies
-// in flight at once, and reads the centre coefficient of each of its
-// cells into registers beside them: every coefficient crosses device
-// memory once per window, and no pass re-reads it.  Six planes take
-// 49,920 bytes (52,368 with the up-leg's coarse window of e), so four
-// 256-thread blocks (32 warps) are resident on an SM.  Each thread then
-// forms 1/cc of its cells once, in registers, and uses it in every
-// half-sweep, as the TPU body forms dinv once per leg (rbgs_var.py:214).
-// The halo is the leg's own: P = 2S half-sweeps (red-black) or P = S
-// sweeps (Jacobi), P + 2 on the down-leg and P on the up-leg, and the tile
-// is the window less the halo on every side.  Pass p updates only the
-// window cells at a distance >= p from the window edge: their neighbours
-// all lie in the window, so no read is predicated, and the cells still
-// right after pass p are exactly those.  A plane is stored split by column
-// parity (all even columns, then all odd ones, 16 banks apart), so a
-// colour's cells of a row are contiguous: in a red-black half-sweep lane x
-// updates slot x of its rows, every lane busy, every warp's reads
-// bank-conflict free, in place; a Jacobi sweep computes all of a thread's
-// cells into registers, the block synchronises, then writes them.  The
-// down-leg forms the residual of the tile and one row and column past it
-// in place of b and restricts it from there; the up-leg stages e's coarse
-// window once and prolongs from it onto every window cell.  One window
-// serves every level: on the H100 it was the fastest of the 64 x 64,
-// 48 x 64, 32 x 128 and 32 x 32 windows tried at 2047^2 .. 255^2, or
-// within 4% of it (PERF.md section 6).
-// tests/test_torch_var_tiles.py emulates this schedule in float64, and
-// es_var_leg_info reports each instantiation's tile, halo and occupancy
+// Design of the windowed kernels: the legs (downleg_var_kernel<S, RB>,
+// upleg_var_kernel<S, RB>: one instantiation per sweep count and mode) and
+// the standalone red-black sweep (rbgs_var_kernel) are forms of one
+// template, VarShape<F, S, RB, K>.
+// Like transfer.cu's legs they are latency-bound before they are
+// bandwidth-bound: a block loads, then runs its passes between barriers,
+// so the card needs many blocks resident.  A block stages u, b and the
+// four neighbour coefficient planes over its window by 4-byte cp.async (a
+// 2047-wide row is 8,188 bytes, so rows are not 16-byte aligned), all of a
+// thread's copies in flight at once, and reads the centre coefficient of
+// each of its cells into registers beside them: every coefficient crosses
+// device memory once per window, and no pass re-reads it.  Over the 32 x
+// 64 window six planes take 49,920 bytes (52,368 with the up-leg's coarse
+// window of e), so four 256-thread blocks (32 warps) are resident on an
+// SM; over the 16 x 64 window 25,344 bytes, eight blocks.  Each thread
+// then forms, once and in registers, the factor of each of its cells: the
+// legs 1/cc, used with omega in every half-sweep as the TPU body forms
+// dinv once per leg (rbgs_var.py:214, :223); the sweep omega / cc, as its
+// TPU body forms dinv (rbgs_var.py:96) and adds dinv * (b - A u) (:113).
+// The halo is the form's own: P = 2S half-sweeps (red-black) or P = S
+// sweeps (Jacobi), P + 2 on the down-leg, P on the up-leg and on the sweep
+// (one red-black sweep: 2), and the tile is the window less the halo on
+// every side.  Pass p updates only the window cells at a distance >= p
+// from the window edge: their neighbours all lie in the window, so no read
+// is predicated, and the cells still right after pass p are exactly those.
+// A plane is stored split by column parity (all even columns, then all odd
+// ones, 16 banks apart), so a colour's cells of a row are contiguous: in a
+// red-black half-sweep lane x updates slot x of its rows, every lane busy,
+// every warp's reads bank-conflict free, in place; a Jacobi sweep computes
+// all of a thread's cells into registers, the block synchronises, then
+// writes them.  The down-leg forms the residual of the tile and one row
+// and column past it in place of b and restricts it from there; the
+// up-leg stages e's coarse window once and prolongs from it onto every
+// window cell; the sweep stores its tile after its two passes.  The legs
+// take the 32 x 64 window (class 0) at every level: on the H100 it was the
+// fastest of the 64 x 64, 48 x 64, 32 x 128 and 32 x 32 windows tried at
+// 2047^2 .. 255^2, or within 4% of it (PERF.md section 6).  The sweep
+// takes the 16 x 64 window (class 1) at every level: on the H100 it was
+// 9-11% faster than 32 x 64 at 511^2 and 255^2, and 2.5% slower at 1023^2,
+// within the spread of the turns there (PERF.md section 6).
+// tests/test_torch_var_tiles.py
+// emulates this schedule in float64, and es_var_leg_info and
+// es_sweep_var_info report each instantiation's tile, halo and occupancy
 // from the card.
 //
 // Tiles start at even interior indices (a Jacobi leg's window may start at
@@ -79,11 +88,7 @@
 
 namespace {
 
-constexpr int TILE = 64;
-constexpr int THREADS = 256;
 constexpr int MAX_SWEEPS = 3;
-constexpr int SWIN = TILE + 4;         // standalone red-black sweep window
-constexpr int SWEEP_SMEM = 2 * SWIN * SWIN * sizeof(float);
 constexpr int JAC_BX = 32, JAC_BY = 8;
 
 struct VarLeg {
@@ -96,59 +101,63 @@ __device__ __forceinline__ bool inside(int n, int m, int gr, int gc) {
   return gr >= 0 && gr < n && gc >= 0 && gc < m;
 }
 
-// A u at one point of a window of edge `win`: `s` points at the point's
-// value, `c` at its center coefficient in plane 0 of the stack, `nm` is
-// the plane stride; neighbours outside the window read as 0.
-__device__ __forceinline__ float apply_var(const float* s, int win, int wr,
-                                           int wc,
-                                           const float* __restrict__ c,
-                                           long nm) {
-  const float up = wr > 0 ? s[-win] : 0.f;
-  const float dn = wr < win - 1 ? s[win] : 0.f;
-  const float lf = wc > 0 ? s[-1] : 0.f;
-  const float rt = wc < win - 1 ? s[1] : 0.f;
-  return __ldg(c) * s[0] + __ldg(c + nm) * up + __ldg(c + 2 * nm) * dn +
-         __ldg(c + 3 * nm) * lf + __ldg(c + 4 * nm) * rt;
-}
-
 // ---------------------------------------------------------------------------
-// The legs: downleg_var_kernel<S, RB> and upleg_var_kernel<S, RB>
-// (es_presmooth_residual_restrict_var and es_prolong_correct_postsmooth_var;
-// see the design note at the top).
+// The windowed kernels: downleg_var_kernel<S, RB> and
+// upleg_var_kernel<S, RB> (es_presmooth_residual_restrict_var and
+// es_prolong_correct_postsmooth_var), rbgs_var_kernel (es_sweep_var,
+// red-black); see the design note at the top.
 // ---------------------------------------------------------------------------
 
-// The window: WIN_ROWS x 2 WIN_SLOTS cells, blocks of WIN_SLOTS x WIN_NY
-// threads, at least LEG_BLOCKS resident on an SM (__launch_bounds__; shared
-// memory allows no more).  WIN_NY is even, so the rows of one thread share
-// a parity.
-constexpr int WIN_ROWS = 32, WIN_SLOTS = 32, WIN_NY = 8, LEG_BLOCKS = 4;
+// The forms of the windowed kernel: the up-leg, the down-leg (numbered as
+// es_var_leg_info takes its `down` flag) and the standalone red-black
+// sweep.
+enum VarForm : int { kVarUp = 0, kVarDown = 1, kVarSweep = 2 };
+
+// Window class K: ROWS x 2 WIN_SLOTS cells, blocks of WIN_SLOTS x WIN_NY
+// threads, at least BLOCKS resident on an SM (__launch_bounds__; shared
+// memory or threads allow no more).  WIN_NY is even, so the rows of one
+// thread share a parity.  The legs take class 0, the sweep class 1.
+constexpr int WIN_SLOTS = 32, WIN_NY = 8;
+template <int K>
+struct VarWindow;
+template <>
+struct VarWindow<0> {
+  static constexpr int ROWS = 32, BLOCKS = 4;
+};
+template <>
+struct VarWindow<1> {
+  static constexpr int ROWS = 16, BLOCKS = 8;
+};
 
 // Planes staged in shared memory, in this order: u, b, and the neighbour
 // coefficients cn, cs, cw, ce (stack planes 1..4).  The centre coefficient
 // and 1/cc live in registers.
 constexpr int STAGED = 6;
 
-// A leg of S sweeps (red-black RB, else Jacobi): P passes (2S half-sweeps
-// or S sweeps), the halo (P + 2 down, P up), the tile, and the windows'
-// layout.  A plane holds the window's even columns row by row (row wr at
-// wr * SL), then 16 floats of padding, then its odd columns (from HALF
-// on), so that the two halves of a row start 16 banks apart; the up-leg's
-// coarse window of e, CR x CC values, follows the STAGED planes.
-template <bool DOWN_, int S, bool RB_>
+// Form F of S sweeps (red-black RB, else Jacobi) in window class K: P
+// passes (2S half-sweeps or S sweeps), the halo (P + 2 down, P up and on
+// the sweep), the tile, and the windows' layout.  A plane holds the
+// window's even columns row by row (row wr at wr * SL), then 16 floats of
+// padding, then its odd columns (from HALF on), so that the two halves of
+// a row start 16 banks apart; the up-leg's coarse window of e, CR x CC
+// values, follows the STAGED planes.
+template <int F, int S, bool RB_, int K = 0>
 struct VarShape {
-  static constexpr bool DOWN = DOWN_, RB = RB_;
+  static constexpr bool DOWN = F == kVarDown, UP = F == kVarUp;
+  static constexpr bool SWEEP = F == kVarSweep, RB = RB_;
   static constexpr int P = RB ? 2 * S : S;
   static constexpr int H = DOWN ? P + 2 : P;
-  static constexpr int WR = WIN_ROWS, SL = WIN_SLOTS, NY = WIN_NY;
+  static constexpr int WR = VarWindow<K>::ROWS, SL = WIN_SLOTS, NY = WIN_NY;
   static constexpr int WC = 2 * SL;
   static constexpr int THREADS = SL * NY;
+  static constexpr int BLOCKS = VarWindow<K>::BLOCKS;
   static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
   static constexpr int KR = WR / NY;   // rows of a thread
   static constexpr int HALF = WR * SL + 16;
   static constexpr int PLANE = 2 * HALF;
   static constexpr int CR = WR / 2 + 2, CC = SL + 2;
   static constexpr int SMEM =
-      (STAGED * PLANE + (DOWN ? 0 : CR * CC)) * static_cast<int>(sizeof(float));
+      (STAGED * PLANE + (UP ? CR * CC : 0)) * static_cast<int>(sizeof(float));
   // a red-black window starts at even interior indices, so a cell's
   // colour is the parity of its window indices
   static_assert(!RB || H % 2 == 0, "red-black halos are even");
@@ -268,9 +277,11 @@ __device__ __forceinline__ bool updates(const VarLeg& p, int wr, int wc,
          wc <= L::WC - 1 - PASS && inside(p.n, p.m, gr, gc);
 }
 
-// Half-sweep PASS (1-based) of a red-black leg: colour q = (PASS - 1) & 1
-// (red first), in place; u + (omega * (1 / cc)) * (b - A u) on cell q of
-// each of the thread's rows (rbgs_var.py:218-224).
+// Half-sweep PASS (1-based) of a red-black form: colour q = (PASS - 1) & 1
+// (red first), in place, on cell q of each of the thread's rows: a leg's
+// u + (omega * (1 / cc)) * (b - A u) (rbgs_var.py:218-224), the sweep's
+// u + (omega / cc) * (b - A u) (:96, :113), dv holding the cell's 1 / cc or
+// omega / cc.
 template <typename L, int PASS>
 __device__ __forceinline__ void rb_pass(float* sw, float om,
                                         const float cc[2][L::KR],
@@ -287,7 +298,8 @@ __device__ __forceinline__ void rb_pass(float* sw, float om,
     if (!updates<L, PASS>(p, wr, wc, r0 + wr, gc)) continue;
     float* w = cell + wr * L::SL;
     const float au = apply_at<L>(w, side + wr * L::SL, cc[q][k]);
-    w[0] = w[0] + om * dv[q][k] * (w[L::PLANE] - au);
+    const float f = L::SWEEP ? dv[q][k] : om * dv[q][k];
+    w[0] = w[0] + f * (w[L::PLANE] - au);
   }
 }
 
@@ -330,7 +342,8 @@ __device__ __forceinline__ void jacobi_pass(float* sw, float om,
 }
 
 // Passes PASS..P, each followed by a barrier; pass q runs sweep (q - 1) / 2
-// (red-black) or q - 1 (Jacobi) with omegas[p.om[om_first + sweep]].
+// (red-black) or q - 1 (Jacobi) with omegas[p.om[om_first + sweep]] (the
+// sweep's omega is already in dv).
 template <typename L, int PASS = 1>
 __device__ __forceinline__ void leg_passes(float* sw,
                                            const float* __restrict__ omegas,
@@ -340,7 +353,8 @@ __device__ __forceinline__ void leg_passes(float* sw,
                                            int c0) {
   if constexpr (PASS <= L::P) {
     const float om =
-        omegas[p.om[om_first + (L::RB ? (PASS - 1) / 2 : PASS - 1)]];
+        L::SWEEP ? 1.f
+                 : omegas[p.om[om_first + (L::RB ? (PASS - 1) / 2 : PASS - 1)]];
     if constexpr (L::RB)
       rb_pass<L, PASS>(sw, om, cc, dv, p, r0, c0);
     else
@@ -455,40 +469,44 @@ __device__ __forceinline__ void store_tile_var(const float* sw,
 }
 
 // Stage the window (and, up, e's coarse window), read the centre
-// coefficients, and form 1/cc once per cell (IEEE division; inf outside
-// the grid, where no cell is updated).
+// coefficients, and form each cell's factor once: 1/cc on a leg, omega /
+// cc with the sweep's omegas[p.om[0]] (IEEE division; inf outside the
+// grid, where no cell is updated).
 template <typename L>
 __device__ __forceinline__ void stage(const float* __restrict__ u,
                                       const float* __restrict__ e,
                                       const float* __restrict__ b,
                                       const float* __restrict__ c, float* sw,
                                       const VarLeg& p, int r0, int c0,
+                                      const float* __restrict__ omegas,
                                       float cc[2][L::KR],
                                       float dv[2][L::KR]) {
   stage_window<L>(u, b, c, sw, p, r0, c0);
-  if constexpr (!L::DOWN)
+  if constexpr (L::UP)
     stage_coarse<L>(e, sw + STAGED * L::PLANE, p, (r0 >> 1) - 1,
                     (c0 >> 1) - 1);
   load_centre<L>(c, p, r0, c0, cc);
+  const float num = L::SWEEP ? omegas[p.om[0]] : 1.0f;
   copy_wait_all();
 #pragma unroll
   for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int k = 0; k < L::KR; ++k) dv[q][k] = 1.0f / cc[q][k];
+    for (int k = 0; k < L::KR; ++k) dv[q][k] = num / cc[q][k];
   __syncthreads();
 }
 
 template <int S, bool RB>
-__global__ void __launch_bounds__(VarShape<true, S, RB>::THREADS, LEG_BLOCKS)
+__global__ void __launch_bounds__(VarShape<kVarDown, S, RB>::THREADS,
+                                  VarShape<kVarDown, S, RB>::BLOCKS)
 downleg_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
                    const float* __restrict__ c,
                    const float* __restrict__ omegas, float* __restrict__ u_out,
                    float* __restrict__ rc, VarLeg p) {
-  using L = VarShape<true, S, RB>;
+  using L = VarShape<kVarDown, S, RB>;
   extern __shared__ float sw[];
   const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
   float cc[2][L::KR], dv[2][L::KR];
-  stage<L>(u, nullptr, b, c, sw, p, r0, c0, cc, dv);
+  stage<L>(u, nullptr, b, c, sw, p, r0, c0, omegas, cc, dv);
   leg_passes<L>(sw, omegas, p, 0, cc, dv, r0, c0);
   store_tile_var<L>(sw, u_out, p, r0, c0);
   residual_in_place<L>(sw, cc);
@@ -497,69 +515,39 @@ downleg_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
 }
 
 template <int S, bool RB>
-__global__ void __launch_bounds__(VarShape<false, S, RB>::THREADS, LEG_BLOCKS)
+__global__ void __launch_bounds__(VarShape<kVarUp, S, RB>::THREADS,
+                                  VarShape<kVarUp, S, RB>::BLOCKS)
 upleg_var_kernel(const float* __restrict__ u, const float* __restrict__ e,
                  const float* __restrict__ b, const float* __restrict__ c,
                  const float* __restrict__ omegas, float* __restrict__ u_out,
                  VarLeg p) {
-  using L = VarShape<false, S, RB>;
+  using L = VarShape<kVarUp, S, RB>;
   extern __shared__ float sw[];
   const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
   float cc[2][L::KR], dv[2][L::KR];
-  stage<L>(u, e, b, c, sw, p, r0, c0, cc, dv);
+  stage<L>(u, e, b, c, sw, p, r0, c0, omegas, cc, dv);
   correct<L>(sw, sw + STAGED * L::PLANE, p, omegas[p.om[0]], r0, c0);
   __syncthreads();
   leg_passes<L>(sw, omegas, p, 1, cc, dv, r0, c0);
   store_tile_var<L>(sw, u_out, p, r0, c0);
 }
 
-// One half-sweep of colour `parity` of the standalone sweep on the window
-// cells whose row and column indices both lie in [lo, SWIN - 1 - lo].
-__device__ void var_half_sweep(float* su, const float* sb,
-                               const float* __restrict__ c, float om, int n,
-                               int m, int r0, int c0, int parity, int lo) {
-  const long nm = static_cast<long>(n) * m;
-  const int span = SWIN - 2 * lo;
-  for (int idx = threadIdx.x; idx < span * span; idx += blockDim.x) {
-    const int wr = lo + idx / span, wc = lo + idx % span;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (!inside(n, m, gr, gc) || ((gr + gc) & 1) != parity) continue;
-    const int w = wr * SWIN + wc;
-    const float* cg = c + static_cast<long>(gr) * m + gc;
-    const float au = apply_var(su + w, SWIN, wr, wc, cg, nm);
-    const float dinv = om / __ldg(cg);
-    su[w] = su[w] + dinv * (sb[w] - au);
-  }
-}
+// The red-black sweep's form: one red-black sweep in window class 1.
+using SweepShape = VarShape<kVarSweep, 1, true, 1>;
 
-__global__ void __launch_bounds__(THREADS)
+// One red-black sweep: the two half-sweeps (halo 2), then the tile.
+__global__ void __launch_bounds__(SweepShape::THREADS, SweepShape::BLOCKS)
 rbgs_var_kernel(const float* __restrict__ u, const float* __restrict__ b,
                 const float* __restrict__ c,
                 const float* __restrict__ omegas, float* __restrict__ out,
-                int om_id, int n, int m) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + SWIN * SWIN;
-  const int r0 = blockIdx.y * TILE - 2, c0 = blockIdx.x * TILE - 2;
-  for (int idx = threadIdx.x; idx < SWIN * SWIN; idx += blockDim.x) {
-    const int gr = r0 + idx / SWIN, gc = c0 + idx % SWIN;
-    const bool in = inside(n, m, gr, gc);
-    const long g = static_cast<long>(gr) * m + gc;
-    su[idx] = in ? u[g] : 0.f;
-    sb[idx] = in ? b[g] : 0.f;
-  }
-  __syncthreads();
-  const float om = omegas[om_id];
-  var_half_sweep(su, sb, c, om, n, m, r0, c0, 0, 1);  // red: tile + ring
-  __syncthreads();
-  var_half_sweep(su, sb, c, om, n, m, r0, c0, 1, 2);  // black: the tile
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
-    const int gr = r0 + 2 + idx / TILE, gc = c0 + 2 + idx % TILE;
-    if (gr < n && gc < m)
-      out[static_cast<long>(gr) * m + gc] =
-          su[(2 + idx / TILE) * SWIN + 2 + idx % TILE];
-  }
+                VarLeg p) {
+  using L = SweepShape;
+  extern __shared__ float sw[];
+  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
+  float cc[2][L::KR], dv[2][L::KR];
+  stage<L>(u, nullptr, b, c, sw, p, r0, c0, omegas, cc, dv);
+  leg_passes<L>(sw, omegas, p, 0, cc, dv, r0, c0);
+  store_tile_var<L>(sw, out, p, r0, c0);
 }
 
 __global__ void __launch_bounds__(JAC_BX * JAC_BY)
@@ -601,44 +589,43 @@ VarLeg make_leg(const double* taps, const int* om_ids, int n_ids, int n,
 // Shared memory above 48 KB needs an explicit opt-in per kernel.
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
 }
 
-dim3 tiles(int n, int m) {
-  return dim3((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
-}
-
 bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
 
-// One instantiation of a leg: its kernel, halo, tile, threads and dynamic
-// shared memory.
+// One instantiation of a windowed kernel: its kernel, halo, tile, threads
+// and dynamic shared memory.
 struct VarInst {
   const void* kernel;
   int halo, tile_rows, tile_cols, threads, smem;
 };
 
-template <bool DOWN, int S, bool RB>
+template <int F, int S, bool RB, int K = 0>
 VarInst var_inst() {
-  using L = VarShape<DOWN, S, RB>;
+  using L = VarShape<F, S, RB, K>;
   const void* kernel;
-  if constexpr (DOWN)
+  if constexpr (F == kVarDown)
     kernel = reinterpret_cast<const void*>(downleg_var_kernel<S, RB>);
-  else
+  else if constexpr (F == kVarUp)
     kernel = reinterpret_cast<const void*>(upleg_var_kernel<S, RB>);
+  else
+    kernel = reinterpret_cast<const void*>(rbgs_var_kernel);
   return {kernel, L::H, L::TR, L::TC, L::THREADS, L::SMEM};
 }
 
-template <bool DOWN, bool RB>
+template <int F, bool RB>
 VarInst var_inst_of_sweeps(int sweeps) {
   switch (sweeps) {
     case 1:
-      return var_inst<DOWN, 1, RB>();
+      return var_inst<F, 1, RB>();
     case 2:
-      return var_inst<DOWN, 2, RB>();
+      return var_inst<F, 2, RB>();
     case 3:
-      return var_inst<DOWN, 3, RB>();
+      return var_inst<F, 3, RB>();
     default:
       return {};
   }
@@ -647,19 +634,20 @@ VarInst var_inst_of_sweeps(int sweeps) {
 // The instantiation of a leg; kernel null for a sweep count it lacks.
 VarInst find_var_leg(bool down, int sweeps, bool red_black) {
   if (down)
-    return red_black ? var_inst_of_sweeps<true, true>(sweeps)
-                     : var_inst_of_sweeps<true, false>(sweeps);
-  return red_black ? var_inst_of_sweeps<false, true>(sweeps)
-                   : var_inst_of_sweeps<false, false>(sweeps);
+    return red_black ? var_inst_of_sweeps<kVarDown, true>(sweeps)
+                     : var_inst_of_sweeps<kVarDown, false>(sweeps);
+  return red_black ? var_inst_of_sweeps<kVarUp, true>(sweeps)
+                   : var_inst_of_sweeps<kVarUp, false>(sweeps);
 }
 
-// Launch a leg with the halo the caller derived; refuse a halo the
-// instantiation was not built for.  args: the kernel's arguments.
-cudaError_t launch_var_leg(bool down, int sweeps, int red_black, int halo,
-                           int n, int m, void** args, void* stream) {
-  if (bad_shape(n, m)) return cudaErrorInvalidValue;
-  const VarInst inst = find_var_leg(down, sweeps, red_black != 0);
-  if (!inst.kernel || halo != inst.halo) return cudaErrorInvalidValue;
+// The red-black sweep's instantiation.
+VarInst var_sweep() { return var_inst<kVarSweep, 1, true, 1>(); }
+
+// Launch an instantiation (null: refused) on an n x m grid.  args: the
+// kernel's arguments.
+cudaError_t launch_var(const VarInst& inst, int n, int m, void** args,
+                       void* stream) {
+  if (!inst.kernel) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(inst.kernel, inst.smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((m + inst.tile_cols - 1) / inst.tile_cols,
@@ -671,6 +659,43 @@ cudaError_t launch_var_leg(bool down, int sweeps, int red_black, int halo,
   return cudaGetLastError();
 }
 
+// Launch a leg with the halo the caller derived; refuse a halo the
+// instantiation was not built for.
+cudaError_t launch_var_leg(bool down, int sweeps, int red_black, int halo,
+                           int n, int m, void** args, void* stream) {
+  if (bad_shape(n, m)) return cudaErrorInvalidValue;
+  const VarInst inst = find_var_leg(down, sweeps, red_black != 0);
+  if (halo != inst.halo) return cudaErrorInvalidValue;
+  return launch_var(inst, n, m, args, stream);
+}
+
+// What an instantiation is on this card: info[0], [1] its tile's rows and
+// columns, [2] its halo, [3] threads per block, [4] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory),
+// [5] registers per thread, [6] local memory per thread in bytes (spills
+// land there), [7] dynamic shared memory per block in bytes.
+cudaError_t var_info(const VarInst& inst, int* info) {
+  if (!inst.kernel) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(inst.kernel, inst.smem);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kernel,
+                                                      inst.threads, inst.smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, inst.kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = inst.tile_rows;
+  info[1] = inst.tile_cols;
+  info[2] = inst.halo;
+  info[3] = inst.threads;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = inst.smem;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // c: the (5, n, m) coefficient stack.  om: index of the relaxation factor
@@ -680,15 +705,18 @@ extern "C" int es_sweep_var(const float* u, const float* b, const float* c,
                             const float* omegas, int om, int red_black,
                             float* out, int n, int m, void* stream) {
   if (n < 1 || m < 1) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
   if (red_black) {
-    rbgs_var_kernel<<<tiles(n, m), THREADS, SWEEP_SMEM, s>>>(u, b, c, omegas,
-                                                             out, om, n, m);
-  } else {
-    const dim3 grid((m + JAC_BX - 1) / JAC_BX, (n + JAC_BY - 1) / JAC_BY);
-    jacobi_var_kernel<<<grid, dim3(JAC_BX, JAC_BY), 0, s>>>(u, b, c, omegas,
-                                                            out, om, n, m);
+    VarLeg p = {};
+    p.om[0] = om;
+    p.n = n;
+    p.m = m;
+    void* args[] = {&u, &b, &c, &omegas, &out, &p};
+    return launch_var(var_sweep(), n, m, args, stream);
   }
+  const dim3 grid((m + JAC_BX - 1) / JAC_BX, (n + JAC_BY - 1) / JAC_BY);
+  jacobi_var_kernel<<<grid, dim3(JAC_BX, JAC_BY), 0,
+                      static_cast<cudaStream_t>(stream)>>>(u, b, c, omegas,
+                                                           out, om, n, m);
   return cudaGetLastError();
 }
 
@@ -719,32 +747,15 @@ extern "C" int es_prolong_correct_postsmooth_var(
 }
 
 // What an instantiation of es_presmooth_residual_restrict_var (down 1) or
-// es_prolong_correct_postsmooth_var (down 0) is on this card: info[0], [1]
-// its tile's rows and columns, [2] its halo, [3] threads per block, [4]
-// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
-// its shared memory), [5] registers per thread, [6] local memory per thread
-// in bytes (spills land there), [7] dynamic shared memory per block in
-// bytes.
+// es_prolong_correct_postsmooth_var (down 0) is on this card (var_info's
+// eight ints).
 extern "C" int es_var_leg_info(int down, int sweeps, int red_black,
                                int* info) {
-  const VarInst inst = find_var_leg(down != 0, sweeps, red_black != 0);
-  if (!inst.kernel) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(inst.kernel, inst.smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kernel,
-                                                      inst.threads, inst.smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, inst.kernel);
-  if (err != cudaSuccess) return err;
-  info[0] = inst.tile_rows;
-  info[1] = inst.tile_cols;
-  info[2] = inst.halo;
-  info[3] = inst.threads;
-  info[4] = blocks;
-  info[5] = attr.numRegs;
-  info[6] = static_cast<int>(attr.localSizeBytes);
-  info[7] = inst.smem;
-  return cudaSuccess;
+  return var_info(find_var_leg(down != 0, sweeps, red_black != 0), info);
+}
+
+// What es_sweep_var's red-black sweep is on this card (var_info's eight
+// ints).
+extern "C" int es_sweep_var_info(int* info) {
+  return var_info(var_sweep(), info);
 }

@@ -102,6 +102,8 @@ SIGNATURES = {
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),
     # u, b, coefficient stack, omegas, omega id, red-black, out, n, m, stream
     "es_sweep_var": (_P, _P, _P, _P, _INT, _INT, _P, _INT, _INT, _P),
+    # info (8 ints out); no stream
+    "es_sweep_var_info": (_INTS,),
     # u, b, coefficient stack, omegas, omega ids, sweeps, red-black, taps,
     # u_out, rc, halo, n, m, stream
     "es_presmooth_residual_restrict_var":
@@ -135,6 +137,8 @@ SIGNATURES = {
     "es_sweep_cx": (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
     "es_fused_rbgs_sweep_cx": (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT,
                                _P),
+    # info (8 ints out); no stream
+    "es_fused_rbgs_sweep_cx_info": (_INTS,),
 }
 
 
@@ -213,6 +217,26 @@ def on_card(u) -> bool:
     if u.device.type == "cpu":
         return False
     raise ValueError(f"no kernel implementation for device {u.device}")
+
+
+def sms(device: torch.device) -> int:
+    """The streaming multiprocessors of the card ``device`` is on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def info(entry: str, what: str, *args) -> dict:
+    """What the card makes of a windowed kernel's instantiation: the eight
+    ints the C entry ``entry`` reports for ``args`` (its tile, halo,
+    threads per block, resident blocks per SM, registers and local memory
+    (spills) per thread, dynamic shared memory per block).  ``what`` names
+    the instantiation in the error.  Needs the card."""
+    out = (ctypes.c_int * 8)()
+    err = getattr(load_library(), entry)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"no instantiation {what}: CUDA error {err}")
+    return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
+                     "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), out))
 
 
 def check_card_tensors(*tensors, dtype=torch.float32) -> None:

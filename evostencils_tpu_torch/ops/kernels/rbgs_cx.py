@@ -36,6 +36,19 @@ from . import _build
 BLOCK_ROWS = 64
 MIN_COLS = 128
 
+#: The block schedule of the red-black kernel, csrc/rbgs_cx.cu
+#: ``fused_rbgs_cx_kernel`` (``CxShape`` states the same window, and
+#: es_fused_rbgs_sweep_cx_info reports it from the card).  A block of
+#: SWEEP_THREADS threads stages u and b over a window of SWEEP_WINDOW =
+#: (rows, columns) cells and owns its centre, the tile: the window less
+#: SWEEP_HALO cells on every side.  The red half-sweep updates the window
+#: cells at a distance >= 1 from the window edge, the black one those at
+#: >= 2.  At least SWEEP_BLOCKS_PER_SM blocks are resident on an SM.
+SWEEP_WINDOW = (16, 64)
+SWEEP_THREADS = 256
+SWEEP_HALO = 2
+SWEEP_BLOCKS_PER_SM = 8
+
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_cx": 0, "jacobi_sweep_cx": 0}
 
@@ -43,6 +56,20 @@ launches = {"fused_rbgs_sweep_cx": 0, "jacobi_sweep_cx": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def sweep_tile() -> Tuple[int, int]:
+    """(rows, columns) of the tile a block of the red-black kernel owns:
+    the window less the halo on every side."""
+    rows, cols = SWEEP_WINDOW
+    return rows - 2 * SWEEP_HALO, cols - 2 * SWEEP_HALO
+
+
+def sweep_info() -> dict:
+    """What the card makes of the red-black kernel: ``_build.info``'s
+    tile, halo, threads, occupancy, spills and shared memory.  Needs the
+    card."""
+    return _build.info("es_fused_rbgs_sweep_cx_info", "red-black cx sweep")
 
 
 def complex_five_point_values(stencil) -> Optional[Tuple[complex, ...]]:
@@ -130,6 +157,7 @@ def _values(vals):
 
 
 def _sweep(name, entry, plain, u, b, omegas, omega_id, vals):
+    """Launch ``entry`` on a CUDA tensor; a CPU tensor takes ``plain``."""
     omega_id = _check_sweep(u, b, omegas, omega_id, vals)
     if not _build.on_card(u):
         return plain(u, b, omegas, omega_id, vals)

@@ -60,6 +60,16 @@ MIN_COLS = 128
 LEG_WINDOW = (32, 64)
 LEG_THREADS = 256
 LEG_BLOCKS_PER_SM = 4
+#: The block schedule of the standalone red-black sweep, a form of the
+#: same kernel (``rbgs_var_kernel``; es_sweep_var_info reports it from the
+#: card): SWEEP_THREADS threads over a window of SWEEP_WINDOW = (rows,
+#: columns) cells with a halo of SWEEP_HALO (one red-black sweep: pass p
+#: on the cells at a distance >= p), at least SWEEP_BLOCKS_PER_SM blocks
+#: resident on an SM.
+SWEEP_WINDOW = (16, 64)
+SWEEP_THREADS = 256
+SWEEP_HALO = 2
+SWEEP_BLOCKS_PER_SM = 8
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_var": 0, "jacobi_sweep_var": 0,
@@ -81,18 +91,24 @@ def leg_tile(leg: str, sweeps: int, red_black: bool) -> Tuple[int, int]:
 
 def leg_info(leg: str, sweeps: int, red_black: bool) -> dict:
     """What the card makes of a leg kernel's instantiation (``leg`` "down"
-    or "up", ``sweeps``, red-black or Jacobi): its tile, halo, threads per
-    block, resident blocks per SM, registers and local memory (spills) per
-    thread, and dynamic shared memory per block.  Needs the card."""
-    info = (ctypes.c_int * 8)()
-    err = _build.load_library().es_var_leg_info(
-        int(leg == "down"), int(sweeps), int(red_black), info)
-    if err != 0:
-        raise RuntimeError(f"no {leg}-leg instantiation for S = {sweeps}, "
-                           f"red-black {red_black}: CUDA error {err}")
-    return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
-                     "blocks_per_sm", "registers", "local_bytes",
-                     "smem_bytes"), info))
+    or "up", ``sweeps``, red-black or Jacobi): ``_build.info``'s tile,
+    halo, threads, occupancy, spills and shared memory.  Needs the card."""
+    return _build.info("es_var_leg_info",
+                       f"{leg}-leg for S = {sweeps}, red-black {red_black}",
+                       int(leg == "down"), int(sweeps), int(red_black))
+
+
+def sweep_tile() -> Tuple[int, int]:
+    """(rows, columns) of the tile a block of the red-black sweep owns: the
+    window less the halo on every side."""
+    rows, cols = SWEEP_WINDOW
+    return rows - 2 * SWEEP_HALO, cols - 2 * SWEEP_HALO
+
+
+def sweep_info() -> dict:
+    """What the card makes of the red-black sweep: ``_build.info``'s tile,
+    halo, threads, occupancy, spills and shared memory.  Needs the card."""
+    return _build.info("es_sweep_var_info", "red-black var sweep")
 
 
 def five_point_stack(sf, *, device, dtype) -> Optional[torch.Tensor]:
@@ -236,6 +252,8 @@ def _check_sweep(u, b, omegas, omega_id, c_stack):
 
 
 def _sweep(name, u, b, omegas, omega_id, c_stack, red_black):
+    """Launch es_sweep_var on a CUDA tensor; a CPU tensor takes the plain
+    version."""
     omega_id = _check_sweep(u, b, omegas, omega_id, c_stack)
     if not _build.on_card(u):
         plain = fused_rbgs_sweep_var_plain if red_black \

@@ -160,26 +160,14 @@ def leg_window(leg: str, sweeps: int, n: int, m: int, sms: int) -> int:
     return built[-1]
 
 
-def _sms(device: torch.device) -> int:
-    """The streaming multiprocessors of the card ``device`` is on."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def leg_info(leg: str, sweeps: int, window: int) -> dict:
     """What the card makes of a windowed kernel's instantiation (``leg``
-    one of ``_FORMS``, ``sweeps``, window class
-    ``window``): its tile, halo, threads per block, resident blocks per SM,
-    registers and local memory (spills) per thread, and dynamic shared
-    memory per block.  Needs the card."""
-    info = (ctypes.c_int * 8)()
-    err = _build.load_library().es_transfer_leg_info(
-        _FORMS[leg], int(sweeps), int(window), info)
-    if err != 0:
-        raise RuntimeError(f"no {leg} instantiation for S = {sweeps}, "
-                           f"window {window}: CUDA error {err}")
-    return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
-                     "blocks_per_sm", "registers", "local_bytes",
-                     "smem_bytes"), info))
+    one of ``_FORMS``, ``sweeps``, window class ``window``):
+    ``_build.info``'s tile, halo, threads, occupancy, spills and shared
+    memory.  Needs the card."""
+    return _build.info("es_transfer_leg_info",
+                       f"{leg} for S = {sweeps}, window {window}",
+                       _FORMS[leg], int(sweeps), int(window))
 
 
 def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
@@ -319,7 +307,7 @@ def _window_args(leg, sweeps, u):
     ``u``."""
     n, m = u.shape
     return (leg_halo(leg, sweeps),
-            leg_window(leg, sweeps, n, m, _sms(u.device)), n, m)
+            leg_window(leg, sweeps, n, m, _build.sms(u.device)), n, m)
 
 
 def _check_leg(u, b, omegas, omega_ids, n_sweeps, extra=(),

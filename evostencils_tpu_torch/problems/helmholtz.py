@@ -158,3 +158,35 @@ def helmholtz_2d(max_level: int = 7, min_level: int = 3,
         name="PreconditionedBiCGStab", operator=a_op, tolerance=1e-7,
         max_iterations=10000, rhs_builder=rhs_builder)
     return problem
+
+
+def dirichlet_helmholtz(max_level: int, min_level: int):
+    """helmholtz_2d with every level operator and the coarsest replaced by
+    a generator with only ``generate_stencil``: the shifted Laplacian with
+    plain Dirichlet boundaries (k = 80, shift 0.5i), no Robin fold and no
+    field form, built from the public IR as tests/test_pallas_cx.py:110-141
+    builds it (the ``[main-cx]`` cell of chip_smoke.py)."""
+
+    class ConstGen:
+        def __init__(self, k, shift=0.0):
+            self.k = k
+            self.shift = shift
+
+        def generate_stencil(self, grid):
+            return _helmholtz_stencil(grid, self.k, self.shift)
+
+    p = helmholtz_2d(max_level=max_level, min_level=min_level)
+    contexts = []
+    for ctx in p.level_contexts:
+        op = system.Operator(ctx.operator.name, [[base.Operator(
+            "M", ctx.grid[0], ConstGen(K_DEFAULT, SHIFT))]])
+        contexts.append(LevelContext(
+            operator=op, restriction=ctx.restriction,
+            prolongation=ctx.prolongation,
+            approximation=ctx.approximation, grid=ctx.grid))
+    g_min = p.coarsest_operator.entries[0][0].grid
+    p.coarsest_operator = system.Operator(
+        p.coarsest_operator.name, [[base.Operator(
+            "M", g_min, ConstGen(K_DEFAULT, SHIFT))]])
+    p.level_contexts = contexts
+    return p

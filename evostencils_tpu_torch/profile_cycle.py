@@ -6,6 +6,8 @@
     python3 -m evostencils_tpu_torch.profile_cycle --elasticity
     python3 -m evostencils_tpu_torch.profile_cycle --var \
         [--partitioning RedBlack|Jacobi]
+    python3 -m evostencils_tpu_torch.profile_cycle --cx \
+        [--partitioning RedBlack|Jacobi]
     python3 -m evostencils_tpu_torch.profile_cycle --dim 2 --loop a
 
 Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
@@ -16,7 +18,11 @@ red-black V(2,1) at omega 1.25, float32), or, with ``--var``, its
 ``[main-var]`` cell (variable-coefficient 2D Poisson 2047^2,
 ``poisson_2d_variable(11, 5)``, float32) with the red-black V(2,1) at
 omega 1.15 or, with ``--partitioning Jacobi``, the weighted-Jacobi V(2,1)
-at omega 0.8, or, with ``--champion
+at omega 0.8, or, with ``--cx``, its ``[main-cx]`` cell (the Dirichlet
+shifted Laplacian -Lap - k^2 (1 + 0.5i), k = 80, at 2047^2, levels 11->3,
+complex64; ``problems.helmholtz.dirichlet_helmholtz``) with the red-black V(2,1) or, with
+``--partitioning Jacobi``, its Jacobi twin, both at omega 0.6, or, with
+``--champion
 KEY:INDEX``, the stored evolved cycle
 ``results/evolved_champions.json[KEY][INDEX]`` on its 2D Poisson 1023^2
 hierarchy (levels 10->5, float32).  ``--loop`` runs it in one of the
@@ -57,6 +63,9 @@ ELASTICITY = (11, 4, 1.25)
 #: the [main-var] cell: levels, and each partitioning's IR name and omega
 VAR = (11, 5)
 VAR_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.15), "Jacobi": ("Single", 0.8)}
+#: the [main-cx] cell: levels, and each partitioning's IR name and omega
+CX = (11, 3)
+CX_PARTITIONINGS = {"RedBlack": ("RedBlack", 0.6), "Jacobi": ("Single", 0.6)}
 #: the [main-fused] configurations: (config.loop_fusion,
 #: config.fused_column_transfers)
 LOOPS = {"a": (True, True), "b": (True, False), "c": (False, False),
@@ -68,14 +77,17 @@ CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
 
 
 def build_path(dim: int, elasticity: bool = False,
-               var_partitioning: Optional[str] = None):
+               var_partitioning: Optional[str] = None,
+               cx_partitioning: Optional[str] = None):
     """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path, of the
-    elasticity cell, or of the var-coef cell with ``var_partitioning``
-    (a key of VAR_PARTITIONINGS), on the card."""
+    elasticity cell, or of the var-coef or complex cell with
+    ``var_partitioning`` or ``cx_partitioning`` (a key of
+    VAR_PARTITIONINGS or CX_PARTITIONINGS), on the card."""
     from .compiler.cycles import v_cycle
     from .compiler.lower import lower_cycle
     from .ir import partitioning as part
     from .problems.elasticity import linear_elasticity_2d
+    from .problems.helmholtz import dirichlet_helmholtz
     from .problems.poisson import (build_rhs, poisson_2d, poisson_2d_variable,
                                    poisson_3d)
 
@@ -87,10 +99,14 @@ def build_path(dim: int, elasticity: bool = False,
         (max_level, min_level), build = VAR, poisson_2d_variable
         name, omega = VAR_PARTITIONINGS[var_partitioning]
         partitioning = getattr(part, name)
+    elif cx_partitioning:
+        (max_level, min_level), build = CX, dirichlet_helmholtz
+        name, omega = CX_PARTITIONINGS[cx_partitioning]
+        partitioning = getattr(part, name)
     else:
         (max_level, min_level), omega = PATHS[dim], 1.15
         build = poisson_2d if dim == 2 else poisson_3d
-    problem = build(max_level=max_level, min_level=min_level)
+    problem = build(max_level, min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
                     pre_smoothing=2, post_smoothing=1, omega=omega,
                     partitioning=partitioning,
@@ -142,16 +158,20 @@ def main(argv=None) -> int:
     what.add_argument("--champion", metavar="KEY:INDEX")
     what.add_argument("--elasticity", action="store_true")
     what.add_argument("--var", action="store_true")
+    what.add_argument("--cx", action="store_true")
     ap.add_argument("--partitioning", choices=sorted(VAR_PARTITIONINGS),
-                    help="the --var cell's smoother (default RedBlack)")
+                    help="the --var or --cx cell's smoother (default "
+                    "RedBlack)")
     ap.add_argument("--loop", choices=sorted(LOOPS),
                     help="the [main-fused] configuration (default: the "
                     "switches as they are)")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
-    if args.partitioning and not args.var:
-        ap.error("--partitioning takes --var")
-    var_partitioning = (args.partitioning or "RedBlack") if args.var else None
+    if args.partitioning and not (args.var or args.cx):
+        ap.error("--partitioning takes --var or --cx")
+    partitioning = args.partitioning or "RedBlack"
+    var_partitioning = partitioning if args.var else None
+    cx_partitioning = partitioning if args.cx else None
     if not torch.cuda.is_available():
         print("profile_cycle: no CUDA card", file=sys.stderr)
         return 1
@@ -161,12 +181,12 @@ def main(argv=None) -> int:
     if args.loop:
         config.loop_fusion, config.fused_column_transfers = LOOPS[args.loop]
     try:
-        return _profile(args, var_partitioning)
+        return _profile(args, var_partitioning, cx_partitioning)
     finally:
         config.loop_fusion, config.fused_column_transfers = saved
 
 
-def _profile(args, var_partitioning) -> int:
+def _profile(args, var_partitioning, cx_partitioning) -> int:
     """Steps 1 and 2 of the module docstring on the path ``args`` names."""
     from .compiler.solve import make_cycle_loop
     from .config import setup_device
@@ -178,13 +198,16 @@ def _profile(args, var_partitioning) -> int:
         text=True).stdout.strip().splitlines()[0]
     lowered, b, omegas, u = (
         build_champion(args.champion) if args.champion
-        else build_path(args.dim, args.elasticity, var_partitioning))
+        else build_path(args.dim, args.elasticity, var_partitioning,
+                        cx_partitioning))
     if args.champion:
         label = args.champion
     elif args.elasticity:
         label = "elasticity 2047^2 RB V(2,1)"
     elif var_partitioning:
         label = f"var-coef 2047^2 {var_partitioning} V(2,1)"
+    elif cx_partitioning:
+        label = f"shifted Laplacian 2047^2 {cx_partitioning} V(2,1)"
     else:
         label = f"{args.dim}D"
     if args.loop:

@@ -53,10 +53,10 @@ from evostencils_tpu_torch.ops.kernels import rbgs_cx as tcx
 from evostencils_tpu_torch.ops.kernels import transfer as ttransfer
 from evostencils_tpu_torch.optimization import program as tprogram
 from evostencils_tpu_torch.problems import helmholtz as thelmholtz
+from evostencils_tpu_torch.problems.helmholtz import dirichlet_helmholtz
 from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
 from evostencils_tpu_torch.stencils.constant import Stencil as TStencil
 
-from chip_smoke import dirichlet_helmholtz
 from tests.test_pallas_cx import VALS, _dirichlet_helmholtz, _random_cx
 from tests.test_torch_slice3d import _describe
 

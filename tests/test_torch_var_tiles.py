@@ -1,6 +1,7 @@
-"""The block schedule of the variable-coefficient leg kernels
-(evostencils_tpu_torch/csrc/rbgs_var.cu, ``downleg_var_kernel`` and
-``upleg_var_kernel``), emulated in float64 on the CPU.
+"""The block schedule of the variable-coefficient windowed kernels
+(evostencils_tpu_torch/csrc/rbgs_var.cu, the legs ``downleg_var_kernel``
+and ``upleg_var_kernel`` and the red-black sweep ``rbgs_var_kernel``),
+emulated in float64 on the CPU.
 
 The kernels cannot run here, but their halo arithmetic can.  Each block
 owns a ``leg_tile(leg, S, red_black)`` tile and stages u, b and the
@@ -19,6 +20,14 @@ arithmetic, and stitches the tiles back together.  The result must equal
 magnitude; a halo one cell short must not, nor a stack whose two
 neighbour planes are swapped.
 
+The standalone red-black sweep, a form of the same kernel, is emulated
+the same way in its ``SWEEP_WINDOW`` window: a halo of
+``SWEEP_HALO``, red on the window cells at a distance >= 1 and black on
+those at >= 2, with omega / cc formed once per cell, its TPU body's order
+(rbgs_var.py:96, :113).  It must equal ``fused_rbgs_sweep_var_plain``
+exactly; a halo one cell short, a swapped pair of neighbour planes and
+the legs' omega * (1 / cc) must not.
+
 The plain versions are held against the Pallas kernels in interpret mode
 by tests/test_torch_var.py, so the chain reaches the JAX package.  The
 stacks are the problem's own (``poisson_2d_variable``) and an anisotropic
@@ -27,7 +36,8 @@ taps are asymmetric, so that a swapped plane, axis or direction shows; the
 shapes are ragged and odd, so the last tiles are cut by the grid, and a
 Jacobi leg's odd halo starts its windows at odd indices.  Last, the
 wrappers are driven against a stand-in library: they must hand each entry
-its leg's halo and raise when the entry refuses the launch.
+its leg's halo, or the sweep's window class, and raise when the entry
+refuses the launch.
 """
 
 import numpy as np
@@ -303,3 +313,125 @@ def test_wrappers_pass_halo_and_raise_on_refusal(monkeypatch, err,
             rv.leg_halo(leg, sweeps, red_black), 131, 197)
     assert rv.launches["presmooth_residual_restrict_var"] + \
         rv.launches["prolong_correct_postsmooth_var"] == (0 if err else 2)
+
+
+# ---------------------------------------------------------------------------
+# The standalone red-black sweep (``rbgs_var_kernel``, es_sweep_var), a
+# form of the same kernel: the tile ``sweep_tile()``, a halo of
+# SWEEP_HALO, red on the window cells at a
+# distance >= 1 and black on those at >= 2, with omega / cc formed once
+# per cell from the staged centre coefficient, as the TPU body forms dinv
+# (rbgs_var.py:96).
+# ---------------------------------------------------------------------------
+
+#: max |emulated - plain| <= SWEEP_RTOL * max |plain|: the sweep's own
+#: float64 operations in its own order on every updated cell, so the
+#: emulation equals the plain version exactly; a factor formed as
+#: omega * (1 / cc) rounds differently in the last place and must not
+SWEEP_RTOL = 0.0
+#: the sweep's shapes: the legs' and, from the sweep's path
+#: ([evaluator-var]), 511^2 and 1023^2 with the problem's stack
+SWEEP_SHAPES = SHAPES + (((511, 511), "problem"), ((1023, 1023), "problem"))
+
+
+def emulate_sweep(u, b, c_stack, omega, tile, halo, product=False):
+    """The sweep kernel's schedule: the tiles of one red-black sweep.
+    ``product``: the factor formed as omega * (1 / cc), the legs' order,
+    in place of omega / cc."""
+    n, m = u.shape
+    blocks = _Blocks((n, m), tile, halo)
+    bw, cw = blocks.load(b), _windows(blocks, c_stack)
+    dinv = omega * (1.0 / cw[0]) if product else omega / cw[0]
+    uw = blocks.load(u)
+    for p, colour in ((1, blocks.red), (2, ~blocks.red)):
+        mask = blocks.inside & colour & (blocks.dist >= p)
+        uw = uw + torch.where(mask, dinv * (bw - _apply(uw, cw)), 0.0)
+    h, tr, tc = halo, blocks.tr, blocks.tc
+    return blocks.stitch(uw[:, h:h + tr, h:h + tc], (n, m), tr, tc)
+
+
+def _sweep(shape, kind, halo=rv.SWEEP_HALO, stack=None, product=False):
+    """Deviation of the emulated sweep from the plain one, relative to
+    max |plain|."""
+    u, b, _ = _inputs(shape, 14)
+    c = _stack(shape, kind)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float64)
+    want = rv.fused_rbgs_sweep_var_plain(u, b, omegas, 1, c)
+    got = emulate_sweep(u, b, c if stack is None else stack(c), omegas[1],
+                        rv.sweep_tile(), halo, product)
+    return _deviation((got,), (want,))
+
+
+@pytest.mark.parametrize("shape,kind", SWEEP_SHAPES,
+                         ids=[f"{s[0]}x{s[1]}-{k}" for s, k in SWEEP_SHAPES])
+def test_sweep_block_schedule_matches_plain(shape, kind):
+    assert _sweep(shape, kind) <= SWEEP_RTOL
+
+
+@pytest.mark.parametrize("shape,kind", SHAPES[:2],
+                         ids=[f"{s[0]}x{s[1]}-{k}" for s, k in SHAPES[:2]])
+def test_sweep_halo_one_short_differs(shape, kind):
+    assert _sweep(shape, kind, rv.SWEEP_HALO - 1) > 1e-3
+
+
+@pytest.mark.parametrize("planes", [(1, 2), (3, 4)])
+def test_sweep_swapped_neighbour_planes_differ(planes):
+    i, j = planes
+
+    def swap(c):
+        c = c.clone()
+        c[[i, j]] = c[[j, i]]
+        return c
+    assert _sweep((131, 197), "random", stack=swap) > 1e-3
+
+
+@pytest.mark.parametrize("shape,kind", SWEEP_SHAPES[::2],
+                         ids=[f"{s[0]}x{s[1]}-{k}"
+                              for s, k in SWEEP_SHAPES[::2]])
+def test_sweep_factor_order_differs(shape, kind):
+    """The legs' omega * (1 / cc) in place of the sweep's omega / cc
+    rounds differently, and the emulation tells the two apart."""
+    assert _sweep(shape, kind, product=True) > SWEEP_RTOL
+
+
+def test_sweep_windows():
+    """The sweep's tile is its window less the halo, with even rows and
+    columns; its window is as wide as the legs' and half as tall, in
+    blocks of as many threads."""
+    rows, cols = rv.SWEEP_WINDOW
+    assert rv.SWEEP_HALO == 2
+    tr, tc = rv.sweep_tile()
+    assert (tr, tc) == (rows - 4, cols - 4)
+    assert tr % 2 == 0 and tc % 2 == 0
+    assert (2 * rows, cols) == rv.LEG_WINDOW
+    assert rv.SWEEP_THREADS == rv.LEG_THREADS
+    assert rv.SWEEP_BLOCKS_PER_SM == 2 * rv.LEG_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_sweep_wrappers_pass_window_and_raise_on_refusal(monkeypatch, err):
+    """es_sweep_var takes the mode, the output, then n, m and the stream
+    (the red-black sweep has one window, fixed in the entry): the
+    red-black wrapper hands it mode 1, the Jacobi wrapper 0; each raises,
+    counting no launch, when the entry refuses; the library is a
+    stand-in, since the kernels need the card."""
+    from tests.test_torch_transfer_tiles import _stand_in_card
+    lib = _stand_in_card(monkeypatch, err)
+    shape = (1023, 1023)
+    u, b, _ = (x.float() for x in _inputs(shape, 15))
+    c = _stack(shape, "random").float()
+    omegas = torch.tensor(OMEGAS, dtype=torch.float32)
+    rv.reset_launches()
+    calls = ((lambda: rv.fused_rbgs_sweep_var(u, b, omegas, 1, c), 1),
+             (lambda: rv.jacobi_sweep_var(u, b, omegas, 2, c), 0))
+    for call, red_black in calls:
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+        else:
+            call()
+        name, args = lib.calls[-1]
+        assert name == "es_sweep_var"
+        assert args[5] == red_black and args[-3:-1] == shape
+    assert rv.launches["fused_rbgs_sweep_var"] == (0 if err else 1)
+    assert rv.launches["jacobi_sweep_var"] == (0 if err else 1)
