@@ -85,12 +85,17 @@ Phases:
    of its windows instead of three, and it runs one generation of
    mu = lambda = 2 (8 initial candidates and 2 offspring), cuts of this
    run that keep the whole script near its time;
-11. [kernels-sweep3d] compare the standalone 3D sweeps (red-black and
+11. [kernels-sweep3d] check the red-black kernel's block schedule,
+   blocks per SM and spills (``rbgs3d.sweep_info``) against the wrapper
+   module's constants; compare the standalone 3D sweeps (red-black and
    Jacobi, omega 1.15, an anisotropic 7-point stencil) with their plain
    versions through the leg3d names at 255^3, 65x127x255 and 17x33x63 and
    through the rbgs3d names at 127^3, 63^3 and 12x40x200; time both at
-   255^3, 127^3 and 63^3; [kernels-rr3d] the same for the 3D transfers
-   with asymmetric per-axis taps at 255^3, 127^3, 63^3 and 65x127x255;
+   255^3, 127^3 and 63^3 (``time_3d_sweeps``), the device time alone and
+   its share of the bound beside; [kernels-rr3d] the same for the 3D
+   transfers (the residual restriction's ``leg3d.restrict_info``) with
+   asymmetric per-axis taps at 255^3, 127^3, 63^3 and 65x127x255
+   (``time_3d_transfers``);
 12. [evaluator3d] a CycleEvaluator on the card in float32 at
    poisson_3d(8, 2) (255^3) runs measure_interleaved over the red-black
    V(2,1) and V(1,1) (omega 1.15) and the weighted-Jacobi V(2,1) (omega
@@ -812,29 +817,36 @@ def time_3d_legs(torch, wavefront3d, device, shape, stats=None):
                                bound_by=by)
 
 
+def check_pipeline_info(tag, what, i, tile, halo, warmup, min_chunk,
+                        threads, blocks_per_sm):
+    """A 3D plane-pipeline kernel's schedule constants, occupancy,
+    registers, local memory (spills) and shared memory, from the card
+    (``i``, its info entry's values); the schedule, the threads and the
+    blocks per SM it was designed for must be the wrapper module's, and
+    nothing may spill."""
+    log(f"[{tag}] {what}: tile {i['tile']}, halo "
+        f"{i['halo_before']}/{i['halo_after']}, warm-up {i['warmup']}, "
+        f"lag {i['lag']}, chunks of >= {i['min_chunk']} planes, "
+        f"{i['threads']} threads, {i['blocks_per_sm']} blocks/SM, "
+        f"{i['registers']} registers, {i['local_bytes']} B local, "
+        f"{i['smem_bytes']} B shared")
+    from evostencils_tpu_torch.ops.kernels.wavefront3d import LAG
+    want = {"tile": tile, "halo_before": halo[0], "halo_after": halo[1],
+            "warmup": warmup, "lag": LAG, "min_chunk": min_chunk,
+            "threads": threads, "blocks_per_sm": blocks_per_sm,
+            "local_bytes": 0}
+    check(all(i[k] == v for k, v in want.items()),
+          f"{what} info {i} against the wrapper's {want}")
+
+
 def check_leg3d_info(wavefront3d):
-    """Each 3D leg kernel's schedule constants, occupancy, registers,
-    local memory (spills) and shared memory, from the card; the schedule
-    and the blocks per SM must be the wrapper module's, and nothing may
-    spill."""
+    """Each 3D leg kernel's info (check_pipeline_info)."""
     for leg in ("down", "up"):
-        i = wavefront3d.leg_info(leg)
-        log(f"[kernels3d] {leg}-leg: tile {i['tile']}, halo "
-            f"{i['halo_before']}/{i['halo_after']}, warm-up {i['warmup']}, "
-            f"lag {i['lag']}, chunks of >= {i['min_chunk']} planes, "
-            f"{i['threads']} threads, {i['blocks_per_sm']} blocks/SM, "
-            f"{i['registers']} registers, {i['local_bytes']} B local, "
-            f"{i['smem_bytes']} B shared")
-        want = {"tile": wavefront3d.TILE,
-                "halo_before": wavefront3d.HALO[leg][0],
-                "halo_after": wavefront3d.HALO[leg][1],
-                "warmup": wavefront3d.WARMUP[leg], "lag": wavefront3d.LAG,
-                "min_chunk": wavefront3d.MIN_CHUNK,
-                "threads": wavefront3d.THREADS[leg],
-                "blocks_per_sm": wavefront3d.BLOCKS_PER_SM[leg],
-                "local_bytes": 0}
-        check(all(i[k] == v for k, v in want.items()),
-              f"3D {leg}-leg info {i} against the wrapper's {want}")
+        check_pipeline_info(
+            "kernels3d", f"{leg}-leg", wavefront3d.leg_info(leg),
+            wavefront3d.TILE, wavefront3d.HALO[leg], wavefront3d.WARMUP[leg],
+            wavefront3d.MIN_CHUNK, wavefront3d.THREADS[leg],
+            wavefront3d.BLOCKS_PER_SM[leg])
 
 
 def phase_kernels_3d(torch, wavefront3d, device):
@@ -924,15 +936,17 @@ def deviation(torch, k, p, rtol, atol):
 def time_standalone(torch, stats, name, tag, shape, kern, plain, bound,
                     keep=(4095, 4095)):
     """Time kernel and plain in turns, the kernel's device time alone
-    (time_ms_queued) logged beside; keep the numbers of shape ``keep`` for
-    the kernels line."""
+    (time_ms_queued) and the bound's share of it logged beside; keep the
+    numbers of shape ``keep`` for the kernels line when ``stats`` is
+    given."""
     k, p, turns = time_pair(torch, kern, plain)
     ms, by = bound
+    queued = time_ms_queued(torch, kern)
     log(f"[{tag}] {name} {'x'.join(map(str, shape))}: kernel "
         f"{turns[1]:.4f}/{turns[2]:.4f} ms, plain {turns[0]:.4f}/"
         f"{turns[3]:.4f} ms, bound {ms:.4f} ms ({by}); kernel queued "
-        f"{time_ms_queued(torch, kern):.4f} ms")
-    if shape == keep:
+        f"{queued:.4f} ms ({100 * ms / queued:.1f}% of the bound)")
+    if stats is not None and shape == keep:
         stats[name].update(ms=k, plain_ms=p, bound_ms=ms, bound_by=by)
 
 
@@ -1036,14 +1050,47 @@ def phase_kernels_rr(torch, transfer, device):
     return stats
 
 
+#: the 3D path's levels, where the 3D standalone kernels are timed
+LEVELS_3D = (255, 127, 63)
+
+
+def time_3d_sweeps(torch, rbgs3d, leg3d, device, n, stats=None):
+    """Both 3D standalone sweeps at n^3 with the path's Laplacian, through
+    the names whose gate admits n^3 (leg3d at 255^3, rbgs3d below): kernel
+    and plain in turns, the device time alone and its share of the bound
+    beside (time_standalone).  Uses only the wrappers' public signatures,
+    so it times an older tree's package as well."""
+    shape = (n,) * 3
+    rng = np.random.default_rng(6)
+    u, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=device) for _ in range(2))
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    mod = leg3d if n >= 255 else rbgs3d
+    names = (("fused_rbgs_sweep_3d2", "jacobi_sweep_3d2") if n >= 255 else
+             ("fused_rbgs_sweep_3d", "jacobi_sweep_3d"))
+    for name in names:
+        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+        time_standalone(
+            torch, stats, name, "kernels-sweep3d", shape,
+            lambda: kern(u, b, omegas, 1, VALS7),
+            lambda: plain(u, b, omegas, 1, VALS7), sweep_bound(shape),
+            keep=(255,) * 3 if mod is leg3d else (127,) * 3)
+
+
 def phase_kernels_sweep3d(torch, rbgs3d, leg3d, device):
     """The 3D standalone sweeps against their plain versions: through the
     leg3d names on the shapes the leg3d gate admits, through the rbgs3d
-    names on the shapes the rbgs3d gate admits."""
+    names on the shapes the rbgs3d gate admits; the red-black kernel's
+    info; both timed at the path's levels."""
     names = {"rbgs3d": ("fused_rbgs_sweep_3d", "jacobi_sweep_3d"),
              "leg3d": ("fused_rbgs_sweep_3d2", "jacobi_sweep_3d2")}
     stats = {name: {"max_abs_err": 0.0} for pair in names.values()
              for name in pair}
+    check_pipeline_info(
+        "kernels-sweep3d", "red-black sweep", rbgs3d.sweep_info(),
+        rbgs3d.RB_TILE, rbgs3d.RB_HALO, rbgs3d.RB_WARMUP,
+        rbgs3d.RB_MIN_CHUNK, rbgs3d.RB_THREADS, rbgs3d.RB_BLOCKS_PER_SM)
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(4)
@@ -1063,21 +1110,44 @@ def phase_kernels_sweep3d(torch, rbgs3d, leg3d, device):
                 f"max|du| {err:.3e} (tol {TOL_SWEEP} + {TOL_SWEEP}|u|)")
             check(excess <= 0, f"{name} {shape}")
             stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            if len(set(shape)) > 1:
-                continue
-            # the path's Laplacian, timed in turns at the path's levels
-            time_standalone(
-                torch, stats, name, "kernels-sweep3d", shape,
-                lambda: kern(u, b, omegas, 1, VALS7),
-                lambda: plain(u, b, omegas, 1, VALS7), sweep_bound(shape),
-                keep=(255,) * 3 if module == "leg3d" else (127,) * 3)
+    # the path's Laplacian, timed in turns at the path's levels
+    for n in LEVELS_3D:
+        time_3d_sweeps(torch, rbgs3d, leg3d, device, n, stats)
     return stats
 
 
+def time_3d_transfers(torch, leg3d, device, n, stats=None):
+    """Both 3D standalone transfers at n^3 with the path's Laplacian and
+    taps, timed as time_3d_sweeps."""
+    shape = (n,) * 3
+    rng = np.random.default_rng(7)
+    u, b = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=device) for _ in range(2))
+    e = torch.tensor(rng.standard_normal(((n - 1) // 2,) * 3),
+                     dtype=torch.float32, device=device)
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    time_standalone(
+        torch, stats, "residual_restrict_3d", "kernels-rr3d", shape,
+        lambda: leg3d.residual_restrict_3d(u, b, VALS7, R_TAPS3),
+        lambda: leg3d.residual_restrict_3d_plain(u, b, VALS7, R_TAPS3),
+        transfer3d_bound(shape, "down"), keep=(255,) * 3)
+    time_standalone(
+        torch, stats, "prolong_correct_3d", "kernels-rr3d", shape,
+        lambda: leg3d.prolong_correct_3d(u, e, omegas, 1, P_TAPS3),
+        lambda: leg3d.prolong_correct_3d_plain(u, e, omegas, 1, P_TAPS3),
+        transfer3d_bound(shape, "up"), keep=(255,) * 3)
+
+
 def phase_kernels_rr3d(torch, leg3d, device):
-    """The 3D standalone transfers against their plain versions."""
+    """The 3D standalone transfers against their plain versions; the
+    residual restriction's info; both timed at the path's levels."""
     stats = {name: {"max_abs_err": 0.0}
              for name in ("residual_restrict_3d", "prolong_correct_3d")}
+    check_pipeline_info(
+        "kernels-rr3d", "residual restriction", leg3d.restrict_info(),
+        leg3d.RR_TILE, leg3d.RR_HALO, leg3d.RR_WARMUP, leg3d.RR_MIN_CHUNK,
+        leg3d.RR_THREADS, leg3d.RR_BLOCKS_PER_SM)
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(5)
@@ -1107,18 +1177,8 @@ def phase_kernels_rr3d(torch, leg3d, device):
         check(excess <= 0, f"prolong_correct_3d {tag}")
         stats["prolong_correct_3d"]["max_abs_err"] = max(
             stats["prolong_correct_3d"]["max_abs_err"], err)
-        if len(set(shape)) > 1:
-            continue
-        time_standalone(
-            torch, stats, "residual_restrict_3d", "kernels-rr3d", shape,
-            lambda: leg3d.residual_restrict_3d(u, b, VALS7, R_TAPS3),
-            lambda: leg3d.residual_restrict_3d_plain(u, b, VALS7, R_TAPS3),
-            transfer3d_bound(shape, "down"), keep=(255,) * 3)
-        time_standalone(
-            torch, stats, "prolong_correct_3d", "kernels-rr3d", shape,
-            lambda: leg3d.prolong_correct_3d(u, e, omegas, 1, P_TAPS3),
-            lambda: leg3d.prolong_correct_3d_plain(u, e, omegas, 1, P_TAPS3),
-            transfer3d_bound(shape, "up"), keep=(255,) * 3)
+    for n in LEVELS_3D:
+        time_3d_transfers(torch, leg3d, device, n, stats)
     return stats
 
 

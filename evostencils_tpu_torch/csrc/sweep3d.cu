@@ -25,20 +25,26 @@
 // write u once, 12 bytes a point: at 255^3 that is 198,976,500 bytes,
 // 0.0594 ms at 3.35 TB/s.  It does about 16 flops a point.
 //
-// Red-black design: the 2.5-D walk of csrc/wavefront3d.cu with one sweep
-// (the helpers of csrc/walk3d.cuh).
-// Each block owns a 32 x 32 tile of the (axis-1, axis-2) plane, loads it
-// with a 2-cell halo, and walks a chunk of axis 0 plane by plane: at the
-// step that loads plane L it updates red on plane L-1, then black on plane
-// L-2 (which sees the new red values of L-1 and L-3) and stores plane L-2.
-// Both half-sweeps update a ring of 4 planes in place: every neighbour of
-// an updated cell has the other colour.  Window-edge cells see zeros in
-// place of their out-of-window neighbours; the error moves inward one cell
-// per half-sweep, so a halo of 2 leaves the tile exact, and a chunk that
-// starts at plane z0 begins its walk 2 planes early, treating the planes
-// before as zero.  Shared memory: 4 u planes and 3 b planes of 36 x 36,
-// 36,288 bytes; u and b are read (36/32)^2 = 1.27 times in the plane, plus
-// 2 planes per chunk.
+// Red-black design: the plane pipeline of the 3D up-leg
+// (csrc/wavefront3d.cu, helpers in csrc/pipeline3d.cuh) with one sweep and
+// no correction.  Each block owns a 32 x 32 tile of the (axis-1, axis-2)
+// plane and walks a chunk of axis 0: at step s plane s arrives, red runs
+// on plane s-1 (the cells at distance >= 1 from the window edge) and black
+// on plane s-3 (distance >= 2), and the owners store plane s-3, final in
+// both cells, from their registers.  The two stages read and write
+// disjoint cells, so a step takes one barrier.  Planes s+1 and s+2 of u
+// and b are in flight (cp.async, zero-filled outside the grid) while step
+// s computes.  Each thread owns a red and a black cell of a window split
+// by parity, and keeps their axis-0 columns of u in registers: no lane
+// idles on the other colour, and no cell pays a divide.  Window-edge cells
+// see zeros in place of their out-of-window neighbours; the error moves
+// inward one cell a half-sweep, so a halo of 2 leaves the tile exact (the
+// window has a third cell after the tile, so that its rows are odd), and
+// a chunk loads 2 planes past each end and treats the planes beyond as
+// zero.  Shared memory: 6 u and 6 b planes of 37 x 37, 65,760 bytes;
+// 685 threads, 2 blocks an SM.  es_sweep3d_info reports the schedule with
+// the card's occupancy; ops/kernels/rbgs3d.py states its constants, and
+// tests/test_torch_wavefront_tiles.py emulates it in float64.
 //
 // Jacobi design: one thread a point, as es_sweep in csrc/rbgs.cu: the
 // neighbours come through L1/L2, and the output goes to a buffer the
@@ -46,19 +52,27 @@
 
 #include <cuda_runtime.h>
 
-#include "walk3d.cuh"
+#include "pipeline3d.cuh"
 
 namespace {
 
-constexpr int T1 = 32, T2 = 32;               // in-plane tile (axis 1, 2)
-constexpr int H = 2;                          // in-plane halo
-constexpr int W1 = T1 + 2 * H, W2 = T2 + 2 * H;
-constexpr int PLANE = W1 * W2;
-constexpr int LAG = 2;                        // axis-0 warm-up planes
-constexpr int URING = 4, BRING = 3;
-constexpr int MIN_CHUNK = 4;                  // axis-0 planes per block
-constexpr int RB_THREADS = 256, RB_BLOCKS_PER_SM = 4;
+constexpr int RB_T = 32;                      // in-plane tile edge (axes 1, 2)
+constexpr int RB_LO = 2, RB_HI = 3;           // window cells before / after
+constexpr int RB_WARM = 2;                    // planes loaded past each end
+constexpr int RB_W = RB_T + RB_LO + RB_HI;    // window edge (odd)
+constexpr int RB_HALF = (RB_W * RB_W + 1) / 2;  // even cells; the odd follow
+constexpr int RB_PS = 2 * RB_HALF;            // plane stride
+constexpr int RB_RING = 2 * LAG + AHEAD;      // u, b planes s-3 .. s+AHEAD
+constexpr int RB_COL = 2 * LAG + 2;           // column registers (the loop)
+// chunks of 2 planes at 63^3, where the 4 tiles would leave SMs idle
+constexpr int RB_MIN_CHUNK = 2;               // fewest planes a chunk holds
+constexpr int RB_THREADS = RB_HALF, RB_BLOCKS_PER_SM = 2;
+constexpr int RB_SMEM = 2 * RB_RING * RB_PS * sizeof(float);
 constexpr int JAC_BX = 32, JAC_BY = 8;
+
+static_assert(RB_W % 2 == 1, "odd window rows");
+static_assert(RB_T % 2 == 0 && RB_LO % 2 == 0 && RB_WARM % 2 == 0,
+              "windows and chunks start at even indices and steps");
 
 struct Sweep3 {
   // 1/c and the neighbour coefficients -x, +x, -y, +y, -z, +z scaled by it
@@ -66,43 +80,97 @@ struct Sweep3 {
   float dinv, dxm, dxp, dym, dyp, dzm, dzp;
   int om;        // index into the relaxation-factor vector
   int n0, n1, n2;
-  int chunk;     // axis-0 planes per block (red-black)
+  int chunk;     // axis-0 planes per block (red-black; even)
 };
 
 __global__ void __launch_bounds__(RB_THREADS, RB_BLOCKS_PER_SM)
 rb_sweep3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
                   const float* __restrict__ omegas, float* __restrict__ out,
                   Sweep3 p) {
-  __shared__ float su[URING * PLANE];
-  __shared__ float sb[BRING * PLANE];
-  const int y0 = blockIdx.y * T1 - H, x0 = blockIdx.x * T2 - H;
+  extern __shared__ float smem[];
+  float* su = smem;                          // RB_RING u planes
+  float* sb = su + RB_RING * RB_PS;          // RB_RING b planes
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * RB_T - RB_LO, x0 = blockIdx.x * RB_T - RB_LO;
   const int z0 = blockIdx.z * p.chunk;
   const int z1 = min(z0 + p.chunk, p.n0);    // planes [z0, z1) are stored
-  const int L0 = z0 - LAG;
+  const int L0 = z0 - RB_WARM, last = z1 - 1 + 2 * LAG - 1;
+  // planes [pa, pb] are loaded and updated; the others read as zero
+  const int pa = max(L0, 0), pb = min(z1 - 1 + RB_WARM, p.n0 - 1);
+  const long plane = static_cast<long>(p.n1) * p.n2;
   const float om = omegas[p.om];
+  const Cell ce = make_cell<RB_W, RB_LO, RB_T, true>(2 * t, y0, x0, 0, 0, p);
+  const Cell co =
+      make_cell<RB_W, RB_LO, RB_T, true>(2 * t + 1, y0, x0, 0, 0, p);
+  // u's axis-0 column of each cell; at the first step of a pair (B = 0)
+  // col[4 - k] holds plane s-k, at the second (B = 1) col[5 - k]
+  float cole[RB_COL], colo[RB_COL];
+#pragma unroll
+  for (int j = 0; j < RB_COL; ++j) cole[j] = colo[j] = 0.f;
+  // planes L0 .. L0 + AHEAD - 1 in flight before the first step
+#pragma unroll
+  for (int a = 0; a < AHEAD; ++a)
+    fetch_plane<RB_HALF>(ce, co, u, b, su + a * RB_PS, sb + a * RB_PS,
+                         L0 + a, pa, pb, plane);
+  copy_wait<AHEAD - 1>();
+  __syncthreads();
 
-  // planes before L0 are never loaded and read as zero
-  for (int i = threadIdx.x; i < URING * PLANE; i += blockDim.x) su[i] = 0.f;
-
-  auto uplane = [&](int pl) { return su + ring(pl, L0, URING) * PLANE; };
-  auto bplane = [&](int pl) { return sb + ring(pl, L0, BRING) * PLANE; };
-
-  for (int L = L0; L <= z1 - 1 + LAG; ++L) {
-    __syncthreads();
-    load_plane<W1, W2>(u, b, uplane(L), bplane(L), p, L, y0, x0);
-    // red on plane L-1, then black on plane L-2
-    for (int k = 1; k <= 2; ++k) {
-      __syncthreads();
-      const int pl = L - k;
-      if (pl < L0 || pl < 0 || pl >= p.n0) continue;
-      half_sweep<W1, W2>(uplane(pl), uplane(pl - 1), uplane(pl + 1),
-                         bplane(pl), p, om, pl, y0, x0, k & 1);
+  int slot = 0;                              // ring slot of plane s
+  // step s; SE: s is even; col[B + 4 - k] holds plane s-k
+  auto step = [&](auto se_, auto b_, int s) {
+    constexpr bool SE = decltype(se_)::value;
+    constexpr int B = decltype(b_)::value;
+    {
+      const int o = slot_back<RB_RING>(slot, -AHEAD) * RB_PS;
+      fetch_plane<RB_HALF>(ce, co, u, b, su + o, sb + o, s + AHEAD, pa, pb,
+                           plane);
     }
+    const int o0 = slot * RB_PS, o1 = slot_back<RB_RING>(slot, 1) * RB_PS,
+              o3 = slot_back<RB_RING>(slot, 3) * RB_PS;
+    auto active = [&](int pl) { return pl >= pa && pl <= pb; };
+    // plane s has arrived
+    cole[B + 4] = su[o0 + t];
+    if (co.own()) colo[B + 4] = su[o0 + RB_HALF + t];
+    // X takes the red stage (plane s-1; red cells have P + w odd), Y the
+    // black one (s-3)
+    const Cell& X = pick<SE>(ce, co);
+    const Cell& Y = pick<SE>(co, ce);
+    auto& cx = pick<SE>(cole, colo);
+    auto& cy = pick<SE>(colo, cole);
+    const int ix = SE ? t : RB_HALF + t;
+    const bool x1 = X.grid() && active(s - 1) && X.dist() >= 1;
+    const bool y3 = Y.grid() && active(s - 3) && Y.dist() >= 2;
+    if (x1) {
+      const Around n = around<SE, RB_W, RB_HALF>(su + o1, sb + o1, t);
+      cx[B + 3] = relax(cx[B + 2], cx[B + 3], cx[B + 4], n, om, p);
+      su[o1 + ix] = cx[B + 3];               // black on s-1 reads it
+    }
+    // no later stage reads plane s-3's black cells: registers only
+    if (y3)
+      cy[B + 1] = relax(cy[B + 0], cy[B + 1], cy[B + 2],
+                        around<!SE, RB_W, RB_HALF>(su + o3, sb + o3, t), om,
+                        p);
+    // plane s-3 is final in both cells
+    if (s - 3 >= z0 && s - 3 < z1) {
+      float* o = out + (s - 3) * plane;
+      if (ce.tile()) o[ce.g] = cole[B + 1];
+      if (co.tile()) o[co.g] = colo[B + 1];
+    }
+    // plane s+1 is in; plane s+AHEAD may still be in flight
+    copy_wait<AHEAD - 1>();
     __syncthreads();
-    const int pf = L - 2;
-    if (pf >= z0 && pf < z1)
-      store_plane<T1, T2, W2, H>(uplane(pf), out, p, pf, y0, x0);
+    slot = next_slot<RB_RING>(slot);
+  };
+  // L0 is even: steps come in pairs (even, odd)
+  for (int s = L0;; s += 2) {
+    step(Bool<true>{}, Int<0>{}, s);
+    if (s + 1 > last) break;
+    step(Bool<false>{}, Int<1>{}, s + 1);
+    if (s + 2 > last) break;
+    shift2(cole);
+    shift2(colo);
   }
+  copy_wait<0>();
 }
 
 __global__ void __launch_bounds__(JAC_BX * JAC_BY)
@@ -150,24 +218,6 @@ Sweep3 make_sweep(const double* vals, int om, int n0, int n1, int n2) {
   return p;
 }
 
-// Red-black blocks over (axis 2, axis 1) tiles and axis-0 chunks: as many
-// chunks as fill about one wave of resident blocks on every SM, but no
-// chunk under MIN_CHUNK planes.
-dim3 rb_blocks(Sweep3& p, cudaError_t* err) {
-  int device = 0, sms = 0;
-  *err = cudaGetDevice(&device);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  device);
-  const int tiles1 = (p.n1 + T1 - 1) / T1, tiles2 = (p.n2 + T2 - 1) / T2;
-  int chunks = (sms * RB_BLOCKS_PER_SM) / (tiles1 * tiles2);
-  chunks = chunks < 1 ? 1 : chunks;
-  const int max_chunks = (p.n0 + MIN_CHUNK - 1) / MIN_CHUNK;
-  chunks = chunks > max_chunks ? max_chunks : chunks;
-  p.chunk = (p.n0 + chunks - 1) / chunks;
-  return dim3(tiles2, tiles1, (p.n0 + p.chunk - 1) / p.chunk);
-}
-
 }  // namespace
 
 // vals: 7 stencil values (center, -x, +x, -y, +y, -z, +z).  om: index of
@@ -183,10 +233,14 @@ extern "C" int es_sweep3d(const float* u, const float* b, const float* omegas,
   Sweep3 p = make_sweep(vals, om, n0, n1, n2);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (red_black) {
-    cudaError_t err;
-    const dim3 grid = rb_blocks(p, &err);
+    static bool opted[MAX_DEVICES];
+    cudaError_t err = opt_in_smem(rb_sweep3d_kernel, RB_SMEM, opted);
     if (err != cudaSuccess) return err;
-    rb_sweep3d_kernel<<<grid, RB_THREADS, 0, s>>>(u, b, omegas, out, p);
+    const dim3 grid = pipeline_blocks(n0, n1, n2, RB_T, RB_BLOCKS_PER_SM,
+                                      RB_MIN_CHUNK, &p.chunk, &err);
+    if (err != cudaSuccess) return err;
+    rb_sweep3d_kernel<<<grid, RB_THREADS, RB_SMEM, s>>>(u, b, omegas, out,
+                                                          p);
   } else {
     const dim3 grid((n2 + JAC_BX - 1) / JAC_BX, (n1 + JAC_BY - 1) / JAC_BY,
                     n0);
@@ -194,4 +248,12 @@ extern "C" int es_sweep3d(const float* u, const float* b, const float* omegas,
                                                                out, p);
   }
   return cudaGetLastError();
+}
+
+// What the card makes of es_sweep3d's red-black kernel: the 11 values of
+// pipeline_info (csrc/pipeline3d.cuh).
+extern "C" int es_sweep3d_info(int* info) {
+  return pipeline_info(reinterpret_cast<const void*>(rb_sweep3d_kernel),
+                       RB_T, RB_LO, RB_HI, RB_WARM, RB_MIN_CHUNK, RB_THREADS,
+                       RB_SMEM, info);
 }

@@ -69,7 +69,9 @@
 // so no launch waits on the host.  tests/test_torch_wavefront_tiles.py
 // emulates this schedule in float64; ops/kernels/wavefront3d.py states its
 // constants, and es_wavefront_3d_info reports them with the card's
-// occupancy.
+// occupancy.  The pipeline's device helpers live in csrc/pipeline3d.cuh,
+// which the standalone 3D red-black sweep (csrc/sweep3d.cu) and residual
+// restriction (csrc/leg3d.cu) share.
 //
 // Per block: the down-leg keeps 11 u and 11 b planes of 43 x 43 and two
 // axis-0 passes of 33 x 33 (171,512 bytes; 925 threads, one block an SM);
@@ -80,11 +82,11 @@
 
 #include <cuda_runtime.h>
 
+#include "pipeline3d.cuh"
+
 namespace {
 
 constexpr int T = 32;                    // in-plane tile edge (axes 1, 2)
-constexpr int LAG = 2;                   // planes between a step's stages
-constexpr int AHEAD = 2;                 // planes in flight past plane s
 constexpr int MIN_CHUNK = 8;             // fewest axis-0 planes a block walks
 
 // down-leg
@@ -146,163 +148,6 @@ struct Leg3 {
   int chunk;                    // axis-0 planes per block (even)
 };
 
-// 4 bytes from src to shared dst without waiting; zeros when !in (src is
-// then not read).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Ring slots: the slot of plane s advances by one a step.
-template <int R>
-__device__ __forceinline__ int next_slot(int slot) {
-  return slot + 1 == R ? 0 : slot + 1;
-}
-
-// The slot d planes before (d > 0) or after (d < 0) the plane in `slot`.
-template <int R>
-__device__ __forceinline__ int slot_back(int slot, int d) {
-  const int k = slot - d;
-  return k < 0 ? k + R : (k >= R ? k - R : k);
-}
-
-// Compile-time arguments of the step lambdas, and the pick of one of two
-// objects by a compile-time flag.
-template <bool V>
-struct Bool {
-  static constexpr bool value = V;
-};
-template <int V>
-struct Int {
-  static constexpr int value = V;
-};
-
-template <bool F, class A>
-__device__ __forceinline__ A& pick(A& a, A& b) {
-  if constexpr (F) return a;
-  else return b;
-}
-
-// A cell's in-plane neighbours and its value of b.
-struct Around {
-  float ym, yp, zm, zp, b;
-};
-
-// The in-plane neighbours of thread t's even (EVEN) or odd cell in the
-// split window plane pu (rows of W cells, HALF even cells first), which
-// are all of the other parity, and b's value at the cell in plane pb.
-template <bool EVEN, int W, int HALF>
-__device__ __forceinline__ Around around(const float* pu, const float* pb,
-                                         int t) {
-  if constexpr (EVEN) {
-    const float* q = pu + HALF + t;          // cell 2t+1
-    return {q[-(W + 1) / 2], q[(W - 1) / 2], q[-1], q[0], pb[t]};
-  } else {
-    const float* q = pu + t;                 // cell 2t
-    return {q[-(W - 1) / 2], q[(W + 1) / 2], q[0], q[1], pb[HALF + t]};
-  }
-}
-
-// One cell's damped update in the TPU kernel's premultiplied form,
-//   v + om * (dinv * b - v - off),
-//   off = ((((dxm*lo + dxp*hi) + dym*ym) + dyp*yp) + dzm*zm) + dzp*zp,
-// with lo, v, hi the cell's axis-0 column and ym .. zp its in-plane
-// neighbours.
-__device__ __forceinline__ float relax(float lo, float v, float hi,
-                                       const Around& n, float om,
-                                       const Leg3& p) {
-  float off = p.dxm * lo;
-  off += p.dxp * hi;
-  off += p.dym * n.ym;
-  off += p.dyp * n.yp;
-  off += p.dzm * n.zm;
-  off += p.dzp * n.zp;
-  return v + om * (p.dinv * n.b - v - off);
-}
-
-// A window cell a thread owns: its offset g in a grid plane, an extra
-// index (the down-leg's residual cell, the up-leg's coarse window cell),
-// and packed: its distance to the window edge (bits 0-3, capped at 15),
-// whether it lies in the grid (bit 5), in the window (bit 6), in the tile
-// (bit 7) and in the tile and one more row and column (bit 8), and whether
-// its axis-1 and axis-2 indices are even (bits 9, 10).
-struct Cell {
-  int g, aux, meta;
-  __device__ int dist() const { return meta & 15; }
-  __device__ bool grid() const { return meta & 32; }
-  __device__ bool own() const { return meta & 64; }
-  __device__ bool tile() const { return meta & 128; }
-  __device__ bool tile1() const { return meta & 256; }
-  __device__ bool even_y() const { return meta & 512; }
-  __device__ bool even_x() const { return meta & 1024; }
-};
-
-// Window cell w of a W x W window at (y0, x0) whose tile starts LO cells
-// in; the up-leg's (!DOWN) coarse window starts at (cy0, cx0).
-template <int W, int LO, bool DOWN>
-__device__ __forceinline__ Cell make_cell(int w, int y0, int x0, int cy0,
-                                          int cx0, const Leg3& p) {
-  const int wy = w / W, wx = w - wy * W;
-  const int gy = y0 + wy, gx = x0 + wx;
-  const int ty = wy - LO, tx = wx - LO;
-  const bool own = w < W * W;
-  const bool grid = own && gy >= 0 && gy < p.n1 && gx >= 0 && gx < p.n2;
-  const bool tile = grid && ty >= 0 && ty < T && tx >= 0 && tx < T;
-  const bool tile1 = grid && ty >= 0 && ty <= T && tx >= 0 && tx <= T;
-  const int dist =
-      own ? min(min(min(wy, W - 1 - wy), min(wx, W - 1 - wx)), 15) : 0;
-  const int aux = DOWN ? ty * RW + tx
-                      : (((gy - 1) >> 1) - cy0) * CW + ((gx - 1) >> 1) - cx0;
-  return {gy * p.n2 + gx, aux,
-          dist | grid << 5 | own << 6 | tile << 7 | tile1 << 8 |
-              !(gy & 1) << 9 | !(gx & 1) << 10};
-}
-
-// Start the copies of plane pl's window of u and b (split planes of HALF
-// even cells, then the odd ones) into du and db: thread t's cells 2t and
-// 2t+1, zero outside the grid and outside [pa, pb].
-template <int HALF>
-__device__ __forceinline__ void fetch_plane(const Cell& ce, const Cell& co,
-                                            const float* __restrict__ u,
-                                            const float* __restrict__ b,
-                                            float* du, float* db, int pl,
-                                            int pa, int pb, long plane) {
-  const int t = threadIdx.x;
-  const bool plane_in = pl >= pa && pl <= pb;
-  const long base = plane_in ? pl * plane : 0;
-  bool in = plane_in && ce.grid();
-  long g = in ? base + ce.g : 0;
-  copy_async(du + t, u + g, in);
-  copy_async(db + t, b + g, in);
-  if (co.own()) {
-    in = plane_in && co.grid();
-    g = in ? base + co.g : 0;
-    copy_async(du + HALF + t, u + g, in);
-    copy_async(db + HALF + t, b + g, in);
-  }
-  copy_commit();
-}
-
-// After the second step of a pair, a column's planes move down two slots.
-template <int N>
-__device__ __forceinline__ void shift2(float (&c)[N]) {
-#pragma unroll
-  for (int j = 0; j + 2 < N; ++j) c[j] = c[j + 2];
-}
-
 __global__ void __launch_bounds__(DOWN_THREADS, DOWN_BLOCKS_PER_SM)
 downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
                  const float* __restrict__ omegas, float* __restrict__ u_out,
@@ -322,8 +167,8 @@ downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
   const int nc1 = (p.n1 - 1) / 2, nc2 = (p.n2 - 1) / 2;
   const long plane = static_cast<long>(p.n1) * p.n2;
   const float om1 = omegas[p.om0], om2 = omegas[p.om1];
-  const Cell ce = make_cell<DW, D_LO, true>(2 * t, y0, x0, 0, 0, p);
-  const Cell co = make_cell<DW, D_LO, true>(2 * t + 1, y0, x0, 0, 0, p);
+  const Cell ce = make_cell<DW, D_LO, T, true>(2 * t, y0, x0, 0, 0, p);
+  const Cell co = make_cell<DW, D_LO, T, true>(2 * t + 1, y0, x0, 0, 0, p);
   // u's axis-0 column of each cell; at the first step of a pair (B = 0)
   // col[9 - k] holds plane s-k, at the second (B = 1) col[10 - k]
   float cole[D_COL], colo[D_COL];
@@ -401,15 +246,8 @@ downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
     // (wavefront3d.py:164-197); q and s have one parity
     const int q = s - 8;
     if (q >= z0 && q <= qmax) {
-      auto residual = [&](const float* c, const Around& n) {
-        float au = p.c * c[B + 1];
-        au += p.cxm * c[B + 0];
-        au += p.cxp * c[B + 2];
-        au += p.cym * n.ym;
-        au += p.cyp * n.yp;
-        au += p.czm * n.zm;
-        au += p.czp * n.zp;
-        return n.b - au;
+      auto res = [&](const float* c, const Around& n) {
+        return residual(c[B + 0], c[B + 1], c[B + 2], n, p);
       };
       float* acur = sa + ((SE ? q / 2 - 1 : (q - 1) / 2) & 1) * R_PS;
       float* anew = sa + ((q / 2) & 1) * R_PS;
@@ -423,10 +261,10 @@ downleg3d_kernel(const float* __restrict__ u, const float* __restrict__ b,
         }
       };
       if (ce.tile1())
-        add(ce, residual(cole, around<true, DW, D_HALF>(su + o8, sb + o8, t)));
+        add(ce, res(cole, around<true, DW, D_HALF>(su + o8, sb + o8, t)));
       if (co.tile1())
         add(co,
-            residual(colo, around<false, DW, D_HALF>(su + o8, sb + o8, t)));
+            res(colo, around<false, DW, D_HALF>(su + o8, sb + o8, t)));
     }
     // coarse plane c = qr/2 - 1 was finished at the last step (qr = 2c+2):
     // its axis-1 pass, then its axis-2 pass
@@ -507,8 +345,8 @@ upleg3d_kernel(const float* __restrict__ u, const float* __restrict__ e,
   const int pa = max(L0, 0), pb = min(z1 - 1 + U_WARM, p.n0 - 1);
   const long plane = static_cast<long>(p.n1) * p.n2;
   const float om_c = omegas[p.om0], om_s = omegas[p.om1];
-  const Cell ce = make_cell<UW, U_LO, false>(2 * t, y0, x0, cy0, cx0, p);
-  const Cell co = make_cell<UW, U_LO, false>(2 * t + 1, y0, x0, cy0, cx0, p);
+  const Cell ce = make_cell<UW, U_LO, T, false>(2 * t, y0, x0, cy0, cx0, p);
+  const Cell co = make_cell<UW, U_LO, T, false>(2 * t + 1, y0, x0, cy0, cx0, p);
 
   // start the copy of this thread's cell of coarse plane c of e's window
   // into slot c & 3, zero outside e; it joins the next fine plane's group
@@ -671,35 +509,8 @@ Leg3 make_leg(const double* coeffs, const int* om_ids, int n0, int n1,
   return p;
 }
 
-// Blocks over (axis 2, axis 1) tiles and axis-0 chunks: as many even-sized
-// chunks as fill about one wave of `per_sm` resident blocks on every SM,
-// but no chunk under MIN_CHUNK planes (ops/kernels/wavefront3d.py
-// chunk_planes mirrors this rule).
-dim3 blocks_for(Leg3& p, int per_sm, cudaError_t* err) {
-  int device = 0, sms = 0;
-  *err = cudaGetDevice(&device);
-  if (*err == cudaSuccess)
-    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  device);
-  const int tiles1 = (p.n1 + T - 1) / T, tiles2 = (p.n2 + T - 1) / T;
-  int chunks = (sms * per_sm) / (tiles1 * tiles2);
-  chunks = chunks < 1 ? 1 : chunks;
-  const int max_chunks = (p.n0 + MIN_CHUNK - 1) / MIN_CHUNK;
-  chunks = chunks > max_chunks ? max_chunks : chunks;
-  int chunk = (p.n0 + chunks - 1) / chunks;
-  chunk += chunk & 1;
-  p.chunk = chunk;
-  return dim3(tiles2, tiles1, (p.n0 + chunk - 1) / chunk);
-}
-
 bool bad_shape(int n0, int n1, int n2) {
   return n0 < 3 || n1 < 3 || n2 < 3 || !(n0 & 1) || !(n1 & 1) || !(n2 & 1);
-}
-
-template <class K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace
@@ -713,10 +524,12 @@ extern "C" int es_downleg_wavefront_3d(const float* u, const float* b,
                                        float* rc, int n0, int n1, int n2,
                                        void* stream) {
   if (bad_shape(n0, n1, n2)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(downleg3d_kernel, DOWN_SMEM);
+  static bool opted[MAX_DEVICES];
+  cudaError_t err = opt_in_smem(downleg3d_kernel, DOWN_SMEM, opted);
   if (err != cudaSuccess) return err;
   Leg3 p = make_leg(coeffs, om_ids, n0, n1, n2);
-  const dim3 grid = blocks_for(p, DOWN_BLOCKS_PER_SM, &err);
+  const dim3 grid = pipeline_blocks(n0, n1, n2, T, DOWN_BLOCKS_PER_SM,
+                                    MIN_CHUNK, &p.chunk, &err);
   if (err != cudaSuccess) return err;
   downleg3d_kernel<<<grid, DOWN_THREADS, DOWN_SMEM,
                      static_cast<cudaStream_t>(stream)>>>(u, b, omegas, u_out,
@@ -731,10 +544,12 @@ extern "C" int es_upleg_wavefront_3d(const float* u, const float* e,
                                      float* u_out, int n0, int n1, int n2,
                                      void* stream) {
   if (bad_shape(n0, n1, n2)) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(upleg3d_kernel, UP_SMEM);
+  static bool opted[MAX_DEVICES];
+  cudaError_t err = opt_in_smem(upleg3d_kernel, UP_SMEM, opted);
   if (err != cudaSuccess) return err;
   Leg3 p = make_leg(coeffs, om_ids, n0, n1, n2);
-  const dim3 grid = blocks_for(p, UP_BLOCKS_PER_SM, &err);
+  const dim3 grid = pipeline_blocks(n0, n1, n2, T, UP_BLOCKS_PER_SM,
+                                    MIN_CHUNK, &p.chunk, &err);
   if (err != cudaSuccess) return err;
   upleg3d_kernel<<<grid, UP_THREADS, UP_SMEM,
                    static_cast<cudaStream_t>(stream)>>>(u, e, b, omegas,
@@ -742,37 +557,14 @@ extern "C" int es_upleg_wavefront_3d(const float* u, const float* e,
   return cudaGetLastError();
 }
 
-// What the card makes of a leg (down != 0: the down-leg): info receives
-// the tile edge, the window cells before and after the tile, the axis-0
-// warm-up, the lag per stage, the fewest planes a chunk holds, threads
-// per block, resident blocks per SM, registers and local memory (spills)
-// per thread, and dynamic shared memory per block.
+// What the card makes of a leg (down != 0: the down-leg): the 11 values of
+// pipeline_info (csrc/pipeline3d.cuh).
 extern "C" int es_wavefront_3d_info(int down, int* info) {
-  const void* kernel = down ? reinterpret_cast<const void*>(downleg3d_kernel)
-                            : reinterpret_cast<const void*>(upleg3d_kernel);
-  const int threads = down ? DOWN_THREADS : UP_THREADS;
-  const int smem = down ? DOWN_SMEM : UP_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  const int values[] = {T,
-                        down ? D_LO : U_LO,
-                        down ? D_HI : U_HI,
-                        down ? D_WARM : U_WARM,
-                        LAG,
-                        MIN_CHUNK,
-                        threads,
-                        blocks,
-                        attr.numRegs,
-                        static_cast<int>(attr.localSizeBytes),
-                        smem};
-  for (int k = 0; k < 11; ++k) info[k] = values[k];
-  return cudaSuccess;
+  if (down)
+    return pipeline_info(reinterpret_cast<const void*>(downleg3d_kernel), T,
+                         D_LO, D_HI, D_WARM, MIN_CHUNK, DOWN_THREADS,
+                         DOWN_SMEM, info);
+  return pipeline_info(reinterpret_cast<const void*>(upleg3d_kernel), T,
+                       U_LO, U_HI, U_WARM, MIN_CHUNK, UP_THREADS, UP_SMEM,
+                       info);
 }

@@ -37,7 +37,7 @@ SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
            _PACKAGE / "csrc" / "rbgs_sys.cu",
            _PACKAGE / "csrc" / "rbgs_cx.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = (_PACKAGE / "csrc" / "walk3d.cuh",)
+HEADERS = (_PACKAGE / "csrc" / "pipeline3d.cuh",)
 BUILD_DIR = _PACKAGE / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -94,9 +94,13 @@ SIGNATURES = {
     # stream
     "es_sweep3d":
         (_P, _P, _P, _INT, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # info (11 ints out, the red-black kernel's); no stream
+    "es_sweep3d_info": (_INTS,),
     # u, b, coefficients, rc, n0, n1, n2, stream
     "es_residual_restrict_3d":
         (_P, _P, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # info (11 ints out); no stream
+    "es_residual_restrict_3d_info": (_INTS,),
     # u, e, omegas, omega id, coefficients, u_out, n0, n1, n2, stream
     "es_prolong_correct_3d":
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),

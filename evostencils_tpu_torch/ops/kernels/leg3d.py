@@ -39,13 +39,30 @@ import torch
 from ..apply import axis_prolong_3tap, axis_restrict_3tap
 from . import _build
 from . import rbgs3d
-from .wavefront3d import _residual
+from .wavefront3d import _residual, chunk_rule, pipeline_info
 
 #: kernel gate: the JAX gate's level set (leg3d.py:396-399): 2 * 8 + 1
 #: planes, 2 * 8 + 1 rows, 63 lanes, odd on every axis
 MIN_PLANES = 17
 MIN_ROWS = 17
 MIN_LANES = 63
+
+#: The residual restriction's block schedule (csrc/leg3d.cu
+#: ``residual_restrict3d_kernel``; es_residual_restrict_3d_info reports it
+#: from the card, and tests/test_torch_wavefront_tiles.py emulates it): the
+#: plane pipeline of ``wavefront3d``'s down-leg with no sweep.  A block owns
+#: an RR_TILE x RR_TILE tile of fine points (even starts, so that every
+#: coarse point's window lies in one block) and a window RR_HALO =
+#: (before, after) cells wider: the residual is formed on the tile and one
+#: more row and column, and needs u one cell further out.  It walks a chunk
+#: of axis 0 (``rr_chunk_planes``) with RR_WARMUP planes loaded past each
+#: end; at step s the residual of plane s - 1 joins the restriction.
+RR_TILE = 32
+RR_HALO = (1, 2)
+RR_WARMUP = 1
+RR_MIN_CHUNK = 2
+RR_BLOCKS_PER_SM = 2
+RR_THREADS = 613
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_3d2": 0, "jacobi_sweep_3d2": 0,
@@ -55,6 +72,20 @@ launches = {"fused_rbgs_sweep_3d2": 0, "jacobi_sweep_3d2": 0,
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def rr_chunk_planes(n0: int, n1: int, n2: int, sms: int) -> int:
+    """Fine axis-0 planes per block of the residual restriction on an (n0,
+    n1, n2) grid and a card of ``sms`` SMs (``wavefront3d.chunk_rule``)."""
+    return chunk_rule(n0, n1, n2, RR_TILE, RR_BLOCKS_PER_SM, RR_MIN_CHUNK,
+                      sms)
+
+
+def restrict_info() -> dict:
+    """What the card makes of the residual restriction's kernel: the 11
+    values of ``wavefront3d.INFO_KEYS``.  Needs the card."""
+    return pipeline_info("es_residual_restrict_3d_info",
+                         "3D residual restriction")
 
 
 def seven_taps(r_fac, p_fac) -> Optional[Tuple]:

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .wavefront3d import _half_sweep, _rb_sweep
+from .wavefront3d import _half_sweep, _rb_sweep, chunk_rule, pipeline_info
 
 #: offsets of a 7-point star, in the value order of seven_point_values
 #: (rbgs3d.py:30-31)
@@ -46,6 +46,25 @@ _BLOCK_COPIES = 6
 #: the gate reckons a plane at 4 bytes a value whatever the dtype, so the
 #: CPU's float64 runs take the levels the card's float32 runs take
 _GATE_ITEMSIZE = 4
+
+#: The red-black kernel's block schedule (csrc/sweep3d.cu
+#: ``rb_sweep3d_kernel``, which ``leg3d``'s red-black sweep launches too;
+#: es_sweep3d_info reports it from the card, and
+#: tests/test_torch_wavefront_tiles.py emulates it): the plane pipeline of
+#: ``wavefront3d`` with one sweep.  A block owns an RB_TILE x RB_TILE tile
+#: and a window RB_HALO = (before, after) cells wider (RB_HALO_NEEDED is
+#: what the schedule needs; the window has one cell more after the tile,
+#: for odd rows), and walks a chunk of axis 0 (``rb_chunk_planes``) with
+#: RB_WARMUP planes loaded past each end; at step s red runs on plane s - 1
+#: on the cells at distance >= 1 from the window edge, black on plane
+#: s - 1 - LAG on those at distance >= 2.
+RB_TILE = 32
+RB_HALO = (2, 3)
+RB_HALO_NEEDED = (2, 2)
+RB_WARMUP = 2
+RB_MIN_CHUNK = 2
+RB_BLOCKS_PER_SM = 2
+RB_THREADS = 685
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_3d": 0, "jacobi_sweep_3d": 0}
@@ -65,6 +84,19 @@ def seven_point_values(stencil) -> Optional[Tuple[float, ...]]:
     if any(isinstance(v, complex) for v in entries.values()):
         return None
     return tuple(float(entries.get(o, 0.0)) for o in SEVEN_OFFSETS)
+
+
+def rb_chunk_planes(n0: int, n1: int, n2: int, sms: int) -> int:
+    """Axis-0 planes per block of the red-black kernel on an (n0, n1, n2)
+    grid and a card of ``sms`` SMs (``wavefront3d.chunk_rule``)."""
+    return chunk_rule(n0, n1, n2, RB_TILE, RB_BLOCKS_PER_SM, RB_MIN_CHUNK,
+                      sms)
+
+
+def sweep_info() -> dict:
+    """What the card makes of the red-black kernel: the 11 values of
+    ``wavefront3d.INFO_KEYS``.  Needs the card."""
+    return pipeline_info("es_sweep3d_info", "3D red-black sweep")
 
 
 def _max_block_planes(plane_bytes: int) -> int:

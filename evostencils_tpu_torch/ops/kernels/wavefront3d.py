@@ -88,16 +88,42 @@ def supports(u: torch.Tensor) -> bool:
     return u.device.type == "cpu" or u.dtype == torch.float32
 
 
-def chunk_planes(n0: int, n1: int, n2: int, leg: str, sms: int) -> int:
-    """Axis-0 planes per block of ``leg`` on an (n0, n1, n2) grid and a
-    card of ``sms`` SMs (csrc/wavefront3d.cu ``blocks_for``): as many
-    even-sized chunks as fill about one wave of BLOCKS_PER_SM[leg]
-    resident blocks on every SM, but no chunk under MIN_CHUNK planes."""
-    tiles = -(-n1 // TILE) * -(-n2 // TILE)
-    chunks = max(1, sms * BLOCKS_PER_SM[leg] // tiles)
-    chunks = min(chunks, -(-n0 // MIN_CHUNK))
+def chunk_rule(n0: int, n1: int, n2: int, tile: int, per_sm: int,
+               min_chunk: int, sms: int) -> int:
+    """Axis-0 planes per block of a plane-pipeline kernel with ``tile`` x
+    ``tile`` tiles on an (n0, n1, n2) grid and a card of ``sms`` SMs
+    (csrc/pipeline3d.cuh ``pipeline_blocks``): as many even-sized chunks
+    as fill about one wave of ``per_sm`` resident blocks on every SM, but
+    no chunk under ``min_chunk`` planes."""
+    tiles = -(-n1 // tile) * -(-n2 // tile)
+    chunks = max(1, sms * per_sm // tiles)
+    chunks = min(chunks, -(-n0 // min_chunk))
     chunk = -(-n0 // chunks)
     return chunk + (chunk & 1)
+
+
+def chunk_planes(n0: int, n1: int, n2: int, leg: str, sms: int) -> int:
+    """Axis-0 planes per block of ``leg`` (:func:`chunk_rule` with TILE,
+    BLOCKS_PER_SM[leg] and MIN_CHUNK)."""
+    return chunk_rule(n0, n1, n2, TILE, BLOCKS_PER_SM[leg], MIN_CHUNK, sms)
+
+
+#: the 11 values a plane-pipeline kernel's info entry reports
+#: (csrc/pipeline3d.cuh ``pipeline_info``)
+INFO_KEYS = ("tile", "halo_before", "halo_after", "warmup", "lag",
+             "min_chunk", "threads", "blocks_per_sm", "registers",
+             "local_bytes", "smem_bytes")
+
+
+def pipeline_info(entry: str, what: str, *args) -> dict:
+    """What the card makes of a plane-pipeline kernel: the INFO_KEYS values
+    that the C entry ``entry`` reports for ``args``; ``what`` names the
+    kernel in the error.  Needs the card."""
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = getattr(_build.load_library(), entry)(*args, info)
+    if err != 0:
+        raise RuntimeError(f"{what} info: CUDA error {err}")
+    return dict(zip(INFO_KEYS, info))
 
 
 def leg_info(leg: str) -> dict:
@@ -108,14 +134,8 @@ def leg_info(leg: str) -> dict:
     block.  Needs the card."""
     if leg not in HALO:
         raise ValueError(f"no 3D leg {leg!r}")
-    info = (ctypes.c_int * 11)()
-    err = _build.load_library().es_wavefront_3d_info(int(leg == "down"),
-                                                     info)
-    if err != 0:
-        raise RuntimeError(f"3D {leg}-leg info: CUDA error {err}")
-    return dict(zip(("tile", "halo_before", "halo_after", "warmup", "lag",
-                     "min_chunk", "threads", "blocks_per_sm", "registers",
-                     "local_bytes", "smem_bytes"), info))
+    return pipeline_info("es_wavefront_3d_info", f"3D {leg}-leg",
+                         int(leg == "down"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Where the time of a chained multigrid cycle goes on one CUDA card.
 
     python3 -m evostencils_tpu_torch.profile_cycle --dim 3 [--cycles 20]
+    python3 -m evostencils_tpu_torch.profile_cycle --dim 3 \
+        --partitioning RedBlack|Jacobi --smoothing PRE,POST
     python3 -m evostencils_tpu_torch.profile_cycle \
         --champion poisson2d_1023sq_seeded_gen75:0
     python3 -m evostencils_tpu_torch.profile_cycle --elasticity
@@ -11,8 +13,12 @@
     python3 -m evostencils_tpu_torch.profile_cycle --dim 2 --loop a
 
 Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
-12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15),
-or, with ``--elasticity``, its ``[main-elast]`` red-black cell (2D linear
+12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15;
+on the 3D path ``--partitioning Jacobi`` takes the weighted-Jacobi
+smoother at omega 0.8 and ``--smoothing PRE,POST`` other sweep counts,
+which with ``--smoothing 1,1`` and with ``--partitioning Jacobi`` give the
+``[evaluator3d]`` RB V(1,1) and Jacobi V(2,1)), or, with
+``--elasticity``, its ``[main-elast]`` red-black cell (2D linear
 elasticity 2047^2, ``linear_elasticity_2d(11, 4)``, the collective
 red-black V(2,1) at omega 1.25, float32), or, with ``--var``, its
 ``[main-var]`` cell (variable-coefficient 2D Poisson 2047^2,
@@ -52,7 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +72,10 @@ VAR_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.15), "Jacobi": ("Single", 0.8)}
 #: the [main-cx] cell: levels, and each partitioning's IR name and omega
 CX = (11, 3)
 CX_PARTITIONINGS = {"RedBlack": ("RedBlack", 0.6), "Jacobi": ("Single", 0.6)}
+#: the Poisson paths' partitionings: IR name and omega (the [evaluator3d]
+#: structures' at 255^3)
+POISSON_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.15),
+                         "Jacobi": ("Single", 0.8)}
 #: the [main-fused] configurations: (config.loop_fusion,
 #: config.fused_column_transfers)
 LOOPS = {"a": (True, True), "b": (True, False), "c": (False, False),
@@ -78,11 +88,15 @@ CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
 
 def build_path(dim: int, elasticity: bool = False,
                var_partitioning: Optional[str] = None,
-               cx_partitioning: Optional[str] = None):
-    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path, of the
+               cx_partitioning: Optional[str] = None,
+               partitioning3d: str = "RedBlack",
+               smoothing: Tuple[int, int] = (2, 1)):
+    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path (in 3D
+    with ``partitioning3d``, a key of POISSON_PARTITIONINGS), of the
     elasticity cell, or of the var-coef or complex cell with
     ``var_partitioning`` or ``cx_partitioning`` (a key of
-    VAR_PARTITIONINGS or CX_PARTITIONINGS), on the card."""
+    VAR_PARTITIONINGS or CX_PARTITIONINGS), on the card; a V-cycle of
+    ``smoothing`` (pre, post) sweeps."""
     from .compiler.cycles import v_cycle
     from .compiler.lower import lower_cycle
     from .ir import partitioning as part
@@ -104,11 +118,14 @@ def build_path(dim: int, elasticity: bool = False,
         name, omega = CX_PARTITIONINGS[cx_partitioning]
         partitioning = getattr(part, name)
     else:
-        (max_level, min_level), omega = PATHS[dim], 1.15
+        max_level, min_level = PATHS[dim]
+        name, omega = POISSON_PARTITIONINGS[partitioning3d]
+        partitioning = getattr(part, name)
         build = poisson_2d if dim == 2 else poisson_3d
     problem = build(max_level, min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
-                    pre_smoothing=2, post_smoothing=1, omega=omega,
+                    pre_smoothing=smoothing[0],
+                    post_smoothing=smoothing[1], omega=omega,
                     partitioning=partitioning,
                     coarse_operator=problem.coarsest_operator)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
@@ -160,15 +177,27 @@ def main(argv=None) -> int:
     what.add_argument("--var", action="store_true")
     what.add_argument("--cx", action="store_true")
     ap.add_argument("--partitioning", choices=sorted(VAR_PARTITIONINGS),
-                    help="the --var or --cx cell's smoother (default "
-                    "RedBlack)")
+                    help="the --var, --cx or --dim 3 cell's smoother "
+                    "(default RedBlack)")
+    ap.add_argument("--smoothing", metavar="PRE,POST",
+                    help="the --dim 3 V-cycle's pre- and post-sweeps "
+                    "(default 2,1)")
     ap.add_argument("--loop", choices=sorted(LOOPS),
                     help="the [main-fused] configuration (default: the "
                     "switches as they are)")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
-    if args.partitioning and not (args.var or args.cx):
-        ap.error("--partitioning takes --var or --cx")
+    if args.partitioning and not (args.var or args.cx or args.dim == 3):
+        ap.error("--partitioning takes --var, --cx or --dim 3")
+    if args.smoothing:
+        if args.dim != 3:
+            ap.error("--smoothing takes --dim 3")
+        try:
+            args.smoothing = tuple(int(k) for k in args.smoothing.split(","))
+        except ValueError:
+            args.smoothing = ()
+        if len(args.smoothing) != 2 or min(args.smoothing) < 0:
+            ap.error("--smoothing takes PRE,POST: two counts >= 0")
     partitioning = args.partitioning or "RedBlack"
     var_partitioning = partitioning if args.var else None
     cx_partitioning = partitioning if args.cx else None
@@ -196,10 +225,12 @@ def _profile(args, var_partitioning, cx_partitioning) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+    smoothing = args.smoothing or (2, 1)
+    partitioning3d = args.partitioning or "RedBlack"
     lowered, b, omegas, u = (
         build_champion(args.champion) if args.champion
         else build_path(args.dim, args.elasticity, var_partitioning,
-                        cx_partitioning))
+                        cx_partitioning, partitioning3d, smoothing))
     if args.champion:
         label = args.champion
     elif args.elasticity:
@@ -208,6 +239,8 @@ def _profile(args, var_partitioning, cx_partitioning) -> int:
         label = f"var-coef 2047^2 {var_partitioning} V(2,1)"
     elif cx_partitioning:
         label = f"shifted Laplacian 2047^2 {cx_partitioning} V(2,1)"
+    elif args.dim == 3 and (args.partitioning or args.smoothing):
+        label = f"3D {partitioning3d} V({smoothing[0]},{smoothing[1]})"
     else:
         label = f"{args.dim}D"
     if args.loop:

@@ -1,13 +1,17 @@
 """The block schedule of the 3D leg kernels
 (evostencils_tpu_torch/csrc/wavefront3d.cu, ``downleg3d_kernel`` and
-``upleg3d_kernel``), emulated in float64 on the CPU.
+``upleg3d_kernel``) and of the standalone kernels that run the same plane
+pipeline (csrc/sweep3d.cu ``rb_sweep3d_kernel``, the red-black sweep: the
+up-leg with no correction; csrc/leg3d.cu ``residual_restrict3d_kernel``:
+the down-leg with no sweep), emulated in float64 on the CPU.
 
 The kernels cannot run here, but their schedule can.  Each block owns a
-``TILE`` x ``TILE`` tile of the (axis-1, axis-2) plane and loads a window
-``HALO[leg]`` = (before, after) cells wider on both in-plane axes, zero
-outside the grid (``HALO_NEEDED[leg]`` is what the schedule needs; the
-up-leg's window has one cell more after the tile, for odd rows).  It walks a chunk of axis 0 (``chunk_planes``) with
-``WARMUP[leg]`` planes loaded before the chunk's first plane and after the
+``TILE[leg]`` x ``TILE[leg]`` tile of the (axis-1, axis-2) plane and loads
+a window ``HALO[leg]`` = (before, after) cells wider on both in-plane
+axes, zero outside the grid (``HALO_NEEDED[leg]`` is what the schedule
+needs; the up-leg's and the sweep's windows have one cell more after the
+tile, for odd rows).  It walks a chunk of axis 0 (the kernel's chunk
+rule) with ``WARMUP[leg]`` planes loaded before the chunk's first plane and after the
 last plane it needs; the planes beyond read as zero and are never updated.
 At step s plane s arrives (the up-leg adds its prolonged correction then),
 and half-sweep k runs on plane s - 1 - LAG * (k - 1), on the window cells
@@ -24,10 +28,12 @@ Each step runs the plain module's own half-sweep and residual arithmetic
 the swept one, and the plain transfers (``axis_restrict_3tap``,
 ``axis_prolong_3tap``) on the block's windows.  The blocks are stitched
 back together and must equal ``downleg_wavefront_3d_plain`` /
-``upleg_wavefront_3d_plain`` to 1e-12 of their largest magnitude; a halo,
-a warm-up or a lag one short must not.  The plain versions are held
+``upleg_wavefront_3d_plain`` (``fused_rbgs_sweep_3d_plain``,
+``residual_restrict_3d_plain``) to 1e-12 of their largest magnitude; a
+halo, a warm-up or a lag one short must not.  The plain versions are held
 against the Pallas kernels in interpret mode by
-tests/test_torch_wavefront3d.py, so the chain reaches the JAX package.
+tests/test_torch_wavefront3d.py and tests/test_torch_sweep3d.py, so the
+chain reaches the JAX package.
 The shapes are ragged and odd, so the last tiles and chunks are cut by the
 grid; the stencil is anisotropic and the taps asymmetric on every axis.
 """
@@ -39,6 +45,8 @@ torch = pytest.importorskip("torch")
 
 from evostencils_tpu_torch.ops.apply import (axis_prolong_3tap,
                                              axis_restrict_3tap)
+from evostencils_tpu_torch.ops.kernels import leg3d as l3
+from evostencils_tpu_torch.ops.kernels import rbgs3d as r3
 from evostencils_tpu_torch.ops.kernels import wavefront3d as tw
 
 #: max |emulated - plain| <= RTOL * max |plain|: the same float64
@@ -53,6 +61,31 @@ P_TAPS = ((0.4, 1.0, 0.6), (0.3, 0.9, 0.5), (0.7, 1.1, 0.2))
 #: swapped sweep shows)
 OMEGAS = (0.9, 1.15, 0.8)
 SHAPES = ((35, 67, 45), (45, 35, 69))
+#: the standalone kernels' shapes: small and ragged, odd on every axis as
+#: the restriction needs (the red-black sweep also takes even sizes)
+STANDALONE_SHAPES = {"sweep": ((17, 33, 63), (33, 65, 63), (19, 17, 127),
+                               (12, 40, 70)),
+                     "restrict": ((17, 33, 63), (33, 65, 63),
+                                  (19, 17, 127))}
+
+
+def _chunk(leg, n0, n1, n2):
+    """The kernel's axis-0 chunk on a 132-SM card."""
+    if leg == "sweep":
+        return r3.rb_chunk_planes(n0, n1, n2, SMS)
+    if leg == "restrict":
+        return l3.rr_chunk_planes(n0, n1, n2, SMS)
+    return tw.chunk_planes(n0, n1, n2, leg, SMS)
+
+
+#: each kernel's tile edge, its halo (before, after), the halo its
+#: schedule needs and its warm-up
+TILE = {"down": tw.TILE, "up": tw.TILE, "sweep": r3.RB_TILE,
+        "restrict": l3.RR_TILE}
+HALO = dict(tw.HALO, sweep=r3.RB_HALO, restrict=l3.RR_HALO)
+HALO_NEEDED = dict(tw.HALO_NEEDED, sweep=r3.RB_HALO_NEEDED,
+                   restrict=l3.RR_HALO)
+WARMUP = dict(tw.WARMUP, sweep=r3.RB_WARMUP, restrict=l3.RR_WARMUP)
 
 
 def _window(x, starts, sizes):
@@ -77,12 +110,12 @@ class _Block:
     def __init__(self, shape, leg, by, bx, z0, chunk, halo, warm):
         n0, n1, n2 = shape
         before, after = halo
-        self.h = before
-        self.w = tw.TILE + before + after
-        self.y0, self.x0 = by * tw.TILE - before, bx * tw.TILE - before
+        self.h, self.t = before, TILE[leg]
+        self.w = self.t + before + after
+        self.y0, self.x0 = by * self.t - before, bx * self.t - before
         self.z0, self.z1 = z0, min(z0 + chunk, n0)
         self.qmax = min(z0 + chunk, n0 - 1)
-        last = self.qmax if leg == "down" else self.z1 - 1
+        last = self.qmax if leg in ("down", "restrict") else self.z1 - 1
         self.L0 = z0 - warm
         self.pa, self.pb = max(self.L0, 0), min(last + warm, n0 - 1)
         idx = torch.arange(self.w)
@@ -118,7 +151,7 @@ class _Block:
 
     def store(self, out, u):
         """The tile of planes [z0, z1) of the window into out."""
-        t, h = tw.TILE, self.h
+        t, h = self.t, self.h
         _, n1, n2 = out.shape
         ys, xs = self.y0 + h, self.x0 + h
         ye, xe = min(ys + t, n1), min(xs + t, n2)
@@ -129,28 +162,32 @@ class _Block:
 
 def _blocks(shape, leg, halo, warm):
     n0, n1, n2 = shape
-    chunk = tw.chunk_planes(n0, n1, n2, leg, SMS)
+    chunk, tile = _chunk(leg, n0, n1, n2), TILE[leg]
     for z0 in range(0, n0, chunk):
-        for by in range(-(-n1 // tw.TILE)):
-            for bx in range(-(-n2 // tw.TILE)):
+        for by in range(-(-n1 // tile)):
+            for bx in range(-(-n2 // tile)):
                 yield _Block(shape, leg, by, bx, z0, chunk, halo, warm)
 
 
-def emulate_down(u, b, halo, warm, lag):
-    """The down-leg kernel's schedule: (u_s, rc)."""
-    n0, n1, n2 = u.shape
+def emulate_down(u, b, halo, warm, lag, leg="down", sweeps=2):
+    """The down-leg kernel's schedule (``sweeps`` red-black sweeps, the
+    residual and its restriction): (u_s, rc); with ``leg`` "restrict" and
+    no sweep, the residual restriction's."""
     oms = (OMEGAS[1], OMEGAS[2])
     u_out = torch.zeros_like(u)
     rc = u.new_zeros(tuple((n - 1) // 2 for n in u.shape))
-    ct = tw.TILE // 2
-    for blk in _blocks(u.shape, "down", halo, warm):
+    ct = TILE[leg] // 2
+    # the residual's plane, behind s: one behind the last half-sweep's, or
+    # behind the arriving plane
+    halves = 2 * sweeps
+    behind = 1 + lag * (halves - 1) + 1 if halves else 1
+    for blk in _blocks(u.shape, leg, halo, warm):
         uw, bw = blk.load(u), blk.load(b)
-        t, h = tw.TILE, blk.h
+        t, h = blk.t, blk.h
         res = u.new_zeros((blk.qmax - blk.z0 + 1, t + 1, t + 1))
-        behind = 1 + 3 * lag + 1      # the residual's plane, behind s
         for s in range(blk.L0, blk.qmax + behind + 1):
             state = uw.clone()
-            for k in range(1, 5):
+            for k in range(1, halves + 1):
                 blk.sweep(state, uw, bw, s - 1 - lag * (k - 1), k,
                           oms[(k - 1) // 2])
             q = s - behind
@@ -185,16 +222,18 @@ def _prolong_window(e, firsts, sizes):
     return corr
 
 
-def emulate_up(u, e, b, halo, warm, lag):
-    """The up-leg kernel's schedule: the corrected, smoothed u."""
+def emulate_up(u, e, b, halo, warm, lag, leg="up"):
+    """The up-leg kernel's schedule: the corrected, smoothed u; with
+    ``leg`` "sweep" and no e, the red-black sweep's: the smoothed u."""
     u_out = torch.zeros_like(u)
-    for blk in _blocks(u.shape, "up", halo, warm):
+    for blk in _blocks(u.shape, leg, halo, warm):
         uw, bw = blk.load(u), blk.load(b)
-        planes = blk.pb - blk.pa + 1
-        corr = _prolong_window(e, (blk.pa, blk.y0, blk.x0),
-                               (planes, blk.w, blk.w))
-        corr = torch.where(blk.inside, OMEGAS[0] * corr, 0.0)
-        uw[1:planes + 1] = uw[1:planes + 1] + corr
+        if e is not None:
+            planes = blk.pb - blk.pa + 1
+            corr = _prolong_window(e, (blk.pa, blk.y0, blk.x0),
+                                   (planes, blk.w, blk.w))
+            corr = torch.where(blk.inside, OMEGAS[0] * corr, 0.0)
+            uw[1:planes + 1] = uw[1:planes + 1] + corr
         for s in range(blk.L0, blk.z1 + lag + 1):
             state = uw.clone()
             for k in (1, 2):
@@ -232,7 +271,21 @@ def _up(shape, halo, warm, lag):
     return float((got - want).abs().max() / want.abs().max())
 
 
-RUN = {"down": _down, "up": _up}
+def _sweep(shape, halo, warm, lag):
+    u, b, _ = _inputs(shape, 5)
+    want = r3.fused_rbgs_sweep_3d_plain(u, b, _omegas(), 1, STENCIL)
+    got = emulate_up(u, None, b, halo, warm, lag, "sweep")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _restrict(shape, halo, warm, lag):
+    u, b, _ = _inputs(shape, 6)
+    want = l3.residual_restrict_3d_plain(u, b, STENCIL, R_TAPS)
+    _, got = emulate_down(u, b, halo, warm, lag, "restrict", sweeps=0)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+RUN = {"down": _down, "up": _up, "sweep": _sweep, "restrict": _restrict}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -251,18 +304,31 @@ def test_leg_schedule_matches_plain(leg, shape):
     assert RUN[leg](shape, tw.HALO[leg], tw.WARMUP[leg], tw.LAG) <= RTOL
 
 
-@pytest.mark.parametrize("leg", ["down", "up"])
+@pytest.mark.parametrize("shape", STANDALONE_SHAPES["sweep"])
+def test_sweep_schedule_matches_plain(shape):
+    """The red-black sweep: the up-leg's pipeline with no correction."""
+    assert _sweep(shape, HALO["sweep"], WARMUP["sweep"], tw.LAG) <= RTOL
+
+
+@pytest.mark.parametrize("shape", STANDALONE_SHAPES["restrict"])
+def test_restrict_schedule_matches_plain(shape):
+    """The residual restriction: the down-leg's pipeline with no sweep."""
+    assert _restrict(shape, HALO["restrict"], WARMUP["restrict"],
+                     tw.LAG) <= RTOL
+
+
+@pytest.mark.parametrize("leg", ["down", "up", "sweep", "restrict"])
 def test_needed_halo_matches_plain(leg):
-    """The halo the schedule needs is enough (the up-leg's window has one
-    cell more after the tile, for odd rows)."""
-    assert RUN[leg](SHAPES[1], tw.HALO_NEEDED[leg], tw.WARMUP[leg],
-                    tw.LAG) <= RTOL
-    assert all(h >= n for h, n in zip(tw.HALO[leg], tw.HALO_NEEDED[leg]))
+    """The halo the schedule needs is enough (the up-leg's and the
+    sweep's windows have one cell more after the tile, for odd rows)."""
+    shape = SHAPES[1] if leg in tw.HALO else STANDALONE_SHAPES[leg][1]
+    assert RUN[leg](shape, HALO_NEEDED[leg], WARMUP[leg], tw.LAG) <= RTOL
+    assert all(h >= n for h, n in zip(HALO[leg], HALO_NEEDED[leg]))
 
 
 def _short(leg, what):
     """The schedule with one of its constants one below what it needs."""
-    halo, warm, lag = tw.HALO_NEEDED[leg], tw.WARMUP[leg], tw.LAG
+    halo, warm, lag = HALO_NEEDED[leg], WARMUP[leg], tw.LAG
     if what == "halo before":
         halo = (halo[0] - 1, halo[1])
     elif what == "halo after":
@@ -281,6 +347,33 @@ def test_schedule_one_short_differs(leg, what):
     """A halo, a warm-up or a lag one below the schedule's leaves wrong
     values in the stitched result: the emulation shows each is needed."""
     assert RUN[leg](SHAPES[0], *_short(leg, what)) > 1e-6
+
+
+@pytest.mark.parametrize("leg, what", [
+    ("sweep", "halo before"), ("sweep", "halo after"), ("sweep", "warm-up"),
+    ("sweep", "lag"), ("restrict", "halo before"),
+    ("restrict", "halo after"), ("restrict", "warm-up")])
+def test_standalone_one_short_differs(leg, what):
+    """As test_schedule_one_short_differs for the standalone kernels (the
+    restriction has no sweep, so no lag)."""
+    assert RUN[leg](STANDALONE_SHAPES[leg][0], *_short(leg, what)) > 1e-6
+
+
+def test_standalone_chunk_rule_at_the_path_levels():
+    """The standalone kernels' chunks on a 132-SM card at the levels they
+    run on: one wave of two blocks an SM at 255^3 and 127^3, the fewest
+    planes a chunk may hold (RB_MIN_CHUNK, RR_MIN_CHUNK) at 63^3."""
+    chunks = {(n, leg): _chunk(leg, n, n, n)
+              for n in (255, 127, 63) for leg in ("sweep", "restrict")}
+    assert chunks == {(255, "sweep"): 64, (255, "restrict"): 64,
+                      (127, "sweep"): 8, (127, "restrict"): 8,
+                      (63, "sweep"): 2, (63, "restrict"): 2}
+    per_sm = {"sweep": r3.RB_BLOCKS_PER_SM, "restrict": l3.RR_BLOCKS_PER_SM}
+    least = {"sweep": r3.RB_MIN_CHUNK, "restrict": l3.RR_MIN_CHUNK}
+    for (n, leg), chunk in chunks.items():
+        assert chunk % 2 == 0 and chunk >= least[leg]
+        tiles = -(-n // TILE[leg]) ** 2
+        assert tiles * -(-n // chunk) <= SMS * per_sm[leg]
 
 
 def test_chunk_rule_at_the_path_levels():
@@ -310,6 +403,12 @@ class _FakeLibrary:
             info[k] = v
         return self.err
 
+    def es_sweep3d_info(self, info):
+        return self.es_wavefront_3d_info("sweep", info)
+
+    def es_residual_restrict_3d_info(self, info):
+        return self.es_wavefront_3d_info("restrict", info)
+
 
 @pytest.mark.parametrize("err", [0, 1])
 def test_leg_info_reads_the_entry(monkeypatch, err):
@@ -333,3 +432,23 @@ def test_leg_info_reads_the_entry(monkeypatch, err):
         assert lib.calls[-1] == down
     with pytest.raises(ValueError):
         tw.leg_info("sideways")
+
+
+@pytest.mark.parametrize("err", [0, 1])
+@pytest.mark.parametrize("kernel", ["sweep", "restrict"])
+def test_standalone_info_reads_the_entry(monkeypatch, kernel, err):
+    """rbgs3d.sweep_info and leg3d.restrict_info ask their entries and name
+    the 11 values as leg_info does, raising when the entry fails; the
+    library is a stand-in."""
+    from evostencils_tpu_torch.ops.kernels import _build
+    lib = _FakeLibrary(err, range(20, 31))
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    read = r3.sweep_info if kernel == "sweep" else l3.restrict_info
+    if err:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            read()
+    else:
+        info = read()
+        assert tuple(info) == tw.INFO_KEYS
+        assert list(info.values()) == list(range(20, 31))
+    assert lib.calls == [kernel]
