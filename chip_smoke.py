@@ -1001,9 +1001,11 @@ def phase_kernels_rbgs(torch, rbgs, device):
 
 
 def phase_kernels_rr(torch, transfer, device):
-    """The standalone transfer kernels against their plain versions."""
+    """The standalone transfer kernels against their plain versions; the
+    residual restriction's instantiations (the down-leg of no sweep)."""
     stats = {name: {"max_abs_err": 0.0}
              for name in ("residual_restrict", "prolong_correct")}
+    check_leg2d_info(transfer, "kernels-rr", (("down", (0,)),))
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(3)
@@ -1035,19 +1037,33 @@ def phase_kernels_rr(torch, transfer, device):
             check(excess <= 0, f"prolong_correct {tag}")
             stats["prolong_correct"]["max_abs_err"] = max(
                 stats["prolong_correct"]["max_abs_err"], err)
-        if n != m:
-            continue
-        time_standalone(
-            torch, stats, "residual_restrict", "kernels-rr", shape,
-            lambda: transfer.residual_restrict(u, b, VALS, R_TAPS),
-            lambda: transfer.residual_restrict_plain(u, b, VALS, R_TAPS),
-            transfer_bound(shape))
-        time_standalone(
-            torch, stats, "prolong_correct", "kernels-rr", shape,
-            lambda: transfer.prolong_correct(u, e, omegas, 1, P_TAPS),
-            lambda: transfer.prolong_correct_plain(u, e, omegas, 1, P_TAPS),
-            transfer_bound(shape))
+    for shape in STANDALONE_SHAPES:
+        time_2d_transfers(torch, transfer, device, shape, stats)
     return stats
+
+
+def time_2d_transfers(torch, transfer, device, shape, stats=None):
+    """Both 2D standalone transfers at ``shape`` with the path's Laplacian
+    and taps: kernel and plain in turns, the device time alone and its
+    share of the bound beside (time_standalone).  Uses only the wrappers'
+    public signatures, so it times an older tree's package as well."""
+    rng = np.random.default_rng(3)
+    n, m = shape
+    u, b, e = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device=device)
+               for s in (shape, shape, ((n - 1) // 2, (m - 1) // 2)))
+    omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
+                          device=device)
+    time_standalone(
+        torch, stats, "residual_restrict", "kernels-rr", shape,
+        lambda: transfer.residual_restrict(u, b, VALS, R_TAPS),
+        lambda: transfer.residual_restrict_plain(u, b, VALS, R_TAPS),
+        transfer_bound(shape))
+    time_standalone(
+        torch, stats, "prolong_correct", "kernels-rr", shape,
+        lambda: transfer.prolong_correct(u, e, omegas, 1, P_TAPS),
+        lambda: transfer.prolong_correct_plain(u, e, omegas, 1, P_TAPS),
+        transfer_bound(shape))
 
 
 #: the 3D path's levels, where the 3D standalone kernels are timed
@@ -1140,14 +1156,18 @@ def time_3d_transfers(torch, leg3d, device, n, stats=None):
 
 
 def phase_kernels_rr3d(torch, leg3d, device):
-    """The 3D standalone transfers against their plain versions; the
-    residual restriction's info; both timed at the path's levels."""
+    """The 3D standalone transfers against their plain versions; both
+    kernels' info; both timed at the path's levels."""
     stats = {name: {"max_abs_err": 0.0}
              for name in ("residual_restrict_3d", "prolong_correct_3d")}
     check_pipeline_info(
         "kernels-rr3d", "residual restriction", leg3d.restrict_info(),
         leg3d.RR_TILE, leg3d.RR_HALO, leg3d.RR_WARMUP, leg3d.RR_MIN_CHUNK,
         leg3d.RR_THREADS, leg3d.RR_BLOCKS_PER_SM)
+    check_pipeline_info(
+        "kernels-rr3d", "prolongation-correction", leg3d.prolong_info(),
+        leg3d.PC_TILE, leg3d.PC_HALO, leg3d.PC_WARMUP, leg3d.PC_MIN_CHUNK,
+        leg3d.PC_THREADS, leg3d.PC_BLOCKS_PER_SM)
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(5)

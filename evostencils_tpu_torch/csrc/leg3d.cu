@@ -38,11 +38,30 @@
 // cell before the tile and 2 after it (35 x 35), and a chunk loads one
 // plane past each end.  Shared memory: 4 u and 4 b planes and two axis-0
 // passes of 33 x 33, 47,944 bytes; 613 threads, 2 blocks an SM.
-// es_residual_restrict_3d_info reports the schedule with the card's
-// occupancy; ops/kernels/leg3d.py states its constants, and
-// tests/test_torch_wavefront_tiles.py emulates it in float64.
-// es_prolong_correct_3d: one thread a fine point; it reads its (at most 8)
-// coarse values through the cache; e is an eighth of u.
+// es_prolong_correct_3d: the 3D up-leg's prolongation with no sweep, on
+// the same plane pipeline.  Each block owns a 32 x 32 tile of fine points
+// in the (axis-1, axis-2) plane, starting at even indices, and walks a
+// chunk of axis 0; the prolongation is pointwise, so the window is the
+// tile itself and u is read once and u_out written once a point.  e's
+// coarse window, 17 x 17 cells from coarse index y0/2 - 1 on, is staged by
+// cp.async a coarse plane at a time into a ring of 4, each coarse plane
+// travelling with fine plane 2c - 1, so a coarse plane leaves device memory
+// once per chunk.  At step s fine plane s is corrected: its cells read the
+// prolongation's axis-0 pass, formed once per coarse window cell at the
+// step before into a double buffer, and add the axis-1 and then the axis-2
+// pass (at most 4 shared reads, the parity from the cell, no loop), then
+// store u + omega * corr; u's plane s arrived by cp.async AHEAD planes
+// early, so the store never waits on a load.  One barrier a step.  Each
+// thread owns PC_CELLS / PC_THREADS cells of one column, whose rows share a
+// parity; the cells a warp touches are consecutive in a row.  Shared
+// memory: 3 u planes of 32 x 32, 4 coarse planes and two axis-0 passes of
+// 17 x 17, 19,224 bytes; 512 threads, 3 blocks an SM, chunks for a wave of
+// 2 (on an H100 this beat 16-tiles, 128, 256 and 1024 threads, waves of 3
+// and 4 and 4 planes in flight at 255^3, 127^3 and 63^3; PERF.md).
+// es_prolong_correct_3d_info and es_residual_restrict_3d_info report the
+// schedules with the card's occupancy; ops/kernels/leg3d.py states their
+// constants, and tests/test_torch_wavefront_tiles.py emulates them in
+// float64.
 // Coarse point c of an axis sits at fine index 2c+1 on it.  Cells outside
 // the grid hold 0.  The relaxation factor is read from the device vector
 // by index, so no launch waits on the host.
@@ -68,12 +87,37 @@ constexpr int CT = RR_T / 2;               // coarse tile edge
 constexpr int RR_MIN_CHUNK = 2;            // fewest planes a chunk holds
 constexpr int RR_THREADS = RR_HALF, RR_BLOCKS_PER_SM = 2;
 constexpr int RR_SMEM = (2 * RR_RING * RR_PS + 2 * R_PS) * sizeof(float);
-constexpr int PC_BX = 32, PC_BY = 8;
+
+// prolongation-correction
+constexpr int PC_T = 32;                   // fine tile edge (axes 1, 2)
+constexpr int PC_THREADS = 512;
+constexpr int PC_BLOCKS_PER_SM = 3;        // resident (38 registers)
+// chunks fill a wave of 2 blocks an SM: at 127^3 chunks of 8 planes beat
+// the 6 of a wave of 3 on an H100
+constexpr int PC_WAVE = 2;
+constexpr int PC_AHEAD = 2;                // u planes in flight past s
+constexpr int PC_MIN_CHUNK = 2;            // fewest planes a chunk holds
+constexpr int PC_CELLS = PC_T * PC_T;
+constexpr int PC_RING = PC_AHEAD + 1;      // u planes s .. s+AHEAD
+constexpr int PC_CW = PC_T / 2 + 1;        // coarse window edge
+constexpr int PC_CS = PC_CW * PC_CW;       // a coarse window plane
+constexpr int PC_CRING = 4;                // coarse planes, slot c & 3
+constexpr int PC_SMEM =
+    (PC_RING * PC_CELLS + (PC_CRING + 2) * PC_CS) * sizeof(float);
 
 static_assert(RR_W % 2 == 1, "odd window rows");
 static_assert(RR_T % 2 == 0 && RR_WARM % 2 == 1,
               "tiles and chunks start at even indices, walks at odd steps");
 static_assert(CT * CT <= RR_THREADS, "one thread a coarse tile point");
+static_assert(PC_T % 2 == 0 && (PC_T & (PC_T - 1)) == 0 &&
+                  PC_CELLS % PC_THREADS == 0 &&
+                  (PC_THREADS / PC_T) % 2 == 0,
+              "even tile starts; a thread's cells one column, one parity");
+static_assert(PC_CS <= PC_THREADS, "one thread a coarse window cell");
+static_assert(PC_SMEM <= 48 * 1024, "no shared-memory opt-in");
+// coarse plane c + 4 is fetched at step 2c + 7 - AHEAD, after the last
+// read of plane c (step 2c + 1)
+static_assert(2 * PC_CRING > PC_AHEAD + 2, "the coarse ring holds");
 
 struct Transfer3 {
   // 7-point stencil: center, then the neighbours -x, +x, -y, +y, -z, +z
@@ -82,7 +126,7 @@ struct Transfer3 {
   float t0[3], t1[3], t2[3];    // transfer taps per axis
   int om;                       // index into the relaxation-factor vector
   int n0, n1, n2;
-  int chunk;                    // fine planes per block (restriction; even)
+  int chunk;                    // fine planes per block (even)
 };
 
 __global__ void __launch_bounds__(RR_THREADS, RR_BLOCKS_PER_SM)
@@ -202,59 +246,124 @@ residual_restrict3d_kernel(const float* __restrict__ u,
   copy_wait<0>();
 }
 
-// Prolongation weights along one axis: fine interior index g takes
-// t[1] * e[(g-1)/2] when odd, t[2] * e[g/2-1] + t[0] * e[g/2] when even;
-// coarse indices outside [0, nc) are dropped (they hold 0).  Returns the
-// count of coarse indices.
-__device__ __forceinline__ int prolong_taps(int g, int nc, const float* t,
-                                            int* ci, float* w) {
-  if (g & 1) {
-    ci[0] = (g - 1) / 2;
-    w[0] = t[1];
-    return 1;
-  }
-  int n = 0;
-  if (g / 2 - 1 >= 0) {
-    ci[n] = g / 2 - 1;
-    w[n++] = t[2];
-  }
-  if (g / 2 < nc) {
-    ci[n] = g / 2;
-    w[n++] = t[0];
-  }
-  return n;
-}
-
-__global__ void __launch_bounds__(PC_BX * PC_BY)
+__global__ void __launch_bounds__(PC_THREADS, PC_BLOCKS_PER_SM)
 prolong_correct3d_kernel(const float* __restrict__ u,
                          const float* __restrict__ e,
                          const float* __restrict__ omegas,
                          float* __restrict__ u_out, Transfer3 p) {
-  const int g2 = blockIdx.x * PC_BX + threadIdx.x;
-  const int g1 = blockIdx.y * PC_BY + threadIdx.y;
-  const int g0 = blockIdx.z;
-  if (g1 >= p.n1 || g2 >= p.n2) return;
+  constexpr int PER = PC_CELLS / PC_THREADS;   // cells a thread
+  constexpr int ROWS = PC_THREADS / PC_T;      // rows between them
+  extern __shared__ float smem[];
+  float* su = smem;                          // PC_RING u planes of the tile
+  float* se = su + PC_RING * PC_CELLS;       // PC_CRING coarse planes
+  float* si = se + PC_CRING * PC_CS;         // 2 axis-0 passes, slot F & 1
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * PC_T, x0 = blockIdx.x * PC_T;
+  // y0 and x0 are even: coarse index y0/2 - 1 feeds the tile's first fine
+  // index through its t[2] tap
+  const int cy0 = y0 / 2 - 1, cx0 = x0 / 2 - 1;
+  const int z0 = blockIdx.z * p.chunk;
+  const int z1 = min(z0 + p.chunk, p.n0);
   const int nc0 = (p.n0 - 1) / 2, nc1 = (p.n1 - 1) / 2, nc2 = (p.n2 - 1) / 2;
-  int c0[2], c1[2], c2[2];
-  float w0[2], w1[2], w2[2];
-  const int k0 = prolong_taps(g0, nc0, p.t0, c0, w0);
-  const int k1 = prolong_taps(g1, nc1, p.t1, c1, w1);
-  const int k2 = prolong_taps(g2, nc2, p.t2, c2, w2);
-  // axis 0 innermost (first), then axis 1, then axis 2
-  float corr = 0.f;
-  for (int m = 0; m < k2; ++m) {
-    float mid = 0.f;
-    for (int l = 0; l < k1; ++l) {
-      float inner = 0.f;
-      for (int k = 0; k < k0; ++k)
-        inner += w0[k] * e[(static_cast<long>(c0[k]) * nc1 + c1[l]) * nc2 +
-                           c2[m]];
-      mid += w1[l] * inner;
-    }
-    corr += w2[m] * mid;
+  // the chunk's fine planes read coarse planes z0/2 - 1 .. (z1 - 1)/2
+  const int cend = min((z1 - 1) / 2, nc0 - 1);
+  const long plane = static_cast<long>(p.n1) * p.n2;
+  const float om = omegas[p.om];
+  // this thread's cells: column tx, rows ty + k * ROWS, one parity
+  const int tx = t & (PC_T - 1), ty = t / PC_T;
+  const bool ex = !(tx & 1), ey = !(ty & 1);
+  const float wx0 = ex ? p.t2[2] : p.t2[1], wy0 = ey ? p.t1[2] : p.t1[1];
+  int g[PER];
+  bool in[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int gy = y0 + ty + k * ROWS, gx = x0 + tx;
+    in[k] = gy < p.n1 && gx < p.n2;
+    g[k] = gy * p.n2 + gx;
   }
-  const long g = (static_cast<long>(g0) * p.n1 + g1) * p.n2 + g2;
-  u_out[g] = u[g] + omegas[p.om] * corr;
+  // the coarse window cell of this thread's first cell: fine index 2i+1+o
+  // of an axis reads coarse window index i+1 (o = 0) or i, i+1 (o = -1)
+  const int m0 = ((ty + 1) >> 1) * PC_CW + ((tx + 1) >> 1);
+  // this thread's coarse window cell, if any
+  const int ci = cy0 + t / PC_CW, cj = cx0 + t % PC_CW;
+  const bool cin = t < PC_CS && ci >= 0 && ci < nc1 && cj >= 0 && cj < nc2;
+  const long cg = cin ? static_cast<long>(ci) * nc2 + cj : 0;
+
+  // start the copy of this thread's cell of coarse plane c into slot c & 3,
+  // zero outside e and past the chunk; it joins the next fine plane's group
+  auto fetch_coarse = [&](int c) {
+    if (t >= PC_CS) return;
+    const bool on = cin && c >= 0 && c <= cend;
+    copy_async(se + (c & (PC_CRING - 1)) * PC_CS + t,
+               e + (on ? c * static_cast<long>(nc1) * nc2 + cg : 0), on);
+  };
+  // fine plane P's cells into ring slot `slot` (only the chunk's planes),
+  // with coarse plane (P+1)/2 when P is odd; one copy group
+  auto fetch = [&](int P, int slot) {
+    if (P & 1) fetch_coarse((P + 1) / 2);
+    if (P < z1) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (in[k])
+          copy_async(su + slot * PC_CELLS + t + k * PC_THREADS,
+                     u + P * plane + g[k], true);
+    }
+    copy_commit();
+  };
+  // the prolongation's axis-0 pass for fine plane F over e's window (this
+  // thread's cell): t0[1] e(c) on an odd F = 2c+1, t0[2] e(c-1) + t0[0]
+  // e(c) on an even F = 2c (leg3d.py:313-340)
+  auto inner = [&](int F) {
+    if (t >= PC_CS) return;
+    const int c = (F - 1) >> 1;
+    float acc = 0.f;
+    acc += (F & 1 ? p.t0[1] : p.t0[2]) * se[(c & (PC_CRING - 1)) * PC_CS + t];
+    if (!(F & 1)) acc += p.t0[0] * se[((c + 1) & (PC_CRING - 1)) * PC_CS + t];
+    si[(F & 1) * PC_CS + t] = acc;
+  };
+
+  // fine plane F reads coarse planes F/2 - 1 and F/2 (F even) or (F-1)/2
+  // (F odd); z0 is even
+  fetch_coarse(z0 / 2 - 1);
+  fetch_coarse(z0 / 2);
+#pragma unroll
+  for (int a = 0; a < PC_AHEAD; ++a) fetch(z0 + a, a);
+  copy_wait<PC_AHEAD - 1>();
+  __syncthreads();
+  inner(z0);
+  __syncthreads();
+
+  int slot = 0;                              // ring slot of plane s
+  for (int s = z0; s < z1; ++s) {
+    fetch(s + PC_AHEAD, slot_back<PC_RING>(slot, -PC_AHEAD));
+    // plane s has arrived: u + omega * P(e), the axis-1 pass, then the
+    // axis-2 pass over the axis-0 pass formed at the last step
+    const float* pi = si + (s & 1) * PC_CS;
+    const float* us = su + slot * PC_CELLS + t;
+    float* out = u_out + s * plane;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      if (!in[k]) continue;
+      const int m = m0 + k * (ROWS / 2) * PC_CW;
+      auto mid = [&](int j) {
+        float acc = 0.f;
+        acc += wy0 * pi[j];
+        if (ey) acc += p.t1[0] * pi[j + PC_CW];
+        return acc;
+      };
+      float corr = 0.f;
+      corr += wx0 * mid(m);
+      if (ex) corr += p.t2[0] * mid(m + 1);
+      out[g[k]] = us[k * PC_THREADS] + om * corr;
+    }
+    // the axis-0 pass of plane s+1: its coarse planes are in
+    if (s + 1 < z1) inner(s + 1);
+    // plane s+1 is in; plane s+AHEAD may still be in flight
+    copy_wait<PC_AHEAD - 1>();
+    __syncthreads();
+    slot = next_slot<PC_RING>(slot);
+  }
+  copy_wait<0>();
 }
 
 Transfer3 make_transfer(const double* coeffs, int om, int n0, int n1,
@@ -314,9 +423,12 @@ extern "C" int es_prolong_correct_3d(const float* u, const float* e,
                                      const double* coeffs, float* u_out,
                                      int n0, int n1, int n2, void* stream) {
   if (bad_shape(n0, n1, n2)) return cudaErrorInvalidValue;
-  const Transfer3 p = make_transfer(coeffs, om_id, n0, n1, n2);
-  const dim3 grid((n2 + PC_BX - 1) / PC_BX, (n1 + PC_BY - 1) / PC_BY, n0);
-  prolong_correct3d_kernel<<<grid, dim3(PC_BX, PC_BY), 0,
+  Transfer3 p = make_transfer(coeffs, om_id, n0, n1, n2);
+  cudaError_t err = cudaSuccess;
+  const dim3 grid = pipeline_blocks(n0, n1, n2, PC_T, PC_WAVE, PC_MIN_CHUNK,
+                                    &p.chunk, &err);
+  if (err != cudaSuccess) return err;
+  prolong_correct3d_kernel<<<grid, PC_THREADS, PC_SMEM,
                              static_cast<cudaStream_t>(stream)>>>(u, e, omegas,
                                                                   u_out, p);
   return cudaGetLastError();
@@ -328,4 +440,13 @@ extern "C" int es_residual_restrict_3d_info(int* info) {
   return pipeline_info(
       reinterpret_cast<const void*>(residual_restrict3d_kernel), RR_T, RR_LO,
       RR_HI, RR_WARM, RR_MIN_CHUNK, RR_THREADS, RR_SMEM, info);
+}
+
+// What the card makes of es_prolong_correct_3d's kernel: the 11 values of
+// pipeline_info, with no halo and no warm-up (the prolongation is
+// pointwise).
+extern "C" int es_prolong_correct_3d_info(int* info) {
+  return pipeline_info(
+      reinterpret_cast<const void*>(prolong_correct3d_kernel), PC_T, 0, 0, 0,
+      PC_MIN_CHUNK, PC_THREADS, PC_SMEM, info);
 }

@@ -26,7 +26,8 @@
 //   evostencils_tpu/ops/pallas/transfer.py residual_rowrestrict (_rr_kernel)
 //   and the column restriction that compiler/lower.py:1338-1340 runs after
 //   it in XLA: r = b - A u and the full 2:1 restriction, rc ((n-1)/2,
-//   (m-1)/2), for smoother chains that no down-leg takes.
+//   (m-1)/2), for smoother chains that no down-leg takes.  It is the
+//   down-leg with no sweep, col_leg_kernel<kDown, 0, RR_WINDOW>.
 // es_prolong_correct replaces prolong_row_correct (_pc_kernel) and the
 //   column prolongation that lower.py:1373-1376 runs before it:
 //   u + omega * P(e) with the full 1:2 prolongation of e.
@@ -38,9 +39,10 @@
 // transfer inside shared memory, so a leg costs one pass over u and b
 // instead of one pass per half-sweep; a fused pass saves a further read of
 // u and b and a write of u per cycle.  es_residual_restrict and
-// es_prolong_correct are single passes too: the first keeps u's window and
-// the residual in shared memory, the second is one thread a fine point,
-// reading the (at most four) coarse values it needs through the cache.
+// es_prolong_correct are single passes too: the first stages u's and b's
+// windows as the down-leg does and walks the residual and restriction in
+// registers, the second is one thread a fine point, reading the (at most
+// four) coarse values it needs through the cache.
 //
 // The TPU kernel walks full-width row blocks in order.  Here thread blocks
 // run in parallel.  Each one owns a tile of the fine grid and loads it with
@@ -49,7 +51,8 @@
 // the error moves inward one cell per half-sweep, so after P = 2S
 // half-sweeps only cells within P - 1 of the window edge are wrong.  The
 // residual adds one ring and the restriction reads fine index 2i+2 past
-// the tile, so a kernel that restricts needs a halo of P + 2; the up-leg,
+// the tile, so a kernel that restricts needs a halo of P + 2 (2 with no
+// sweep, the standalone residual restriction); the up-leg,
 // whose prolongation is pointwise, needs P.  The prolongation is exact up
 // to the window's edge (the coarse window covers it).  Tiles start at even
 // interior indices, so every coarse point's 3x3 restriction window and
@@ -61,8 +64,9 @@
 // launch waits on the host.
 //
 // Design of the windowed kernels (col_leg_kernel<F, S, K>: the legs of
-// every 2D Poisson V-cycle, with both transfer axes or row-only ones, and
-// the fused passes of the cycle loop in both forms).  They are latency-bound
+// every 2D Poisson V-cycle, with both transfer axes or row-only ones, the
+// fused passes of the cycle loop in both forms, and the standalone
+// residual restriction, the down-leg of S = 0).  They are latency-bound
 // before they are bandwidth-bound: a block loads, then runs its half-sweeps
 // between barriers, so the card needs many small blocks resident to keep
 // memory busy.  A block stages u and b over a window of one of N_LEG_WINDOWS
@@ -105,7 +109,7 @@
 
 namespace {
 
-// threads a block of the standalone transfers
+// threads a block of the standalone prolongation-correction
 constexpr int THREADS = 256;
 constexpr int MAX_SWEEPS = 3;
 constexpr int MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS;
@@ -126,62 +130,6 @@ struct Leg {
   int sweeps;
   int n, m;
 };
-
-__device__ __forceinline__ bool inside(const Leg& p, int gr, int gc) {
-  return gr >= 0 && gr < p.n && gc >= 0 && gc < p.m;
-}
-
-// r = b - A u and its restriction for the coarse tile whose first point is
-// (blockIdx.y * RR_CT, blockIdx.x * RR_CT): fine rows and columns 2 * first
-// .. 2 * first + 2 * RR_CT of r (RR_RW of them), which need u one cell
-// further out (RR_UW).  2 * 67^2 + 65^2 floats = 34,856 bytes of shared
-// memory; u is read 67^2 / 64^2 = 1.10 times.
-constexpr int RR_CT = 32;
-constexpr int RR_RW = 2 * RR_CT + 1;
-constexpr int RR_UW = RR_RW + 2;
-
-__global__ void __launch_bounds__(THREADS)
-residual_restrict_kernel(const float* __restrict__ u,
-                         const float* __restrict__ b, float* __restrict__ rc,
-                         Leg p) {
-  __shared__ float su[RR_UW * RR_UW];
-  __shared__ float sr[RR_RW * RR_RW];
-  const int r0 = blockIdx.y * 2 * RR_CT, c0 = blockIdx.x * 2 * RR_CT;
-  for (int idx = threadIdx.x; idx < RR_UW * RR_UW; idx += blockDim.x) {
-    const int gr = r0 - 1 + idx / RR_UW, gc = c0 - 1 + idx % RR_UW;
-    su[idx] = inside(p, gr, gc) ? u[static_cast<long>(gr) * p.m + gc] : 0.f;
-  }
-  __syncthreads();
-  // the residual in the order of _rr_kernel (transfer.py:86-88)
-  for (int idx = threadIdx.x; idx < RR_RW * RR_RW; idx += blockDim.x) {
-    const int i = idx / RR_RW, j = idx % RR_RW;
-    const int gr = r0 + i, gc = c0 + j;
-    float r = 0.f;
-    if (inside(p, gr, gc)) {
-      const int w = (i + 1) * RR_UW + j + 1;
-      const float au = p.c * su[w] + p.a_up * su[w - RR_UW] +
-                       p.a_dn * su[w + RR_UW] + p.a_lf * su[w - 1] +
-                       p.a_rt * su[w + 1];
-      r = b[static_cast<long>(gr) * p.m + gc] - au;
-    }
-    sr[idx] = r;
-  }
-  __syncthreads();
-  // the row taps first, then the column taps (lower.py:1338-1340)
-  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
-  for (int idx = threadIdx.x; idx < RR_CT * RR_CT; idx += blockDim.x) {
-    const int i = idx / RR_CT, j = idx % RR_CT;
-    const int ci = blockIdx.y * RR_CT + i, cj = blockIdx.x * RR_CT + j;
-    if (ci >= nc || cj >= mc) continue;
-    const float* r = sr + 2 * i * RR_RW + 2 * j;
-    float rows[3];
-    for (int e = 0; e < 3; ++e)
-      rows[e] = p.tr[0] * r[e] + p.tr[1] * r[RR_RW + e] +
-                p.tr[2] * r[2 * RR_RW + e];
-    rc[static_cast<long>(ci) * mc + cj] =
-        p.tc[0] * rows[0] + p.tc[1] * rows[1] + p.tc[2] * rows[2];
-  }
-}
 
 // The column expansion of coarse row ci at fine column gc; 0 outside the
 // coarse grid (transfer.py:146-149 on each axis).
@@ -219,8 +167,9 @@ prolong_correct_kernel(const float* __restrict__ u,
 
 // ---------------------------------------------------------------------------
 // The windowed kernels: col_leg_kernel<F, S, K> in the forms F of
-// es_presmooth_residual_restrict, es_prolong_correct_postsmooth and
-// es_upleg_downleg (see the design note at the top).
+// es_presmooth_residual_restrict, es_prolong_correct_postsmooth,
+// es_upleg_downleg and es_residual_restrict (see the design note at the
+// top).
 // ---------------------------------------------------------------------------
 
 // The forms, numbered as es_transfer_leg_info takes them: the up-leg, the
@@ -249,6 +198,9 @@ struct LegWindow<1> {
   static constexpr int ROWS = 32, SLOTS = 32, NY = 8, BLOCKS = 6;
 };
 constexpr int N_LEG_WINDOWS = 2;
+// The standalone residual restriction's one class: with no sweep, 32 x 64
+// beats 64 x 64 at every level from 4095^2 down on an H100.
+constexpr int RR_WINDOW = 1;
 
 // Form F of S sweeps in window class K: P = 2S half-sweeps, the halo (P on
 // the up-legs, P + 2 where the kernel restricts), the tile, and the
@@ -287,8 +239,11 @@ struct ColLeg {
       static_cast<int>(sizeof(float));
   static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_SMEM_RESERVED);
   static constexpr int BLOCKS = FIT < Win::BLOCKS ? FIT : Win::BLOCKS;
+  // S = 0 only for the down-leg in class RR_WINDOW: the standalone
+  // residual restriction
   static constexpr bool BUILT =
-      S >= 1 && S <= (PASS ? MAX_FUSED_SWEEPS : MAX_SWEEPS) && TR >= H;
+      (S >= 1 || (F == kDown && K == RR_WINDOW)) &&
+      S <= (PASS ? MAX_FUSED_SWEEPS : MAX_SWEEPS) && TR >= H;
   static_assert(NY % 2 == 0 && WR % NY == 0 && TC > 0,
                 "a window class must fit the form's halo");
 };
@@ -672,7 +627,7 @@ col_leg_kernel(const float* __restrict__ u, const float* __restrict__ e,
     __syncthreads();
   }
   col_passes<L>(su, omegas, p, L::DOWN ? 0 : 1, r0, c0);
-  store_tile_split<L>(su, u_out, p, r0, c0);
+  if constexpr (S > 0) store_tile_split<L>(su, u_out, p, r0, c0);
   if constexpr (L::ROWS)
     residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
   else if constexpr (!L::UP)
@@ -742,7 +697,7 @@ ColInst col_inst() {
 
 // The instantiation of form F for `sweeps` sweeps (S.. on) in `window`
 // (K.. on); null for a count or class it lacks.
-template <int F, int S = 1, int K = 0>
+template <int F, int S = 0, int K = 0>
 ColInst find_of_form(int sweeps, int window) {
   if constexpr (S > MAX_FUSED_SWEEPS) {
     return {};
@@ -839,7 +794,8 @@ extern "C" int es_prolong_correct_postsmooth(
 
 // What an instantiation of es_prolong_correct_postsmooth (form 0 with
 // column transfers, 5 row-only), es_presmooth_residual_restrict (form 1,
-// 4 row-only) or es_upleg_downleg (form 2, 3 row-only) is on this card:
+// 4 row-only), es_residual_restrict (form 1, sweeps 0) or
+// es_upleg_downleg (form 2, 3 row-only) is on this card:
 // info[0], [1] its tile's rows and columns, [2] its halo, [3] threads per
 // block, [4] resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory),
@@ -897,17 +853,20 @@ extern "C" int es_upleg_downleg(const float* u, const float* e,
 // coeffs as for es_presmooth_residual_restrict.  Writes rc ((n-1)/2,
 // (m-1)/2) = R (b - A u); replaces the TPU kernel
 // evostencils_tpu/ops/pallas/transfer.py residual_rowrestrict (_rr_kernel)
-// together with the column half that lower.py:1340 leaves to XLA.
+// together with the column half that lower.py:1340 leaves to XLA.  halo,
+// window: as for es_presmooth_residual_restrict, for the down-leg of no
+// sweep.
 extern "C" int es_residual_restrict(const float* u, const float* b,
-                                    const double* coeffs, float* rc, int n,
-                                    int m, void* stream) {
+                                    const double* coeffs, float* rc,
+                                    int halo, int window, int n, int m,
+                                    void* stream) {
   if (bad_shape(n, m)) return cudaErrorInvalidValue;
-  const Leg p = make_leg(coeffs, nullptr, 0, 0, n, m);
-  const int nc = (n - 1) / 2, mc = (m - 1) / 2;
-  const dim3 grid((mc + RR_CT - 1) / RR_CT, (nc + RR_CT - 1) / RR_CT);
-  residual_restrict_kernel<<<grid, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(u, b, rc, p);
-  return cudaGetLastError();
+  Leg p = make_leg(coeffs, nullptr, 0, 0, n, m);
+  const float* e = nullptr;
+  const float* omegas = nullptr;
+  float* u_out = nullptr;
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &rc, &p};
+  return launch_col_leg(kDown, 0, halo, window, n, m, args, stream);
 }
 
 // coeffs as above (the stencil values are not read).  om_id: index of the

@@ -72,8 +72,9 @@ SIGNATURES = {
     "es_upleg_downleg":
         (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _INT,
          _INT, _INT, _P),
-    # u, b, coefficients, rc, n, m, stream
-    "es_residual_restrict": (_P, _P, _DOUBLES, _P, _INT, _INT, _P),
+    # u, b, coefficients, rc, halo, window class, n, m, stream
+    "es_residual_restrict":
+        (_P, _P, _DOUBLES, _P, _INT, _INT, _INT, _INT, _P),
     # u, e, omegas, omega id, coefficients, u_out, n, m, stream
     "es_prolong_correct":
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
@@ -104,6 +105,8 @@ SIGNATURES = {
     # u, e, omegas, omega id, coefficients, u_out, n0, n1, n2, stream
     "es_prolong_correct_3d":
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _INT, _P),
+    # info (11 ints out); no stream
+    "es_prolong_correct_3d_info": (_INTS,),
     # u, b, coefficient stack, omegas, omega id, red-black, out, n, m, stream
     "es_sweep_var": (_P, _P, _P, _P, _INT, _INT, _P, _INT, _INT, _P),
     # info (8 ints out); no stream

@@ -10,7 +10,9 @@ blocked one here computes the same function in the same order
 ``csrc/sweep3d.cu``; the sweeps of this module count under their own
 names, so a run shows which JAX gate's levels it went through.  The
 transfers launch ``es_residual_restrict_3d`` and ``es_prolong_correct_3d``
-from ``csrc/leg3d.cu``, one kernel over all three axes each.
+from ``csrc/leg3d.cu``, one kernel over all three axes each: the plane
+pipeline of the 3D legs (``csrc/pipeline3d.cuh``), the down-leg's tail with
+no sweep and the up-leg's prolongation with no sweep.
 
 Each kernel has its wrapper (a CUDA tensor launches it or raises, a CPU
 tensor takes the plain version, any other device raises), its plain
@@ -64,6 +66,27 @@ RR_MIN_CHUNK = 2
 RR_BLOCKS_PER_SM = 2
 RR_THREADS = 613
 
+#: The prolongation-correction's block schedule (csrc/leg3d.cu
+#: ``prolong_correct3d_kernel``; es_prolong_correct_3d_info reports it,
+#: and tests/test_torch_wavefront_tiles.py emulates it): the plane pipeline
+#: of ``wavefront3d``'s up-leg with no sweep.  A block owns a PC_TILE x
+#: PC_TILE tile of fine points (even starts) and, the prolongation being
+#: pointwise, no halo and no warm-up (PC_HALO, PC_WARMUP); it stages e's
+#: coarse window of PC_TILE / 2 + 1 cells a side from coarse index y0/2 - 1
+#: on, a coarse plane at a time, and walks a chunk of axis 0
+#: (``pc_chunk_planes``), forming the axis-0 pass of fine plane s + 1 at
+#: step s.  PC_THREADS threads, each owning PC_TILE^2 / PC_THREADS cells of
+#: one column; PC_BLOCKS_PER_SM are resident, and the chunks fill a wave of
+#: PC_WAVE blocks an SM (longer chunks than a wave of 3 would give, faster
+#: at 127^3).
+PC_TILE = 32
+PC_HALO = (0, 0)
+PC_WARMUP = 0
+PC_MIN_CHUNK = 2
+PC_BLOCKS_PER_SM = 3
+PC_WAVE = 2
+PC_THREADS = 512
+
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_3d2": 0, "jacobi_sweep_3d2": 0,
             "residual_restrict_3d": 0, "prolong_correct_3d": 0}
@@ -86,6 +109,19 @@ def restrict_info() -> dict:
     values of ``wavefront3d.INFO_KEYS``.  Needs the card."""
     return pipeline_info("es_residual_restrict_3d_info",
                          "3D residual restriction")
+
+
+def pc_chunk_planes(n0: int, n1: int, n2: int, sms: int) -> int:
+    """Fine axis-0 planes per block of the prolongation-correction
+    (``wavefront3d.chunk_rule``)."""
+    return chunk_rule(n0, n1, n2, PC_TILE, PC_WAVE, PC_MIN_CHUNK, sms)
+
+
+def prolong_info() -> dict:
+    """What the card makes of the prolongation-correction's kernel, as
+    :func:`restrict_info`.  Needs the card."""
+    return pipeline_info("es_prolong_correct_3d_info",
+                         "3D prolongation-correction")
 
 
 def seven_taps(r_fac, p_fac) -> Optional[Tuple]:

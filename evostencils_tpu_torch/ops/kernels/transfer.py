@@ -17,8 +17,9 @@ u and b (``compiler/solve.make_cycle_loop`` with ``config.loop_fusion``).
 The TPU splits the standalone transfers into a row half (Pallas) and a
 column half (XLA, ``lower._col_restrict`` / ``_col_prolong``), because
 Mosaic cannot stride the lane axis.  Here each is one kernel over both
-axes: ``residual_restrict`` is r = b - A u with its full restriction, and
-``prolong_correct`` is u + omega * P(e) with the full prolongation.
+axes: ``residual_restrict`` is r = b - A u with its full restriction (the
+down-leg's windowed kernel with no sweep), and ``prolong_correct`` is
+u + omega * P(e) with the full prolongation.
 
 Each kernel has, in this module:
 
@@ -64,7 +65,8 @@ MIN_COLS = 128
 #: axes (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``),
 #: the row-only legs (``presmooth_residual_rowrestrict``,
 #: ``prolong_correct_postsmooth``) and the fused passes
-#: (``upleg_downleg_col``, ``upleg_downleg_fused``); ``LegWindow<K>``
+#: (``upleg_downleg_col``, ``upleg_downleg_fused``); the standalone
+#: ``residual_restrict`` is the down-leg with S = 0; ``LegWindow<K>``
 #: states the same classes, and es_transfer_leg_info reports them from the
 #: card.  A block stages u and b over a window of LEG_WINDOWS[k] = (rows,
 #: columns, threads) cells and owns its centre, the tile: the window less
@@ -79,6 +81,10 @@ MIN_COLS = 128
 #: level takes the first built class whose tiles fill one wave of those on
 #: the card's SMs, else the last built one.
 LEG_WINDOWS = ((64, 64, 256), (32, 64, 256))
+#: the one class of the standalone residual restriction, the down-leg of
+#: no sweep (``RR_WINDOW`` in csrc/transfer.cu): with halo 2 and no pass,
+#: 32 x 64 beats 64 x 64 at every level from 4095^2 down on an H100
+RR_WINDOW = 1
 LEG_BLOCKS_PER_SM = (5, 6)
 ROWPASS_BLOCKS_PER_SM = (4, 6)
 #: the windowed kernels, numbered as es_transfer_leg_info takes them: the
@@ -113,7 +119,8 @@ def leg_halo(leg: str, sweeps: int) -> int:
     passes the cells at distance >= P are right.  The up-legs need P, their
     prolongation being pointwise; the down-legs and the passes P + 2, their
     residual and the restriction's extra row reading one cell past the
-    tile."""
+    tile.  The standalone residual restriction is "down" with no sweep:
+    halo 2."""
     if leg not in _FORMS:
         raise ValueError(f"leg {leg!r} is none of {sorted(_FORMS)}")
     return 2 * sweeps + (0 if leg in _UP_LEGS else 2)
@@ -131,7 +138,11 @@ def leg_windows(leg: str, sweeps: int) -> Tuple[int, ...]:
     """The window classes built for a leg of ``sweeps`` sweeps: those whose
     tile keeps at least the halo's depth of rows, so that no block
     recomputes more than twice the rows it owns.  Every class serves the
-    legs; the 32 x 64 class serves passes of up to 4 sweeps."""
+    legs; the 32 x 64 class serves passes of up to 4 sweeps.  The down-leg
+    of no sweep, the standalone residual restriction, has RR_WINDOW
+    alone."""
+    if not sweeps:
+        return (RR_WINDOW,) if leg == "down" else ()
     return tuple(k for k in range(len(LEG_WINDOWS))
                  if leg_tile(leg, sweeps, k)[0] >= leg_halo(leg, sweeps))
 
@@ -553,9 +564,11 @@ def residual_restrict(u: torch.Tensor, b: torch.Tensor, stencil_vals, taps):
     _build.check_card_tensors(u, b)
     n, m = u.shape
     rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
+    # the down-leg's window with no sweep (halo 2)
     _build.launch(launches, "residual_restrict", "es_residual_restrict",
                   u.device, u.data_ptr(), b.data_ptr(),
-                  _coefficients(stencil_vals, taps), rc.data_ptr(), n, m)
+                  _coefficients(stencil_vals, taps), rc.data_ptr(),
+                  *_window_args("down", 0, u))
     return rc
 
 

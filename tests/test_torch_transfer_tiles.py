@@ -22,6 +22,9 @@ must equal ``presmooth_residual_restrict_plain``,
 ``prolong_correct_postsmooth_plain`` to 1e-12 of their largest magnitude,
 and a halo one cell short must not.
 
+The standalone residual restriction is the down-leg's form with no
+sweep (S = 0, halo 2): its schedule must equal
+``residual_restrict_plain``.
 The plain versions are held against the Pallas kernels in interpret mode
 by tests/test_torch_transfer.py and tests/test_torch_fused_loop.py (the
 row-only legs), so the chain reaches the JAX package.
@@ -231,7 +234,8 @@ def _deviation(got, want):
 def _down(shape, sweeps, window, halo=None, leg="down"):
     """Deviation of the emulated down-leg (``leg`` "down" or "rowdown")
     from the plain one; the tile is the window class's, the halo the leg's
-    unless given."""
+    unless given.  With no sweep, the standalone residual restriction:
+    its coarse residual against ``residual_restrict_plain``."""
     u, b, _ = _inputs(shape, 11)
     omegas = torch.tensor(OMEGAS, dtype=torch.float64)
     ids = [1, 2, 3][:sweeps]
@@ -239,11 +243,14 @@ def _down(shape, sweeps, window, halo=None, leg="down"):
     halo = tt.leg_halo(leg, sweeps) if halo is None else halo
     rows_only = leg == "rowdown"
     taps = R_TAPS[0] if rows_only else R_TAPS
+    got = emulate_down(u, b, omegas, ids, ANISO, taps, tile, halo,
+                       rows_only)
+    if not sweeps:
+        want = tt.residual_restrict_plain(u, b, ANISO, taps)
+        return _deviation(got[1:], (want,))
     plain = (tt.presmooth_residual_rowrestrict_plain if rows_only
              else tt.presmooth_residual_restrict_plain)
     want = plain(u, b, omegas, ids, ANISO, taps)
-    got = emulate_down(u, b, omegas, ids, ANISO, taps, tile, halo,
-                       rows_only)
     return _deviation(got, want)
 
 
@@ -283,9 +290,13 @@ def _one_torch_thread():
 
 CASES = [(shape, sweeps, window) for shape in RAGGED for sweeps in (1, 2, 3)
          for window in range(len(tt.LEG_WINDOWS))]
+#: the down-leg with no sweep (the standalone residual restriction) in
+#: every class built for it, after the legs' cases
+RR_CASES = [(shape, 0, window) for shape in RAGGED
+            for window in tt.leg_windows("down", 0)]
 
 
-@pytest.mark.parametrize("shape,sweeps,window", CASES)
+@pytest.mark.parametrize("shape,sweeps,window", CASES + RR_CASES)
 def test_downleg_block_schedule_matches_plain(shape, sweeps, window):
     assert _down(shape, sweeps, window) <= RTOL
 
@@ -322,7 +333,7 @@ def test_band_shape_takes_its_class_and_matches_plain(leg, window):
                          [("down", 2, 0), ("down", 1, 1), ("up", 1, 0),
                           ("up", 3, 1), ("rowdown", 2, 0),
                           ("rowdown", 3, 1), ("rowup", 1, 0),
-                          ("rowup", 2, 1)])
+                          ("rowup", 2, 1), ("down", 0, tt.RR_WINDOW)])
 def test_halo_one_short_differs(leg, sweeps, window):
     """A halo one cell below leg_halo() (the same tile, a window two cells
     narrower) leaves wrong cells in the tiles."""
@@ -468,3 +479,39 @@ def test_row_leg_wrappers_pass_halo_and_window_and_raise_on_refusal(
             cols, tt.leg_halo(leg, sweeps),
             tt.leg_window(leg, sweeps, *shape, H100_SMS), *shape)
     assert sum(tt.launches.values()) == (0 if err else 2)
+
+
+def test_residual_restrict_rule():
+    """The standalone residual restriction is the down-leg of no sweep:
+    halo 2, the 32 x 64 class alone (tiles 28 x 60, 6 blocks an SM) at
+    every level; no other form is built without a sweep."""
+    assert tt.leg_halo("down", 0) == 2
+    assert tt.leg_windows("down", 0) == (tt.RR_WINDOW,) == (1,)
+    assert tt.leg_tile("down", 0, tt.RR_WINDOW) == (28, 60)
+    assert tt.leg_blocks("down", tt.RR_WINDOW) == 6
+    assert {tt.leg_window("down", 0, n, n, H100_SMS)
+            for n in (4095, 2047, 1023, 511, 255)} == {tt.RR_WINDOW}
+    assert all(tt.leg_windows(leg, 0) == () for leg in tt._FORMS
+               if leg != "down")
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_residual_restrict_wrapper_passes_halo_and_window(monkeypatch, err):
+    """residual_restrict hands es_residual_restrict leg_halo("down", 0) and
+    leg_window("down", 0, ...) of its grid (before n, m and the stream) at
+    a level of each class and a ragged shape, and raises, counting no
+    launch, when the entry refuses; the library is a stand-in."""
+    lib = _stand_in_card(monkeypatch, err)
+    tt.reset_launches()
+    for shape in ((4095, 4095), (255, 255), (131, 197)):
+        u = torch.zeros(shape, dtype=torch.float32)
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tt.residual_restrict(u, u, ANISO, R_TAPS)
+        else:
+            rc = tt.residual_restrict(u, u, ANISO, R_TAPS)
+            assert rc.shape == tuple((n - 1) // 2 for n in shape)
+        name, args = lib.calls[-1]
+        assert name == "es_residual_restrict" and args[-5:-1] == (
+            2, tt.leg_window("down", 0, *shape, H100_SMS), *shape)
+    assert tt.launches["residual_restrict"] == (0 if err else 3)

@@ -3,7 +3,9 @@
 ``upleg3d_kernel``) and of the standalone kernels that run the same plane
 pipeline (csrc/sweep3d.cu ``rb_sweep3d_kernel``, the red-black sweep: the
 up-leg with no correction; csrc/leg3d.cu ``residual_restrict3d_kernel``:
-the down-leg with no sweep), emulated in float64 on the CPU.
+the down-leg with no sweep; csrc/leg3d.cu ``prolong_correct3d_kernel``:
+the up-leg's prolongation with no sweep), emulated in float64 on the
+CPU.
 
 The kernels cannot run here, but their schedule can.  Each block owns a
 ``TILE[leg]`` x ``TILE[leg]`` tile of the (axis-1, axis-2) plane and loads
@@ -36,6 +38,14 @@ tests/test_torch_wavefront3d.py and tests/test_torch_sweep3d.py, so the
 chain reaches the JAX package.
 The shapes are ragged and odd, so the last tiles and chunks are cut by the
 grid; the stencil is anisotropic and the taps asymmetric on every axis.
+
+The prolongation-correction has no halo: a block's window is its tile.
+It stages e's coarse window (``leg3d.PC_TILE`` / 2 + 1 cells a side from
+coarse index y0/2 - 1 on) for the chunk's coarse planes only, forms the
+axis-0 pass of fine plane s + 1 at step s into a double buffer, and
+corrects plane s by the axis-1 and then the axis-2 pass over it; stitched,
+it must equal ``prolong_correct_3d_plain`` to 1e-12, and a coarse window
+one cell short or a chunk one coarse plane short must not.
 """
 
 import numpy as np
@@ -75,13 +85,15 @@ def _chunk(leg, n0, n1, n2):
         return r3.rb_chunk_planes(n0, n1, n2, SMS)
     if leg == "restrict":
         return l3.rr_chunk_planes(n0, n1, n2, SMS)
+    if leg == "prolong":
+        return l3.pc_chunk_planes(n0, n1, n2, SMS)
     return tw.chunk_planes(n0, n1, n2, leg, SMS)
 
 
 #: each kernel's tile edge, its halo (before, after), the halo its
 #: schedule needs and its warm-up
 TILE = {"down": tw.TILE, "up": tw.TILE, "sweep": r3.RB_TILE,
-        "restrict": l3.RR_TILE}
+        "restrict": l3.RR_TILE, "prolong": l3.PC_TILE}
 HALO = dict(tw.HALO, sweep=r3.RB_HALO, restrict=l3.RR_HALO)
 HALO_NEEDED = dict(tw.HALO_NEEDED, sweep=r3.RB_HALO_NEEDED,
                    restrict=l3.RR_HALO)
@@ -285,6 +297,62 @@ def _restrict(shape, halo, warm, lag):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def emulate_prolong(u, e, omega, taps, window_short=0, planes_short=0):
+    """The prolongation-correction kernel's schedule: u + omega * P(e);
+    ``window_short`` coarse window cells and ``planes_short`` of the
+    chunk's coarse planes fewer than the kernel stages."""
+    n0, n1, n2 = u.shape
+    tile, cw = l3.PC_TILE, l3.PC_TILE // 2 + 1
+    chunk = l3.pc_chunk_planes(n0, n1, n2, SMS)
+    out = torch.zeros_like(u)
+    t0, t1, t2 = (torch.tensor(t, dtype=u.dtype) for t in taps)
+    # a tile row or column's coarse window index and its weights on it and
+    # on the next: fine 2i + 1 + o reads index i + 1 (o = 0) or i, i + 1
+    idx = torch.arange(tile)
+    a = (idx + 1) // 2
+    odd = idx % 2 == 1
+    wy = (torch.where(odd, t1[1], t1[2]), torch.where(odd, 0.0, t1[0]))
+    wx = (torch.where(odd, t2[1], t2[2]), torch.where(odd, 0.0, t2[0]))
+    for z0 in range(0, n0, chunk):
+        z1 = min(z0 + chunk, n0)
+        # the chunk's coarse planes z0/2 - 1 .. (z1 - 1)/2; past them zero
+        c0 = z0 // 2 - 1
+        planes = (z1 - 1) // 2 - c0 + 1
+        for y0 in range(0, n1, tile):
+            for x0 in range(0, n2, tile):
+                ew = _window(e, (c0, y0 // 2 - 1, x0 // 2 - 1),
+                             (planes + 1, cw + 1, cw + 1))
+                ew[planes - planes_short:] = 0.0
+                ew[:, cw - window_short:] = 0.0
+                ew[:, :, cw - window_short:] = 0.0
+
+                def inner(f):
+                    c = (f - 1) // 2 - c0
+                    if f % 2:
+                        return t0[1] * ew[c]
+                    return t0[2] * ew[c] + t0[0] * ew[c + 1]
+
+                ye, xe = min(tile, n1 - y0), min(tile, n2 - x0)
+                buf = {z0 % 2: inner(z0)}
+                for s in range(z0, z1):
+                    pi = buf[s % 2]
+                    mid = wy[0][:, None] * pi[a] + wy[1][:, None] * pi[a + 1]
+                    corr = wx[0] * mid[:, a] + wx[1] * mid[:, a + 1]
+                    out[s, y0:y0 + ye, x0:x0 + xe] = \
+                        u[s, y0:y0 + ye, x0:x0 + xe] + omega * corr[:ye, :xe]
+                    if s + 1 < z1:
+                        buf[(s + 1) % 2] = inner(s + 1)
+    return out
+
+
+def _prolong(shape, window_short=0, planes_short=0):
+    u, _, e = _inputs(shape, 8)
+    want = l3.prolong_correct_3d_plain(u, e, _omegas(), 0, P_TAPS)
+    got = emulate_prolong(u, e, OMEGAS[0], P_TAPS, window_short,
+                          planes_short)
+    return float((got - want).abs().max() / want.abs().max())
+
+
 RUN = {"down": _down, "up": _up, "sweep": _sweep, "restrict": _restrict}
 
 
@@ -315,6 +383,19 @@ def test_restrict_schedule_matches_plain(shape):
     """The residual restriction: the down-leg's pipeline with no sweep."""
     assert _restrict(shape, HALO["restrict"], WARMUP["restrict"],
                      tw.LAG) <= RTOL
+
+
+#: the prolongation-correction's shapes: the levels it runs on below
+#: 255^3, with the card's chunks, and two ragged ones
+PROLONG_SHAPES = ((63, 63, 63), (127, 127, 127), (65, 127, 255),
+                  (19, 17, 127))
+
+
+@pytest.mark.parametrize("shape", PROLONG_SHAPES)
+def test_prolong_schedule_matches_plain(shape):
+    """The prolongation-correction: the up-leg's prolongation with no
+    sweep, its window the tile."""
+    assert _prolong(shape) <= RTOL
 
 
 @pytest.mark.parametrize("leg", ["down", "up", "sweep", "restrict"])
@@ -352,24 +433,34 @@ def test_schedule_one_short_differs(leg, what):
 @pytest.mark.parametrize("leg, what", [
     ("sweep", "halo before"), ("sweep", "halo after"), ("sweep", "warm-up"),
     ("sweep", "lag"), ("restrict", "halo before"),
-    ("restrict", "halo after"), ("restrict", "warm-up")])
+    ("restrict", "halo after"), ("restrict", "warm-up"),
+    ("prolong", "coarse window"), ("prolong", "coarse planes")])
 def test_standalone_one_short_differs(leg, what):
     """As test_schedule_one_short_differs for the standalone kernels (the
-    restriction has no sweep, so no lag)."""
-    assert RUN[leg](STANDALONE_SHAPES[leg][0], *_short(leg, what)) > 1e-6
+    restriction has no sweep, so no lag; the prolongation has no halo, and
+    its coarse window or the chunk's coarse planes come one short)."""
+    if leg == "prolong":
+        short = {"window_short": 1} if what == "coarse window" else \
+            {"planes_short": 1}
+        assert _prolong(PROLONG_SHAPES[2], **short) > 1e-6
+    else:
+        assert RUN[leg](STANDALONE_SHAPES[leg][0], *_short(leg, what)) > 1e-6
 
 
 def test_standalone_chunk_rule_at_the_path_levels():
     """The standalone kernels' chunks on a 132-SM card at the levels they
-    run on: one wave of two blocks an SM at 255^3 and 127^3, the fewest
-    planes a chunk may hold (RB_MIN_CHUNK, RR_MIN_CHUNK) at 63^3."""
+    run on: one wave of two blocks an SM at 255^3 and 127^3 (the
+    prolongation's PC_WAVE), the fewest planes a chunk may hold
+    (RB_MIN_CHUNK, RR_MIN_CHUNK, PC_MIN_CHUNK) at 63^3."""
+    legs = ("sweep", "restrict", "prolong")
     chunks = {(n, leg): _chunk(leg, n, n, n)
-              for n in (255, 127, 63) for leg in ("sweep", "restrict")}
-    assert chunks == {(255, "sweep"): 64, (255, "restrict"): 64,
-                      (127, "sweep"): 8, (127, "restrict"): 8,
-                      (63, "sweep"): 2, (63, "restrict"): 2}
-    per_sm = {"sweep": r3.RB_BLOCKS_PER_SM, "restrict": l3.RR_BLOCKS_PER_SM}
-    least = {"sweep": r3.RB_MIN_CHUNK, "restrict": l3.RR_MIN_CHUNK}
+              for n in (255, 127, 63) for leg in legs}
+    assert chunks == {(n, leg): c for n, c in ((255, 64), (127, 8), (63, 2))
+                      for leg in legs}
+    per_sm = {"sweep": r3.RB_BLOCKS_PER_SM, "restrict": l3.RR_BLOCKS_PER_SM,
+              "prolong": l3.PC_WAVE}
+    least = {"sweep": r3.RB_MIN_CHUNK, "restrict": l3.RR_MIN_CHUNK,
+             "prolong": l3.PC_MIN_CHUNK}
     for (n, leg), chunk in chunks.items():
         assert chunk % 2 == 0 and chunk >= least[leg]
         tiles = -(-n // TILE[leg]) ** 2
@@ -409,6 +500,9 @@ class _FakeLibrary:
     def es_residual_restrict_3d_info(self, info):
         return self.es_wavefront_3d_info("restrict", info)
 
+    def es_prolong_correct_3d_info(self, info):
+        return self.es_wavefront_3d_info("prolong", info)
+
 
 @pytest.mark.parametrize("err", [0, 1])
 def test_leg_info_reads_the_entry(monkeypatch, err):
@@ -435,15 +529,16 @@ def test_leg_info_reads_the_entry(monkeypatch, err):
 
 
 @pytest.mark.parametrize("err", [0, 1])
-@pytest.mark.parametrize("kernel", ["sweep", "restrict"])
+@pytest.mark.parametrize("kernel", ["sweep", "restrict", "prolong"])
 def test_standalone_info_reads_the_entry(monkeypatch, kernel, err):
-    """rbgs3d.sweep_info and leg3d.restrict_info ask their entries and name
-    the 11 values as leg_info does, raising when the entry fails; the
-    library is a stand-in."""
+    """rbgs3d.sweep_info, leg3d.restrict_info and leg3d.prolong_info ask
+    their entries and name the 11 values as leg_info does, raising when the
+    entry fails; the library is a stand-in."""
     from evostencils_tpu_torch.ops.kernels import _build
     lib = _FakeLibrary(err, range(20, 31))
     monkeypatch.setattr(_build, "load_library", lambda: lib)
-    read = r3.sweep_info if kernel == "sweep" else l3.restrict_info
+    read = {"sweep": r3.sweep_info, "restrict": l3.restrict_info,
+            "prolong": l3.prolong_info}[kernel]
     if err:
         with pytest.raises(RuntimeError, match="CUDA error 1"):
             read()
