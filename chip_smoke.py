@@ -20,13 +20,17 @@ Phases:
    ragged 65x127x255 and at the 127^3 and 63^3 levels of the 3D path, with
    relaxation factors that differ; time both at every level, with the
    kernel's device time alone (queued behind a spin of the card) beside;
-4. [kernels-rbgs] compare the standalone sweep kernels with their plain
-   versions (the fused red-black sweep and the single-pass sweep in its
-   parity modes -1, 0 and 1, omega 1.15, an anisotropic stencil) at
+4. [kernels-rbgs] check the single-pass sweep kernel's strip, block,
+   blocks per SM and spills in both modes (``rbgs.sweep_info``) against
+   the wrapper module's constants; compare the standalone sweep kernels
+   with their plain versions (the fused red-black sweep and the
+   single-pass sweep in its parity modes -1, 0 and 1, omega 1.15, an
+   anisotropic stencil) at
    4095^2, the [evaluator] levels 1023^2, 511^2 and 255^2 and the ragged
-   300x200, and time both at 4095^2 and those levels, with the kernel's
-   device time alone beside, as for every standalone kernel
-   (time_standalone); [kernels-rr] the same for the standalone transfers
+   300x200, and time both, and one pass of one colour, at 4095^2 and
+   those levels, with the kernel's device time alone and its share of
+   the bound beside, as for every standalone kernel (time_standalone);
+   [kernels-rr] the same for the standalone transfers
    (residual + restriction, prolongation + correction) at the same levels
    and 257x255;
 5. drive the 2D path, the Poisson V(2,1) cycle on 4095^2 (levels 12->5,
@@ -138,14 +142,18 @@ Phases:
    [evaluator];
 17. [evolve-var] ``poisson2d_var NSGAII --mu 2 --lambda 2 --generations 1
    --seed 0`` at its default levels 9->5 (511^2), cut as [evolve];
-18. [kernels-sys] compare the four coupled-system kernels (the fused
+18. [kernels-sys] check the red-black sweep kernel's tile, halo, threads,
+   blocks per SM and spills, with and without row fixups
+   (``rbgs_sys.sweep_info``), against the wrapper module's constants;
+   compare the four coupled-system kernels (the fused
    red-black and the Jacobi sweep, the down-leg and the up-leg) with their
    plain versions at 2047^2, 1023^2 and 255^2 with linear elasticity's own
-   table and at ragged shapes (1025x771 for the legs, 300x200 for the
-   sweeps) with a random table whose point solve is not diagonal, row
-   fixups and asymmetric taps, the legs for 1..3 sweeps, red-black and
-   Jacobi; print each leg instantiation's halo, resident blocks per SM,
-   registers, local memory and shared memory; time the sweeps at 2047^2
+   table and at ragged shapes (1025x771 for the legs, 300x200 and 65x130,
+   which no sweep window divides, for the sweeps) with a random table
+   whose point solve is not diagonal, row fixups and asymmetric taps, the
+   legs for 1..3 sweeps, red-black and Jacobi; print each leg
+   instantiation's halo, resident blocks per SM, registers, local memory
+   and shared memory; time the sweeps at 2047^2
    and the V(2,1)'s legs (2 sweeps down, 1 up), red-black and Jacobi, at
    2047^2 and 255^2 (the level of [evaluator-elast] and [evolve-elast]),
    and the sweeps at those two levels too;
@@ -956,8 +964,31 @@ def time_standalone(torch, stats, name, tag, shape, kern, plain, bound,
 STANDALONE_SHAPES = [(4095, 4095), (1023, 1023), (511, 511), (255, 255)]
 
 
+def check_rbgs_sweep_info(rbgs):
+    """The single-pass sweep kernel of each mode (``rbgs.sweep_info``):
+    its strip, block, threads, blocks per SM, registers, local memory
+    (spills) and shared memory, from the card.  Strip and block must be
+    the wrapper module's; at least SWEEP_BLOCKS_PER_SM blocks must be
+    resident; nothing may spill."""
+    for one_colour in (False, True):
+        i = rbgs.sweep_info(one_colour)
+        what = "parity 0/1" if one_colour else "parity -1"
+        log(f"[kernels-rbgs] sweep {what}: strip {i['strip']} rows, block "
+            f"{i['block_cols']}x{i['block_strips']} ({i['threads']} "
+            f"threads), {i['blocks_per_sm']} blocks/SM, {i['registers']} "
+            f"registers, {i['local_bytes']} B local, {i['smem_bytes']} B "
+            "shared")
+        want = {"strip": rbgs.SWEEP_STRIP, "block_cols": rbgs.SWEEP_BLOCK[0],
+                "block_strips": rbgs.SWEEP_BLOCK[1], "local_bytes": 0}
+        check(all(i[k] == v for k, v in want.items())
+              and i["blocks_per_sm"] >= rbgs.SWEEP_BLOCKS_PER_SM,
+              f"sweep {what} info {i} against the wrapper's {want}, "
+              f"{rbgs.SWEEP_BLOCKS_PER_SM} blocks/SM")
+
+
 def phase_kernels_rbgs(torch, rbgs, device):
     """The standalone sweep kernels against their plain versions."""
+    check_rbgs_sweep_info(rbgs)
     stats = {name: {"max_abs_err": 0.0}
              for name in ("fused_rbgs_sweep", "jacobi_sweep")}
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
@@ -996,6 +1027,13 @@ def phase_kernels_rbgs(torch, rbgs, device):
             torch, stats, "jacobi_sweep", "kernels-rbgs", shape,
             lambda: rbgs.jacobi_sweep(u, b, omegas, 2, VALS),
             lambda: rbgs.jacobi_sweep_plain(u, b, omegas, 2, VALS),
+            sweep_bound(shape))
+        # one pass of one colour (half of rbgs_sweep), against the same
+        # bound: it reads u and b and writes u as the Jacobi pass does
+        time_standalone(
+            torch, None, "jacobi_sweep parity 0", "kernels-rbgs", shape,
+            lambda: rbgs.sweep(u, b, omegas, 2, VALS, 0),
+            lambda: rbgs.sweep_plain(u, b, omegas, 2, VALS, 0),
             sweep_bound(shape))
     return stats
 
@@ -1302,14 +1340,15 @@ def time_var_legs(torch, rbgs_var, device, shape, stats=None):
                                    bound_by=by)
 
 
-def check_sweep_info(tag, module):
-    """The windowed red-black sweep of ``module`` (``sweep_info``): its
-    tile, halo, threads, blocks per SM, registers, local memory (spills)
-    and shared memory, from the card.  Tile, halo and threads must be the
-    wrapper module's; at least the blocks per SM it states must be
-    resident; nothing may spill."""
-    i = module.sweep_info()
-    log(f"[{tag}] red-black sweep: tile {i['tile_rows']}x{i['tile_cols']}, "
+def check_sweep_info(tag, module, **kw):
+    """The windowed red-black sweep of ``module`` (``sweep_info(**kw)``):
+    its tile, halo, threads, blocks per SM, registers, local memory
+    (spills) and shared memory, from the card.  Tile, halo and threads
+    must be the wrapper module's; at least the blocks per SM it states
+    must be resident; nothing may spill."""
+    i = module.sweep_info(**kw)
+    what = "red-black sweep" + "".join(f" {k}={v}" for k, v in kw.items())
+    log(f"[{tag}] {what}: tile {i['tile_rows']}x{i['tile_cols']}, "
         f"halo {i['halo']}, {i['threads']} threads, {i['blocks_per_sm']} "
         f"blocks/SM, {i['registers']} registers, {i['local_bytes']} B "
         f"local, {i['smem_bytes']} B shared")
@@ -1319,7 +1358,7 @@ def check_sweep_info(tag, module):
             "local_bytes": 0}
     check(all(i[k] == v for k, v in want.items())
           and i["blocks_per_sm"] >= module.SWEEP_BLOCKS_PER_SM,
-          f"{tag} sweep info {i} against the wrapper's {want}, "
+          f"{tag} {what} info {i} against the wrapper's {want}, "
           f"{module.SWEEP_BLOCKS_PER_SM} blocks/SM")
 
 
@@ -1511,10 +1550,10 @@ def random_sys_table(rng):
 #: the [kernels-sys] shapes and tables: the main path's two finest levels
 #: and the evaluator's level with elasticity's own table, ragged shapes
 #: with the random table, its fixups and asymmetric taps (the legs take
-#: the odd one)
+#: the odd one; no sweep window divides 65x130's rows or columns)
 SYS_CASES = [((2047, 2047), "elasticity"), ((1023, 1023), "elasticity"),
              ((255, 255), "elasticity"), ((1025, 771), "random"),
-             ((300, 200), "random")]
+             ((300, 200), "random"), ((65, 130), "random")]
 #: the shapes the legs and sweeps are timed at: the main path's finest
 #: level (its red-black numbers go to the kernels line) and the level of
 #: [evaluator-elast] and [evolve-elast]
@@ -1591,6 +1630,8 @@ def phase_kernels_sys(torch, rbgs_sys, device):
     """The coupled-system kernels against their plain versions; sweeps and
     legs timed in turns at 2047^2, the main path's finest level, and at
     255^2, the evaluator's."""
+    for fixups in (False, True):
+        check_sweep_info("kernels-sys", rbgs_sys, fixups=fixups)
     stats = {name: {"max_abs_err": 0.0} for name in SYS_SWEEPS + SYS_LEGS}
     omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
                           device=device)

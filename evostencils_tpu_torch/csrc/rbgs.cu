@@ -24,10 +24,27 @@
 // What bounds them: device-memory bytes.  A sweep must read u and b once
 // and write u once (12 bytes a point); it does about a dozen flops a point.
 //
-// es_sweep reads u through the cache: one thread a point, neighbours
-// reused from L1/L2, and the output goes to a buffer it does not read, so
-// that parity -1 sees only the old u.  A half-sweep of one colour is exact
-// in the same way, because every neighbour of a point has the other colour.
+// es_sweep (sweep_kernel<ONE>) writes a buffer it does not read, so that
+// parity -1 sees only the old u; a pass of one colour is exact in the same
+// way, because every neighbour of a point has the other colour.  Each
+// thread owns a strip of STRIP rows of one column: it loads u on the strip
+// and one row beyond each end, so each value crosses device memory once a
+// strip plus the two end rows, and b on the rows it updates, all before
+// its arithmetic (3 * STRIP / 2 + 2 loads in flight a thread); up and down
+// roll through registers; left and right come from the lanes beside it by
+// warp shuffles, with one load a row at each warp edge.  omega * dinv is
+// formed once a thread.  In a single-colour pass (ONE) a strip holds both
+// colours and lanes beside each other differ in column parity, so every
+// lane updates every other row of its strip (rows d, d + 2, ..., d its
+// first of the colour), copies the others to out, and sends its copied
+// row to its neighbours, which is their updated one: no lane idles, and b
+// is read only where a point updates.  Strips of 4 rows in blocks of 128 x
+// 2 threads, 40 registers, six blocks an SM (1023^2 makes 1,024 blocks,
+// about 1.3 waves of 132 SMs); on the H100 this was the fastest of the
+// strips of 2, 4, 6, 8 and 16 rows and the five blocks tried, or within
+// 0.0001 ms of it at every level (PERF.md section 6).
+// es_sweep_info reports it from the card, and
+// tests/test_torch_rbgs_tiles.py emulates the schedule in float64.
 //
 // es_fused_rbgs_sweep needs the red values of the ring around its tile
 // before its black half-sweep.  Each block loads a (T+4) x (T+4) window of
@@ -46,7 +63,6 @@ constexpr int TILE = 64;
 constexpr int WIN = TILE + 4;            // 2-cell halo on each side
 constexpr int THREADS = 256;
 constexpr int FUSED_SMEM = 2 * WIN * WIN * sizeof(float);
-constexpr int SWEEP_BX = 32, SWEEP_BY = 8;
 
 struct Sweep {
   // 5-point stencil: center and the neighbours up (-1,0), down (+1,0),
@@ -57,26 +73,109 @@ struct Sweep {
   int n, m;
 };
 
-__global__ void __launch_bounds__(SWEEP_BX * SWEEP_BY)
+// es_sweep's schedule (see the design note at the top): blocks of
+// SWEEP_BX x SWEEP_BY threads; thread (x, y) owns column
+// blockIdx.x * SWEEP_BX + x and the STRIP rows from
+// (blockIdx.y * SWEEP_BY + y) * STRIP on.  The defaults are the measured
+// choice (PERF.md section 6); kernel_variants.py builds this file with
+// other -D values to time the others.
+#ifndef ES_SWEEP_STRIP
+#define ES_SWEEP_STRIP 4
+#endif
+#ifndef ES_SWEEP_BX
+#define ES_SWEEP_BX 128
+#endif
+#ifndef ES_SWEEP_BY
+#define ES_SWEEP_BY 2
+#endif
+constexpr int STRIP = ES_SWEEP_STRIP;
+constexpr int SWEEP_BX = ES_SWEEP_BX, SWEEP_BY = ES_SWEEP_BY;
+static_assert(STRIP % 2 == 0 && SWEEP_BX % 32 == 0,
+              "strips hold colour pairs, and a warp lies in one strip row");
+// at least 1024 threads resident on an SM (64 registers a thread)
+#ifndef ES_SWEEP_MIN_BLOCKS
+#define ES_SWEEP_MIN_BLOCKS (1024 / (SWEEP_BX * SWEEP_BY))
+#endif
+constexpr int SWEEP_MIN_BLOCKS = ES_SWEEP_MIN_BLOCKS;
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// The neighbours left and right of this lane's value `v` on one row: from
+// the lanes beside it, and at the warp's edges from `edge`, the value the
+// edge lane loaded (lane 0 its left, lane 31 its right neighbour).
+__device__ __forceinline__ void beside(float v, float edge, int lane,
+                                       float& lf, float& rt) {
+  lf = __shfl_up_sync(FULL, v, 1);
+  rt = __shfl_down_sync(FULL, v, 1);
+  if (lane == 0) lf = edge;
+  if (lane == 31) rt = edge;
+}
+
+// ONE: a single-colour pass (p.parity 0 or 1), else every point (-1).
+template <bool ONE>
+__global__ void __launch_bounds__(SWEEP_BX * SWEEP_BY, SWEEP_MIN_BLOCKS)
 sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
              const float* __restrict__ omegas, float* __restrict__ out,
              Sweep p) {
+  constexpr int R = STRIP, Q = ONE ? R / 2 : R;   // rows updated
+  const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * SWEEP_BX + threadIdx.x;
-  const int i = blockIdx.y * SWEEP_BY + threadIdx.y;
-  if (i >= p.n || j >= p.m) return;
-  const long g = static_cast<long>(i) * p.m + j;
-  const float v = u[g];
-  if (p.parity >= 0 && ((i + j) & 1) != p.parity) {
-    out[g] = v;
-    return;
+  const int i0 = (blockIdx.y * SWEEP_BY + threadIdx.y) * R;
+  if (i0 >= p.n) return;   // the whole warp: it shares i0
+  const bool col = j < p.m;
+  const long g0 = static_cast<long>(i0) * p.m + j;
+  // the updated rows: every row, or the strip's rows of colour p.parity,
+  // d, d + 2, ... (the other colour's rows are copied)
+  const int d = ONE ? (p.parity + i0 + j) & 1 : 0;
+  constexpr int STEP = ONE ? 2 : 1;
+  // the warp-edge lanes' neighbour column; the others load none
+  const int je = lane == 0 ? j - 1 : j + 1;
+  const bool edge = (lane == 0 || lane == 31) && je >= 0 && je < p.m;
+
+  // every load before the arithmetic: u on the strip and one row beyond
+  // each end, b and the edge neighbour on the updated rows
+  float c[R + 2], bb[Q], e[Q];
+#pragma unroll
+  for (int k = 0; k < R + 2; ++k) {
+    const int i = i0 - 1 + k;
+    c[k] = col && i >= 0 && i < p.n ? u[g0 + static_cast<long>(k - 1) * p.m]
+                                    : 0.f;
   }
-  const float up = i > 0 ? u[g - p.m] : 0.f;
-  const float dn = i < p.n - 1 ? u[g + p.m] : 0.f;
-  const float lf = j > 0 ? u[g - 1] : 0.f;
-  const float rt = j < p.m - 1 ? u[g + 1] : 0.f;
-  const float au = p.c * v + p.a_up * up + p.a_dn * dn + p.a_lf * lf +
-                   p.a_rt * rt;
-  out[g] = v + (omegas[p.om] * p.dinv) * (b[g] - au);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int k = STEP * q + d, i = i0 + k;
+    const bool row = i < p.n;
+    bb[q] = col && row ? b[g0 + static_cast<long>(k) * p.m] : 0.f;
+    e[q] = edge && row ? u[static_cast<long>(i) * p.m + je] : 0.f;
+  }
+  const float om_dinv = omegas[p.om] * p.dinv;
+
+  float res[R];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    // row k = STEP q + d of the strip is c[k + 1]; in a single-colour pass
+    // the lane sends its other row of the pair, which is the row of this
+    // lane's colour in the lanes beside it (their column parity differs)
+    const int k0 = STEP * q;
+    const float v = ONE && d ? c[k0 + 2] : c[k0 + 1];
+    const float up = ONE && d ? c[k0 + 1] : c[k0];
+    const float dn = ONE && d ? c[k0 + 3] : c[k0 + 2];
+    const float send = !ONE ? v : d ? c[k0 + 1] : c[k0 + 2];
+    float lf, rt;
+    beside(send, e[q], lane, lf, rt);
+    const float au = p.c * v + p.a_up * up + p.a_dn * dn + p.a_lf * lf +
+                     p.a_rt * rt;
+    const float nv = v + om_dinv * (bb[q] - au);
+    if (ONE) {
+      res[k0] = d ? c[k0 + 1] : nv;
+      res[k0 + 1] = d ? nv : c[k0 + 2];
+    } else {
+      res[k0] = nv;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (col && i0 + k < p.n) out[g0 + static_cast<long>(k) * p.m] = res[k];
 }
 
 // One half-sweep of colour `parity` on the window cells whose row and
@@ -143,6 +242,13 @@ Sweep make_sweep(const double* vals, int om, int parity, int n, int m) {
   return p;
 }
 
+// The single-pass sweep's instantiation: one colour or every point.
+using SweepKernel = void (*)(const float*, const float*, const float*, float*,
+                             Sweep);
+SweepKernel sweep_of(bool one_colour) {
+  return one_colour ? sweep_kernel<true> : sweep_kernel<false>;
+}
+
 }  // namespace
 
 // vals: 5 stencil values (center, (-1,0), (+1,0), (0,-1), (0,+1)).
@@ -154,9 +260,11 @@ extern "C" int es_sweep(const float* u, const float* b, const float* omegas,
   if (n < 1 || m < 1 || parity < -1 || parity > 1 || vals[0] == 0.0)
     return cudaErrorInvalidValue;
   const Sweep p = make_sweep(vals, om, parity, n, m);
-  const dim3 grid((m + SWEEP_BX - 1) / SWEEP_BX, (n + SWEEP_BY - 1) / SWEEP_BY);
-  sweep_kernel<<<grid, dim3(SWEEP_BX, SWEEP_BY), 0,
-                 static_cast<cudaStream_t>(stream)>>>(u, b, omegas, out, p);
+  const int rows = STRIP * SWEEP_BY;
+  const dim3 grid((m + SWEEP_BX - 1) / SWEEP_BX, (n + rows - 1) / rows);
+  sweep_of(parity >= 0)<<<grid, dim3(SWEEP_BX, SWEEP_BY), 0,
+                          static_cast<cudaStream_t>(stream)>>>(u, b, omegas,
+                                                               out, p);
   return cudaGetLastError();
 }
 
@@ -171,4 +279,30 @@ extern "C" int es_fused_rbgs_sweep(const float* u, const float* b,
                       static_cast<cudaStream_t>(stream)>>>(u, b, omegas, out,
                                                            p);
   return cudaGetLastError();
+}
+
+// What es_sweep's kernel (one_colour: parity 0 or 1, else -1) is on this
+// card: info[0] the rows of a thread's strip, [1], [2] the block's
+// columns and strips (SWEEP_BX, SWEEP_BY), [3] threads per block, [4]
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// [5] registers per thread, [6] local memory per thread in bytes (spills
+// land there), [7] shared memory per block in bytes.
+extern "C" int es_sweep_info(int one_colour, int* info) {
+  const void* kernel = reinterpret_cast<const void*>(sweep_of(one_colour));
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, SWEEP_BX * SWEEP_BY, 0);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = STRIP;
+  info[1] = SWEEP_BX;
+  info[2] = SWEEP_BY;
+  info[3] = SWEEP_BX * SWEEP_BY;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
 }

@@ -39,14 +39,28 @@
 // recomputes its halo and runs its passes one after another, at two
 // blocks an SM (PERF.md section 6 has their times against it).
 //
-// Design of the sweep.  The standalone red-black sweep is rbgs.cu's: a
-// 68 x 68 window of u and b of every field with a 2-cell halo, red on the
-// tile and a one-cell ring (a black point's new value needs only its four
-// axis neighbours red), then black on the tile; a red point's corner
-// neighbours are red, so a half-sweep cannot update in place: each thread
-// first computes the new values of its points into registers, the block
-// synchronises, and then writes them.  The Jacobi sweep is one thread a
-// point writing buffers it does not read.
+// Design of the red-black sweep (rbgs_sys_kernel<FIX>): the legs' passes
+// with no transfer.  A block owns a tile and stages u and b of both fields
+// over a window two cells wider on every side (halo 2), zero outside the
+// grid, by 4-byte cp.async (rows of 2047 and 255 floats are only 4-byte
+// aligned), all of a thread's copies in flight before one wait, in the
+// legs' layout split by column parity.  Red updates the window cells at a
+// distance >= 1 from the window edge, black those at >= 2 (PassCells,
+// rb_pass): their neighbours all lie in the window, so no read is
+// predicated, and the tile (distance >= 2) is right after both.  A pass
+// takes only the items of its colour, every lane busy; a red point's
+// corner neighbours are red, so a pass cannot update in place: its new
+// values are staged in registers across a barrier.  Row fixups are a
+// template parameter, so linear elasticity runs no fixup loop.  The
+// window is SweepWin's, 16 x 64 cells in 256-thread blocks, 16,384 bytes
+// of static shared memory (no opt-in above 48 KB), five blocks an SM.  On
+// the H100 it was the fastest of the 8 x 64, 16 x 64, 32 x 64 and 64 x 64
+// windows at 2047^2, and staging b beat reading it through the read-only
+// cache by 11%; 8 x 64 won 0.0003 ms at 255^2, too little for a second
+// window class (PERF.md section 6).  es_sweep_sys_info reports it from
+// the card, and tests/test_torch_sys_tiles.py emulates its schedule in
+// float64.  The Jacobi sweep is one thread a point writing buffers it
+// does not read.
 //
 // Design of the legs.  Each 512-thread block owns a TILE x TILE fine tile
 // and stages only u's window of both fields, with a halo sized to the
@@ -88,9 +102,7 @@ constexpr int NF = 2;                  // fields the kernels are built for
 constexpr int MAX_EXC = 4;
 constexpr int MAX_SWEEPS = 3;
 constexpr int THREADS = 512;
-constexpr int TILE = 64;
-constexpr int SWIN = TILE + 4;         // standalone red-black sweep window
-constexpr int SWEEP_SMEM = 2 * NF * SWIN * SWIN * sizeof(float);
+constexpr int TILE = 64;              // a leg's fine tile
 constexpr int JAC_BX = 32, JAC_BY = 8;
 
 // The operator: coefficient table, point-solve matrix, row fixups.
@@ -119,23 +131,6 @@ struct SysLeg {
 
 __device__ __forceinline__ bool inside(int n, int m, int gr, int gc) {
   return gr >= 0 && gr < n && gc >= 0 && gc < m;
-}
-
-// The nine values around s in a window of edge W (NINE_OFFSETS order);
-// neighbours outside the window read as 0.
-template <int W>
-__device__ __forceinline__ void nine(const float* s, int wr, int wc,
-                                     float v[9]) {
-  const bool up = wr > 0, dn = wr < W - 1, lf = wc > 0, rt = wc < W - 1;
-  v[0] = s[0];
-  v[1] = up ? s[-W] : 0.f;
-  v[2] = dn ? s[W] : 0.f;
-  v[3] = lf ? s[-1] : 0.f;
-  v[4] = rt ? s[1] : 0.f;
-  v[5] = up && lf ? s[-W - 1] : 0.f;
-  v[6] = up && rt ? s[-W + 1] : 0.f;
-  v[7] = dn && lf ? s[W - 1] : 0.f;
-  v[8] = dn && rt ? s[W + 1] : 0.f;
 }
 
 // r_i = b_i - (A u)_i at a point of global row gr whose neighbourhoods are
@@ -184,104 +179,9 @@ __device__ __forceinline__ void point_update(const float v[NF][9],
 }
 
 // ---------------------------------------------------------------------------
-// the standalone sweeps
+// the standalone Jacobi sweep (the red-black sweep runs the legs' passes and
+// follows them)
 // ---------------------------------------------------------------------------
-
-// Field f's window is su + f * W * W (and sb + f * W * W).
-template <int W>
-__device__ __forceinline__ void window_point(const float* su, const float* sb,
-                                             int idx, int wr, int wc,
-                                             float v[NF][9], float b[NF]) {
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    nine<W>(su + f * W * W + idx, wr, wc, v[f]);
-    b[f] = sb[f * W * W + idx];
-  }
-}
-
-// One half-sweep on the window cells whose row and column indices lie in
-// [lo, W - 1 - lo]: colour `parity` (0 red, 1 black), or every cell (-1, a
-// Jacobi sweep).  The new values are staged in registers and written after
-// the block has read all the old ones.
-template <int W>
-__device__ void half_sweep(float* su, const float* sb, const SysOp& p,
-                           float om, int n, int m, int r0, int c0, int parity,
-                           int lo) {
-  constexpr int K = (W * W + THREADS - 1) / THREADS;
-  float nv[K][NF];
-  unsigned todo = 0;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int idx = threadIdx.x + k * THREADS;
-    if (idx >= W * W) continue;
-    const int wr = idx / W, wc = idx - wr * W;
-    if (wr < lo || wr > W - 1 - lo || wc < lo || wc > W - 1 - lo) continue;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (!inside(n, m, gr, gc)) continue;
-    if (parity >= 0 && ((gr + gc) & 1) != parity) continue;
-    float v[NF][9], b[NF];
-    window_point<W>(su, sb, idx, wr, wc, v, b);
-    point_update<true>(v, b, gr, p, om, nv[k]);
-    todo |= 1u << k;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    if (!(todo & (1u << k))) continue;
-    const int idx = threadIdx.x + k * THREADS;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) su[f * W * W + idx] = nv[k][f];
-  }
-  __syncthreads();
-}
-
-// u and b of every field over the window of edge W whose top-left interior
-// index is (r0, c0); zeros outside the grid.
-template <int W>
-__device__ void load_window(const SysPtrs& t, float* su, float* sb, int n,
-                            int m, int r0, int c0) {
-  for (int idx = threadIdx.x; idx < W * W; idx += blockDim.x) {
-    const int wr = idx / W, wc = idx - wr * W;
-    const int gr = r0 + wr, gc = c0 + wc;
-    const bool in = inside(n, m, gr, gc);
-    const long g = static_cast<long>(gr) * m + gc;
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      su[f * W * W + idx] = in ? t.u[f][g] : 0.f;
-      sb[f * W * W + idx] = in ? t.b[f][g] : 0.f;
-    }
-  }
-}
-
-// The TILE x TILE interior of the window (halo h) of every field to out.
-template <int W>
-__device__ void store_tile(const float* su, const SysPtrs& t, int n, int m,
-                           int r0, int c0, int h) {
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
-    const int i = idx / TILE, j = idx - i * TILE;
-    const int gr = r0 + h + i, gc = c0 + h + j;
-    if (!inside(n, m, gr, gc)) continue;
-    const long g = static_cast<long>(gr) * m + gc;
-#pragma unroll
-    for (int f = 0; f < NF; ++f)
-      t.out[f][g] = su[f * W * W + (h + i) * W + h + j];
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-rbgs_sys_kernel(SysPtrs t, SysOp p, const float* __restrict__ omegas,
-                int om_id, int n, int m) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + NF * SWIN * SWIN;
-  const int r0 = blockIdx.y * TILE - 2, c0 = blockIdx.x * TILE - 2;
-  load_window<SWIN>(t, su, sb, n, m, r0, c0);
-  __syncthreads();
-  const float om = omegas[om_id];
-  half_sweep<SWIN>(su, sb, p, om, n, m, r0, c0, 0, 1);  // red: tile + ring
-  half_sweep<SWIN>(su, sb, p, om, n, m, r0, c0, 1, 2);  // black: the tile
-  store_tile<SWIN>(su, t, n, m, r0, c0, 2);
-}
 
 __global__ void __launch_bounds__(JAC_BX * JAC_BY)
 jacobi_sys_kernel(SysPtrs t, SysOp p, const float* __restrict__ omegas,
@@ -359,17 +259,18 @@ __device__ __forceinline__ void nine_split(const float* s, int wr, int wc,
   v[8] = s[c + W + r];
 }
 
-// The cells of pass LO (1-based) of a leg window: rows and columns
-// [LO, W - 1 - LO], A = W - 2 LO of each; each row has A / 2 cells of each
-// column parity.  Item q is cell s = q mod (A / 2) of half h of row
-// LO + q / (A / 2) in a red-black pass, whose column parity the colour
-// fixes; in a Jacobi pass both halves of a row are items.
-template <int W, int LO, bool RB>
+// The cells of pass LO (1-based) of a window of WR rows and W columns (a
+// leg's is square): rows [LO, WR - 1 - LO] and columns [LO, W - 1 - LO],
+// A = W - 2 LO of them in each row, A / 2 of each column parity.  Item q
+// is cell s = q mod (A / 2) of half h of row LO + q / (A / 2) in a
+// red-black pass, whose column parity the colour fixes; in a Jacobi pass
+// both halves of a row are items.  NT threads take the items, K each.
+template <int W, int LO, bool RB, int WR = W, int NT = THREADS>
 struct PassCells {
   static constexpr int A = W - 2 * LO;
   static constexpr int HA = A / 2;
-  static constexpr int ITEMS = (RB ? 1 : 2) * A * HA;
-  static constexpr int K = (ITEMS + THREADS - 1) / THREADS;
+  static constexpr int ITEMS = (RB ? 1 : 2) * (WR - 2 * LO) * HA;
+  static constexpr int K = (ITEMS + NT - 1) / NT;
   // window cell of item q; colour parity (red-black only)
   static __device__ __forceinline__ void cell(int q, int r0, int c0,
                                               int parity, int& wr, int& wc) {
@@ -390,17 +291,21 @@ struct PassCells {
   }
 };
 
-// Red-black pass LO of a leg: the cells of PassCells, new values staged in
-// registers and written after a barrier.
-template <int W, int LO, bool FIX>
+// Red-black pass LO of a window of WR rows and W columns (a leg's is
+// square) taken by NT threads: the cells of PassCells, new values staged
+// in registers and written after a barrier.  b is read through the
+// read-only cache, or (SB) from sb, a window of b in u's layout.
+template <int W, int LO, bool FIX, int WR = W, int NT = THREADS,
+          bool SB = false>
 __device__ __forceinline__ void rb_pass(float* su, const SysPtrs& t,
                                         const SysOp& p, float om, int n,
-                                        int m, int r0, int c0, int parity) {
-  using C = PassCells<W, LO, true>;
+                                        int m, int r0, int c0, int parity,
+                                        const float* sb = nullptr) {
+  using C = PassCells<W, LO, true, WR, NT>;
   float nv[C::K][NF];
 #pragma unroll
   for (int k = 0; k < C::K; ++k) {
-    const int q = threadIdx.x + k * THREADS;
+    const int q = threadIdx.x + k * NT;
     if (q >= C::ITEMS) continue;
     int wr, wc;
     C::cell(q, r0, c0, parity, wr, wc);
@@ -410,21 +315,21 @@ __device__ __forceinline__ void rb_pass(float* su, const SysPtrs& t,
     const long g = static_cast<long>(gr) * m + gc;
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
-      nine_split<W>(su + f * W * W, wr, wc, v[f]);
-      b[f] = __ldg(t.b[f] + g);
+      nine_split<W>(su + f * WR * W, wr, wc, v[f]);
+      b[f] = SB ? sb[f * WR * W + at<W>(wr, wc)] : __ldg(t.b[f] + g);
     }
     point_update<FIX>(v, b, gr, p, om, nv[k]);
   }
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < C::K; ++k) {
-    const int q = threadIdx.x + k * THREADS;
+    const int q = threadIdx.x + k * NT;
     if (q >= C::ITEMS) continue;
     int wr, wc;
     C::cell(q, r0, c0, parity, wr, wc);
     if (!inside(n, m, r0 + wr, c0 + wc)) continue;
 #pragma unroll
-    for (int f = 0; f < NF; ++f) su[f * W * W + at<W>(wr, wc)] = nv[k][f];
+    for (int f = 0; f < NF; ++f) su[f * WR * W + at<W>(wr, wc)] = nv[k][f];
   }
   __syncthreads();
 }
@@ -689,6 +594,119 @@ upleg_sys_kernel(SysPtrs t, SysOp p, SysLeg L,
 }
 
 // ---------------------------------------------------------------------------
+// the standalone red-black sweep: rbgs_sys_kernel<FIX> (es_sweep_sys; see
+// the design note at the top)
+// ---------------------------------------------------------------------------
+
+// The sweep's window: ROWS x 64 cells, halo 2, blocks of THREADS threads,
+// at least BLOCKS resident on an SM (1024 / THREADS: 64 registers a
+// thread); b staged beside u (STAGE_B), or read through the read-only
+// cache.  The defaults are the measured choice (PERF.md section 6);
+// kernel_variants.py builds this file with other -D values to time the
+// others.
+#ifndef ES_SYS_SWEEP_ROWS
+#define ES_SYS_SWEEP_ROWS 16
+#endif
+#ifndef ES_SYS_SWEEP_THREADS
+#define ES_SYS_SWEEP_THREADS 256
+#endif
+#ifndef ES_SYS_SWEEP_STAGE_B
+#define ES_SYS_SWEEP_STAGE_B 1
+#endif
+#ifndef ES_SYS_SWEEP_BLOCKS
+#define ES_SYS_SWEEP_BLOCKS (1024 / ES_SYS_SWEEP_THREADS)
+#endif
+
+struct SweepWin {
+  static constexpr int H = 2;
+  static constexpr int WR = ES_SYS_SWEEP_ROWS, WC = 64;
+  static constexpr int NT = ES_SYS_SWEEP_THREADS;
+  static constexpr int BLOCKS = ES_SYS_SWEEP_BLOCKS;
+  static constexpr bool SB = ES_SYS_SWEEP_STAGE_B != 0;
+  static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
+  static constexpr int FIELD = WR * WC;   // one field's window
+  static constexpr int SMEM =
+      (SB ? 2 : 1) * NF * FIELD * static_cast<int>(sizeof(float));
+  static_assert(FIELD % NT == 0 && TR > 0 && TR % 2 == 0,
+                "whole copies a thread, even tiles");
+  static_assert(SMEM <= 48 * 1024, "no dynamic shared memory opt-in");
+};
+
+// 4 bytes from src to shared dst without waiting; zeros when !in (src is
+// then not read).
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// u (and with SB b) of every field over the sweep window whose top-left
+// interior index is (r0, c0), zero outside the grid, by cp.async: every
+// copy of the thread in flight, then one wait and a barrier.  Lanes copy
+// consecutive columns of a row.
+template <typename L>
+__device__ __forceinline__ void stage_sweep(const SysPtrs& t, float* su,
+                                            int n, int m, int r0, int c0) {
+#pragma unroll
+  for (int k = 0; k < L::FIELD / L::NT; ++k) {
+    const int idx = threadIdx.x + k * L::NT;
+    const int wr = idx / L::WC, wc = idx % L::WC;
+    const int gr = r0 + wr, gc = c0 + wc;
+    const bool in = inside(n, m, gr, gc);
+    const long g = in ? static_cast<long>(gr) * m + gc : 0;
+    float* dst = su + at<L::WC>(wr, wc);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      copy_async(dst + f * L::FIELD, t.u[f] + g, in);
+      if (L::SB) copy_async(dst + (NF + f) * L::FIELD, t.b[f] + g, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The tile (the window less the halo) of every field to out.
+template <typename L>
+__device__ __forceinline__ void store_sweep(const float* su,
+                                            const SysPtrs& t, int n, int m,
+                                            int r0, int c0) {
+#pragma unroll
+  for (int k = 0; k < L::FIELD / L::NT; ++k) {
+    const int idx = threadIdx.x + k * L::NT;
+    const int wr = idx / L::WC, wc = idx % L::WC;
+    const int gr = r0 + wr, gc = c0 + wc;
+    if (wr < L::H || wr >= L::WR - L::H || wc < L::H ||
+        wc >= L::WC - L::H || !inside(n, m, gr, gc))
+      continue;
+    const long g = static_cast<long>(gr) * m + gc;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      t.out[f][g] = su[f * L::FIELD + at<L::WC>(wr, wc)];
+  }
+}
+
+template <bool FIX>
+__global__ void __launch_bounds__(SweepWin::NT, SweepWin::BLOCKS)
+rbgs_sys_kernel(SysPtrs t, SysOp p, const float* __restrict__ omegas,
+                int om_id, int n, int m) {
+  using L = SweepWin;
+  __shared__ float su[L::SMEM / sizeof(float)];
+  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
+  const float om = omegas[om_id];
+  stage_sweep<L>(t, su, n, m, r0, c0);
+  const float* sb = su + NF * L::FIELD;
+  // red on the cells at distance >= 1, black on those at >= 2
+  rb_pass<L::WC, 1, FIX, L::WR, L::NT, L::SB>(su, t, p, om, n, m, r0, c0,
+                                              0, sb);
+  rb_pass<L::WC, 2, FIX, L::WR, L::NT, L::SB>(su, t, p, om, n, m, r0, c0,
+                                              1, sb);
+  store_sweep<L>(su, t, n, m, r0, c0);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -762,6 +780,12 @@ dim3 tiles(int n, int m) {
   return dim3((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
 }
 
+// The red-black sweep's instantiation: with row fixups or without.
+using SweepKernel = void (*)(SysPtrs, SysOp, const float*, int, int, int);
+SweepKernel sweep_of(bool fix) {
+  return fix ? rbgs_sys_kernel<true> : rbgs_sys_kernel<false>;
+}
+
 bool bad_shape(int n, int m) { return n < 3 || m < 3 || !(n & 1) || !(m & 1); }
 
 // One leg instantiation: its kernel, halo and shared memory.
@@ -811,13 +835,14 @@ LegInst find_leg(bool down, int sweeps, bool red_black, bool fix) {
   }
 }
 
+bool has_fixups(const SysOp& p) { return p.n_exc + p.n_exc_minv > 0; }
+
 // Launch a leg whose halo the caller derived; refuse one the instantiation
 // was not built for.
 cudaError_t launch_leg(bool down, int sweeps, int red_black, int halo,
                        const SysOp& p, const SysPtrs& t, const SysLeg& L,
                        const float* omegas, void* stream) {
-  const LegInst inst =
-      find_leg(down, sweeps, red_black != 0, p.n_exc + p.n_exc_minv > 0);
+  const LegInst inst = find_leg(down, sweeps, red_black != 0, has_fixups(p));
   if (!inst.kernel || halo != inst.halo) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(inst.kernel, inst.smem);
   if (err != cudaSuccess) return err;
@@ -842,10 +867,10 @@ extern "C" int es_sweep_sys(const void* const* u, const void* const* b,
   const SysPtrs t = make_ptrs(u, b, nullptr, out, nullptr);
   const auto s = static_cast<cudaStream_t>(stream);
   if (red_black) {
-    cudaError_t err = allow_smem(rbgs_sys_kernel, SWEEP_SMEM);
-    if (err != cudaSuccess) return err;
-    rbgs_sys_kernel<<<tiles(n, m), THREADS, SWEEP_SMEM, s>>>(t, p, omegas,
-                                                             om_id, n, m);
+    using L = SweepWin;
+    const dim3 grid((m + L::TC - 1) / L::TC, (n + L::TR - 1) / L::TR);
+    sweep_of(has_fixups(p))<<<grid, L::NT, 0, s>>>(t, p, omegas, om_id, n,
+                                                   m);
   } else {
     const dim3 grid((m + JAC_BX - 1) / JAC_BX, (n + JAC_BY - 1) / JAC_BY);
     jacobi_sys_kernel<<<grid, dim3(JAC_BX, JAC_BY), 0, s>>>(t, p, omegas,
@@ -914,5 +939,32 @@ extern "C" int es_leg_sys_info(int down, int sweeps, int red_black,
   info[2] = attr.numRegs;
   info[3] = static_cast<int>(attr.localSizeBytes);
   info[4] = inst.smem;
+  return cudaSuccess;
+}
+
+// What es_sweep_sys's red-black kernel (with row fixups or not) is on this
+// card: info[0], [1] its tile's rows and columns, [2] its halo, [3]
+// threads per block, [4] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), [5] registers per
+// thread, [6] local memory per thread in bytes (spills land there), [7]
+// shared memory per block in bytes.
+extern "C" int es_sweep_sys_info(int fixups, int* info) {
+  using L = SweepWin;
+  const void* kernel = reinterpret_cast<const void*>(sweep_of(fixups != 0));
+  int blocks = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, L::NT, 0);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = L::TR;
+  info[1] = L::TC;
+  info[2] = L::H;
+  info[3] = L::NT;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = static_cast<int>(attr.sharedSizeBytes);
   return cudaSuccess;
 }

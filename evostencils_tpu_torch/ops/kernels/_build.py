@@ -80,6 +80,8 @@ SIGNATURES = {
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
     # u, b, omegas, omega id, parity, stencil values, out, n, m, stream
     "es_sweep": (_P, _P, _P, _INT, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # one colour, info (8 ints out); no stream
+    "es_sweep_info": (_INT, _INTS),
     # u, b, omegas, omega id, stencil values, out, n, m, stream
     "es_fused_rbgs_sweep":
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
@@ -127,6 +129,8 @@ SIGNATURES = {
     # red-black, n, m, stream
     "es_sweep_sys": (_PTRS, _PTRS, _PTRS) + _SYS
                     + (_P, _INT, _INT, _INT, _INT, _P),
+    # fixups, info (8 ints out, the red-black kernel's); no stream
+    "es_sweep_sys_info": (_INT, _INTS),
     # u, b, u_out, rc (F pointers each), the operator, omegas, omega ids,
     # sweeps, red-black, taps, halo, n, m, stream
     "es_presmooth_residual_restrict_sys":

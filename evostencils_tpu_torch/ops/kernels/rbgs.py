@@ -34,6 +34,18 @@ from . import _build
 MIN_ROWS = 8
 MIN_COLS = 128
 
+#: The schedule of the single-pass sweep kernel, csrc/rbgs.cu
+#: ``sweep_kernel`` (``STRIP``, ``SWEEP_BX`` and ``SWEEP_BY`` there, and
+#: es_sweep_info reports them from the card).  Each thread owns a strip of
+#: SWEEP_STRIP rows of one column, in blocks of SWEEP_BLOCK = (columns,
+#: strips) threads: u on the strip and one row beyond each end rolls
+#: through its registers, and the columns beside it come from the lanes
+#: beside it, or at a warp's edges from a load.  At least
+#: SWEEP_BLOCKS_PER_SM blocks (1024 threads) are resident on an SM.
+SWEEP_STRIP = 4
+SWEEP_BLOCK = (128, 2)
+SWEEP_BLOCKS_PER_SM = 4
+
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep": 0, "jacobi_sweep": 0}
 
@@ -41,6 +53,21 @@ launches = {"fused_rbgs_sweep": 0, "jacobi_sweep": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def sweep_info(one_colour: bool = False) -> dict:
+    """What the card makes of the single-pass sweep kernel for a pass of
+    one colour (parity 0 or 1) or of every point (-1): the rows of a
+    thread's strip, the block's columns and strips, threads per block,
+    resident blocks per SM, registers and local memory (spills) per
+    thread, and shared memory per block.  Needs the card."""
+    out = (ctypes.c_int * 8)()
+    err = _build.load_library().es_sweep_info(int(one_colour), out)
+    if err != 0:
+        raise RuntimeError(f"no sweep instantiation: CUDA error {err}")
+    return dict(zip(("strip", "block_cols", "block_strips", "threads",
+                     "blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), out))
 
 
 def five_point_values(stencil) -> Optional[Tuple[float, ...]]:

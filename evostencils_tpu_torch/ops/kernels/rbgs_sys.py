@@ -59,6 +59,18 @@ MAX_EXC = 4
 #: the leg kernels' fine tile edge: each block owns a LEG_TILE x LEG_TILE
 #: tile and recomputes a halo of leg_halo() cells around it
 LEG_TILE = 64
+#: The block schedule of the red-black sweep kernel, csrc/rbgs_sys.cu
+#: ``rbgs_sys_kernel`` (``SweepWin`` states the same window, and
+#: es_sweep_sys_info reports it from the card).  A block of SWEEP_THREADS
+#: threads stages u and b of every field over a window of SWEEP_WINDOW =
+#: (rows, columns) cells and owns its centre, the tile: the window less
+#: SWEEP_HALO cells on every side.  The red half-sweep updates the window
+#: cells at a distance >= 1 from the window edge, the black one those at
+#: >= 2.  At least SWEEP_BLOCKS_PER_SM blocks are resident on an SM.
+SWEEP_WINDOW = (16, 64)
+SWEEP_THREADS = 256
+SWEEP_HALO = 2
+SWEEP_BLOCKS_PER_SM = 4
 
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep_sys": 0, "jacobi_sweep_sys": 0,
@@ -82,6 +94,21 @@ def leg_halo(leg: str, sweeps: int, red_black: bool) -> int:
         raise ValueError(f"leg {leg!r} is neither 'down' nor 'up'")
     passes = 2 * sweeps if red_black else sweeps
     return passes + 2 if leg == "down" else passes
+
+
+def sweep_tile() -> Tuple[int, int]:
+    """(rows, columns) of the tile a block of the red-black sweep kernel
+    owns: the window less the halo on every side."""
+    rows, cols = SWEEP_WINDOW
+    return rows - 2 * SWEEP_HALO, cols - 2 * SWEEP_HALO
+
+
+def sweep_info(fixups: bool = False) -> dict:
+    """What the card makes of the red-black sweep kernel, with row fixups
+    or without: ``_build.info``'s tile, halo, threads, occupancy, spills
+    and shared memory.  Needs the card."""
+    return _build.info("es_sweep_sys_info", "red-black sys sweep",
+                       int(fixups))
 
 
 def leg_info(leg: str, sweeps: int, red_black: bool,

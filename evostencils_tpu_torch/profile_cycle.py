@@ -5,7 +5,10 @@
         --partitioning RedBlack|Jacobi --smoothing PRE,POST
     python3 -m evostencils_tpu_torch.profile_cycle \
         --champion poisson2d_1023sq_seeded_gen75:0
-    python3 -m evostencils_tpu_torch.profile_cycle --elasticity
+    python3 -m evostencils_tpu_torch.profile_cycle --dim 2 \
+        --partitioning Jacobi --levels 10,5
+    python3 -m evostencils_tpu_torch.profile_cycle --elasticity \
+        [--partitioning RedBlack|Jacobi] [--smoothing 4,4] [--levels 8,4]
     python3 -m evostencils_tpu_torch.profile_cycle --var \
         [--partitioning RedBlack|Jacobi]
     python3 -m evostencils_tpu_torch.profile_cycle --cx \
@@ -14,13 +17,17 @@
 
 Builds a path that ``chip_smoke.py`` drives (2D: Poisson 4095^2, levels
 12->5; 3D: Poisson 255^3, levels 8->2; float32, V(2,1), RB-GS omega=1.15;
-on the 3D path ``--partitioning Jacobi`` takes the weighted-Jacobi
+on the Poisson paths ``--partitioning Jacobi`` takes the weighted-Jacobi
 smoother at omega 0.8 and ``--smoothing PRE,POST`` other sweep counts,
 which with ``--smoothing 1,1`` and with ``--partitioning Jacobi`` give the
-``[evaluator3d]`` RB V(1,1) and Jacobi V(2,1)), or, with
-``--elasticity``, its ``[main-elast]`` red-black cell (2D linear
-elasticity 2047^2, ``linear_elasticity_2d(11, 4)``, the collective
-red-black V(2,1) at omega 1.25, float32), or, with ``--var``, its
+``[evaluator3d]`` RB V(1,1) and Jacobi V(2,1), and with ``--dim 2
+--partitioning Jacobi --levels 10,5`` the ``[evaluator]`` Jacobi V(2,1)
+at 1023^2), or, with ``--elasticity``, its ``[main-elast]`` red-black
+cell (2D linear elasticity 2047^2, ``linear_elasticity_2d(11, 4)``, the
+collective red-black V(2,1) at omega 1.25, float32; ``--partitioning
+Jacobi`` the collective Jacobi smoother at omega 0.8, and with
+``--smoothing 4,4 --levels 8,4`` the ``[evaluator-elast]`` RB V(4,4) at
+255^2), or, with ``--var``, its
 ``[main-var]`` cell (variable-coefficient 2D Poisson 2047^2,
 ``poisson_2d_variable(11, 5)``, float32) with the red-black V(2,1) at
 omega 1.15 or, with ``--partitioning Jacobi``, the weighted-Jacobi V(2,1)
@@ -31,7 +38,8 @@ complex64; ``problems.helmholtz.dirichlet_helmholtz``) with the red-black V(2,1)
 ``--champion
 KEY:INDEX``, the stored evolved cycle
 ``results/evolved_champions.json[KEY][INDEX]`` on its 2D Poisson 1023^2
-hierarchy (levels 10->5, float32).  ``--loop`` runs it in one of the
+hierarchy (levels 10->5, float32).  ``--levels MAX,MIN`` sets another
+hierarchy of the path (not a champion's).  ``--loop`` runs it in one of the
 ``[main-fused]`` configurations of ``chip_smoke.py`` (LOOPS: (a) loop
 fusion with column transfers, (b) loop fusion with row-only legs, (c)
 row-only legs, (d) neither, the defaults), and restores the switches
@@ -64,8 +72,11 @@ import numpy as np
 import torch
 
 PATHS = {2: (12, 5), 3: (8, 2)}
-#: the [main-elast] red-black cell: levels and omega
-ELASTICITY = (11, 4, 1.25)
+#: the [main-elast] cell: levels, and each partitioning's IR name and
+#: omega (the collective smoother; [evaluator-elast]'s at 255^2)
+ELASTICITY = (11, 4)
+ELASTICITY_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.25),
+                            "Jacobi": ("Single", 0.8)}
 #: the [main-var] cell: levels, and each partitioning's IR name and omega
 VAR = (11, 5)
 VAR_PARTITIONINGS = {"RedBlack": ("RedBlack", 1.15), "Jacobi": ("Single", 0.8)}
@@ -89,14 +100,16 @@ CHAMPIONS = (pathlib.Path(__file__).resolve().parents[1] / "results"
 def build_path(dim: int, elasticity: bool = False,
                var_partitioning: Optional[str] = None,
                cx_partitioning: Optional[str] = None,
-               partitioning3d: str = "RedBlack",
-               smoothing: Tuple[int, int] = (2, 1)):
-    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path (in 3D
-    with ``partitioning3d``, a key of POISSON_PARTITIONINGS), of the
-    elasticity cell, or of the var-coef or complex cell with
-    ``var_partitioning`` or ``cx_partitioning`` (a key of
-    VAR_PARTITIONINGS or CX_PARTITIONINGS), on the card; a V-cycle of
-    ``smoothing`` (pre, post) sweeps."""
+               partitioning: str = "RedBlack",
+               smoothing: Tuple[int, int] = (2, 1),
+               levels: Optional[Tuple[int, int]] = None):
+    """(lowered cycle, b, omegas, u0) of the ``dim``-D Poisson path or of
+    the elasticity cell with ``partitioning`` (a key of
+    POISSON_PARTITIONINGS or ELASTICITY_PARTITIONINGS), or of the var-coef
+    or complex cell with ``var_partitioning`` or ``cx_partitioning`` (a
+    key of VAR_PARTITIONINGS or CX_PARTITIONINGS), on the card; a V-cycle
+    of ``smoothing`` (pre, post) sweeps on the path's levels or on
+    ``levels`` (max, min)."""
     from .compiler.cycles import v_cycle
     from .compiler.lower import lower_cycle
     from .ir import partitioning as part
@@ -105,28 +118,25 @@ def build_path(dim: int, elasticity: bool = False,
     from .problems.poisson import (build_rhs, poisson_2d, poisson_2d_variable,
                                    poisson_3d)
 
-    partitioning = part.RedBlack
     if elasticity:
-        max_level, min_level, omega = ELASTICITY
-        build = linear_elasticity_2d
+        path_levels, build = ELASTICITY, linear_elasticity_2d
+        name, omega = ELASTICITY_PARTITIONINGS[partitioning]
     elif var_partitioning:
-        (max_level, min_level), build = VAR, poisson_2d_variable
+        path_levels, build = VAR, poisson_2d_variable
         name, omega = VAR_PARTITIONINGS[var_partitioning]
-        partitioning = getattr(part, name)
     elif cx_partitioning:
-        (max_level, min_level), build = CX, dirichlet_helmholtz
+        path_levels, build = CX, dirichlet_helmholtz
         name, omega = CX_PARTITIONINGS[cx_partitioning]
-        partitioning = getattr(part, name)
     else:
-        max_level, min_level = PATHS[dim]
-        name, omega = POISSON_PARTITIONINGS[partitioning3d]
-        partitioning = getattr(part, name)
+        path_levels = PATHS[dim]
+        name, omega = POISSON_PARTITIONINGS[partitioning]
         build = poisson_2d if dim == 2 else poisson_3d
+    max_level, min_level = levels or path_levels
     problem = build(max_level, min_level)
     cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
                     pre_smoothing=smoothing[0],
                     post_smoothing=smoothing[1], omega=omega,
-                    partitioning=partitioning,
+                    partitioning=getattr(part, name),
                     coarse_operator=problem.coarsest_operator)
     lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float32, device="cuda")
@@ -168,6 +178,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _pair(ap, option, text, form, least):
+    """``text`` "A,B" as two ints >= ``least``; None when not given."""
+    if not text:
+        return None
+    try:
+        pair = tuple(int(k) for k in text.split(","))
+    except ValueError:
+        pair = ()
+    if len(pair) != 2 or min(pair) < least:
+        ap.error(f"{option} takes {form}: two counts >= {least}")
+    return pair
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     what = ap.add_mutually_exclusive_group(required=True)
@@ -177,27 +200,27 @@ def main(argv=None) -> int:
     what.add_argument("--var", action="store_true")
     what.add_argument("--cx", action="store_true")
     ap.add_argument("--partitioning", choices=sorted(VAR_PARTITIONINGS),
-                    help="the --var, --cx or --dim 3 cell's smoother "
+                    help="the smoother of any path but --champion "
                     "(default RedBlack)")
     ap.add_argument("--smoothing", metavar="PRE,POST",
-                    help="the --dim 3 V-cycle's pre- and post-sweeps "
-                    "(default 2,1)")
+                    help="the --dim or --elasticity V-cycle's pre- and "
+                    "post-sweeps (default 2,1)")
+    ap.add_argument("--levels", metavar="MAX,MIN",
+                    help="the hierarchy of any path but --champion "
+                    "(default the path's own)")
     ap.add_argument("--loop", choices=sorted(LOOPS),
                     help="the [main-fused] configuration (default: the "
                     "switches as they are)")
     ap.add_argument("--cycles", type=int, default=20)
     args = ap.parse_args(argv)
-    if args.partitioning and not (args.var or args.cx or args.dim == 3):
-        ap.error("--partitioning takes --var, --cx or --dim 3")
-    if args.smoothing:
-        if args.dim != 3:
-            ap.error("--smoothing takes --dim 3")
-        try:
-            args.smoothing = tuple(int(k) for k in args.smoothing.split(","))
-        except ValueError:
-            args.smoothing = ()
-        if len(args.smoothing) != 2 or min(args.smoothing) < 0:
-            ap.error("--smoothing takes PRE,POST: two counts >= 0")
+    if args.champion and (args.partitioning or args.levels):
+        ap.error("--partitioning and --levels take a path, not --champion")
+    if args.smoothing and not (args.dim or args.elasticity):
+        ap.error("--smoothing takes --dim or --elasticity")
+    args.smoothing = _pair(ap, "--smoothing", args.smoothing, "PRE,POST", 0)
+    args.levels = _pair(ap, "--levels", args.levels, "MAX,MIN", 1)
+    if args.levels and args.levels[0] <= args.levels[1]:
+        ap.error("--levels takes MAX,MIN with MAX > MIN")
     partitioning = args.partitioning or "RedBlack"
     var_partitioning = partitioning if args.var else None
     cx_partitioning = partitioning if args.cx else None
@@ -226,21 +249,27 @@ def _profile(args, var_partitioning, cx_partitioning) -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     smoothing = args.smoothing or (2, 1)
-    partitioning3d = args.partitioning or "RedBlack"
+    partitioning = args.partitioning or "RedBlack"
     lowered, b, omegas, u = (
         build_champion(args.champion) if args.champion
         else build_path(args.dim, args.elasticity, var_partitioning,
-                        cx_partitioning, partitioning3d, smoothing))
+                        cx_partitioning, partitioning, smoothing,
+                        args.levels))
+    size = f"{2 ** args.levels[0] - 1}^2" if args.levels else "2047^2"
+    cycle = f"V({smoothing[0]},{smoothing[1]})"
     if args.champion:
         label = args.champion
     elif args.elasticity:
-        label = "elasticity 2047^2 RB V(2,1)"
+        mode = "RB" if partitioning == "RedBlack" else partitioning
+        label = f"elasticity {size} {mode} {cycle}"
     elif var_partitioning:
-        label = f"var-coef 2047^2 {var_partitioning} V(2,1)"
+        label = f"var-coef {size} {var_partitioning} {cycle}"
     elif cx_partitioning:
-        label = f"shifted Laplacian 2047^2 {cx_partitioning} V(2,1)"
-    elif args.dim == 3 and (args.partitioning or args.smoothing):
-        label = f"3D {partitioning3d} V({smoothing[0]},{smoothing[1]})"
+        label = f"shifted Laplacian {size} {cx_partitioning} {cycle}"
+    elif args.partitioning or args.smoothing or args.levels:
+        label = f"{args.dim}D {partitioning} {cycle}"
+        if args.levels:
+            label += f" at levels {args.levels[0]}->{args.levels[1]}"
     else:
         label = f"{args.dim}D"
     if args.loop:

@@ -13,7 +13,12 @@ up-leg prolongs e from the tile's coarse window before its passes.  The
 emulation runs each pass with the module's own plain half-sweep arithmetic
 on each window, with global rows for the fixups, and stitches the tiles
 back together.  The result must equal the plain versions to 1e-12 of their
-largest magnitude, and a halo one cell short must not.
+largest magnitude, and a halo one cell short must not.  The standalone
+red-black sweep (``rbgs_sys_kernel``) runs the same passes with no
+transfer in ``SWEEP_WINDOW`` windows with a halo of ``SWEEP_HALO``: red on
+the cells at distance >= 1, black on those at >= 2; it is emulated the
+same way and held to ``fused_rbgs_sweep_sys_plain``, also at 65x130,
+whose rows and columns no window divides.
 
 The plain versions are held against the Pallas kernels in interpret mode
 by tests/test_torch_sys.py, so the chain reaches the JAX package.  Tables:
@@ -22,8 +27,9 @@ with nonzero corners in every block, a non-diagonal point solve, center and
 point-solve fixups on rows inside a tile, on a tile edge and near the
 grid's end, and asymmetric transfer taps.  Shapes are ragged and odd, so
 the last tiles are cut by the grid.  Last, the wrappers are driven against
-a stand-in library: they must hand each entry its leg's halo and raise
-when the entry refuses the launch.
+a stand-in library: they must hand each entry its leg's halo (the sweeps
+their mode and the grid's shape) and raise when the entry refuses the
+launch.
 """
 
 import numpy as np
@@ -108,24 +114,26 @@ def _local(fixups, r0):
 
 
 class _Tile:
-    """One block's window: its first interior row and column, edge W, the
-    grid cells among them and each cell's distance to the window edge."""
+    """One block's window: its first interior row and column, its rows and
+    columns (a leg's edge W: a LEG_TILE square tile), the grid cells among
+    them and each cell's distance to the window edge."""
 
-    def __init__(self, shape, by, bx, halo):
+    def __init__(self, shape, by, bx, halo, tile=(trs.LEG_TILE,) * 2):
         n, m = shape
-        self.h = halo
-        self.w = trs.LEG_TILE + 2 * halo
-        self.r0 = by * trs.LEG_TILE - halo
-        self.c0 = bx * trs.LEG_TILE - halo
-        idx = torch.arange(self.w)
-        gr, gc = self.r0 + idx[:, None], self.c0 + idx[None, :]
+        self.h, (self.tr, self.tc) = halo, tile
+        self.wr, self.w = self.tr + 2 * halo, self.tc + 2 * halo
+        self.r0 = by * self.tr - halo
+        self.c0 = bx * self.tc - halo
+        ri, ci = torch.arange(self.wr), torch.arange(self.w)
+        gr, gc = self.r0 + ri[:, None], self.c0 + ci[None, :]
         self.inside = (gr >= 0) & (gr < n) & (gc >= 0) & (gc < m)
         self.red = (gr + gc) % 2 == 0
-        edge = torch.minimum(idx, self.w - 1 - idx)
-        self.dist = torch.minimum(edge[:, None], edge[None, :])
+        self.dist = torch.minimum(
+            torch.minimum(ri, self.wr - 1 - ri)[:, None],
+            torch.minimum(ci, self.w - 1 - ci)[None, :])
 
     def load(self, fields):
-        return [_window(x, self.r0, self.c0, self.w, self.w) for x in fields]
+        return [_window(x, self.r0, self.c0, self.wr, self.w) for x in fields]
 
     def passes(self, us, bs, omegas, ids, coeffs, minv, red_black, exc,
                exc_minv):
@@ -146,19 +154,18 @@ class _Tile:
 
     def store(self, outs, us):
         """The tile of every window to the output fields."""
-        t, h = trs.LEG_TILE, self.h
+        h = self.h
         n, m = outs[0].shape
         rs, cs = self.r0 + h, self.c0 + h
-        re, ce = min(rs + t, n), min(cs + t, m)
+        re, ce = min(rs + self.tr, n), min(cs + self.tc, m)
         for out, u in zip(outs, us):
             out[rs:re, cs:ce] = u[h:h + re - rs, h:h + ce - cs]
 
 
-def _tiles(shape, halo):
-    t = trs.LEG_TILE
-    for by in range(-(-shape[0] // t)):
-        for bx in range(-(-shape[1] // t)):
-            yield by, bx, _Tile(shape, by, bx, halo)
+def _tiles(shape, halo, tile=(trs.LEG_TILE,) * 2):
+    for by in range(-(-shape[0] // tile[0])):
+        for bx in range(-(-shape[1] // tile[1])):
+            yield by, bx, _Tile(shape, by, bx, halo, tile)
 
 
 def emulate_down(fields, b_fields, omegas, ids, coeffs, minv, taps,
@@ -307,6 +314,67 @@ def test_leg_halo_rule():
         trs.leg_halo("sideways", 1, True)
 
 
+# ---------------------------------------------------------------------------
+# the red-black sweep kernel (rbgs_sys_kernel): the legs' passes with no
+# transfer
+# ---------------------------------------------------------------------------
+
+#: the sweep's shapes: ragged and odd (the last blocks cut by the grid),
+#: and 65x130, whose rows and columns no window divides
+SWEEP_SHAPES = ((131, 197), (195, 129), (65, 130))
+SWEEP_CASES = [(shape, table) for shape in SWEEP_SHAPES
+               for table in ("elasticity", "random")]
+
+
+def emulate_sweep(fields, b_fields, omegas, omega_id, coeffs, minv, exc,
+                  exc_minv, halo):
+    """The red-black sweep kernel's schedule: blocks of sweep_tile() tiles
+    with windows of ``halo`` cells more on every side; red on the window
+    cells at distance >= 1, black on those at >= 2."""
+    out = [torch.zeros_like(u) for u in fields]
+    for _, _, tile in _tiles(tuple(fields[0].shape), halo, trs.sweep_tile()):
+        us = tile.passes(tile.load(fields), tile.load(b_fields), omegas,
+                         [omega_id], coeffs, minv, True, exc, exc_minv)
+        tile.store(out, us)
+    return tuple(out)
+
+
+def _sweep(shape, table, halo):
+    coeffs, minv, exc, exc_minv, _ = _operator(table, shape[0])
+    us, bs, _ = _inputs(shape, 14)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float64)
+    want = trs.fused_rbgs_sweep_sys_plain(us, bs, omegas, 1, coeffs, minv,
+                                          exc, exc_minv)
+    got = emulate_sweep(us, bs, omegas, 1, coeffs, minv, exc, exc_minv, halo)
+    return _deviation(got, want)
+
+
+@pytest.mark.parametrize("shape,table", SWEEP_CASES)
+def test_sweep_block_schedule_matches_plain(shape, table):
+    assert _sweep(shape, table, trs.SWEEP_HALO) <= RTOL
+
+
+@pytest.mark.parametrize("table", ["elasticity", "random"])
+def test_sweep_halo_one_short_differs(table):
+    """A halo of 1 (the same tile, a window two cells narrower) leaves
+    wrong cells at the tiles' edges."""
+    assert _sweep((131, 197), table, trs.SWEEP_HALO - 1) > 1e-3
+
+
+def test_sweep_window_class():
+    """The tile is the window less the halo of 2, with even rows and
+    columns (so a window's colours follow its first cell's), 64 columns,
+    and a block's threads divide the window's cells, so every thread
+    copies as many as the others."""
+    rows, cols = trs.SWEEP_WINDOW
+    assert trs.SWEEP_HALO == 2 and cols == 64
+    tr, tc = trs.sweep_tile()
+    assert (tr, tc) == (rows - 4, cols - 4)
+    assert tr % 2 == 0 and tc % 2 == 0
+    assert rows * cols % trs.SWEEP_THREADS == 0
+    assert trs.SWEEP_BLOCKS_PER_SM * trs.SWEEP_THREADS >= 1024
+
+
 class _FakeLibrary:
     """Stands in for the built library: records each leg entry's
     arguments and returns ``err`` (cudaErrorInvalidValue is 1)."""
@@ -364,3 +432,42 @@ def test_wrappers_pass_the_halo_and_raise_on_refusal(monkeypatch, err,
         name, args = lib.calls[-1]
         assert name == entry and args[-4:-1] == (halo, 131, 197)
     assert sum(trs.launches.values()) == (0 if err else 2)
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_sweep_wrappers_pass_mode_and_shape_and_raise_on_refusal(
+        monkeypatch, err):
+    """The sweep wrappers hand es_sweep_sys the mode (1 red-black, 0
+    Jacobi) and the grid's n, m (before the stream; the red-black kernel
+    has one window, fixed in its entry), and raise, counting no launch,
+    when the entry refuses; the library is a stand-in, since the kernels
+    need the card."""
+    from contextlib import nullcontext
+    from types import SimpleNamespace
+    from evostencils_tpu_torch.ops.kernels import _build
+    lib = _FakeLibrary(err)
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "on_card", lambda u: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=0))
+    coeffs, minv, exc, exc_minv, _ = _operator("random", 65)
+    us, bs, _ = (tuple(x.float() for x in group)
+                 for group in _inputs((65, 130), 15))
+    omegas = torch.tensor(OMEGAS, dtype=torch.float32)
+    trs.reset_launches()
+    calls = ((lambda: trs.fused_rbgs_sweep_sys(us, bs, omegas, 1, coeffs,
+                                               minv, exc, exc_minv), 1),
+             (lambda: trs.jacobi_sweep_sys(us, bs, omegas, 1, coeffs, minv,
+                                           exc, exc_minv), 0))
+    for call, red_black in calls:
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+        else:
+            call()
+        name, args = lib.calls[-1]
+        assert name == "es_sweep_sys"
+        assert args[-4:-1] == (red_black, 65, 130)
+    assert trs.launches["fused_rbgs_sweep_sys"] == (0 if err else 1)
+    assert trs.launches["jacobi_sweep_sys"] == (0 if err else 1)
