@@ -1031,7 +1031,7 @@ def phase_kernels_rbgs(torch, rbgs, device):
         # one pass of one colour (half of rbgs_sweep), against the same
         # bound: it reads u and b and writes u as the Jacobi pass does
         time_standalone(
-            torch, None, "jacobi_sweep parity 0", "kernels-rbgs", shape,
+            torch, None, "rbgs half-sweep (parity 0)", "kernels-rbgs", shape,
             lambda: rbgs.sweep(u, b, omegas, 2, VALS, 0),
             lambda: rbgs.sweep_plain(u, b, omegas, 2, VALS, 0),
             sweep_bound(shape))

@@ -21,31 +21,13 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int LAG = 2;                   // planes between a step's stages
 constexpr int AHEAD = 2;                 // planes in flight past plane s
 constexpr int MAX_DEVICES = 64;          // cards an opt-in flag covers
-
-// 4 bytes from src to shared dst without waiting; zeros when !in (src is
-// then not read).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Ring slots: the slot of plane s advances by one a step.
 template <int R>

@@ -42,7 +42,7 @@
 // 2 threads, 40 registers, six blocks an SM (1023^2 makes 1,024 blocks,
 // about 1.3 waves of 132 SMs); on the H100 this was the fastest of the
 // strips of 2, 4, 6, 8 and 16 rows and the five blocks tried, or within
-// 0.0001 ms of it at every level (PERF.md section 6).
+// 0.0003 ms of it at every level (PERF.md section 6).
 // es_sweep_info reports it from the card, and
 // tests/test_torch_rbgs_tiles.py emulates the schedule in float64.
 //
@@ -76,27 +76,13 @@ struct Sweep {
 // es_sweep's schedule (see the design note at the top): blocks of
 // SWEEP_BX x SWEEP_BY threads; thread (x, y) owns column
 // blockIdx.x * SWEEP_BX + x and the STRIP rows from
-// (blockIdx.y * SWEEP_BY + y) * STRIP on.  The defaults are the measured
-// choice (PERF.md section 6); kernel_variants.py builds this file with
-// other -D values to time the others.
-#ifndef ES_SWEEP_STRIP
-#define ES_SWEEP_STRIP 4
-#endif
-#ifndef ES_SWEEP_BX
-#define ES_SWEEP_BX 128
-#endif
-#ifndef ES_SWEEP_BY
-#define ES_SWEEP_BY 2
-#endif
-constexpr int STRIP = ES_SWEEP_STRIP;
-constexpr int SWEEP_BX = ES_SWEEP_BX, SWEEP_BY = ES_SWEEP_BY;
+// (blockIdx.y * SWEEP_BY + y) * STRIP on; at least 1024 threads resident
+// on an SM (64 registers a thread).
+constexpr int STRIP = 4;
+constexpr int SWEEP_BX = 128, SWEEP_BY = 2;
+constexpr int SWEEP_MIN_BLOCKS = 1024 / (SWEEP_BX * SWEEP_BY);
 static_assert(STRIP % 2 == 0 && SWEEP_BX % 32 == 0,
               "strips hold colour pairs, and a warp lies in one strip row");
-// at least 1024 threads resident on an SM (64 registers a thread)
-#ifndef ES_SWEEP_MIN_BLOCKS
-#define ES_SWEEP_MIN_BLOCKS (1024 / (SWEEP_BX * SWEEP_BY))
-#endif
-constexpr int SWEEP_MIN_BLOCKS = ES_SWEEP_MIN_BLOCKS;
 
 constexpr unsigned FULL = 0xffffffffu;
 

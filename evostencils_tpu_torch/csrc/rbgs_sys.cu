@@ -56,11 +56,11 @@
 // of static shared memory (no opt-in above 48 KB), five blocks an SM.  On
 // the H100 it was the fastest of the 8 x 64, 16 x 64, 32 x 64 and 64 x 64
 // windows at 2047^2, and staging b beat reading it through the read-only
-// cache by 11%; 8 x 64 won 0.0003 ms at 255^2, too little for a second
-// window class (PERF.md section 6).  es_sweep_sys_info reports it from
-// the card, and tests/test_torch_sys_tiles.py emulates its schedule in
-// float64.  The Jacobi sweep is one thread a point writing buffers it
-// does not read.
+// cache by 11%; 8 x 64 won 0.0005 ms at 255^2 and lost 0.0100 at 2047^2,
+// too little for a second window class (PERF.md section 6).
+// es_sweep_sys_info reports it from the card, and
+// tests/test_torch_sys_tiles.py emulates its schedule in float64.  The
+// Jacobi sweep is one thread a point writing buffers it does not read.
 //
 // Design of the legs.  Each 512-thread block owns a TILE x TILE fine tile
 // and stages only u's window of both fields, with a halo sized to the
@@ -95,6 +95,8 @@
 // Relaxation factors are read from the device vector by index.
 
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -598,51 +600,24 @@ upleg_sys_kernel(SysPtrs t, SysOp p, SysLeg L,
 // the design note at the top)
 // ---------------------------------------------------------------------------
 
-// The sweep's window: ROWS x 64 cells, halo 2, blocks of THREADS threads,
-// at least BLOCKS resident on an SM (1024 / THREADS: 64 registers a
-// thread); b staged beside u (STAGE_B), or read through the read-only
-// cache.  The defaults are the measured choice (PERF.md section 6);
-// kernel_variants.py builds this file with other -D values to time the
-// others.
-#ifndef ES_SYS_SWEEP_ROWS
-#define ES_SYS_SWEEP_ROWS 16
-#endif
-#ifndef ES_SYS_SWEEP_THREADS
-#define ES_SYS_SWEEP_THREADS 256
-#endif
-#ifndef ES_SYS_SWEEP_STAGE_B
-#define ES_SYS_SWEEP_STAGE_B 1
-#endif
-#ifndef ES_SYS_SWEEP_BLOCKS
-#define ES_SYS_SWEEP_BLOCKS (1024 / ES_SYS_SWEEP_THREADS)
-#endif
-
+// The sweep's window: 16 x 64 cells, halo 2, blocks of 256 threads, at
+// least four resident on an SM (64 registers a thread); u and b of both
+// fields staged, each in the legs' layout.
 struct SweepWin {
   static constexpr int H = 2;
-  static constexpr int WR = ES_SYS_SWEEP_ROWS, WC = 64;
-  static constexpr int NT = ES_SYS_SWEEP_THREADS;
-  static constexpr int BLOCKS = ES_SYS_SWEEP_BLOCKS;
-  static constexpr bool SB = ES_SYS_SWEEP_STAGE_B != 0;
+  static constexpr int WR = 16, WC = 64;
+  static constexpr int NT = 256;
+  static constexpr int BLOCKS = 1024 / NT;
   static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
   static constexpr int FIELD = WR * WC;   // one field's window
   static constexpr int SMEM =
-      (SB ? 2 : 1) * NF * FIELD * static_cast<int>(sizeof(float));
+      2 * NF * FIELD * static_cast<int>(sizeof(float));   // u, then b
   static_assert(FIELD % NT == 0 && TR > 0 && TR % 2 == 0,
                 "whole copies a thread, even tiles");
   static_assert(SMEM <= 48 * 1024, "no dynamic shared memory opt-in");
 };
 
-// 4 bytes from src to shared dst without waiting; zeros when !in (src is
-// then not read).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// u (and with SB b) of every field over the sweep window whose top-left
+// u and b of every field over the sweep window whose top-left
 // interior index is (r0, c0), zero outside the grid, by cp.async: every
 // copy of the thread in flight, then one wait and a barrier.  Lanes copy
 // consecutive columns of a row.
@@ -660,11 +635,10 @@ __device__ __forceinline__ void stage_sweep(const SysPtrs& t, float* su,
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
       copy_async(dst + f * L::FIELD, t.u[f] + g, in);
-      if (L::SB) copy_async(dst + (NF + f) * L::FIELD, t.b[f] + g, in);
+      copy_async(dst + (NF + f) * L::FIELD, t.b[f] + g, in);
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  copy_wait_all();
   __syncthreads();
 }
 
@@ -699,10 +673,10 @@ rbgs_sys_kernel(SysPtrs t, SysOp p, const float* __restrict__ omegas,
   stage_sweep<L>(t, su, n, m, r0, c0);
   const float* sb = su + NF * L::FIELD;
   // red on the cells at distance >= 1, black on those at >= 2
-  rb_pass<L::WC, 1, FIX, L::WR, L::NT, L::SB>(su, t, p, om, n, m, r0, c0,
-                                              0, sb);
-  rb_pass<L::WC, 2, FIX, L::WR, L::NT, L::SB>(su, t, p, om, n, m, r0, c0,
-                                              1, sb);
+  rb_pass<L::WC, 1, FIX, L::WR, L::NT, true>(su, t, p, om, n, m, r0, c0, 0,
+                                             sb);
+  rb_pass<L::WC, 2, FIX, L::WR, L::NT, true>(su, t, p, om, n, m, r0, c0, 1,
+                                             sb);
   store_sweep<L>(su, t, n, m, r0, c0);
 }
 

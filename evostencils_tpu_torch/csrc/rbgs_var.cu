@@ -86,6 +86,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int MAX_SWEEPS = 3;
@@ -169,22 +171,6 @@ struct VarShape {
 template <typename L>
 __device__ __forceinline__ int at(int wr, int wc) {
   return (wc & 1) * L::HALF + wr * L::SL + (wc >> 1);
-}
-
-// 4 bytes from src to shared dst without waiting; zeros when !in (src is
-// then not read).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// Wait for every copy this thread issued.
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // u, b and the neighbour coefficients over the window whose top-left

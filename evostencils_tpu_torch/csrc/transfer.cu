@@ -107,6 +107,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 // threads a block of the standalone prolongation-correction
@@ -247,22 +249,6 @@ struct ColLeg {
   static_assert(NY % 2 == 0 && WR % NY == 0 && TC > 0,
                 "a window class must fit the form's halo");
 };
-
-// 4 bytes from src to shared dst without waiting; zeros when !in (src is
-// then not read).
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// Wait for every copy this thread issued.
-__device__ __forceinline__ void copy_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 template <typename L>
 __device__ __forceinline__ int split_at(int wr, int wc) {

@@ -37,7 +37,8 @@ SOURCES = (_PACKAGE / "csrc" / "transfer.cu",
            _PACKAGE / "csrc" / "rbgs_sys.cu",
            _PACKAGE / "csrc" / "rbgs_cx.cu")
 #: headers the sources include; part of the library's hash
-HEADERS = (_PACKAGE / "csrc" / "pipeline3d.cuh",)
+HEADERS = (_PACKAGE / "csrc" / "cp_async.cuh",
+           _PACKAGE / "csrc" / "pipeline3d.cuh")
 BUILD_DIR = _PACKAGE / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")

@@ -12,10 +12,14 @@ is first held against the plain PyTorch version, then timed as the
 kernel's device time alone (``chip_smoke.time_ms_queued``: CUDA events
 around one call queued behind a spin of the card, median of 15).
 
-``variants`` builds this checkout's sources with the -D values of
-VARIANTS (the sweep's strip and block; the system sweep's window rows,
-threads and whether b is staged) and times each at every level its
-kernel runs at, in two turns (the list, then the list reversed).
+``variants`` copies this checkout's ``csrc/`` once per entry of VARIANTS,
+rewrites the schedule's constants in the copy (the sweep's strip, block
+and least resident blocks; the system sweep's window rows, threads, least
+resident blocks and whether b is staged in shared memory or read through
+the read-only cache), builds each copy, and times each at every level its
+kernel runs at, in two turns (the list, then the list reversed).  A
+rewrite that does not find the text it replaces stops the script, so a
+variant builds what its name says or nothing.
 
 ``ab`` builds the sources of the parent tree DIR (a ``git archive`` of
 the parent commit) and of this checkout as they are, and times both
@@ -34,69 +38,117 @@ import argparse
 import ctypes
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
+from typing import NamedTuple
 
 import numpy as np
 
 import chip_smoke as cs
 
 ROOT = pathlib.Path(__file__).resolve().parent
+CSRC = ROOT / "evostencils_tpu_torch" / "csrc"
 SOURCES = ("rbgs.cu", "rbgs_sys.cu")
-#: (name, -D values): the sweep's strip, block and least resident blocks
-#: (ES_SWEEP_*), the system sweep's window rows, threads, staging of b and
-#: least resident blocks (ES_SYS_SWEEP_*)
+
+
+class Variant(NamedTuple):
+    """One schedule of both kernels, every value named."""
+    strip: int          # sweep_kernel: rows of a thread's strip
+    bx: int             # block columns
+    by: int             # block strips
+    min_blocks: int     # least resident blocks an SM (__launch_bounds__)
+    rows: int           # rbgs_sys_kernel: window rows (64 columns)
+    threads: int        # threads a block
+    blocks: int         # least resident blocks an SM
+    stage_b: bool       # b staged beside u, else read through the cache
+
+    @property
+    def name(self) -> str:
+        return (f"s{self.strip} {self.bx}x{self.by}/{self.min_blocks} | "
+                f"w{self.rows}x64 {self.threads}t/{self.blocks} "
+                f"b {'staged' if self.stage_b else 'cache'}")
+
+
+#: The first is the sources' own schedule; each other changes one or two
+#: values of each kernel.
 VARIANTS = (
-    ("s4-128x2 w16-256-b", {"ES_SWEEP_STRIP": 4, "ES_SWEEP_BX": 128,
-                            "ES_SWEEP_BY": 2, "ES_SYS_SWEEP_ROWS": 16,
-                            "ES_SYS_SWEEP_STAGE_B": 1}),
-    ("s2-128x2 w16-128-b", {"ES_SWEEP_STRIP": 2, "ES_SWEEP_BX": 128,
-                            "ES_SWEEP_BY": 2, "ES_SYS_SWEEP_ROWS": 16,
-                            "ES_SYS_SWEEP_THREADS": 128,
-                            "ES_SYS_SWEEP_STAGE_B": 1}),
-    ("s4-256x1 w16-512-b", {"ES_SWEEP_STRIP": 4, "ES_SWEEP_BX": 256,
-                            "ES_SWEEP_BY": 1, "ES_SYS_SWEEP_ROWS": 16,
-                            "ES_SYS_SWEEP_THREADS": 512,
-                            "ES_SYS_SWEEP_STAGE_B": 1}),
-    ("s4-32x4 w32-256-b", {"ES_SWEEP_STRIP": 4, "ES_SYS_SWEEP_ROWS": 32,
-                           "ES_SYS_SWEEP_STAGE_B": 1}),
-    ("s4-64x4/6 w16-256-b/6", {"ES_SWEEP_STRIP": 4, "ES_SWEEP_BX": 64,
-                               "ES_SWEEP_MIN_BLOCKS": 6,
-                               "ES_SYS_SWEEP_ROWS": 16,
-                               "ES_SYS_SWEEP_STAGE_B": 1,
-                               "ES_SYS_SWEEP_BLOCKS": 6}),
-    ("s4-128x2/8 w16-256", {"ES_SWEEP_STRIP": 4, "ES_SWEEP_BX": 128,
-                            "ES_SWEEP_BY": 2, "ES_SWEEP_MIN_BLOCKS": 8,
-                            "ES_SYS_SWEEP_ROWS": 16}),
-    ("s6-128x2 w8-256-b", {"ES_SWEEP_STRIP": 6, "ES_SWEEP_BX": 128,
-                           "ES_SWEEP_BY": 2, "ES_SYS_SWEEP_ROWS": 8,
-                           "ES_SYS_SWEEP_STAGE_B": 1}),
+    Variant(4, 128, 2, 4, 16, 256, 4, True),
+    Variant(2, 128, 2, 4, 16, 128, 8, True),
+    Variant(4, 256, 1, 4, 16, 512, 2, True),
+    Variant(4, 32, 4, 8, 32, 256, 4, True),
+    Variant(4, 64, 4, 6, 16, 256, 6, True),
+    Variant(4, 128, 2, 8, 16, 256, 4, False),
+    Variant(6, 128, 2, 4, 8, 256, 4, True),
+    Variant(8, 128, 2, 4, 64, 512, 2, False),
+    Variant(16, 128, 2, 4, 16, 256, 4, True),
 )
 SWEEP_LEVELS = (4095, 1023, 511, 255)
 SYS_LEVELS = (2047, 255)
 
 
-def build(tag: str, csrc: pathlib.Path, defines: dict,
-          out_dir: pathlib.Path):
-    """Start the nvcc processes of one variant; (library path, processes)."""
+def rewrites(v: Variant):
+    """(source, text, replacement, times it must occur) that turn the
+    sources' schedule into v's."""
+    out = [
+        ("rbgs.cu", "constexpr int STRIP = 4;",
+         f"constexpr int STRIP = {v.strip};", 1),
+        ("rbgs.cu", "constexpr int SWEEP_BX = 128, SWEEP_BY = 2;",
+         f"constexpr int SWEEP_BX = {v.bx}, SWEEP_BY = {v.by};", 1),
+        ("rbgs.cu",
+         "constexpr int SWEEP_MIN_BLOCKS = 1024 / (SWEEP_BX * SWEEP_BY);",
+         f"constexpr int SWEEP_MIN_BLOCKS = {v.min_blocks};", 1),
+        ("rbgs_sys.cu", "static constexpr int WR = 16, WC = 64;",
+         f"static constexpr int WR = {v.rows}, WC = 64;", 1),
+        ("rbgs_sys.cu", "static constexpr int NT = 256;",
+         f"static constexpr int NT = {v.threads};", 1),
+        ("rbgs_sys.cu", "static constexpr int BLOCKS = 1024 / NT;",
+         f"static constexpr int BLOCKS = {v.blocks};", 1),
+    ]
+    if not v.stage_b:
+        out += [
+            ("rbgs_sys.cu",
+             "      copy_async(dst + (NF + f) * L::FIELD, t.b[f] + g, in);\n",
+             "", 1),
+            ("rbgs_sys.cu", "      2 * NF * FIELD * static_cast<int>",
+             "      NF * FIELD * static_cast<int>", 1),
+            ("rbgs_sys.cu", "L::NT, true>(", "L::NT, false>(", 2),
+        ]
+    return out
+
+
+def patched_csrc(v: Variant, out_dir: pathlib.Path) -> pathlib.Path:
+    """A copy of this checkout's csrc/ with v's schedule."""
+    shutil.copytree(CSRC, out_dir)
+    for src, old, new, times in rewrites(v):
+        path = out_dir / src
+        text = path.read_text()
+        if text.count(old) != times:
+            raise RuntimeError(f"{src}: {old!r} found {text.count(old)} "
+                               f"times, not {times}")
+        path.write_text(text.replace(old, new))
+    return out_dir
+
+
+def build(tag: str, csrc: pathlib.Path, out_dir: pathlib.Path):
+    """Start the nvcc processes of one variant; (library path, objects,
+    processes)."""
     from evostencils_tpu_torch.ops.kernels import _build
     nvcc = _build.nvcc_path()
-    flags = [f"-D{k}={v}" for k, v in defines.items()]
     objs, procs = [], []
     for src in SOURCES:
         obj = out_dir / f"{tag}.{src}.o"
         objs.append(obj)
-        procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, *flags, "-c",
-                                    "-o", str(obj), str(csrc / src)]))
+        procs.append(_build._start([nvcc, *_build.NVCC_FLAGS, "-c", "-o",
+                                    str(obj), str(csrc / src)]))
     return out_dir / f"lib{tag}.so", objs, procs
 
 
 def build_all(variants, out_dir):
-    """{tag: ctypes library} of (tag, csrc dir, defines) triples."""
+    """{tag: ctypes library} of (tag, csrc dir) pairs."""
     from evostencils_tpu_torch.ops.kernels import _build
-    started = [(tag, *build(tag, csrc, d, out_dir))
-               for tag, csrc, d in variants]
+    started = [(tag, *build(tag, csrc, out_dir)) for tag, csrc in variants]
     _build._run([p for *_, procs in started for p in procs])
     _build._run([_build._start([_build.nvcc_path(), *_build.ARCH_FLAGS,
                                 "-shared", "-o", str(lib), *map(str, objs)])
@@ -281,21 +333,23 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
-    csrc = ROOT / "evostencils_tpu_torch" / "csrc"
-    if args.mode == "variants":
-        specs = [(f"v{i}", csrc, d) for i, (_, d) in enumerate(VARIANTS)]
-        names = {f"v{i}": name for i, (name, _) in enumerate(VARIANTS)}
-        turns = [tag for tag, _, _ in specs]
-        turns += turns[::-1]
-    else:
-        if args.parent is None:
-            ap.error("ab takes --parent DIR")
-        specs = [("parent", args.parent / "evostencils_tpu_torch" / "csrc",
-                  {}), ("change", csrc, {})]
-        names = {"parent": "parent", "change": "change"}
-        turns = ["parent", "change", "change", "parent"]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all(specs, pathlib.Path(tmp))
+        tmp = pathlib.Path(tmp)
+        if args.mode == "variants":
+            names = {f"v{i}": v.name for i, v in enumerate(VARIANTS)}
+            specs = [(f"v{i}", patched_csrc(v, tmp / f"v{i}"))
+                     for i, v in enumerate(VARIANTS)]
+            turns = [tag for tag, _ in specs]
+            turns += turns[::-1]
+        else:
+            if args.parent is None:
+                ap.error("ab takes --parent DIR")
+            names = {"parent": "parent", "change": "change"}
+            specs = [("parent",
+                      args.parent / "evostencils_tpu_torch" / "csrc"),
+                     ("change", CSRC)]
+            turns = ["parent", "change", "change", "parent"]
+        libs = build_all(specs, tmp)
         cs.log(f"[build] {', '.join(f'{t}: {n}' for t, n in names.items())}")
         log_info(libs, names, card)
         c = Cases(torch, "cuda")

@@ -28,12 +28,15 @@ library: it must hand the entry the parity and the grid's shape and raise
 when the entry refuses the launch.
 """
 
+import re
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import torch.nn.functional as F
 
+from evostencils_tpu_torch.ops.kernels import _build
 from evostencils_tpu_torch.ops.kernels import rbgs as tr
 from tests.test_torch_transfer_tiles import _stand_in_card
 
@@ -162,6 +165,22 @@ def test_schedule_constants():
     assert tr.SWEEP_BLOCK[0] % 32 == 0
     threads = tr.SWEEP_BLOCK[0] * tr.SWEEP_BLOCK[1]
     assert tr.SWEEP_BLOCKS_PER_SM * threads >= 1024
+
+
+def test_schedule_constants_match_the_source():
+    """The wrapper module's schedule is the one csrc/rbgs.cu builds: its
+    STRIP, SWEEP_BX x SWEEP_BY and SWEEP_MIN_BLOCKS (1024 threads)."""
+    src = _build.SOURCES[[s.name for s in _build.SOURCES].index("rbgs.cu")]
+    text = src.read_text()
+    got = re.search(r"constexpr int STRIP = (\d+);", text)
+    block = re.search(r"constexpr int SWEEP_BX = (\d+), SWEEP_BY = (\d+);",
+                      text)
+    assert int(got.group(1)) == tr.SWEEP_STRIP
+    assert tuple(map(int, block.groups())) == tr.SWEEP_BLOCK
+    assert ("constexpr int SWEEP_MIN_BLOCKS = 1024 / (SWEEP_BX * SWEEP_BY);"
+            in text)
+    assert tr.SWEEP_BLOCKS_PER_SM == 1024 // (tr.SWEEP_BLOCK[0]
+                                              * tr.SWEEP_BLOCK[1])
 
 
 @pytest.mark.parametrize("err", [0, 1])

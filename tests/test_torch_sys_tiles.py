@@ -32,6 +32,8 @@ their mode and the grid's shape) and raise when the entry refuses the
 launch.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -39,6 +41,7 @@ torch = pytest.importorskip("torch")
 
 from evostencils_tpu_torch.compiler import lower as tlower
 from evostencils_tpu_torch.ops.apply import axis_restrict_3tap
+from evostencils_tpu_torch.ops.kernels import _build
 from evostencils_tpu_torch.ops.kernels import rbgs_sys as trs
 from evostencils_tpu_torch.problems import elasticity as telasticity
 
@@ -373,6 +376,25 @@ def test_sweep_window_class():
     assert tr % 2 == 0 and tc % 2 == 0
     assert rows * cols % trs.SWEEP_THREADS == 0
     assert trs.SWEEP_BLOCKS_PER_SM * trs.SWEEP_THREADS >= 1024
+
+
+def test_sweep_window_class_matches_the_source():
+    """The wrapper module's window class is the one csrc/rbgs_sys.cu
+    builds: SweepWin's halo, rows x 64 columns, threads and least resident
+    blocks (1024 threads)."""
+    src = _build.SOURCES[
+        [s.name for s in _build.SOURCES].index("rbgs_sys.cu")]
+    text = src.read_text()
+    win = text[text.index("struct SweepWin {"):]
+    win = win[:win.index("};")]
+
+    def const(pattern):
+        return tuple(map(int, re.search(pattern, win).groups()))
+    assert const(r"int H = (\d+);") == (trs.SWEEP_HALO,)
+    assert const(r"int WR = (\d+), WC = (\d+);") == trs.SWEEP_WINDOW
+    assert const(r"int NT = (\d+);") == (trs.SWEEP_THREADS,)
+    assert "static constexpr int BLOCKS = 1024 / NT;" in win
+    assert trs.SWEEP_BLOCKS_PER_SM == 1024 // trs.SWEEP_THREADS
 
 
 class _FakeLibrary:
