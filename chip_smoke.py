@@ -969,7 +969,10 @@ def check_rbgs_sweep_info(rbgs):
     its strip, block, threads, blocks per SM, registers, local memory
     (spills) and shared memory, from the card.  Strip and block must be
     the wrapper module's; at least SWEEP_BLOCKS_PER_SM blocks must be
-    resident; nothing may spill."""
+    resident; nothing may spill.  Then the red-black kernel's
+    (``rbgs.fused_sweep_info``): tile, halo and threads must be the
+    wrapper module's window, at least FUSED_BLOCKS_PER_SM blocks
+    resident, nothing spilled."""
     for one_colour in (False, True):
         i = rbgs.sweep_info(one_colour)
         what = "parity 0/1" if one_colour else "parity -1"
@@ -984,6 +987,19 @@ def check_rbgs_sweep_info(rbgs):
               and i["blocks_per_sm"] >= rbgs.SWEEP_BLOCKS_PER_SM,
               f"sweep {what} info {i} against the wrapper's {want}, "
               f"{rbgs.SWEEP_BLOCKS_PER_SM} blocks/SM")
+    i = rbgs.fused_sweep_info()
+    log(f"[kernels-rbgs] red-black sweep: tile {i['tile_rows']}x"
+        f"{i['tile_cols']}, halo {i['halo']}, {i['threads']} threads, "
+        f"{i['blocks_per_sm']} blocks/SM, {i['registers']} registers, "
+        f"{i['local_bytes']} B local, {i['smem_bytes']} B shared")
+    tile = rbgs.fused_tile()
+    want = {"tile_rows": tile[0], "tile_cols": tile[1],
+            "halo": rbgs.FUSED_HALO, "threads": rbgs.FUSED_THREADS,
+            "local_bytes": 0}
+    check(all(i[k] == v for k, v in want.items())
+          and i["blocks_per_sm"] >= rbgs.FUSED_BLOCKS_PER_SM,
+          f"red-black sweep info {i} against the wrapper's {want}, "
+          f"{rbgs.FUSED_BLOCKS_PER_SM} blocks/SM")
 
 
 def phase_kernels_rbgs(torch, rbgs, device):
@@ -1039,11 +1055,11 @@ def phase_kernels_rbgs(torch, rbgs, device):
 
 
 def phase_kernels_rr(torch, transfer, device):
-    """The standalone transfer kernels against their plain versions; the
-    residual restriction's instantiations (the down-leg of no sweep)."""
+    """The standalone transfer kernels against their plain versions; their
+    instantiations (the down-leg and the up-leg of no sweep)."""
     stats = {name: {"max_abs_err": 0.0}
              for name in ("residual_restrict", "prolong_correct")}
-    check_leg2d_info(transfer, "kernels-rr", (("down", (0,)),))
+    check_leg2d_info(transfer, "kernels-rr", (("down", (0,)), ("up", (0,))))
     omegas = torch.tensor([0.6, 1.15, 0.8], dtype=torch.float32,
                           device=device)
     rng = np.random.default_rng(3)

@@ -1,8 +1,8 @@
 // 4-byte cp.async copies from device memory into shared memory, shared by
 // the kernels that stage their windows with them (csrc/transfer.cu,
-// csrc/rbgs_var.cu, csrc/rbgs_sys.cu and, through pipeline3d.cuh, the 3D
-// kernels).  Rows of 2047, 1023 or 255 floats are only 4-byte aligned, so
-// a copy moves one float.
+// csrc/rbgs.cu, csrc/rbgs_var.cu, csrc/rbgs_sys.cu and, through
+// pipeline3d.cuh, the 3D kernels).  Rows of 2047, 1023 or 255 floats are
+// only 4-byte aligned, so a copy moves one float.
 
 #pragma once
 

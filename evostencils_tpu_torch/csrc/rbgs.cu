@@ -46,23 +46,36 @@
 // es_sweep_info reports it from the card, and
 // tests/test_torch_rbgs_tiles.py emulates the schedule in float64.
 //
-// es_fused_rbgs_sweep needs the red values of the ring around its tile
-// before its black half-sweep.  Each block loads a (T+4) x (T+4) window of
-// u and b with a 2-cell halo into shared memory, updates red on the tile
-// and a 1-cell ring around it (whose neighbours lie in the window), syncs,
-// updates black on the tile, and writes the tile.  With T = 64 that reads
-// 68^2 / 64^2 = 1.13 times the tile's bytes of u and b (L2 absorbs part of
-// the overlap) and uses 2 * 68 * 68 * 4 = 36,992 bytes of shared memory, so
-// no opt-in above 48 KB is needed.
+// es_fused_rbgs_sweep (fused_rbgs_kernel) needs the red values of the ring
+// around its tile before its black half-sweep, so a block owns a tile and
+// stages u and b over a window two cells wider on every side (halo 2),
+// zero outside the grid, by 4-byte cp.async (csrc/cp_async.cuh; rows of
+// 4095 floats are only 4-byte aligned), all of a thread's copies in flight
+// before one wait.  The red half-sweep updates the window cells at a
+// distance >= 1 from the window edge and the black one those at >= 2:
+// their neighbours all lie in the window, so no read is predicated, and
+// the cells still right after each pass are exactly those; the tile
+// (distance >= 2) is then stored.  Each window row is stored split by
+// column parity: its even columns, then, 16 banks on, its odd ones, so
+// that a colour's cells of a row are contiguous.  In a half-sweep lane x
+// updates slot x of the colour's half of each of its rows: every lane
+// busy, no divide or modulo, and every warp's reads of the half, of its
+// left and right neighbours (the other half, shifted by at most one slot)
+// and of the rows above and below are 32 consecutive floats, free of bank
+// conflicts.  Tiles start at even interior indices, so a window cell's
+// colour is the parity of its window indices.  The window is 16 x 64
+// cells, 10,240 bytes of u and b, in blocks of 256 threads, 8 an SM
+// (every thread slot of the SM): the class that the complex and
+// variable-coefficient red-black sweeps (csrc/rbgs_cx.cu, csrc/rbgs_var.cu)
+// found fastest on the H100.  es_fused_rbgs_sweep_info reports its tile
+// and occupancy from the card, and tests/test_torch_rbgs_tiles.py emulates
+// the schedule in float64.
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "cp_async.cuh"
 
-constexpr int TILE = 64;
-constexpr int WIN = TILE + 4;            // 2-cell halo on each side
-constexpr int THREADS = 256;
-constexpr int FUSED_SMEM = 2 * WIN * WIN * sizeof(float);
+namespace {
 
 struct Sweep {
   // 5-point stencil: center and the neighbours up (-1,0), down (+1,0),
@@ -164,53 +177,125 @@ sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
     if (col && i0 + k < p.n) out[g0 + static_cast<long>(k) * p.m] = res[k];
 }
 
-// One half-sweep of colour `parity` on the window cells whose row and
-// column indices both lie in [lo, WIN - 1 - lo].
-__device__ void half_sweep(float* su, const float* sb, const Sweep& p,
-                           float om_dinv, int r0, int c0, int parity,
-                           int lo) {
-  const int span = WIN - 2 * lo;
-  for (int idx = threadIdx.x; idx < span * span; idx += blockDim.x) {
-    const int wr = lo + idx / span, wc = lo + idx % span;
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (gr < 0 || gr >= p.n || gc < 0 || gc >= p.m ||
-        ((gr + gc) & 1) != parity)
-      continue;
-    const int w = wr * WIN + wc;
-    const float off = p.a_up * su[w - WIN] + p.a_dn * su[w + WIN] +
-                      p.a_lf * su[w - 1] + p.a_rt * su[w + 1];
-    const float v = su[w];
-    su[w] = v + om_dinv * (sb[w] - (p.c * v + off));
+// ---------------------------------------------------------------------------
+// The red-black sweep: fused_rbgs_kernel (es_fused_rbgs_sweep; see the
+// design note at the top).
+// ---------------------------------------------------------------------------
+
+// The sweep's window: WR x 2 SL cells, blocks of SL x NY threads, at least
+// BLOCKS resident on an SM (__launch_bounds__), the halo H and the tile.
+// NY is even, so the rows of one thread share a parity.  Row wr of u's
+// window holds its even columns at wr * RS + wc / 2 and its odd ones at
+// wr * RS + ODD + wc / 2; ODD is SL + 16, so the odd half starts 16 banks
+// after the even one.  b's window follows u's, B floats on.
+struct FusedShape {
+  static constexpr int H = 2;
+  static constexpr int WR = 16, SL = 32, NY = 8;
+  static constexpr int BLOCKS = 8;
+  static constexpr int WC = 2 * SL;
+  static constexpr int THREADS = SL * NY;
+  static constexpr int TR = WR - 2 * H, TC = WC - 2 * H;
+  static constexpr int KR = WR / NY;   // rows of a thread
+  static constexpr int ODD = SL + 16, RS = ODD + SL;
+  static constexpr int B = WR * RS;
+  static constexpr int SMEM = 2 * B * static_cast<int>(sizeof(float));
+  static_assert(NY % 2 == 0 && WR % NY == 0 && TR > 0 && TR % 2 == 0,
+                "even tiles, and the rows of a thread share a parity");
+  static_assert(SMEM <= 48 * 1024, "no dynamic shared memory opt-in");
+};
+
+template <typename L>
+__device__ __forceinline__ int fused_at(int wr, int wc) {
+  return wr * L::RS + (wc & 1) * L::ODD + (wc >> 1);
+}
+
+// u and b over the window whose top-left interior index is (r0, c0), zero
+// outside the grid: lane x copies columns x and x + SLOTS of its rows, all
+// by cp.async, then one wait and a barrier.
+template <typename L>
+__device__ __forceinline__ void stage_fused(const float* __restrict__ u,
+                                            const float* __restrict__ b,
+                                            float* su, const Sweep& p,
+                                            int r0, int c0) {
+#pragma unroll
+  for (int k = 0; k < L::KR; ++k) {
+    const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
+    const bool row_in = gr >= 0 && gr < p.n;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
+      const bool in = row_in && gc >= 0 && gc < p.m;
+      const long g = in ? static_cast<long>(gr) * p.m + gc : 0;
+      float* dst = su + fused_at<L>(wr, wc);
+      copy_async(dst, u + g, in);
+      copy_async(dst + L::B, b + g, in);
+    }
+  }
+  copy_wait_all();
+  __syncthreads();
+}
+
+// Half-sweep PASS (1: red, 2: black) on the window cells in the grid at a
+// distance >= PASS from the window's edge, in place (the four neighbours
+// of a cell have the other colour), with the TPU kernel's sum
+// c*v + (((c_up*up + c_dn*dn) + c_lf*lf) + c_rt*rt).  The colour's cells of
+// this thread's rows all lie in half h; lane x takes slot x.
+template <typename L, int PASS>
+__device__ __forceinline__ void fused_pass(float* su, const Sweep& p,
+                                           float om_dinv, int r0, int c0) {
+  constexpr int colour = PASS - 1;
+  const int s = threadIdx.x, ty = threadIdx.y;
+  const int h = (colour + ty) & 1, wc = 2 * s + h, gc = c0 + wc;
+  if (wc < PASS || wc > L::WC - 1 - PASS || gc < 0 || gc >= p.m) return;
+  float* cell = su + h * L::ODD + s;
+  // the right neighbour, in the other half; the left one precedes it
+  const float* right = su + (1 - h) * L::ODD + s + h;
+#pragma unroll
+  for (int k = 0; k < L::KR; ++k) {
+    const int wr = ty + k * L::NY, gr = r0 + wr;
+    if (wr < PASS || wr > L::WR - 1 - PASS || gr < 0 || gr >= p.n) continue;
+    float* w = cell + wr * L::RS;
+    const float* rt = right + wr * L::RS;
+    const float v = w[0];
+    const float off = p.a_up * w[-L::RS] + p.a_dn * w[L::RS] +
+                      p.a_lf * rt[-1] + p.a_rt * rt[0];
+    w[0] = v + om_dinv * (w[L::B] - (p.c * v + off));
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The tile of u's window to out: lane x stores columns H + x and
+// H + x + SLOTS of its rows.
+template <typename L>
+__device__ __forceinline__ void store_fused(const float* su,
+                                            float* __restrict__ out,
+                                            const Sweep& p, int r0, int c0) {
+#pragma unroll
+  for (int k = 0; k < (L::TR + L::NY - 1) / L::NY; ++k) {
+    const int wr = L::H + threadIdx.y + k * L::NY, gr = r0 + wr;
+    if (wr >= L::H + L::TR || gr >= p.n) break;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = L::H + threadIdx.x + j * L::SL, gc = c0 + wc;
+      if (wc < L::H + L::TC && gc < p.m)
+        out[static_cast<long>(gr) * p.m + gc] = su[fused_at<L>(wr, wc)];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FusedShape::THREADS, FusedShape::BLOCKS)
 fused_rbgs_kernel(const float* __restrict__ u, const float* __restrict__ b,
                   const float* __restrict__ omegas, float* __restrict__ out,
                   Sweep p) {
-  extern __shared__ float smem[];
-  float* su = smem;
-  float* sb = smem + WIN * WIN;
-  const int r0 = blockIdx.y * TILE - 2, c0 = blockIdx.x * TILE - 2;
-  for (int idx = threadIdx.x; idx < WIN * WIN; idx += blockDim.x) {
-    const int gr = r0 + idx / WIN, gc = c0 + idx % WIN;
-    const bool in = gr >= 0 && gr < p.n && gc >= 0 && gc < p.m;
-    const long g = static_cast<long>(gr) * p.m + gc;
-    su[idx] = in ? u[g] : 0.f;
-    sb[idx] = in ? b[g] : 0.f;
-  }
-  __syncthreads();
+  using L = FusedShape;
+  __shared__ float su[2 * L::B];
+  const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
   const float om_dinv = omegas[p.om] * p.dinv;
-  half_sweep(su, sb, p, om_dinv, r0, c0, 0, 1);   // red: tile + 1-cell ring
+  stage_fused<L>(u, b, su, p, r0, c0);
+  fused_pass<L, 1>(su, p, om_dinv, r0, c0);
   __syncthreads();
-  half_sweep(su, sb, p, om_dinv, r0, c0, 1, 2);   // black: the tile
+  fused_pass<L, 2>(su, p, om_dinv, r0, c0);
   __syncthreads();
-  for (int idx = threadIdx.x; idx < TILE * TILE; idx += blockDim.x) {
-    const int gr = r0 + 2 + idx / TILE, gc = c0 + 2 + idx % TILE;
-    if (gr < p.n && gc < p.m)
-      out[static_cast<long>(gr) * p.m + gc] =
-          su[(2 + idx / TILE) * WIN + 2 + idx % TILE];
-  }
+  store_fused<L>(su, out, p, r0, c0);
 }
 
 Sweep make_sweep(const double* vals, int om, int parity, int n, int m) {
@@ -254,17 +339,45 @@ extern "C" int es_sweep(const float* u, const float* b, const float* omegas,
   return cudaGetLastError();
 }
 
+// As es_sweep, without the parity.
 extern "C" int es_fused_rbgs_sweep(const float* u, const float* b,
                                    const float* omegas, int om,
                                    const double* vals, float* out, int n,
                                    int m, void* stream) {
+  using L = FusedShape;
   if (n < 1 || m < 1 || vals[0] == 0.0) return cudaErrorInvalidValue;
   const Sweep p = make_sweep(vals, om, 0, n, m);
-  const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE);
-  fused_rbgs_kernel<<<grid, THREADS, FUSED_SMEM,
+  const dim3 grid((m + L::TC - 1) / L::TC, (n + L::TR - 1) / L::TR);
+  fused_rbgs_kernel<<<grid, dim3(L::SL, L::NY), 0,
                       static_cast<cudaStream_t>(stream)>>>(u, b, omegas, out,
                                                            p);
   return cudaGetLastError();
+}
+
+// What es_fused_rbgs_sweep's kernel is on this card: info[0], [1] its
+// tile's rows and columns, [2] its halo, [3] threads per block, [4]
+// resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// [5] registers per thread, [6] local memory per thread in bytes (spills
+// land there), [7] shared memory per block in bytes.
+extern "C" int es_fused_rbgs_sweep_info(int* info) {
+  using L = FusedShape;
+  const void* kernel = reinterpret_cast<const void*>(fused_rbgs_kernel);
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, L::THREADS, 0);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = L::TR;
+  info[1] = L::TC;
+  info[2] = L::H;
+  info[3] = L::THREADS;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = static_cast<int>(attr.sharedSizeBytes);
+  return cudaSuccess;
 }
 
 // What es_sweep's kernel (one_colour: parity 0 or 1, else -1) is on this

@@ -30,7 +30,8 @@
 //   down-leg with no sweep, col_leg_kernel<kDown, 0, RR_WINDOW>.
 // es_prolong_correct replaces prolong_row_correct (_pc_kernel) and the
 //   column prolongation that lower.py:1373-1376 runs before it:
-//   u + omega * P(e) with the full 1:2 prolongation of e.
+//   u + omega * P(e) with the full 1:2 prolongation of e.  It is the up-leg
+//   with no sweep, col_leg_kernel<kUp, 0, PC_WINDOW>.
 //
 // What bounds them: device-memory bytes.  Each leg must read u and b once
 // and write u once, plus the coarse array (rc written or e read); the
@@ -41,8 +42,8 @@
 // u and b and a write of u per cycle.  es_residual_restrict and
 // es_prolong_correct are single passes too: the first stages u's and b's
 // windows as the down-leg does and walks the residual and restriction in
-// registers, the second is one thread a fine point, reading the (at most
-// four) coarse values it needs through the cache.
+// registers, the second stages u's window and e's coarse window as the
+// up-leg does (no b: it has no sweep) and corrects every window cell.
 //
 // The TPU kernel walks full-width row blocks in order.  Here thread blocks
 // run in parallel.  Each one owns a tile of the fine grid and loads it with
@@ -53,10 +54,11 @@
 // residual adds one ring and the restriction reads fine index 2i+2 past
 // the tile, so a kernel that restricts needs a halo of P + 2 (2 with no
 // sweep, the standalone residual restriction); the up-leg,
-// whose prolongation is pointwise, needs P.  The prolongation is exact up
-// to the window's edge (the coarse window covers it).  Tiles start at even
-// interior indices, so every coarse point's 3x3 restriction window and
-// every prolongation stencil lies in one tile, and red is (global row +
+// whose prolongation is pointwise, needs P (0 with no sweep, the standalone
+// prolongation-correction, whose tile is its window).  The prolongation is
+// exact up to the window's edge (the coarse window covers it).  Tiles start
+// at even interior indices, so every coarse point's 3x3 restriction window
+// and every prolongation stencil lies in one tile, and red is (global row +
 // global column) even in interior indices (interior index i is node i+1 on
 // both axes, which leaves the parity unchanged).  Cells outside the grid
 // hold 0 and are never updated (Dirichlet ring and ragged last tiles).
@@ -65,8 +67,9 @@
 //
 // Design of the windowed kernels (col_leg_kernel<F, S, K>: the legs of
 // every 2D Poisson V-cycle, with both transfer axes or row-only ones, the
-// fused passes of the cycle loop in both forms, and the standalone
-// residual restriction, the down-leg of S = 0).  They are latency-bound
+// fused passes of the cycle loop in both forms, the standalone residual
+// restriction, the down-leg of S = 0, and the standalone
+// prolongation-correction, the up-leg of S = 0).  They are latency-bound
 // before they are bandwidth-bound: a block loads, then runs its half-sweeps
 // between barriers, so the card needs many small blocks resident to keep
 // memory busy.  A block stages u and b over a window of one of N_LEG_WINDOWS
@@ -101,6 +104,11 @@
 // fine rows of a run of coarse rows, u's rows above and below in registers,
 // and restricts as it goes; with both transfer axes it takes coarse column
 // x, row-only the fine columns 2x and 2x + 1.
+// The standalone prolongation-correction stages u's window and e's coarse
+// window only (12,484 bytes in its one class, PC_WINDOW), corrects every
+// window cell from them and stores the window: with no sweep the tile is
+// the window, so no cell is loaded twice, and no thread divides to find
+// its point or reads e through the cache behind a branch.
 // tests/test_torch_transfer_tiles.py and tests/test_torch_fused_tiles.py
 // emulate this schedule in float64, and es_transfer_leg_info reports each
 // instantiation's tile, halo and occupancy from the card.
@@ -111,8 +119,6 @@
 
 namespace {
 
-// threads a block of the standalone prolongation-correction
-constexpr int THREADS = 256;
 constexpr int MAX_SWEEPS = 3;
 constexpr int MAX_FUSED_SWEEPS = 2 * MAX_SWEEPS;
 
@@ -133,45 +139,11 @@ struct Leg {
   int n, m;
 };
 
-// The column expansion of coarse row ci at fine column gc; 0 outside the
-// coarse grid (transfer.py:146-149 on each axis).
-__device__ __forceinline__ float col_prolong(const float* __restrict__ e,
-                                             const Leg& p, int ci, int gc) {
-  const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
-  if (ci < 0 || ci >= nc) return 0.f;
-  const float* er = e + static_cast<long>(ci) * mc;
-  if (gc & 1) return p.tc[1] * er[(gc - 1) / 2];
-  const int j = gc / 2;
-  const float left = j > 0 ? er[j - 1] : 0.f;
-  const float right = j < mc ? er[j] : 0.f;
-  return p.tc[2] * left + p.tc[0] * right;
-}
-
-// u + omega * P(e), one thread a fine point: the column expansion of the
-// (one or two) coarse rows, then the row expansion (lower.py:1373-1376).
-__global__ void __launch_bounds__(THREADS)
-prolong_correct_kernel(const float* __restrict__ u,
-                       const float* __restrict__ e,
-                       const float* __restrict__ omegas,
-                       float* __restrict__ u_out, Leg p) {
-  const long g = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= static_cast<long>(p.n) * p.m) return;
-  const int gr = static_cast<int>(g / p.m), gc = static_cast<int>(g % p.m);
-  float corr;
-  if (gr & 1) {
-    corr = p.tr[1] * col_prolong(e, p, (gr - 1) / 2, gc);
-  } else {
-    corr = p.tr[2] * col_prolong(e, p, gr / 2 - 1, gc) +
-           p.tr[0] * col_prolong(e, p, gr / 2, gc);
-  }
-  u_out[g] = u[g] + omegas[p.om[0]] * corr;
-}
-
 // ---------------------------------------------------------------------------
 // The windowed kernels: col_leg_kernel<F, S, K> in the forms F of
 // es_presmooth_residual_restrict, es_prolong_correct_postsmooth,
-// es_upleg_downleg and es_residual_restrict (see the design note at the
-// top).
+// es_upleg_downleg, es_residual_restrict and es_prolong_correct (see the
+// design note at the top).
 // ---------------------------------------------------------------------------
 
 // The forms, numbered as es_transfer_leg_info takes them: the up-leg, the
@@ -203,6 +175,11 @@ constexpr int N_LEG_WINDOWS = 2;
 // The standalone residual restriction's one class: with no sweep, 32 x 64
 // beats 64 x 64 at every level from 4095^2 down on an H100.
 constexpr int RR_WINDOW = 1;
+// The standalone prolongation-correction's one class, and whether it
+// stages u's window (else each thread reads its cells of u into registers
+// while e's coarse window arrives, and writes u_out from them).
+constexpr int PC_WINDOW = 1;
+constexpr bool PC_STAGES_U = true;
 
 // Form F of S sweeps in window class K: P = 2S half-sweeps, the halo (P on
 // the up-legs, P + 2 where the kernel restricts), the tile, and the
@@ -212,8 +189,9 @@ constexpr int RR_WINDOW = 1;
 // in 32 banks.  b's window (B floats on) follows u's, and the coarse
 // operand's window follows both: e's, CR x CC values, where the kernel
 // prolongs e, c_half's, CR rows in u's layout, in the row-only up-leg and
-// pass.  The class is built for the form only if the tile keeps at least
-// H rows.
+// pass.  The standalone prolongation-correction (PC) stages no b, and u
+// only where PC_STAGES_U.  The class is built for the form only if the
+// tile keeps at least H rows.
 template <int F, int S, int K>
 struct ColLeg {
   using Win = LegWindow<K>;
@@ -236,15 +214,23 @@ struct ColLeg {
   static constexpr int CR = WR / 2 + 1, CC = SL + 1;
   static constexpr bool STAGES_E = F == kUp || F == kPassCols;
   static constexpr bool STAGES_HALF = F == kUpRows || F == kPassRows;
+  // the up-leg of no sweep: the standalone prolongation-correction
+  static constexpr bool PC = F == kUp && S == 0;
+  static constexpr bool STAGES_U = !PC || PC_STAGES_U;
+  static constexpr bool STAGES_B = !PC;
+  // the fine windows staged (u's, b's), e's or c_half's window after them
+  static constexpr int FINE = (STAGES_U ? 1 : 0) + (STAGES_B ? 1 : 0);
   static constexpr int SMEM =
-      (2 * B + (STAGES_E ? CR * CC : STAGES_HALF ? CR * RS : 0)) *
+      (FINE * B + (STAGES_E ? CR * CC : STAGES_HALF ? CR * RS : 0)) *
       static_cast<int>(sizeof(float));
   static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_SMEM_RESERVED);
   static constexpr int BLOCKS = FIT < Win::BLOCKS ? FIT : Win::BLOCKS;
-  // S = 0 only for the down-leg in class RR_WINDOW: the standalone
-  // residual restriction
+  // S = 0 only for the down-leg in class RR_WINDOW, the standalone
+  // residual restriction, and the up-leg in class PC_WINDOW, the
+  // standalone prolongation-correction
   static constexpr bool BUILT =
-      (S >= 1 || (F == kDown && K == RR_WINDOW)) &&
+      (S >= 1 || (F == kDown && K == RR_WINDOW) ||
+       (F == kUp && K == PC_WINDOW)) &&
       S <= (PASS ? MAX_FUSED_SWEEPS : MAX_SWEEPS) && TR >= H;
   static_assert(NY % 2 == 0 && WR % NY == 0 && TC > 0,
                 "a window class must fit the form's halo");
@@ -255,9 +241,9 @@ __device__ __forceinline__ int split_at(int wr, int wc) {
   return wr * L::RS + (wc & 1) * L::ODD + (wc >> 1);
 }
 
-// u and b over the window whose top-left interior index is (r0, c0), zero
-// outside the grid, issued by cp.async: lane x copies columns x and
-// x + SLOTS of its rows.
+// u and b (b only where the form stages it) over the window whose top-left
+// interior index is (r0, c0), zero outside the grid, issued by cp.async:
+// lane x copies columns x and x + SLOTS of its rows.
 template <typename L>
 __device__ __forceinline__ void load_window_split(const float* __restrict__ u,
                                                   const float* __restrict__ b,
@@ -274,7 +260,7 @@ __device__ __forceinline__ void load_window_split(const float* __restrict__ u,
       const long g = in ? static_cast<long>(gr) * p.m + gc : 0;
       float* dst = su + split_at<L>(wr, wc);
       copy_async(dst, u + g, in);
-      copy_async(dst + L::B, b + g, in);
+      if constexpr (L::STAGES_B) copy_async(dst + L::B, b + g, in);
     }
   }
 }
@@ -520,36 +506,80 @@ __device__ __forceinline__ void residual_rowrestrict_split(
   }
 }
 
+// P(e) at window cell (wr, wc) from e's staged coarse window: fine index
+// 2i+1+o takes taps[o+1] * e[i] on each axis, the column expansion first,
+// then the row expansion (transfer.py:896-903), with the prolongation's
+// taps p.pr, p.pc.  The window starts at even (r0, c0) and its coarse
+// window at r0 / 2 - 1, so column wc reads coarse columns wc / 2 and
+// wc / 2 + 1 (even) or (wc + 1) / 2 (odd), and row wr likewise coarse rows.
+template <typename L>
+__device__ __forceinline__ float prolong_at(const float* se, const Leg& p,
+                                            int wr, int wc) {
+  // coarse window row wr / 2 + 1 (even wr) or (wr + 1) / 2 (odd wr)
+  const float* er = se + ((wr >> 1) + 1) * L::CC + (wc >> 1);
+  const int h = wc & 1;
+  // the column expansion of the coarse window row at `r`
+  const auto col = [&p, h](const float* r) {
+    return h ? p.pc[1] * r[1] : p.pc[2] * r[0] + p.pc[0] * r[1];
+  };
+  return (wr & 1) ? p.pr[1] * col(er)
+                  : p.pr[2] * col(er - L::CC) + p.pr[0] * col(er);
+}
+
 // u += om0 * P(e) on every window cell in the grid, from e's staged coarse
-// window: fine index 2i+1+o takes taps[o+1] * e[i] on each axis, the column
-// expansion first, then the row expansion (transfer.py:896-903), with the
-// prolongation's taps p.pr, p.pc.  The window starts at even (r0, c0) and
-// its coarse window at r0 / 2 - 1, so slot s of a row reads coarse columns
-// s and s + 1, and row wr coarse rows wr / 2 and wr / 2 + 1 (even) or
-// (wr + 1) / 2 (odd).
+// window; lane x corrects slot x of both halves of its rows.
 template <typename L>
 __device__ __forceinline__ void correct_split(float* su, const float* se,
                                               const Leg& p, float om0, int r0,
                                               int c0) {
   const int s = threadIdx.x, ty = threadIdx.y;
-  // the column expansion of coarse window row `er` at column parity h
-  const auto col = [&p](const float* er, int h) {
-    return h ? p.pc[1] * er[1] : p.pc[2] * er[0] + p.pc[0] * er[1];
-  };
 #pragma unroll
   for (int k = 0; k < L::WR / L::NY; ++k) {
     const int wr = ty + k * L::NY, gr = r0 + wr;
     if (gr < 0 || gr >= p.n) continue;
-    // coarse window row wr / 2 + 1 (even wr) or (wr + 1) / 2 (odd wr)
-    const float* er = se + ((wr >> 1) + 1) * L::CC + s;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gc = c0 + 2 * s + h;
       if (gc < 0 || gc >= p.m) continue;
-      const float corr =
-          (wr & 1) ? p.pr[1] * col(er, h)
-                   : p.pr[2] * col(er - L::CC, h) + p.pr[0] * col(er, h);
-      su[wr * L::RS + h * L::ODD + s] += om0 * corr;
+      su[wr * L::RS + h * L::ODD + s] += om0 * prolong_at<L>(se, p, wr,
+                                                             2 * s + h);
+    }
+  }
+}
+
+// The standalone prolongation-correction without u's window (PC_STAGES_U
+// false): each thread reads its cells of u (lane x columns x and x + SLOTS
+// of its rows) into registers while e's coarse window arrives, then writes
+// u + om0 * P(e) there.
+template <typename L>
+__device__ __forceinline__ void prolong_correct_direct(
+    const float* __restrict__ u, const float* se,
+    const float* __restrict__ omegas, float* __restrict__ u_out,
+    const Leg& p, int r0, int c0) {
+  constexpr int KR = L::WR / L::NY;
+  float v[KR][2];
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const int gr = r0 + threadIdx.y + k * L::NY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gc = c0 + threadIdx.x + j * L::SL;
+      v[k][j] = gr < p.n && gc < p.m ? u[static_cast<long>(gr) * p.m + gc]
+                                     : 0.f;
+    }
+  }
+  copy_wait_all();
+  __syncthreads();
+  const float om0 = omegas[p.om[0]];
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
+      if (gr < p.n && gc < p.m)
+        u_out[static_cast<long>(gr) * p.m + gc] =
+            v[k][j] + om0 * prolong_at<L>(se, p, wr, wc);
     }
   }
 }
@@ -595,29 +625,33 @@ col_leg_kernel(const float* __restrict__ u, const float* __restrict__ e,
                float* __restrict__ u_out, float* __restrict__ r_out, Leg p) {
   using L = ColLeg<F, S, K>;
   extern __shared__ float su[];
-  float* se = su + 2 * L::B;
+  float* se = su + L::FINE * L::B;
   const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
-  load_window_split<L>(u, b, su, p, r0, c0);
+  if constexpr (L::STAGES_U) load_window_split<L>(u, b, su, p, r0, c0);
   if constexpr (L::STAGES_E)
     load_coarse_split<L>(e, se, p, (r0 >> 1) - 1, (c0 >> 1) - 1);
   else if constexpr (L::STAGES_HALF)
     load_half_split<L>(e, se, p, (r0 >> 1) - 1, c0);
-  copy_wait_all();
-  __syncthreads();
-  if constexpr (!L::DOWN) {
-    const float om0 = omegas[p.om[0]];
-    if constexpr (L::STAGES_HALF)
-      correct_rows_split<L>(su, se, p, om0, r0, c0);
-    else
-      correct_split<L>(su, se, p, om0, r0, c0);
+  if constexpr (!L::STAGES_U) {
+    prolong_correct_direct<L>(u, se, omegas, u_out, p, r0, c0);
+  } else {
+    copy_wait_all();
     __syncthreads();
+    if constexpr (!L::DOWN) {
+      const float om0 = omegas[p.om[0]];
+      if constexpr (L::STAGES_HALF)
+        correct_rows_split<L>(su, se, p, om0, r0, c0);
+      else
+        correct_split<L>(su, se, p, om0, r0, c0);
+      __syncthreads();
+    }
+    col_passes<L>(su, omegas, p, L::DOWN ? 0 : 1, r0, c0);
+    if constexpr (S > 0 || L::PC) store_tile_split<L>(su, u_out, p, r0, c0);
+    if constexpr (L::ROWS)
+      residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
+    else if constexpr (!L::UP)
+      residual_restrict_split<L>(su, r_out, p, r0, c0);
   }
-  col_passes<L>(su, omegas, p, L::DOWN ? 0 : 1, r0, c0);
-  if constexpr (S > 0) store_tile_split<L>(su, u_out, p, r0, c0);
-  if constexpr (L::ROWS)
-    residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
-  else if constexpr (!L::UP)
-    residual_restrict_split<L>(su, r_out, p, r0, c0);
 }
 
 void set_taps(float* t, const double* c) {
@@ -780,8 +814,9 @@ extern "C" int es_prolong_correct_postsmooth(
 
 // What an instantiation of es_prolong_correct_postsmooth (form 0 with
 // column transfers, 5 row-only), es_presmooth_residual_restrict (form 1,
-// 4 row-only), es_residual_restrict (form 1, sweeps 0) or
-// es_upleg_downleg (form 2, 3 row-only) is on this card:
+// 4 row-only), es_residual_restrict (form 1, sweeps 0), es_prolong_correct
+// (form 0, sweeps 0) or es_upleg_downleg (form 2, 3 row-only) is on this
+// card:
 // info[0], [1] its tile's rows and columns, [2] its halo, [3] threads per
 // block, [4] resident blocks per SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory),
@@ -859,17 +894,17 @@ extern "C" int es_residual_restrict(const float* u, const float* b,
 // coarse-grid-correction factor in omegas.  Writes u + omega * P(e);
 // replaces evostencils_tpu/ops/pallas/transfer.py prolong_row_correct
 // (_pc_kernel) together with the column half that lower.py:1373 leaves to
-// XLA.
+// XLA.  halo, window: as for es_prolong_correct_postsmooth, for the up-leg
+// of no sweep.
 extern "C" int es_prolong_correct(const float* u, const float* e,
                                   const float* omegas, int om_id,
-                                  const double* coeffs, float* u_out, int n,
-                                  int m, void* stream) {
+                                  const double* coeffs, float* u_out,
+                                  int halo, int window, int n, int m,
+                                  void* stream) {
   if (bad_shape(n, m)) return cudaErrorInvalidValue;
-  const Leg p = make_leg(coeffs, &om_id, 1, 0, n, m);
-  const long points = static_cast<long>(n) * m;
-  const auto blocks = static_cast<unsigned>((points + THREADS - 1) / THREADS);
-  prolong_correct_kernel<<<blocks, THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(u, e, omegas,
-                                                                u_out, p);
-  return cudaGetLastError();
+  Leg p = make_leg(coeffs, &om_id, 1, 0, n, m);
+  const float* b = nullptr;
+  float* r_out = nullptr;
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
+  return launch_col_leg(kUp, 0, halo, window, n, m, args, stream);
 }

@@ -76,9 +76,10 @@ SIGNATURES = {
     # u, b, coefficients, rc, halo, window class, n, m, stream
     "es_residual_restrict":
         (_P, _P, _DOUBLES, _P, _INT, _INT, _INT, _INT, _P),
-    # u, e, omegas, omega id, coefficients, u_out, n, m, stream
+    # u, e, omegas, omega id, coefficients, u_out, halo, window class, n,
+    # m, stream
     "es_prolong_correct":
-        (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
+        (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _INT, _INT, _P),
     # u, b, omegas, omega id, parity, stencil values, out, n, m, stream
     "es_sweep": (_P, _P, _P, _INT, _INT, _DOUBLES, _P, _INT, _INT, _P),
     # one colour, info (8 ints out); no stream
@@ -86,6 +87,8 @@ SIGNATURES = {
     # u, b, omegas, omega id, stencil values, out, n, m, stream
     "es_fused_rbgs_sweep":
         (_P, _P, _P, _INT, _DOUBLES, _P, _INT, _INT, _P),
+    # info (8 ints out); no stream
+    "es_fused_rbgs_sweep_info": (_INTS,),
     # u, b, omegas, omega ids, coefficients, u_out, rc, n0, n1, n2, stream
     "es_downleg_wavefront_3d":
         (_P, _P, _P, _INTS, _DOUBLES, _P, _P, _INT, _INT, _INT, _P),

@@ -46,6 +46,19 @@ SWEEP_STRIP = 4
 SWEEP_BLOCK = (128, 2)
 SWEEP_BLOCKS_PER_SM = 4
 
+#: The block schedule of the red-black kernel, csrc/rbgs.cu
+#: ``fused_rbgs_kernel`` (``FusedShape`` states the same window, and
+#: es_fused_rbgs_sweep_info reports it from the card).  A block of
+#: FUSED_THREADS threads stages u and b over a window of FUSED_WINDOW =
+#: (rows, columns) cells and owns its centre, the tile: the window less
+#: FUSED_HALO cells on every side.  The red half-sweep updates the window
+#: cells at a distance >= 1 from the window edge, the black one those at
+#: >= 2.  At least FUSED_BLOCKS_PER_SM blocks are resident on an SM.
+FUSED_WINDOW = (16, 64)
+FUSED_THREADS = 256
+FUSED_HALO = 2
+FUSED_BLOCKS_PER_SM = 8
+
 #: kernel launches per kernel since the last reset_launches()
 launches = {"fused_rbgs_sweep": 0, "jacobi_sweep": 0}
 
@@ -68,6 +81,20 @@ def sweep_info(one_colour: bool = False) -> dict:
     return dict(zip(("strip", "block_cols", "block_strips", "threads",
                      "blocks_per_sm", "registers", "local_bytes",
                      "smem_bytes"), out))
+
+
+def fused_tile() -> Tuple[int, int]:
+    """(rows, columns) of the tile a block of the red-black kernel owns:
+    the window less the halo on every side."""
+    rows, cols = FUSED_WINDOW
+    return rows - 2 * FUSED_HALO, cols - 2 * FUSED_HALO
+
+
+def fused_sweep_info() -> dict:
+    """What the card makes of the red-black kernel: ``_build.info``'s
+    tile, halo, threads, occupancy, spills and shared memory.  Needs the
+    card."""
+    return _build.info("es_fused_rbgs_sweep_info", "red-black sweep")
 
 
 def five_point_values(stencil) -> Optional[Tuple[float, ...]]:

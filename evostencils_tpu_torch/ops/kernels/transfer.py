@@ -19,7 +19,8 @@ column half (XLA, ``lower._col_restrict`` / ``_col_prolong``), because
 Mosaic cannot stride the lane axis.  Here each is one kernel over both
 axes: ``residual_restrict`` is r = b - A u with its full restriction (the
 down-leg's windowed kernel with no sweep), and ``prolong_correct`` is
-u + omega * P(e) with the full prolongation.
+u + omega * P(e) with the full prolongation (the up-leg's windowed kernel
+with no sweep).
 
 Each kernel has, in this module:
 
@@ -66,7 +67,8 @@ MIN_COLS = 128
 #: the row-only legs (``presmooth_residual_rowrestrict``,
 #: ``prolong_correct_postsmooth``) and the fused passes
 #: (``upleg_downleg_col``, ``upleg_downleg_fused``); the standalone
-#: ``residual_restrict`` is the down-leg with S = 0; ``LegWindow<K>``
+#: ``residual_restrict`` is the down-leg with S = 0 and the standalone
+#: ``prolong_correct`` the up-leg with S = 0; ``LegWindow<K>``
 #: states the same classes, and es_transfer_leg_info reports them from the
 #: card.  A block stages u and b over a window of LEG_WINDOWS[k] = (rows,
 #: columns, threads) cells and owns its centre, the tile: the window less
@@ -85,6 +87,10 @@ LEG_WINDOWS = ((64, 64, 256), (32, 64, 256))
 #: no sweep (``RR_WINDOW`` in csrc/transfer.cu): with halo 2 and no pass,
 #: 32 x 64 beats 64 x 64 at every level from 4095^2 down on an H100
 RR_WINDOW = 1
+#: the one class of the standalone prolongation-correction, the up-leg of
+#: no sweep (``PC_WINDOW`` in csrc/transfer.cu): halo 0, so its tile is
+#: the window, and it stages u's window and e's coarse window, no b
+PC_WINDOW = 1
 LEG_BLOCKS_PER_SM = (5, 6)
 ROWPASS_BLOCKS_PER_SM = (4, 6)
 #: the windowed kernels, numbered as es_transfer_leg_info takes them: the
@@ -120,7 +126,8 @@ def leg_halo(leg: str, sweeps: int) -> int:
     prolongation being pointwise; the down-legs and the passes P + 2, their
     residual and the restriction's extra row reading one cell past the
     tile.  The standalone residual restriction is "down" with no sweep:
-    halo 2."""
+    halo 2; the standalone prolongation-correction "up" with no sweep:
+    halo 0."""
     if leg not in _FORMS:
         raise ValueError(f"leg {leg!r} is none of {sorted(_FORMS)}")
     return 2 * sweeps + (0 if leg in _UP_LEGS else 2)
@@ -140,9 +147,10 @@ def leg_windows(leg: str, sweeps: int) -> Tuple[int, ...]:
     recomputes more than twice the rows it owns.  Every class serves the
     legs; the 32 x 64 class serves passes of up to 4 sweeps.  The down-leg
     of no sweep, the standalone residual restriction, has RR_WINDOW
-    alone."""
+    alone, and the up-leg of no sweep, the standalone
+    prolongation-correction, PC_WINDOW alone."""
     if not sweeps:
-        return (RR_WINDOW,) if leg == "down" else ()
+        return {"down": (RR_WINDOW,), "up": (PC_WINDOW,)}.get(leg, ())
     return tuple(k for k in range(len(LEG_WINDOWS))
                  if leg_tile(leg, sweeps, k)[0] >= leg_halo(leg, sweeps))
 
@@ -579,14 +587,14 @@ def prolong_correct(u: torch.Tensor, e: torch.Tensor, omegas: torch.Tensor,
     pair ``taps``."""
     _check_transfer(u, (e, omegas), omegas, omega_id)
     _check_coarse(u, e, rows_only=False)
-    n, m = u.shape
     if not _build.on_card(u):
         return prolong_correct_plain(u, e, omegas, int(omega_id), taps)
     _build.check_card_tensors(u, e, omegas)
     u_out = torch.empty_like(u)
-    # the kernel reads only the taps of the coefficient block
+    # the up-leg's window with no sweep (halo 0); the kernel reads only the
+    # taps of the coefficient block
     _build.launch(launches, "prolong_correct", "es_prolong_correct",
                   u.device, u.data_ptr(), e.data_ptr(), omegas.data_ptr(),
                   int(omega_id), _coefficients((1.0, 0, 0, 0, 0), taps),
-                  u_out.data_ptr(), n, m)
+                  u_out.data_ptr(), *_window_args("up", 0, u))
     return u_out

@@ -1,32 +1,43 @@
-"""Time the schedules of the standalone sweep kernels on one CUDA card.
+"""Time the schedules of the standalone sweep and transfer kernels on one
+CUDA card.
 
     python3 kernel_variants.py variants            # from the repository root
     python3 kernel_variants.py ab --parent DIR
 
 Both modes build ``csrc/rbgs.cu`` (``sweep_kernel``, the 5-point
-single-pass sweep) and ``csrc/rbgs_sys.cu`` (``rbgs_sys_kernel``, the
-coupled-system red-black sweep, and the system legs) into one library per
-variant, all ``nvcc`` processes started together, and call the C entries
-through ``ctypes`` with the wrappers' own argument helpers.  Each result
-is first held against the plain PyTorch version, then timed as the
-kernel's device time alone (``chip_smoke.time_ms_queued``: CUDA events
-around one call queued behind a spin of the card, median of 15).
+single-pass sweep, and ``fused_rbgs_kernel``, the 5-point red-black
+sweep), ``csrc/rbgs_sys.cu`` (``rbgs_sys_kernel``, the coupled-system
+red-black sweep, and the system legs) and ``csrc/transfer.cu`` (the 2D
+legs and standalone transfers, among them the prolongation-correction,
+``col_leg_kernel<kUp, 0, PC_WINDOW>``) into one library per variant, all
+``nvcc`` processes started together.  The sweeps and the
+prolongation-correction are called at their C entries through ``ctypes``
+with the wrappers' own argument helpers, the other transfer kernels
+through their wrappers with the library swapped in.  Each library takes
+the argument types of its own tree's ``_build.SIGNATURES``, and the
+prolongation-correction the window class its ``transfer.cu`` builds.
+Each result is first held against the plain PyTorch version, then timed
+as the kernel's device time alone (``chip_smoke.time_ms_queued``: CUDA
+events around one call queued behind a spin of the card, median of 15).
 
 ``variants`` copies this checkout's ``csrc/`` once per entry of VARIANTS,
 rewrites the schedule's constants in the copy (the sweep's strip, block
 and least resident blocks; the system sweep's window rows, threads, least
 resident blocks and whether b is staged in shared memory or read through
-the read-only cache), builds each copy, and times each at every level its
+the read-only cache; the red-black sweep's window rows; the
+prolongation-correction's window class and whether it stages u or reads
+it into registers), builds each copy, and times each at every level its
 kernel runs at, in two turns (the list, then the list reversed).  A
 rewrite that does not find the text it replaces stops the script, so a
 variant builds what its name says or nothing.
 
 ``ab`` builds the sources of the parent tree DIR (a ``git archive`` of
-the parent commit) and of this checkout as they are, and times both
-kernels and the other kernels of the two sources (the fused 5-point
-red-black sweep, the system Jacobi sweep, the system legs red-black and
-Jacobi with the V(2,1)'s sweep counts) at every level in the turns
-parent, change, change, parent.
+the parent commit) and of this checkout as they are, and times those
+kernels and the other kernels of the three sources (the system Jacobi
+sweep, the system legs red-black and Jacobi with the V(2,1)'s sweep
+counts, the 2D legs with both transfer axes and row-only, the fused
+passes and the residual restriction) at every level in the turns parent,
+change, change, parent.
 
 Prints one line per timing, with the card's name and power limit, and a
 JSON object as its last line.  Needs a CUDA card and nvcc.
@@ -36,8 +47,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -50,11 +63,12 @@ import chip_smoke as cs
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CSRC = ROOT / "evostencils_tpu_torch" / "csrc"
-SOURCES = ("rbgs.cu", "rbgs_sys.cu")
+SOURCES = ("rbgs.cu", "rbgs_sys.cu", "transfer.cu")
+BUILD_PY = ROOT / "evostencils_tpu_torch" / "ops" / "kernels" / "_build.py"
 
 
 class Variant(NamedTuple):
-    """One schedule of both kernels, every value named."""
+    """One schedule of the four kernels, every value named."""
     strip: int          # sweep_kernel: rows of a thread's strip
     bx: int             # block columns
     by: int             # block strips
@@ -63,29 +77,43 @@ class Variant(NamedTuple):
     threads: int        # threads a block
     blocks: int         # least resident blocks an SM
     stage_b: bool       # b staged beside u, else read through the cache
+    rb_rows: int        # fused_rbgs_kernel: window rows (64 columns)
+    pc_window: int      # prolongation-correction: class 0 (64^2), 1 (x64)
+    pc_rows: int        # rows of class 1 (the legs' 32; 16 for a variant)
+    pc_stage_u: bool    # u staged beside e's window, else in registers
 
     @property
     def name(self) -> str:
         return (f"s{self.strip} {self.bx}x{self.by}/{self.min_blocks} | "
                 f"w{self.rows}x64 {self.threads}t/{self.blocks} "
-                f"b {'staged' if self.stage_b else 'cache'}")
+                f"b {'staged' if self.stage_b else 'cache'} | "
+                f"rb w{self.rb_rows}x64 | pc class {self.pc_window} "
+                f"({64 if self.pc_window == 0 else self.pc_rows}x64) "
+                f"u {'staged' if self.pc_stage_u else 'registers'}")
 
 
 #: The first is the sources' own schedule; each other changes one or two
 #: values of each kernel.
 VARIANTS = (
-    Variant(4, 128, 2, 4, 16, 256, 4, True),
-    Variant(2, 128, 2, 4, 16, 128, 8, True),
-    Variant(4, 256, 1, 4, 16, 512, 2, True),
-    Variant(4, 32, 4, 8, 32, 256, 4, True),
-    Variant(4, 64, 4, 6, 16, 256, 6, True),
-    Variant(4, 128, 2, 8, 16, 256, 4, False),
-    Variant(6, 128, 2, 4, 8, 256, 4, True),
-    Variant(8, 128, 2, 4, 64, 512, 2, False),
-    Variant(16, 128, 2, 4, 16, 256, 4, True),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 1, 32, True),
+    Variant(2, 128, 2, 4, 16, 128, 8, True, 16, 1, 32, True),
+    Variant(4, 256, 1, 4, 16, 512, 2, True, 16, 1, 32, True),
+    Variant(4, 32, 4, 8, 32, 256, 4, True, 16, 1, 32, True),
+    Variant(4, 64, 4, 6, 16, 256, 6, True, 16, 1, 32, True),
+    Variant(4, 128, 2, 8, 16, 256, 4, False, 16, 1, 32, True),
+    Variant(6, 128, 2, 4, 8, 256, 4, True, 16, 1, 32, True),
+    Variant(8, 128, 2, 4, 64, 512, 2, False, 16, 1, 32, True),
+    Variant(16, 128, 2, 4, 16, 256, 4, True, 16, 1, 32, True),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 32, 0, 32, True),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 8, 1, 32, False),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 0, 32, False),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 1, 16, True),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 1, 16, False),
 )
 SWEEP_LEVELS = (4095, 1023, 511, 255)
 SYS_LEVELS = (2047, 255)
+#: the 2D legs' levels (the [main] path's), where ab times them
+LEG_LEVELS = (4095, 2047, 1023, 511, 255)
 
 
 def rewrites(v: Variant):
@@ -105,6 +133,16 @@ def rewrites(v: Variant):
          f"static constexpr int NT = {v.threads};", 1),
         ("rbgs_sys.cu", "static constexpr int BLOCKS = 1024 / NT;",
          f"static constexpr int BLOCKS = {v.blocks};", 1),
+        ("rbgs.cu", "static constexpr int WR = 16, SL = 32, NY = 8;",
+         f"static constexpr int WR = {v.rb_rows}, SL = 32, NY = 8;", 1),
+        ("transfer.cu", "constexpr int PC_WINDOW = 1;",
+         f"constexpr int PC_WINDOW = {v.pc_window};", 1),
+        ("transfer.cu",
+         "static constexpr int ROWS = 32, SLOTS = 32, NY = 8, BLOCKS = 6;",
+         f"static constexpr int ROWS = {v.pc_rows}, SLOTS = 32, NY = 8, "
+         "BLOCKS = 6;", 1),
+        ("transfer.cu", "constexpr bool PC_STAGES_U = true;",
+         f"constexpr bool PC_STAGES_U = {str(v.pc_stage_u).lower()};", 1),
     ]
     if not v.stage_b:
         out += [
@@ -131,6 +169,25 @@ def patched_csrc(v: Variant, out_dir: pathlib.Path) -> pathlib.Path:
     return out_dir
 
 
+def signatures(build_py: pathlib.Path) -> dict:
+    """``SIGNATURES`` of the ``_build.py`` at ``build_py``: the argument
+    types of that tree's entries."""
+    spec = importlib.util.spec_from_file_location(
+        f"_build_of_{abs(hash(str(build_py)))}", build_py)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.SIGNATURES
+
+
+def pc_window(csrc: pathlib.Path):
+    """The window class the prolongation-correction of ``csrc`` is built
+    for, or None where its entry takes no halo and window (a tree from
+    before it was a windowed kernel)."""
+    found = re.search(r"constexpr int PC_WINDOW = (\d+);",
+                      (csrc / "transfer.cu").read_text())
+    return int(found.group(1)) if found else None
+
+
 def build(tag: str, csrc: pathlib.Path, out_dir: pathlib.Path):
     """Start the nvcc processes of one variant; (library path, objects,
     processes)."""
@@ -146,20 +203,23 @@ def build(tag: str, csrc: pathlib.Path, out_dir: pathlib.Path):
 
 
 def build_all(variants, out_dir):
-    """{tag: ctypes library} of (tag, csrc dir) pairs."""
+    """{tag: ctypes library} of (tag, csrc dir, _build.py of its tree)
+    triples; each library carries ``pc_window`` (pc_window())."""
     from evostencils_tpu_torch.ops.kernels import _build
-    started = [(tag, *build(tag, csrc, out_dir)) for tag, csrc in variants]
+    started = [(tag, csrc, build_py, *build(tag, csrc, out_dir))
+               for tag, csrc, build_py in variants]
     _build._run([p for *_, procs in started for p in procs])
     _build._run([_build._start([_build.nvcc_path(), *_build.ARCH_FLAGS,
                                 "-shared", "-o", str(lib), *map(str, objs)])
-                 for _, lib, objs, _ in started])
+                 for *_, lib, objs, _ in started])
     libs = {}
-    for tag, lib, _, _ in started:
+    for tag, csrc, build_py, lib, _, _ in started:
         cdll = ctypes.CDLL(str(lib))
-        for name, argtypes in _build.SIGNATURES.items():
+        for name, argtypes in signatures(build_py).items():
             fn = getattr(cdll, name, None)
             if fn is not None:
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        cdll.pc_window = pc_window(csrc)
         libs[tag] = cdll
     return libs
 
@@ -170,12 +230,25 @@ def call(torch, lib, entry, *args):
         raise RuntimeError(f"{entry}: CUDA error {err}")
 
 
+def through(lib, fn):
+    """Run ``fn``, a wrapper call, with ``lib`` as the wrappers' library."""
+    from evostencils_tpu_torch.ops.kernels import _build
+    saved = _build.load_library
+    _build.load_library = lambda: lib
+    try:
+        fn()
+    finally:
+        _build.load_library = saved
+
+
 class Cases:
     """The inputs and entry calls of each timed kernel at each level."""
 
     def __init__(self, torch, device):
-        from evostencils_tpu_torch.ops.kernels import rbgs, rbgs_sys
+        from evostencils_tpu_torch.ops.kernels import (rbgs, rbgs_sys,
+                                                       transfer)
         self.torch, self.rbgs, self.rs = torch, rbgs, rbgs_sys
+        self.tt = transfer
         self.rng = np.random.default_rng(3)
         self.device = device
         self.omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
@@ -211,6 +284,68 @@ class Cases:
                                                  cs.VALS)
         return (f"fused_rbgs_kernel {n}^2", cs.sweep_bound((n, n))[0], run,
                 (plain,), (out,))
+
+    def prolong_correct(self, n):
+        """es_prolong_correct (row 5), in the window class each library
+        builds it for, or without halo and window where its entry takes
+        none."""
+        nc = (n - 1) // 2
+        u, e, out = self.normal(n, n), self.normal(nc, nc), self.normal(n, n)
+        coeffs = self.tt._coefficients((1.0, 0, 0, 0, 0), cs.P_TAPS)
+
+        def run(lib):
+            window = () if lib.pc_window is None else (0, lib.pc_window)
+            call(self.torch, lib, "es_prolong_correct", u.data_ptr(),
+                 e.data_ptr(), self.omegas.data_ptr(), 1, coeffs,
+                 out.data_ptr(), *window, n, n)
+        plain = self.tt.prolong_correct_plain(u, e, self.omegas, 1,
+                                              cs.P_TAPS)
+        return (f"prolong_correct {n}^2", cs.transfer_bound((n, n))[0], run,
+                (plain,), (out,))
+
+    def transfer_wrapper(self, name, n, sweeps=None):
+        """A kernel of transfer.cu other than row 5 through its wrapper,
+        the library swapped in (``through``): the legs with the V(2,1)'s
+        sweeps, a fused pass of (post, pre) ``sweeps``, the residual
+        restriction."""
+        nc = (n - 1) // 2
+        u, b, e, ch = (self.normal(n, n), self.normal(n, n),
+                       self.normal(nc, nc), self.normal(nc, n))
+        tt = self.tt
+        if name == "residual_restrict":
+            args = (u, b, cs.VALS, cs.R_TAPS)
+            bound = cs.transfer_bound((n, n))
+            label = f"{name} {n}^2"
+        elif name in cs.LOOP_KERNELS:
+            kern, plain = cs.loop_calls(tt, self.omegas, name, u, b, e, ch,
+                                        sweeps, cs.VALS, cs.R_TAPS,
+                                        cs.P_TAPS)
+            total = sum(sweeps) if isinstance(sweeps, tuple) else sweeps
+            bound = cs.bytes_bound(*cs.loop_work(name, (n, n), total))
+            label = f"{name} {n}^2 S={total}"
+        else:
+            down = name == "presmooth_residual_restrict"
+            args = ((u, b, self.omegas, [1, 2], cs.VALS, cs.R_TAPS) if down
+                    else (u, e, b, self.omegas, [0, 1], cs.VALS, cs.P_TAPS))
+            bound = cs.leg_bound((n, n), 2 if down else 1,
+                                 "down" if down else "up")
+            label = f"{name} {n}^2"
+        if name not in cs.LOOP_KERNELS:
+            def kern():
+                return getattr(tt, name)(*args)
+
+            def plain():
+                return getattr(tt, name + "_plain")(*args)
+        got = []
+
+        def run(lib):
+            def keep():
+                out = kern()
+                got[:] = out if isinstance(out, tuple) else (out,)
+            through(lib, keep)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        return label, bound[0], run, want, got
 
     def sys_sweep(self, n, table="elasticity", red_black=True):
         if table == "elasticity":
@@ -276,20 +411,24 @@ class Cases:
 
 
 def log_info(libs, names, card):
-    """Each library's sweep kernels as the card makes them (the entries
-    a parent tree lacks are skipped): threads, blocks per SM, registers,
-    local bytes (spills)."""
+    """Each library's sweep kernels and prolongation-correction as the
+    card makes them (the entries a parent tree lacks are skipped):
+    threads, blocks per SM, registers, local bytes (spills), shared
+    bytes."""
     for tag, lib in libs.items():
-        for entry, modes in (("es_sweep_info", (0, 1)),
-                             ("es_sweep_sys_info", (0, 1))):
+        queries = [("es_sweep_info", (0,)), ("es_sweep_info", (1,)),
+                   ("es_sweep_sys_info", (0,)), ("es_sweep_sys_info", (1,)),
+                   ("es_fused_rbgs_sweep_info", ())]
+        if lib.pc_window is not None:
+            queries.append(("es_transfer_leg_info", (0, 0, lib.pc_window)))
+        for entry, args in queries:
             if not hasattr(lib, entry):
                 continue
-            for mode in modes:
-                out = (ctypes.c_int * 8)()
-                if getattr(lib, entry)(mode, out) == 0:
-                    cs.log(f"[{card}] {names[tag]} {entry}({mode}): "
-                           f"{out[3]} threads, {out[4]} blocks/SM, {out[5]} "
-                           f"registers, {out[6]} B local, {out[7]} B shared")
+            out = (ctypes.c_int * 8)()
+            if getattr(lib, entry)(*args, out) == 0:
+                cs.log(f"[{card}] {names[tag]} {entry}{args}: {out[3]} "
+                       f"threads, {out[4]} blocks/SM, {out[5]} registers, "
+                       f"{out[6]} B local, {out[7]} B shared")
 
 
 def error(torch, got, want):
@@ -337,17 +476,18 @@ def main(argv=None) -> int:
         tmp = pathlib.Path(tmp)
         if args.mode == "variants":
             names = {f"v{i}": v.name for i, v in enumerate(VARIANTS)}
-            specs = [(f"v{i}", patched_csrc(v, tmp / f"v{i}"))
+            specs = [(f"v{i}", patched_csrc(v, tmp / f"v{i}"), BUILD_PY)
                      for i, v in enumerate(VARIANTS)]
-            turns = [tag for tag, _ in specs]
+            turns = [tag for tag, *_ in specs]
             turns += turns[::-1]
         else:
             if args.parent is None:
                 ap.error("ab takes --parent DIR")
             names = {"parent": "parent", "change": "change"}
-            specs = [("parent",
-                      args.parent / "evostencils_tpu_torch" / "csrc"),
-                     ("change", CSRC)]
+            package = args.parent / "evostencils_tpu_torch"
+            specs = [("parent", package / "csrc",
+                      package / "ops" / "kernels" / "_build.py"),
+                     ("change", CSRC, BUILD_PY)]
             turns = ["parent", "change", "change", "parent"]
         libs = build_all(specs, tmp)
         cs.log(f"[build] {', '.join(f'{t}: {n}' for t, n in names.items())}")
@@ -357,12 +497,26 @@ def main(argv=None) -> int:
         cases += [c.sweep(n, 0) for n in (1023, 255)]
         cases += [c.sys_sweep(n) for n in SYS_LEVELS]
         cases += [c.sys_sweep(2047, "random")]
+        cases += [c.fused_sweep(n) for n in SWEEP_LEVELS]
+        cases += [c.prolong_correct(n) for n in SWEEP_LEVELS]
         if args.mode == "ab":
-            # the kernels that share the two sources, unchanged or not
-            cases += [c.fused_sweep(n) for n in SWEEP_LEVELS]
+            # the kernels that share the three sources, unchanged or not
             cases += [c.sys_sweep(n, red_black=False) for n in SYS_LEVELS]
             cases += [c.sys_leg(n, leg, rb) for n in SYS_LEVELS
                       for leg in ("down", "up") for rb in (True, False)]
+            cases += [c.transfer_wrapper(name, n) for n in LEG_LEVELS
+                      for name in ("presmooth_residual_restrict",
+                                   "prolong_correct_postsmooth_col")]
+            cases += [c.transfer_wrapper(name, n, sweeps)
+                      for n in LEG_LEVELS
+                      for name, sweeps in (
+                          ("presmooth_residual_rowrestrict", 2),
+                          ("prolong_correct_postsmooth", 1))]
+            cases += [c.transfer_wrapper(name, n, (1, 2)) for n in (4095, 2047)
+                      for name in ("upleg_downleg_col",
+                                   "upleg_downleg_fused")]
+            cases += [c.transfer_wrapper("residual_restrict", n)
+                      for n in SWEEP_LEVELS]
         results = measure(torch, libs, turns, cases, card)
     print(json.dumps({"card": card, "mode": args.mode, "variants": names,
                       "turns": turns, "results": results}))

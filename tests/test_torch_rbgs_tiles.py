@@ -1,6 +1,7 @@
-"""The strip schedule of the single-pass 5-point sweep kernel
-(evostencils_tpu_torch/csrc/rbgs.cu, ``sweep_kernel``), emulated in
-float64 on the CPU.
+"""The strip schedule of the single-pass 5-point sweep kernel and the block
+schedule of the red-black one (evostencils_tpu_torch/csrc/rbgs.cu,
+``sweep_kernel`` and ``fused_rbgs_kernel``), emulated in float64 on the
+CPU.
 
 The kernel cannot run here, but its schedule can.  Each thread owns a
 strip of ``SWEEP_STRIP`` rows of one column, in blocks of ``SWEEP_BLOCK``
@@ -26,6 +27,17 @@ one whose rows no strip count divides and whose columns leave a last
 warp of five lanes.  Last, the wrapper is driven against a stand-in
 library: it must hand the entry the parity and the grid's shape and raise
 when the entry refuses the launch.
+
+The red-black kernel owns a ``fused_tile()`` tile and stages u and b over
+a ``FUSED_WINDOW`` window with a halo of ``FUSED_HALO`` cells, zero outside
+the grid.  Its red half-sweep updates the window cells at a distance >= 1
+from the window edge, its black one those at >= 2, with the TPU kernel's
+sum order; the tiles are stitched back together.  The result must equal
+``fused_rbgs_sweep_plain`` to 1e-12, and neither a halo one cell short nor
+a red pass that leaves out the ring around the tile may.  A black pass
+that reaches distance 1 stores the same tiles (the cells it adds lie in
+the halo, which no block stores).  Shapes: the single-pass ones and the
+gate's 255^2 level.
 """
 
 import re
@@ -38,7 +50,7 @@ import torch.nn.functional as F
 
 from evostencils_tpu_torch.ops.kernels import _build
 from evostencils_tpu_torch.ops.kernels import rbgs as tr
-from tests.test_torch_transfer_tiles import _stand_in_card
+from tests.test_torch_transfer_tiles import _Blocks, _stand_in_card
 
 #: max |emulated - plain| <= RTOL * max |plain|: the same float64
 #: arithmetic in the same order at every point
@@ -211,3 +223,186 @@ def test_wrapper_passes_parity_and_shape_and_raises_on_refusal(monkeypatch,
         assert [args[4] for _, args in got] == parities
         assert all(args[-3:-1] == shape for _, args in got)
     assert tr.launches["jacobi_sweep"] == (0 if err else 3)
+
+
+# ---------------------------------------------------------------------------
+# the red-black kernel (fused_rbgs_kernel)
+# ---------------------------------------------------------------------------
+
+FUSED_SHAPES = SHAPES + ((255, 255),)
+_FUSED_IDS = [f"{n}x{m}" for n, m in FUSED_SHAPES]
+
+
+def _fused_update(u, b, om_dinv, vals):
+    """``om_dinv * (b - A u)`` on a batch of windows, zero past each window,
+    A u summed c*v + (((up + down) + left) + right) as the kernel does."""
+    cc, cu, cd, cl, cr = (float(v) for v in vals)
+    p = F.pad(u, (1, 1, 1, 1))
+    off = (cu * p[:, :-2, 1:-1] + cd * p[:, 2:, 1:-1] + cl * p[:, 1:-1, :-2]
+           + cr * p[:, 1:-1, 2:])
+    return om_dinv * (b - (cc * u + off))
+
+
+def emulate_fused(u, b, omega, vals, halo=tr.FUSED_HALO, reach=(1, 2)):
+    """The kernel's schedule: red on the window cells at a distance >=
+    reach[0], black on those at >= reach[1], then the tiles."""
+    n, m = u.shape
+    blocks = _Blocks((n, m), tr.fused_tile(), halo)
+    uw, bw = blocks.load(u), blocks.load(b)
+    om_dinv = omega * (1.0 / float(vals[0]))
+    for dist, colour in zip(reach, (blocks.red, ~blocks.red)):
+        mask = blocks.inside & colour & (blocks.dist >= dist)
+        uw = uw + torch.where(mask, _fused_update(uw, bw, om_dinv, vals), 0.0)
+    h, rows, cols = halo, blocks.tr, blocks.tc
+    return blocks.stitch(uw[:, h:h + rows, h:h + cols], (n, m), rows, cols)
+
+
+def _fused_deviation(shape, **kw):
+    u, b = _inputs(shape, 41)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float64)
+    want = tr.fused_rbgs_sweep_plain(u, b, omegas, 1, VALS)
+    got = emulate_fused(u, b, float(omegas[1]), VALS, **kw)
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES, ids=_FUSED_IDS)
+def test_fused_block_schedule_matches_plain(shape):
+    assert _fused_deviation(shape) <= RTOL
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES[:3], ids=_FUSED_IDS[:3])
+def test_fused_halo_one_short_differs(shape):
+    """A halo of 1 (the same tile, a window two cells narrower) leaves
+    wrong cells at the tiles' edges."""
+    assert _fused_deviation(shape, halo=tr.FUSED_HALO - 1) > 1e-3
+
+
+def test_fused_red_pass_without_the_ring_differs():
+    """A red pass on the tile alone (distance >= 2) leaves the black
+    cells at the tile's edge with stale red neighbours."""
+    assert _fused_deviation((300, 200), reach=(2, 2)) > 1e-3
+
+
+def test_fused_black_pass_past_the_tile_stores_the_same_tiles():
+    """A black pass that also reaches distance 1 updates halo cells only,
+    which no block stores: distance >= 2 is all the tile needs."""
+    u, b = _inputs((129, 130), 42)
+    omega = OMEGAS[1]
+    want = emulate_fused(u, b, omega, VALS)
+    got = emulate_fused(u, b, omega, VALS, reach=(1, 1))
+    assert torch.equal(got, want)
+
+
+def test_fused_window_constants():
+    """The tile is the window less the halo, with even rows and columns
+    (tiles start at even indices, so a window cell's colour is the parity
+    of its window indices); the block is whole warps, one a slot row, and
+    a thread's rows share a parity."""
+    rows, cols = tr.FUSED_WINDOW
+    assert tr.FUSED_HALO == 2
+    tile_rows, tile_cols = tr.fused_tile()
+    assert (tile_rows, tile_cols) == (rows - 4, cols - 4)
+    assert tile_rows % 2 == 0 and tile_cols % 2 == 0
+    ny = tr.FUSED_THREADS // (cols // 2)
+    assert tr.FUSED_THREADS % (cols // 2) == 0 and (cols // 2) % 32 == 0
+    assert ny % 2 == 0 and rows % ny == 0
+    assert tr.FUSED_BLOCKS_PER_SM * tr.FUSED_THREADS <= 2048
+
+
+def test_fused_window_constants_match_the_source():
+    """The wrapper module's window is the one csrc/rbgs.cu builds: its
+    FusedShape's halo, rows, slots (half the columns), thread rows and
+    least resident blocks."""
+    src = _build.SOURCES[[s.name for s in _build.SOURCES].index("rbgs.cu")]
+    text = src.read_text()
+    shape = text[text.index("struct FusedShape {"):]
+    shape = shape[:shape.index("};")]
+    halo = re.search(r"static constexpr int H = (\d+);", shape)
+    window = re.search(
+        r"static constexpr int WR = (\d+), SL = (\d+), NY = (\d+);", shape)
+    blocks = re.search(r"static constexpr int BLOCKS = (\d+);", shape)
+    wr, sl, ny = map(int, window.groups())
+    assert int(halo.group(1)) == tr.FUSED_HALO
+    assert (wr, 2 * sl) == tr.FUSED_WINDOW
+    assert sl * ny == tr.FUSED_THREADS
+    assert int(blocks.group(1)) == tr.FUSED_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_fused_wrapper_passes_shape_and_raises_on_refusal(monkeypatch, err):
+    """fused_rbgs_sweep hands es_fused_rbgs_sweep the grid's n, m (before
+    the stream; the kernel has one window, fixed in its entry) at each
+    level of the path and a ragged shape, and raises, counting no launch,
+    when the entry refuses; the library is a stand-in, since the kernel
+    needs the card."""
+    lib = _stand_in_card(monkeypatch, err)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float32)
+    tr.reset_launches()
+    shapes = ((1023, 1023), (255, 255), (300, 200))
+    for shape in shapes:
+        u = torch.zeros(shape, dtype=torch.float32)
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tr.fused_rbgs_sweep(u, u, omegas, 1, VALS)
+        else:
+            assert tr.fused_rbgs_sweep(u, u, omegas, 1, VALS).shape == shape
+        name, args = lib.calls[-1]
+        assert name == "es_fused_rbgs_sweep" and args[3] == 1
+        assert args[-3:-1] == shape
+    assert tr.launches == {"fused_rbgs_sweep": 0 if err else len(shapes),
+                           "jacobi_sweep": 0}
+
+
+#: the levels at which one cycle of each stored 2D Poisson champion of the
+#: [evaluator] cell (1023^2, levels 10 -> 5; picked by fitness as
+#: chip_smoke.py picks them) calls the red-black sweep and the
+#: prolongation-correction
+CHAMPION_CALLS = {
+    ("poisson2d_1023sq_seeded_gen75", "est_t_conv_ms"):
+        [("fused_rbgs_sweep", (1023, 1023)), ("prolong_correct", (255, 255))],
+    ("poisson2d_1023sq_seeded_gen50", "fitness_ms_per_iter"):
+        [("prolong_correct", (255, 255))],
+}
+
+
+@pytest.mark.parametrize("key,fitness", sorted(CHAMPION_CALLS),
+                         ids=[k for k, _ in sorted(CHAMPION_CALLS)])
+def test_champion_levels_of_the_red_black_sweep_and_prolongation(
+        monkeypatch, key, fitness):
+    """Where a champion's cycle reaches the two kernels: its lowering
+    takes the wrappers, recorded here with the grid each is called on
+    (the wrappers take their plain versions on the CPU, so one float32
+    cycle runs as on the card)."""
+    import json
+    import pathlib
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+    from evostencils_tpu_torch.compiler.solve import make_cycle_loop
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.ir import transformations
+    from evostencils_tpu_torch.ops.kernels import transfer
+    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
+
+    calls = []
+    for module, name in ((tr, "fused_rbgs_sweep"),
+                         (transfer, "prolong_correct")):
+        def record(u, *args, _name=name, _fn=getattr(module, name)):
+            calls.append((_name, tuple(u.shape)))
+            return _fn(u, *args)
+        monkeypatch.setattr(module, name, record)
+    entries = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                          / "results" / "evolved_champions.json")
+                         .read_text())[key]
+    grammar = min(entries, key=lambda entry: entry[fitness])["grammar"]
+    problem = poisson_2d(max_level=10, min_level=5)
+    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
+                                  problem.level_contexts,
+                                  problem.coarsest_operator)[0]
+    cycle = gp.compile_tree(gp.parse_tree(grammar, pset), pset)[0]
+    transformations.assign_cycle_ids(cycle)
+    lowered = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float32, device="cpu")
+    omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32)
+    make_cycle_loop(lowered, 1)(tuple(torch.zeros_like(x) for x in b), b,
+                                omegas)
+    assert calls == CHAMPION_CALLS[(key, fitness)]

@@ -24,7 +24,10 @@ and a halo one cell short must not.
 
 The standalone residual restriction is the down-leg's form with no
 sweep (S = 0, halo 2): its schedule must equal
-``residual_restrict_plain``.
+``residual_restrict_plain``.  The standalone prolongation-correction is
+the up-leg's form with no sweep (S = 0, halo 0, its tile the window): its
+schedule must equal ``prolong_correct_plain``, and a coarse window that
+starts one row late must not.
 The plain versions are held against the Pallas kernels in interpret mode
 by tests/test_torch_transfer.py and tests/test_torch_fused_loop.py (the
 row-only legs), so the chain reaches the JAX package.
@@ -165,11 +168,12 @@ def emulate_down(u, b, omegas, ids, vals, taps, tile, halo, rows_only=False):
     return u_out, rc
 
 
-def _prolong_windows(blocks, e, taps):
+def _prolong_windows(blocks, e, taps, late=0):
     """P(e) on every window cell from e's coarse window of each block
     (rows and columns from floor(r0 / 2) - 1 on, zero outside the coarse
-    grid): the column expansion, then the row expansion."""
-    cr = torch.div(blocks.r0, 2, rounding_mode="floor") - 1
+    grid): the column expansion, then the row expansion.  ``late`` starts
+    the window's coarse rows that many rows later."""
+    cr = torch.div(blocks.r0, 2, rounding_mode="floor") - 1 + late
     cc = torch.div(blocks.c0, 2, rounding_mode="floor") - 1
     ew = blocks.gather(e, cr[:, None] + torch.arange(blocks.wr // 2 + 2),
                        cc[:, None] + torch.arange(blocks.wc // 2 + 2))
@@ -211,13 +215,18 @@ def _prolong_rows_windows(blocks, ch, row_taps):
             + wb[:, :, None] * cw[idx, a[:, :, None] + 1, fine_c])
 
 
-def emulate_up(u, e, b, omegas, ids, vals, taps, tile, halo, rows_only=False):
+def emulate_up(u, e, b, omegas, ids, vals, taps, tile, halo, rows_only=False,
+               late=0):
     """The up-leg kernel's schedule: the corrected, smoothed u; row only,
-    ``e`` is c_half and ``taps`` are the row taps."""
+    ``e`` is c_half and ``taps`` are the row taps.  ``late``: as for
+    :func:`_prolong_windows`."""
     n, m = u.shape
     blocks = _Blocks((n, m), tile, halo)
-    prolong = _prolong_rows_windows if rows_only else _prolong_windows
-    corr = torch.where(blocks.inside, prolong(blocks, e, taps), 0.0)
+    if rows_only:
+        prolong = _prolong_rows_windows(blocks, e, taps)
+    else:
+        prolong = _prolong_windows(blocks, e, taps, late)
+    corr = torch.where(blocks.inside, prolong, 0.0)
     uw = blocks.load(u) + omegas[ids[0]] * corr
     uw = _passes(blocks, uw, blocks.load(b), omegas, ids[1:], vals)
     h = halo
@@ -484,7 +493,8 @@ def test_row_leg_wrappers_pass_halo_and_window_and_raise_on_refusal(
 def test_residual_restrict_rule():
     """The standalone residual restriction is the down-leg of no sweep:
     halo 2, the 32 x 64 class alone (tiles 28 x 60, 6 blocks an SM) at
-    every level; no other form is built without a sweep."""
+    every level; no form but it and the up-leg of no sweep (the standalone
+    prolongation-correction) is built without a sweep."""
     assert tt.leg_halo("down", 0) == 2
     assert tt.leg_windows("down", 0) == (tt.RR_WINDOW,) == (1,)
     assert tt.leg_tile("down", 0, tt.RR_WINDOW) == (28, 60)
@@ -492,7 +502,7 @@ def test_residual_restrict_rule():
     assert {tt.leg_window("down", 0, n, n, H100_SMS)
             for n in (4095, 2047, 1023, 511, 255)} == {tt.RR_WINDOW}
     assert all(tt.leg_windows(leg, 0) == () for leg in tt._FORMS
-               if leg != "down")
+               if leg not in ("down", "up"))
 
 
 @pytest.mark.parametrize("err", [0, 1])
@@ -515,3 +525,76 @@ def test_residual_restrict_wrapper_passes_halo_and_window(monkeypatch, err):
         assert name == "es_residual_restrict" and args[-5:-1] == (
             2, tt.leg_window("down", 0, *shape, H100_SMS), *shape)
     assert tt.launches["residual_restrict"] == (0 if err else 3)
+
+
+#: the taps of the [evaluator] path (bilinear) and asymmetric ones, and
+#: ragged odd shapes: one cut by the grid, one whose rows the tiles cut,
+#: one past a whole number of tiles on both axes
+PC_TAPS = {"path": ((0.5, 1.0, 0.5), (0.5, 1.0, 0.5)), "asym": P_TAPS}
+PC_SHAPES = RAGGED + ((257, 255),)
+
+
+def _prolong_correct(shape, taps, late=0):
+    """Deviation of the emulated up-leg of no sweep (the standalone
+    prolongation-correction, its one class and halo) from
+    ``prolong_correct_plain``."""
+    u, b, e = _inputs(shape, 17)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float64)
+    want = tt.prolong_correct_plain(u, e, omegas, 2, taps)
+    got = emulate_up(u, e, b, omegas, [2], ANISO, taps,
+                     tt.leg_tile("up", 0, tt.PC_WINDOW),
+                     tt.leg_halo("up", 0), late=late)
+    return _deviation((got,), (want,))
+
+
+@pytest.mark.parametrize("taps", sorted(PC_TAPS))
+@pytest.mark.parametrize("shape", PC_SHAPES,
+                         ids=[f"{n}x{m}" for n, m in PC_SHAPES])
+def test_prolong_correct_schedule_matches_plain(shape, taps):
+    assert _prolong_correct(shape, PC_TAPS[taps]) <= RTOL
+
+
+@pytest.mark.parametrize("taps", sorted(PC_TAPS))
+def test_prolong_correct_coarse_window_one_row_late_differs(taps):
+    """e's coarse window staged from one coarse row later gives another
+    correction: the emulation reaches the window's placement."""
+    assert _prolong_correct((131, 197), PC_TAPS[taps], late=1) > 1e-3
+
+
+def test_prolong_correct_rule():
+    """The standalone prolongation-correction is the up-leg of no sweep:
+    halo 0, so its tile is the window; the 32 x 64 class alone (6 blocks
+    an SM) at every level."""
+    assert tt.leg_halo("up", 0) == 0
+    assert tt.leg_windows("up", 0) == (tt.PC_WINDOW,) == (1,)
+    rows, cols, _ = tt.LEG_WINDOWS[tt.PC_WINDOW]
+    assert tt.leg_tile("up", 0, tt.PC_WINDOW) == (rows, cols) == (32, 64)
+    assert tt.leg_blocks("up", tt.PC_WINDOW) == 6
+    assert {tt.leg_window("up", 0, n, n, H100_SMS)
+            for n in (4095, 2047, 1023, 511, 255)} == {tt.PC_WINDOW}
+
+
+@pytest.mark.parametrize("err", [0, 1])
+def test_prolong_correct_wrapper_passes_halo_and_window(monkeypatch, err):
+    """prolong_correct hands es_prolong_correct its omega id,
+    leg_halo("up", 0) and leg_window("up", 0, ...) of its grid (before
+    n, m and the stream) at the finest and coarsest level and a ragged
+    shape, and raises, counting no launch, when the entry refuses; the
+    library is a stand-in."""
+    lib = _stand_in_card(monkeypatch, err)
+    omegas = torch.tensor(OMEGAS, dtype=torch.float32)
+    tt.reset_launches()
+    for shape in ((4095, 4095), (255, 255), (131, 197)):
+        u = torch.zeros(shape, dtype=torch.float32)
+        e = torch.zeros(tuple((n - 1) // 2 for n in shape),
+                        dtype=torch.float32)
+        if err:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                tt.prolong_correct(u, e, omegas, 2, P_TAPS)
+        else:
+            assert tt.prolong_correct(u, e, omegas, 2, P_TAPS).shape == shape
+        name, args = lib.calls[-1]
+        assert name == "es_prolong_correct" and args[3] == 2
+        assert args[-5:-1] == (0, tt.leg_window("up", 0, *shape, H100_SMS),
+                               *shape)
+    assert tt.launches["prolong_correct"] == (0 if err else 3)
