@@ -541,7 +541,7 @@ def check_leg2d_info(transfer, tag="kernels",
                 tile = transfer.leg_tile(leg, sweeps, window)
                 want = {"tile_rows": tile[0], "tile_cols": tile[1],
                         "halo": transfer.leg_halo(leg, sweeps),
-                        "threads": transfer.LEG_WINDOWS[window][2],
+                        "threads": transfer.WINDOWS[window][2],
                         "local_bytes": 0}
                 blocks = transfer.leg_blocks(leg, window)
                 check(all(i[k] == v for k, v in want.items())

@@ -63,13 +63,14 @@
 // left and right neighbours (the other half, shifted by at most one slot)
 // and of the rows above and below are 32 consecutive floats, free of bank
 // conflicts.  Tiles start at even interior indices, so a window cell's
-// colour is the parity of its window indices.  The window is 16 x 64
-// cells, 10,240 bytes of u and b, in blocks of 256 threads, 8 an SM
-// (every thread slot of the SM): the class that the complex and
-// variable-coefficient red-black sweeps (csrc/rbgs_cx.cu, csrc/rbgs_var.cu)
-// found fastest on the H100.  es_fused_rbgs_sweep_info reports its tile
-// and occupancy from the card, and tests/test_torch_rbgs_tiles.py emulates
-// the schedule in float64.
+// colour is the parity of its window indices.  The window is 24 x 64
+// cells, 15,360 bytes of u and b, in blocks of 256 threads, 8 an SM
+// (every thread slot of the SM).  Of the windows of 8, 16, 24 and 32 rows
+// on an H100 it was within 0.00015 ms of the fastest at 1023^2, 511^2 and
+// 255^2 and 0.0014 behind 32 rows at 4095^2; 16 rows (the complex sweep's
+// window) lost 0.0065 there, 32 rows 0.0003 at 255^2.
+// es_fused_rbgs_sweep_info reports its tile and occupancy from the card,
+// and tests/test_torch_rbgs_tiles.py emulates the schedule in float64.
 
 #include <cuda_runtime.h>
 
@@ -190,7 +191,7 @@ sweep_kernel(const float* __restrict__ u, const float* __restrict__ b,
 // after the even one.  b's window follows u's, B floats on.
 struct FusedShape {
   static constexpr int H = 2;
-  static constexpr int WR = 16, SL = 32, NY = 8;
+  static constexpr int WR = 24, SL = 32, NY = 8;
   static constexpr int BLOCKS = 8;
   static constexpr int WC = 2 * SL;
   static constexpr int THREADS = SL * NY;

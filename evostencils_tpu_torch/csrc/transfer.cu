@@ -105,10 +105,16 @@
 // and restricts as it goes; with both transfer axes it takes coarse column
 // x, row-only the fine columns 2x and 2x + 1.
 // The standalone prolongation-correction stages u's window and e's coarse
-// window only (12,484 bytes in its one class, PC_WINDOW), corrects every
-// window cell from them and stores the window: with no sweep the tile is
-// the window, so no cell is loaded twice, and no thread divides to find
-// its point or reads e through the cache behind a branch.
+// window only, corrects every window cell from them and stores the window:
+// with no sweep the tile is the window, so no cell is loaded twice, and no
+// thread divides to find its point or reads e through the cache behind a
+// branch.  It has a class of its own, PC_WINDOW (16 x 64 cells, 6,308
+// bytes, 8 blocks an SM): on an H100 it beat 32 x 64 by 0.0005-0.0006 ms
+// at 511^2 and 255^2, where few blocks run and each one's load, barrier
+// and store set the time, tied at 1023^2 and lost 0.0008 at 4095^2; 8 x 64
+// won 0.0002-0.0003 at 511^2 and 255^2 and lost 0.0073 at 4095^2, 64 x 64
+// lost at every level, and reading u into registers with only e staged
+// gained nothing.
 // tests/test_torch_transfer_tiles.py and tests/test_torch_fused_tiles.py
 // emulate this schedule in float64, and es_transfer_leg_info reports each
 // instantiation's tile, halo and occupancy from the card.
@@ -171,15 +177,18 @@ template <>
 struct LegWindow<1> {
   static constexpr int ROWS = 32, SLOTS = 32, NY = 8, BLOCKS = 6;
 };
-constexpr int N_LEG_WINDOWS = 2;
+template <>
+struct LegWindow<2> {
+  static constexpr int ROWS = 16, SLOTS = 32, NY = 8, BLOCKS = 8;
+};
+// The legs' and passes' classes (0 and 1), and all classes
+constexpr int N_LEG_WINDOWS = 2, N_WINDOWS = 3;
 // The standalone residual restriction's one class: with no sweep, 32 x 64
 // beats 64 x 64 at every level from 4095^2 down on an H100.
 constexpr int RR_WINDOW = 1;
-// The standalone prolongation-correction's one class, and whether it
-// stages u's window (else each thread reads its cells of u into registers
-// while e's coarse window arrives, and writes u_out from them).
-constexpr int PC_WINDOW = 1;
-constexpr bool PC_STAGES_U = true;
+// The standalone prolongation-correction's one class, which nothing else
+// takes (see the design note at the top).
+constexpr int PC_WINDOW = 2;
 
 // Form F of S sweeps in window class K: P = 2S half-sweeps, the halo (P on
 // the up-legs, P + 2 where the kernel restricts), the tile, and the
@@ -189,9 +198,8 @@ constexpr bool PC_STAGES_U = true;
 // in 32 banks.  b's window (B floats on) follows u's, and the coarse
 // operand's window follows both: e's, CR x CC values, where the kernel
 // prolongs e, c_half's, CR rows in u's layout, in the row-only up-leg and
-// pass.  The standalone prolongation-correction (PC) stages no b, and u
-// only where PC_STAGES_U.  The class is built for the form only if the
-// tile keeps at least H rows.
+// pass.  The standalone prolongation-correction (PC) stages no b.  The
+// class is built for the form only if the tile keeps at least H rows.
 template <int F, int S, int K>
 struct ColLeg {
   using Win = LegWindow<K>;
@@ -216,21 +224,21 @@ struct ColLeg {
   static constexpr bool STAGES_HALF = F == kUpRows || F == kPassRows;
   // the up-leg of no sweep: the standalone prolongation-correction
   static constexpr bool PC = F == kUp && S == 0;
-  static constexpr bool STAGES_U = !PC || PC_STAGES_U;
   static constexpr bool STAGES_B = !PC;
   // the fine windows staged (u's, b's), e's or c_half's window after them
-  static constexpr int FINE = (STAGES_U ? 1 : 0) + (STAGES_B ? 1 : 0);
+  static constexpr int FINE = STAGES_B ? 2 : 1;
   static constexpr int SMEM =
       (FINE * B + (STAGES_E ? CR * CC : STAGES_HALF ? CR * RS : 0)) *
       static_cast<int>(sizeof(float));
   static constexpr int FIT = SM_SMEM / (SMEM + BLOCK_SMEM_RESERVED);
   static constexpr int BLOCKS = FIT < Win::BLOCKS ? FIT : Win::BLOCKS;
-  // S = 0 only for the down-leg in class RR_WINDOW, the standalone
-  // residual restriction, and the up-leg in class PC_WINDOW, the
-  // standalone prolongation-correction
+  // S >= 1 in the legs' classes; S = 0 only for the down-leg in class
+  // RR_WINDOW, the standalone residual restriction, and the up-leg in
+  // class PC_WINDOW, the standalone prolongation-correction
   static constexpr bool BUILT =
-      (S >= 1 || (F == kDown && K == RR_WINDOW) ||
-       (F == kUp && K == PC_WINDOW)) &&
+      (S >= 1 ? K < N_LEG_WINDOWS
+              : (F == kDown && K == RR_WINDOW) ||
+                    (F == kUp && K == PC_WINDOW)) &&
       S <= (PASS ? MAX_FUSED_SWEEPS : MAX_SWEEPS) && TR >= H;
   static_assert(NY % 2 == 0 && WR % NY == 0 && TC > 0,
                 "a window class must fit the form's halo");
@@ -506,80 +514,36 @@ __device__ __forceinline__ void residual_rowrestrict_split(
   }
 }
 
-// P(e) at window cell (wr, wc) from e's staged coarse window: fine index
-// 2i+1+o takes taps[o+1] * e[i] on each axis, the column expansion first,
-// then the row expansion (transfer.py:896-903), with the prolongation's
-// taps p.pr, p.pc.  The window starts at even (r0, c0) and its coarse
-// window at r0 / 2 - 1, so column wc reads coarse columns wc / 2 and
-// wc / 2 + 1 (even) or (wc + 1) / 2 (odd), and row wr likewise coarse rows.
-template <typename L>
-__device__ __forceinline__ float prolong_at(const float* se, const Leg& p,
-                                            int wr, int wc) {
-  // coarse window row wr / 2 + 1 (even wr) or (wr + 1) / 2 (odd wr)
-  const float* er = se + ((wr >> 1) + 1) * L::CC + (wc >> 1);
-  const int h = wc & 1;
-  // the column expansion of the coarse window row at `r`
-  const auto col = [&p, h](const float* r) {
-    return h ? p.pc[1] * r[1] : p.pc[2] * r[0] + p.pc[0] * r[1];
-  };
-  return (wr & 1) ? p.pr[1] * col(er)
-                  : p.pr[2] * col(er - L::CC) + p.pr[0] * col(er);
-}
-
 // u += om0 * P(e) on every window cell in the grid, from e's staged coarse
-// window; lane x corrects slot x of both halves of its rows.
+// window: fine index 2i+1+o takes taps[o+1] * e[i] on each axis, the column
+// expansion first, then the row expansion (transfer.py:896-903), with the
+// prolongation's taps p.pr, p.pc.  The window starts at even (r0, c0) and
+// its coarse window at r0 / 2 - 1, so slot s of a row reads coarse columns
+// s and s + 1, and row wr coarse rows wr / 2 and wr / 2 + 1 (even) or
+// (wr + 1) / 2 (odd).
 template <typename L>
 __device__ __forceinline__ void correct_split(float* su, const float* se,
                                               const Leg& p, float om0, int r0,
                                               int c0) {
   const int s = threadIdx.x, ty = threadIdx.y;
+  // the column expansion of coarse window row `er` at column parity h
+  const auto col = [&p](const float* er, int h) {
+    return h ? p.pc[1] * er[1] : p.pc[2] * er[0] + p.pc[0] * er[1];
+  };
 #pragma unroll
   for (int k = 0; k < L::WR / L::NY; ++k) {
     const int wr = ty + k * L::NY, gr = r0 + wr;
     if (gr < 0 || gr >= p.n) continue;
+    // coarse window row wr / 2 + 1 (even wr) or (wr + 1) / 2 (odd wr)
+    const float* er = se + ((wr >> 1) + 1) * L::CC + s;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int gc = c0 + 2 * s + h;
       if (gc < 0 || gc >= p.m) continue;
-      su[wr * L::RS + h * L::ODD + s] += om0 * prolong_at<L>(se, p, wr,
-                                                             2 * s + h);
-    }
-  }
-}
-
-// The standalone prolongation-correction without u's window (PC_STAGES_U
-// false): each thread reads its cells of u (lane x columns x and x + SLOTS
-// of its rows) into registers while e's coarse window arrives, then writes
-// u + om0 * P(e) there.
-template <typename L>
-__device__ __forceinline__ void prolong_correct_direct(
-    const float* __restrict__ u, const float* se,
-    const float* __restrict__ omegas, float* __restrict__ u_out,
-    const Leg& p, int r0, int c0) {
-  constexpr int KR = L::WR / L::NY;
-  float v[KR][2];
-#pragma unroll
-  for (int k = 0; k < KR; ++k) {
-    const int gr = r0 + threadIdx.y + k * L::NY;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gc = c0 + threadIdx.x + j * L::SL;
-      v[k][j] = gr < p.n && gc < p.m ? u[static_cast<long>(gr) * p.m + gc]
-                                     : 0.f;
-    }
-  }
-  copy_wait_all();
-  __syncthreads();
-  const float om0 = omegas[p.om[0]];
-#pragma unroll
-  for (int k = 0; k < KR; ++k) {
-    const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
-      if (gr < p.n && gc < p.m)
-        u_out[static_cast<long>(gr) * p.m + gc] =
-            v[k][j] + om0 * prolong_at<L>(se, p, wr, wc);
+      const float corr =
+          (wr & 1) ? p.pr[1] * col(er, h)
+                   : p.pr[2] * col(er - L::CC, h) + p.pr[0] * col(er, h);
+      su[wr * L::RS + h * L::ODD + s] += om0 * corr;
     }
   }
 }
@@ -627,31 +591,27 @@ col_leg_kernel(const float* __restrict__ u, const float* __restrict__ e,
   extern __shared__ float su[];
   float* se = su + L::FINE * L::B;
   const int r0 = blockIdx.y * L::TR - L::H, c0 = blockIdx.x * L::TC - L::H;
-  if constexpr (L::STAGES_U) load_window_split<L>(u, b, su, p, r0, c0);
+  load_window_split<L>(u, b, su, p, r0, c0);
   if constexpr (L::STAGES_E)
     load_coarse_split<L>(e, se, p, (r0 >> 1) - 1, (c0 >> 1) - 1);
   else if constexpr (L::STAGES_HALF)
     load_half_split<L>(e, se, p, (r0 >> 1) - 1, c0);
-  if constexpr (!L::STAGES_U) {
-    prolong_correct_direct<L>(u, se, omegas, u_out, p, r0, c0);
-  } else {
-    copy_wait_all();
+  copy_wait_all();
+  __syncthreads();
+  if constexpr (!L::DOWN) {
+    const float om0 = omegas[p.om[0]];
+    if constexpr (L::STAGES_HALF)
+      correct_rows_split<L>(su, se, p, om0, r0, c0);
+    else
+      correct_split<L>(su, se, p, om0, r0, c0);
     __syncthreads();
-    if constexpr (!L::DOWN) {
-      const float om0 = omegas[p.om[0]];
-      if constexpr (L::STAGES_HALF)
-        correct_rows_split<L>(su, se, p, om0, r0, c0);
-      else
-        correct_split<L>(su, se, p, om0, r0, c0);
-      __syncthreads();
-    }
-    col_passes<L>(su, omegas, p, L::DOWN ? 0 : 1, r0, c0);
-    if constexpr (S > 0 || L::PC) store_tile_split<L>(su, u_out, p, r0, c0);
-    if constexpr (L::ROWS)
-      residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
-    else if constexpr (!L::UP)
-      residual_restrict_split<L>(su, r_out, p, r0, c0);
   }
+  col_passes<L>(su, omegas, p, L::DOWN ? 0 : 1, r0, c0);
+  if constexpr (S > 0 || L::PC) store_tile_split<L>(su, u_out, p, r0, c0);
+  if constexpr (L::ROWS)
+    residual_rowrestrict_split<L>(su, r_out, p, r0, c0);
+  else if constexpr (!L::UP)
+    residual_restrict_split<L>(su, r_out, p, r0, c0);
 }
 
 void set_taps(float* t, const double* c) {
@@ -721,7 +681,7 @@ template <int F, int S = 0, int K = 0>
 ColInst find_of_form(int sweeps, int window) {
   if constexpr (S > MAX_FUSED_SWEEPS) {
     return {};
-  } else if constexpr (K == N_LEG_WINDOWS) {
+  } else if constexpr (K == N_WINDOWS) {
     return find_of_form<F, S + 1, 0>(sweeps, window);
   } else {
     if (sweeps == S && window == K) return col_inst<F, S, K>();

@@ -54,7 +54,7 @@ SWEEP_BLOCKS_PER_SM = 4
 #: FUSED_HALO cells on every side.  The red half-sweep updates the window
 #: cells at a distance >= 1 from the window edge, the black one those at
 #: >= 2.  At least FUSED_BLOCKS_PER_SM blocks are resident on an SM.
-FUSED_WINDOW = (16, 64)
+FUSED_WINDOW = (24, 64)
 FUSED_THREADS = 256
 FUSED_HALO = 2
 FUSED_BLOCKS_PER_SM = 8

@@ -70,7 +70,7 @@ MIN_COLS = 128
 #: ``residual_restrict`` is the down-leg with S = 0 and the standalone
 #: ``prolong_correct`` the up-leg with S = 0; ``LegWindow<K>``
 #: states the same classes, and es_transfer_leg_info reports them from the
-#: card.  A block stages u and b over a window of LEG_WINDOWS[k] = (rows,
+#: card.  A block stages u and b over a window of WINDOWS[k] = (rows,
 #: columns, threads) cells and owns its centre, the tile: the window less
 #: leg_halo() cells on every side.  Pass p (of 2S half-sweeps) updates the
 #: window cells at a distance >= p from the window edge.  At least
@@ -81,17 +81,22 @@ MIN_COLS = 128
 #: ROWPASS_BLOCKS_PER_SM[k] (leg_blocks).  A class is built for a leg only
 #: where its tile keeps at least the halo's depth of rows (leg_windows).  A
 #: level takes the first built class whose tiles fill one wave of those on
-#: the card's SMs, else the last built one.
+#: the card's SMs, else the last built one.  The legs and passes have the
+#: classes of LEG_WINDOWS; WINDOWS adds the standalone
+#: prolongation-correction's own.
 LEG_WINDOWS = ((64, 64, 256), (32, 64, 256))
+WINDOWS = LEG_WINDOWS + ((16, 64, 256),)
 #: the one class of the standalone residual restriction, the down-leg of
 #: no sweep (``RR_WINDOW`` in csrc/transfer.cu): with halo 2 and no pass,
 #: 32 x 64 beats 64 x 64 at every level from 4095^2 down on an H100
 RR_WINDOW = 1
 #: the one class of the standalone prolongation-correction, the up-leg of
-#: no sweep (``PC_WINDOW`` in csrc/transfer.cu): halo 0, so its tile is
-#: the window, and it stages u's window and e's coarse window, no b
-PC_WINDOW = 1
-LEG_BLOCKS_PER_SM = (5, 6)
+#: no sweep (``PC_WINDOW`` in csrc/transfer.cu), which nothing else takes:
+#: halo 0, so its tile is the 16 x 64 window, and it stages u's window and
+#: e's coarse window, no b; on an H100 it beats 32 x 64 at 511^2 and 255^2,
+#: where few blocks run and each one's latency sets the time
+PC_WINDOW = 2
+LEG_BLOCKS_PER_SM = (5, 6, 8)
 ROWPASS_BLOCKS_PER_SM = (4, 6)
 #: the windowed kernels, numbered as es_transfer_leg_info takes them: the
 #: legs, the fused pass with both transfer axes and the row-only one, the
@@ -136,7 +141,7 @@ def leg_halo(leg: str, sweeps: int) -> int:
 def leg_tile(leg: str, sweeps: int, window: int) -> Tuple[int, int]:
     """(rows, columns) of the tile a block of window class ``window``
     owns: the window less the leg's halo on every side."""
-    rows, cols, _ = LEG_WINDOWS[window]
+    rows, cols, _ = WINDOWS[window]
     halo = leg_halo(leg, sweeps)
     return rows - 2 * halo, cols - 2 * halo
 

@@ -1,7 +1,7 @@
 """Time the schedules of the standalone sweep and transfer kernels on one
 CUDA card.
 
-    python3 kernel_variants.py variants            # from the repository root
+    python3 kernel_variants.py variants [--only 0,9]   # from the repository root
     python3 kernel_variants.py ab --parent DIR
 
 Both modes build ``csrc/rbgs.cu`` (``sweep_kernel``, the 5-point
@@ -15,7 +15,8 @@ prolongation-correction are called at their C entries through ``ctypes``
 with the wrappers' own argument helpers, the other transfer kernels
 through their wrappers with the library swapped in.  Each library takes
 the argument types of its own tree's ``_build.SIGNATURES``, and the
-prolongation-correction the window class its ``transfer.cu`` builds.
+prolongation-correction its halo and window class where its entry takes
+them.
 Each result is first held against the plain PyTorch version, then timed
 as the kernel's device time alone (``chip_smoke.time_ms_queued``: CUDA
 events around one call queued behind a spin of the card, median of 15).
@@ -25,11 +26,11 @@ rewrites the schedule's constants in the copy (the sweep's strip, block
 and least resident blocks; the system sweep's window rows, threads, least
 resident blocks and whether b is staged in shared memory or read through
 the read-only cache; the red-black sweep's window rows; the
-prolongation-correction's window class and whether it stages u or reads
-it into registers), builds each copy, and times each at every level its
-kernel runs at, in two turns (the list, then the list reversed).  A
-rewrite that does not find the text it replaces stops the script, so a
-variant builds what its name says or nothing.
+prolongation-correction's window rows and least resident blocks), builds
+each copy, and times each at every level its kernel runs at, in two turns
+(the list, then the list reversed); ``--only 0,9`` takes those entries of
+VARIANTS alone.  A rewrite that does not find the text it replaces stops
+the script, so a variant builds what its name says or nothing.
 
 ``ab`` builds the sources of the parent tree DIR (a ``git archive`` of
 the parent commit) and of this checkout as they are, and times those
@@ -50,7 +51,6 @@ import ctypes
 import importlib.util
 import json
 import pathlib
-import re
 import shutil
 import subprocess
 import sys
@@ -78,37 +78,33 @@ class Variant(NamedTuple):
     blocks: int         # least resident blocks an SM
     stage_b: bool       # b staged beside u, else read through the cache
     rb_rows: int        # fused_rbgs_kernel: window rows (64 columns)
-    pc_window: int      # prolongation-correction: class 0 (64^2), 1 (x64)
-    pc_rows: int        # rows of class 1 (the legs' 32; 16 for a variant)
-    pc_stage_u: bool    # u staged beside e's window, else in registers
+    pc_rows: int        # prolongation-correction: window rows (64 columns)
+    pc_blocks: int      # least resident blocks an SM
 
     @property
     def name(self) -> str:
         return (f"s{self.strip} {self.bx}x{self.by}/{self.min_blocks} | "
                 f"w{self.rows}x64 {self.threads}t/{self.blocks} "
                 f"b {'staged' if self.stage_b else 'cache'} | "
-                f"rb w{self.rb_rows}x64 | pc class {self.pc_window} "
-                f"({64 if self.pc_window == 0 else self.pc_rows}x64) "
-                f"u {'staged' if self.pc_stage_u else 'registers'}")
+                f"rb w{self.rb_rows}x64 | pc w{self.pc_rows}x64 "
+                f"/{self.pc_blocks}")
 
 
 #: The first is the sources' own schedule; each other changes one or two
 #: values of each kernel.
 VARIANTS = (
-    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 1, 32, True),
-    Variant(2, 128, 2, 4, 16, 128, 8, True, 16, 1, 32, True),
-    Variant(4, 256, 1, 4, 16, 512, 2, True, 16, 1, 32, True),
-    Variant(4, 32, 4, 8, 32, 256, 4, True, 16, 1, 32, True),
-    Variant(4, 64, 4, 6, 16, 256, 6, True, 16, 1, 32, True),
-    Variant(4, 128, 2, 8, 16, 256, 4, False, 16, 1, 32, True),
-    Variant(6, 128, 2, 4, 8, 256, 4, True, 16, 1, 32, True),
-    Variant(8, 128, 2, 4, 64, 512, 2, False, 16, 1, 32, True),
-    Variant(16, 128, 2, 4, 16, 256, 4, True, 16, 1, 32, True),
-    Variant(4, 128, 2, 4, 16, 256, 4, True, 32, 0, 32, True),
-    Variant(4, 128, 2, 4, 16, 256, 4, True, 8, 1, 32, False),
-    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 0, 32, False),
-    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 1, 16, True),
-    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 1, 16, False),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 24, 16, 8),
+    Variant(2, 128, 2, 4, 16, 128, 8, True, 24, 16, 8),
+    Variant(4, 256, 1, 4, 16, 512, 2, True, 24, 16, 8),
+    Variant(4, 32, 4, 8, 32, 256, 4, True, 24, 16, 8),
+    Variant(4, 64, 4, 6, 16, 256, 6, True, 24, 16, 8),
+    Variant(4, 128, 2, 8, 16, 256, 4, False, 24, 16, 8),
+    Variant(6, 128, 2, 4, 8, 256, 4, True, 24, 16, 8),
+    Variant(8, 128, 2, 4, 64, 512, 2, False, 24, 16, 8),
+    Variant(16, 128, 2, 4, 16, 256, 4, True, 24, 16, 8),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 32, 32, 6),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 16, 8, 8),
+    Variant(4, 128, 2, 4, 16, 256, 4, True, 8, 16, 6),
 )
 SWEEP_LEVELS = (4095, 1023, 511, 255)
 SYS_LEVELS = (2047, 255)
@@ -133,16 +129,12 @@ def rewrites(v: Variant):
          f"static constexpr int NT = {v.threads};", 1),
         ("rbgs_sys.cu", "static constexpr int BLOCKS = 1024 / NT;",
          f"static constexpr int BLOCKS = {v.blocks};", 1),
-        ("rbgs.cu", "static constexpr int WR = 16, SL = 32, NY = 8;",
+        ("rbgs.cu", "static constexpr int WR = 24, SL = 32, NY = 8;",
          f"static constexpr int WR = {v.rb_rows}, SL = 32, NY = 8;", 1),
-        ("transfer.cu", "constexpr int PC_WINDOW = 1;",
-         f"constexpr int PC_WINDOW = {v.pc_window};", 1),
         ("transfer.cu",
-         "static constexpr int ROWS = 32, SLOTS = 32, NY = 8, BLOCKS = 6;",
+         "static constexpr int ROWS = 16, SLOTS = 32, NY = 8, BLOCKS = 8;",
          f"static constexpr int ROWS = {v.pc_rows}, SLOTS = 32, NY = 8, "
-         "BLOCKS = 6;", 1),
-        ("transfer.cu", "constexpr bool PC_STAGES_U = true;",
-         f"constexpr bool PC_STAGES_U = {str(v.pc_stage_u).lower()};", 1),
+         f"BLOCKS = {v.pc_blocks};", 1),
     ]
     if not v.stage_b:
         out += [
@@ -179,13 +171,15 @@ def signatures(build_py: pathlib.Path) -> dict:
     return module.SIGNATURES
 
 
-def pc_window(csrc: pathlib.Path):
-    """The window class the prolongation-correction of ``csrc`` is built
-    for, or None where its entry takes no halo and window (a tree from
-    before it was a windowed kernel)."""
-    found = re.search(r"constexpr int PC_WINDOW = (\d+);",
-                      (csrc / "transfer.cu").read_text())
-    return int(found.group(1)) if found else None
+def pc_window_args(lib) -> tuple:
+    """(halo, window class) that ``lib``'s es_prolong_correct takes, as
+    this checkout's wrapper passes them, or () where its tree declares the
+    entry without them (from before it was a windowed kernel)."""
+    from evostencils_tpu_torch.ops.kernels import _build, transfer
+    if (tuple(lib.es_prolong_correct.argtypes)
+            != _build.SIGNATURES["es_prolong_correct"]):
+        return ()
+    return transfer.leg_halo("up", 0), transfer.PC_WINDOW
 
 
 def build(tag: str, csrc: pathlib.Path, out_dir: pathlib.Path):
@@ -204,7 +198,7 @@ def build(tag: str, csrc: pathlib.Path, out_dir: pathlib.Path):
 
 def build_all(variants, out_dir):
     """{tag: ctypes library} of (tag, csrc dir, _build.py of its tree)
-    triples; each library carries ``pc_window`` (pc_window())."""
+    triples, each library with its tree's argument types."""
     from evostencils_tpu_torch.ops.kernels import _build
     started = [(tag, csrc, build_py, *build(tag, csrc, out_dir))
                for tag, csrc, build_py in variants]
@@ -213,13 +207,12 @@ def build_all(variants, out_dir):
                                 "-shared", "-o", str(lib), *map(str, objs)])
                  for *_, lib, objs, _ in started])
     libs = {}
-    for tag, csrc, build_py, lib, _, _ in started:
+    for tag, _, build_py, lib, _, _ in started:
         cdll = ctypes.CDLL(str(lib))
         for name, argtypes in signatures(build_py).items():
             fn = getattr(cdll, name, None)
             if fn is not None:
                 fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        cdll.pc_window = pc_window(csrc)
         libs[tag] = cdll
     return libs
 
@@ -286,18 +279,16 @@ class Cases:
                 (plain,), (out,))
 
     def prolong_correct(self, n):
-        """es_prolong_correct (row 5), in the window class each library
-        builds it for, or without halo and window where its entry takes
-        none."""
+        """es_prolong_correct (row 5), with halo and window class where
+        the library's entry takes them (pc_window_args)."""
         nc = (n - 1) // 2
         u, e, out = self.normal(n, n), self.normal(nc, nc), self.normal(n, n)
         coeffs = self.tt._coefficients((1.0, 0, 0, 0, 0), cs.P_TAPS)
 
         def run(lib):
-            window = () if lib.pc_window is None else (0, lib.pc_window)
             call(self.torch, lib, "es_prolong_correct", u.data_ptr(),
                  e.data_ptr(), self.omegas.data_ptr(), 1, coeffs,
-                 out.data_ptr(), *window, n, n)
+                 out.data_ptr(), *pc_window_args(lib), n, n)
         plain = self.tt.prolong_correct_plain(u, e, self.omegas, 1,
                                               cs.P_TAPS)
         return (f"prolong_correct {n}^2", cs.transfer_bound((n, n))[0], run,
@@ -419,8 +410,9 @@ def log_info(libs, names, card):
         queries = [("es_sweep_info", (0,)), ("es_sweep_info", (1,)),
                    ("es_sweep_sys_info", (0,)), ("es_sweep_sys_info", (1,)),
                    ("es_fused_rbgs_sweep_info", ())]
-        if lib.pc_window is not None:
-            queries.append(("es_transfer_leg_info", (0, 0, lib.pc_window)))
+        window = pc_window_args(lib)
+        if window:
+            queries.append(("es_transfer_leg_info", (0, 0, window[1])))
         for entry, args in queries:
             if not hasattr(lib, entry):
                 continue
@@ -463,6 +455,8 @@ def main(argv=None) -> int:
     ap.add_argument("mode", choices=("variants", "ab"))
     ap.add_argument("--parent", type=pathlib.Path,
                     help="the parent tree (ab): its csrc/ is built")
+    ap.add_argument("--only", help="variants: the indices into VARIANTS "
+                    "to build, comma-separated (default all)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -475,9 +469,11 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         if args.mode == "variants":
-            names = {f"v{i}": v.name for i, v in enumerate(VARIANTS)}
-            specs = [(f"v{i}", patched_csrc(v, tmp / f"v{i}"), BUILD_PY)
-                     for i, v in enumerate(VARIANTS)]
+            picked = (range(len(VARIANTS)) if args.only is None
+                      else [int(i) for i in args.only.split(",")])
+            names = {f"v{i}": VARIANTS[i].name for i in picked}
+            specs = [(f"v{i}", patched_csrc(VARIANTS[i], tmp / f"v{i}"),
+                      BUILD_PY) for i in picked]
             turns = [tag for tag, *_ in specs]
             turns += turns[::-1]
         else:

@@ -563,13 +563,16 @@ def test_prolong_correct_coarse_window_one_row_late_differs(taps):
 
 def test_prolong_correct_rule():
     """The standalone prolongation-correction is the up-leg of no sweep:
-    halo 0, so its tile is the window; the 32 x 64 class alone (6 blocks
-    an SM) at every level."""
+    halo 0, so its tile is the window; its own 16 x 64 class alone (8
+    blocks an SM) at every level, a class no leg or pass is built in."""
     assert tt.leg_halo("up", 0) == 0
-    assert tt.leg_windows("up", 0) == (tt.PC_WINDOW,) == (1,)
-    rows, cols, _ = tt.LEG_WINDOWS[tt.PC_WINDOW]
-    assert tt.leg_tile("up", 0, tt.PC_WINDOW) == (rows, cols) == (32, 64)
-    assert tt.leg_blocks("up", tt.PC_WINDOW) == 6
+    assert tt.leg_windows("up", 0) == (tt.PC_WINDOW,) == (2,)
+    rows, cols, _ = tt.WINDOWS[tt.PC_WINDOW]
+    assert tt.leg_tile("up", 0, tt.PC_WINDOW) == (rows, cols) == (16, 64)
+    assert tt.leg_blocks("up", tt.PC_WINDOW) == 8
+    assert tt.WINDOWS[:len(tt.LEG_WINDOWS)] == tt.LEG_WINDOWS
+    assert all(tt.PC_WINDOW not in tt.leg_windows(leg, s)
+               for leg in tt._FORMS for s in range(1, 7))
     assert {tt.leg_window("up", 0, n, n, H100_SMS)
             for n in (4095, 2047, 1023, 511, 255)} == {tt.PC_WINDOW}
 
