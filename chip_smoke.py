@@ -148,10 +148,13 @@ Phases:
    compare the four coupled-system kernels (the fused
    red-black and the Jacobi sweep, the down-leg and the up-leg) with their
    plain versions at 2047^2, 1023^2 and 255^2 with linear elasticity's own
-   table and at ragged shapes (1025x771 for the legs, 300x200 and 65x130,
-   which no sweep window divides, for the sweeps) with a random table
-   whose point solve is not diagonal, row fixups and asymmetric taps, the
-   legs for 1..3 sweeps, red-black and Jacobi; print each leg
+   table, at 2047^2 and 255^2 with the split-complex Helmholtz operator's
+   own table and point solve, whose Robin fold puts center and point-solve
+   fixups on rows 0 and n - 1, and at ragged shapes (1025x771 for the
+   legs, 300x200 and 65x130, which no sweep window divides, for the
+   sweeps) with a random table whose point solve is not diagonal, row
+   fixups and asymmetric taps, the legs for 1..3 sweeps, red-black and
+   Jacobi; print each leg
    instantiation's halo, resident blocks per SM, registers, local memory
    and shared memory; time the sweeps at 2047^2
    and the V(2,1)'s legs (2 sweeps down, 1 up), red-black and Jacobi, at
@@ -209,11 +212,49 @@ Phases:
    [evolve3d]; every evaluation is a BiCGStab solve, so the 2k and 4k
    robustness variants are cut too (EVOLVE_HELM_OPTIONS); each
    evaluation prints its BiCGStab iterations;
-27. check that neither jax nor the JAX package was imported.
+27. [main-split] drive the split-complex Helmholtz path:
+   helmholtz_2d_split(11, 3) (2047^2 down to a dense 7^2 solve, float32,
+   the BASELINE suite's Helmholtz row, scripts/bench_suite.py:115-121,
+   :148-150) with the collective red-black V(2,1) and its Jacobi twin
+   (omega 0.6), as phase 5 drives the 2D path: each system leg must run
+   four times per cycle (2047^2 .. 255^2, each level once, counted by
+   level in one step) with the problem's own fixup rows, and no other
+   kernel at all; the varying point solve (``_pointwise_varying_inverse``)
+   runs on 127^2 and below; then each solve to 1e-5 as phase 6; the
+   device memory held at the peak is printed;
+28. [helm-split] helmholtz_2d_split(7, 3) at k = 80, 160 and 320 in
+   float64, the split BiCGStab to 1e-7 with one red-black V(2,1) (omega
+   0.6) per application, replayed from a CUDA graph: its iterations must
+   lie within 2% of [helm]'s complex128 counts of this run (the same
+   algebra) at k = 80 and 160, within 5% at k = 320, where a float64
+   run's count moves with its rounding (HELM_SPLIT_TOLERANCE), and no
+   kernel may launch;
+29. [evolve-split] ``helmholtz2d_split NSGAII --mu 2 --lambda 2
+   --generations 1 --seed 0 --no-robustness`` at its default levels 7->3
+   (127^2), cut as [evolve-helm] and to EVOLVE_SPLIT_MAX_ITERATIONS
+   BiCGStab iterations an evaluation, with the peak device memory
+   printed;
+30. [main-fas] drive the FAS path: fas_2d_basic(10, 6) (1023^2,
+   float32, scripts/bench_suite.py:123-125, :151-152) with fas_v_cycle
+   (damped Newton-Jacobi, omega 0.8, V(2,2), 200 Newton-Jacobi sweeps
+   on the coarsest 63^2), chained in batches of FAS_K_CYCLES: the
+   prolongation-correction kernel must run three times per cycle (1023^2,
+   511^2 and 255^2, where the JAX lowering runs its Pallas
+   ``prolong_row_correct``) and no other kernel; then the solves:
+   float32 to FAS_TARGETS' reduction with the kernels and with the plain
+   versions (equal iterations, histories within 1e-3 above the float32
+   floor of the nonlinear residual) and float64 to 1e-5, each within 1 of
+   the JAX package's CPU count (FAS_JAX_ITERATIONS), with the largest
+   error against the analytic solution;
+31. [evolve-fas] ``fas2d NSGAII --mu 2 --lambda 2 --generations 1 --seed
+   0`` at EVOLVE_FAS_LEVELS (63^2, cut from 10->6) with a budget of
+   EVOLVE_FAS_MAX_ITERATIONS cycles an evaluation, timing protocol off
+   as [evolve3d];
+32. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21 and 23 to 26) and read just
-after.  Each phase prints
+6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26 and 27 to 31) and
+read just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -1563,12 +1604,31 @@ def random_sys_table(rng):
                                                             exc, minv)
 
 
+def split_table(n):
+    """(coeffs, minv, exc, exc_minv) of helmholtz_2d_split's operator at
+    n^2 (k = 80) with the collective point solve, as the lowering derives
+    them: the Robin fold's center fixups and their point-solve deltas on
+    rows 0 and n - 1."""
+    from evostencils_tpu_torch.compiler import lower
+    from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d_split
+    level = (n + 1).bit_length() - 1
+    op = helmholtz_2d_split(max_level=level, min_level=level - 1) \
+        .level_contexts[0].operator
+    coeffs, exc = lower._sys_nine_table(op)
+    minv = lower._Lowering._sys_minv(coeffs, "elem")
+    return coeffs, minv, exc, lower._Lowering._sys_minv_exc(coeffs, "elem",
+                                                            exc, minv)
+
+
 #: the [kernels-sys] shapes and tables: the main path's two finest levels
-#: and the evaluator's level with elasticity's own table, ragged shapes
-#: with the random table, its fixups and asymmetric taps (the legs take
-#: the odd one; no sweep window divides 65x130's rows or columns)
+#: and the evaluator's level with elasticity's own table, the split
+#: Helmholtz path's finest and coarsest gated levels with its own table
+#: and fixup rows, ragged shapes with the random table, its fixups and
+#: asymmetric taps (the legs take the odd one; no sweep window divides
+#: 65x130's rows or columns)
 SYS_CASES = [((2047, 2047), "elasticity"), ((1023, 1023), "elasticity"),
-             ((255, 255), "elasticity"), ((1025, 771), "random"),
+             ((255, 255), "elasticity"), ((2047, 2047), "split"),
+             ((255, 255), "split"), ((1025, 771), "random"),
              ((300, 200), "random"), ((65, 130), "random")]
 #: the shapes the legs and sweeps are timed at: the main path's finest
 #: level (its red-black numbers go to the kernels line) and the level of
@@ -1672,7 +1732,15 @@ def phase_kernels_sys(torch, rbgs_sys, device):
         if kind == "elasticity":
             (coeffs, minv), exc, exc_minv = elasticity_table(n), (), ()
             r_taps, p_taps = R_TAPS, P_TAPS
-        else:
+        elif kind == "split":
+            coeffs, minv, exc, exc_minv = split_table(n)
+            r_taps, p_taps = R_TAPS, P_TAPS
+            log(f"[kernels-sys] split {n}x{m}: center {coeffs[0][0][0]:.6g} "
+                f"{coeffs[0][1][0]:+.6g}; fixup rows "
+                f"{[r for r, _ in exc]}: {exc}; point-solve deltas "
+                f"{exc_minv}")
+            check([r for r, _ in exc] == [r for r, _ in exc_minv]
+                  == [0, n - 1], f"split {n}x{m}: fixups on rows 0 and n-1")
             coeffs, minv, exc, exc_minv = random_sys_table(rng)
             r_taps, p_taps = R_TAPS_ASYM, P_TAPS_ASYM
         op = (coeffs, minv)
@@ -1707,7 +1775,7 @@ def phase_kernels_sys(torch, rbgs_sys, device):
                                    rbgs_sys.
                                    prolong_correct_postsmooth_sys_plain))
                     note(SYS_LEGS[1], mode, o_k, o_p)
-        if shape not in SYS_TIMED:
+        if shape not in SYS_TIMED or kind != "elasticity":
             continue
         # the main path's finest level and the evaluator's: the table, the
         # sweeps (the first level's numbers go to the kernels line)
@@ -1832,12 +1900,12 @@ def v21(path):
     """A fresh problem of the path and its V(2,1) cycle."""
     from evostencils_tpu_torch.compiler.cycles import v_cycle
     from evostencils_tpu_torch.ir import partitioning as part
-    from evostencils_tpu_torch.problems import elasticity, poisson
+    from evostencils_tpu_torch.problems import elasticity, helmholtz, poisson
     _, build, max_level, min_level, partitioning, omega, _, _ = PATHS[path]
     if build == "dirichlet_helmholtz":
-        from evostencils_tpu_torch.problems.helmholtz import \
-            dirichlet_helmholtz
-        problem = dirichlet_helmholtz(max_level, min_level)
+        problem = helmholtz.dirichlet_helmholtz(max_level, min_level)
+    elif build == "helmholtz_2d_split":
+        problem = helmholtz.helmholtz_2d_split(max_level, min_level)
     else:
         module = elasticity if build == "linear_elasticity_2d" else poisson
         problem = getattr(module, build)(max_level=max_level,
@@ -1889,14 +1957,24 @@ PATHS = {
     "cx-rb": ("main-cx rb", "dirichlet_helmholtz", 11, 3, "RedBlack", 0.6,
               "rbgs_cx", ("fused_rbgs_sweep_cx",)),
     "cx-jacobi": ("main-cx jacobi", "dirichlet_helmholtz", 11, 3, "Single",
-                  0.6, "rbgs_cx", ("jacobi_sweep_cx",))}
+                  0.6, "rbgs_cx", ("jacobi_sweep_cx",)),
+    # the BASELINE suite's Helmholtz row (scripts/bench_suite.py:115-121,
+    # :148-150): the Robin-folded shifted Laplacian in split-complex form,
+    # float32, the collective red-black V(2,1) at omega 0.6 and its Jacobi
+    # twin; the system legs take the levels of their gate with the Robin
+    # fold's row fixups
+    "split-rb": ("main-split rb", "helmholtz_2d_split", 11, 3, "RedBlack",
+                 0.6, "rbgs_sys", SYS_LEGS),
+    "split-jacobi": ("main-split jacobi", "helmholtz_2d_split", 11, 3,
+                     "Single", 0.6, "rbgs_sys", SYS_LEGS)}
 #: kernel launches per gated level and cycle, where a path's kernel is a
 #: sweep and not a leg: the V(2,1)'s 2 pre- and 1 post-sweeps
 SWEEPS_PER_LEVEL = {"cx-rb": 3, "cx-jacobi": 3}
 #: the iteration cap of a path's solve to 1e-5 (phase_solve): rho is about
 #: 0.77 on the complex path (40 cycles to 1e-4 at 127^2 and 511^2, float64
 #: probe of the JAX package), below 0.2 on the others
-SOLVE_MAX_ITERATIONS = {"cx-rb": 100, "cx-jacobi": 100}
+SOLVE_MAX_ITERATIONS = {"cx-rb": 100, "cx-jacobi": 100, "split-rb": 100,
+                        "split-jacobi": 100}
 #: the [main-fused] paths' switches: (loop_fusion, fused_column_transfers)
 SWITCHES = {"2d-loop-col": (True, True), "2d-loop-rows": (True, False),
             "2d-rows": (False, False)}
@@ -2480,13 +2558,15 @@ def helm_solve(torch, problem, device, dtype, graph=True):
     """(x, iterations, history, b, matvec): BiCGStab on the problem's true
     operator to its 1e-7, one red-black V(2,1) from zero per
     preconditioner application (scripts/helmholtz_convergence.py), with the
-    fields in the complex dtype of ``dtype``'s precision; the
-    preconditioner is the evaluator's, replayed from a CUDA graph unless
-    ``graph`` is false."""
+    fields in the complex dtype of ``dtype``'s precision, or for a
+    split-complex problem real (re, im) fields in ``dtype`` and the split
+    BiCGStab; the preconditioner is the evaluator's, replayed from a CUDA
+    graph unless ``graph`` is false."""
     from evostencils_tpu_torch.compiler.lower import (lower_cycle,
                                                       operator_applier)
     from evostencils_tpu_torch.compiler.solve import make_preconditioner
-    from evostencils_tpu_torch.ops.solvers import preconditioned_bicgstab
+    from evostencils_tpu_torch.ops.solvers import (
+        preconditioned_bicgstab, preconditioned_bicgstab_split)
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
     lowered = lower_cycle(helm_cycle(problem), problem.approximation,
@@ -2497,7 +2577,9 @@ def helm_solve(torch, problem, device, dtype, graph=True):
     matvec = operator_applier(problem.outer_solver.operator)
     precond = make_preconditioner(lowered, om, b, graph)
     outer = problem.outer_solver
-    x, k, hist = preconditioned_bicgstab(
+    bicgstab = preconditioned_bicgstab_split if outer.split \
+        else preconditioned_bicgstab
+    x, k, hist = bicgstab(
         matvec, precond, b, tol=outer.tolerance,
         maxiter=outer.max_iterations, history_size=outer.max_iterations)
     return x, k, hist.cpu().numpy(), b, matvec
@@ -2507,10 +2589,12 @@ def phase_helm(torch, kernels, device, card):
     """The Robin-folded Helmholtz problem's outer solve on the card at
     k = 80, 160 and 320 in complex128, and at k = 80 in complex64; no
     kernel may launch: the field form keeps the operator off the complex
-    sweeps, as in the JAX package (tests/test_pallas_cx.py:153-164)."""
+    sweeps, as in the JAX package (tests/test_pallas_cx.py:153-164).
+    Returns the complex128 iterations by wavenumber."""
     from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d
 
     reset(kernels)
+    iterations = {}
     for k, want in HELM_ITERATIONS.items():
         t0 = time.perf_counter()
         _, it, hist, _, _ = helm_solve(torch, helmholtz_2d(7, 3, k=k),
@@ -2522,6 +2606,7 @@ def phase_helm(torch, kernels, device, card):
             f"JAX package's CPU float64: {want} (BASELINE.md:251-262)")
         check(hist[it] <= 1e-7 * hist[0] and abs(it - want) <= 0.02 * want,
               f"k={k:g}: {it} iterations, the JAX package's {want}")
+        iterations[k] = it
     problem = helmholtz_2d(7, 3)
     runs = {}
     for graph in (True, False):
@@ -2561,6 +2646,7 @@ def phase_helm(torch, kernels, device, card):
           "the complex64 solve ends below 1e-7 by its recurrence")
     counts = counts_of(kernels)
     check(not any(counts.values()), f"kernels launched on [helm]: {counts}")
+    return iterations
 
 
 def phase_evaluator_helm(torch, kernels, device, card):
@@ -2582,22 +2668,292 @@ def phase_evaluator_helm(torch, kernels, device, card):
           f"kernels launched on [evaluator-helm]: {counts}")
 
 
+def reset_peak_memory(torch):
+    """Reset the device memory peak; returns the memory held now."""
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_memory(torch, tag, held):
+    """Log the device memory held at the peak since reset_peak_memory,
+    and how much of it came after: ``held`` is what was held then."""
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] peak device memory {peak / 2**20:.1f} MiB "
+        f"(torch.cuda.max_memory_allocated), {(peak - held) / 2**20:.1f} MiB "
+        f"above the {held / 2**20:.1f} MiB held when the phase began")
+
+
+def split_levels(torch, kernels, device, path):
+    """One step of the split path's cycle: each system leg must run once on
+    each of 2047^2 .. 255^2 with the problem's fixup rows (counted by
+    level through the module's entries, which call the counted wrappers),
+    the varying point solve on 127^2 and below, and no other kernel."""
+    from evostencils_tpu_torch.compiler import lower
+    from evostencils_tpu_torch.ops.kernels import rbgs_sys
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    label = PATHS[path][0]
+    problem, cycle = v21(path)
+    lowered = lower.lower_cycle(cycle, problem.approximation,
+                                problem.rhs_entity)
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                      device=device)
+    seen = {name: {} for name in SYS_LEGS + ("varying",)}
+    wrapped = {name: getattr(rbgs_sys, name) for name in SYS_LEGS}
+    varying = lower._Lowering._pointwise_varying_inverse
+
+    def counted(name, fn):
+        def call(fields, *args, **kw):
+            n = fields[0].shape[0]
+            seen[name][n] = seen[name].get(n, 0) + 1
+            if name != "varying":
+                rows = [r for r, _ in kw["exc"]]
+                check(rows == [r for r, _ in kw["exc_minv"]] == [0, n - 1],
+                      f"{name} at {n}^2: fixup rows {rows}")
+            return fn(fields, *args, **kw)
+        return call
+
+    for name, fn in wrapped.items():
+        setattr(rbgs_sys, name, counted(name, fn))
+    lower._Lowering._pointwise_varying_inverse = \
+        lambda self, op, fields: counted("varying", lambda f: varying(
+            self, op, f))(fields)
+    reset(kernels)
+    try:
+        lowered.step(tuple(torch.zeros_like(x) for x in b), b, om)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in wrapped.items():
+            setattr(rbgs_sys, name, fn)
+        lower._Lowering._pointwise_varying_inverse = varying
+    counts = {k: n for k, n in counts_of(kernels).items() if n}
+    log(f"[{label}] one cycle: launches {counts}; by level "
+        f"{ {name: dict(sorted(v.items())) for name, v in seen.items()} }")
+    gated = {2047: 1, 1023: 1, 511: 1, 255: 1}
+    for name in SYS_LEGS:
+        check(seen[name] == gated, f"{name} by level {seen[name]}")
+    check(counts == {name: 4 for name in SYS_LEGS},
+          f"{label}: launches per cycle {counts}")
+    check(set(seen["varying"]) == {127, 63, 31, 15},
+          f"the varying point solve ran at {sorted(seen['varying'])}")
+
+
+def phase_main_split(torch, kernels, device, card, path):
+    """[main-split]: the chained cycles and the per-level check of one
+    cycle; returns the legs' launches over the chained batches."""
+    held = reset_peak_memory(torch)
+    launches = phase_main_path(torch, kernels, device, card, path)
+    split_levels(torch, kernels, device, path)
+    peak_memory(torch, PATHS[path][0], held)
+    return launches
+
+
+#: [helm-split]: how far the split BiCGStab's iterations may lie from
+#: [helm]'s complex128 counts of the same run, by wavenumber.  The two are
+#: the same algebra (JAX tests/test_split_complex.py:89), but at k = 320
+#: a float64 run's count moves with its rounding: the JAX package's CPU
+#: runs take 3296 (complex) and 3175 (split), the port's CPU runs 3305 and
+#: 3202, by ``JAX_PLATFORMS=cpu python -c 'from tests.test_torch_split
+#: import bicgstab_iterations as f; print([f(p, s, 320.0) for p in ("jax",
+#: "port") for s in ("complex", "split")])'``, and on an H100 the port
+#: took 3182 and 3263 (2.5% apart)
+HELM_SPLIT_TOLERANCE = {80.0: 0.02, 160.0: 0.02, 320.0: 0.05}
+
+
+def phase_helm_split(torch, kernels, device, card, helm_iterations):
+    """helmholtz_2d_split(7, 3) in float64 at [helm]'s wavenumbers: the
+    split BiCGStab's iterations within HELM_SPLIT_TOLERANCE of [helm]'s
+    complex128 counts of this run; no kernel launches at 127^2."""
+    from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d_split
+
+    reset(kernels)
+    for k, want in helm_iterations.items():
+        t0 = time.perf_counter()
+        x, it, hist, _, _ = helm_solve(torch, helmholtz_2d_split(7, 3, k=k),
+                                       device, torch.float64)
+        wall = time.perf_counter() - t0
+        log(f"[helm-split] k={k:g} float64 (re, im): {it} iterations to "
+            f"{hist[it] / hist[0]:.3e} in {wall:.1f} s "
+            f"({wall / max(it, 1) * 1e3:.2f} ms/iteration) on {card}; "
+            f"[helm] complex128: {want}")
+        check(all(xi.dtype == torch.float64 for xi in x) and len(x) == 2,
+              "real float64 (re, im) fields")
+        tol = HELM_SPLIT_TOLERANCE[k]
+        check(hist[it] <= 1e-7 * hist[0] and abs(it - want) <= tol * want,
+              f"k={k:g}: {it} split iterations, [helm]'s {want} "
+              f"(tolerance {tol:.0%})")
+    counts = counts_of(kernels)
+    check(not any(counts.values()),
+          f"kernels launched on [helm-split]: {counts}")
+
+
+#: [main-fas]: chained FAS cycles per batch; a FAS V(2,2) cycle runs 200
+#: Newton-Jacobi sweeps on its coarsest level, a few thousand launches
+FAS_K_CYCLES = 50
+#: the [main-fas] solves' relative nonlinear residual targets.  A float32
+#: state holds the nonlinear residual of fas_2d_basic(10, 6) no lower
+#: than about FAS_F32_FLOOR ||r0|| (the JAX package's CPU float32 solve
+#: stalls between 1.007e-3 and 1.016e-3 for 95 cycles), so the float32
+#: target sits tenfold above it; float64 reaches 1e-5
+FAS_TARGETS = {"float32": 1e-2, "float64": 1e-5}
+FAS_F32_FLOOR = 1e-3
+#: the JAX package's CPU iterations of fas_v_cycle on fas_2d_basic(10, 6)
+#: to FAS_TARGETS, by
+#: ``JAX_PLATFORMS=cpu python -c 'from tests.test_torch_fas import
+#: jax_fas_iterations as f; print(f(10, 6, "float32", 1e-2),
+#: f(10, 6, "float64", 1e-5))'``
+FAS_JAX_ITERATIONS = {"float32": 4, "float64": 18}
+
+
+def fas_solve(torch, lowered, b, target, max_iterations=100):
+    from evostencils_tpu_torch.compiler.solve import make_solver
+    om = torch.tensor(lowered.default_omegas, dtype=b[0].dtype,
+                      device=b[0].device)
+    u0 = tuple(torch.zeros_like(x) for x in b)
+    u, k, hist = make_solver(lowered, max_iterations, target)(u0, b, om)
+    return u, k, hist[:k + 1].double().cpu().numpy()
+
+
+def phase_main_fas(torch, kernels, device, card):
+    """[main-fas]: the FAS cycle chained in batches, then its solves;
+    returns the prolongation-correction kernel's launches over the
+    batches."""
+    from evostencils_tpu_torch.compiler.cycles import fas_v_cycle
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+    from evostencils_tpu_torch.compiler.solve import (make_cycle_loop,
+                                                      residual_norm_fn)
+    from evostencils_tpu_torch.ops.kernels import transfer
+    from evostencils_tpu_torch.problems.fas import fas_2d_basic
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    problem = fas_2d_basic(10, 6)
+
+    def lowered_cycle(use_kernels=True):
+        cycle = fas_v_cycle(problem.level_contexts, problem.rhs_entity,
+                            coarse_operator=problem.coarsest_operator)
+        return lower_cycle(cycle, problem.approximation, problem.rhs_entity,
+                           use_kernels=use_kernels)
+
+    lowered = lowered_cycle()
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                          device=device)
+    u = tuple(torch.zeros_like(x) for x in b)
+    loop = make_cycle_loop(lowered, FAS_K_CYCLES)
+    n_dof = int(np.prod(problem.finest_grid[0].size))
+    reset(kernels)
+    batch_ms = []
+    for _ in range(BATCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        u = loop(u, b, omegas)
+        end.record()
+        end.synchronize()
+        batch_ms.append(start.elapsed_time(end))
+    counts = {k: n for k, n in counts_of(kernels).items() if n}
+    cycles = FAS_K_CYCLES * BATCHES
+    gated = sum(1 for ctx in problem.level_contexts
+                if transfer.supports(torch.empty(
+                    ctx.grid[0].size, device="meta", dtype=torch.float32)))
+    log(f"[main-fas] launches {counts} over {cycles} cycles, {gated} levels "
+        "the prolongation-correction gate admits")
+    check(counts == {"prolong_correct": gated * cycles} and gated == 3,
+          f"[main-fas] launches {counts}: the prolongation-correction "
+          f"kernel {gated} times a cycle and nothing else")
+    steady = batch_ms[1:]
+    ms_cycle = statistics.median(steady) / FAS_K_CYCLES
+    MS_PER_CYCLE["main-fas"] = ms_cycle
+    log(f"[main-fas] batches of {FAS_K_CYCLES} cycles: "
+        + ", ".join(f"{t:.1f}" for t in batch_ms) + " ms (first warms up)")
+    log(f"[main-fas] {n_dof} DoF: {ms_cycle:.4f} ms/cycle (median), "
+        f"{min(steady) / FAS_K_CYCLES:.4f} (best), "
+        f"{n_dof / (ms_cycle * 1e-3):.4e} DoF/s on {card}")
+    exact = problem.exact_solution()[0]
+
+    def error(x):
+        return float(np.abs(x[0].double().cpu().numpy() - exact).max())
+
+    res = float(residual_norm_fn(lowered.operator)(u, b))
+    rel = res / float(torch.linalg.vector_norm(b[0].double()))
+    log(f"[main-fas] after {cycles} cycles: relative nonlinear residual "
+        f"{rel:.3e} (float32 floor near {FAS_F32_FLOOR:g} ||r0||), max "
+        f"error against the analytic solution {error(u):.3e} (max|u| "
+        f"{np.abs(exact).max():.3f})")
+    check(u[0].dtype == torch.float32 and np.isfinite(rel) and rel <= 1e-2
+          and error(u) <= 1e-2 * np.abs(exact).max(),
+          "[main-fas] chained cycles")
+    # float32: the kernels against the plain versions, and JAX's count
+    target = FAS_TARGETS["float32"]
+    runs = {}
+    for use_kernels in (True, False):
+        x, k, hist = fas_solve(torch, lowered_cycle(use_kernels), b, target)
+        runs[use_kernels] = (k, hist)
+        log(f"[main-fas solve] float32 {'kernels' if use_kernels else 'plain'}"
+            f": {k} iterations to {target:g}, max error {error(x):.3e}, "
+            f"history {np.array2string(hist / hist[0], precision=4)}")
+    (k1, h1), (k0, h0) = runs[True], runs[False]
+    want = FAS_JAX_ITERATIONS["float32"]
+    check(k1 == k0 and abs(k1 - want) <= 1,
+          f"[main-fas] float32: {k1} / {k0} iterations, JAX's {want}")
+    floor = FAS_F32_FLOOR * h0[0]
+    check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
+          "[main-fas] float32 histories (rtol 1e-3 above the floor)")
+    # float64: the transfer gate takes float32 only, so no kernel runs
+    b64 = build_rhs(problem, dtype=torch.float64, device=device)
+    target = FAS_TARGETS["float64"]
+    reset(kernels)
+    x, k, hist = fas_solve(torch, lowered, b64, target)
+    want = FAS_JAX_ITERATIONS["float64"]
+    log(f"[main-fas solve] float64: {k} iterations to {target:g} (JAX "
+        f"CPU: {want}), max error against the analytic solution "
+        f"{error(x):.3e}; launches {counts_of(kernels)}")
+    check(abs(k - want) <= 1 and hist[k] <= target * hist[0],
+          f"[main-fas] float64: {k} iterations, JAX's {want}")
+    return {"prolong_correct": gated * cycles}
+
+
+#: [evolve-fas]'s cuts: levels 6 -> 3 (63^2) for the CLI's default 10 ->
+#: 6, and the budget of 300 cycles an evaluation cut to 50.  The
+#: evaluator measures a float32 solve to 1e-5 and scores one that stops
+#: above it infinite, but the float32 nonlinear residual floors near 1e-3
+#: of its start at 1023^2 ([main-fas]): there every evaluation runs its
+#: budget and scores infinite (an H100 run of the default levels took
+#: 200.6 s, all 10 evaluations infinite); at 63^2 it reaches 1e-5.  A
+#: cycle there costs 80-130 ms (200 coarse Newton-Jacobi sweeps), and
+#: with the full budget the phase took 116.8 s, three candidates running
+#: all 300 cycles; the two that converged took 8 each
+EVOLVE_FAS_LEVELS = ("--max-level", "6", "--min-level", "3")
+EVOLVE_FAS_MAX_ITERATIONS = 50
+#: [evolve-split]'s cut, besides [evolve-helm]'s: the BiCGStab budget of
+#: 10,000 iterations cut to 300 (the red-black V(2,1) takes 269 at k = 80
+#: in float64, [helm]).  The split BiCGStab carries no NaN out of a
+#: breakdown, so a candidate that does not converge runs its whole
+#: budget, about 10 ms an iteration; on an H100 the phase took 770.2 s
+#: with the full budget and 51.1 s with 500
+EVOLVE_SPLIT_MAX_ITERATIONS = 300
+
+
 def phase_evolve(torch, kernels, problem_name, tag, names=(),
-                 timing_reps=None, options=()):
+                 timing_reps=None, options=(), max_iterations=None):
     """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
     --mu 2 --lambda 2 --generations 1 --seed 0`` in this process, at the
     problem's default levels, with ``options`` appended; at least one
     kernel of ``names`` must launch.  The evaluator's timing protocol takes
     ``timing_reps`` repetitions of its windows, or is off when that is
-    None.  Each batch of evaluations prints its iterations (BiCGStab's
-    for helmholtz2d) and its seconds."""
+    None.  ``max_iterations`` cuts the problem's iteration budget (the
+    solver's, BiCGStab's for Helmholtz).  Each batch of evaluations prints
+    its iterations and its seconds.  The best individual, re-evaluated,
+    must converge; if no evaluation of the run converged, it must not
+    either (the run's verdict reproduced)."""
     from evostencils_tpu_torch import optimize
     from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
     from evostencils_tpu_torch.grammar import gp
     from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
     from evostencils_tpu_torch.ir import transformations
 
-    evaluated = []
+    evaluated, finite = [], []
     population = CycleEvaluator.evaluate_population
     from_history = CycleEvaluator._result_from_history
     last = [0.0]
@@ -2606,6 +2962,8 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
         evaluated.append(len(individuals))
         last[0] = t = time.perf_counter()
         results = population(self, individuals, pset)
+        finite.extend(np.isfinite(r.iterations) and r.iterations < 1e99
+                      for r in results)
         log(f"[{tag}] {len(individuals)} evaluations in "
             f"{time.perf_counter() - t:.1f} s: iterations "
             f"{[float(r.iterations) for r in results]}")
@@ -2637,11 +2995,21 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
     else:
         log(f"[{tag}] timing protocol cut to {timing_reps} repetition "
             f"per window size (default {reps})")
+    get_problem = optimize.get_problem
+
+    def budgeted(*args, **kw):
+        problem = get_problem(*args, **kw)
+        if max_iterations is not None:
+            problem.max_iterations = max_iterations
+        return problem
+    if max_iterations is not None:
+        log(f"[{tag}] iteration budget cut to {max_iterations}")
     reset(kernels)
     CycleEvaluator.evaluate_population = counted
     CycleEvaluator._result_from_history = logged
     CycleEvaluator.timing_enabled = timing_reps is not None
     CycleEvaluator.timing_reps = timing_reps or reps
+    optimize.get_problem = budgeted
     t0 = time.perf_counter()
     try:
         result = optimize.main(argv)
@@ -2650,6 +3018,7 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
         CycleEvaluator._result_from_history = from_history
         CycleEvaluator.timing_enabled = timing
         CycleEvaluator.timing_reps = reps
+        optimize.get_problem = get_problem
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = counts_of(kernels)
@@ -2659,10 +3028,15 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
         check(any(counts[name] for name in names),
               f"none of {names} launched on the {tag} path")
 
-    problem = optimize.get_problem(problem_name)
-    pset = generate_primitive_set(problem.approximation, problem.rhs_entity,
-                                  problem.level_contexts,
-                                  problem.coarsest_operator)[0]
+    def level(flag):
+        return int(options[options.index(flag) + 1]) if flag in options \
+            else None
+    problem = budgeted(problem_name, level("--max-level"),
+                       level("--min-level"))
+    pset = generate_primitive_set(
+        problem.approximation, problem.rhs_entity, problem.level_contexts,
+        problem.coarsest_operator, FAS=problem.nonlinear_term is not None,
+        coupled_fields=problem.coupled_fields)[0]
     best = result["grammar_string"]
     individual = gp.parse_tree(best, pset)
     check(str(individual) == best, "the best individual re-parses")
@@ -2672,9 +3046,11 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
     evaluator.timing_enabled = False
     res = evaluator.evaluate_expression(expr)
     log(f"[{tag}] best individual ({len(individual)} nodes) re-evaluated: "
-        f"rho {res.convergence_factor:.5f}, {res.iterations:.0f} iterations")
-    check(np.isfinite(res.iterations) and res.convergence_factor < 1,
-          "the best individual converges")
+        f"rho {res.convergence_factor:.5f}, {res.iterations:.0f} iterations; "
+        f"{sum(finite)} of {len(finite)} evaluations of the run converged")
+    converges = res.iterations < 1e99 and res.convergence_factor < 1
+    check(converges == any(finite), "the best individual converges "
+          "(or, when no evaluation of the run did, does not either)")
 
 
 def main():
@@ -2772,11 +3148,29 @@ def main():
         launches.update(phase(PATHS[path][0], phase_main_path, torch,
                               kernels, device, card, path))
         phase(PATHS[path][0] + " solve", phase_solve, torch, device, path)
-    phase("helm", phase_helm, torch, kernels, device, card)
+    helm_iterations = phase("helm", phase_helm, torch, kernels, device, card)
     phase("evaluator-helm", phase_evaluator_helm, torch, kernels, device,
           card)
     phase("evolve-helm", phase_evolve, torch, kernels, "helmholtz2d",
           "evolve-helm", (), None, EVOLVE_HELM_OPTIONS)
+    # the split-complex path: the system legs' launches over both runs
+    for path in ("split-rb", "split-jacobi"):
+        for kernel, count in phase(PATHS[path][0], phase_main_split, torch,
+                                   kernels, device, card, path).items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        phase(PATHS[path][0] + " solve", phase_solve, torch, device, path)
+    phase("helm-split", phase_helm_split, torch, kernels, device, card,
+          helm_iterations)
+    held = reset_peak_memory(torch)
+    phase("evolve-split", phase_evolve, torch, kernels, "helmholtz2d_split",
+          "evolve-split", (), None, EVOLVE_HELM_OPTIONS,
+          EVOLVE_SPLIT_MAX_ITERATIONS)
+    peak_memory(torch, "evolve-split", held)
+    for kernel, count in phase("main-fas", phase_main_fas, torch, kernels,
+                               device, card).items():
+        launches[kernel] = launches.get(kernel, 0) + count
+    phase("evolve-fas", phase_evolve, torch, kernels, "fas2d", "evolve-fas",
+          (), None, EVOLVE_FAS_LEVELS, EVOLVE_FAS_MAX_ITERATIONS)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

@@ -1,8 +1,9 @@
 """Cycle compiler: multigrid expression IR -> eager PyTorch programs
 (counterpart of evostencils_tpu/compiler/lower.py, the part that the 2D and
 3D Poisson V-cycles and the evolved 2D and 3D Poisson, variable-
-coefficient 2D Poisson, 2D linear elasticity and complex 2D Helmholtz
-cycles reach, and ``operator_applier`` for the outer Krylov solve).
+coefficient 2D Poisson, 2D linear elasticity, complex and split-complex
+2D Helmholtz and nonlinear FAS cycles reach, and ``operator_applier`` for
+the outer Krylov solve).
 
 * Grid functions are tuples of per-field tensors (interior points only).
 * Relaxation factors are a 1-D tensor indexed by cycle id, so one lowered
@@ -53,7 +54,16 @@ cycles reach, and ``operator_applier`` for the outer Krylov solve).
 * Block smoothers (collective block Jacobi) solve their blocks through
   ``ops.local_solve`` (lower.py:1546-1553, :1686-1706); the collective
   point smoother of a system with constant central coefficients applies
-  one F x F inverse (lower.py:1575-1624).
+  one F x F inverse (lower.py:1575-1624), and one whose central
+  coefficients vary (the split-complex Helmholtz Robin rows) solves the
+  F x F system at every point (lower.py:1626-1684).
+* A nonlinear (FAS) operator applies ``L u + N(u)``; its smoothers run
+  damped Newton- or Picard-Jacobi sweeps and its coarsest level 200
+  Newton-Jacobi sweeps from the node's initial guess (lower.py:919-965,
+  :1444-1449, :1759-1792).  Nonlinear operators match no kernel; a FAS
+  correction ``u + P (u_c - R u)`` is operator-free and runs
+  ``transfer.prolong_correct`` where its gate admits the level, as the
+  JAX lowering runs its Pallas ``prolong_row_correct`` there.
 * A variable-coefficient operator runs as its ``StencilField``
   (lower.py:105-124), one object per generator and grid, so that the
   planner can compare two smoothers' operators by identity.
@@ -62,7 +72,11 @@ cycles reach, and ``operator_applier`` for the outer Krylov solve).
   stencils and the sys9 tables and point solves, which depend on the IR
   alone.
 
-An IR node outside this subset raises ``NotImplementedError`` naming it.
+An IR node outside this subset raises ``NotImplementedError`` naming it:
+a ``CoarseGridSolver`` that holds a cycle (level-chunked runs), a CG
+coarse solve above ``DIRECT_SOLVE_MAX`` unknowns, Krylov nodes, the
+collective point smoother of a periodic stencil, and inverses of other
+operator expressions.
 """
 
 from __future__ import annotations
@@ -97,14 +111,23 @@ def _generator(op):
     return getattr(op, "stencil_generator", None)
 
 
-def _is_nonlinear(op) -> bool:
-    """Whether an operator (or a 1x1 system of one) carries a nonlinear
-    term (FAS problems; lower.py:127-138)."""
+def _nonlinear_of(op):
+    """``(generator, entry)`` when an operator (or a 1x1 system of one)
+    carries a nonlinear term (FAS problems,
+    problems/fas.FASOperatorGenerator), else None (lower.py:127-138)."""
+    entry = op
     if isinstance(op, system.Operator):
         if len(op.entries) != 1:
-            return False
-        op = op.entries[0][0]
-    return hasattr(_generator(op), "nonlinear_term")
+            return None
+        entry = op.entries[0][0]
+    gen = _generator(entry)
+    if gen is not None and hasattr(gen, "nonlinear_term"):
+        return gen, entry
+    return None
+
+
+def _is_nonlinear(op) -> bool:
+    return _nonlinear_of(op) is not None
 
 
 _STENCIL_FIELD_CACHE: dict = {}
@@ -715,9 +738,9 @@ class _Lowering:
         omega = self.omegas[cycle.global_id]
         x = self.eval_function(cycle.approximation)
         if _is_smoother(cycle.correction):
-            if _is_nonlinear(cycle.correction.operand2.operator):
-                raise NotImplementedError(
-                    "nonlinear smoother cycles are not ported yet")
+            nl = self._nonlinear_smoother_parts(cycle.correction)
+            if nl is not None:
+                return self._nonlinear_smooth(cycle, x, omega, nl)
             fused = self._try_fused_smoother(cycle, x)
             if fused is not None:
                 return fused
@@ -737,11 +760,7 @@ class _Lowering:
         residual = corr.operand2
         b = self.eval_function(residual.rhs)
         A = residual.operator
-        masks = [self._constant(("rb", tuple(g.size)),
-                                lambda g=g: red_black_masks(
-                                    tuple(g.size), device=self.device,
-                                    dtype=self.dtype))
-                 for g in field_grids(cycle)]
+        masks = [self._masks(g) for g in field_grids(cycle)]
 
         def half(u, color):
             r = tuple(bi - ai for bi, ai in zip(b, self.apply_operator(A, u)))
@@ -750,6 +769,71 @@ class _Lowering:
                          for ui, ci, m in zip(u, c, masks))
 
         return half(half(x, 0), 1)
+
+    def _masks(self, grid):
+        """The red-black masks of a grid, once per lowered cycle, device
+        and dtype."""
+        return self._constant(("rb", tuple(grid.size)),
+                              lambda: red_black_masks(
+                                  tuple(grid.size), device=self.device,
+                                  dtype=self.dtype))
+
+    # -- nonlinear smoothing (FAS) -------------------------------------------
+
+    @staticmethod
+    def _nonlinear_smoother_parts(corr):
+        """``(generator, entry, mode, n_steps)`` for a nonlinear smoother
+        correction, else None (lower.py:919-932).  mode: "picard" (frozen
+        coefficient) or "newton" (Jacobian denominator, the inverse of an
+        ``Addition`` whose second operand is a ``system.Jacobian``)."""
+        nl = _nonlinear_of(corr.operand2.operator)
+        if nl is None:
+            return None
+        L = corr.operand1.operand
+        if isinstance(L, base.Addition) and \
+                isinstance(L.operand2, system.Jacobian):
+            return nl + ("newton", L.operand2.n_newton_steps)
+        return nl + ("picard", 1)
+
+    @staticmethod
+    def _nonlinear_denominator(gen, st, mode):
+        """``denom(u)``: the diagonal of the linear part plus the nonlinear
+        term's derivative (Newton) or coefficient (Picard)
+        (lower.py:946-959)."""
+        diag_lin = periodic.diagonal(st)
+        diag_val = ops.scalar(diag_lin.to_constant().value_at(
+            (0,) * st.dimension)) if diag_lin.is_constant else None
+        d_nl_of = gen.nonlinear_derivative if mode == "newton" \
+            else gen.nonlinear_coefficient
+
+        def denom(u):
+            if diag_val is not None:
+                return diag_val + d_nl_of(u)
+            return ops.apply_stencil(diag_lin, torch.ones_like(u)) + \
+                d_nl_of(u)
+        return denom
+
+    def _nonlinear_smooth(self, cycle, x, omega, nl):
+        """Damped Newton- or Picard-Jacobi sweeps,
+        ``u <- u + w * mask * (b - A(u)) / (diag(L) + d(u))``, ``n_steps``
+        times, red-black as two masked half-sweeps with the masks of global
+        parity (lower.py:934-965; reference FAS_2D_Basic_template.exa4
+        Smoother).  A Jacobi sweep's mask is all ones and is left out:
+        the product is the same."""
+        gen, entry, mode, n_steps = nl
+        b = self.eval_function(cycle.correction.operand2.rhs)[0]
+        st = periodic.as_periodic(self._stencil(entry))
+        denom = self._nonlinear_denominator(gen, st, mode)
+        masks = self._masks(entry.grid) \
+            if cycle.partitioning is part.RedBlack else (None,)
+        u = x[0]
+        for _ in range(max(int(n_steps), 1)):
+            for mask in masks:
+                r = b - (ops.apply_stencil(st, u) + gen.nonlinear_term(u))
+                step = r / denom(u)
+                u = u + (omega * step if mask is None
+                         else omega * mask * step)
+        return (u,)
 
     # -- standalone kernels (ops/kernels/rbgs.py, transfer.py) ---------------
 
@@ -1248,10 +1332,12 @@ class _Lowering:
         if isinstance(expr, base.Identity):
             return fields
         if type(expr) is base.Operator:
-            if _is_nonlinear(expr):
-                raise NotImplementedError(
-                    f"cannot apply operator {expr}: nonlinear operators "
-                    "are not ported yet")
+            nl = _nonlinear_of(expr)
+            if nl is not None:
+                # A(u) = L u + N(u) (lower.py:1444-1449)
+                lin = ops.apply_stencil(
+                    periodic.as_periodic(self._stencil(expr)), fields[0])
+                return (lin + nl[0].nonlinear_term(fields[0]),)
             sf = _stencil_field_of(expr)
             if sf is not None:
                 return (sf.apply(fields[0]),)
@@ -1350,12 +1436,13 @@ class _Lowering:
         m = len(op.entries)
         if m == 1:
             return (self._diagonal_inverse(op.entries[0][0], fields[0]),)
+        # pointwise-varying central coefficients (boundary-folded
+        # operators, e.g. the split-complex Helmholtz Robin rows): the m x m
+        # system solved per grid point with the local diagonal
+        # (lower.py:1590-1596)
         if any(_stencil_field_of(e) is not None
                for row in op.entries for e in row):
-            raise NotImplementedError(
-                "collective point inverse with varying central coefficients"
-                " (_pointwise_varying_inverse) comes with the split-complex "
-                "Helmholtz slice")
+            return self._pointwise_varying_inverse(op, fields)
         D = np.zeros((m, m), dtype=np.complex128)
         is_complex = False
         for i in range(m):
@@ -1386,6 +1473,86 @@ class _Lowering:
                        else torch.zeros_like(fields[i]))
         return tuple(out)
 
+    def _pointwise_varying_inverse(self, op: system.Operator, fields):
+        """Collective point solve with position-dependent central
+        coefficients, ``D(x) y(x) = r(x)`` at every point, D built from the
+        entries' diagonal fields (the coefficient at offset 0; constant
+        entries broadcast), complex if one is (lower.py:1626-1684).  For
+        m = 2 the closed-form inverse's four entries are formed in numpy
+        and applied as scalars with a few row fixups where they are
+        almost uniform (``ops.almost_uniform_desc``); otherwise a batched
+        ``torch.linalg.solve``.  The device terms are built once per
+        lowered cycle, device and dtype."""
+        m = len(op.entries)
+        shape = tuple(fields[0].shape)
+
+        def diagonals():
+            d = [[None] * m for _ in range(m)]
+            for i in range(m):
+                for j in range(m):
+                    entry = op.entries[i][j]
+                    sf = _stencil_field_of(entry)
+                    if sf is not None:
+                        d[i][j] = np.asarray(sf.diagonal_field())
+                        continue
+                    ps = periodic.as_periodic(entry.generate_stencil())
+                    if ps is None:
+                        d[i][j] = np.zeros(shape)
+                    elif not ps.is_constant:
+                        raise NotImplementedError(
+                            "periodic collective point smoother not "
+                            "supported")
+                    else:
+                        d[i][j] = np.full(shape, ps.to_constant().value_at(
+                            (0,) * ps.dimension, 0))
+            return d
+
+        def build():
+            d = diagonals()
+            dtype = fields[0].dtype
+            if any(np.iscomplexobj(a) for row in d for a in row):
+                dtype = ops.complex_dtype(dtype)
+            if m != 2:
+                D = np.stack([np.stack(row, axis=-1) for row in d], axis=-2)
+                return dtype, torch.as_tensor(D, dtype=dtype,
+                                              device=self.device)
+            det = d[0][0] * d[1][1] - d[0][1] * d[1][0]
+            minv = [[d[1][1] / det, -d[0][1] / det],
+                    [-d[1][0] / det, d[0][0] / det]]
+            terms = []
+            for row in minv:
+                terms.append([])
+                for a in row:
+                    desc = ops.almost_uniform_desc(a)
+                    if desc is None:
+                        terms[-1].append((torch.as_tensor(
+                            a, dtype=dtype, device=self.device), []))
+                        continue
+                    rows = [(i, torch.as_tensor(r, dtype=dtype,
+                                                device=self.device))
+                            for i, r in desc[2]] if desc[0] == "rows" else []
+                    terms[-1].append((ops.scalar(desc[1]), rows))
+            return dtype, terms
+
+        dtype, built = self._constant(
+            ("varying inverse", id(op), fields[0].dtype), build)
+        f = [x.to(dtype) for x in fields]
+        if m != 2:
+            y = torch.linalg.solve(built, torch.stack(f, dim=-1)[..., None])
+            return tuple(y[..., i, 0] for i in range(m))
+        out = []
+        for row in built:
+            acc = None
+            fixups = []
+            for term, x in zip(row, f):
+                bulk, fixes = ops.almost_uniform_mul(term, x)
+                fixups.extend(fixes)
+                acc = bulk if acc is None else acc + bulk
+            for i, add in fixups:
+                acc[i] = acc[i] + add
+            out.append(acc)
+        return tuple(out)
+
     def _system_local_inverse(self, op: system.Operator, fields):
         """Invert a system operator whose entries are block-diagonal
         periodic stencils (collective block Jacobi) or pointwise-diagonal
@@ -1408,15 +1575,21 @@ class _Lowering:
     # -- coarse-grid solver ---------------------------------------------------
 
     def apply_coarse_solver(self, cgs: base.CoarseGridSolver, fields):
-        """Dense inverse matvec on the coarsest grid (lower.py:1743-1767,
-        the dense branch)."""
+        """The coarsest grid's solve (lower.py:1743-1767): a nonlinear
+        operator's fixed Newton-Jacobi sweeps from the node's initial
+        guess, else the dense inverse's matvec."""
         if cgs.expression is not None:
             raise NotImplementedError(
                 "CoarseGridSolver with an evolved cycle is not ported yet")
         op = cgs.operator
-        if _is_nonlinear(op):
-            raise NotImplementedError(
-                "nonlinear coarse-grid solve is not ported yet")
+        nl = _nonlinear_of(op)
+        if nl is not None:
+            # FAS: the coarse solve starts from the restricted solution
+            # when the node carries it (lower.py:1759-1764)
+            u0 = None
+            if getattr(cgs, "initial_guess", None) is not None:
+                u0 = self.eval_function(cgs.initial_guess)[0]
+            return self._nonlinear_coarse_solve(nl, fields, u0)
         n = sum(int(np.prod(g.size)) for g in field_grids(op))
         if n > DIRECT_SOLVE_MAX:
             raise NotImplementedError(
@@ -1438,6 +1611,26 @@ class _Lowering:
             out.append(y[o:o + k].reshape(f.shape))
             o += k
         return tuple(out)
+
+    def _nonlinear_coarse_solve(self, nl, fields, u0=None):
+        """Coarsest nonlinear solve: NONLINEAR_CGS_SWEEPS damped
+        Newton-Jacobi sweeps at NONLINEAR_CGS_OMEGA, from ``u0`` or zero
+        (lower.py:1771-1792; reference FAS_2D_Basic_template.exa4
+        CGS@coarsest)."""
+        gen, entry = nl
+        st = periodic.as_periodic(self._stencil(entry))
+        denom = self._nonlinear_denominator(gen, st, "newton")
+        b = fields[0]
+        u = torch.zeros_like(b) if u0 is None else u0
+        for _ in range(NONLINEAR_CGS_SWEEPS):
+            r = b - (ops.apply_stencil(st, u) + gen.nonlinear_term(u))
+            u = u + NONLINEAR_CGS_OMEGA * (r / denom(u))
+        return (u,)
+
+
+#: reference FAS CGS@coarsest: 200 damped smoother sweeps (lower.py:1791-1792)
+NONLINEAR_CGS_SWEEPS = 200
+NONLINEAR_CGS_OMEGA = 0.8
 
 
 def _find_fine_operator(root):

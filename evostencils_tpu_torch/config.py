@@ -23,7 +23,9 @@ Not carried over:
 * ``use_pallas_kernels``: a leg runs its CUDA kernel when its tensors lie
   on a CUDA device and its plain PyTorch version when they lie on the CPU.
 * ``shard_map_mesh``, ``shard_min_local_size``: distribution comes later.
-* ``nonlinear_cgs_sweeps``, ``nonlinear_cgs_omega``: FAS comes later.
+* ``nonlinear_cgs_sweeps``, ``nonlinear_cgs_omega``: the JAX lowering
+  reads its own constants instead (lower.py:1791-1792), and so does the
+  port's (``compiler.lower.NONLINEAR_CGS_SWEEPS``, ``_OMEGA``).
 * ``column_transfers``, ``banded_transfers``, ``combined_rb``,
   ``wavefront_downleg_block``: TPU layout workarounds and TPU A/B knobs.
   The row-only legs' column halves are the ``banded`` form, which is what

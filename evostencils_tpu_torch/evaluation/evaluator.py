@@ -22,14 +22,15 @@ A problem with an outer Krylov solver (Helmholtz) is solved by
 application of the cycle from a zero initial guess as the preconditioner
 (evaluator.py:122-152).  The fields carry the problem's complex dtype in
 the asked precision: float32 gives complex64 fields, float64 complex128;
-relaxation factors stay real in that precision.
+relaxation factors stay real in that precision.  A split-complex outer
+solver (``outer_solver.split``, ``helmholtz_2d_split``) runs
+``ops.solvers.preconditioned_bicgstab_split`` on real (re, im) fields.
 
 What exists only for XLA compilation is left out: ``_precompile_groups``
 and ``compile_workers``, the power-of-two bucket padding of the batches
 and the persistent compilation cache.  Raise ``NotImplementedError``,
 naming the slice that brings them: ``chain=`` / ``cand_entities=``
-(level-chunked runs need ``lower_composed``), a split-complex outer
-solver (``outer_solver.split``) and ``canonicalize = True``
+(level-chunked runs need ``lower_composed``) and ``canonicalize = True``
 (``compiler/canonical.py``).
 
 An individual whose cycle the port cannot lower (``NotImplementedError``)
@@ -52,7 +53,8 @@ from ..compiler.lower import lower_cycle, operator_applier
 from ..compiler.solve import make_preconditioner, make_solver
 from ..grammar import gp
 from ..ir import base, transformations
-from ..ops.solvers import preconditioned_bicgstab
+from ..ops.solvers import (preconditioned_bicgstab,
+                           preconditioned_bicgstab_split)
 from ..problems.poisson import build_rhs
 
 _RF_PATTERN = re.compile(r"rf_\d+")
@@ -103,10 +105,6 @@ class CycleEvaluator:
             raise NotImplementedError(
                 "level-chunked evaluation (chain=, cand_entities=) needs "
                 "lower_composed, which is not ported yet")
-        if getattr(getattr(problem, "outer_solver", None), "split", False):
-            raise NotImplementedError(
-                "split-complex outer solvers (helmholtz2d_split) are not "
-                "ported yet: ROADMAP Queue 1 item 3")
         self.problem = problem
         self.chain = []
         self.device = torch.device(device)
@@ -160,15 +158,19 @@ class CycleEvaluator:
         Krylov solve of ``outer.operator`` with one application of the
         cycle from a zero initial guess as the preconditioner
         (evaluator.py:122-152), replayed from a CUDA graph on the card
-        (``compiler.solve.make_preconditioner``).  ``u0`` is not read:
-        BiCGStab starts from zero.  The coarse solve's matrix product runs in full float32
-        (no TF32), PyTorch's default, as the JAX package asks with
-        ``default_matmul_precision("highest")``."""
+        (``compiler.solve.make_preconditioner``); split-complex problems
+        take the (re, im)-pair BiCGStab, so every tensor stays real.
+        ``u0`` is not read: BiCGStab starts from zero.  The coarse solve's
+        matrix product runs in full float32 (no TF32), PyTorch's default,
+        as the JAX package asks with ``default_matmul_precision
+        ("highest")``."""
         matvec = operator_applier(outer.operator)
         max_iter = min(outer.max_iterations, self.max_iterations)
+        bicgstab = preconditioned_bicgstab_split \
+            if getattr(outer, "split", False) else preconditioned_bicgstab
 
         def solver(u0, b, omegas):
-            return preconditioned_bicgstab(
+            return bicgstab(
                 matvec, make_preconditioner(lowered, omegas, b), b,
                 tol=outer.tolerance, maxiter=max_iter,
                 history_size=max_iter)

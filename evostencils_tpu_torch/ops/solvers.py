@@ -1,13 +1,13 @@
-"""The outer Krylov solve of the Helmholtz problem (counterpart of
-evostencils_tpu/ops/solvers.py: the pytree helpers of :23-51 that it
-uses and ``preconditioned_bicgstab`` of :215-267).
+"""The outer Krylov solves of the Helmholtz problems (counterpart of
+evostencils_tpu/ops/solvers.py: the pytree helpers of :23-51 that they
+use, ``preconditioned_bicgstab`` of :215-267 and the split-complex
+``preconditioned_bicgstab_split`` with its helpers, :280-380).
 
 Operands are tuples of field tensors.  A Python loop takes the place of
 ``lax.while_loop``: the stopping test reads one residual norm per
 iteration back to the host, as ``compiler.solve.make_solver`` does; every
 other scalar of the recurrence stays a 0-d tensor on the fields' device.
-Not ported: the fixed-iteration solvers (``*_fixed``), ``cg`` and the
-split-complex BiCGStab.
+Not ported: the fixed-iteration solvers (``*_fixed``) and ``cg``.
 """
 
 from __future__ import annotations
@@ -73,6 +73,98 @@ def preconditioned_bicgstab(matvec: Callable, precond: Callable, b,
         omega = _dot(t, s) / _dot(t, t)
         x = _axpy(omega, z, h)
         r = _axpy(-omega, t, s)
+        res = norm(r)
+        if k + 1 <= hsize:
+            hist[k + 1] = res
+        k += 1
+        rho = rho_new
+    return x, k, hist
+
+
+# ---------------------------------------------------------------------------
+# Split-complex BiCGStab (solvers.py:280-380)
+# ---------------------------------------------------------------------------
+# The fields tuple carries F complex vectors as 2F real tensors
+# [re_0..re_{F-1}, im_0..im_{F-1}] and complex scalars as (re, im) pairs of
+# real 0-d tensors, so every tensor of the solve is real.  Algebraically
+# the same as preconditioned_bicgstab on the corresponding complex vectors.
+
+def _csplit(fields):
+    h = len(fields) // 2
+    return fields[:h], fields[h:]
+
+
+def _cjoin(re, im):
+    return tuple(re) + tuple(im)
+
+
+def _cdot_split(a, b):
+    """Complex <a, b> (conjugating a) on split fields; returns (re, im)."""
+    ar, ai = _csplit(a)
+    br, bi = _csplit(b)
+    re = _dot(ar, br) + _dot(ai, bi)
+    im = _dot(ar, bi) - _dot(ai, br)
+    return re, im
+
+
+def _cmul_s(a, b):
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def _cdiv_s(a, b):
+    d = b[0] * b[0] + b[1] * b[1]
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    return ((a[0] * b[0] + a[1] * b[1]) / d,
+            (a[1] * b[0] - a[0] * b[1]) / d)
+
+
+def _caxpy_split(alpha, x, y):
+    """y + alpha * x with complex scalar pair ``alpha`` on split fields."""
+    xr, xi = _csplit(x)
+    yr, yi = _csplit(y)
+    ar, ai = alpha
+    re = tuple(r + ar * vr - ai * vi for r, vr, vi in zip(yr, xr, xi))
+    im = tuple(r + ar * vi + ai * vr for r, vr, vi in zip(yi, xr, xi))
+    return _cjoin(re, im)
+
+
+def preconditioned_bicgstab_split(matvec: Callable, precond: Callable, b,
+                                  *, tol: float = 1e-7,
+                                  maxiter: int = 10000,
+                                  history_size: int = 0):
+    """Right-preconditioned BiCGStab on split-complex fields (see the note
+    above): :func:`preconditioned_bicgstab`'s loop, residual read-back,
+    history and stopping test, with every complex scalar carried as a
+    (re, im) pair.  Returns ``(x, iterations, residual_history)`` as
+    that function does."""
+    b = tuple(b)
+    x = _zeros_like(b)
+    r = b
+    r_hat = r
+    one = torch.ones((), dtype=b[0].dtype, device=b[0].device)
+    zero = torch.zeros_like(one)
+    rho = alpha = omega = (one, zero)
+    v = _zeros_like(b)
+    p = _zeros_like(b)
+    r0_norm = norm(r)
+    hsize = max(history_size, 1)
+    hist = torch.zeros(hsize + 1, dtype=r0_norm.dtype, device=r0_norm.device)
+    hist[0] = r0_norm
+    k, res = 0, r0_norm
+    while k < maxiter and bool(res > tol * r0_norm):
+        rho_new = _cdot_split(r_hat, r)
+        beta = _cmul_s(_cdiv_s(rho_new, rho), _cdiv_s(alpha, omega))
+        p = _caxpy_split(beta, _caxpy_split((-omega[0], -omega[1]), v, p), r)
+        y = precond(p)
+        v = matvec(y)
+        alpha = _cdiv_s(rho_new, _cdot_split(r_hat, v))
+        h = _caxpy_split(alpha, y, x)
+        s = _caxpy_split((-alpha[0], -alpha[1]), v, r)
+        z = precond(s)
+        t = matvec(z)
+        omega = _cdiv_s(_cdot_split(t, s), _cdot_split(t, t))
+        x = _caxpy_split(omega, z, h)
+        r = _caxpy_split((-omega[0], -omega[1]), t, s)
         res = norm(r)
         if k + 1 <= hsize:
             hist[k + 1] = res

@@ -6,7 +6,8 @@ Usage:
 
     problem: poisson2d (levels 9 -> 5) | poisson3d (levels 6 -> 2)
              | poisson2d_var (levels 9 -> 5) | elasticity2d (levels 8 -> 4)
-             | helmholtz2d (levels 7 -> 3)
+             | helmholtz2d (levels 7 -> 3) | helmholtz2d_split (7 -> 3)
+             | fas2d (levels 10 -> 6)
     method:  NSGAII (default) | NSGAIII | SOGP | RandomSearch
 
 Options:
@@ -21,13 +22,12 @@ Options:
 On the card every evaluation runs in float32, as on the TPU: the evaluator
 measures convergence to 1e-5 and extrapolates the iteration count to the
 problem's target (scripts/optimize.py:92-105); helmholtz2d then runs in
-complex64.  Each helmholtz2d candidate that solves the problem must also
-solve it at 2k and 4k (the robustness variants, scripts/optimize.py:
-124-142), unless ``--no-robustness``.  The other problems of
-scripts/optimize.py come with later slices of the port: helmholtz2d_split
-and fas2d with their problem families.  ``--model-based`` raises:
-prediction/ is not ported yet.  It writes ``best_grammar.txt`` and
-``result.p`` to ``--output``.
+complex64, helmholtz2d_split on (re, im) float32 pairs.  Each helmholtz2d
+or helmholtz2d_split candidate that solves the problem must also solve it
+at 2k and 4k (the robustness variants, built by the problem's own
+factory, scripts/optimize.py:124-142), unless ``--no-robustness``.
+``--model-based`` raises: prediction/ is not ported yet.  It writes
+``best_grammar.txt`` and ``result.p`` to ``--output``.
 """
 
 from __future__ import annotations
@@ -40,24 +40,17 @@ import sys
 
 import numpy as np
 
-#: problems of scripts/optimize.py:27-57 and the slice of the port that
-#: brings each one
-LATER_SLICES = {
-    "helmholtz2d_split": "the split-complex Helmholtz slice",
-    "fas2d": "the FAS slice",
-}
-
 
 def get_problem(name, max_level=None, min_level=None):
-    from .problems import elasticity, helmholtz, poisson
+    """The problems of scripts/optimize.py:27-57 at their default levels."""
+    from .problems import elasticity, fas, helmholtz, poisson
     factories = {"poisson2d": (poisson.poisson_2d, 9, 5),
                  "poisson3d": (poisson.poisson_3d, 6, 2),
                  "poisson2d_var": (poisson.poisson_2d_variable, 9, 5),
                  "elasticity2d": (elasticity.linear_elasticity_2d, 8, 4),
-                 "helmholtz2d": (helmholtz.helmholtz_2d, 7, 3)}
-    if name in LATER_SLICES:
-        raise SystemExit(f"problem {name!r} is not ported yet; it comes "
-                         f"with {LATER_SLICES[name]}")
+                 "helmholtz2d": (helmholtz.helmholtz_2d, 7, 3),
+                 "helmholtz2d_split": (helmholtz.helmholtz_2d_split, 7, 3),
+                 "fas2d": (fas.fas_2d_basic, 10, 6)}
     if name not in factories:
         raise SystemExit(f"unknown problem {name!r}; "
                          f"available: {sorted(factories)}")
@@ -98,13 +91,18 @@ def parse_args(argv=None):
 
 
 def robustness_factories(args):
-    """The helmholtz2d robustness variants' factories, ``(min_level,
-    max_level) -> problem`` at 2k and 4k, or None (scripts/optimize.py:
+    """The helmholtz2d or helmholtz2d_split robustness variants'
+    factories, ``(min_level, max_level) -> problem`` at 2k and 4k, each
+    built by the problem's own factory, or None (scripts/optimize.py:
     124-142)."""
-    if args.problem != "helmholtz2d" or args.no_robustness:
+    if args.problem not in ("helmholtz2d", "helmholtz2d_split") \
+            or args.no_robustness:
         return None
-    from .problems.helmholtz import K_DEFAULT, helmholtz_2d
-    return [lambda lo, hi, kk=f * K_DEFAULT: helmholtz_2d(
+    from .problems.helmholtz import (K_DEFAULT, helmholtz_2d,
+                                     helmholtz_2d_split)
+    factory = helmholtz_2d_split if args.problem == "helmholtz2d_split" \
+        else helmholtz_2d
+    return [lambda lo, hi, kk=f * K_DEFAULT, fac=factory: fac(
         max_level=hi, min_level=lo, k=kk) for f in (2, 4)]
 
 

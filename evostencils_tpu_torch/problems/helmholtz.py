@@ -1,12 +1,14 @@
-"""Copy of evostencils_tpu/problems/helmholtz.py (lines 1-151: ``K_DEFAULT``,
-``SHIFT``, ``_helmholtz_stencil``, ``HelmholtzOperatorGenerator``,
-``_dirac_bspline_rhs``, ``OuterSolverSpec`` and ``helmholtz_2d``), kept in
-the port so that it imports nothing of the JAX package.  The
-``rhs_builder`` closure returns the numpy complex128 right-hand side,
-where the JAX package's returns a ``jax.numpy`` array in complex128 or
-complex64 (helmholtz.py:132-136); ``problems.poisson.build_rhs`` moves it
-to a device in the complex dtype of the asked precision.  The
-split-complex formulation (helmholtz.py:153 on) is not ported.
+"""Copy of evostencils_tpu/problems/helmholtz.py (``K_DEFAULT``, ``SHIFT``,
+``_helmholtz_stencil``, ``HelmholtzOperatorGenerator``,
+``_dirac_bspline_rhs``, ``OuterSolverSpec``, ``helmholtz_2d`` and the
+split-complex formulation: ``SplitPartOperatorGenerator``,
+``_split_operator`` and ``helmholtz_2d_split``), kept in the port so that
+it imports nothing of the JAX package.  The ``rhs_builder`` closures
+return numpy arrays: ``helmholtz_2d``'s the complex128 right-hand side,
+``helmholtz_2d_split``'s its real and imaginary parts in float64, where
+the JAX package's return ``jax.numpy`` arrays in the asked precision
+(helmholtz.py:132-136, :239-244); ``problems.poisson.build_rhs`` moves
+them to a device in the asked dtype, complex for ``helmholtz_2d``.
 
 The JAX module's docstring:
 
@@ -108,9 +110,9 @@ class OuterSolverSpec:
     tolerance: float
     max_iterations: int
     rhs_builder: Callable
-    #: split-complex mode: fields are (re, im) f32 pairs and the outer
-    #: BiCGStab carries complex scalars as (re, im) pairs (not ported; the
-    #: evaluator refuses it)
+    #: split-complex mode: fields are (re, im) real pairs and the outer
+    #: BiCGStab carries complex scalars as (re, im) pairs — every tensor of
+    #: the solve is real (ops/solvers.preconditioned_bicgstab_split)
     split: bool = False
 
 
@@ -157,6 +159,115 @@ def helmholtz_2d(max_level: int = 7, min_level: int = 3,
     problem.outer_solver = OuterSolverSpec(
         name="PreconditionedBiCGStab", operator=a_op, tolerance=1e-7,
         max_iterations=10000, rhs_builder=rhs_builder)
+    return problem
+
+
+# ---------------------------------------------------------------------------
+# Split-complex formulation: every tensor stays real (helmholtz.py:153-264)
+# ---------------------------------------------------------------------------
+# A complex system A z = b with z = x + i y is algebraically the 2x2 real
+# block system [[Ar, -Ai], [Ai, Ar]] (x, y) = (br, bi).  Lowered this way,
+# the collective point smoother (ElementwiseDiagonal over the 2x2 system)
+# is the complex point smoother (the 2x2 center matrix [[dr, -di], [di,
+# dr]] is complex multiplication by the center), the transfers are
+# per-field real, and the dense coarse inverse of the block system is the
+# complex inverse.  The real block system runs the coupled-system kernels
+# (ops/kernels/rbgs_sys.py), with the Robin fold as their row fixups.
+
+class SplitPartOperatorGenerator:
+    """Real or imaginary part (optionally negated) of a complex operator
+    generator, preserving the Robin boundary fold via field form."""
+
+    def __init__(self, gen, part: str, sign: float = 1.0):
+        self.gen = gen
+        self.part = part
+        self.sign = sign
+
+    def generate_stencil(self, grid: Grid) -> Stencil:
+        st = self.gen.generate_stencil(grid)
+        take = ((lambda v: complex(v).real) if self.part == "re"
+                else (lambda v: complex(v).imag))
+        return Stencil([(o, self.sign * take(v)) for o, v in st.entries])
+
+    def generate_stencil_field(self, grid: Grid) -> StencilField:
+        sf = self.gen.generate_stencil_field(grid)
+        take = np.real if self.part == "re" else np.imag
+        return StencilField(
+            sf.offsets,
+            [self.sign * take(np.asarray(f)) for f in sf.fields])
+
+
+def _split_operator(name: str, grid: Grid, gen) -> system.Operator:
+    return system.Operator(name, [
+        [base.Operator(f"{name}_rr", grid,
+                       SplitPartOperatorGenerator(gen, "re")),
+         base.Operator(f"{name}_ri", grid,
+                       SplitPartOperatorGenerator(gen, "im", -1.0))],
+        [base.Operator(f"{name}_ir", grid,
+                       SplitPartOperatorGenerator(gen, "im")),
+         base.Operator(f"{name}_ii", grid,
+                       SplitPartOperatorGenerator(gen, "re"))],
+    ])
+
+
+def helmholtz_2d_split(max_level: int = 7, min_level: int = 3,
+                       k: float = K_DEFAULT,
+                       shift: complex = SHIFT) -> Problem:
+    """Split-complex Helmholtz: the physics of :func:`helmholtz_2d`,
+    lowered as a 2-field real system, so that no tensor of the solve is
+    complex."""
+    cf = (2, 2)
+    rgen = gallery.FullWeightingRestrictionGenerator(cf)
+    pgen = gallery.MultilinearInterpolationGenerator(cf)
+    contexts = []
+    for level in range(max_level, min_level, -1):
+        g = unit_interval_grid(2, level)
+        gc = unit_interval_grid(2, level - 1)
+        m_op = _split_operator(f"M_{level}", g,
+                               HelmholtzOperatorGenerator(k, shift))
+        restriction = system.Restriction(f"R_{level}", [
+            base.Restriction("R_re", g, gc, rgen),
+            base.Restriction("R_im", g, gc, rgen)])
+        prolongation = system.Prolongation(f"P_{level}", [
+            base.Prolongation("P_re", g, gc, pgen),
+            base.Prolongation("P_im", g, gc, pgen)])
+        approx = system.Approximation("z", [base.Approximation("u_re", g),
+                                            base.Approximation("u_im", g)])
+        contexts.append(LevelContext(operator=m_op, restriction=restriction,
+                                     prolongation=prolongation,
+                                     approximation=approx, grid=[g, g]))
+    g_min = unit_interval_grid(2, min_level)
+    coarsest = _split_operator(f"M_{min_level}", g_min,
+                               HelmholtzOperatorGenerator(k, shift))
+
+    grid = contexts[0].grid[0]
+    rhs_entity = system.RightHandSide(
+        "f", [base.RightHandSide("f_re", grid),
+              base.RightHandSide("f_im", grid)])
+
+    def rhs_builder(dtype=np.float32):
+        # numpy float64 (re, im) in every precision; build_rhs casts
+        f = _dirac_bspline_rhs(grid)
+        return (np.ascontiguousarray(f.real), np.ascontiguousarray(f.imag))
+
+    a_op = _split_operator(f"A_{max_level}", grid,
+                           HelmholtzOperatorGenerator(k, 0.0))
+
+    problem = Problem(name="Helmholtz2DSplit", dimension=2,
+                      min_level=min_level, max_level=max_level,
+                      fields=["u_re", "u_im"],
+                      level_contexts=contexts, coarsest_operator=coarsest,
+                      rhs_entity=rhs_entity, rhs_builder=rhs_builder,
+                      target_reduction=1e-7, max_iterations=10000,
+                      dtype=np.float32,
+                      # (re, im) are ONE logical complex field: keep the
+                      # grammar's smoother choices identical to the
+                      # complex formulation's (decoupled == complex point
+                      # division, not per-part diagonal)
+                      coupled_fields=True)
+    problem.outer_solver = OuterSolverSpec(
+        name="PreconditionedBiCGStab", operator=a_op, tolerance=1e-7,
+        max_iterations=10000, rhs_builder=rhs_builder, split=True)
     return problem
 
 

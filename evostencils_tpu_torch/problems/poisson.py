@@ -121,17 +121,21 @@ def poisson_2d_variable(max_level: int = 9, min_level: int = 5) -> Problem:
 
 #: problems whose right-hand side the port builds (their ``name``)
 PORTED_RHS = ("Poisson2D", "Poisson3D", "Poisson2DVar", "LinearElasticity2D",
-              "Helmholtz2D")
+              "Helmholtz2D", "Helmholtz2DSplit", "FAS_2D_Basic")
 
 
 def build_rhs(problem: Problem, *, dtype, device="cuda") -> tuple:
     """The fields of ``b`` for ``poisson_2d``, ``poisson_3d``,
     ``poisson_2d_variable``, ``elasticity.linear_elasticity_2d`` (two
-    fields, u and v) or ``helmholtz.helmholtz_2d``: the right-hand side
-    with the Dirichlet data folded in, built in numpy float64 as
-    evostencils_tpu/problems/poisson.py:43-47, :69-72, :100-105 and
-    elasticity.py:116-122 build it (RHS_u = 0 in 3D), or in complex128 as
-    helmholtz.py:81-88 does, then moved to ``device`` in ``dtype``; a
+    fields, u and v), ``helmholtz.helmholtz_2d``,
+    ``helmholtz.helmholtz_2d_split`` (two real fields, re and im) or
+    ``fas.fas_2d_basic``: the right-hand side with the Dirichlet data
+    folded in, built in numpy float64 as
+    evostencils_tpu/problems/poisson.py:43-47, :69-72, :100-105,
+    elasticity.py:116-122 and fas.py:86-89 build it (RHS_u = 0 in 3D), or
+    in complex128 as helmholtz.py:81-88 does (the split form its real and
+    imaginary parts, helmholtz.py:239-244), then moved to ``device`` in
+    ``dtype``; a
     complex right-hand side in the complex dtype of ``dtype``'s
     precision, complex64 for float32 and complex128 for float64
     (helmholtz.py:132-136)."""

@@ -227,7 +227,7 @@ def test_cli_poisson2d_var(tmp_path, capsys, monkeypatch):
 def test_cli_poisson2d_var_defaults():
     """poisson2d_var's default levels are scripts/optimize.py's: 9 -> 5;
     the problem no longer waits for a later slice."""
-    assert "poisson2d_var" not in toptimize.LATER_SLICES
+    assert not hasattr(toptimize, "LATER_SLICES")
     problem = toptimize.get_problem("poisson2d_var")
     assert (problem.max_level, problem.min_level) == (9, 5)
     assert tuple(problem.level_contexts[0].grid[0].size) == (511, 511)

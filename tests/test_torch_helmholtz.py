@@ -458,10 +458,18 @@ def test_evaluator_float32_is_complex64():
 
 
 def test_split_outer_solver_refused():
-    problem = thelmholtz.helmholtz_2d(4, 3)
-    problem.outer_solver.split = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tev.CycleEvaluator(problem, device="cpu")
+    """The split-complex outer solver is no longer refused: the evaluator
+    solves helmholtz_2d_split(4, 3) with the split BiCGStab on real (re,
+    im) fields, in as many iterations as helmholtz_2d(4, 3) takes with
+    the complex one (the same algebra)."""
+    split = thelmholtz.helmholtz_2d_split(4, 3)
+    et = tev.CycleEvaluator(split, dtype=np.float64, device="cpu")
+    ec = tev.CycleEvaluator(thelmholtz.helmholtz_2d(4, 3), device="cpu")
+    et.timing_enabled = ec.timing_enabled = False
+    assert [x.dtype for x in et._b] == [torch.float64] * 2
+    rs = et.evaluate_expression(_v21(PORT, split, "rb"))
+    rc = ec.evaluate_expression(_v21(PORT, ec.problem, "rb"))
+    assert rs.iterations == rc.iterations and 0 < rs.convergence_factor < 1
 
 
 def test_real_fields_keep_real_omegas():
@@ -692,11 +700,13 @@ def test_cli_helmholtz2d(tmp_path, capsys, monkeypatch, robust):
 
 
 def test_cli_helmholtz2d_defaults():
-    """helmholtz2d's default levels are scripts/optimize.py's: 7 -> 3; the
-    split-complex problem still waits for its slice."""
-    assert "helmholtz2d" not in toptimize.LATER_SLICES
+    """helmholtz2d's default levels are scripts/optimize.py's: 7 -> 3, and
+    so are the split-complex problem's, which no longer waits for a
+    later slice."""
+    assert not hasattr(toptimize, "LATER_SLICES")
     problem = toptimize.get_problem("helmholtz2d")
     assert (problem.max_level, problem.min_level) == (7, 3)
     assert problem.finest_grid[0].size == (127, 127)
-    with pytest.raises(SystemExit, match="split-complex"):
-        toptimize.get_problem("helmholtz2d_split")
+    split = toptimize.get_problem("helmholtz2d_split")
+    assert (split.max_level, split.min_level) == (7, 3)
+    assert split.outer_solver.split and len(split.finest_grid) == 2

@@ -558,7 +558,9 @@ def test_generic_step_matches_jax_float64(monkeypatch, key):
 
 def test_varying_collective_inverse_names_its_slice():
     """The collective point inverse of a system whose central coefficients
-    vary waits for the split-complex Helmholtz slice, and says so."""
+    vary, which waited for the split-complex Helmholtz slice, now solves
+    the 2 x 2 system of central coefficients at every point: numpy's
+    solve of the same matrices, float64."""
     at = _operators(PORT)[-1]
     low = tlower._Lowering(None, None, None)
     low.set_like(torch.zeros(1, dtype=torch.float64))
@@ -566,7 +568,19 @@ def test_varying_collective_inverse_names_its_slice():
                               tgallery.Poisson2DVariableCoefficients())
     varying = tsystem.Operator("A", [[field_op, at.entries[0][1]],
                                      [at.entries[1][0], at.entries[1][1]]])
-    fields = tuple(torch.zeros(tuple(at.entries[0][0].grid.size),
-                               dtype=torch.float64) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="Helmholtz"):
-        low.apply_inverse(tsystem.ElementwiseDiagonal(varying), fields)
+    shape = tuple(at.entries[0][0].grid.size)
+    rng = np.random.default_rng(4)
+    r = [rng.standard_normal(shape) for _ in range(2)]
+    got = low.apply_inverse(tsystem.ElementwiseDiagonal(varying),
+                            tuple(torch.from_numpy(x) for x in r))
+    D = np.empty(shape + (2, 2))
+    D[..., 0, 0] = tgallery.Poisson2DVariableCoefficients() \
+        .generate_stencil_field(field_op.grid).diagonal_field()
+    for i, j in ((0, 1), (1, 0), (1, 1)):
+        D[..., i, j] = varying.entries[i][j].generate_stencil() \
+            .value_at((0, 0))
+    want = np.linalg.solve(D, np.stack(r, axis=-1)[..., None])[..., 0]
+    for k, g in enumerate(got):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), want[..., k], rtol=1e-12,
+                                   atol=0)
