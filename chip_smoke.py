@@ -216,9 +216,10 @@ Phases:
    helmholtz_2d_split(11, 3) (2047^2 down to a dense 7^2 solve, float32,
    the BASELINE suite's Helmholtz row, scripts/bench_suite.py:115-121,
    :148-150) with the collective red-black V(2,1) and its Jacobi twin
-   (omega 0.6), as phase 5 drives the 2D path: each system leg must run
-   four times per cycle (2047^2 .. 255^2, each level once, counted by
-   level in one step) with the problem's own fixup rows, and no other
+   (omega 0.6), as phase 5 drives the 2D path but in batches of
+   SPLIT_K_CYCLES: each system leg must run four times per cycle
+   (2047^2 .. 255^2, each level once, counted by level in one step)
+   with the problem's own fixup rows, and no other
    kernel at all; the varying point solve (``_pointwise_varying_inverse``)
    runs on 127^2 and below; then each solve to 1e-5 as phase 6; the
    device memory held at the peak is printed;
@@ -230,10 +231,11 @@ Phases:
    run's count moves with its rounding (HELM_SPLIT_TOLERANCE), and no
    kernel may launch;
 29. [evolve-split] ``helmholtz2d_split NSGAII --mu 2 --lambda 2
-   --generations 1 --seed 0 --no-robustness`` at its default levels 7->3
+   --generations 1 --seed 18 --no-robustness`` at its default levels 7->3
    (127^2), cut as [evolve-helm] and to EVOLVE_SPLIT_MAX_ITERATIONS
    BiCGStab iterations an evaluation, with the peak device memory
-   printed;
+   printed (seed 18: no candidate of seed 0 converges, in either
+   package; EVOLVE_SPLIT_SEED);
 30. [main-fas] drive the FAS path: fas_2d_basic(10, 6) (1023^2,
    float32, scripts/bench_suite.py:123-125, :151-152) with fas_v_cycle
    (damped Newton-Jacobi, omega 0.8, V(2,2), 200 Newton-Jacobi sweeps
@@ -243,9 +245,10 @@ Phases:
    ``prolong_row_correct``) and no other kernel; then the solves:
    float32 to FAS_TARGETS' reduction with the kernels and with the plain
    versions (equal iterations, histories within 1e-3 above the float32
-   floor of the nonlinear residual) and float64 to 1e-5, each within 1 of
-   the JAX package's CPU count (FAS_JAX_ITERATIONS), with the largest
-   error against the analytic solution;
+   floor of the nonlinear residual) and float64 to 1e-5, where no kernel
+   may launch (the gates take float32 only), each within 1 of the JAX
+   package's CPU count (FAS_JAX_ITERATIONS), with the largest error
+   against the analytic solution;
 31. [evolve-fas] ``fas2d NSGAII --mu 2 --lambda 2 --generations 1 --seed
    0`` at EVOLVE_FAS_LEVELS (63^2, cut from 10->6) with a budget of
    EVOLVE_FAS_MAX_ITERATIONS cycles an evaluation, timing protocol off
@@ -274,6 +277,9 @@ import time
 import numpy as np
 
 K_CYCLES = 200            # chained cycles per batch (bench.py:72)
+#: the split paths' chained cycles per batch, cut from K_CYCLES: a cycle
+#: there takes 40-70 ms of host time, and the script its 1,200 s
+SPLIT_K_CYCLES = 100
 BATCHES = 4               # the first one warms up
 WARMUP = 3
 TIMED_REPS = 15
@@ -1741,6 +1747,7 @@ def phase_kernels_sys(torch, rbgs_sys, device):
                 f"{exc_minv}")
             check([r for r, _ in exc] == [r for r, _ in exc_minv]
                   == [0, n - 1], f"split {n}x{m}: fixups on rows 0 and n-1")
+        else:
             coeffs, minv, exc, exc_minv = random_sys_table(rng)
             r_taps, p_taps = R_TAPS_ASYM, P_TAPS_ASYM
         op = (coeffs, minv)
@@ -1983,18 +1990,23 @@ MS_PER_CYCLE = {}
 
 
 def batch_launches(path, levels):
-    """Launches per K_CYCLES batch of each leg of ``path`` on a hierarchy
-    whose first ``levels`` levels the gate admits: one of each leg per
-    level and cycle; with loop fusion the finest level runs one down-leg,
-    K - 1 fused passes and one up-leg instead (legs ordered down, pass,
-    up)."""
+    """Launches per batch of k_cycles(path) cycles of each leg of
+    ``path`` on a hierarchy whose first ``levels`` levels the gate admits:
+    one of each leg per level and cycle; with loop fusion the finest level
+    runs one down-leg, K - 1 fused passes and one up-leg instead (legs
+    ordered down, pass, up)."""
     legs = PATHS[path][7]
     if not SWITCHES.get(path, (False, None))[0]:
         per_level = SWEEPS_PER_LEVEL.get(path, 1)
-        return {name: per_level * levels * K_CYCLES for name in legs}
+        return {name: per_level * levels * k_cycles(path) for name in legs}
     down, fused, up = legs
     return {down: 1 + (levels - 1) * K_CYCLES, fused: K_CYCLES - 1,
             up: 1 + (levels - 1) * K_CYCLES}
+
+
+def k_cycles(path):
+    """Chained cycles per batch of ``path``."""
+    return SPLIT_K_CYCLES if path.startswith("split") else K_CYCLES
 
 
 def phase_main_path(torch, kernels, device, card, path):
@@ -2013,7 +2025,8 @@ def phase_main_path(torch, kernels, device, card, path):
     omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
                           device=device)
     u = tuple(torch.zeros_like(x) for x in b)
-    loop = make_cycle_loop(lowered, K_CYCLES)
+    n_cycles = k_cycles(path)
+    loop = make_cycle_loop(lowered, n_cycles)
     # every field's points (complex unknowns on the complex path)
     n_dof = sum(int(np.prod(g.size)) for g in problem.finest_grid)
 
@@ -2030,7 +2043,7 @@ def phase_main_path(torch, kernels, device, card, path):
         batch_ms.append(start.elapsed_time(end))
     counts = {name: n for mod in kernels.values()
               for name, n in mod.launches.items()}
-    cycles = K_CYCLES * BATCHES
+    cycles = n_cycles * BATCHES
     # every level the gate admits runs each leg once per cycle
     def admits(ctx):
         fields = tuple(torch.empty(g.size, device="meta", dtype=b[0].dtype)
@@ -2052,12 +2065,12 @@ def phase_main_path(torch, kernels, device, card, path):
               f"{label} path, expected {want}")
 
     steady = batch_ms[1:]
-    ms_cycle = statistics.median(steady) / K_CYCLES
+    ms_cycle = statistics.median(steady) / n_cycles
     MS_PER_CYCLE[label] = ms_cycle
-    log(f"[{label}] batches of {K_CYCLES} cycles: "
+    log(f"[{label}] batches of {n_cycles} cycles: "
         + ", ".join(f"{t:.1f}" for t in batch_ms) + " ms (first warms up)")
     log(f"[{label}] {n_dof} DoF: {ms_cycle:.4f} ms/cycle (median), "
-        f"{min(steady) / K_CYCLES:.4f} (best), "
+        f"{min(steady) / n_cycles:.4f} (best), "
         f"{n_dof / (ms_cycle * 1e-3):.4e} DoF/s on {card}")
 
     u0 = u[0]
@@ -2900,7 +2913,7 @@ def phase_main_fas(torch, kernels, device, card):
     floor = FAS_F32_FLOOR * h0[0]
     check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
           "[main-fas] float32 histories (rtol 1e-3 above the floor)")
-    # float64: the transfer gate takes float32 only, so no kernel runs
+    # float64: the gates take float32 only, so no kernel may run
     b64 = build_rhs(problem, dtype=torch.float64, device=device)
     target = FAS_TARGETS["float64"]
     reset(kernels)
@@ -2911,6 +2924,8 @@ def phase_main_fas(torch, kernels, device, card):
         f"{error(x):.3e}; launches {counts_of(kernels)}")
     check(abs(k - want) <= 1 and hist[k] <= target * hist[0],
           f"[main-fas] float64: {k} iterations, JAX's {want}")
+    check(not any(counts_of(kernels).values()),
+          f"[main-fas] float64 launched kernels: {counts_of(kernels)}")
     return {"prolong_correct": gated * cycles}
 
 
@@ -2927,26 +2942,36 @@ def phase_main_fas(torch, kernels, device, card):
 EVOLVE_FAS_LEVELS = ("--max-level", "6", "--min-level", "3")
 EVOLVE_FAS_MAX_ITERATIONS = 50
 #: [evolve-split]'s cut, besides [evolve-helm]'s: the BiCGStab budget of
-#: 10,000 iterations cut to 300 (the red-black V(2,1) takes 269 at k = 80
+#: 10,000 iterations cut to 500 (the red-black V(2,1) takes 269 at k = 80
 #: in float64, [helm]).  The split BiCGStab carries no NaN out of a
 #: breakdown, so a candidate that does not converge runs its whole
-#: budget, about 10 ms an iteration; on an H100 the phase took 770.2 s
-#: with the full budget and 51.1 s with 500
-EVOLVE_SPLIT_MAX_ITERATIONS = 300
+#: budget; on an H100 the phase took 770.2 s with the full budget and
+#: 51.1 s with 500.  Its seed is 18, not 0: none of seed 0's 10
+#: candidates converges within 10,000 iterations in the JAX package on
+#: the CPU in float32 either.  Of seeds 0-32, at 300 or 500 iterations,
+#: only 4, 18 and 31 have a candidate that converges; seed 18's is its
+#: seventh, of the initial population, at rho 0.9742 (JAX) and 0.9725
+#: (port), about 440 iterations to the float32 target of 1e-5.  Seed 4's
+#: converging candidate is an offspring, which depends on the parents'
+#: float32 convergence factors, and on an H100 one run of it converged
+#: and another did not.  By
+#: ``tests.test_torch_split.evolve_evaluations`` on the CPU
+EVOLVE_SPLIT_MAX_ITERATIONS = 500
+EVOLVE_SPLIT_SEED = 18
 
 
 def phase_evolve(torch, kernels, problem_name, tag, names=(),
-                 timing_reps=None, options=(), max_iterations=None):
+                 timing_reps=None, options=(), max_iterations=None, seed=0):
     """``python -m evostencils_tpu_torch.optimize <problem_name> NSGAII
-    --mu 2 --lambda 2 --generations 1 --seed 0`` in this process, at the
+    --mu 2 --lambda 2 --generations 1 --seed <seed>`` in this process, at the
     problem's default levels, with ``options`` appended; at least one
     kernel of ``names`` must launch.  The evaluator's timing protocol takes
     ``timing_reps`` repetitions of its windows, or is off when that is
     None.  ``max_iterations`` cuts the problem's iteration budget (the
     solver's, BiCGStab's for Helmholtz).  Each batch of evaluations prints
     its iterations and its seconds.  The best individual, re-evaluated,
-    must converge; if no evaluation of the run converged, it must not
-    either (the run's verdict reproduced)."""
+    must converge: reach the measurement target within the budget, at a
+    convergence factor below 1."""
     from evostencils_tpu_torch import optimize
     from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
     from evostencils_tpu_torch.grammar import gp
@@ -2982,7 +3007,7 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
     out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
     argv = [problem_name, "NSGAII", "--mu", str(EVOLVE_POPULATION),
             "--lambda", str(EVOLVE_POPULATION), "--generations", "1",
-            "--seed", "0", *options,
+            "--seed", str(seed), *options,
             "--output", str(out_dir)]
     # a cut of this run's depth: the timing protocol, which solves each
     # structure again at least twice, takes one repetition of its windows
@@ -3048,9 +3073,8 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
     log(f"[{tag}] best individual ({len(individual)} nodes) re-evaluated: "
         f"rho {res.convergence_factor:.5f}, {res.iterations:.0f} iterations; "
         f"{sum(finite)} of {len(finite)} evaluations of the run converged")
-    converges = res.iterations < 1e99 and res.convergence_factor < 1
-    check(converges == any(finite), "the best individual converges "
-          "(or, when no evaluation of the run did, does not either)")
+    check(np.isfinite(res.iterations) and res.iterations < evaluator.infinity
+          and res.convergence_factor < 1, "the best individual converges")
 
 
 def main():
@@ -3164,7 +3188,7 @@ def main():
     held = reset_peak_memory(torch)
     phase("evolve-split", phase_evolve, torch, kernels, "helmholtz2d_split",
           "evolve-split", (), None, EVOLVE_HELM_OPTIONS,
-          EVOLVE_SPLIT_MAX_ITERATIONS)
+          EVOLVE_SPLIT_MAX_ITERATIONS, EVOLVE_SPLIT_SEED)
     peak_memory(torch, "evolve-split", held)
     for kernel, count in phase("main-fas", phase_main_fas, torch, kernels,
                                device, card).items():

@@ -1,7 +1,8 @@
 """The outer Krylov solves of the Helmholtz problems (counterpart of
 evostencils_tpu/ops/solvers.py: the pytree helpers of :23-51 that they
 use, ``preconditioned_bicgstab`` of :215-267 and the split-complex
-``preconditioned_bicgstab_split`` with its helpers, :280-380).
+``preconditioned_bicgstab_split`` with its helpers, :280-380, which here
+share one loop).
 
 Operands are tuples of field tensors.  A Python loop takes the place of
 ``lax.while_loop``: the stopping test reads one residual norm per
@@ -35,67 +36,15 @@ def norm(x):
     return torch.sqrt(torch.real(_dot(x, x)))
 
 
-def preconditioned_bicgstab(matvec: Callable, precond: Callable, b,
-                            *, tol: float = 1e-7, maxiter: int = 10000,
-                            history_size: int = 0):
-    """Right-preconditioned BiCGStab (reference Helmholtz solver:
-    example_problems/Helmholtz/2D_FD_Helmholtz_fromL3.exa3:144-201, with
-    ``gen_mgCycle()`` from a zero initial guess as the preconditioner).
-
-    Returns ``(x, iterations, residual_history)``: the history has
-    ``max(history_size, 1) + 1`` slots on the fields' device, entry k the
-    residual norm after k iterations and the slots past the last
-    iteration 0."""
-    b = tuple(b)
-    x = _zeros_like(b)
-    r = b
-    r_hat = r
-    one = torch.ones((), dtype=b[0].dtype, device=b[0].device)
-    rho = alpha = omega = one
-    v = _zeros_like(b)
-    p = _zeros_like(b)
-    r0_norm = norm(r)
-    hsize = max(history_size, 1)
-    hist = torch.zeros(hsize + 1, dtype=r0_norm.dtype, device=r0_norm.device)
-    hist[0] = r0_norm
-    k, res = 0, r0_norm
-    while k < maxiter and bool(res > tol * r0_norm):
-        rho_new = _dot(r_hat, r)
-        beta = (rho_new / rho) * (alpha / omega)
-        p = _axpy(beta, _axpy(-omega, v, p), r)
-        y = precond(p)
-        v = matvec(y)
-        alpha = rho_new / _dot(r_hat, v)
-        h = _axpy(alpha, y, x)
-        s = _axpy(-alpha, v, r)
-        z = precond(s)
-        t = matvec(z)
-        omega = _dot(t, s) / _dot(t, t)
-        x = _axpy(omega, z, h)
-        r = _axpy(-omega, t, s)
-        res = norm(r)
-        if k + 1 <= hsize:
-            hist[k + 1] = res
-        k += 1
-        rho = rho_new
-    return x, k, hist
-
-
-# ---------------------------------------------------------------------------
-# Split-complex BiCGStab (solvers.py:280-380)
-# ---------------------------------------------------------------------------
-# The fields tuple carries F complex vectors as 2F real tensors
-# [re_0..re_{F-1}, im_0..im_{F-1}] and complex scalars as (re, im) pairs of
-# real 0-d tensors, so every tensor of the solve is real.  Algebraically
-# the same as preconditioned_bicgstab on the corresponding complex vectors.
+# The split-complex form (solvers.py:280-380) carries F complex vectors as
+# 2F real tensors [re_0..re_{F-1}, im_0..im_{F-1}] and complex scalars as
+# (re, im) pairs of real 0-d tensors, so every tensor of the solve is real;
+# algebraically the same as the complex form, its rounding that of the JAX
+# package's split solve.
 
 def _csplit(fields):
     h = len(fields) // 2
     return fields[:h], fields[h:]
-
-
-def _cjoin(re, im):
-    return tuple(re) + tuple(im)
 
 
 def _cdot_split(a, b):
@@ -112,10 +61,16 @@ def _cmul_s(a, b):
 
 
 def _cdiv_s(a, b):
+    """a / b, and 0 where b is 0: the split form carries no NaN out of a
+    breakdown."""
     d = b[0] * b[0] + b[1] * b[1]
     d = torch.where(d == 0, torch.ones_like(d), d)
     return ((a[0] * b[0] + a[1] * b[1]) / d,
             (a[1] * b[0] - a[0] * b[1]) / d)
+
+
+def _cneg_s(a):
+    return -a[0], -a[1]
 
 
 def _caxpy_split(alpha, x, y):
@@ -125,25 +80,34 @@ def _caxpy_split(alpha, x, y):
     ar, ai = alpha
     re = tuple(r + ar * vr - ai * vi for r, vr, vi in zip(yr, xr, xi))
     im = tuple(r + ar * vi + ai * vr for r, vr, vi in zip(yi, xr, xi))
-    return _cjoin(re, im)
+    return tuple(re) + tuple(im)
 
 
-def preconditioned_bicgstab_split(matvec: Callable, precond: Callable, b,
-                                  *, tol: float = 1e-7,
-                                  maxiter: int = 10000,
-                                  history_size: int = 0):
-    """Right-preconditioned BiCGStab on split-complex fields (see the note
-    above): :func:`preconditioned_bicgstab`'s loop, residual read-back,
-    history and stopping test, with every complex scalar carried as a
-    (re, im) pair.  Returns ``(x, iterations, residual_history)`` as
-    that function does."""
+def preconditioned_bicgstab(matvec: Callable, precond: Callable, b,
+                            *, tol: float = 1e-7, maxiter: int = 10000,
+                            history_size: int = 0, split: bool = False):
+    """Right-preconditioned BiCGStab (reference Helmholtz solver:
+    example_problems/Helmholtz/2D_FD_Helmholtz_fromL3.exa3:144-201, with
+    ``gen_mgCycle()`` from a zero initial guess as the preconditioner).
+    With ``split`` the fields are split-complex (see the note above).
+
+    Returns ``(x, iterations, residual_history)``: the history has
+    ``max(history_size, 1) + 1`` slots on the fields' device, entry k the
+    residual norm after k iterations and the slots past the last
+    iteration 0."""
     b = tuple(b)
+    one = torch.ones((), dtype=b[0].dtype, device=b[0].device)
+    if split:
+        dot, axpy, div, mul, neg = (_cdot_split, _caxpy_split, _cdiv_s,
+                                    _cmul_s, _cneg_s)
+        one = (one, torch.zeros_like(one))
+    else:
+        dot, axpy, div, mul, neg = (_dot, _axpy, torch.div, torch.mul,
+                                    torch.neg)
     x = _zeros_like(b)
     r = b
     r_hat = r
-    one = torch.ones((), dtype=b[0].dtype, device=b[0].device)
-    zero = torch.zeros_like(one)
-    rho = alpha = omega = (one, zero)
+    rho = alpha = omega = one
     v = _zeros_like(b)
     p = _zeros_like(b)
     r0_norm = norm(r)
@@ -152,22 +116,30 @@ def preconditioned_bicgstab_split(matvec: Callable, precond: Callable, b,
     hist[0] = r0_norm
     k, res = 0, r0_norm
     while k < maxiter and bool(res > tol * r0_norm):
-        rho_new = _cdot_split(r_hat, r)
-        beta = _cmul_s(_cdiv_s(rho_new, rho), _cdiv_s(alpha, omega))
-        p = _caxpy_split(beta, _caxpy_split((-omega[0], -omega[1]), v, p), r)
+        rho_new = dot(r_hat, r)
+        beta = mul(div(rho_new, rho), div(alpha, omega))
+        p = axpy(beta, axpy(neg(omega), v, p), r)
         y = precond(p)
         v = matvec(y)
-        alpha = _cdiv_s(rho_new, _cdot_split(r_hat, v))
-        h = _caxpy_split(alpha, y, x)
-        s = _caxpy_split((-alpha[0], -alpha[1]), v, r)
+        alpha = div(rho_new, dot(r_hat, v))
+        h = axpy(alpha, y, x)
+        s = axpy(neg(alpha), v, r)
         z = precond(s)
         t = matvec(z)
-        omega = _cdiv_s(_cdot_split(t, s), _cdot_split(t, t))
-        x = _caxpy_split(omega, z, h)
-        r = _caxpy_split((-omega[0], -omega[1]), t, s)
+        omega = div(dot(t, s), dot(t, t))
+        x = axpy(omega, z, h)
+        r = axpy(neg(omega), t, s)
         res = norm(r)
         if k + 1 <= hsize:
             hist[k + 1] = res
         k += 1
         rho = rho_new
     return x, k, hist
+
+
+def preconditioned_bicgstab_split(matvec: Callable, precond: Callable, b,
+                                  **options):
+    """:func:`preconditioned_bicgstab` on split-complex fields: ``b``,
+    ``matvec``'s and ``precond``'s fields and ``x`` are real."""
+    return preconditioned_bicgstab(matvec, precond, b, split=True,
+                                   **options)

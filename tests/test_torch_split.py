@@ -158,6 +158,62 @@ def bicgstab_iterations(package, form, k, levels=(7, 3)):
         maxiter=10000)[1]
 
 
+def evolve_evaluations(package, seed, budget, levels=(7, 3)):
+    """Every evaluation of ``optimize helmholtz2d_split NSGAII --mu 2
+    --lambda 2 --generations 1 --seed <seed> --no-robustness --f32
+    --cpu`` at ``levels`` (max, min), by the JAX package's
+    scripts/optimize.py (``package`` "jax") or the port's CLI ("port"),
+    with the evaluator's timing protocol off and the iteration budget
+    cut to ``budget``: a list of (tree, iterations, convergence factor)
+    in evaluation order.  chip_smoke.EVOLVE_SPLIT_SEED comes from these:
+    ``JAX_PLATFORMS=cpu python -c 'from tests.test_torch_split import
+    evolve_evaluations as f; print(f("jax", 4, 300))'``."""
+    import importlib.util
+    import sys
+    import tempfile
+    evaluator = jev.CycleEvaluator if package == "jax" \
+        else tev.CycleEvaluator
+    population = evaluator.evaluate_population
+    out = []
+
+    def logged(self, individuals, pset):
+        results = population(self, individuals, pset)
+        out.extend((str(i), float(r.iterations), float(r.convergence_factor))
+                   for i, r in zip(individuals, results))
+        return results
+
+    if package == "jax":
+        path = pathlib.Path(__file__).parents[1] / "scripts" / "optimize.py"
+        spec = importlib.util.spec_from_file_location("_jax_optimize", path)
+        cli = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(cli)
+    else:
+        cli = toptimize
+    get_problem = cli.get_problem
+
+    def budgeted(*args, **kw):
+        problem = get_problem(*args, **kw)
+        problem.max_iterations = budget
+        return problem
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            pytest.MonkeyPatch.context() as mp:
+        argv = ["helmholtz2d_split", "NSGAII", "--mu", "2", "--lambda", "2",
+                "--generations", "1", "--seed", str(seed),
+                "--no-robustness", "--f32", "--cpu", "--output", tmp,
+                "--max-level", str(levels[0]),
+                "--min-level", str(levels[1])]
+        mp.setattr(evaluator, "evaluate_population", logged)
+        mp.setattr(evaluator, "timing_enabled", False)
+        mp.setattr(cli, "get_problem", budgeted)
+        if package == "jax":
+            mp.setattr(sys, "argv", ["optimize.py", *argv])
+            cli.main()
+        else:
+            cli.main(argv)
+    return out
+
+
 def _fields(shape, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape) for _ in range(2)]
@@ -503,6 +559,46 @@ def test_split_bicgstab_matches_complex_bicgstab(lowered):
     zc = xc[0].numpy()
     np.testing.assert_allclose(xs[0].numpy() + 1j * xs[1].numpy(), zc,
                                rtol=0, atol=1e-4 * np.abs(zc).max())
+
+
+@pytest.mark.parametrize("degenerate", ["precond", "matvec"])
+def test_split_bicgstab_breakdown_guard(lowered, degenerate):
+    """A preconditioner or operator that returns 0 makes every quotient
+    of the recurrence 0 / 0: the split BiCGStab, like the JAX package's
+    (solvers.py:310-314), takes each as 0, carries no NaN and runs its
+    budget with the residual at ||b||, while the complex solve stops on a
+    NaN residual after one iteration."""
+    s = lowered[SMALL[0]]
+    lj, lt = s.cycles["rb"]
+    omj, omt = jnp.asarray(lj.default_omegas), torch.tensor(
+        lt.default_omegas)
+
+    def zeros(f):
+        return tuple(x * 0 for x in f)
+
+    def pick(matvec, precond):
+        return (zeros, precond) if degenerate == "matvec" \
+            else (matvec, zeros)
+    mj, pj = pick(jlower.operator_applier(s.pj.outer_solver.operator),
+                  lambda f: lj.step(zeros(f), f, omj))
+    mt, pt = pick(tlower.operator_applier(s.pt.outer_solver.operator),
+                  lambda f: lt.step(zeros(f), f, omt))
+    xj, kj, hj = jsolvers.preconditioned_bicgstab_split(
+        mj, pj, s.bj, tol=1e-7, maxiter=5, history_size=5)
+    xt, kt, ht = tsolvers.preconditioned_bicgstab_split(
+        mt, pt, s.bt, tol=1e-7, maxiter=5, history_size=5)
+    assert int(kj) == kt == 5
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=1e-12)
+    np.testing.assert_allclose(ht.numpy(), ht[0].item(), rtol=1e-12)
+    for a, c in zip(xt, xj):
+        assert torch.isfinite(a).all()
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    joined = (torch.complex(*s.bt),)
+    _, kc, hc = tsolvers.preconditioned_bicgstab(
+        lambda f: zeros(f) if degenerate == "matvec" else f,
+        lambda f: zeros(f) if degenerate == "precond" else f, joined,
+        tol=1e-7, maxiter=5, history_size=5)
+    assert kc == 1 and torch.isnan(hc[1])
 
 
 def test_evaluator_split_outer_solver(lowered):
