@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch port (evostencils_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py        # from the repository root
+    python3 chip_smoke.py --phases deep,deep-bf16   # the build and those
+                                 # phases only ([time] labels), no result
 
 Phases:
 0. require a CUDA card; print its name and power limit;
@@ -14,6 +16,13 @@ Phases:
    taps and with an anisotropic stencil and asymmetric taps;
    time both at every level of the path (4095^2 .. 255^2), with the
    kernel's device time alone (queued behind a spin of the card) beside;
+2a. [kernels] bf16 (phase kernels-bf16): the same for the legs' bf16
+   storage form (rows 1-2 on bf16 grids, float32 compute): each
+   instantiation's tile, halo, threads, blocks per SM, registers and
+   spills (``transfer.leg_info(..., dtype=torch.bfloat16)``), both legs
+   against their plain versions at 4095^2, 2047^2 and 1023^2 for 1..3
+   sweeps within TOL_BF16_ULPS bf16 ulps of max|plain|, timed at every
+   level of the path with bytes counted at 2 a value;
 3. [kernels3d] check each 3D leg kernel's block schedule, blocks per SM
    and spills (``wavefront3d.leg_info``) against the wrapper module's
    constants; compare each leg with its plain version at 255^3, at the
@@ -253,11 +262,35 @@ Phases:
    0`` at EVOLVE_FAS_LEVELS (63^2, cut from 10->6) with a budget of
    EVOLVE_FAS_MAX_ITERATIONS cycles an evaluation, timing protocol off
    as [evolve3d];
-32. check that neither jax nor the JAX package was imported.
+32. [deep] the deep solve of scripts/deep_solve.py: poisson_2d(10, 4)
+   (1023^2) with the red-black V(2,1) at omega 1.15 to 1e-12 by
+   iterative refinement (compiler/refine: the residual and solution in
+   float64, 8 float32 cycles an outer step), once with the kernels and
+   once with the plain versions: both converge with equal outer counts
+   and histories within 1e-3 above 1e-10 (deep_histories), rows 1-2 run
+   once per gated level and inner cycle and nothing else; the outer
+   count, history, wall seconds and ms an inner cycle are printed;
+33. [deep-fas] fas_2d_basic(10, 6) to 1e-10 by Newton steps of 3
+   Richardson iterations, each preconditioned by 3 float32 cycles of the
+   shifted linear operator L + 20 I (scripts/deep_solve.py:95-117),
+   kernels against plain as [deep]; the shifted cycle runs rows 1-2;
+34. [deep-bf16] [deep] with bf16 inner cycles (3 an outer step, at most
+   16 outer steps): every outer ratio below 0.2, the bf16 legs launched
+   once per gated level and cycle, outer counts of kernels and plain
+   versions within 1;
+35. [deep-split] helmholtz_2d_split(7, 3) in float32 to a TRUE relative
+   residual of 1e-7 at k = 80 and 160 by the reliable-update BiCGStab
+   (compiler/refine_split), and at k = 80 by the float64-basis one: the
+   true residual recomputed in float64 from the returned solution at
+   most 2e-7; the reliable solve's iterations at most 1.5 times the JAX
+   package's CPU count of the same float32 solve (the count is
+   rounding-bound), the float64-basis solve's at most 1.15 times
+   [helm-split]'s float64 count + 10; no kernel launch;
+36. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26 and 27 to 31) and
-read just after.  Each phase prints
+6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26, 27 to 31 and 32
+to 35, each deep solve) and read just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -319,6 +352,13 @@ KERNELS = {
         "evostencils_tpu/ops/pallas/transfer.py:810",
         "evostencils_tpu_torch/csrc/transfer.cu"),
     "prolong_correct_postsmooth_col": (
+        "evostencils_tpu/ops/pallas/transfer.py:917",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    # rows 1-2 in bf16 storage: the TPU kernels on bf16 grids
+    "presmooth_residual_restrict_bf16": (
+        "evostencils_tpu/ops/pallas/transfer.py:810",
+        "evostencils_tpu_torch/csrc/transfer.cu"),
+    "prolong_correct_postsmooth_col_bf16": (
         "evostencils_tpu/ops/pallas/transfer.py:917",
         "evostencils_tpu_torch/csrc/transfer.cu"),
     "upleg_downleg_col": (
@@ -508,17 +548,18 @@ def bytes_bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def leg_bound(shape, sweeps, leg):
+def leg_bound(shape, sweeps, leg, itemsize=4):
     """(bound ms, "bytes" or "operations") of a leg on a fine grid of
-    ``shape``: it must read u and b and write u once (float32), and move
-    the coarse array (rc written or e read) once; it does ``sweeps``
+    ``shape``: it must read u and b and write u once (``itemsize`` bytes
+    a value: 4 in float32, 2 in bf16 storage), and move the coarse array
+    (rc written or e read) once; it does ``sweeps``
     red-black sweeps (each point updated once per sweep: the off-diagonal
     products and sums and the premultiplied update, 2d + 6 flops in d
     dimensions) and the work of LEG_FLOPS."""
     d = len(shape)
     fine = int(np.prod(shape))
     coarse = int(np.prod([(n - 1) // 2 for n in shape]))
-    nbytes = 4 * (3 * fine + coarse)
+    nbytes = itemsize * (3 * fine + coarse)
     flops = fine * (sweeps * (2 * d + 6) + LEG_FLOPS[(leg, d)])
     return bytes_bound(nbytes, flops)
 
@@ -527,17 +568,22 @@ def leg_bound(shape, sweeps, leg):
 LEVELS_2D = (4095, 2047, 1023, 511, 255)
 
 
-def time_2d_legs(torch, transfer, device, shape, stats=None):
+def time_2d_legs(torch, transfer, device, shape, stats=None, dtype=None,
+                 tag="kernels"):
     """Both 2D legs of the V(2,1) (2 sweeps down, 1 up) at ``shape``:
     kernel and plain in turns as the other kernels are timed (time_pair),
     the numbers going to ``stats`` when it is given; the kernel's device
     time alone (time_ms_queued, without the wrapper's host work that
-    time_pair counts) is logged beside them.  Uses only the wrappers'
-    public signatures, so it times an older tree's package as well."""
+    time_pair counts) is logged beside them.  ``dtype``: the fields'
+    storage (float32 unless given; bf16 stats go to the names with
+    "_bf16").  Uses only the wrappers' public signatures, so it times an
+    older tree's package as well (in float32)."""
+    dtype = dtype or torch.float32
+    suffix, itemsize = ("_bf16", 2) if dtype == torch.bfloat16 else ("", 4)
     rng = np.random.default_rng(3)
     n, m = shape
     u, b, e = (torch.tensor(rng.standard_normal(s), dtype=torch.float32,
-                            device=device)
+                            device=device).to(dtype)
                for s in (shape, shape, ((n - 1) // 2, (m - 1) // 2)))
     omegas = torch.tensor([0.9, 1.15, 0.8], dtype=torch.float32,
                           device=device)
@@ -547,38 +593,42 @@ def time_2d_legs(torch, transfer, device, shape, stats=None):
                 u, b, omegas, [1, 2], VALS, R_TAPS),
             lambda: transfer.presmooth_residual_restrict_plain(
                 u, b, omegas, [1, 2], VALS, R_TAPS),
-            leg_bound(shape, 2, "down")),
+            leg_bound(shape, 2, "down", itemsize)),
         "prolong_correct_postsmooth_col": (
             lambda: transfer.prolong_correct_postsmooth_col(
                 u, e, b, omegas, [0, 1], VALS, P_TAPS),
             lambda: transfer.prolong_correct_postsmooth_col_plain(
                 u, e, b, omegas, [0, 1], VALS, P_TAPS),
-            leg_bound(shape, 1, "up")),
+            leg_bound(shape, 1, "up", itemsize)),
     }
-    tag = "x".join(map(str, shape))
+    size = "x".join(map(str, shape))
     for name, (kern, plain, (bound, by)) in timed.items():
         k, p, turns = time_pair(torch, kern, plain)
-        log(f"[kernels] {name} {tag}: kernel {turns[1]:.4f}/{turns[2]:.4f} "
-            f"ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms, bound {bound:.4f} "
-            f"ms ({by}); kernel queued {time_ms_queued(torch, kern):.4f} ms")
+        log(f"[{tag}] {name}{suffix} {size}: kernel {turns[1]:.4f}/"
+            f"{turns[2]:.4f} ms, plain {turns[0]:.4f}/{turns[3]:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); kernel queued "
+            f"{time_ms_queued(torch, kern):.4f} ms")
         if stats is not None:
-            stats[name].update(ms=k, plain_ms=p, bound_ms=bound,
-                               bound_by=by)
+            stats[name + suffix].update(ms=k, plain_ms=p, bound_ms=bound,
+                                        bound_by=by)
 
 
 def check_leg2d_info(transfer, tag="kernels",
-                     legs=(("down", (1, 2, 3)), ("up", (1, 2, 3)))):
+                     legs=(("down", (1, 2, 3)), ("up", (1, 2, 3))),
+                     **dtype):
     """Each instantiation of the windowed 2D kernels ``legs`` ((leg, sweep
     counts) pairs) in every window class built for it: its tile, halo,
     threads, blocks per SM, registers, local memory (spills) and shared
     memory, from the card.  Tile, halo and threads must be the wrapper
     module's; at least the blocks per SM that its window rule counts on
     must be resident (its __launch_bounds__ ask for them; an instantiation
-    that needs fewer registers may fit more); nothing may spill."""
+    that needs fewer registers may fit more); nothing may spill.
+    ``dtype``: the storage type's keyword for ``leg_info`` (the bf16 legs';
+    none for float32, which an older tree's package takes too)."""
     for leg, counts in legs:
         for sweeps in counts:
             for window in transfer.leg_windows(leg, sweeps):
-                i = transfer.leg_info(leg, sweeps, window)
+                i = transfer.leg_info(leg, sweeps, window, **dtype)
                 log(f"[{tag}] {leg} S={sweeps} window {window}: tile "
                     f"{i['tile_rows']}x{i['tile_cols']}, halo {i['halo']}, "
                     f"{i['threads']} threads, {i['blocks_per_sm']} "
@@ -659,6 +709,83 @@ def phase_kernels(torch, transfer, device):
     for n in LEVELS_2D:
         time_2d_legs(torch, transfer, device, (n, n),
                      stats if n == LEVELS_2D[0] else None)
+    return stats
+
+
+#: [kernels] bf16: the shapes where the bf16-storage legs are held
+#: against their plain versions (the [main] path's finest three levels;
+#: [deep-bf16] runs 1023^2, 511^2 and 255^2), and the levels they are
+#: timed at
+CHECK_BF16 = [(4095, 4095), (2047, 2047), (1023, 1023)]
+#: the bf16 legs' slack against their plain versions, in bf16 ulps of
+#: max|plain|: both compute in float32, in other orders, and round each
+#: output once, so a value whose float32 results straddle a rounding
+#: boundary lands one ulp apart (the CPU tests hold the plain version to
+#: the float32 computation rounded once, tests/test_torch_refine.py)
+TOL_BF16_ULPS = 2
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at the magnitude of ``x`` (> 0)."""
+    return float(torch.finfo(torch.bfloat16).eps) * 2.0 ** np.floor(
+        np.log2(x))
+
+
+def phase_kernels_bf16(torch, transfer, device):
+    """[kernels] bf16: each bf16-storage instantiation of rows 1-2
+    (``transfer.leg_info(..., dtype=torch.bfloat16)``: tile, halo,
+    threads, blocks per SM, registers, no spill) and each leg against its
+    plain version on the card at CHECK_BF16 for 1..3 sweeps, within
+    TOL_BF16_ULPS bf16 ulps of max|plain|; both timed at every level of
+    the path, bytes counted at 2 a value."""
+    names = ("presmooth_residual_restrict_bf16",
+             "prolong_correct_postsmooth_col_bf16")
+    stats = {name: {"max_abs_err": 0.0} for name in names}
+    check_leg2d_info(transfer, "kernels", dtype=torch.bfloat16)
+    omegas = torch.tensor([0.9, 1.15, 0.8, 1.3], dtype=torch.float32,
+                          device=device)
+    rng = np.random.default_rng(6)
+    for n, m in CHECK_BF16:
+        def normal(*shape):
+            return torch.tensor(rng.standard_normal(shape),
+                                dtype=torch.float32,
+                                device=device).to(torch.bfloat16)
+        u, b, e = normal(n, m), normal(n, m), normal((n - 1) // 2,
+                                                     (m - 1) // 2)
+        worst = {name: (0.0, 0.0) for name in names}
+        for sweeps in (1, 2, 3):
+            ids = [1, 2, 3][:sweeps]
+            kern = transfer.presmooth_residual_restrict(
+                u, b, omegas, ids, VALS, R_TAPS)
+            plain = transfer.presmooth_residual_restrict_plain(
+                u, b, omegas, ids, VALS, R_TAPS)
+            ids = [0, 1, 2, 3][:sweeps + 1]
+            kern_up = transfer.prolong_correct_postsmooth_col(
+                u, e, b, omegas, ids, VALS, P_TAPS)
+            plain_up = transfer.prolong_correct_postsmooth_col_plain(
+                u, e, b, omegas, ids, VALS, P_TAPS)
+            for name, ks, ps in ((names[0], kern, plain),
+                                 (names[1], (kern_up,), (plain_up,))):
+                for k, p in zip(ks, ps):
+                    check(k.dtype == p.dtype == torch.bfloat16,
+                          f"{name}: {k.dtype} / {p.dtype}")
+                    err = float((k.float() - p.float()).abs().max())
+                    scale = float(p.float().abs().max())
+                    ulps = err / bf16_ulp(torch, scale)
+                    check(ulps <= TOL_BF16_ULPS,
+                          f"{name} {n}x{m} S={sweeps}: max|d| {err:.3e}, "
+                          f"{ulps:.2f} bf16 ulps of max|plain| {scale:.3e}")
+                    worst[name] = max(worst[name], (ulps, err))
+                    stats[name]["max_abs_err"] = max(
+                        stats[name]["max_abs_err"], err)
+        for name, (ulps, err) in worst.items():
+            log(f"[kernels] bf16 {name} {n}x{m}, S=1..3: max|d| {err:.3e}, "
+                f"{ulps:.2f} bf16 ulps of max|plain| (tol {TOL_BF16_ULPS} "
+                "ulps)")
+    for n in LEVELS_2D:
+        time_2d_legs(torch, transfer, device, (n, n),
+                     stats if n == LEVELS_2D[0] else None,
+                     dtype=torch.bfloat16)
     return stats
 
 
@@ -2777,10 +2904,12 @@ HELM_SPLIT_TOLERANCE = {80.0: 0.02, 160.0: 0.02, 320.0: 0.05}
 def phase_helm_split(torch, kernels, device, card, helm_iterations):
     """helmholtz_2d_split(7, 3) in float64 at [helm]'s wavenumbers: the
     split BiCGStab's iterations within HELM_SPLIT_TOLERANCE of [helm]'s
-    complex128 counts of this run; no kernel launches at 127^2."""
+    complex128 counts of this run; no kernel launches at 127^2.  Returns
+    the split iterations by wavenumber."""
     from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d_split
 
     reset(kernels)
+    iterations = {}
     for k, want in helm_iterations.items():
         t0 = time.perf_counter()
         x, it, hist, _, _ = helm_solve(torch, helmholtz_2d_split(7, 3, k=k),
@@ -2796,9 +2925,11 @@ def phase_helm_split(torch, kernels, device, card, helm_iterations):
         check(hist[it] <= 1e-7 * hist[0] and abs(it - want) <= tol * want,
               f"k={k:g}: {it} split iterations, [helm]'s {want} "
               f"(tolerance {tol:.0%})")
+        iterations[k] = it
     counts = counts_of(kernels)
     check(not any(counts.values()),
           f"kernels launched on [helm-split]: {counts}")
+    return iterations
 
 
 #: [main-fas]: chained FAS cycles per batch; a FAS V(2,2) cycle runs 200
@@ -2836,7 +2967,6 @@ def phase_main_fas(torch, kernels, device, card):
     from evostencils_tpu_torch.compiler.lower import lower_cycle
     from evostencils_tpu_torch.compiler.solve import (make_cycle_loop,
                                                       residual_norm_fn)
-    from evostencils_tpu_torch.ops.kernels import transfer
     from evostencils_tpu_torch.problems.fas import fas_2d_basic
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
@@ -2867,9 +2997,7 @@ def phase_main_fas(torch, kernels, device, card):
         batch_ms.append(start.elapsed_time(end))
     counts = {k: n for k, n in counts_of(kernels).items() if n}
     cycles = FAS_K_CYCLES * BATCHES
-    gated = sum(1 for ctx in problem.level_contexts
-                if transfer.supports(torch.empty(
-                    ctx.grid[0].size, device="meta", dtype=torch.float32)))
+    gated = gated_levels(torch, problem.level_contexts)
     log(f"[main-fas] launches {counts} over {cycles} cycles, {gated} levels "
         "the prolongation-correction gate admits")
     check(counts == {"prolong_correct": gated * cycles} and gated == 3,
@@ -3077,9 +3205,297 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
           and res.convergence_factor < 1, "the best individual converges")
 
 
-def main():
+#: [deep] / [deep-bf16]: the deep solves' 2D Poisson hierarchy, levels
+#: 10 -> 4 (1023^2 down to a dense 15^2 solve), as scripts/deep_solve.py
+#: builds it at its default level (poisson_2d(10, max(10 - 6, 2)))
+DEEP_LEVEL = 10
+#: [deep-fas]: fas_2d_basic(10, 6), the FAS deep solve at the BASELINE
+#: FAS row's 1023^2 (scripts/deep_solve.py defaults to 8 -> 4)
+DEEP_FAS_LEVELS = (10, 6)
+#: the deep solves' kernel-against-plain rule: histories within 1e-3
+#: relative above 1e-10 of their first entry, each entry also allowed
+#: DEEP_F32_FLOOR of the one before it.  An outer step's residual carries
+#: the float32 rounding of its correction, a fixed share of the residual
+#: it corrects (4.5e-7 at 63^2 on the CPU, tests/test_torch_refine.py;
+#: larger on finer grids), which the kernels and the plain versions round
+#: apart, as the last entry of a float32 solve sits on its floor
+#: (phase_solve)
+DEEP_HIST_RTOL, DEEP_HIST_FLOOR, DEEP_F32_FLOOR = 1e-3, 1e-10, 1e-5
+#: [deep-split]: the wavenumbers of the reliable float32 solve (k = 320
+#: waits for a graphed loop: at thousands of iterations and about 10 ms
+#: an iteration it would take most of the script's remaining time) and
+#: of the float64-basis one, and the JAX tests' bounds: the true residual
+#: recomputed in float64, the float64-basis iterations against
+#: [helm-split]'s float64 count (tests/test_refine_split.py:96-107)
+DEEP_SPLIT_KS, DEEP_SPLIT_F64_BASIS_K = (80.0, 160.0), 80.0
+DEEP_SPLIT_TRUE_TOL, DEEP_SPLIT_FACTOR, DEEP_SPLIT_SLACK = 2e-7, 1.15, 10
+#: the reliable float32 solve's iterations are rounding-bound: the JAX
+#: package's CPU count of the same solve
+#: (``tests.test_torch_refine_split.jax_reliable_iterations``) is 296 at
+#: k = 80 and 3182 at k = 160, 1.10 and 2.53 times the float64 count
+#: (269, 1257), and the port's takes 325-360 at k = 80 on the CPU by its
+#: thread count and the precision of its dots and axpys, 367 on an H100,
+#: and 2651 at k = 160 there; so it is held to DEEP_SPLIT_JAX_FACTOR
+#: times the JAX package's count, and the float64-basis solve, whose
+#: recurrence is float64, to the float64 count's bound
+DEEP_SPLIT_JAX_ITERATIONS = {80.0: 296, 160.0: 3182}
+DEEP_SPLIT_JAX_FACTOR = 1.5
+#: [deep-bf16]: the JAX package's outer steps of the same bf16 solve on
+#: the CPU (``tests.test_torch_refine.jax_deep_outer(10)``: 11, with
+#: ratios 0.111, 0.046, 1.013, 0.003, 2.305, 0.003, 0.242, 0.005, 0.245,
+#: 0.003; the TPU record, BASELINE.md:348, 11 too).  At 1023^2 a bf16
+#: correction's rounding stalls every other outer step in both packages,
+#: so the phase holds the port to this count (within 1) and to a mean
+#: contraction below DEEP_BF16_MEAN_RATIO an outer step; the CPU tests
+#: hold every ratio below 0.2 at 63^2 and 255^2, where both packages keep
+#: it (tests/test_torch_refine.py)
+DEEP_BF16_JAX_OUTER, DEEP_BF16_MEAN_RATIO = 11, 0.2
+#: the rows-1-2 leg names the deep solves launch, float32 and bf16
+DEEP_LEGS = ("presmooth_residual_restrict", "prolong_correct_postsmooth_col")
+
+
+def gated_levels(torch, contexts):
+    """The levels of ``contexts`` that the 2D legs' gate admits."""
+    from evostencils_tpu_torch.ops.kernels import transfer
+    return sum(1 for ctx in contexts if transfer.supports(torch.empty(
+        ctx.grid[0].size, device="meta", dtype=torch.float32)))
+
+
+def deep_run(torch, kernels, solve, b, card, tag, cycles_per_outer):
+    """One refined solve with the counts set to 0 just before: (result,
+    launches, inner cycles); logs the outer count, the relative history,
+    the wall seconds and ms per inner cycle."""
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve(b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in counts_of(kernels).items() if n}
+    cycles = cycles_per_outer * (res.outer_iterations - (
+        1 if res.converged else 0))
+    rel = np.asarray(res.residuals) / res.residuals[0]
+    log(f"[{tag}] converged={res.converged}, {res.outer_iterations} outer "
+        f"steps, {cycles} inner cycles, {wall:.2f} s "
+        f"({wall / max(cycles, 1) * 1e3:.2f} ms an inner cycle, the float64 "
+        f"residuals with them) on {card}; relative history "
+        f"{np.array2string(rel, precision=4)}; launches {counts}")
+    return res, counts, cycles
+
+
+def deep_histories(tag, h1, h0):
+    """DEEP_HIST_RTOL above DEEP_HIST_FLOOR of the first entry, each entry
+    allowed DEEP_F32_FLOOR of the one before (the float32 rounding of the
+    correction between them)."""
+    h1, h0 = (np.asarray(h) / h[0] for h in (h1, h0))
+    n = min(len(h1), len(h0))
+    above = np.minimum(h1[:n], h0[:n]) > DEEP_HIST_FLOOR
+    rel = np.abs(h1[:n] - h0[:n]) / h0[:n]
+    prev = np.concatenate([[0.0], h0[:n - 1]])
+    log(f"[{tag}] kernels against plain: histories agree to "
+        f"{rel[above].max():.3e} relative above {DEEP_HIST_FLOOR:g}, "
+        f"{rel[1:n].max() if n > 1 else 0.0:.3e} overall")
+    check(np.all((np.abs(h1[:n] - h0[:n]) <= DEEP_HIST_RTOL * h0[:n]
+                  + DEEP_F32_FLOOR * prev)[above]),
+          f"[{tag}] histories (rtol {DEEP_HIST_RTOL} above "
+          f"{DEEP_HIST_FLOOR:g}, {DEEP_F32_FLOOR:g} of the entry before)")
+
+
+def phase_deep(torch, kernels, device, card, bf16=False):
+    """[deep] (float32 inner cycles, ``bf16`` false) or [deep-bf16]: the
+    2D Poisson deep solve of scripts/deep_solve.py on the card,
+    poisson_2d(10, 4) with the red-black V(2,1) at omega 1.15 to 1e-12,
+    once with the kernels and once with the plain versions.  [deep]: 8
+    cycles an outer step; equal outer counts, histories by
+    deep_histories.  [deep-bf16]: 3 bf16 cycles an outer step, at most 16
+    outer steps; outer counts within 1 of each other and of the JAX
+    package's (DEEP_BF16_JAX_OUTER), the mean contraction an outer step
+    below DEEP_BF16_MEAN_RATIO, every ratio logged.  Rows 1-2 (their bf16
+    forms in
+    [deep-bf16]) must run once per gated level and inner cycle, and no
+    other kernel.  Returns their launches in the kernel run."""
+    from evostencils_tpu_torch import deep_solve
+    from evostencils_tpu_torch.compiler.refine import make_refined_solver
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    tag = "deep-bf16" if bf16 else "deep"
+    options = dict(inner_cycles=3, max_outer=16,
+                   inner_dtype=torch.bfloat16) if bf16 else \
+        dict(inner_cycles=8)
+    suffix = "_bf16" if bf16 else ""
+    runs = {}
+    for use_kernels in (True, False):
+        problem, lowered = deep_solve.poisson_lowered(DEEP_LEVEL,
+                                                      use_kernels)
+        b = build_rhs(problem, dtype=torch.float32, device=device)[0]
+        solve = make_refined_solver(lowered, target_reduction=1e-12,
+                                    **options)
+        res, counts, cycles = deep_run(
+            torch, kernels, solve, b, card,
+            f"{tag} {'kernels' if use_kernels else 'plain'}",
+            options["inner_cycles"])
+        check(res.converged and res.residuals[-1] <= 1e-12 * res.residuals[0]
+              and res.solution.dtype == torch.float64
+              and torch.isfinite(res.solution).all(),
+              f"[{tag}] converged to 1e-12 (kernels {use_kernels})")
+        runs[use_kernels] = (res, counts, cycles)
+    (r1, c1, n1), (r0, c0, _) = runs[True], runs[False]
+    gated = gated_levels(torch, problem.level_contexts)
+    want = {name + suffix: gated * n1 for name in DEEP_LEGS}
+    check(c1 == want and gated == 3 and not c0,
+          f"[{tag}] launches {c1} (plain run {c0}), expected {want}")
+    if bf16:
+        h = r1.residuals
+        ratios = np.asarray([y / x for x, y in zip(h, h[1:])])
+        mean = (h[-1] / h[0]) ** (1.0 / len(ratios))
+        log(f"[{tag}] outer ratios {np.array2string(ratios, precision=3)}, "
+            f"mean {mean:.3f}; plain versions: {r0.outer_iterations} outer "
+            f"steps; the JAX package's CPU: {DEEP_BF16_JAX_OUTER}")
+        check(mean < DEEP_BF16_MEAN_RATIO
+              and abs(r1.outer_iterations - r0.outer_iterations) <= 1
+              and abs(r1.outer_iterations - DEEP_BF16_JAX_OUTER) <= 1,
+              f"[{tag}] mean ratio {mean:.3f}, outer counts "
+              f"{r1.outer_iterations} / {r0.outer_iterations} / JAX "
+              f"{DEEP_BF16_JAX_OUTER} within 1")
+    else:
+        check(r1.outer_iterations == r0.outer_iterations,
+              f"[{tag}] outer counts {r1.outer_iterations} / "
+              f"{r0.outer_iterations}")
+        deep_histories(tag, r1.residuals, r0.residuals)
+    return c1
+
+
+def phase_deep_fas(torch, kernels, device, card):
+    """[deep-fas]: fas_2d_basic(10, 6) to 1e-10 by Newton steps of 3
+    Richardson iterations, each preconditioned by 3 float32 cycles of the
+    shifted linear operator L + 20 I, at most 10 outer steps
+    (scripts/deep_solve.py:95-117), once with the kernels and once with
+    the plain versions: both converge with equal outer counts and
+    histories by deep_histories; the shifted cycle's legs (rows 1-2) run
+    once per gated level and cycle, and no other kernel.  Returns their
+    launches."""
+    from evostencils_tpu_torch import deep_solve
+    from evostencils_tpu_torch.compiler.refine import make_refined_solver
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    runs = {}
+    for use_kernels in (True, False):
+        fas, flow, corr = deep_solve.fas_lowered(*DEEP_FAS_LEVELS,
+                                                 use_kernels=use_kernels)
+        b = build_rhs(fas, dtype=torch.float32, device=device)[0]
+        solve = make_refined_solver(
+            flow, inner_cycles=3, max_outer=10, target_reduction=1e-10,
+            richardson_iterations=3,
+            nonlinear=fas.level_contexts[0].operator, correction_lowered=corr)
+        res, counts, cycles = deep_run(
+            torch, kernels, solve, b, card,
+            f"deep-fas {'kernels' if use_kernels else 'plain'}", 3 * 3)
+        err = float(np.abs(res.solution.cpu().numpy()
+                           - fas.exact_solution()[0]).max())
+        log(f"[deep-fas] max error against the analytic solution {err:.3e} "
+            "(the discretization error)")
+        check(res.converged and res.residuals[-1] <= 1e-10 * res.residuals[0]
+              and err <= 1e-3, f"[deep-fas] converged to 1e-10 (kernels "
+              f"{use_kernels})")
+        runs[use_kernels] = (res, counts, cycles)
+    (r1, c1, n1), (r0, c0, _) = runs[True], runs[False]
+    gated = gated_levels(torch, fas.level_contexts)
+    want = {name: gated * n1 for name in DEEP_LEGS}
+    check(c1 == want and gated == 3 and not c0,
+          f"[deep-fas] launches {c1} (plain run {c0}), expected {want}")
+    check(r1.outer_iterations == r0.outer_iterations,
+          f"[deep-fas] outer counts {r1.outer_iterations} / "
+          f"{r0.outer_iterations}")
+    deep_histories("deep-fas", r1.residuals, r0.residuals)
+    return c1
+
+
+def phase_deep_split(torch, kernels, device, card, split_iterations):
+    """[deep-split]: helmholtz_2d_split(7, 3) in float32 to a TRUE
+    relative residual of 1e-7 by ``reliable_bicgstab_split`` at
+    DEEP_SPLIT_KS, and by ``f64_basis_bicgstab_split`` at
+    DEEP_SPLIT_F64_BASIS_K, one red-black V(2,1) (omega 0.6) a
+    preconditioner application replayed from a CUDA graph: the residual
+    recomputed in float64 from the returned solution at most
+    DEEP_SPLIT_TRUE_TOL; the reliable solve's iterations at most
+    DEEP_SPLIT_JAX_FACTOR times the JAX package's CPU count, the
+    float64-basis solve's at most DEEP_SPLIT_FACTOR times [helm-split]'s
+    float64 count + DEEP_SPLIT_SLACK; no kernel launches at 127^2."""
+    from evostencils_tpu_torch.compiler import refine_split
+    from evostencils_tpu_torch.compiler.lower import (lower_cycle,
+                                                      operator_applier)
+    from evostencils_tpu_torch.compiler.solve import make_preconditioner
+    from evostencils_tpu_torch.problems.helmholtz import helmholtz_2d_split
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    reset(kernels)
+    cases = [("reliable", k) for k in DEEP_SPLIT_KS] + \
+        [("f64-basis", DEEP_SPLIT_F64_BASIS_K)]
+    results = []
+    for solver, k in cases:
+        problem = helmholtz_2d_split(7, 3, k=k)
+        op = problem.outer_solver.operator
+        lowered = lower_cycle(helm_cycle(problem), problem.approximation,
+                              problem.rhs_entity)
+        b = build_rhs(problem, dtype=torch.float32, device=device)
+        om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                          device=device)
+        precond = make_preconditioner(lowered, om, b)
+        residual = refine_split.split_system_residual_f64(op)
+        maxiter = problem.outer_solver.max_iterations
+        t0 = time.perf_counter()
+        if solver == "reliable":
+            x, it, hist = refine_split.reliable_bicgstab_split(
+                operator_applier(op), precond, residual, b, tol=1e-7,
+                maxiter=maxiter)
+        else:
+            x, it, hist = refine_split.f64_basis_bicgstab_split(
+                refine_split.split_system_matvec_f64(op), precond, residual,
+                b, tol=1e-7, maxiter=maxiter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b64 = build_rhs(problem, dtype=torch.float64, device=device)
+        ax = operator_applier(op)(x)
+        true = float(torch.sqrt(sum(torch.sum((bi - ai) ** 2)
+                                    for bi, ai in zip(b64, ax)))
+                     / torch.sqrt(sum(torch.sum(bi ** 2) for bi in b64)))
+        want = split_iterations[k]
+        if solver == "reliable":
+            jax_count = DEEP_SPLIT_JAX_ITERATIONS[k]
+            bound = DEEP_SPLIT_JAX_FACTOR * jax_count
+            against = f"the JAX package's CPU float32: {jax_count}"
+        else:
+            bound = DEEP_SPLIT_FACTOR * want + DEEP_SPLIT_SLACK
+            against = "the float64 count's"
+        log(f"[deep-split] {solver} k={k:g} float32: {it} iterations "
+            f"({len(hist)} replacements) in {wall:.1f} s "
+            f"({wall / max(it, 1) * 1e3:.2f} ms/iteration) on {card}; true "
+            f"relative residual {true:.3e} (float64, from the solution), "
+            f"last replacement {hist[-1]:.3e}; [helm-split] float64: "
+            f"{want}; {against} (bound {bound:.0f})")
+        results.append((all(xi.dtype == torch.float64 for xi in x)
+                        and true <= DEEP_SPLIT_TRUE_TOL and hist[-1] <= 1e-7
+                        and 0 < it <= bound,
+                        f"[deep-split] {solver} k={k:g}: {it} iterations "
+                        f"(bound {bound:.0f}), true residual {true:.3e}"))
+    for ok, msg in results:
+        check(ok, msg)
+    counts = counts_of(kernels)
+    check(not any(counts.values()),
+          f"kernels launched on [deep-split]: {counts}")
+
+
+def main(argv=None):
+    """Every phase, the ``kernels`` line and the result line; with
+    ``--phases a,b,...`` (labels of the ``[time]`` lines) only the build
+    and those phases, and no result line (a short run for a change)."""
+    import argparse
     import torch
 
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--phases", default=None)
+    args = parser.parse_args(argv)
+    selected = None if args.phases is None else set(args.phases.split(","))
     start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -3113,12 +3529,16 @@ def main():
                "rbgs_cx": rbgs_cx}
 
     def phase(label, fn, *args):
+        if selected is not None and label not in selected:
+            return {}
         t = time.perf_counter()
         out = fn(*args)
         log(f"[time] {label}: {time.perf_counter() - t:.1f} s")
         return out
 
     stats = phase("kernels", phase_kernels, torch, transfer, device)
+    stats.update(phase("kernels-bf16", phase_kernels_bf16, torch, transfer,
+                       device))
     stats.update(phase("kernels3d", phase_kernels_3d, torch, wavefront3d,
                        device))
     stats.update(phase("kernels-rbgs", phase_kernels_rbgs, torch, rbgs,
@@ -3183,8 +3603,8 @@ def main():
                                    kernels, device, card, path).items():
             launches[kernel] = launches.get(kernel, 0) + count
         phase(PATHS[path][0] + " solve", phase_solve, torch, device, path)
-    phase("helm-split", phase_helm_split, torch, kernels, device, card,
-          helm_iterations)
+    split_iterations = phase("helm-split", phase_helm_split, torch, kernels,
+                             device, card, helm_iterations)
     held = reset_peak_memory(torch)
     phase("evolve-split", phase_evolve, torch, kernels, "helmholtz2d_split",
           "evolve-split", (), None, EVOLVE_HELM_OPTIONS,
@@ -3195,9 +3615,22 @@ def main():
         launches[kernel] = launches.get(kernel, 0) + count
     phase("evolve-fas", phase_evolve, torch, kernels, "fas2d", "evolve-fas",
           (), None, EVOLVE_FAS_LEVELS, EVOLVE_FAS_MAX_ITERATIONS)
+    # the deep solves: rows 1-2 from [deep] and [deep-fas] add to their
+    # float32 counts, their bf16 forms run in [deep-bf16] alone
+    for out in (phase("deep", phase_deep, torch, kernels, device, card),
+                phase("deep-fas", phase_deep_fas, torch, kernels, device,
+                      card),
+                phase("deep-bf16", phase_deep, torch, kernels, device, card,
+                      True)):
+        for kernel, count in out.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    phase("deep-split", phase_deep_split, torch, kernels, device, card,
+          split_iterations)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")
+    if selected is not None:
+        return 0
 
     rows = []
     for k, (replaces, source) in KERNELS.items():

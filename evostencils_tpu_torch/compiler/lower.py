@@ -511,6 +511,23 @@ class _Plans:
     post_by_smoother: Dict[int, dict]
 
 
+def _const5_leg_gate(u, row_only) -> bool:
+    """The gate of a constant 5-point 2D leg: rows 1-2, which take
+    bfloat16 storage, or their row-only forms (rows 6-7)."""
+    return transfer.supports(u, "rowlegs" if row_only else "legs")
+
+
+def _var5_leg_gate(u, row_only) -> bool:
+    """The gate of a variable-coefficient leg (rows 12-13; never
+    row-only)."""
+    return transfer.supports(u, "var_legs")
+
+
+def _const7_leg_gate(u, row_only) -> bool:
+    """The gate of a constant 7-point 3D leg (rows 22-23)."""
+    return wavefront3d.supports(u)
+
+
 def _is_smoother(corr) -> bool:
     return (isinstance(corr, base.Multiplication)
             and isinstance(corr.operand1, base.Inverse)
@@ -564,7 +581,8 @@ class _Lowering:
         # the standalone kernels: the sweeps by dimension, gate and
         # red-black-ness, the transfers by dimension; per scalar signature
         # the legs: (gate, down-leg, up-leg, pre-sweeps, post-sweeps), None
-        # sweeps taking any count the leg accepts; the row-only const5 legs
+        # sweeps taking any count the leg accepts, the gate taking the level
+        # and whether the leg runs row-only; the row-only const5 legs
         # (down-leg, up-leg); and the system legs (down-leg, up-leg)
         if use_kernels:
             self._sweeps = {True: rbgs.fused_rbgs_sweep,
@@ -589,15 +607,15 @@ class _Lowering:
             self._row_legs = (transfer.presmooth_residual_rowrestrict,
                               transfer.prolong_correct_postsmooth)
             self._legs = {
-                "const5": (transfer.supports,
+                "const5": (_const5_leg_gate,
                            transfer.presmooth_residual_restrict,
                            transfer.prolong_correct_postsmooth_col,
                            None, None),
-                "var5": (transfer.supports,
+                "var5": (_var5_leg_gate,
                          rbgs_var.presmooth_residual_restrict_var,
                          rbgs_var.prolong_correct_postsmooth_var,
                          None, None),
-                "const7": (wavefront3d.supports,
+                "const7": (_const7_leg_gate,
                            wavefront3d.downleg_wavefront_3d,
                            wavefront3d.upleg_wavefront_3d, 2, 1)}
         else:
@@ -624,15 +642,15 @@ class _Lowering:
                 transfer.presmooth_residual_rowrestrict_plain,
                 transfer.prolong_correct_postsmooth_plain)
             self._legs = {
-                "const5": (transfer.supports,
+                "const5": (_const5_leg_gate,
                            transfer.presmooth_residual_restrict_plain,
                            transfer.prolong_correct_postsmooth_col_plain,
                            None, None),
-                "var5": (transfer.supports,
+                "var5": (_var5_leg_gate,
                          rbgs_var.presmooth_residual_restrict_var_plain,
                          rbgs_var.prolong_correct_postsmooth_var_plain,
                          None, None),
-                "const7": (wavefront3d.supports,
+                "const7": (_const7_leg_gate,
                            wavefront3d.downleg_wavefront_3d_plain,
                            wavefront3d.upleg_wavefront_3d_plain, 2, 1)}
 
@@ -1098,7 +1116,7 @@ class _Lowering:
         if taps is None:
             return None
         x = self.eval_function(res.approximation)
-        if len(x) != 1 or not transfer.supports(x[0]):
+        if len(x) != 1 or not transfer.supports(x[0], "residual_restrict"):
             return None
         b = self.eval_function(res.rhs)
         return (self._residual_restrict(x[0].contiguous(), b[0].contiguous(),
@@ -1134,7 +1152,7 @@ class _Lowering:
             return None
         if len(x) == 1 and x[0].ndim == 3:
             return self._try_fused_prolong_correct_3d(cycle, x[0], P, corr)
-        if len(x) != 1 or not transfer.supports(x[0]):
+        if len(x) != 1 or not transfer.supports(x[0], "prolong_correct"):
             return None
         taps = transfer_three_tap(P)
         if taps is None:
@@ -1185,7 +1203,8 @@ class _Lowering:
                 n_pre in (None, len(plan["sweeps"])):
             x = self.eval_function(plan["base"])
             operator, kw = self._leg_operator(plan)
-            if len(x) == 1 and supports(x[0]) and operator is not None:
+            if len(x) == 1 and supports(x[0], row_only) and \
+                    operator is not None:
                 b = self.eval_function(plan["res"].rhs)
                 ids = [c.global_id for c in reversed(plan["sweeps"])]
                 if row_only:
@@ -1291,7 +1310,7 @@ class _Lowering:
         cgc = plan["cgc"]
         x = self.eval_function(cgc.approximation)
         operator, kw = self._leg_operator(plan)
-        if len(x) != 1 or not supports(x[0]) or operator is None:
+        if len(x) != 1 or not supports(x[0], row_only) or operator is None:
             return None
         e = self.eval_function(cgc.correction.operand2)
         if len(e) != 1 or tuple(e[0].shape) != \

@@ -1,4 +1,5 @@
-// Fused V-cycle leg kernels for Hopper (sm_90a), float32.
+// Fused V-cycle leg kernels for Hopper (sm_90a), float32 (the legs with
+// both transfer axes also bf16 storage, see below).
 //
 // es_presmooth_residual_restrict replaces the TPU kernel
 //   evostencils_tpu/ops/pallas/transfer.py presmooth_residual_restrict
@@ -118,8 +119,28 @@
 // tests/test_torch_transfer_tiles.py and tests/test_torch_fused_tiles.py
 // emulate this schedule in float64, and es_transfer_leg_info reports each
 // instantiation's tile, halo and occupancy from the card.
+//
+// bf16 storage (es_presmooth_residual_restrict_bf16,
+// es_prolong_correct_postsmooth_bf16): the legs with both transfer axes
+// also take u, b, e and their outputs as bf16, col_leg_kernel<F, S, K,
+// bf16> for F kDown and kUp with 1..3 sweeps, as the TPU kernels load
+// their storage type and compute in float32 (transfer.py:774-779,
+// :876-879).  A bf16 leg moves half the bytes of a float32 one.  One
+// 4-byte word of a bf16 row holds an even and an odd column, which a
+// 4-byte cp.async cannot split into the windows' column-parity halves, and
+// a row of odd width starts on a 2-byte boundary every other row; so a
+// thread loads each bf16 value with a plain read, widens it to float and
+// stores it into the same float windows the float32 kernel stages by
+// cp.async.  Every pass, residual and transfer then runs the float32
+// code, every sum and omega product in float registers and shared
+// memory, and each output value is rounded once on store (round to
+// nearest even, as the TPU kernel's .astype(out_ref.dtype) rounds).
+// es_transfer_leg_info_bf16 reports those instantiations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 
@@ -249,34 +270,70 @@ __device__ __forceinline__ int split_at(int wr, int wc) {
   return wr * L::RS + (wc & 1) * L::ODD + (wc >> 1);
 }
 
+using bf16 = __nv_bfloat16;
+
+// Form F of S sweeps in window class K is built for storage type T: every
+// built form for float, the legs with both transfer axes and a sweep for
+// bf16.
+template <int F, int S, int K, typename T>
+constexpr bool kBuilt =
+    ColLeg<F, S, K>::BUILT &&
+    (std::is_same_v<T, float> || ((F == kUp || F == kDown) && S >= 1));
+
+// One value of a field into its float window slot: a float by cp.async,
+// a bf16 read and widened to float; zero when !in (src is then not read).
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      bool in) {
+  copy_async(dst, src, in);
+}
+__device__ __forceinline__ void stage(float* dst, const bf16* src, bool in) {
+  *dst = in ? __bfloat162float(__ldg(src)) : 0.f;
+}
+
+// One float result into its storage type, rounded once (to nearest even).
+__device__ __forceinline__ void store_value(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store_value(bf16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);
+}
+
 // u and b (b only where the form stages it) over the window whose top-left
-// interior index is (r0, c0), zero outside the grid, issued by cp.async:
-// lane x copies columns x and x + SLOTS of its rows.
-template <typename L>
-__device__ __forceinline__ void load_window_split(const float* __restrict__ u,
-                                                  const float* __restrict__ b,
+// interior index is (r0, c0), zero outside the grid, issued by cp.async
+// (float; bf16 read and widened, stage()): lane x copies columns x and
+// x + SLOTS of its rows.
+template <typename L, typename T>
+__device__ __forceinline__ void load_window_split(const T* __restrict__ u,
+                                                  const T* __restrict__ b,
                                                   float* su, const Leg& p,
                                                   int r0, int c0) {
+  // a bf16 value waits in a register until it is widened and stored, so
+  // a bf16 window is loaded BATCH rows of a thread at a time (8 values in
+  // flight): all at once, the legs of 2 and 3 sweeps in the 64 x 64 class
+  // spill on an H100
+  constexpr int ROWS = L::WR / L::NY;
+  constexpr int BATCH = std::is_same_v<T, float> ? ROWS : 2;
+#pragma unroll 1
+  for (int k0 = 0; k0 < ROWS; k0 += BATCH) {
 #pragma unroll
-  for (int k = 0; k < L::WR / L::NY; ++k) {
-    const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
-    const bool row_in = gr >= 0 && gr < p.n;
+    for (int k = k0; k < k0 + BATCH; ++k) {
+      const int wr = threadIdx.y + k * L::NY, gr = r0 + wr;
+      const bool row_in = gr >= 0 && gr < p.n;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
-      const bool in = row_in && gc >= 0 && gc < p.m;
-      const long g = in ? static_cast<long>(gr) * p.m + gc : 0;
-      float* dst = su + split_at<L>(wr, wc);
-      copy_async(dst, u + g, in);
-      if constexpr (L::STAGES_B) copy_async(dst + L::B, b + g, in);
+      for (int j = 0; j < 2; ++j) {
+        const int wc = threadIdx.x + j * L::SL, gc = c0 + wc;
+        const bool in = row_in && gc >= 0 && gc < p.m;
+        const long g = in ? static_cast<long>(gr) * p.m + gc : 0;
+        float* dst = su + split_at<L>(wr, wc);
+        stage(dst, u + g, in);
+        if constexpr (L::STAGES_B) stage(dst + L::B, b + g, in);
+      }
     }
   }
 }
 
 // e's coarse window: coarse rows cr0 .. cr0 + CR - 1 and columns cc0 ..
 // cc0 + CC - 1, row-major, zero outside the coarse grid.
-template <typename L>
-__device__ __forceinline__ void load_coarse_split(const float* __restrict__ e,
+template <typename L, typename T>
+__device__ __forceinline__ void load_coarse_split(const T* __restrict__ e,
                                                   float* se, const Leg& p,
                                                   int cr0, int cc0) {
   const int nc = (p.n - 1) / 2, mc = (p.m - 1) / 2;
@@ -289,8 +346,8 @@ __device__ __forceinline__ void load_coarse_split(const float* __restrict__ e,
       const int j = j0 + threadIdx.x, cj = cc0 + j;
       if (j >= L::CC) break;
       const bool in = ci >= 0 && ci < nc && cj >= 0 && cj < mc;
-      copy_async(se + i * L::CC + j,
-                 in ? e + static_cast<long>(ci) * mc + cj : e, in);
+      stage(se + i * L::CC + j,
+            in ? e + static_cast<long>(ci) * mc + cj : e, in);
     }
   }
 }
@@ -364,9 +421,9 @@ __device__ __forceinline__ void col_passes(float* su,
 
 // The tile of the window to out: lane x stores columns H + x and
 // H + x + SLOTS of its rows.
-template <typename L>
+template <typename L, typename T>
 __device__ __forceinline__ void store_tile_split(const float* su,
-                                                 float* __restrict__ out,
+                                                 T* __restrict__ out,
                                                  const Leg& p, int r0,
                                                  int c0) {
 #pragma unroll
@@ -377,7 +434,8 @@ __device__ __forceinline__ void store_tile_split(const float* su,
     for (int j = 0; j < 2; ++j) {
       const int wc = L::H + threadIdx.x + j * L::SL, gc = c0 + wc;
       if (wc < L::H + L::TC && gc < p.m)
-        out[static_cast<long>(gr) * p.m + gc] = su[split_at<L>(wr, wc)];
+        store_value(out + static_cast<long>(gr) * p.m + gc,
+                    su[split_at<L>(wr, wc)]);
     }
   }
 }
@@ -398,9 +456,9 @@ __device__ __forceinline__ void row_values(const float* w, int wr, int j,
 // thread row a run of RUN coarse rows, walking its fine rows 2i .. 2i + 2
 // once with u's rows above and below in registers.  Each coarse value is
 // the row taps first, then the column taps (transfer.py:802-807).
-template <typename L>
+template <typename L, typename T>
 __device__ __forceinline__ void residual_restrict_split(
-    const float* su, float* __restrict__ rc, const Leg& p, int r0, int c0) {
+    const float* su, T* __restrict__ rc, const Leg& p, int r0, int c0) {
   constexpr int CTR = L::TR / 2, CTC = L::TC / 2;
   constexpr int RUN = (CTR + L::NY - 1) / L::NY;
   const int j = threadIdx.x, i0 = threadIdx.y * RUN;
@@ -439,8 +497,9 @@ __device__ __forceinline__ void residual_restrict_split(
 #pragma unroll
         for (int e = 0; e < 3; ++e) pend[e] += p.tr[2] * r[e];
         if (ci < nc && cj < mc)
-          rc[static_cast<long>(ci) * mc + cj] =
-              p.tc[0] * pend[0] + p.tc[1] * pend[1] + p.tc[2] * pend[2];
+          store_value(rc + static_cast<long>(ci) * mc + cj,
+                      p.tc[0] * pend[0] + p.tc[1] * pend[1] +
+                          p.tc[2] * pend[2]);
       }
 #pragma unroll
       for (int e = 0; e < 3; ++e) pend[e] = p.tr[0] * r[e];
@@ -580,13 +639,14 @@ __device__ __forceinline__ void correct_rows_split(float* su, const float* sc,
 // Form F of S sweeps in window class K.  e: e ((n-1)/2, (m-1)/2) (kUp,
 // kPassCols) or c_half ((n-1)/2, m) (kUpRows, kPassRows), not read by the
 // down-legs; r_out: rc ((n-1)/2, (m-1)/2) (kDown, kPassCols) or rr
-// ((n-1)/2, m) (kDownRows, kPassRows), not written by the up-legs.
-template <int F, int S, int K>
+// ((n-1)/2, m) (kDownRows, kPassRows), not written by the up-legs.  T:
+// the storage type of u, e, b and the outputs (kBuilt).
+template <int F, int S, int K, typename T = float>
 __global__ void __launch_bounds__(ColLeg<F, S, K>::THREADS,
                                   ColLeg<F, S, K>::BLOCKS)
-col_leg_kernel(const float* __restrict__ u, const float* __restrict__ e,
-               const float* __restrict__ b, const float* __restrict__ omegas,
-               float* __restrict__ u_out, float* __restrict__ r_out, Leg p) {
+col_leg_kernel(const T* __restrict__ u, const T* __restrict__ e,
+               const T* __restrict__ b, const float* __restrict__ omegas,
+               T* __restrict__ u_out, T* __restrict__ r_out, Leg p) {
   using L = ColLeg<F, S, K>;
   extern __shared__ float su[];
   float* se = su + L::FINE * L::B;
@@ -664,45 +724,56 @@ struct ColInst {
   int halo, tile_rows, tile_cols, slots, ny, blocks, smem;
 };
 
-template <int F, int S, int K>
+template <int F, int S, int K, typename T>
 ColInst col_inst() {
   using L = ColLeg<F, S, K>;
-  if constexpr (!L::BUILT) {
+  if constexpr (!kBuilt<F, S, K, T>) {
     return {};
   } else {
-    return {reinterpret_cast<const void*>(col_leg_kernel<F, S, K>), L::H,
+    return {reinterpret_cast<const void*>(col_leg_kernel<F, S, K, T>), L::H,
             L::TR, L::TC, L::SL, L::NY, L::BLOCKS, L::SMEM};
   }
 }
 
 // The instantiation of form F for `sweeps` sweeps (S.. on) in `window`
-// (K.. on); null for a count or class it lacks.
-template <int F, int S = 0, int K = 0>
+// (K.. on) for storage type T; null for a count or class it lacks.
+template <int F, typename T, int S = 0, int K = 0>
 ColInst find_of_form(int sweeps, int window) {
   if constexpr (S > MAX_FUSED_SWEEPS) {
     return {};
   } else if constexpr (K == N_WINDOWS) {
-    return find_of_form<F, S + 1, 0>(sweeps, window);
+    return find_of_form<F, T, S + 1, 0>(sweeps, window);
   } else {
-    if (sweeps == S && window == K) return col_inst<F, S, K>();
-    return find_of_form<F, S, K + 1>(sweeps, window);
+    if (sweeps == S && window == K) return col_inst<F, S, K, T>();
+    return find_of_form<F, T, S, K + 1>(sweeps, window);
   }
 }
 
-ColInst find_col_leg(int form, int sweeps, int window) {
+// bf16: storage in bf16, built for the forms kDown and kUp only.
+ColInst find_col_leg(int form, int sweeps, int window, bool bf16_storage) {
+  if (bf16_storage) {
+    switch (form) {
+      case kUp:
+        return find_of_form<kUp, bf16>(sweeps, window);
+      case kDown:
+        return find_of_form<kDown, bf16>(sweeps, window);
+      default:
+        return {};
+    }
+  }
   switch (form) {
     case kUp:
-      return find_of_form<kUp>(sweeps, window);
+      return find_of_form<kUp, float>(sweeps, window);
     case kDown:
-      return find_of_form<kDown>(sweeps, window);
+      return find_of_form<kDown, float>(sweeps, window);
     case kPassCols:
-      return find_of_form<kPassCols>(sweeps, window);
+      return find_of_form<kPassCols, float>(sweeps, window);
     case kPassRows:
-      return find_of_form<kPassRows>(sweeps, window);
+      return find_of_form<kPassRows, float>(sweeps, window);
     case kDownRows:
-      return find_of_form<kDownRows>(sweeps, window);
+      return find_of_form<kDownRows, float>(sweeps, window);
     case kUpRows:
-      return find_of_form<kUpRows>(sweeps, window);
+      return find_of_form<kUpRows, float>(sweeps, window);
     default:
       return {};
   }
@@ -712,8 +783,9 @@ ColInst find_col_leg(int form, int sweeps, int window) {
 // halo it derived; refuse a halo the instantiation was not built for.
 // args: the kernel's arguments.
 cudaError_t launch_col_leg(int form, int sweeps, int halo, int window, int n,
-                           int m, void** args, void* stream) {
-  const ColInst inst = find_col_leg(form, sweeps, window);
+                           int m, void** args, void* stream,
+                           bool bf16_storage = false) {
+  const ColInst inst = find_col_leg(form, sweeps, window, bf16_storage);
   if (!inst.kernel || halo != inst.halo) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(inst.kernel, inst.smem);
   if (err != cudaSuccess) return err;
@@ -722,6 +794,32 @@ cudaError_t launch_col_leg(int form, int sweeps, int halo, int window, int n,
   cudaLaunchKernel(inst.kernel, grid, dim3(inst.slots, inst.ny), args,
                    inst.smem, static_cast<cudaStream_t>(stream));
   return cudaGetLastError();
+}
+
+// What the card makes of an instantiation (es_transfer_leg_info).
+int leg_info(int form, int sweeps, int window, bool bf16_storage,
+             int* info) {
+  const ColInst inst = find_col_leg(form, sweeps, window, bf16_storage);
+  if (!inst.kernel) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(inst.kernel, inst.smem);
+  if (err != cudaSuccess) return err;
+  const int threads = inst.slots * inst.ny;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kernel,
+                                                      threads, inst.smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, inst.kernel);
+  if (err != cudaSuccess) return err;
+  info[0] = inst.tile_rows;
+  info[1] = inst.tile_cols;
+  info[2] = inst.halo;
+  info[3] = threads;
+  info[4] = blocks;
+  info[5] = attr.numRegs;
+  info[6] = static_cast<int>(attr.localSizeBytes);
+  info[7] = inst.smem;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -772,6 +870,40 @@ extern "C" int es_prolong_correct_postsmooth(
                         args, stream);
 }
 
+// es_presmooth_residual_restrict with both transfer axes in bf16
+// storage: u, b, u_out and rc are bf16, omegas float32; replaces the TPU
+// kernel's bf16 form (presmooth_residual_restrict, transfer.py:810, on a
+// bf16 grid: _smooth_rr_col_kernel loads bf16, computes in float32 and
+// rounds on store).  The other arguments as there.
+extern "C" int es_presmooth_residual_restrict_bf16(
+    const bf16* u, const bf16* b, const float* omegas, const int* om_ids,
+    int sweeps, const double* coeffs, bf16* u_out, bf16* r_out, int halo,
+    int window, int n, int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  Leg p = make_leg(coeffs, om_ids, sweeps, sweeps, n, m);
+  const bf16* e = nullptr;
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
+  return launch_col_leg(kDown, sweeps, halo, window, n, m, args, stream,
+                        true);
+}
+
+// es_prolong_correct_postsmooth with both transfer axes in bf16 storage:
+// u, e, b and u_out are bf16, omegas float32; replaces the bf16 form of
+// prolong_correct_postsmooth_col (transfer.py:917, _pc_smooth_col_kernel).
+// The other arguments as there.
+extern "C" int es_prolong_correct_postsmooth_bf16(
+    const bf16* u, const bf16* e, const bf16* b, const float* omegas,
+    const int* om_ids, int sweeps, const double* coeffs, bf16* u_out,
+    int halo, int window, int n, int m, void* stream) {
+  if (sweeps < 1 || sweeps > MAX_SWEEPS || bad_shape(n, m))
+    return cudaErrorInvalidValue;
+  Leg p = make_leg(coeffs, om_ids, sweeps + 1, sweeps, n, m);
+  bf16* r_out = nullptr;
+  void* args[] = {&u, &e, &b, &omegas, &u_out, &r_out, &p};
+  return launch_col_leg(kUp, sweeps, halo, window, n, m, args, stream, true);
+}
+
 // What an instantiation of es_prolong_correct_postsmooth (form 0 with
 // column transfers, 5 row-only), es_presmooth_residual_restrict (form 1,
 // 4 row-only), es_residual_restrict (form 1, sweeps 0), es_prolong_correct
@@ -784,27 +916,15 @@ extern "C" int es_prolong_correct_postsmooth(
 // land there), [7] dynamic shared memory per block in bytes.
 extern "C" int es_transfer_leg_info(int form, int sweeps, int window,
                                     int* info) {
-  const ColInst inst = find_col_leg(form, sweeps, window);
-  if (!inst.kernel) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(inst.kernel, inst.smem);
-  if (err != cudaSuccess) return err;
-  const int threads = inst.slots * inst.ny;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, inst.kernel,
-                                                      threads, inst.smem);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, inst.kernel);
-  if (err != cudaSuccess) return err;
-  info[0] = inst.tile_rows;
-  info[1] = inst.tile_cols;
-  info[2] = inst.halo;
-  info[3] = threads;
-  info[4] = blocks;
-  info[5] = attr.numRegs;
-  info[6] = static_cast<int>(attr.localSizeBytes);
-  info[7] = inst.smem;
-  return cudaSuccess;
+  return leg_info(form, sweeps, window, false, info);
+}
+
+// es_transfer_leg_info for the bf16-storage instantiations: form 0 (the
+// up-leg, es_prolong_correct_postsmooth_bf16) or 1 (the down-leg,
+// es_presmooth_residual_restrict_bf16), 1..3 sweeps, window class 0 or 1.
+extern "C" int es_transfer_leg_info_bf16(int form, int sweeps, int window,
+                                         int* info) {
+  return leg_info(form, sweeps, window, true, info);
 }
 
 // The up-leg of cycle k and the down-leg of cycle k+1 in one pass.

@@ -11,7 +11,8 @@ reused.  Nothing here runs at import time.
 The helpers at the end are shared by the kernel wrappers: the device
 dispatch (a CUDA tensor launches the kernel, a CPU tensor takes the plain
 version, any other device raises), the dtype (float32 unless a kernel
-takes complex64) and contiguity checks, and the launch itself, which
+takes complex64 or bfloat16) and contiguity checks, the gates' refusal of
+bfloat16 where a kernel has no bf16 form, and the launch itself, which
 raises on a refused launch.
 """
 
@@ -68,6 +69,16 @@ SIGNATURES = {
     # form (0 up, 1 down, 2 pass, 3 row-only pass, 4 row-only down, 5
     # row-only up), sweeps, window class, info (8 ints out); no stream
     "es_transfer_leg_info": (_INT, _INT, _INT, _INTS),
+    # the legs with both transfer axes in bf16 storage: as the float32
+    # entries without the column-transfers flag
+    "es_presmooth_residual_restrict_bf16":
+        (_P, _P, _P, _INTS, _INT, _DOUBLES, _P, _P, _INT, _INT, _INT, _INT,
+         _P),
+    "es_prolong_correct_postsmooth_bf16":
+        (_P, _P, _P, _P, _INTS, _INT, _DOUBLES, _P, _INT, _INT, _INT, _INT,
+         _P),
+    # form (0 up, 1 down), sweeps, window class, info (8 ints out)
+    "es_transfer_leg_info_bf16": (_INT, _INT, _INT, _INTS),
     # u, e or c_half, b, omegas, omega ids, sweeps, coefficients, u_out,
     # rc or rr, column transfers, halo, window class, n, m, stream
     "es_upleg_downleg":
@@ -252,6 +263,19 @@ def info(entry: str, what: str, *args) -> dict:
     return dict(zip(("tile_rows", "tile_cols", "halo", "threads",
                      "blocks_per_sm", "registers", "local_bytes",
                      "smem_bytes"), out))
+
+
+def refuse_bf16(u, kernel: str, jax_gate: str) -> None:
+    """A kernel gate's refusal of bfloat16 storage: raise
+    NotImplementedError for a bf16 ``u`` at a kernel with no bf16 form,
+    named by ``kernel`` (its rows of the port's kernel table), where the
+    JAX gate ``jax_gate`` (under evostencils_tpu/ops/pallas/) admits bf16
+    storage with float32 compute.  Taking the plain version instead would
+    compute in bf16 arithmetic, which no TPU kernel does."""
+    if u.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"kernel {kernel} has no bfloat16-storage form; the JAX gate "
+            f"evostencils_tpu/ops/pallas/{jax_gate} admits bf16")
 
 
 def check_card_tensors(*tensors, dtype=torch.float32) -> None:

@@ -144,13 +144,18 @@ def supports(u: torch.Tensor) -> bool:
     """Whether a level runs these kernels: a 3D grid, odd on every axis,
     with at least 17 planes, 17 rows and 63 lanes, and float32 when it
     lies on a CUDA device (the plain versions on the CPU take any float
-    type).  At 255^3 that admits 255^3, 127^3 and 63^3."""
+    type); bfloat16, which the JAX gate admits, raises
+    NotImplementedError.  At 255^3 that admits 255^3, 127^3 and 63^3."""
     if u.ndim != 3:
         return False
     n0, n1, n2 = u.shape
-    return (n0 >= MIN_PLANES and n1 >= MIN_ROWS and n2 >= MIN_LANES
-            and all(n % 2 == 1 for n in u.shape)
-            and (u.device.type == "cpu" or u.dtype == torch.float32))
+    if not (n0 >= MIN_PLANES and n1 >= MIN_ROWS and n2 >= MIN_LANES
+            and all(n % 2 == 1 for n in u.shape)):
+        return False
+    _build.refuse_bf16(u, "rows 19-21 (fused_rbgs_sweep_3d2, "
+                       "jacobi_sweep_3d2, residual_restrict_3d, "
+                       "prolong_correct_3d)", "leg3d.py:397")
+    return u.device.type == "cpu" or u.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -113,10 +113,14 @@ def five_point_values(stencil) -> Optional[Tuple[float, ...]]:
 def supports(u: torch.Tensor, stencil_vals) -> bool:
     """Whether a level runs the sweep kernels: a 2D grid of at least 8 rows
     and 128 columns with a 5-point stencil, float32 when it lies on a CUDA
-    device (the plain versions on the CPU take any float type)."""
-    return (u.ndim == 2 and stencil_vals is not None
-            and u.shape[0] >= MIN_ROWS and u.shape[1] >= MIN_COLS
-            and (u.device.type == "cpu" or u.dtype == torch.float32))
+    device (the plain versions on the CPU take any float type); raises
+    NotImplementedError for bfloat16, which the JAX gate admits."""
+    if not (u.ndim == 2 and stencil_vals is not None
+            and u.shape[0] >= MIN_ROWS and u.shape[1] >= MIN_COLS):
+        return False
+    _build.refuse_bf16(u, "rows 9-10 (fused_rbgs_sweep, jacobi_sweep)",
+                       "rbgs.py:140")
+    return u.device.type == "cpu" or u.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -110,15 +110,19 @@ def supports(u: torch.Tensor, stencil_vals) -> bool:
     (rbgs3d.py:58-70), at least 4 planes, 8 rows and 63 lanes and room for
     4 planes of the (8, 128)-padded plane in the budget, for a 7-point
     stencil; and float32 when u lies on a CUDA device (the plain versions
-    on the CPU take any float type).  At 255^3 that admits 127^3 and 63^3,
-    not 255^3."""
+    on the CPU take any float type); bfloat16, which the JAX gate admits,
+    raises NotImplementedError.  At 255^3 that admits 127^3 and 63^3, not
+    255^3."""
     if u.ndim != 3 or stencil_vals is None:
         return False
     n0, n1, n2 = u.shape
     plane_bytes = (-(-n1 // 8) * 8) * (-(-n2 // 128) * 128) * _GATE_ITEMSIZE
-    return (n0 >= 4 and n1 >= 8 and n2 >= 63
-            and _max_block_planes(plane_bytes) >= 4
-            and (u.device.type == "cpu" or u.dtype == torch.float32))
+    if not (n0 >= 4 and n1 >= 8 and n2 >= 63
+            and _max_block_planes(plane_bytes) >= 4):
+        return False
+    _build.refuse_bf16(u, "row 18 (fused_rbgs_sweep_3d, jacobi_sweep_3d)",
+                       "rbgs3d.py:67")
+    return u.device.type == "cpu" or u.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -89,11 +89,16 @@ def supports(u: torch.Tensor, vals) -> bool:
     """Whether a level runs the sweep kernels: a 2D grid of more than 64
     rows and at least 128 columns with complex stencil values, complex64
     (the plain versions on the CPU also take complex128).  A complex128
-    tensor on the card takes the generic lowering; it is never cast."""
-    return (vals is not None and u.ndim == 2
-            and u.shape[0] > BLOCK_ROWS and u.shape[1] >= MIN_COLS
-            and (u.dtype == torch.complex64
-                 or (u.device.type == "cpu" and u.dtype == torch.complex128)))
+    tensor on the card takes the generic lowering; it is never cast.  A
+    bfloat16 field raises NotImplementedError, as at every kernel gate but
+    the 2D legs'."""
+    if not (vals is not None and u.ndim == 2
+            and u.shape[0] > BLOCK_ROWS and u.shape[1] >= MIN_COLS):
+        return False
+    _build.refuse_bf16(u, "row 17 (fused_rbgs_sweep_cx, jacobi_sweep_cx)",
+                       "rbgs_cx.py:45")
+    return (u.dtype == torch.complex64
+            or (u.device.type == "cpu" and u.dtype == torch.complex128))
 
 
 # ---------------------------------------------------------------------------

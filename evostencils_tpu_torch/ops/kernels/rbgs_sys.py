@@ -158,10 +158,13 @@ def supports(fields, coeffs, exc=(), exc_minv=()) -> bool:
     (rbgs_sys.py:63-70); on a CUDA device float32, an F of KERNEL_FIELDS
     and at most MAX_EXC fixups of each kind."""
     u = fields[0]
-    return (coeffs is not None and _same_fields(fields) and u.ndim == 2
+    if not (coeffs is not None and _same_fields(fields) and u.ndim == 2
             and u.shape[0] >= MIN_ROWS and u.shape[1] >= MIN_COLS
-            and u.shape[0] > BLOCK_ROWS
-            and _card_takes(u, len(fields), exc, exc_minv))
+            and u.shape[0] > BLOCK_ROWS):
+        return False
+    _build.refuse_bf16(u, "row 14 (fused_rbgs_sweep_sys, jacobi_sweep_sys)",
+                       "rbgs_sys.py:68")
+    return _card_takes(u, len(fields), exc, exc_minv)
 
 
 def leg_supports(fields, exc=(), exc_minv=()) -> bool:
@@ -170,7 +173,7 @@ def leg_supports(fields, exc=(), exc_minv=()) -> bool:
     :1190-1193) and F >= 2 fields of one shape and dtype; on a CUDA device
     as :func:`supports`."""
     u = fields[0]
-    return (transfer.supports(u) and _same_fields(fields)
+    return (_same_fields(fields) and transfer.supports(u, "sys_legs")
             and _card_takes(u, len(fields), exc, exc_minv))
 
 

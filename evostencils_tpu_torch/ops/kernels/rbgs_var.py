@@ -139,11 +139,16 @@ def supports(u: torch.Tensor, c_stack) -> bool:
     """Whether a level runs the sweep kernels: a 2D grid of more than 32
     rows and at least 128 columns with a coefficient stack, float32 when it
     lies on a CUDA device (the plain versions on the CPU take any float
-    type).  The legs take the level set of ``transfer.supports``."""
-    return (c_stack is not None and u.ndim == 2
+    type); bfloat16, which the JAX gate admits, raises
+    NotImplementedError.  The legs take the level set of
+    ``transfer.supports(u, "var_legs")``."""
+    if not (c_stack is not None and u.ndim == 2
             and u.shape[0] >= MIN_ROWS and u.shape[1] >= MIN_COLS
-            and u.shape[0] > BLOCK_ROWS
-            and (u.device.type == "cpu" or u.dtype == torch.float32))
+            and u.shape[0] > BLOCK_ROWS):
+        return False
+    _build.refuse_bf16(u, "row 11 (fused_rbgs_sweep_var, jacobi_sweep_var)",
+                       "rbgs_var.py:58")
+    return u.device.type == "cpu" or u.dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,13 @@ Each kernel has, in this module:
 * its wrapper: a CUDA tensor launches the hand-written kernel from
   ``csrc/transfer.cu`` (float32, contiguous) or raises; a CPU tensor takes
   the plain version; any other device raises;
+* bfloat16 storage: the legs with both transfer axes
+  (``presmooth_residual_restrict``, ``prolong_correct_postsmooth_col``)
+  take bf16 u, b and e with float32 ``omegas`` on both devices and compute
+  in float32, rounding each output once, as the TPU kernels do
+  (transfer.py:774-779, :876-879); their launches count under the name
+  with ``_bf16``.  Every other kernel here has no bf16 form, and
+  :func:`supports` raises for a bf16 field at its gate;
 * its plain PyTorch version (``*_plain``), built from ``ops.apply``: two
   masked half-sweeps per sweep, the residual, the 3-tap transfers.  The CPU
   tests use it, and ``chip_smoke.py`` compares the kernel with it;
@@ -114,7 +121,9 @@ launches = {"presmooth_residual_restrict": 0,
             "presmooth_residual_rowrestrict": 0,
             "prolong_correct_postsmooth": 0,
             "upleg_downleg_fused": 0,
-            "residual_restrict": 0, "prolong_correct": 0}
+            "residual_restrict": 0, "prolong_correct": 0,
+            "presmooth_residual_restrict_bf16": 0,
+            "prolong_correct_postsmooth_col_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -184,14 +193,16 @@ def leg_window(leg: str, sweeps: int, n: int, m: int, sms: int) -> int:
     return built[-1]
 
 
-def leg_info(leg: str, sweeps: int, window: int) -> dict:
+def leg_info(leg: str, sweeps: int, window: int,
+             dtype: torch.dtype = torch.float32) -> dict:
     """What the card makes of a windowed kernel's instantiation (``leg``
-    one of ``_FORMS``, ``sweeps``, window class ``window``):
+    one of ``_FORMS``, ``sweeps``, window class ``window``, storage
+    ``dtype``: float32, or bfloat16 for "down" and "up"):
     ``_build.info``'s tile, halo, threads, occupancy, spills and shared
     memory.  Needs the card."""
-    return _build.info("es_transfer_leg_info",
-                       f"{leg} for S = {sweeps}, window {window}",
-                       _FORMS[leg], int(sweeps), int(window))
+    entry = "es_transfer_leg_info" + _BF16_SUFFIX.get(dtype, "")
+    return _build.info(entry, f"{leg} for S = {sweeps}, window {window}, "
+                       f"{dtype}", _FORMS[leg], int(sweeps), int(window))
 
 
 def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
@@ -207,18 +218,44 @@ def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
     return tuple(taps)
 
 
-def supports(u: torch.Tensor) -> bool:
-    """Whether a level runs the fused legs: a 2D grid with at least 129
-    rows and 128 columns, odd on both axes, and float32 when it lies on a
-    CUDA device (the plain versions on the CPU take any float type).  A
-    complex field takes the generic lowering on every device, as under
-    the JAX gate (transfer.py:590-595)."""
+#: The kernels behind :func:`supports`, by the name a caller gives, with
+#: their rows of the port's kernel table.  The legs with both transfer
+#: axes ("legs") take bfloat16 storage; the others have no bf16 form.
+GATED = {"legs": "rows 1-2 (presmooth_residual_restrict, "
+                 "prolong_correct_postsmooth_col)",
+         "passes": "rows 3 and 8 (upleg_downleg_col, upleg_downleg_fused)",
+         "residual_restrict": "row 4 (residual_restrict)",
+         "prolong_correct": "row 5 (prolong_correct)",
+         "rowlegs": "rows 6-7 (presmooth_residual_rowrestrict, "
+                    "prolong_correct_postsmooth)",
+         "var_legs": "rows 12-13 (rbgs_var.presmooth_residual_restrict_var, "
+                     "rbgs_var.prolong_correct_postsmooth_var)",
+         "sys_legs": "rows 15-16 (rbgs_sys.presmooth_residual_restrict_sys, "
+                     "rbgs_sys.prolong_correct_postsmooth_sys)"}
+#: the C entries of the bf16-storage legs, by the name's suffix
+_BF16_SUFFIX = {torch.bfloat16: "_bf16"}
+
+
+def supports(u: torch.Tensor, kernel: str = "legs") -> bool:
+    """Whether a level runs the windowed 2D kernel ``kernel`` (a key of
+    ``GATED``): a 2D grid with at least 129 rows and 128 columns, odd on
+    both axes, and float32 when it lies on a CUDA device (the plain
+    versions on the CPU take any float type).  A complex field takes the
+    generic lowering on every device, as under the JAX gate
+    (transfer.py:590-595).  bfloat16, which the JAX gate admits for every
+    kernel, runs the legs with both transfer axes on every device; at
+    any other kernel of this gate it raises NotImplementedError."""
+    if kernel not in GATED:
+        raise ValueError(f"kernel {kernel!r} is none of {sorted(GATED)}")
     if u.ndim != 2 or u.is_complex():
         return False
     n, m = u.shape
     if n < MIN_ROWS or m < MIN_COLS or n % 2 == 0 or m % 2 == 0:
         return False
-    return u.device.type == "cpu" or u.dtype == torch.float32
+    if kernel != "legs":
+        _build.refuse_bf16(u, GATED[kernel], "transfer.py:590")
+    return u.device.type == "cpu" or u.dtype in (torch.float32,
+                                                  torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -244,24 +281,40 @@ def _rb_sweeps_plain(u, b, omegas, omega_ids, A, dinv):
     return u
 
 
+def _widened(*tensors):
+    """The operands of a leg in its compute type: bfloat16 storage widened
+    to float32, as the TPU kernels compute (transfer.py:774-779,
+    :876-879: storage loads ``.astype(jnp.float32)``, float32 scalars);
+    any other dtype as it is."""
+    return tuple(t.float() if t.dtype == torch.bfloat16 else t
+                 for t in tensors)
+
+
 def presmooth_residual_restrict_plain(u, b, omegas, omega_ids, stencil_vals,
                                       taps):
-    """Plain version of :func:`presmooth_residual_restrict`."""
+    """Plain version of :func:`presmooth_residual_restrict`; bf16 storage
+    computes in float32 and rounds each output once."""
+    store = u.dtype
+    u, b, omegas = _widened(u, b, omegas)
     A = _five_point(stencil_vals)
     u = _rb_sweeps_plain(u, b, omegas, omega_ids, A, 1.0 / stencil_vals[0])
     r = b - apply_constant(A, u)
-    return u, axis_restrict_3tap(axis_restrict_3tap(r, 0, taps[0]), 1,
-                                 taps[1])
+    rc = axis_restrict_3tap(axis_restrict_3tap(r, 0, taps[0]), 1, taps[1])
+    return u.to(store), rc.to(store)
 
 
 def prolong_correct_postsmooth_col_plain(u, e, b, omegas, omega_ids,
                                          stencil_vals, taps):
-    """Plain version of :func:`prolong_correct_postsmooth_col`."""
+    """Plain version of :func:`prolong_correct_postsmooth_col`; bf16
+    storage computes in float32 and rounds the output once."""
+    store = u.dtype
+    u, e, b, omegas = _widened(u, e, b, omegas)
     n, m = u.shape
     p = axis_prolong_3tap(axis_prolong_3tap(e, 0, taps[0], n), 1, taps[1], m)
     u = u + omegas[omega_ids[0]] * p
     return _rb_sweeps_plain(u, b, omegas, omega_ids[1:],
-                            _five_point(stencil_vals), 1.0 / stencil_vals[0])
+                            _five_point(stencil_vals),
+                            1.0 / stencil_vals[0]).to(store)
 
 
 def upleg_downleg_col_plain(u, e, b, omegas, omega_ids, stencil_vals,
@@ -381,6 +434,15 @@ def _check_coarse(u, c, rows_only):
                          f"the grid {n}x{m}; expected {want}")
 
 
+def _leg_storage(u, *fields):
+    """Check the card tensors of a leg with both transfer axes: ``u`` and
+    ``fields`` contiguous, all float32 or all bfloat16.  Returns the C
+    entry's suffix of that storage type ("" or "_bf16")."""
+    dtype = torch.bfloat16 if u.dtype == torch.bfloat16 else torch.float32
+    _build.check_card_tensors(u, *fields, dtype=dtype)
+    return _BF16_SUFFIX.get(dtype, "")
+
+
 def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
                                 omegas: torch.Tensor,
                                 omega_ids: Sequence[int], stencil_vals,
@@ -394,16 +456,19 @@ def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,
     if not _build.on_card(u):
         return presmooth_residual_restrict_plain(u, b, omegas, ids,
                                                  stencil_vals, taps)
-    _build.check_card_tensors(u, b, omegas)
+    suffix = _leg_storage(u, b)
+    _build.check_card_tensors(omegas)
     n, m = u.shape
     u_out = torch.empty_like(u)
     rc = u.new_empty(((n - 1) // 2, (m - 1) // 2))
-    _build.launch(launches, "presmooth_residual_restrict",
-                  "es_presmooth_residual_restrict", u.device, u.data_ptr(),
-                  b.data_ptr(), omegas.data_ptr(),
+    # the float32 entry also serves the row-only form (cols 0)
+    cols = () if suffix else (1,)
+    _build.launch(launches, "presmooth_residual_restrict" + suffix,
+                  "es_presmooth_residual_restrict" + suffix, u.device,
+                  u.data_ptr(), b.data_ptr(), omegas.data_ptr(),
                   (ctypes.c_int * len(ids))(*ids), len(ids),
                   _coefficients(stencil_vals, taps), u_out.data_ptr(),
-                  rc.data_ptr(), 1, *_window_args("down", len(ids), u))
+                  rc.data_ptr(), *cols, *_window_args("down", len(ids), u))
     return u_out, rc
 
 
@@ -420,14 +485,16 @@ def prolong_correct_postsmooth_col(u: torch.Tensor, e: torch.Tensor,
     if not _build.on_card(u):
         return prolong_correct_postsmooth_col_plain(u, e, b, omegas, ids,
                                                     stencil_vals, taps)
-    _build.check_card_tensors(u, e, b, omegas)
+    suffix = _leg_storage(u, e, b)
+    _build.check_card_tensors(omegas)
     u_out = torch.empty_like(u)
     sweeps = len(ids) - 1
-    _build.launch(launches, "prolong_correct_postsmooth_col",
-                  "es_prolong_correct_postsmooth", u.device, u.data_ptr(),
-                  e.data_ptr(), b.data_ptr(), omegas.data_ptr(),
-                  (ctypes.c_int * len(ids))(*ids), sweeps,
-                  _coefficients(stencil_vals, taps), u_out.data_ptr(), 1,
+    cols = () if suffix else (1,)
+    _build.launch(launches, "prolong_correct_postsmooth_col" + suffix,
+                  "es_prolong_correct_postsmooth" + suffix, u.device,
+                  u.data_ptr(), e.data_ptr(), b.data_ptr(),
+                  omegas.data_ptr(), (ctypes.c_int * len(ids))(*ids), sweeps,
+                  _coefficients(stencil_vals, taps), u_out.data_ptr(), *cols,
                   *_window_args("up", sweeps, u))
     return u_out
 

@@ -77,7 +77,8 @@ def supports(u: torch.Tensor) -> bool:
     with at least 8 planes on axis 0, at least 63 points on axis 2 and at
     most 131,072 points per (axis-1, axis-2) plane, and float32 when it
     lies on a CUDA device (the plain versions on the CPU take any float
-    type).  At 255^3 that admits 255^3, 127^3 and 63^3."""
+    type); bfloat16, which the JAX gate admits, raises
+    NotImplementedError.  At 255^3 that admits 255^3, 127^3 and 63^3."""
     if u.ndim != 3:
         return False
     n0, n1, n2 = u.shape
@@ -85,6 +86,8 @@ def supports(u: torch.Tensor) -> bool:
         return False
     if n0 < MIN_PLANES or n2 < MIN_LANES or n1 * n2 > MAX_PLANE:
         return False
+    _build.refuse_bf16(u, "rows 22-23 (downleg_wavefront_3d, "
+                       "upleg_wavefront_3d)", "wavefront3d.py:215")
     return u.device.type == "cpu" or u.dtype == torch.float32
 
 
