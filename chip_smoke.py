@@ -20,9 +20,10 @@ Phases:
    storage form (rows 1-2 on bf16 grids, float32 compute): each
    instantiation's tile, halo, threads, blocks per SM, registers and
    spills (``transfer.leg_info(..., dtype=torch.bfloat16)``), both legs
-   against their plain versions at 4095^2, 2047^2 and 1023^2 for 1..3
-   sweeps within TOL_BF16_ULPS bf16 ulps of max|plain|, timed at every
-   level of the path with bytes counted at 2 a value;
+   against their plain versions at every level of the path (4095^2 ..
+   255^2) and at 129x131 for 1..3 sweeps within TOL_BF16_ULPS bf16 ulps
+   of max|plain|, timed at every level of the path with bytes counted at
+   2 a value;
 3. [kernels3d] check each 3D leg kernel's block schedule, blocks per SM
    and spills (``wavefront3d.leg_info``) against the wrapper module's
    constants; compare each leg with its plain version at 255^3, at the
@@ -267,22 +268,26 @@ Phases:
    iterative refinement (compiler/refine: the residual and solution in
    float64, 8 float32 cycles an outer step), once with the kernels and
    once with the plain versions: both converge with equal outer counts
-   and histories within 1e-3 above 1e-10 (deep_histories), rows 1-2 run
-   once per gated level and inner cycle and nothing else; the outer
-   count, history, wall seconds and ms an inner cycle are printed;
+   and histories within 1e-3 above 1e-10 (deep_histories; above 1e-10
+   that holds only the first correction's entry, which may also move by
+   1e-5 of the entry before: [kernels] is what holds rows 1-2 to their
+   plain versions), rows 1-2 run once per gated level and inner cycle and
+   nothing else; the outer count, history, wall seconds and ms an inner
+   cycle are printed;
 33. [deep-fas] fas_2d_basic(10, 6) to 1e-10 by Newton steps of 3
    Richardson iterations, each preconditioned by 3 float32 cycles of the
    shifted linear operator L + 20 I (scripts/deep_solve.py:95-117),
    kernels against plain as [deep]; the shifted cycle runs rows 1-2;
 34. [deep-bf16] [deep] with bf16 inner cycles (3 an outer step, at most
-   16 outer steps): every outer ratio below 0.2, the bf16 legs launched
-   once per gated level and cycle, outer counts of kernels and plain
-   versions within 1;
+   16 outer steps): the contraction over each two consecutive outer
+   steps below 0.2, the bf16 legs launched once per gated level and
+   cycle, outer counts of kernels, plain versions and the JAX package's
+   CPU run within 1;
 35. [deep-split] helmholtz_2d_split(7, 3) in float32 to a TRUE relative
-   residual of 1e-7 at k = 80 and 160 by the reliable-update BiCGStab
-   (compiler/refine_split), and at k = 80 by the float64-basis one: the
+   residual of 1e-7 at k = 80 by the reliable-update BiCGStab
+   (compiler/refine_split) and by the float64-basis one: the
    true residual recomputed in float64 from the returned solution at
-   most 2e-7; the reliable solve's iterations at most 1.5 times the JAX
+   most 2e-7; the reliable solve's iterations at most 1.3 times the JAX
    package's CPU count of the same float32 solve (the count is
    rounding-bound), the float64-basis solve's at most 1.15 times
    [helm-split]'s float64 count + 10; no kernel launch;
@@ -713,10 +718,10 @@ def phase_kernels(torch, transfer, device):
 
 
 #: [kernels] bf16: the shapes where the bf16-storage legs are held
-#: against their plain versions (the [main] path's finest three levels;
-#: [deep-bf16] runs 1023^2, 511^2 and 255^2), and the levels they are
-#: timed at
-CHECK_BF16 = [(4095, 4095), (2047, 2047), (1023, 1023)]
+#: against their plain versions: every level of the path (the gated
+#: levels of [deep-bf16] are 1023^2, 511^2 and 255^2) and a ragged shape
+#: near the gate
+CHECK_BF16 = [(n, n) for n in LEVELS_2D] + [(129, 131)]
 #: the bf16 legs' slack against their plain versions, in bf16 ulps of
 #: max|plain|: both compute in float32, in other orders, and round each
 #: output once, so a value whose float32 results straddle a rounding
@@ -3219,37 +3224,42 @@ DEEP_FAS_LEVELS = (10, 6)
 #: it corrects (4.5e-7 at 63^2 on the CPU, tests/test_torch_refine.py;
 #: larger on finer grids), which the kernels and the plain versions round
 #: apart, as the last entry of a float32 solve sits on its floor
-#: (phase_solve)
+#: (phase_solve).  In [deep] the only entry above 1e-10 besides the first
+#: is the first correction's (2.670e-6 relative with the kernels, 1.851e-6
+#: with the plain versions on an H100), so there the rule holds equal
+#: outer counts and little else; [kernels] holds rows 1-2 themselves
 DEEP_HIST_RTOL, DEEP_HIST_FLOOR, DEEP_F32_FLOOR = 1e-3, 1e-10, 1e-5
-#: [deep-split]: the wavenumbers of the reliable float32 solve (k = 320
-#: waits for a graphed loop: at thousands of iterations and about 10 ms
-#: an iteration it would take most of the script's remaining time) and
-#: of the float64-basis one, and the JAX tests' bounds: the true residual
-#: recomputed in float64, the float64-basis iterations against
-#: [helm-split]'s float64 count (tests/test_refine_split.py:96-107)
-DEEP_SPLIT_KS, DEEP_SPLIT_F64_BASIS_K = (80.0, 160.0), 80.0
+#: [deep-split]: the wavenumbers of the reliable float32 solve (k = 160,
+#: 2,651 iterations and 23.7 s on an H100, and k = 320 wait for a graphed
+#: loop: at thousands of iterations and about 10 ms an iteration they
+#: would take the script's time margin) and of the float64-basis one,
+#: and the JAX tests' bounds: the true residual recomputed in float64,
+#: the float64-basis iterations against [helm-split]'s float64 count
+#: (tests/test_refine_split.py:96-107)
+DEEP_SPLIT_KS, DEEP_SPLIT_F64_BASIS_K = (80.0,), 80.0
 DEEP_SPLIT_TRUE_TOL, DEEP_SPLIT_FACTOR, DEEP_SPLIT_SLACK = 2e-7, 1.15, 10
 #: the reliable float32 solve's iterations are rounding-bound: the JAX
 #: package's CPU count of the same solve
 #: (``tests.test_torch_refine_split.jax_reliable_iterations``) is 296 at
-#: k = 80 and 3182 at k = 160, 1.10 and 2.53 times the float64 count
-#: (269, 1257), and the port's takes 325-360 at k = 80 on the CPU by its
-#: thread count and the precision of its dots and axpys, 367 on an H100,
-#: and 2651 at k = 160 there; so it is held to DEEP_SPLIT_JAX_FACTOR
-#: times the JAX package's count, and the float64-basis solve, whose
-#: recurrence is float64, to the float64 count's bound
-DEEP_SPLIT_JAX_ITERATIONS = {80.0: 296, 160.0: 3182}
-DEEP_SPLIT_JAX_FACTOR = 1.5
+#: k = 80, 1.10 times the float64 count (269), and the port's took 333,
+#: 334 and 349 on the CPU with 1, 2 and 4 torch threads and 367 on an
+#: H100; so it is held to DEEP_SPLIT_JAX_FACTOR times the JAX package's
+#: count, as tests/test_torch_refine_split.py holds it on the CPU, and
+#: the float64-basis solve, whose recurrence is float64, to the float64
+#: count's bound
+DEEP_SPLIT_JAX_ITERATIONS = {80.0: 296}
+DEEP_SPLIT_JAX_FACTOR = 1.3
 #: [deep-bf16]: the JAX package's outer steps of the same bf16 solve on
 #: the CPU (``tests.test_torch_refine.jax_deep_outer(10)``: 11, with
 #: ratios 0.111, 0.046, 1.013, 0.003, 2.305, 0.003, 0.242, 0.005, 0.245,
 #: 0.003; the TPU record, BASELINE.md:348, 11 too).  At 1023^2 a bf16
 #: correction's rounding stalls every other outer step in both packages,
-#: so the phase holds the port to this count (within 1) and to a mean
-#: contraction below DEEP_BF16_MEAN_RATIO an outer step; the CPU tests
-#: hold every ratio below 0.2 at 63^2 and 255^2, where both packages keep
-#: it (tests/test_torch_refine.py)
-DEEP_BF16_JAX_OUTER, DEEP_BF16_MEAN_RATIO = 11, 0.2
+#: so the phase holds the port to this count (within 1) and each two
+#: consecutive outer steps to a contraction below DEEP_BF16_PAIR_RATIO
+#: (the JAX ratios' pairs reach 0.047 at most); the CPU tests hold every
+#: single ratio below 0.2 at 63^2 and 255^2, where both packages keep it
+#: (tests/test_torch_refine.py)
+DEEP_BF16_JAX_OUTER, DEEP_BF16_PAIR_RATIO = 11, 0.2
 #: the rows-1-2 leg names the deep solves launch, float32 and bf16
 DEEP_LEGS = ("presmooth_residual_restrict", "prolong_correct_postsmooth_col")
 
@@ -3309,8 +3319,9 @@ def phase_deep(torch, kernels, device, card, bf16=False):
     cycles an outer step; equal outer counts, histories by
     deep_histories.  [deep-bf16]: 3 bf16 cycles an outer step, at most 16
     outer steps; outer counts within 1 of each other and of the JAX
-    package's (DEEP_BF16_JAX_OUTER), the mean contraction an outer step
-    below DEEP_BF16_MEAN_RATIO, every ratio logged.  Rows 1-2 (their bf16
+    package's (DEEP_BF16_JAX_OUTER), the contraction over each two
+    consecutive outer steps below DEEP_BF16_PAIR_RATIO, every ratio
+    logged.  Rows 1-2 (their bf16
     forms in
     [deep-bf16]) must run once per gated level and inner cycle, and no
     other kernel.  Returns their launches in the kernel run."""
@@ -3347,14 +3358,15 @@ def phase_deep(torch, kernels, device, card, bf16=False):
     if bf16:
         h = r1.residuals
         ratios = np.asarray([y / x for x, y in zip(h, h[1:])])
-        mean = (h[-1] / h[0]) ** (1.0 / len(ratios))
+        pairs = ratios[1:] * ratios[:-1]
         log(f"[{tag}] outer ratios {np.array2string(ratios, precision=3)}, "
-            f"mean {mean:.3f}; plain versions: {r0.outer_iterations} outer "
-            f"steps; the JAX package's CPU: {DEEP_BF16_JAX_OUTER}")
-        check(mean < DEEP_BF16_MEAN_RATIO
+            f"over two steps {np.array2string(pairs, precision=4)}; plain "
+            f"versions: {r0.outer_iterations} outer steps; the JAX "
+            f"package's CPU: {DEEP_BF16_JAX_OUTER}")
+        check(len(pairs) and pairs.max() < DEEP_BF16_PAIR_RATIO
               and abs(r1.outer_iterations - r0.outer_iterations) <= 1
               and abs(r1.outer_iterations - DEEP_BF16_JAX_OUTER) <= 1,
-              f"[{tag}] mean ratio {mean:.3f}, outer counts "
+              f"[{tag}] two-step ratios {pairs}, outer counts "
               f"{r1.outer_iterations} / {r0.outer_iterations} / JAX "
               f"{DEEP_BF16_JAX_OUTER} within 1")
     else:

@@ -511,21 +511,31 @@ class _Plans:
     post_by_smoother: Dict[int, dict]
 
 
-def _const5_leg_gate(u, row_only) -> bool:
-    """The gate of a constant 5-point 2D leg: rows 1-2, which take
-    bfloat16 storage, or their row-only forms (rows 6-7)."""
-    return transfer.supports(u, "rowlegs" if row_only else "legs")
+#: the rows of the row-only 2D legs and of the variable-coefficient legs,
+#: which their gates' refusal of bfloat16 names
+ROW_LEG_ROWS = ("rows 6-7 (presmooth_residual_rowrestrict, "
+                "prolong_correct_postsmooth)")
+VAR_LEG_ROWS = ("rows 12-13 (presmooth_residual_restrict_var, "
+                "prolong_correct_postsmooth_var)")
+#: the legs' gates by scalar signature, taking the level and whether the
+#: leg runs row-only: the legs with both transfer axes (rows 1-2) take
+#: bfloat16 storage, their row-only forms do not
+_LEG_GATES = {
+    "const5": lambda u, row_only: transfer.supports(
+        u, ROW_LEG_ROWS if row_only else transfer.LEG_ROWS),
+    "var5": lambda u, row_only: transfer.supports(u, VAR_LEG_ROWS),
+    "const7": lambda u, row_only: wavefront3d.supports(u)}
 
 
-def _var5_leg_gate(u, row_only) -> bool:
-    """The gate of a variable-coefficient leg (rows 12-13; never
-    row-only)."""
-    return transfer.supports(u, "var_legs")
-
-
-def _const7_leg_gate(u, row_only) -> bool:
-    """The gate of a constant 7-point 3D leg (rows 22-23)."""
-    return wavefront3d.supports(u)
+def _damped(omega, c):
+    """``omega * c`` as the JAX lowering computes it: there ``omega`` is an
+    element of the float32 omegas array, which promotes a bfloat16 field
+    to float32, so that a level the bf16 legs do not take computes in
+    float32 from the storage's values; a 0-d torch tensor does not
+    promote."""
+    if c.dtype == torch.bfloat16 and torch.is_tensor(omega):
+        c = c.to(torch.promote_types(c.dtype, omega.dtype))
+    return omega * c
 
 
 def _is_smoother(corr) -> bool:
@@ -580,9 +590,9 @@ class _Lowering:
         self._super_results: Dict[int, object] = {}
         # the standalone kernels: the sweeps by dimension, gate and
         # red-black-ness, the transfers by dimension; per scalar signature
-        # the legs: (gate, down-leg, up-leg, pre-sweeps, post-sweeps), None
-        # sweeps taking any count the leg accepts, the gate taking the level
-        # and whether the leg runs row-only; the row-only const5 legs
+        # the legs: (down-leg, up-leg, pre-sweeps, post-sweeps), None
+        # sweeps taking any count the leg accepts (their gates in
+        # _LEG_GATES); the row-only const5 legs
         # (down-leg, up-leg); and the system legs (down-leg, up-leg)
         if use_kernels:
             self._sweeps = {True: rbgs.fused_rbgs_sweep,
@@ -607,16 +617,13 @@ class _Lowering:
             self._row_legs = (transfer.presmooth_residual_rowrestrict,
                               transfer.prolong_correct_postsmooth)
             self._legs = {
-                "const5": (_const5_leg_gate,
-                           transfer.presmooth_residual_restrict,
+                "const5": (transfer.presmooth_residual_restrict,
                            transfer.prolong_correct_postsmooth_col,
                            None, None),
-                "var5": (_var5_leg_gate,
-                         rbgs_var.presmooth_residual_restrict_var,
+                "var5": (rbgs_var.presmooth_residual_restrict_var,
                          rbgs_var.prolong_correct_postsmooth_var,
                          None, None),
-                "const7": (_const7_leg_gate,
-                           wavefront3d.downleg_wavefront_3d,
+                "const7": (wavefront3d.downleg_wavefront_3d,
                            wavefront3d.upleg_wavefront_3d, 2, 1)}
         else:
             self._sweeps = {True: rbgs.fused_rbgs_sweep_plain,
@@ -642,16 +649,13 @@ class _Lowering:
                 transfer.presmooth_residual_rowrestrict_plain,
                 transfer.prolong_correct_postsmooth_plain)
             self._legs = {
-                "const5": (_const5_leg_gate,
-                           transfer.presmooth_residual_restrict_plain,
+                "const5": (transfer.presmooth_residual_restrict_plain,
                            transfer.prolong_correct_postsmooth_col_plain,
                            None, None),
-                "var5": (_var5_leg_gate,
-                         rbgs_var.presmooth_residual_restrict_var_plain,
+                "var5": (rbgs_var.presmooth_residual_restrict_var_plain,
                          rbgs_var.prolong_correct_postsmooth_var_plain,
                          None, None),
-                "const7": (_const7_leg_gate,
-                           wavefront3d.downleg_wavefront_3d_plain,
+                "const7": (wavefront3d.downleg_wavefront_3d_plain,
                            wavefront3d.upleg_wavefront_3d_plain, 2, 1)}
 
     def bind(self, u_fields, b_fields):
@@ -768,7 +772,7 @@ class _Lowering:
         if fused is not None:
             return fused
         c = self.eval_function(cycle.correction)
-        return tuple(xi + omega * ci for xi, ci in zip(x, c))
+        return tuple(xi + _damped(omega, ci) for xi, ci in zip(x, c))
 
     def _red_black_sweep(self, cycle: base.Cycle, x, omega):
         """Red half-sweep, then black with refreshed red values
@@ -783,7 +787,7 @@ class _Lowering:
         def half(u, color):
             r = tuple(bi - ai for bi, ai in zip(b, self.apply_operator(A, u)))
             c = self.apply_operator(inverse_op, r)
-            return tuple(ui + omega * m[color] * ci
+            return tuple(ui + _damped(omega, m[color] * ci)
                          for ui, ci, m in zip(u, c, masks))
 
         return half(half(x, 0), 1)
@@ -849,8 +853,8 @@ class _Lowering:
             for mask in masks:
                 r = b - (ops.apply_stencil(st, u) + gen.nonlinear_term(u))
                 step = r / denom(u)
-                u = u + (omega * step if mask is None
-                         else omega * mask * step)
+                u = u + _damped(omega, step if mask is None
+                                else mask * step)
         return (u,)
 
     # -- standalone kernels (ops/kernels/rbgs.py, transfer.py) ---------------
@@ -1116,7 +1120,8 @@ class _Lowering:
         if taps is None:
             return None
         x = self.eval_function(res.approximation)
-        if len(x) != 1 or not transfer.supports(x[0], "residual_restrict"):
+        if len(x) != 1 or not transfer.supports(x[0],
+                                                "row 4 (residual_restrict)"):
             return None
         b = self.eval_function(res.rhs)
         return (self._residual_restrict(x[0].contiguous(), b[0].contiguous(),
@@ -1152,7 +1157,8 @@ class _Lowering:
             return None
         if len(x) == 1 and x[0].ndim == 3:
             return self._try_fused_prolong_correct_3d(cycle, x[0], P, corr)
-        if len(x) != 1 or not transfer.supports(x[0], "prolong_correct"):
+        if len(x) != 1 or not transfer.supports(x[0],
+                                                "row 5 (prolong_correct)"):
             return None
         taps = transfer_three_tap(P)
         if taps is None:
@@ -1197,7 +1203,8 @@ class _Lowering:
             self._super_results[key] = result
             return result
         result = None
-        supports, down, _, n_pre, _ = self._legs[plan["kind"]]
+        supports = _LEG_GATES[plan["kind"]]
+        down, _, n_pre, _ = self._legs[plan["kind"]]
         row_only = self._row_only(plan)
         if plan["taps"] is not None and row_only is not None and \
                 n_pre in (None, len(plan["sweeps"])):
@@ -1302,7 +1309,8 @@ class _Lowering:
         :1173-1247)."""
         if plan["kind"] == "sys9":
             return self._run_post_fusion_sys(plan)
-        supports, _, up, _, n_post = self._legs[plan["kind"]]
+        supports = _LEG_GATES[plan["kind"]]
+        _, up, _, n_post = self._legs[plan["kind"]]
         row_only = self._row_only(plan)
         if plan["taps"] is None or row_only is None or \
                 n_post not in (None, len(plan["sweeps"])):
@@ -1316,6 +1324,9 @@ class _Lowering:
         if len(e) != 1 or tuple(e[0].shape) != \
                 tuple((n - 1) // 2 for n in x[0].shape):
             return None
+        # the coarse levels compute a bf16 cycle's correction in float32
+        # (_damped); the leg takes it in its storage (lower.py:1224-1242)
+        e = (e[0].to(x[0].dtype),)
         b = self.eval_function(plan["rhs"])
         ids = [cgc.global_id] + \
             [c.global_id for c in reversed(plan["sweeps"])]
@@ -1614,15 +1625,14 @@ class _Lowering:
             raise NotImplementedError(
                 f"CoarseGridSolver of {n} unknowns needs CG, not ported yet")
 
-        def build():
-            # the fields' dtype, complex if the inverse is
-            # (lower.py:1725-1731)
-            inv = dense_inverse(op)
-            dtype = ops.complex_dtype(self.dtype) if np.iscomplexobj(inv) \
-                else self.dtype
-            return torch.as_tensor(inv, dtype=dtype, device=self.device)
-        inv = self._constant(("dense", id(op)), build)
-        flat = torch.cat([f.reshape(-1) for f in fields]).to(inv.dtype)
+        # the fields' dtype, complex if the inverse is (lower.py:1725-1731)
+        inv = self._of_node("dense", op, lambda: dense_inverse(op))
+        flat = torch.cat([f.reshape(-1) for f in fields])
+        dtype = ops.complex_dtype(flat.dtype) if np.iscomplexobj(inv) \
+            else flat.dtype
+        inv = self._constant(("dense", id(op), dtype), lambda: torch.as_tensor(
+            inv, dtype=dtype, device=self.device))
+        flat = flat.to(dtype)
         y = inv @ flat
         out, o = [], 0
         for f in fields:

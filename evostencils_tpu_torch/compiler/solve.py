@@ -141,7 +141,8 @@ def make_cycle_loop(lowered: LoweredCycle, n_cycles: int):
     def run(u_fields, b_fields, omegas):
         u = u_fields[0]
         if (not config.loop_fusion or plan is None or n_cycles < 1
-                or len(u_fields) != 1 or not transfer.supports(u, "passes")
+                or len(u_fields) != 1 or not transfer.supports(
+                    u, "rows 3 and 8 (upleg_downleg_col, upleg_downleg_fused)")
                 or not 1 <= len(plan.om_pre_ids) <= transfer.MAX_SWEEPS
                 or not 1 <= len(plan.om_post_ids) <= transfer.MAX_SWEEPS):
             return run_generic(u_fields, b_fields, omegas)

@@ -173,8 +173,10 @@ def leg_supports(fields, exc=(), exc_minv=()) -> bool:
     :1190-1193) and F >= 2 fields of one shape and dtype; on a CUDA device
     as :func:`supports`."""
     u = fields[0]
-    return (_same_fields(fields) and transfer.supports(u, "sys_legs")
-            and _card_takes(u, len(fields), exc, exc_minv))
+    return (_same_fields(fields) and transfer.supports(
+        u, "rows 15-16 (presmooth_residual_restrict_sys, "
+           "prolong_correct_postsmooth_sys)")
+        and _card_takes(u, len(fields), exc, exc_minv))
 
 
 # ---------------------------------------------------------------------------

@@ -141,7 +141,7 @@ def supports(u: torch.Tensor, c_stack) -> bool:
     lies on a CUDA device (the plain versions on the CPU take any float
     type); bfloat16, which the JAX gate admits, raises
     NotImplementedError.  The legs take the level set of
-    ``transfer.supports(u, "var_legs")``."""
+    ``transfer.supports``."""
     if not (c_stack is not None and u.ndim == 2
             and u.shape[0] >= MIN_ROWS and u.shape[1] >= MIN_COLS
             and u.shape[0] > BLOCK_ROWS):

@@ -200,7 +200,8 @@ def leg_info(leg: str, sweeps: int, window: int,
     ``dtype``: float32, or bfloat16 for "down" and "up"):
     ``_build.info``'s tile, halo, threads, occupancy, spills and shared
     memory.  Needs the card."""
-    entry = "es_transfer_leg_info" + _BF16_SUFFIX.get(dtype, "")
+    entry = "es_transfer_leg_info" + (
+        "_bf16" if dtype == torch.bfloat16 else "")
     return _build.info(entry, f"{leg} for S = {sweeps}, window {window}, "
                        f"{dtype}", _FORMS[leg], int(sweeps), int(window))
 
@@ -218,42 +219,30 @@ def three_tap(vectors, radii) -> Optional[Tuple[Tuple[float, ...], ...]]:
     return tuple(taps)
 
 
-#: The kernels behind :func:`supports`, by the name a caller gives, with
-#: their rows of the port's kernel table.  The legs with both transfer
-#: axes ("legs") take bfloat16 storage; the others have no bf16 form.
-GATED = {"legs": "rows 1-2 (presmooth_residual_restrict, "
-                 "prolong_correct_postsmooth_col)",
-         "passes": "rows 3 and 8 (upleg_downleg_col, upleg_downleg_fused)",
-         "residual_restrict": "row 4 (residual_restrict)",
-         "prolong_correct": "row 5 (prolong_correct)",
-         "rowlegs": "rows 6-7 (presmooth_residual_rowrestrict, "
-                    "prolong_correct_postsmooth)",
-         "var_legs": "rows 12-13 (rbgs_var.presmooth_residual_restrict_var, "
-                     "rbgs_var.prolong_correct_postsmooth_var)",
-         "sys_legs": "rows 15-16 (rbgs_sys.presmooth_residual_restrict_sys, "
-                     "rbgs_sys.prolong_correct_postsmooth_sys)"}
-#: the C entries of the bf16-storage legs, by the name's suffix
-_BF16_SUFFIX = {torch.bfloat16: "_bf16"}
+#: The rows of the port's kernel table that take bfloat16 storage: the
+#: legs with both transfer axes.  The other kernels behind
+#: :func:`supports` name their rows to it.
+LEG_ROWS = ("rows 1-2 (presmooth_residual_restrict, "
+            "prolong_correct_postsmooth_col)")
 
 
-def supports(u: torch.Tensor, kernel: str = "legs") -> bool:
-    """Whether a level runs the windowed 2D kernel ``kernel`` (a key of
-    ``GATED``): a 2D grid with at least 129 rows and 128 columns, odd on
-    both axes, and float32 when it lies on a CUDA device (the plain
-    versions on the CPU take any float type).  A complex field takes the
-    generic lowering on every device, as under the JAX gate
-    (transfer.py:590-595).  bfloat16, which the JAX gate admits for every
-    kernel, runs the legs with both transfer axes on every device; at
-    any other kernel of this gate it raises NotImplementedError."""
-    if kernel not in GATED:
-        raise ValueError(f"kernel {kernel!r} is none of {sorted(GATED)}")
+def supports(u: torch.Tensor,
+             rows: str = "a windowed 2D kernel with no bf16 form") -> bool:
+    """Whether a level runs a windowed 2D kernel: a 2D grid with at least
+    129 rows and 128 columns, odd on both axes, and float32 when it lies on
+    a CUDA device (the plain versions on the CPU take any float type).  A
+    complex field takes the generic lowering on every device, as under the
+    JAX gate (transfer.py:590-595).  bfloat16, which the JAX gate admits
+    for every kernel, runs the kernel of ``rows`` only where that is
+    LEG_ROWS, on every device; at any other kernel (by default) it raises
+    NotImplementedError naming ``rows``."""
     if u.ndim != 2 or u.is_complex():
         return False
     n, m = u.shape
     if n < MIN_ROWS or m < MIN_COLS or n % 2 == 0 or m % 2 == 0:
         return False
-    if kernel != "legs":
-        _build.refuse_bf16(u, GATED[kernel], "transfer.py:590")
+    if rows != LEG_ROWS:
+        _build.refuse_bf16(u, rows, "transfer.py:590")
     return u.device.type == "cpu" or u.dtype in (torch.float32,
                                                   torch.bfloat16)
 
@@ -438,9 +427,10 @@ def _leg_storage(u, *fields):
     """Check the card tensors of a leg with both transfer axes: ``u`` and
     ``fields`` contiguous, all float32 or all bfloat16.  Returns the C
     entry's suffix of that storage type ("" or "_bf16")."""
-    dtype = torch.bfloat16 if u.dtype == torch.bfloat16 else torch.float32
-    _build.check_card_tensors(u, *fields, dtype=dtype)
-    return _BF16_SUFFIX.get(dtype, "")
+    bf16 = u.dtype == torch.bfloat16
+    _build.check_card_tensors(u, *fields,
+                              dtype=torch.bfloat16 if bf16 else torch.float32)
+    return "_bf16" if bf16 else ""
 
 
 def presmooth_residual_restrict(u: torch.Tensor, b: torch.Tensor,

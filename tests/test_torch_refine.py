@@ -191,21 +191,27 @@ def _spec(shape, dtype):
 #: it admits no bf16, a shape every gate admits in float32)
 GATES = {
     "passes": ("rows 3 and 8",
-               lambda u: ttransfer.supports(u, "passes"),
+               lambda u: ttransfer.supports(
+                   u, "rows 3 and 8 (upleg_downleg_col, upleg_downleg_fused)"),
                ptransfer.supports, (255, 255)),
     "residual_restrict": ("row 4",
-                          lambda u: ttransfer.supports(u, "residual_restrict"),
+                          lambda u: ttransfer.supports(
+                              u, "row 4 (residual_restrict)"),
                           ptransfer.supports, (255, 255)),
     "prolong_correct": ("row 5",
-                        lambda u: ttransfer.supports(u, "prolong_correct"),
+                        lambda u: ttransfer.supports(
+                            u, "row 5 (prolong_correct)"),
                         ptransfer.supports, (255, 255)),
-    "rowlegs": ("rows 6-7", lambda u: ttransfer.supports(u, "rowlegs"),
+    "default": ("no bf16 form", ttransfer.supports, ptransfer.supports,
+                (255, 255)),
+    "rowlegs": ("rows 6-7", lambda u: tlower._LEG_GATES["const5"](u, True),
                 ptransfer.supports, (255, 255)),
     "rbgs": ("rows 9-10", lambda u: trbgs.supports(u, VALS),
              lambda s: prbgs.supports(s, VALS), (255, 255)),
     "rbgs_var": ("row 11", lambda u: trbgs_var.supports(u, True),
                  lambda s: prbgs_var.supports(s, True), (255, 255)),
-    "var_legs": ("rows 12-13", lambda u: ttransfer.supports(u, "var_legs"),
+    "var_legs": ("rows 12-13",
+                 lambda u: tlower._LEG_GATES["var5"](u, False),
                  ptransfer.supports, (255, 255)),
     "rbgs_sys": ("row 14", lambda u: trbgs_sys.supports((u, u), True),
                  lambda s: prbgs_sys.supports((s, s), True), (255, 255)),
@@ -242,12 +248,13 @@ def test_bf16_refused_at_every_other_gate(gate):
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_bf16_admitted_at_the_legs(device):
     """The 2D legs (rows 1-2) take bf16 on every device, at the float32
-    level set, as the JAX gate does (transfer.py:590-595)."""
+    level set, as the JAX gate does (transfer.py:590-595); the transfer
+    gate admits it only when its caller names these rows."""
     for n in (255, 129, 127, 63):
         want = ptransfer.supports(_spec((n, n), jnp.bfloat16))
         u = torch.empty((n, n), dtype=torch.bfloat16, device=device)
-        assert ttransfer.supports(u) == want == (n >= 129)
-        assert ttransfer.supports(u, "legs") == want
+        assert ttransfer.supports(u, ttransfer.LEG_ROWS) == want == (n >= 129)
+        assert tlower._LEG_GATES["const5"](u, False) == want
 
 
 def _counting(mp, entries, counts):
@@ -501,6 +508,31 @@ def test_poisson_to_1e12_with_bf16_cycles(levels):
     assert abs(rt.outer_iterations - rj.outer_iterations) <= 2
     for h in (rt.residuals, rj.residuals):
         assert max(b / a for a, b in zip(h, h[1:])) < 0.2
+
+
+@pytest.mark.parametrize("levels", [(6, 3), (7, 3)])
+def test_bf16_generic_levels_compute_as_jax(levels):
+    """At 63^2 and 127^2 no kernel gate admits a level, so each package
+    runs its bfloat16 cycles through its generic lowering, where the JAX
+    package's float32 omegas promote the bf16 fields to float32 (a 0-d
+    torch tensor would not; the port widens them, ``lower._damped``).
+    Then the port's outer count equals the JAX package's, and its first
+    two corrections leave residuals within 1e-2 relative of the JAX
+    ones (computed in bf16 arithmetic, the port took 9 and 10 outer steps
+    against 7, 0.18 and 0.28 apart after the first correction); later
+    entries carry each package's own bf16 roundings."""
+    pj, lj = _jax_poisson(*levels)
+    pt, lt = _port_poisson(*levels)
+    bj, bt = _both_rhs(pj, pt)
+    options = dict(inner_cycles=3, max_outer=16, target_reduction=1e-12)
+    rj = jrefine.make_refined_solver(lj, inner_dtype=jnp.bfloat16,
+                                     **options)(bj)
+    rt = trefine.make_refined_solver(lt, inner_dtype=torch.bfloat16,
+                                     **options)(bt)
+    assert rj.converged and rt.converged
+    assert rt.outer_iterations == rj.outer_iterations
+    hj, ht = _relative(rj), _relative(rt)
+    assert np.all(np.abs(ht[1:3] - hj[1:3]) <= 1e-2 * hj[1:3]), (ht, hj)
 
 
 def test_fas_to_1e10_with_f32_cycles():

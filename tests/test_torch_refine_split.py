@@ -164,7 +164,7 @@ def jax_reliable_iterations(k, levels=(7, 3)):
     port's [deep-split] on the card to it:
 
         JAX_PLATFORMS=cpu python -c 'from tests.test_torch_refine_split
-        import jax_reliable_iterations as f; print(f(80.0), f(160.0))'
+        import jax_reliable_iterations as f; print(f(80.0))'
     """
     from tests.test_refine_split import _setup_solver
     p = jhelmholtz.helmholtz_2d_split(*levels, k=k)
@@ -273,3 +273,33 @@ def test_reliable_matches_jax_iterations():
         tol=1e-7, maxiter=3000)
     assert hj[-1] <= 1e-7 and hist[-1] <= 1e-7
     assert abs(k - kj) <= 0.1 * kj, (k, kj)
+
+
+#: the [deep-split] solve: helmholtz_2d_split(7, 3) at k = 80, where the
+#: port's float32 reliable solve may take RELIABLE_JAX_FACTOR times the
+#: JAX package's iterations (296 on the CPU): its float32 recurrence
+#: rounds apart from the JAX one, and it took 333 iterations with one
+#: torch thread, 334 with two and 349 with four on the CPU, and 367 on an
+#: H100 (chip_smoke.py holds it there to the same factor)
+RELIABLE_K, RELIABLE_JAX_FACTOR = 80.0, 1.3
+
+
+def test_reliable_at_k80_against_jax():
+    """The reliable solve of [deep-split] against the JAX package's on
+    the CPU, on the same float32 b: both reach a true 1e-7, the port's
+    recomputed in float64 from its solution within TRUE_TOL, and its
+    iterations within RELIABLE_JAX_FACTOR of the JAX package's."""
+    k_jax = jax_reliable_iterations(RELIABLE_K)
+    p = thelmholtz.helmholtz_2d_split(7, 3, k=RELIABLE_K)
+    mv, pc, b = _solver(p, torch.float32)
+    op = p.outer_solver.operator
+    x, k, hist = trs.reliable_bicgstab_split(
+        mv, pc, trs.split_system_residual_f64(op), b, tol=1e-7,
+        maxiter=p.outer_solver.max_iterations)
+    b64 = build_rhs(p, dtype=torch.float64, device="cpu")
+    ax = tlower.operator_applier(op)(x)
+    true = np.sqrt(sum(float(torch.sum((bi - ai) ** 2))
+                       for bi, ai in zip(b64, ax))
+                   / sum(float(torch.sum(bi ** 2)) for bi in b64))
+    assert hist[-1] <= 1e-7 and true <= TRUE_TOL, (hist[-1], true)
+    assert abs(k - k_jax) <= (RELIABLE_JAX_FACTOR - 1) * k_jax, (k, k_jax)
