@@ -291,11 +291,33 @@ Phases:
    package's CPU count of the same float32 solve (the count is
    rounding-bound), the float64-basis solve's at most 1.15 times
    [helm-split]'s float64 count + 10; no kernel launch;
-36. check that neither jax nor the JAX package was imported.
+36. [chunked] a level-chunked program on the card: poisson_2d(10, 5)
+   (1023^2) with the reference RB V(2,1) at omega 1.15, lowered whole and
+   split as --levels-per-run 3 splits it (chunk 0 on 1023^2, 511^2, 255^2;
+   chunk 1 on 127^2 and 63^2 over the dense 31^2 solve) and composed
+   (``lower_composed``): CHUNKED_CYCLES chained cycles of each must launch
+   the same kernels the same number of times (rows 1-2 three times a
+   cycle) with residual histories within CHUNKED_HIST_RTOL, and the
+   composed program's solve to 1e-5 with the kernels and the plain
+   versions as phase 6; ms a cycle of both;
+37. [cg] chunk 0 of --levels-per-run 2 on the same hierarchy alone,
+   1023^2 and 511^2 over a CG solve of 255^2 (65,025 unknowns, above
+   DIRECT_SOLVE_MAX): its solve to 1e-5 as phase 6, CG iterations and host
+   syncs a coarse solve, one CG solve alone timed, ms a cycle; then the
+   V(2,1) whose coarse solve is CG_KRYLOV_ITERATIONS fixed CG iterations
+   (``v_cycle(coarse_krylov="CG")``) against the dense coarse solve's, at
+   most one cycle more to 1e-5 (tests/test_krylov.py:99-131);
+38. [evolve-chunked] ``poisson2d NSGAII --mu 2 --lambda 2 --generations 1
+   --seed 0`` with EVOLVE_CHUNKED_OPTIONS (levels 8 -> 4 in chunks of 2,
+   the chunk boundary a dense 63^2 solve), timing protocol off; the best
+   composed program, rebuilt from the chunk strings
+   (``evaluate_chunked_program``), must converge, and so must the
+   ``evaluate_evolved_solver`` twin's measurement of best_grammar.txt;
+39. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
-6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26, 27 to 31 and 32
-to 35, each deep solve) and read just after.  Each phase prints
+6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26, 27 to 31, 32
+to 35, each deep solve, and 36 to 38, each program) and read just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -2229,19 +2251,29 @@ def phase_main_path(torch, kernels, device, card, path):
 def phase_solve(torch, device, path):
     """make_solver to 1e-5 with the kernels and with the plain versions."""
     from evostencils_tpu_torch.compiler.lower import lower_cycle
-    from evostencils_tpu_torch.compiler.solve import make_solver
     from evostencils_tpu_torch.problems.poisson import build_rhs
 
     label = PATHS[path][0]
     max_it = SOLVE_MAX_ITERATIONS.get(path, 20)
     problem, cycle = v21(path)
     b = build_rhs(problem, dtype=torch.float32, device=device)
+    compare_solves(torch, label, b, max_it, lambda use_kernels: lower_cycle(
+        cycle, problem.approximation, problem.rhs_entity,
+        use_kernels=use_kernels))
+
+
+def compare_solves(torch, label, b, max_it, lower):
+    """make_solver to 1e-5 from zero of ``lower(use_kernels)`` with the
+    kernels and with the plain versions: equal iterations, histories within
+    1e-3 above the float32 floor.  Returns the kernels' (iterations,
+    relative history)."""
+    from evostencils_tpu_torch.compiler.solve import make_solver
+
     runs = {}
     for use_kernels in (True, False):
-        lowered = lower_cycle(cycle, problem.approximation,
-                              problem.rhs_entity, use_kernels=use_kernels)
+        lowered = lower(use_kernels)
         omegas = torch.tensor(lowered.default_omegas, dtype=torch.float32,
-                              device=device)
+                              device=b[0].device)
         u0 = tuple(torch.zeros_like(x) for x in b)
         _, k, hist = make_solver(lowered, max_it, 1e-5)(u0, b, omegas)
         hist = hist[:k + 1].double().cpu().numpy()
@@ -2268,6 +2300,7 @@ def phase_solve(torch, device, path):
         f"(1e-5 ||b||), {rel.max():.3e} overall")
     check(np.all(np.abs(h1 - h0) <= 1e-3 * h0 + floor),
           f"{label} residual histories (rtol 1e-3 above 1e-5 ||b||)")
+    return k1, h1 / h1[0]
 
 
 def set_switches(loop_fusion, fused_columns):
@@ -3138,6 +3171,8 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
         return result
 
     out_dir = ROOT / "evo_output" / "chip_smoke" / problem_name
+    if "--levels-per-run" in options:
+        out_dir = out_dir.with_name(problem_name + "-chunked")
     argv = [problem_name, "NSGAII", "--mu", str(EVOLVE_POPULATION),
             "--lambda", str(EVOLVE_POPULATION), "--generations", "1",
             "--seed", str(seed), *options,
@@ -3191,23 +3226,40 @@ def phase_evolve(torch, kernels, problem_name, tag, names=(),
             else None
     problem = budgeted(problem_name, level("--max-level"),
                        level("--min-level"))
-    pset = generate_primitive_set(
-        problem.approximation, problem.rhs_entity, problem.level_contexts,
-        problem.coarsest_operator, FAS=problem.nonlinear_term is not None,
-        coupled_fields=problem.coupled_fields)[0]
-    best = result["grammar_string"]
-    individual = gp.parse_tree(best, pset)
-    check(str(individual) == best, "the best individual re-parses")
-    expr = gp.compile_tree(individual, pset)[0]
-    transformations.assign_cycle_ids(expr)
     evaluator = CycleEvaluator(problem, dtype=np.float32, device="cuda")
     evaluator.timing_enabled = False
-    res = evaluator.evaluate_expression(expr)
-    log(f"[{tag}] best individual ({len(individual)} nodes) re-evaluated: "
+    levels_per_run = level("--levels-per-run")
+    if levels_per_run is not None:
+        # a level-chunked run: its chunks' best strings (finest first)
+        # rebuild the composed program, measured on the finest grid
+        from evostencils_tpu_torch.optimization.program import Optimizer
+        chunks = result["chunk_grammar_strings"]
+        check(len(chunks) == len(range(0, problem.max_level
+                                       - problem.min_level, levels_per_run))
+              and chunks[-1] == result["grammar_string"],
+              f"[{tag}] one best string a chunk")
+        expr, res = Optimizer(problem, evaluator=evaluator) \
+            .evaluate_chunked_program(chunks, levels_per_run=levels_per_run)
+        what = f"{len(chunks)} chunks"
+    else:
+        pset = generate_primitive_set(
+            problem.approximation, problem.rhs_entity,
+            problem.level_contexts, problem.coarsest_operator,
+            FAS=problem.nonlinear_term is not None,
+            coupled_fields=problem.coupled_fields)[0]
+        best = result["grammar_string"]
+        individual = gp.parse_tree(best, pset)
+        check(str(individual) == best, "the best individual re-parses")
+        expr = gp.compile_tree(individual, pset)[0]
+        transformations.assign_cycle_ids(expr)
+        res = evaluator.evaluate_expression(expr)
+        what = f"{len(individual)} nodes"
+    log(f"[{tag}] best individual ({what}) re-evaluated: "
         f"rho {res.convergence_factor:.5f}, {res.iterations:.0f} iterations; "
         f"{sum(finite)} of {len(finite)} evaluations of the run converged")
     check(np.isfinite(res.iterations) and res.iterations < evaluator.infinity
           and res.convergence_factor < 1, "the best individual converges")
+    return out_dir
 
 
 #: [deep] / [deep-bf16]: the deep solves' 2D Poisson hierarchy, levels
@@ -3497,6 +3549,288 @@ def phase_deep_split(torch, kernels, device, card, split_iterations):
           f"kernels launched on [deep-split]: {counts}")
 
 
+#: [chunked] / [cg]: 2D Poisson at 1023^2, levels 10 -> 5 (the [evaluator]
+#: hierarchy), the reference RB V(2,1) at omega 1.15, whole and split as a
+#: level-chunked run with --levels-per-run 3 splits it: chunk 0 on 1023^2,
+#: 511^2 and 255^2 over the 127^2 boundary, chunk 1 on 127^2 and 63^2 over
+#: the dense 31^2 solve
+CHUNKED_LEVELS, CHUNKED_LEVELS_PER_RUN = (10, 5), 3
+#: chained cycles of each program ([chunked]) and the relative agreement of
+#: their residual histories: the composed program is the whole cycle's
+#: arithmetic, so the same kernels and torch operations in the same order
+CHUNKED_CYCLES, CHUNKED_HIST_RTOL = 20, 1e-6
+#: the timed batches' order, so that a drift of the host hits both
+CHUNKED_TURNS = ("whole", "composed", "composed", "whole", "whole",
+                 "composed")
+#: [cg]: chunk 0 of --levels-per-run 2 on 10 -> 5, 1023^2 and 511^2 over a
+#: CG solve of 255^2 (65,025 unknowns, above DIRECT_SOLVE_MAX), and its
+#: chained cycles timed; the fixed CG coarse solve of tests/test_krylov.py:
+#: 99-131 at 1023^2 (300 iterations on the 31^2 level)
+CG_LEVELS_PER_RUN, CG_TIMED_CYCLES, CG_KRYLOV_ITERATIONS = 2, 2, 300
+#: [evolve-chunked]: the CLI's chunked run (scripts/optimize.py
+#: --levels-per-run), levels 8 -> 4 in chunks of 2: 255^2 and 127^2 over the
+#: dense 63^2 boundary (3,969 unknowns), then 63^2 and 31^2 over 15^2
+EVOLVE_CHUNKED_OPTIONS = ("--levels-per-run", "2", "--max-level", "8",
+                          "--min-level", "4")
+
+
+def chunk_split(problem, levels_per_run, omega=1.15):
+    """(chain, (candidate, approximation, rhs)) of the RB V(2,1) on
+    ``problem`` split into chunks of ``levels_per_run`` levels, each chunk
+    over the entities the optimizer gives it
+    (``optimization.program._chunk_entities``)."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.compiler.lower import ChainLink
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.optimization import program
+
+    contexts = problem.level_contexts
+    links = []
+    for ci, i in enumerate(range(0, len(contexts), levels_per_run)):
+        ctxs = contexts[i:i + levels_per_run]
+        _, rhs = program._chunk_entities(problem, ctxs, ci == 0)
+        cycle = v_cycle(ctxs, rhs, pre_smoothing=2, post_smoothing=1,
+                        omega=omega, partitioning=part.RedBlack,
+                        coarse_operator=program._chunk_coarsest(
+                            problem, contexts, i, levels_per_run))
+        # v_cycle starts from the chunk's finest approximation, the
+        # problem's own in chunk 0
+        links.append(ChainLink(cycle, ctxs[0].approximation, rhs))
+    return links[:-1], (links[-1].root, links[-1].approximation,
+                        links[-1].rhs)
+
+
+def chained_cycles(torch, kernels, lowered, b, n_cycles):
+    """``n_cycles`` chained steps from zero with the counts set to 0 just
+    before: (launches, the residual after each cycle relative to ||b||)."""
+    from evostencils_tpu_torch.compiler.solve import residual_norm_fn
+    res_norm = residual_norm_fn(lowered.operator)
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                      device=b[0].device)
+    u = tuple(torch.zeros_like(x) for x in b)
+    hist = []
+    reset(kernels)
+    for _ in range(n_cycles):
+        u = lowered.step(u, b, om)
+        hist.append(res_norm(u, b))
+    counts = {k: n for k, n in counts_of(kernels).items() if n}
+    bnorm = float(torch.linalg.vector_norm(b[0].double()))
+    return counts, torch.stack(hist).double().cpu().numpy() / bnorm
+
+
+def cycle_ms(torch, lowered, b, n_cycles, u=None):
+    """(ms a cycle, by CUDA events, of ``n_cycles`` chained steps from
+    ``u`` or zero; the last state)."""
+    om = torch.tensor(lowered.default_omegas, dtype=torch.float32,
+                      device=b[0].device)
+    u = u or tuple(torch.zeros_like(x) for x in b)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_cycles):
+        u = lowered.step(u, b, om)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n_cycles, u
+
+
+def phase_chunked(torch, kernels, device, card):
+    """[chunked]: the composed program of a level-chunked run against the
+    whole cycle it splits, on the card: equal launches per kernel, residual
+    histories within CHUNKED_HIST_RTOL over CHUNKED_CYCLES chained cycles,
+    the composed program's kernels against their plain versions (solves
+    to 1e-5, as phase_solve); ms a cycle of each.  Returns the composed
+    program's launches over one batch."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.compiler.lower import (lower_composed,
+                                                      lower_cycle)
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
+
+    problem = poisson_2d(*CHUNKED_LEVELS)
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    whole = lower_cycle(v_cycle(
+        problem.level_contexts, problem.rhs_entity, pre_smoothing=2,
+        post_smoothing=1, omega=1.15, partitioning=part.RedBlack,
+        coarse_operator=problem.coarsest_operator), problem.approximation,
+        problem.rhs_entity)
+    chain, cand = chunk_split(problem, CHUNKED_LEVELS_PER_RUN)
+    sizes = [[tuple(ctx.grid[0].size)[0] for ctx in problem.level_contexts[
+        i:i + CHUNKED_LEVELS_PER_RUN]] for i in range(
+        0, len(problem.level_contexts), CHUNKED_LEVELS_PER_RUN)]
+    log(f"[chunked] poisson_2d{CHUNKED_LEVELS} RB V(2,1) in chunks of "
+        f"{CHUNKED_LEVELS_PER_RUN} levels: {sizes} over the dense "
+        f"{tuple(problem.coarsest_operator.grid[0].size)[0]}^2 solve")
+    composed = lower_composed(chain, *cand)
+    check(composed.cgs_override is not None and not composed.syncs_host,
+          "[chunked] the composed program splices its coarser chunk")
+    programs = {"whole": whole, "composed": composed}
+    out = {}
+    for name, lowered in programs.items():
+        out[name] = chained_cycles(torch, kernels, lowered, b,
+                                   CHUNKED_CYCLES)
+        counts, hist = out[name]
+        log(f"[chunked] {name}: launches {counts} over {CHUNKED_CYCLES} "
+            f"cycles; relative residuals "
+            f"{np.array2string(hist[::4], precision=3)} (every 4th)")
+    # timed batches in turns, whole and composed alternating
+    ms = {name: [] for name in programs}
+    state = {name: None for name in programs}
+    for name in CHUNKED_TURNS:
+        t, state[name] = cycle_ms(torch, programs[name], b, CHUNKED_CYCLES,
+                                  state[name])
+        ms[name].append(t)
+    log("[chunked] ms a cycle (median of " + str(len(ms["whole"]))
+        + f" batches of {CHUNKED_CYCLES} in turns {CHUNKED_TURNS}) on "
+        f"{card}: " + ", ".join(
+            f"{name} {statistics.median(v):.4f} ("
+            + " / ".join(f"{x:.4f}" for x in v) + ")"
+            for name, v in ms.items()))
+    (cw, hw), (cc, hc) = out["whole"], out["composed"]
+    gated = gated_levels(torch, problem.level_contexts)
+    check(cc == cw and cc.get("presmooth_residual_restrict") == gated
+          * CHUNKED_CYCLES,
+          f"[chunked] the composed program launches {cc}, the whole cycle "
+          f"{cw}")
+    rel = np.abs(hc - hw) / hw
+    log(f"[chunked] residual histories agree to {rel.max():.3e} relative "
+        f"(largest difference over {CHUNKED_CYCLES} cycles)")
+    check(np.all(np.isfinite(hc)) and rel.max() <= CHUNKED_HIST_RTOL,
+          f"[chunked] histories within {CHUNKED_HIST_RTOL}")
+    compare_solves(torch, "chunked", b, 20,
+                   lambda use_kernels: lower_composed(
+                       chain, *cand, use_kernels=use_kernels))
+    return cc
+
+
+def phase_cg(torch, kernels, device, card):
+    """[cg]: chunk 0 of a --levels-per-run 2 run on 10 -> 5 alone, its
+    coarse solve CG on 255^2: its cycles to 1e-5 with the kernels and the
+    plain versions (as phase_solve), CG iterations and host syncs a coarse
+    solve, ms a cycle; then the V(2,1) with a fixed 300-iteration CG coarse
+    solve (``v_cycle(coarse_krylov="CG")``) at 1023^2 against the dense
+    coarse solve's cycle (tests/test_krylov.py:99-131): at most one cycle
+    more to 1e-5.  Returns the launches of chunk 0's timed cycles."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.compiler.lower import (CG_MAXITER,
+                                                      CG_TOLERANCE,
+                                                      lower_cycle,
+                                                      operator_applier)
+    from evostencils_tpu_torch.config import DIRECT_SOLVE_MAX
+    from evostencils_tpu_torch.ir import base, transformations
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.ops import solvers
+    from evostencils_tpu_torch.problems.poisson import build_rhs, poisson_2d
+
+    problem = poisson_2d(*CHUNKED_LEVELS)
+    b = build_rhs(problem, dtype=torch.float32, device=device)
+    link = chunk_split(problem, CG_LEVELS_PER_RUN)[0][0]
+
+    def lower(use_kernels=True):
+        return lower_cycle(link.root, link.approximation, link.rhs,
+                           use_kernels=use_kernels)
+    lowered = lower()
+    (cgs,) = transformations.find_nodes(link.root, base.CoarseGridSolver)
+    n = int(np.prod(cgs.operator.grid[0].size))
+    sizes = "^2, ".join(str(ctx.grid[0].size[0]) for ctx in
+                        problem.level_contexts[:CG_LEVELS_PER_RUN])
+    log(f"[cg] chunk 0 alone: {sizes}^2 over a CG solve of {n} "
+        f"unknowns (tol {CG_TOLERANCE:g}, at most {CG_MAXITER} iterations, "
+        f"the test read every {solvers.CG_CHECK_EVERY})")
+    check(lowered.syncs_host and n > DIRECT_SOLVE_MAX,
+          "[cg] the coarse solve is CG")
+    solvers.reset_cg_counts()
+    compare_solves(torch, "cg", b, 20, lower)
+    counts = dict(solvers.cg_counts)
+    solves = counts["solves"]
+    log(f"[cg] {solves} CG coarse solves over both solves: "
+        f"{int(counts['iterations']) / solves:.1f} iterations and "
+        f"{counts['syncs'] / solves:.1f} host syncs a coarse solve")
+    check(solves > 0 and int(counts["iterations"]) > 0, "[cg] CG ran")
+    # one coarse solve alone, on a right-hand side from a seed
+    rc = torch.tensor(np.random.default_rng(0).standard_normal(
+        tuple(cgs.operator.grid[0].size)), dtype=torch.float32,
+        device=device)
+    matvec = operator_applier(cgs.operator)
+    for timed in (False, True):
+        solvers.reset_cg_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solvers.cg(matvec, (rc,), tol=CG_TOLERANCE, maxiter=CG_MAXITER)
+        torch.cuda.synchronize()
+    log(f"[cg] one CG solve of {n} unknowns from a seeded rhs: "
+        f"{int(solvers.cg_counts['iterations'])} iterations, "
+        f"{solvers.cg_counts['syncs']} host syncs, "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms (host clock, after one "
+        f"warm-up solve) on {card}")
+    launches, _ = chained_cycles(torch, kernels, lowered, b,
+                                 CG_TIMED_CYCLES)
+    solvers.reset_cg_counts()
+    ms, _ = cycle_ms(torch, lowered, b, CG_TIMED_CYCLES)
+    log(f"[cg] chunk 0: {ms:.4f} ms a cycle ({CG_TIMED_CYCLES} chained "
+        f"cycles after as many counted ones, each with its CG coarse solve: "
+        f"{int(solvers.cg_counts['iterations']) / CG_TIMED_CYCLES:.1f} "
+        f"iterations, {solvers.cg_counts['syncs'] / CG_TIMED_CYCLES:.1f} "
+        f"host syncs) on {card}; launches {launches}")
+    check(launches.get("presmooth_residual_restrict") == CG_TIMED_CYCLES
+          * gated_levels(torch, problem.level_contexts[:CG_LEVELS_PER_RUN]),
+          "[cg] rows 1-2 on each gated level of chunk 0 each cycle")
+    iterations = {}
+    for krylov in (None, "CG"):
+        cycle = v_cycle(problem.level_contexts, problem.rhs_entity,
+                        pre_smoothing=2, post_smoothing=1, omega=1.15,
+                        partitioning=part.RedBlack,
+                        coarse_operator=problem.coarsest_operator,
+                        coarse_krylov=krylov,
+                        coarse_krylov_iterations=CG_KRYLOV_ITERATIONS)
+        low = lower_cycle(cycle, problem.approximation, problem.rhs_entity)
+        k, hist = solve_history(torch, low, b, 20, 1e-5)
+        iterations[krylov] = k
+        ms, _ = cycle_ms(torch, low, b, CG_TIMED_CYCLES)
+        log(f"[cg] V(2,1) coarse {krylov or 'dense'}: {k} cycles to 1e-5, "
+            f"history {np.array2string(hist / hist[0], precision=3)}; "
+            f"{ms:.4f} ms a cycle ({CG_TIMED_CYCLES} chained after the "
+            f"solve) on {card}")
+    check(0 < iterations["CG"] <= iterations[None] + 1,
+          f"[cg] the fixed CG coarse solve's cycles {iterations}")
+    return launches
+
+
+def phase_evolve_chunked(torch, kernels, device, card):
+    """[evolve-chunked]: ``poisson2d NSGAII --mu 2 --lambda 2 --generations
+    1 --seed 0 --levels-per-run 2 --max-level 8 --min-level 4`` through
+    phase_evolve (timing protocol off), whose best composed program must
+    converge; then the evaluate_evolved_solver twin on its
+    best_grammar.txt, in float32 with the timing protocol at one
+    repetition."""
+    from evostencils_tpu_torch import evaluate_evolved_solver
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+
+    out_dir = phase_evolve(torch, kernels, "poisson2d", "evolve-chunked",
+                           STANDALONE + DEEP_LEGS, None,
+                           EVOLVE_CHUNKED_OPTIONS)
+    grammar = out_dir / "best_grammar.txt"
+    lines = grammar.read_text().split()
+    check(len(lines) == 2, f"[evolve-chunked] {len(lines)} chunk strings")
+    reps = CycleEvaluator.timing_reps
+    CycleEvaluator.timing_reps = EVOLVE_TIMING_REPS
+    t0 = time.perf_counter()
+    try:
+        res = evaluate_evolved_solver.main(
+            [str(grammar), "poisson2d", *EVOLVE_CHUNKED_OPTIONS[2:],
+             "--levels-per-run", EVOLVE_CHUNKED_OPTIONS[1], "--f32"])
+    finally:
+        CycleEvaluator.timing_reps = reps
+    log(f"[evolve-chunked] evaluate_evolved_solver on {grammar.name}: "
+        f"{res.iterations:.0f} iterations, rho {res.convergence_factor:.5f}, "
+        f"{res.time_to_convergence_ms:.3f} ms to convergence, "
+        f"{time.perf_counter() - t0:.1f} s (timing protocol at "
+        f"{EVOLVE_TIMING_REPS} repetition) on {card}")
+    check(np.isfinite(res.iterations) and res.iterations < 1e99
+          and res.convergence_factor < 1,
+          "[evolve-chunked] the twin's composed program converges")
+
+
 def main(argv=None):
     """Every phase, the ``kernels`` line and the result line; with
     ``--phases a,b,...`` (labels of the ``[time]`` lines) only the build
@@ -3638,6 +3972,15 @@ def main(argv=None):
             launches[kernel] = launches.get(kernel, 0) + count
     phase("deep-split", phase_deep_split, torch, kernels, device, card,
           split_iterations)
+    # level-chunked programs and the CG coarse solve: rows 1-2 add the
+    # composed program's and chunk 0's launches
+    for out in (phase("chunked", phase_chunked, torch, kernels, device,
+                      card),
+                phase("cg", phase_cg, torch, kernels, device, card)):
+        for kernel, count in out.items():
+            launches[kernel] = launches.get(kernel, 0) + count
+    phase("evolve-chunked", phase_evolve_chunked, torch, kernels, device,
+          card)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

@@ -72,10 +72,20 @@ the outer Krylov solve).
   stencils and the sys9 tables and point solves, which depend on the IR
   alone.
 
+* The coarse-grid solve of a linear operator above ``DIRECT_SOLVE_MAX``
+  unknowns is ``ops.solvers.cg`` to 1e-12 in at most 1000 iterations
+  (lower.py:1765-1769), and a ``KrylovSubspaceMethod`` node runs its
+  fixed-iteration executor (``ops.solvers.FIXED_KRYLOV``,
+  lower.py:1428-1430).
+* Level-chunked programs (``lower_composed``, lower.py:1834-1900): each
+  finished chunk's cycle runs with the next coarser chunk spliced into its
+  unsolved ``CoarseGridSolver`` nodes (``cgs_override``), the candidate
+  innermost.  Unlike the JAX package, which builds a fresh lowering on
+  every trace, each chunk's plans, device constants and kernels-or-plain
+  choice are built once, in ``lower_composed``, and serve every step.
+
 An IR node outside this subset raises ``NotImplementedError`` naming it:
-a ``CoarseGridSolver`` that holds a cycle (level-chunked runs), a CG
-coarse solve above ``DIRECT_SOLVE_MAX`` unknowns, Krylov nodes, the
-collective point smoother of a periodic stencil, and inverses of other
+the collective point smoother of a periodic stencil and inverses of other
 operator expressions.
 """
 
@@ -94,7 +104,9 @@ from ..grids import Grid
 from ..ir import base, system
 from ..ir import partitioning as part
 from ..ir import transformations
+from ..ir.krylov import KrylovSubspaceMethod
 from ..ops import apply as ops
+from ..ops import solvers
 from ..ops.apply import red_black_masks
 from ..ops.kernels import (leg3d, rbgs, rbgs3d, rbgs_cx, rbgs_sys,
                            rbgs_var, transfer, wavefront3d)
@@ -496,9 +508,10 @@ def _plan_super_fusions(root) -> Tuple[Dict[int, dict], Dict[int, dict]]:
 @dataclass
 class ChainLink:
     """One finished chunk of a level-chunked run: its best cycle expression
-    and the grid-function entities it binds (lower.py:1823-1831).  The
-    composed lowering of such chains is not ported yet; the evaluator
-    raises on them."""
+    and the grid-function entities it binds (lower.py:1823-1831; the
+    reference appends each chunk's best cycle function to the solver
+    program and the next run's coarse-grid calls resolve to it,
+    optimization/program.py:890-898)."""
     root: base.Cycle
     approximation: object
     rhs: object
@@ -569,6 +582,12 @@ class LoweredCycle:
     plans: Optional[_Plans] = None
     constants: dict = field(default_factory=dict)
     use_kernels: bool = True
+    # a composed program's coarser chunks, spliced into the finest chunk's
+    # unsolved coarse-grid solves (make_chain_applier)
+    cgs_override: Optional[Callable] = None
+    # whether a step reads a value back to the host: a coarse solve by
+    # solvers.cg, which tests its tolerance there
+    syncs_host: bool = False
 
 
 class _Lowering:
@@ -579,8 +598,13 @@ class _Lowering:
     versions even on a CUDA device (a comparison run only)."""
 
     def __init__(self, approximation, rhs, omegas, *, plans=None,
-                 constants=None, use_kernels=True):
+                 constants=None, use_kernels=True, cgs_override=None):
         self.omegas = omegas
+        #: ``(fields, omegas, initial_guess) -> fields`` for the
+        #: CoarseGridSolver nodes that hold no expression: how a coarser
+        #: chunk's cycle is spliced in under a finished finer chunk
+        #: (lower.py:541-551) without touching the grammar's shared node
+        self.cgs_override = cgs_override
         self.approximation = approximation
         self.rhs = rhs
         self.plans = plans or _Plans({}, {}, {})
@@ -1347,6 +1371,11 @@ class _Lowering:
             return self.apply_inverse(expr.operand, fields)
         if isinstance(expr, base.CoarseGridSolver):
             return self.apply_coarse_solver(expr, fields)
+        if isinstance(expr, KrylovSubspaceMethod):
+            # a fixed-iteration Krylov solve (lower.py:1428-1430)
+            return solvers.FIXED_KRYLOV[expr.name](
+                lambda v: self.apply_operator(expr.operator, v), fields,
+                expr.iterations)
         if isinstance(expr, system.Restriction) or (
                 isinstance(expr, base.Restriction)
                 and not isinstance(expr, base.ZeroRestriction)):
@@ -1605,12 +1634,24 @@ class _Lowering:
     # -- coarse-grid solver ---------------------------------------------------
 
     def apply_coarse_solver(self, cgs: base.CoarseGridSolver, fields):
-        """The coarsest grid's solve (lower.py:1743-1767): a nonlinear
+        """The coarsest grid's solve (lower.py:1743-1769): the node's
+        evolved cycle, else the spliced coarser chunk, else a nonlinear
         operator's fixed Newton-Jacobi sweeps from the node's initial
-        guess, else the dense inverse's matvec."""
+        guess, else the dense inverse's matvec up to ``DIRECT_SOLVE_MAX``
+        unknowns and CG above."""
         if cgs.expression is not None:
-            raise NotImplementedError(
-                "CoarseGridSolver with an evolved cycle is not ported yet")
+            # an evolved coarse solver: one application of its cycle
+            if getattr(cgs.expression, "wants_omegas", False):
+                return cgs.expression(fields, self.omegas)
+            return cgs.expression(fields)
+        if self.cgs_override is not None:
+            # a chunk boundary: at a FAS one the coarser chunk starts from
+            # the node's initial guess, the restricted solution, whole
+            # (lower.py:1748-1757)
+            u0 = None
+            if getattr(cgs, "initial_guess", None) is not None:
+                u0 = self.eval_function(cgs.initial_guess)
+            return self.cgs_override(fields, self.omegas, u0)
         op = cgs.operator
         nl = _nonlinear_of(op)
         if nl is not None:
@@ -1620,10 +1661,9 @@ class _Lowering:
             if getattr(cgs, "initial_guess", None) is not None:
                 u0 = self.eval_function(cgs.initial_guess)[0]
             return self._nonlinear_coarse_solve(nl, fields, u0)
-        n = sum(int(np.prod(g.size)) for g in field_grids(op))
-        if n > DIRECT_SOLVE_MAX:
-            raise NotImplementedError(
-                f"CoarseGridSolver of {n} unknowns needs CG, not ported yet")
+        if _coarse_unknowns(op) > DIRECT_SOLVE_MAX:
+            return solvers.cg(lambda v: self.apply_operator(op, v), fields,
+                              tol=CG_TOLERANCE, maxiter=CG_MAXITER)
 
         # the fields' dtype, complex if the inverse is (lower.py:1725-1731)
         inv = self._of_node("dense", op, lambda: dense_inverse(op))
@@ -1660,6 +1700,23 @@ class _Lowering:
 #: reference FAS CGS@coarsest: 200 damped smoother sweeps (lower.py:1791-1792)
 NONLINEAR_CGS_SWEEPS = 200
 NONLINEAR_CGS_OMEGA = 0.8
+#: the CG coarse solve above DIRECT_SOLVE_MAX unknowns (lower.py:1769; the
+#: reference's ``cgs cg`` with 1e-12 / 1000)
+CG_TOLERANCE = 1e-12
+CG_MAXITER = 1000
+
+
+def _coarse_unknowns(op) -> int:
+    return sum(int(np.prod(g.size)) for g in field_grids(op))
+
+
+def _runs_cg(root) -> bool:
+    """Whether a step of ``root``, with no chunk spliced in, reaches a
+    linear coarse solve by ``solvers.cg``."""
+    return any(cgs.expression is None and not _is_nonlinear(cgs.operator)
+               and _coarse_unknowns(cgs.operator) > DIRECT_SOLVE_MAX
+               for cgs in transformations.find_nodes(
+                   root, base.CoarseGridSolver))
 
 
 def _find_fine_operator(root):
@@ -1683,8 +1740,7 @@ def lower_cycle(root: base.Cycle, approximation, rhs, *,
     n = transformations.assign_cycle_ids(root)
     cycles = transformations.find_nodes(root, base.Cycle)
     default_omegas = np.array([float(c.relaxation_factor) for c in cycles])
-    super_by_smoother, super_by_mult = _plan_super_fusions(root)
-    plans = _Plans(super_by_smoother, super_by_mult, _plan_post_fusions(root))
+    plans = _plans_of(root)
     constants: dict = {}
 
     def step(u_fields, b_fields, omegas):
@@ -1697,7 +1753,90 @@ def lower_cycle(root: base.Cycle, approximation, rhs, *,
                         grids=field_grids(root),
                         operator=_find_fine_operator(root), expression=root,
                         approximation=approximation, rhs=rhs, plans=plans,
-                        constants=constants, use_kernels=use_kernels)
+                        constants=constants, use_kernels=use_kernels,
+                        syncs_host=_runs_cg(root))
+
+
+def _plans_of(root) -> _Plans:
+    super_by_smoother, super_by_mult = _plan_super_fusions(root)
+    return _Plans(super_by_smoother, super_by_mult, _plan_post_fusions(root))
+
+
+def make_chain_applier(root, approximation, rhs, inner=None, *,
+                       use_kernels: bool = True) -> Callable:
+    """``fn(fields, omegas, initial_guess=None) -> fields``: one application
+    of a chunk's cycle to the rhs ``fields`` from a zero initial guess, or
+    from ``initial_guess`` (the restricted solution a FAS chunk boundary
+    hands down), with ``inner`` (the same signature, or None) spliced into
+    its unsolved CoarseGridSolver nodes (lower.py:1834-1852).  ``omegas``
+    is the composed program's whole relaxation-factor vector, indexed by
+    the ids ``lower_composed`` assigned across the chunks.  The chunk's
+    plans and device constants are built once, here and at its first
+    application, and serve every later one."""
+    plans = _plans_of(root)
+    constants: dict = {}
+
+    def applier(fields, omegas, initial_guess=None):
+        lowering = _Lowering(approximation, rhs, omegas, plans=plans,
+                             constants=constants, use_kernels=use_kernels,
+                             cgs_override=inner)
+        u0 = (tuple(initial_guess) if initial_guess is not None
+              else tuple(torch.zeros_like(f) for f in fields))
+        lowering.bind(u0, tuple(fields))
+        return lowering.eval_function(root)
+
+    applier.wants_omegas = True
+    return applier
+
+
+def lower_composed(chain: List[ChainLink], cand_root: base.Cycle,
+                   cand_approximation, cand_rhs, *,
+                   use_kernels: bool = True) -> LoweredCycle:
+    """Lower the whole program of a level-chunked run (lower.py:1855-1900):
+    the finished chunks' best cycles (``chain``, finest first), each
+    chunk's unsolved coarse-grid solves dispatching to the next, with the
+    candidate cycle innermost: the counterpart of the reference's
+    solver-program splicing (optimization/program.py:810-899,
+    exastencils.py:485-537).  Cycle ids are assigned chain first, candidate
+    last, so one omegas vector drives the whole program.
+
+    Each chunk's applier (``make_chain_applier``) gets its plans, its
+    device-constant cache and ``use_kernels`` once, here, so that a step
+    re-plans nothing; a step applies the finest chunk's from the state.
+    Whether a step syncs the host is the candidate's: the chain's unsolved
+    coarse solves are all spliced."""
+    if not chain:
+        return lower_cycle(cand_root, cand_approximation, cand_rhs,
+                           use_kernels=use_kernels)
+    offset = 0
+    for link in chain:
+        offset = transformations.assign_cycle_ids(link.root, start=offset)
+    n = transformations.assign_cycle_ids(cand_root, start=offset)
+    all_cycles = [c for link in chain
+                  for c in transformations.find_nodes(link.root, base.Cycle)]
+    all_cycles += transformations.find_nodes(cand_root, base.Cycle)
+    default_omegas = np.array([float(c.relaxation_factor)
+                               for c in all_cycles])
+
+    # innermost first: each chunk's applier splices in the one below it
+    appliers = [None]
+    for link in reversed(chain + [ChainLink(cand_root, cand_approximation,
+                                            cand_rhs)]):
+        appliers.append(make_chain_applier(
+            link.root, link.approximation, link.rhs, appliers[-1],
+            use_kernels=use_kernels))
+    head, spliced = chain[0], appliers[-2]
+
+    def step(u_fields, b_fields, omegas):
+        return appliers[-1](b_fields, omegas, initial_guess=u_fields)
+
+    return LoweredCycle(step=step, n_omegas=n, default_omegas=default_omegas,
+                        grids=field_grids(head.root),
+                        operator=_find_fine_operator(head.root),
+                        expression=head.root,
+                        approximation=head.approximation, rhs=head.rhs,
+                        use_kernels=use_kernels, cgs_override=spliced,
+                        syncs_host=_runs_cg(cand_root))
 
 
 def operator_applier(op) -> Callable:

@@ -80,13 +80,17 @@ def make_preconditioner(lowered: LoweredCycle, omegas, like,
     device work only.  Each call copies its fields into the graph's input
     buffers, replays the graph and returns copies of its outputs.  A
     kernel wrapper counts its launch at the capture only.  On the CPU, or
-    with ``graph=False``, the step runs eagerly."""
+    with ``graph=False``, the step runs eagerly, and so it does for a
+    cycle whose step reads a value back to the host
+    (``lowered.syncs_host``: a coarse solve by ``ops.solvers.cg``, which
+    tests its tolerance there and so cannot be captured).  A capture that
+    fails raises."""
     def eager(fields):
         zero = tuple(torch.zeros_like(f) for f in fields)
         return lowered.step(zero, tuple(fields), omegas)
 
     device = like[0].device
-    if not graph or device.type != "cuda":
+    if not graph or device.type != "cuda" or lowered.syncs_host:
         return eager
     inputs = tuple(torch.zeros_like(f) for f in like)
     side = torch.cuda.Stream(device=device)
@@ -120,10 +124,14 @@ def make_cycle_loop(lowered: LoweredCycle, n_cycles: int):
     the column transfers in plain torch), and the coarse levels run
     through ``lower.make_coarse_tail``.  The result equals ``n_cycles``
     applications of ``lowered.step`` up to float32 reassociation.  Any
-    other structure runs ``lowered.step`` in a loop.  The kernels run on a
+    other structure runs ``lowered.step`` in a loop, and so does a
+    composed level-chunked program (``lowered.cgs_override``): the coarse
+    tail would solve its chunk boundary instead of splicing in the coarser
+    chunks (the fallback of solve.py:86-87).  The kernels run on a
     CUDA device unless the cycle was lowered with ``use_kernels=False``;
     on the CPU their plain versions run."""
-    plan = extract_fine_leg_plan(lowered.expression)
+    plan = extract_fine_leg_plan(lowered.expression) \
+        if lowered.cgs_override is None else None
     tail = make_coarse_tail(lowered, plan) if plan is not None else None
 
     def run_generic(u_fields, b_fields, omegas):

@@ -26,12 +26,17 @@ relaxation factors stay real in that precision.  A split-complex outer
 solver (``outer_solver.split``, ``helmholtz_2d_split``) runs
 ``ops.solvers.preconditioned_bicgstab_split`` on real (re, im) fields.
 
+With ``chain=`` (a level-chunked run's finished finer chunks, finest
+first) and ``cand_entities=`` (the entities the candidate chunk's trees
+bind), each candidate is the innermost coarse solver of the whole composed
+program (``compiler.lower.lower_composed``), solved on the finest grid;
+the chain's relaxation factors prefix each member's own
+(evaluator.py:55-73, :97-104, :526-530).
+
 What exists only for XLA compilation is left out: ``_precompile_groups``
 and ``compile_workers``, the power-of-two bucket padding of the batches
-and the persistent compilation cache.  Raise ``NotImplementedError``,
-naming the slice that brings them: ``chain=`` / ``cand_entities=``
-(level-chunked runs need ``lower_composed``) and ``canonicalize = True``
-(``compiler/canonical.py``).
+and the persistent compilation cache.  ``canonicalize = True`` raises
+``NotImplementedError``: ``compiler/canonical.py`` is not ported yet.
 
 An individual whose cycle the port cannot lower (``NotImplementedError``)
 or whose solve fails arithmetically scores infinity, as in the JAX
@@ -44,12 +49,13 @@ from __future__ import annotations
 import re
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..compiler.lower import lower_cycle, operator_applier
+from ..compiler.lower import (ChainLink, lower_composed, lower_cycle,
+                              operator_applier)
 from ..compiler.solve import make_preconditioner, make_solver
 from ..grammar import gp
 from ..ir import base, transformations
@@ -100,13 +106,24 @@ class CycleEvaluator:
                  max_iterations: Optional[int] = None,
                  target_reduction: Optional[float] = None,
                  throughput_cycles: int = 5, infinity: float = 1e100,
-                 device="cuda", chain=None, cand_entities=None):
-        if chain or cand_entities is not None:
-            raise NotImplementedError(
-                "level-chunked evaluation (chain=, cand_entities=) needs "
-                "lower_composed, which is not ported yet")
+                 device="cuda", chain: Optional[List[ChainLink]] = None,
+                 cand_entities: Optional[Tuple] = None):
         self.problem = problem
-        self.chain = []
+        #: level-chunked runs: the finer chunks' best cycles (finest
+        #: first); candidates are then coarse cycles spliced in underneath
+        #: and the measured solve is the whole composed program on the
+        #: finest grid (reference optimization/program.py:810-899)
+        self.chain = chain or []
+        #: (approximation, rhs) entities the candidate chunk's trees bind
+        self.cand_entities = cand_entities
+        if self.chain and cand_entities is None:
+            raise ValueError("chain evaluation requires cand_entities")
+        #: the composed program's fixed relaxation-factor prefix: the
+        #: chain's cycles, in the ids lower_composed assigns them
+        self._omega_prefix = np.concatenate(
+            [[float(c.relaxation_factor)
+              for c in transformations.find_nodes(link.root, base.Cycle)]
+             for link in self.chain]) if self.chain else np.zeros(0)
         self.device = torch.device(device)
         self.torch_dtype = _torch_dtype(dtype or problem.dtype)
         #: the numpy form, which the optimizer hands to evaluators it builds
@@ -140,8 +157,12 @@ class CycleEvaluator:
         entry = self._solver_cache.get(key)
         if entry is not None:
             return entry
-        lowered = lower_cycle(expression, self.problem.approximation,
-                              self.problem.rhs_entity)
+        if self.chain:
+            lowered = lower_composed(self.chain, expression,
+                                     *self.cand_entities)
+        else:
+            lowered = lower_cycle(expression, self.problem.approximation,
+                                  self.problem.rhs_entity)
         outer = getattr(self.problem, "outer_solver", None)
         if outer is not None:
             solver = self._make_outer_solver(lowered, outer)
@@ -433,9 +454,13 @@ class CycleEvaluator:
                     results[i] = infinite
                 continue
             for i in members:
-                om = self._omegas(
+                # a composed program's chain factors prefix the member's
+                # own (lower_composed's id assignment)
+                om = self._omegas(np.concatenate([
+                    self._omega_prefix,
                     [float(c.relaxation_factor) for c in
-                     transformations.find_nodes(expressions[i], base.Cycle)])
+                     transformations.find_nodes(expressions[i],
+                                                base.Cycle)]]))
                 try:
                     _, iters, hist = entry["solver"](self._u0, self._b, om)
                     hist = hist.cpu().numpy()

@@ -7,12 +7,12 @@ What differs from the copied file:
   ``NotImplementedError``: ``prediction/`` and
   ``optimization/prescreen.py`` are not ported yet;
 * every evaluator it builds (generalization, robustness variants, level
-  chunks) inherits the base evaluator's device as well as its dtype and
-  budgets;
-* level-chunked runs (``levels_per_run`` below the level count) raise
-  ``NotImplementedError`` before the first chunk evolves, and the
-  re-evaluation of a chunked program raises through the evaluator: the
-  composed lowering (``lower_composed``) is not ported yet.
+  chunks, the re-evaluation of a chunked program) inherits the base
+  evaluator's device as well as its dtype and budgets.
+
+Level-chunked runs (``levels_per_run`` below the level count) and
+``evaluate_chunked_program`` run as in the copied file, on the port's
+composed lowering (``compiler.lower.lower_composed``).
 
 The copied file's docstring:
 
@@ -645,12 +645,6 @@ class Optimizer:
         levels = problem.max_level - problem.min_level
         if levels_per_run is None:
             levels_per_run = levels
-        if levels_per_run < levels:
-            # fail before the first chunk evolves: the second chunk's
-            # evaluator would raise for want of lower_composed
-            raise NotImplementedError(
-                "level-chunked runs (levels_per_run below the level count) "
-                "need lower_composed, which is not ported yet")
         contexts = problem.level_contexts
         FAS = problem.nonlinear_term is not None
         # FAS + chunked runs: the chunk boundary's coarse solve carries the

@@ -16,7 +16,6 @@ rho = (h_k / h_0)^(1/k) is held to rtol 1e-6 above the floor's share
 
 import collections
 import random
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -225,39 +224,37 @@ def test_evolution_end_to_end(tmp_path):
     assert res.time_to_convergence_ms < opt.infinity
 
 
-@pytest.mark.parametrize("case", ["chain", "cand_entities", "outer_solver",
-                                  "canonicalize", "model_based",
-                                  "prescreen", "levels_per_run"])
+@pytest.mark.parametrize("case", ["canonicalize", "model_based",
+                                  "prescreen"])
 def test_unported_options_raise(case, tmp_path):
     """What the port does not have yet raises NotImplementedError; it
     never runs silently."""
     problem = _small_problem()
     with pytest.raises(NotImplementedError):
-        if case == "chain":
-            tev.CycleEvaluator(problem, device="cpu",
-                               chain=[ChainLink(None, None, None)])
-        elif case == "cand_entities":
-            tev.CycleEvaluator(problem, device="cpu",
-                               cand_entities=(problem.approximation,
-                                              problem.rhs_entity))
-        elif case == "outer_solver":
-            # an outer solver around a level-chunked run; the complex and
-            # split-complex outer solvers themselves are ported
-            problem.outer_solver = SimpleNamespace(split=True)
-            tev.CycleEvaluator(problem, device="cpu",
-                               chain=[ChainLink(None, None, None)])
-        elif case == "canonicalize":
+        if case == "canonicalize":
             ev = tev.CycleEvaluator(problem, device="cpu")
             ev.canonicalize = True
             ev.evaluate_population([], _pset(tmg, problem))
         else:
             ev = tev.CycleEvaluator(problem, device="cpu")
             kw = {"model_based": {"model_based_estimation": True},
-                  "prescreen": {"prescreen": object()}}.get(case, {})
+                  "prescreen": {"prescreen": object()}}[case]
             opt = Optimizer(problem, evaluator=ev, rng=random.Random(0),
                             checkpoint_directory_path=str(tmp_path), **kw)
             opt.evolutionary_optimization(mu_=4, lambda_=4, generations=1,
                                           levels_per_run=1, verbose=False)
+
+
+def test_chain_without_cand_entities_raises():
+    """A chain with no candidate entities raises the JAX package's
+    ValueError (evaluator.py:67-68)."""
+    problem = _small_problem()
+    with pytest.raises(ValueError, match="requires cand_entities"):
+        tev.CycleEvaluator(problem, device="cpu",
+                           chain=[ChainLink(None, None, None)])
+    with pytest.raises(ValueError, match="requires cand_entities"):
+        jev.CycleEvaluator(jpoisson.poisson_2d(max_level=4, min_level=2),
+                           chain=[object()])
 
 
 def test_f32_measurement_window():

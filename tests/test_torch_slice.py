@@ -187,13 +187,16 @@ def test_measure_solve_reports_convergence():
 
 def test_unported_node_raises():
     """Nodes outside the slice raise NotImplementedError naming the node,
-    never a silent approximation."""
-    problem, cycle = _v21(PORT, 6, 5, np.float64, coarse_krylov="CG")
+    never a silent approximation: a smoother that inverts the whole
+    operator (the JAX lowering's dense fallback, lower.py:1563, which the
+    grammar never builds)."""
+    problem, cycle = _v21(PORT, 6, 5, np.float64,
+                          smoother_factory=lambda op: op.entries[0][0])
     lowered = tlower.lower_cycle(cycle, problem.approximation,
                                  problem.rhs_entity)
     b = build_rhs(problem, dtype=torch.float64, device="cpu")
     om = torch.tensor(lowered.default_omegas, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="KrylovSubspaceMethod"):
+    with pytest.raises(NotImplementedError, match="inverse of Operator"):
         lowered.step(tuple(torch.zeros_like(x) for x in b), b, om)
 
 
