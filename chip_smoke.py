@@ -313,11 +313,28 @@ Phases:
    composed program, rebuilt from the chunk strings
    (``evaluate_chunked_program``), must converge, and so must the
    ``evaluate_evolved_solver`` twin's measurement of best_grammar.txt;
-39. check that neither jax nor the JAX package was imported.
+39. [lfa] Local Fourier Analysis on the card (batched complex128 tensor
+   programs, no kernel of this repository): rho of the RB V(2,1) (omega
+   1.15) and Jacobi V(2,1) (omega 0.8) at poisson_2d(9, 5) and of the
+   collective RB V(2,1) (omega 1.25) at linear_elasticity_2d(8, 4), by the
+   power method and by exact eigenvalues; exact within LFA_EXACT_TOL of
+   the JAX package's value stored in LFA_CASES, power within
+   LFA_POWER_RTOL of exact; ms per rho, peak device memory and host syncs
+   per rho;
+40. [evolve-model] ``poisson2d NSGAII --model-based --mu 2 --lambda 2
+   --generations 1 --seed 0`` (9 -> 5): evaluations, wall time, seconds
+   per estimate, no kernel launched; the best individual's estimate within
+   EVOLVE_MODEL_RTOL of its exact rho, its measured rho printed beside;
+41. [prescreen] the small-grid prescreen of 16 seeded individuals at
+   9 -> 5 against poisson_2d(6, 2), float32, on the card and at the same
+   time on the CPU (a child process, joined before the phase ends): equal
+   verdicts, members near rho_cap named, the time on each device;
+42. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
 6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26, 27 to 31, 32
-to 35, each deep solve, and 36 to 38, each program) and read just after.  Each phase prints
+to 35, each deep solve, 36 to 38, each program, and 40 and 41) and read
+just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -3831,6 +3848,298 @@ def phase_evolve_chunked(torch, kernels, device, card):
           "[evolve-chunked] the twin's composed program converges")
 
 
+#: [lfa]: the LFA cases on the card, each with the exact rho the JAX
+#: package's numpy backend gives for the same cycle (8 samples a frequency
+#: axis): name -> (problem, max level, min level, partitioning, omega,
+#: rho).  The values were made with
+#: ``env JAX_PLATFORMS=cpu python -c 'import jax;
+#: jax.config.update("jax_enable_x64", True); from
+#: evostencils_tpu.compiler.cycles import v_cycle; from evostencils_tpu.ir
+#: import partitioning as part; from evostencils_tpu.problems import
+#: poisson, elasticity; from evostencils_tpu.prediction.convergence import
+#: ConvergenceEvaluator; p = poisson.poisson_2d(max_level=9, min_level=5);
+#: c = v_cycle(p.level_contexts, p.rhs_entity, pre_smoothing=2,
+#: post_smoothing=1, omega=1.15, partitioning=part.RedBlack,
+#: coarse_operator=p.coarsest_operator);
+#: print(repr(ConvergenceEvaluator(2, samples_per_axis=8,
+#: backend="numpy").compute_spectral_radius(c)))'``, and the same with
+#: each case's problem, levels, partitioning and omega
+LFA_CASES = {
+    "poisson-rb-v21": ("poisson_2d", 9, 5, "RedBlack", 1.15,
+                       0.0297139954431784),
+    "poisson-jacobi-v21": ("poisson_2d", 9, 5, "Single", 0.8,
+                           0.24002211793874612),
+    "elasticity-rb-v21": ("linear_elasticity_2d", 8, 4, "RedBlack", 1.25,
+                          0.16113275292305668),
+}
+#: [lfa]: exact rho against the stored value (absolute), and the power
+#: method against exact (relative), the accuracy the engine claims for it
+LFA_EXACT_TOL = 1e-9
+LFA_POWER_RTOL = 1e-3
+#: [lfa]: timed spectral radii of the power method, after one warm-up;
+#: exact eigenvalues (1-5 s a rho, on the host) are timed on their one run,
+#: for the three model-based phases' 60 s
+LFA_REPS = 3
+
+
+def lfa_cycle(build, max_level, min_level, partitioning, omega):
+    """The port's V(2,1) of an [lfa] case."""
+    from evostencils_tpu_torch.compiler.cycles import v_cycle
+    from evostencils_tpu_torch.ir import partitioning as part
+    from evostencils_tpu_torch.problems import elasticity, poisson
+    module = elasticity if build == "linear_elasticity_2d" else poisson
+    problem = getattr(module, build)(max_level=max_level,
+                                     min_level=min_level)
+    return v_cycle(problem.level_contexts, problem.rhs_entity,
+                   pre_smoothing=2, post_smoothing=1, omega=omega,
+                   partitioning=getattr(part, partitioning),
+                   coarse_operator=problem.coarsest_operator)
+
+
+def count_syncs(torch, fn):
+    """fn()'s result and the synchronizing CUDA operations it made, as
+    torch's sync debug mode reports them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_lfa(torch, device, card):
+    """[lfa]: rho of each LFA_CASES cycle on the card by the power method
+    and by exact eigenvalues; exact within LFA_EXACT_TOL of the JAX
+    package's value, power within LFA_POWER_RTOL of exact.  Each method
+    prints ms per rho (power: median of LFA_REPS after a warm-up; exact:
+    its one run), the host's IR walk, the peak device memory of one rho,
+    its frequency chunks and its host syncs."""
+    from evostencils_tpu_torch.prediction.convergence import \
+        ConvergenceEvaluator
+
+    for name, (build, hi, lo, partitioning, omega, want) in \
+            LFA_CASES.items():
+        cycle = lfa_cycle(build, hi, lo, partitioning, omega)
+        rho = {}
+        for method in ("power", "exact"):
+            ev = ConvergenceEvaluator(2, samples_per_axis=8, device=device,
+                                      rho_method=method)
+            # the first run: host syncs and peak device memory of one rho,
+            # and exact's one timed run (the power method's warm-up)
+            held = reset_peak_memory(torch)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            first, syncs = count_syncs(
+                torch, lambda: ev.compute_spectral_radius(cycle))
+            times = [(time.perf_counter() - t) * 1e3]
+            peak = torch.cuda.max_memory_allocated() - held
+            backend = ev.last_backend
+            check(backend.thetas.device.type == "cuda",
+                  f"[lfa] {name}: the LFA runs on the card")
+            t = time.perf_counter()
+            order = ev._symbol_handle(cycle)[1].rows
+            walk = (time.perf_counter() - t) * 1e3
+            rho[method] = first
+            if method == "power":
+                times = []
+                for _ in range(LFA_REPS):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rho[method] = ev.compute_spectral_radius(cycle)
+                    times.append((time.perf_counter() - t) * 1e3)
+            log(f"[lfa] {name} {method}: rho {rho[method]!r}, "
+                f"{statistics.median(times):.1f} ms per rho (median of "
+                f"{len(times)}: {', '.join(f'{x:.1f}' for x in times)}), "
+                f"the host's IR walk {walk:.1f} ms of it; order {order}, "
+                f"{backend.n_theta} frequencies in {backend.last_chunks} "
+                f"chunk(s), peak device memory {peak / 2**20:.1f} MiB above "
+                f"{held / 2**20:.1f} MiB held, {syncs} host sync(s) per "
+                f"rho; on {card}")
+            check(abs(first - rho[method]) <= 1e-12 * rho[method],
+                  f"[lfa] {name} {method}: the same rho on every run "
+                  f"({first!r})")
+        check(abs(rho["exact"] - want) <= LFA_EXACT_TOL,
+              f"[lfa] {name}: exact rho {rho['exact']!r} against the JAX "
+              f"package's {want!r}")
+        check(abs(rho["power"] - rho["exact"])
+              <= LFA_POWER_RTOL * rho["exact"],
+              f"[lfa] {name}: power {rho['power']!r} against exact "
+              f"{rho['exact']!r}")
+
+
+#: [evolve-model]: the model-based CLI run at poisson2d's default levels
+#: (9 -> 5); the best individual's estimate against its exact rho
+EVOLVE_MODEL_RTOL = 1e-3
+
+
+def phase_evolve_model(torch, kernels, device, card):
+    """[evolve-model]: ``optimize poisson2d NSGAII --model-based --mu 2
+    --lambda 2 --generations 1 --seed 0`` (9 -> 5): every candidate is
+    scored by LFA on the card and the H100 roofline model, and nothing is
+    solved, so no kernel launches.  Prints the evaluations, the wall time
+    and the seconds per estimate; the best individual's estimated rho
+    must lie within EVOLVE_MODEL_RTOL of its rho computed exactly, and its
+    rho measured by the evaluator (float32 on the card) is printed
+    beside."""
+    from evostencils_tpu_torch import optimize
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.ir import transformations
+    from evostencils_tpu_torch.optimization.program import Optimizer
+    from evostencils_tpu_torch.prediction.convergence import \
+        ConvergenceEvaluator
+
+    estimate = Optimizer._estimate_objectives
+    seconds = []
+
+    def timed(self, individual):
+        t = time.perf_counter()
+        values = estimate(self, individual)
+        seconds.append(time.perf_counter() - t)
+        return values
+    out_dir = ROOT / "evo_output" / "chip_smoke" / "poisson2d-model"
+    argv = ["poisson2d", "NSGAII", "--model-based", "--mu",
+            str(EVOLVE_POPULATION), "--lambda", str(EVOLVE_POPULATION),
+            "--generations", "1", "--seed", "0", "--output", str(out_dir)]
+    reset(kernels)
+    Optimizer._estimate_objectives = timed
+    t0 = time.perf_counter()
+    try:
+        result = optimize.main(argv)
+    finally:
+        Optimizer._estimate_objectives = estimate
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: n for k, n in counts_of(kernels).items() if n}
+    log(f"[evolve-model] {' '.join(argv[:-2])}: {len(seconds)} estimates "
+        f"in {wall:.1f} s wall, {statistics.mean(seconds):.3f} s per "
+        f"estimate (median {statistics.median(seconds):.3f}, max "
+        f"{max(seconds):.3f}); kernel launches {launched}; on {card}")
+    check(len(seconds) > 0, "[evolve-model] candidates were estimated")
+    check(not launched,
+          "[evolve-model] a model-based run launched a solver kernel")
+
+    problem = optimize.get_problem("poisson2d")
+    pset = generate_primitive_set(
+        problem.approximation, problem.rhs_entity, problem.level_contexts,
+        problem.coarsest_operator)[0]
+    best = result["grammar_string"]
+    rho_estimate = result["best_individual"].fitness.values[0]
+    expr = gp.compile_tree(gp.parse_tree(best, pset), pset)[0]
+    transformations.assign_cycle_ids(expr)
+    rho_exact = ConvergenceEvaluator(
+        2, samples_per_axis=8, device=device,
+        rho_method="exact").compute_spectral_radius(expr)
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    evaluator.timing_enabled = False
+    measured = evaluator.evaluate_expression(expr)
+    log(f"[evolve-model] best individual: estimated rho {rho_estimate!r}, "
+        f"exact LFA rho {rho_exact!r}, measured rho "
+        f"{measured.convergence_factor!r} ({measured.iterations:.0f} "
+        f"iterations, float32 on the card)")
+    check(0 < rho_exact < 1e99
+          and abs(rho_estimate - rho_exact) <= EVOLVE_MODEL_RTOL * rho_exact,
+          f"[evolve-model] the best estimate {rho_estimate!r} against its "
+          f"exact rho {rho_exact!r}")
+
+
+#: [prescreen]: 16 individuals of the poisson_2d(9, 5) grammar
+#: (genGrow(pset, 0, 50) from random.Random(PRESCREEN_SEED)) screened at
+#: poisson_2d(6, 2), float32, on the card and on the CPU
+PRESCREEN_COUNT = 16
+PRESCREEN_SEED = 0
+PRESCREEN_SMALL = (6, 2)
+#: [prescreen]: a rejected member's small-grid rho on the two devices
+#: (relative), and the distance from rho_cap at which a member is named
+PRESCREEN_RTOL = 1e-3
+PRESCREEN_MARGIN = 1e-3
+
+
+def prescreen_screen(device):
+    """SmallGridPrescreen's verdicts on the PRESCREEN_COUNT seeded
+    individuals on ``device``: (verdicts, each member's small-grid rho,
+    the rejected count, rho_cap, seconds)."""
+    import random as _random
+    import torch
+    from evostencils_tpu_torch import optimize
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.optimization.prescreen import \
+        SmallGridPrescreen
+    from evostencils_tpu_torch.problems import poisson
+
+    problem = optimize.get_problem("poisson2d")
+    pset = generate_primitive_set(
+        problem.approximation, problem.rhs_entity, problem.level_contexts,
+        problem.coarsest_operator)[0]
+    rng = _random.Random(PRESCREEN_SEED)
+    individuals = [gp.genGrow(pset, 0, 50, rng=rng)
+                   for _ in range(PRESCREEN_COUNT)]
+    hi, lo = PRESCREEN_SMALL
+    small = poisson.poisson_2d(max_level=hi, min_level=lo)
+    small.dtype = np.float32
+    pre = SmallGridPrescreen(small, device=device)
+    population = pre.evaluator.evaluate_population
+    rhos = []
+
+    def kept(individuals, pset_small):
+        results = population(individuals, pset_small)
+        rhos.extend(r.convergence_factor for r in results)
+        return results
+    pre.evaluator.evaluate_population = kept
+    t = time.perf_counter()
+    verdicts = pre.screen(individuals, pset)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return verdicts, rhos, pre.rejected, pre.rho_cap, \
+        time.perf_counter() - t
+
+
+def phase_prescreen(torch, kernels, device, card):
+    """[prescreen]: SmallGridPrescreen's verdicts on PRESCREEN_COUNT
+    seeded individuals at 9 -> 5 against poisson_2d(6, 2) in float32, on
+    the card and, at the same time in a child process, on the CPU: equal,
+    a rejected rho within PRESCREEN_RTOL; every member whose small-grid
+    rho lies within PRESCREEN_MARGIN of rho_cap is named.  Prints the time
+    on each device."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        on_cpu = pool.submit(prescreen_screen, "cpu")
+        reset(kernels)
+        card_v, card_rho, rejected, cap, seconds = prescreen_screen(device)
+        launched = {k: n for k, n in counts_of(kernels).items() if n}
+        log(f"[prescreen] {PRESCREEN_COUNT} individuals on {card}: "
+            f"{rejected} rejected in {seconds:.2f} s; kernel launches "
+            f"{launched}")
+        cpu_v, cpu_rho, rejected, _, seconds = on_cpu.result()
+    log(f"[prescreen] {PRESCREEN_COUNT} individuals on the CPU (a child "
+        f"process, beside the card's run): {rejected} rejected in "
+        f"{seconds:.2f} s")
+    check(len(card_rho) == len(cpu_rho) == PRESCREEN_COUNT,
+          "[prescreen] every individual was measured on both devices")
+    for i, (a, b) in enumerate(zip(card_rho, cpu_rho)):
+        if min(abs(a - cap), abs(b - cap)) <= PRESCREEN_MARGIN:
+            log(f"[prescreen] member {i} lies within {PRESCREEN_MARGIN} of "
+                f"rho_cap {cap}: rho {a!r} on the card, {b!r} on the CPU; "
+                f"verdicts {card_v[i]!r} / {cpu_v[i]!r}")
+    log(f"[prescreen] verdicts on the card {card_v}")
+    log(f"[prescreen] verdicts on the CPU  {cpu_v}")
+    for i, (a, b) in enumerate(zip(card_v, cpu_v)):
+        check((a is None) == (b is None)
+              and (a is None or a == b
+                   or abs(a - b) <= PRESCREEN_RTOL * max(abs(a), abs(b))),
+              f"[prescreen] member {i}: verdict {a!r} on the card, {b!r} "
+              f"on the CPU")
+
+
 def main(argv=None):
     """Every phase, the ``kernels`` line and the result line; with
     ``--phases a,b,...`` (labels of the ``[time]`` lines) only the build
@@ -3981,6 +4290,11 @@ def main(argv=None):
             launches[kernel] = launches.get(kernel, 0) + count
     phase("evolve-chunked", phase_evolve_chunked, torch, kernels, device,
           card)
+    # model-based evaluation: LFA on the card, then the CLI's estimate path
+    # and the small-grid prescreen
+    phase("lfa", phase_lfa, torch, device, card)
+    phase("evolve-model", phase_evolve_model, torch, kernels, device, card)
+    phase("prescreen", phase_prescreen, torch, kernels, device, card)
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

@@ -3,9 +3,9 @@ it imports nothing of the JAX package.  It drives the port's grammar,
 evaluator (evaluation/evaluator.py) and communicators (parallel/comm.py).
 What differs from the copied file:
 
-* ``model_based_estimation=True`` and ``prescreen`` raise
-  ``NotImplementedError``: ``prediction/`` and
-  ``optimization/prescreen.py`` are not ported yet;
+* model-based estimation defaults to the port's
+  ``ConvergenceEvaluator`` on the evaluator's device (LFA as batched
+  complex128 tensor programs there) and ``PerformanceEvaluator(H100)``;
 * every evaluator it builds (generalization, robustness variants, level
   chunks, the re-evaluation of a chunked program) inherits the base
   evaluator's device as well as its dtype and budgets.
@@ -133,9 +133,12 @@ class Optimizer:
                  comm: Optional[Communicator] = None,
                  prescreen=None):
         self.problem = problem
-        if prescreen is not None:
-            raise NotImplementedError(
-                "prescreen: optimization/prescreen.py is not ported yet")
+        #: optional SmallGridPrescreen (optimization/prescreen.py):
+        #: offspring whose measured small-grid convergence is hopeless get
+        #: an estimated (rho, infinity) fitness and never reach the
+        #: expensive measured evaluation (the reference's cheap-estimate
+        #: dual path, reference program.py:319-384)
+        self.prescreen = prescreen
         #: host-level collectives for population-parallel evaluation;
         #: all ranks must construct the Optimizer with the same rng seed
         self.comm = comm or NullCommunicator()
@@ -151,10 +154,19 @@ class Optimizer:
         self._robustness: List[tuple] = []
         self.checkpoint_directory_path = checkpoint_directory_path
         self.problem_factory = problem_factory
-        if model_based_estimation or convergence_evaluator is not None \
-                or performance_evaluator is not None:
-            raise NotImplementedError(
-                "model-based estimation: prediction/ is not ported yet")
+        self.model_based_estimation = model_based_estimation
+        if model_based_estimation:
+            if convergence_evaluator is None:
+                from ..prediction.convergence import ConvergenceEvaluator
+                convergence_evaluator = ConvergenceEvaluator(
+                    problem.dimension, samples_per_axis=8,
+                    device=self.evaluator.device)
+            if performance_evaluator is None:
+                from ..prediction.performance import (H100,
+                                                      PerformanceEvaluator)
+                performance_evaluator = PerformanceEvaluator(H100)
+        self.convergence_evaluator = convergence_evaluator
+        self.performance_evaluator = performance_evaluator
         self.rng = rng or random.Random()
         self.individual_cache: Dict[str, tuple] = {}
         self.cache_hits = 0
@@ -211,9 +223,27 @@ class Optimizer:
         # partition evaluation across ranks, allgather the fitness values
         # (reference program.py:495-502 MPI-partitioned evaluation)
         local = self.comm.shard(pending)
-        local_values = [self._fitness_from_result(r) for r in
-                        self.evaluator.evaluate_population(local, self._pset)]
-        local_values = self._apply_robustness(local, local_values)
+        if self.model_based_estimation:
+            local_values = [self._estimate_objectives(ind) for ind in local]
+        else:
+            verdicts = [None] * len(local)
+            if self.prescreen is not None and \
+                    not getattr(self.evaluator, "chain", None):
+                try:
+                    verdicts = self.prescreen.screen(local, self._pset)
+                except Exception as e:     # never let the estimate path
+                    print(f"prescreen failed ({e}); measuring everything",
+                          flush=True)      # kill the real one
+                    verdicts = [None] * len(local)
+            survivors = [ind for ind, v in zip(local, verdicts) if v is None]
+            results = iter(
+                self.evaluator.evaluate_population(survivors, self._pset))
+            local_values = [
+                self._fitness_from_result(next(results)) if v is None
+                else self._fitness_from_result(
+                    EvaluationResult(self.infinity, v, self.infinity))
+                for v in verdicts]
+            local_values = self._apply_robustness(local, local_values)
         values_list = self.comm.allgather_shards(local_values)
         for ind, values in zip(pending, values_list):
             ind.fitness.values = values
@@ -251,6 +281,34 @@ class Optimizer:
             finite = [i for i in kept
                       if all(x < self.infinity for x in values_list[i])]
         return values_list
+
+    def _estimate_objectives(self, individual):
+        """Model-based fitness: LFA spectral radius + roofline runtime
+        (reference optimization/program.py:319-384)."""
+        import math as _math
+        try:
+            state = gp.compile_tree(individual, self._pset)
+            expression = state[0]
+            transformations.assign_cycle_ids(expression)
+        except (MemoryError, ValueError, NotImplementedError, RuntimeError,
+                KeyError):
+            return (self.infinity,) * self._n_objectives
+        rho = self.convergence_evaluator.compute_spectral_radius(expression)
+        bad = (rho == 0.0 or _math.isnan(rho) or _math.isinf(rho))
+        if self._n_objectives == 2:
+            if bad:
+                return (self.infinity, self.infinity)
+            runtime = self.performance_evaluator.estimate_runtime(
+                expression) * 1e3
+            return (rho, runtime)
+        if bad:
+            return (self.infinity,)
+        if self.performance_evaluator is None:
+            return (rho,)
+        runtime = self.performance_evaluator.estimate_runtime(expression) * 1e3
+        if rho < 1:
+            return (_math.log(self.epsilon) / _math.log(rho) * runtime,)
+        return (rho * self.infinity ** 0.25,)
 
     # -- evolutionary loop ---------------------------------------------------
 

@@ -26,8 +26,12 @@ complex64, helmholtz2d_split on (re, im) float32 pairs.  Each helmholtz2d
 or helmholtz2d_split candidate that solves the problem must also solve it
 at 2k and 4k (the robustness variants, built by the problem's own
 factory, scripts/optimize.py:124-142), unless ``--no-robustness``.
-``--model-based`` raises: prediction/ is not ported yet.  It writes
-``best_grammar.txt`` and ``result.p`` to ``--output``.
+``--model-based`` scores each candidate without solving it: its
+convergence factor by Local Fourier Analysis (``prediction/convergence``,
+batched complex128 tensor programs on the card, or on the CPU with
+``--cpu``) and its time per cycle by the H100 roofline model
+(``prediction/performance``).  It writes ``best_grammar.txt`` and
+``result.p`` to ``--output``.
 """
 
 from __future__ import annotations
