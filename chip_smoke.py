@@ -329,12 +329,37 @@ Phases:
    9 -> 5 against poisson_2d(6, 2), float32, on the card and at the same
    time on the CPU (a child process, joined before the phase ends): equal
    verdicts, members near rho_cap named, the time on each device;
-42. check that neither jax nor the JAX package was imported.
+42. [procs] one evolution in 2 processes on the one card (``torchrun
+   --standalone --nproc-per-node 2``, a gloo group, each rank
+   ``cuda:0``) and in 1, each process this script's rank body
+   (``--procs-rank``), which forms the group and runs
+   ``optimize.main``: the model-based run of [evolve-model] (9 -> 5),
+   then a measured run at 255^2 (``--max-level 8 --min-level 4``, timing
+   protocol off); model-based, both ranks and the 1-process run end with
+   the same population and best individual, fitness within
+   PROCS_FITNESS_RTOL; measured, both ranks with the same population and
+   a best individual that converges when re-evaluated here; evaluations,
+   wall seconds and evaluations a second of each run;
+43. [cma] the CMA-ES transfer-weight tuner on the card
+   (``intergrid_transfer.optimize``, CMA_SETTINGS) on poisson_2d(8, 7)
+   and poisson_2d_variable(8, 7): 255^2 over a dense float64 inverse of
+   127^2 (16,129 unknowns); the tuned rho finite and no worse than the
+   default pair's; seconds a generation, the inverse's seconds, peak
+   device memory; at poisson_2d(6, 5) generation 0's fitness values on
+   the card against the port's on the CPU (a spawned child) within
+   CMA_CPU_RTOL;
+44. [reference-cycles] the four hand-built V(2,2) fixtures
+   (``ir/reference_cycles``) solved to 1e-5 in float32 with the kernels
+   and with the plain versions as phase 6: the linear two-grid at 127^2
+   over a dense 63^2 solve, the linear three-grid at 255^2, the FAS two-
+   and three-grid at 31^2; rho under the JAX tests' bounds
+   (REFERENCE_CYCLES); the kernels the 255^2 fixture launches;
+45. check that neither jax nor the JAX package was imported.
 
 The launch counts are set to 0 just before each path is driven (phases 5,
 6b, 7, 9, 10, 12, 13, 15, 16, 17, 19, 20, 21, 23 to 26, 27 to 31, 32
-to 35, each deep solve, 36 to 38, each program, and 40 and 41) and read
-just after.  Each phase prints
+to 35, each deep solve, 36 to 38, each program, 40, 41 and each fixture
+of 44) and read just after.  Each phase prints
 its seconds.  Any failed check raises, and the
 script exits non-zero without printing its result line.  The last line of
 standard output is {"ok": true, "device": {...}}; the line before it lists
@@ -345,7 +370,9 @@ operations over 67 TFLOP/s, the larger).
 """
 
 import json
+import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4140,6 +4167,344 @@ def phase_prescreen(torch, kernels, device, card):
               f"on the CPU")
 
 
+#: [procs]: the two evolutions run in 1 and in 2 processes: [evolve-model]'s
+#: model-based run (9 -> 5) and a measured run at 255^2 (8 -> 4)
+PROCS_RUNS = {
+    "model": ("poisson2d", "NSGAII", "--model-based", "--mu", "2",
+              "--lambda", "2", "--generations", "1", "--seed", "0"),
+    "measured": ("poisson2d", "NSGAII", "--max-level", "8", "--min-level",
+                 "4", "--mu", "2", "--lambda", "2", "--generations", "1",
+                 "--seed", "0")}
+#: [procs]: the model-based fitness of a member, 2 processes against 1
+PROCS_FITNESS_RTOL = 1e-12
+#: [procs]: seconds each launch (the 1-process run, the torchrun group) may
+#: take before all its processes are killed
+PROCS_CHILD_TIMEOUT_S = 150
+
+
+def procs_rank(out):
+    """[procs]' rank body (``chip_smoke.py --procs-rank OUT``), alone or
+    under torchrun: forms the process group (``default_communicator``),
+    takes its card (``setup_device``), runs each of PROCS_RUNS through
+    ``optimize.main`` with the timing protocol off, and writes each run's
+    wall seconds, evaluations (the optimizer's ``total_evaluations``: the
+    new individuals of every generation, of all ranks), final population
+    (strings and fitness) and best individual to ``OUT.rank<r>.json``."""
+    import torch
+    from evostencils_tpu_torch import optimize
+    from evostencils_tpu_torch.config import setup_device
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.optimization.program import Optimizer
+    from evostencils_tpu_torch.parallel import comm as comms
+
+    comm = comms.default_communicator()
+    device = setup_device("cuda")
+    torch.ones(1, device=device).sum().item()     # the context, untimed
+    CycleEvaluator.timing_enabled = False
+    evaluate_invalid = Optimizer.evaluate_invalid
+    evaluated = [0]
+
+    def counted(self, individuals):
+        n = evaluate_invalid(self, individuals)
+        evaluated[0] += n
+        return n
+    Optimizer.evaluate_invalid = counted
+    runs = {}
+    for tag, args in PROCS_RUNS.items():
+        comm.barrier()
+        evaluated[0] = 0
+        t0 = time.perf_counter()
+        result = optimize.main(list(args) + [
+            "--output", f"{out}-{tag}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        best = result["best_individual"]
+        runs[tag] = {
+            "wall": wall,
+            "evaluations": evaluated[0],
+            "population": sorted([str(i), list(i.fitness.values)]
+                                 for i in result["populations"][-1]),
+            "best": result["grammar_string"],
+            "best_fitness": list(best.fitness.values)}
+    with open(f"{out}.rank{comm.rank}.json", "w") as f:
+        json.dump({"rank": comm.rank, "size": comm.size,
+                   "device": str(device), "runs": runs}, f)
+    if isinstance(comm, comms.TorchProcessCommunicator):
+        comm.close()
+
+
+def run_child(tag, argv):
+    """Run ``argv`` from the repository root in a session of its own; on a
+    failure or after PROCS_CHILD_TIMEOUT_S seconds every process of the
+    session is killed and the phase fails."""
+    import signal
+    proc = subprocess.Popen(argv, cwd=str(ROOT), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=PROCS_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        check(False, f"[{tag}] {' '.join(argv)} ran over "
+              f"{PROCS_CHILD_TIMEOUT_S} s; killed")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        log(f"[{tag}] {' '.join(argv)} failed:\n{out[-3000:]}\n"
+            f"{err[-6000:]}")
+    check(proc.returncode == 0, f"[{tag}] exit code {proc.returncode}")
+
+
+def phase_procs(torch, device, card):
+    """[procs]: PROCS_RUNS in 1 process and in 2 (torchrun, one card):
+    the model-based run gives both ranks and the 1-process run the same
+    population and best individual, fitness within PROCS_FITNESS_RTOL;
+    the measured run gives both ranks the same population and a best
+    individual that converges.  Prints each run's evaluations, wall
+    seconds and evaluations a second."""
+    from evostencils_tpu_torch import optimize
+    from evostencils_tpu_torch.evaluation.evaluator import CycleEvaluator
+    from evostencils_tpu_torch.grammar import gp
+    from evostencils_tpu_torch.grammar.multigrid import generate_primitive_set
+    from evostencils_tpu_torch.ir import transformations
+
+    out_dir = ROOT / "evo_output" / "chip_smoke" / "procs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    script = str(ROOT / "chip_smoke.py")
+    run_child("procs", [sys.executable, script, "--procs-rank",
+                        str(out_dir / "one")])
+    run_child("procs", [sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc-per-node", "2", script,
+                        "--procs-rank", str(out_dir / "two")])
+    one = json.loads((out_dir / "one.rank0.json").read_text())
+    two = [json.loads((out_dir / f"two.rank{r}.json").read_text())
+           for r in range(2)]
+    check(one["size"] == 1 and [t["size"] for t in two] == [2, 2]
+          and [t["rank"] for t in two] == [0, 1],
+          "[procs] one process, then a group of two ranks")
+    log(f"[procs] devices: 1 process {one['device']}, 2 processes "
+        f"{[t['device'] for t in two]}; on {card}")
+    for tag in PROCS_RUNS:
+        for label, runs in (("1 process", [one]), ("2 processes", two)):
+            r = runs[0]["runs"][tag]
+            log(f"[procs] {tag} in {label}: {r['evaluations']} evaluations "
+                f"in {r['wall']:.2f} s wall (rank 0), "
+                f"{r['evaluations'] / r['wall']:.3f} evaluations a second; "
+                f"best {r['best_fitness']}")
+        a, b = (t["runs"][tag] for t in two)
+        check(a["population"] == b["population"] and a["best"] == b["best"],
+              f"[procs] {tag}: both ranks end with the same population")
+    model = [one["runs"]["model"]] + [t["runs"]["model"] for t in two]
+    strings = [[s for s, _ in r["population"]] for r in model]
+    check(all(s == strings[0] for s in strings)
+          and all(r["best"] == model[0]["best"] for r in model),
+          "[procs] model: 2 processes end with the 1-process population and "
+          "best individual")
+    # each member's objectives and the best's, 1 process against rank 0
+    one_two = [[f for _, f in r["population"]] + [r["best_fitness"]]
+               for r in model[:2]]
+    worst = max((abs(x - y) / max(abs(x), abs(y))
+                 for a, b in zip(*one_two) for x, y in zip(a, b) if x != y),
+                default=0.0)
+    log(f"[procs] model: fitness of 2 processes against 1 within {worst:.3e}"
+        f" relative")
+    check(worst <= PROCS_FITNESS_RTOL, "[procs] model fitness")
+    measured = one["runs"]["measured"], two[0]["runs"]["measured"]
+    same = measured[0]["population"] == measured[1]["population"]
+    log(f"[procs] measured: the 1- and 2-process populations are "
+        f"{'equal' if same else 'different'}")
+
+    problem = optimize.get_problem("poisson2d", 8, 4)
+    pset = generate_primitive_set(
+        problem.approximation, problem.rhs_entity, problem.level_contexts,
+        problem.coarsest_operator)[0]
+    expr = gp.compile_tree(gp.parse_tree(measured[1]["best"], pset), pset)[0]
+    transformations.assign_cycle_ids(expr)
+    evaluator = CycleEvaluator(problem, dtype=np.float32, device=device)
+    evaluator.timing_enabled = False
+    res = evaluator.evaluate_expression(expr)
+    log(f"[procs] measured: the 2-process best individual re-evaluated: rho "
+        f"{res.convergence_factor:.5f}, {res.iterations:.0f} iterations")
+    check(np.isfinite(res.iterations) and res.iterations < evaluator.infinity
+          and res.convergence_factor < 1,
+          "[procs] the measured best individual converges")
+
+
+#: [cma]: the tuner's hierarchy on the card (255^2 over 127^2: the dense
+#: float64 A_c and its inverse take 2.1 GB each; at 511^2 over 255^2
+#: they would take 33.8 GB each) and its settings
+CMA_LEVELS = (8, 7)
+CMA_SETTINGS = {"generations": 20, "smoothing_steps": 1,
+                "measure_iterations": 10, "seed": 0}
+#: [cma]: generation 0's fitness values on the card against the CPU's, at
+#: poisson_2d(6, 5), relative
+CMA_CHECK_LEVELS = (6, 5)
+CMA_CPU_RTOL = 1e-10
+
+
+def cma_generation0(device):
+    """The fitness values of the tuner's generation 0 (the first ask of
+    CMA_SETTINGS' CMA-ES around the default pair) at poisson_2d
+    (CMA_CHECK_LEVELS) on ``device``, as numpy float64."""
+    from evostencils_tpu_torch.optimization.cma import CMAES
+    from evostencils_tpu_torch.optimization.intergrid_transfer import \
+        TransferObjective
+    from evostencils_tpu_torch.problems import poisson
+
+    hi, lo = CMA_CHECK_LEVELS
+    objective = TransferObjective(
+        poisson.poisson_2d(max_level=hi, min_level=lo),
+        smoothing_steps=CMA_SETTINGS["smoothing_steps"],
+        measure_iterations=CMA_SETTINGS["measure_iterations"],
+        seed=CMA_SETTINGS["seed"], device=device)
+    es = CMAES(objective.default_weights(), sigma=0.1,
+               seed=CMA_SETTINGS["seed"])
+    return objective(es.ask())
+
+
+def phase_cma(torch, device, card):
+    """[cma]: ``intergrid_transfer.optimize`` on the card for
+    poisson_2d and poisson_2d_variable at CMA_LEVELS: the tuned rho finite
+    and no worse than the default pair's; seconds a generation (one
+    batched call and one host read), the inverse's seconds (synchronized)
+    and peak device memory; then generation 0 at CMA_CHECK_LEVELS on the
+    card against the CPU (a spawned child, beside the card's runs)."""
+    import concurrent.futures
+    import multiprocessing
+    from evostencils_tpu_torch.optimization import intergrid_transfer
+    from evostencils_tpu_torch.problems import poisson
+
+    inverse = torch.linalg.inv
+    call = intergrid_transfer.TransferObjective.__call__
+    inverse_s, call_s = [], []
+
+    def timed_inverse(a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inverse(a)
+        torch.cuda.synchronize()
+        inverse_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_call(self, weights):
+        t = time.perf_counter()
+        out = call(self, weights)
+        call_s.append(time.perf_counter() - t)
+        return out
+
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        on_cpu = pool.submit(cma_generation0, "cpu")
+        for name in ("poisson_2d", "poisson_2d_variable"):
+            hi, lo = CMA_LEVELS
+            problem = getattr(poisson, name)(max_level=hi, min_level=lo)
+            inverse_s.clear()
+            call_s.clear()
+            held = reset_peak_memory(torch)
+            torch.linalg.inv = timed_inverse
+            intergrid_transfer.TransferObjective.__call__ = timed_call
+            t0 = time.perf_counter()
+            try:
+                result = intergrid_transfer.optimize(problem, device=device,
+                                                     **CMA_SETTINGS)
+            finally:
+                torch.linalg.inv = inverse
+                intergrid_transfer.TransferObjective.__call__ = call
+            wall = time.perf_counter() - t0
+            generations = call_s[1:]
+            log(f"[cma] {name}({hi}, {lo}): {len(generations)} generations "
+                f"recorded in the history ({len(result.history)})"
+                f" in {wall:.2f} s wall; {statistics.mean(generations):.4f}"
+                f" s a generation (median {statistics.median(generations):.4f}"
+                f", max {max(generations):.4f}); the inverse "
+                f"{inverse_s[0]:.3f} s; default rho "
+                f"{result.default_convergence_factor!r}, tuned "
+                f"{result.convergence_factor!r}; on {card}")
+            peak_memory(torch, f"cma {name}", held)
+            check(len(inverse_s) == 1 and len(generations)
+                  == CMA_SETTINGS["generations"],
+                  f"[cma] {name}: one inverse and one call a generation")
+            check(np.isfinite(result.convergence_factor)
+                  and result.convergence_factor
+                  <= result.default_convergence_factor < 1,
+                  f"[cma] {name}: tuned rho {result.convergence_factor} "
+                  f"against the default {result.default_convergence_factor}")
+            del result
+            torch.cuda.empty_cache()
+        on_card = cma_generation0(device)
+        on_host = on_cpu.result()
+    rel = np.abs(on_card - on_host) / np.abs(on_host)
+    log(f"[cma] generation 0 at poisson_2d{CMA_CHECK_LEVELS}: card "
+        f"{on_card.tolist()}; within {rel.max():.3e} relative of the CPU")
+    check(rel.max() <= CMA_CPU_RTOL, "[cma] generation 0 on the card "
+          "against the CPU")
+
+
+#: [reference-cycles]: fixture -> (problem family, max level, min level,
+#: the JAX tests' bound on rho (tests/test_reference_cycles.py:30-51; the
+#: FAS fixtures must converge, :54-75))
+REFERENCE_CYCLES = {"v22_two_grid": ("poisson", 7, 6, 0.1),
+                    "v22_three_grid": ("poisson", 8, 6, 0.12),
+                    "fas_v22_two_grid": ("fas", 5, 4, None),
+                    "fas_v22_three_grid": ("fas", 5, 3, None)}
+#: [reference-cycles]: cycles a solve may take (the JAX FAS tests' budget)
+REFERENCE_MAX_ITERATIONS = 80
+
+
+def reference_fixture(name):
+    """(problem, cycle) of REFERENCE_CYCLES' fixture ``name``."""
+    from evostencils_tpu_torch.ir import reference_cycles
+    from evostencils_tpu_torch.problems import fas, poisson
+
+    family, hi, lo, _ = REFERENCE_CYCLES[name]
+    build = poisson.poisson_2d if family == "poisson" else fas.fas_2d_basic
+    problem = build(max_level=hi, min_level=lo)
+    levels = problem.level_contexts
+    generate = getattr(reference_cycles,
+                       f"generate_{name.replace('v22', 'v_22_cycle')}")
+    middle = [] if name.endswith("two_grid") else [levels[1]]
+    return problem, generate(levels[0], *middle, problem.coarsest_operator,
+                             problem.rhs_entity)
+
+
+def phase_reference_cycles(torch, kernels, device, card):
+    """[reference-cycles]: each fixture solved to 1e-5 in float32 with the
+    kernels and with the plain versions (compare_solves), the counts set
+    to 0 just before; rho under its bound.  Returns the launches over the
+    solves with the kernels; the 255^2 fixture must launch one at
+    least."""
+    from evostencils_tpu_torch.compiler.lower import lower_cycle
+    from evostencils_tpu_torch.problems.poisson import build_rhs
+
+    launches = {}
+    for name, (_, hi, lo, rho_max) in REFERENCE_CYCLES.items():
+        problem, cycle = reference_fixture(name)
+        b = build_rhs(problem, dtype=torch.float32, device=device)
+        reset(kernels)
+        k, hist = compare_solves(
+            torch, f"reference-cycles {name} {hi} -> {lo}", b,
+            REFERENCE_MAX_ITERATIONS, lambda use: lower_cycle(
+                cycle, problem.approximation, problem.rhs_entity,
+                use_kernels=use))
+        counts = {kernel: n for kernel, n in counts_of(kernels).items() if n}
+        rho = hist[k] ** (1.0 / k)
+        log(f"[reference-cycles] {name}: {k} iterations, rho {rho:.4f} "
+            f"(bound {rho_max}); launches {counts}; on {card}")
+        if rho_max is not None:
+            check(rho < rho_max, f"[reference-cycles] {name} rho {rho}")
+        if problem.level_contexts[0].grid[0].size[0] == 255:
+            check(counts, f"[reference-cycles] {name}: no kernel launched "
+                  "at 255^2")
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    return launches
+
+
 def main(argv=None):
     """Every phase, the ``kernels`` line and the result line; with
     ``--phases a,b,...`` (labels of the ``[time]`` lines) only the build
@@ -4149,7 +4514,12 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--phases", default=None)
+    parser.add_argument("--procs-rank", default=None,
+                        help="[procs]' rank body only (procs_rank)")
     args = parser.parse_args(argv)
+    if args.procs_rank is not None:
+        procs_rank(args.procs_rank)
+        return 0
     selected = None if args.phases is None else set(args.phases.split(","))
     start = time.perf_counter()
 
@@ -4295,6 +4665,13 @@ def main(argv=None):
     phase("lfa", phase_lfa, torch, device, card)
     phase("evolve-model", phase_evolve_model, torch, kernels, device, card)
     phase("prescreen", phase_prescreen, torch, kernels, device, card)
+    # one evolution in two processes on the card, the transfer-weight
+    # tuner, and the hand-built fixtures, whose 255^2 solve adds launches
+    phase("procs", phase_procs, torch, device, card)
+    phase("cma", phase_cma, torch, device, card)
+    for kernel, count in phase("reference-cycles", phase_reference_cycles,
+                               torch, kernels, device, card).items():
+        launches[kernel] = launches.get(kernel, 0) + count
     for banned in ("jax", "evostencils_tpu"):
         check(banned not in sys.modules, f"the port imported {banned}")
     log(f"[done] all phases in {time.perf_counter() - start:.1f} s")

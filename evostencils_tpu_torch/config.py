@@ -34,6 +34,7 @@ Not carried over:
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -64,11 +65,23 @@ def fused_cols_enabled() -> bool:
 def setup_device(device="cuda") -> torch.device:
     """Return ``torch.device(device)`` after fixing the float32 numerics
     the port relies on: TF32 off for matrix products and for cuDNN, so the
-    dense coarse solve and any convolution run in full float32."""
+    dense coarse solve and any convolution run in full float32.
+
+    ``"cuda"`` with no index picks this process's card,
+    ``cuda:{LOCAL_RANK % device_count()}`` (``LOCAL_RANK`` as ``torchrun``
+    sets it, 0 without), and makes it the current device: the ranks of a
+    multi-process run spread over the cards, and on a one-card machine
+    they all share ``cuda:0``."""
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("a CUDA device was requested but CUDA is not "
                            "available")
+    if device.type == "cuda" and device.index is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+        device = torch.device("cuda",
+                              local_rank % torch.cuda.device_count())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     return device

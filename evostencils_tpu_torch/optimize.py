@@ -32,6 +32,21 @@ batched complex128 tensor programs on the card, or on the CPU with
 ``--cpu``) and its time per cycle by the H100 roofline model
 (``prediction/performance``).  It writes ``best_grammar.txt`` and
 ``result.p`` to ``--output``.
+
+One evolution in N processes (the reference's MPI tier, reference
+optimization/program.py:285-310), on one card or several::
+
+    torchrun --standalone --nproc-per-node N -m evostencils_tpu_torch.optimize ...
+
+(``python -m torch.distributed.run`` is the same launcher.)  The ranks
+form a gloo process group (``parallel/comm.default_communicator``), each
+takes the card ``LOCAL_RANK % device_count()`` (``config.setup_device``),
+all run the same generation and selection stream from one seed (rank 0's
+random seed is broadcast when ``--seed`` is not given), each evaluates
+its share ``pending[rank::size]`` of every generation's new individuals,
+and the fitness values are allgathered.  Rank 0 alone writes the result
+files and the checkpoints.  ``--islands N`` instead runs N ranks as
+threads in one process.
 """
 
 from __future__ import annotations
@@ -87,7 +102,8 @@ def parse_args(argv=None):
                         help="continue from the checkpoint in --output")
     parser.add_argument("--islands", type=int, default=1,
                         help="population-parallel island ranks (threads "
-                             "in one process)")
+                             "in one process; for processes run the CLI "
+                             "under torchrun)")
     parser.add_argument("--generalization-interval", type=int,
                         default=10 ** 9,
                         help="generations between problem-size growth")
@@ -162,8 +178,22 @@ def main(argv=None):
             args.seed = random.randrange(2 ** 63)
             print(f"[islands] generated shared seed {args.seed}")
         result = comms.run_island_threads([run_rank] * args.islands)[0]
+        rank = 0
     else:
-        result = run_rank(comms.default_communicator())
+        comm = comms.default_communicator()
+        rank = comm.rank
+        if comm.size > 1 and args.seed is None:
+            # process ranks MUST share one seed as well: rank 0's
+            args.seed = comm.broadcast_object(random.randrange(2 ** 63))
+            if rank == 0:
+                print(f"[processes] generated shared seed {args.seed}")
+        try:
+            result = run_rank(comm)
+        finally:
+            if isinstance(comm, comms.TorchProcessCommunicator):
+                comm.close()
+    if rank != 0:           # rank-0-only I/O (reference program.py:278-279)
+        return result
 
     print("\nBest individual:")
     print(result["grammar_string"])
